@@ -1,0 +1,223 @@
+// Kernel B: the whole time loop of one bidirectional LSTM layer, both
+// directions, in one cooperative launch.
+//
+// Replaces the lean forward of danet_tpu/ops/pallas/lstm.py::
+// bilstm_scan_pallas (_fwd_call with n_dirs=2, save=False).
+//
+//   act_t  = xp_t + h_{t-1} @ Wh           (f32 accumulate)
+//   cand   = tanh(act[0:H]) or act[0:H]     (gate order cand|i|f|o)
+//   i,f,o  = sigmoid(act[H:2H]), sigmoid(act[2H:3H]), sigmoid(act[3H:4H])
+//   c_t    = i*cand + f*c_{t-1}             (f32 carry)
+//   h_t    = o*tanh(c_t), rounded to the storage type before it feeds
+//            the next step and is written to hs
+//
+// Shapes: xp [T, 2, B, 4H], wh [2, H, 4H], c0/h0 [2, B, H] -> hs
+// [T, 2, B, H]; storage f32 or bf16, gate math and the cell carry f32.
+// Direction 1 sees the time-reversed input; the caller reverses in and out.
+//
+// What bounds it on this card: Wh of one direction is H x 4H (1.44 MB in
+// f32 at H=300), far beyond one SM's 227 KB of shared memory, and each
+// step depends on the whole h_{t-1}.  Design: each direction's hidden
+// units are split over blocks, UNITS per block (19 blocks per direction at
+// H=300, 38 in all, one wave on 132 SMs).  A block keeps its [H, 4*UNITS]
+// column slice of Wh (all four gates of its units) in shared memory for the
+// whole run and its units' cell state in shared memory.  Each step it reads
+// the full h_{t-1} of its direction straight from hs[t-1] (written by the
+// other blocks in the previous step; L2-resident, read with ld.global.cg so
+// that no stale L1 line is used), computes its units' gates, writes its
+// slice of h_t into hs[t], and meets the other blocks at a grid-wide
+// barrier.  So the per-step latency of that barrier and of the h exchange
+// through L2, not FLOPs or bytes, sets the speed at serving batch sizes.
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+
+#include "common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int UNITS = 16;             // hidden units per block
+constexpr int COLS = 4 * UNITS;       // gate columns per block
+constexpr int KSPLIT = 4;             // contraction split over thread rows
+constexpr int THREADS = COLS * KSPLIT;  // 256
+constexpr int BT = 4;                 // batch rows per register tile
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// L2-coherent loads of h written by other blocks during this launch
+__device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float load_cg(const __nv_bfloat16* p) {
+  const unsigned short bits =
+      __ldcg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+
+__device__ __forceinline__ float sigmoid(float v) {
+  return 1.f / (1.f + expf(-v));
+}
+
+size_t smem_bytes(int batch, int hdim) {
+  // w_s [H][COLS] + h_s [B][H] + part_s [KSPLIT][B][COLS] + c_s [B][UNITS]
+  return sizeof(float) * (static_cast<size_t>(hdim) * COLS +
+                          static_cast<size_t>(batch) * hdim +
+                          static_cast<size_t>(KSPLIT) * batch * COLS +
+                          static_cast<size_t>(batch) * UNITS);
+}
+
+template <typename T, bool TANH>
+__global__ void __launch_bounds__(THREADS)
+bilstm_scan_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
+                   const T* __restrict__ c0, const T* __restrict__ h0,
+                   T* hs, int n_steps, int batch, int hdim) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float smem[];
+  float* w_s = smem;
+  float* h_s = w_s + static_cast<size_t>(hdim) * COLS;
+  float* part_s = h_s + static_cast<size_t>(batch) * hdim;
+  float* c_s = part_s + static_cast<size_t>(KSPLIT) * batch * COLS;
+
+  const int dir = blockIdx.y;
+  const int u0 = blockIdx.x * UNITS;
+  const int g4 = 4 * hdim;
+  const int tid = threadIdx.x;
+  const size_t bh = static_cast<size_t>(batch) * hdim;
+
+  // resident Wh slice: w_s[k][g*UNITS + u] = wh[dir, k, g*H + u0 + u]
+  const T* whd = wh + static_cast<size_t>(dir) * hdim * g4;
+  for (int e = tid; e < hdim * COLS; e += THREADS) {
+    const int k = e / COLS, j = e % COLS, g = j / UNITS, u = j % UNITS;
+    w_s[e] = (u0 + u < hdim)
+                 ? to_f32(whd[static_cast<size_t>(k) * g4 + g * hdim + u0 + u])
+                 : 0.f;
+  }
+  for (int e = tid; e < batch * UNITS; e += THREADS) {
+    const int b = e / UNITS, u = e % UNITS;
+    c_s[e] = (u0 + u < hdim) ? to_f32(c0[dir * bh + b * hdim + u0 + u]) : 0.f;
+  }
+
+  const int col = tid % COLS;  // gate column g*UNITS + u of this block
+  const int ks = tid / COLS;   // k = ks, ks + KSPLIT, ...
+  for (int t = 0; t < n_steps; ++t) {
+    const T* hprev = (t == 0) ? h0 + dir * bh
+                              : hs + (static_cast<size_t>(t - 1) * 2 + dir) * bh;
+    for (size_t e = tid; e < bh; e += THREADS) h_s[e] = load_cg(hprev + e);
+    __syncthreads();
+
+    // partial gate pre-activations over this thread's share of k
+    for (int b0 = 0; b0 < batch; b0 += BT) {
+      float acc[BT];
+#pragma unroll
+      for (int bb = 0; bb < BT; ++bb) acc[bb] = 0.f;
+      for (int k = ks; k < hdim; k += KSPLIT) {
+        const float w = w_s[k * COLS + col];
+#pragma unroll
+        for (int bb = 0; bb < BT; ++bb)
+          if (b0 + bb < batch)
+            acc[bb] = fmaf(h_s[(b0 + bb) * hdim + k], w, acc[bb]);
+      }
+#pragma unroll
+      for (int bb = 0; bb < BT; ++bb)
+        if (b0 + bb < batch)
+          part_s[(ks * batch + b0 + bb) * COLS + col] = acc[bb];
+    }
+    __syncthreads();
+
+    // cell update for this block's (batch row, unit) pairs
+    T* hs_t = hs + (static_cast<size_t>(t) * 2 + dir) * bh;
+    const T* xp_t = xp + (static_cast<size_t>(t) * 2 + dir) * batch * g4;
+    for (int e = tid; e < batch * UNITS; e += THREADS) {
+      const int b = e / UNITS, u = e % UNITS, unit = u0 + u;
+      if (unit >= hdim) continue;
+      float a[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        float s = to_f32(xp_t[static_cast<size_t>(b) * g4 + g * hdim + unit]);
+#pragma unroll
+        for (int p = 0; p < KSPLIT; ++p)
+          s += part_s[(p * batch + b) * COLS + g * UNITS + u];
+        a[g] = s;
+      }
+      const float cand = TANH ? tanhf(a[0]) : a[0];
+      const float c = sigmoid(a[1]) * cand + sigmoid(a[2]) * c_s[e];
+      c_s[e] = c;
+      hs_t[static_cast<size_t>(b) * hdim + unit] =
+          from_f32<T>(sigmoid(a[3]) * tanhf(c));
+    }
+    grid.sync();  // h_t complete (and visible) before any block reads it
+  }
+}
+
+template <typename T, bool TANH>
+int launch(const void* xp, const void* wh, const void* c0, const void* h0,
+           void* hs, int n_steps, int batch, int hdim, cudaStream_t stream) {
+  auto kernel = bilstm_scan_kernel<T, TANH>;
+  const size_t smem = smem_bytes(batch, hdim);
+  int device = 0, smem_optin = 0, n_sm = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > static_cast<size_t>(smem_optin)) return DANET_SMEM_TOO_LARGE;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        THREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((hdim + UNITS - 1) / UNITS, 2);
+  if (static_cast<long>(per_sm) * n_sm < static_cast<long>(grid.x) * grid.y)
+    return DANET_NOT_RESIDENT;  // never degrade: the barrier would hang
+
+  const T* xp_ = static_cast<const T*>(xp);
+  const T* wh_ = static_cast<const T*>(wh);
+  const T* c0_ = static_cast<const T*>(c0);
+  const T* h0_ = static_cast<const T*>(h0);
+  T* hs_ = static_cast<T*>(hs);
+  void* args[] = {&xp_, &wh_, &c0_, &h0_, &hs_, &n_steps, &batch, &hdim};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid,
+                                    dim3(THREADS), args, smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (xp, wh, c0, h0 and hs all of it).
+extern "C" int danet_bilstm_scan(const void* xp, const void* wh,
+                                 const void* c0, const void* h0, void* hs,
+                                 int n_steps, int batch, int hdim, int dtype,
+                                 int tanh_cand, void* stream) {
+  if (n_steps <= 0 || batch <= 0 || hdim <= 0 || (dtype != 0 && dtype != 1))
+    return DANET_BAD_ARGUMENT;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return tanh_cand
+               ? launch<float, true>(xp, wh, c0, h0, hs, n_steps, batch, hdim, s)
+               : launch<float, false>(xp, wh, c0, h0, hs, n_steps, batch, hdim,
+                                      s);
+  return tanh_cand
+             ? launch<__nv_bfloat16, true>(xp, wh, c0, h0, hs, n_steps, batch,
+                                           hdim, s)
+             : launch<__nv_bfloat16, false>(xp, wh, c0, h0, hs, n_steps, batch,
+                                            hdim, s);
+}

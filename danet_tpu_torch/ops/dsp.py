@@ -1,0 +1,119 @@
+"""STFT / iSTFT as matrix products against precomputed DFT bases.
+
+Counterpart of ``danet_tpu/ops/dsp.py:34-172,292-296``.  Conventions
+match ``scipy.signal.stft`` with ``boundary='zeros'``, ``padded=True``,
+one-sided output and ``1/window.sum()`` scaling.  The inverse is the
+reference's overlap-add with a static window**2 denominator, including its
+frame-count convention (trailing frames past ``T*stride - fft_size`` are
+dropped).
+
+Spectra use the ri layout: a trailing (real, imag) axis, no complex dtype.
+
+``stft_ri`` here is the plain path (STFT_BACKEND='xla'); the fused kernel
+and its own plain version live in ``ops/cuda/stft.py``.  The iSTFT has no
+kernel on the TPU either (XLA work), so it stays plain torch.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def stft_frame_count(n_samples: int, fft_size: int, stride: int) -> int:
+    """Number of STFT frames scipy.signal.stft produces for n_samples."""
+    padded = n_samples + fft_size  # boundary='zeros' adds fft_size//2 twice
+    nadd = (-(padded - fft_size) % stride) % stride
+    return (padded + nadd - fft_size) // stride + 1
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_basis(fft_size: int, dtype_name: str):
+    """Real/imag DFT basis, windowless: B[n, k] = exp(-2i*pi*n*k/N)."""
+    n = np.arange(fft_size)[:, None]
+    k = np.arange(fft_size // 2 + 1)[None, :]
+    ang = 2.0 * np.pi * n * k / fft_size
+    return (np.cos(ang).astype(dtype_name),
+            (-np.sin(ang)).astype(dtype_name))
+
+
+@functools.lru_cache(maxsize=8)
+def _idft_basis(fft_size: int, dtype_name: str):
+    """Real iDFT basis: x[n] = Re @ C[k,n] + Im @ S[k,n] (one-sided)."""
+    feat = fft_size // 2 + 1
+    k = np.arange(feat)[:, None]
+    n = np.arange(fft_size)[None, :]
+    ang = 2.0 * np.pi * k * n / fft_size
+    wk = np.full((feat, 1), 2.0)
+    wk[0] = 1.0
+    if fft_size % 2 == 0:
+        wk[-1] = 1.0
+    return ((wk * np.cos(ang) / fft_size).astype(dtype_name),
+            (-wk * np.sin(ang) / fft_size).astype(dtype_name))
+
+
+def frame_signal(x: torch.Tensor, fft_size: int,
+                 stride: int) -> torch.Tensor:
+    """[..., L] -> [..., T, fft_size] with scipy's boundary and end
+    padding."""
+    n = x.shape[-1]
+    half = fft_size // 2
+    padded = n + 2 * half
+    nadd = (-(padded - fft_size) % stride) % stride
+    xp = torch.nn.functional.pad(x, (half, half + nadd))
+    return xp.unfold(-1, fft_size, stride)
+
+
+def stft_ri(x: torch.Tensor, fft_size: int, stride: int,
+            window: np.ndarray) -> torch.Tensor:
+    """STFT of real signal(s) [..., L] -> ri [..., T, F, 2]."""
+    dtype = str(window.dtype)
+    tdt = getattr(torch, dtype)
+    frames = frame_signal(x.to(tdt), fft_size, stride)
+    cos_b, sin_b = _dft_basis(fft_size, dtype)
+    scale = 1.0 / float(np.sum(window))
+    wcos = torch.from_numpy(window[:, None] * cos_b * scale).to(x.device)
+    wsin = torch.from_numpy(window[:, None] * sin_b * scale).to(x.device)
+    return torch.stack([frames @ wcos, frames @ wsin], dim=-1)
+
+
+def _ola_denominator(n_used: int, stride: int, window: np.ndarray,
+                     out_len: int) -> np.ndarray:
+    """Static overlap-add window**2 sum, zero entries replaced by 1."""
+    fft_size = window.shape[0]
+    wsum = np.zeros(out_len, dtype=np.float64)
+    idx = np.arange(n_used)[:, None] * stride + np.arange(fft_size)[None]
+    np.add.at(wsum, idx.reshape(-1),
+              np.tile(np.asarray(window, np.float64) ** 2, n_used))
+    return np.where(wsum != 0, wsum, 1.0).astype(window.dtype)
+
+
+def istft_ri(spectra_ri: torch.Tensor, stride: int, window: np.ndarray,
+             length: int | None = None) -> torch.Tensor:
+    """Inverse STFT from ri [..., T, F, 2] -> [..., T*stride] (or
+    ``length``)."""
+    fft_size = (spectra_ri.shape[-2] - 1) * 2
+    tdt = getattr(torch, str(window.dtype))
+    dev = spectra_ri.device
+    out_len = spectra_ri.shape[-3] * stride
+    # reference loop: range(0, out_len - fft_size, stride)
+    n_used = max(0, -(-(out_len - fft_size) // stride))
+
+    cos_b, sin_b = _idft_basis(fft_size, str(window.dtype))
+    re = spectra_ri[..., :n_used, :, 0].to(tdt)
+    im = spectra_ri[..., :n_used, :, 1].to(tdt)
+    frames = (re @ torch.from_numpy(cos_b).to(dev)
+              + im @ torch.from_numpy(sin_b).to(dev))
+    frames = frames * torch.from_numpy(np.asarray(window)).to(dev)
+
+    idx = (torch.arange(n_used, device=dev)[:, None] * stride
+           + torch.arange(fft_size, device=dev)[None, :]).reshape(-1)
+    lead = frames.shape[:-2]
+    out = torch.zeros(lead + (out_len,), dtype=tdt, device=dev)
+    out.index_add_(-1, idx, frames.reshape(lead + (-1,)))
+    denom = _ola_denominator(n_used, stride, window, out_len)
+    out = out / torch.from_numpy(denom).to(dev)
+    if length is not None:
+        out = out[..., :length]
+    return out

@@ -1,0 +1,53 @@
+"""Small functional layer library: the mixed-precision matmul contract and
+the linear layer.
+
+Counterpart of ``danet_tpu/ops/nn.py:17-60``.  ``mm``/``ee`` take operands
+in the compute dtype, accumulate in float32 and cast the result back to
+the first operand's dtype.  Products of bf16 values are exact in float32,
+so upcasting the operands and running a float32 product is that contract
+exactly.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def uniform_init(generator: torch.Generator, shape, scale: float,
+                 device=None, dtype=torch.float32) -> torch.Tensor:
+    """U(-scale, scale), drawn on the CPU from ``generator`` (so a seed
+    gives the same weights on every device), then moved to ``device``."""
+    w = torch.rand(shape, generator=generator, dtype=torch.float64)
+    return ((w * 2.0 - 1.0) * scale).to(device=device, dtype=dtype)
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Matmul with float32 accumulation, output in ``a``'s dtype."""
+    return torch.matmul(a.float(), b.float()).to(a.dtype)
+
+
+def ee(subscripts: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Einsum with float32 accumulation, output in ``a``'s dtype."""
+    return torch.einsum(subscripts, a.float(), b.float()).to(a.dtype)
+
+
+def linear_init(generator: torch.Generator, idim: int, odim: int,
+                w_scale: Optional[float] = None, bias: bool = True,
+                device=None) -> dict:
+    """Params for y = x @ W + b; glorot-uniform W by default."""
+    if w_scale is None:
+        w_scale = math.sqrt(6.0 / (idim + odim))
+    params = {"w": uniform_init(generator, (idim, odim), w_scale, device)}
+    if bias:
+        params["b"] = torch.zeros(odim, device=device)
+    return params
+
+
+def linear_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """y = x @ W (+ b) on the last axis, any leading rank."""
+    y = mm(x, params["w"].to(x.dtype))
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    return y
