@@ -1,8 +1,10 @@
-// Kernel B: the whole time loop of one bidirectional LSTM layer, both
-// directions, in one cooperative launch.
+// Kernels B and 2: the whole time loop of one bidirectional LSTM layer,
+// both directions, in one cooperative launch.
 //
-// Replaces the lean forward of danet_tpu/ops/pallas/lstm.py::
-// bilstm_scan_pallas (_fwd_call with n_dirs=2, save=False).
+// Replaces the forward of danet_tpu/ops/pallas/lstm.py::bilstm_scan_pallas
+// (_fwd_call with n_dirs=2): SAVE=false is the lean (inference) forward,
+// kernel B; SAVE=true is the training forward, kernel 2, which also writes
+// the residuals that the backward (bilstm_scan_bwd.cu) replays.
 //
 //   act_t  = xp_t + h_{t-1} @ Wh           (f32 accumulate)
 //   cand   = tanh(act[0:H]) or act[0:H]     (gate order cand|i|f|o)
@@ -10,10 +12,13 @@
 //   c_t    = i*cand + f*c_{t-1}             (f32 carry)
 //   h_t    = o*tanh(c_t), rounded to the storage type before it feeds
 //            the next step and is written to hs
+//   SAVE:  cs[t] = c_t and acts[t] = [cand, i, f, o], each rounded to the
+//          storage type (as the TPU kernel stores its residuals)
 //
-// Shapes: xp [T, 2, B, 4H], wh [2, H, 4H], c0/h0 [2, B, H] -> hs
-// [T, 2, B, H]; storage f32 or bf16, gate math and the cell carry f32.
-// Direction 1 sees the time-reversed input; the caller reverses in and out.
+// Shapes: xp [T, 2, B, 4H], wh [2, H, 4H], c0/h0 [2, B, H] -> hs (and cs)
+// [T, 2, B, H], acts [T, 2, B, 4H]; storage f32 or bf16, gate math and the
+// cell carry f32.  Direction 1 sees the time-reversed input; the caller
+// reverses in and out.
 //
 // What bounds it on this card: Wh of one direction is H x 4H (1.44 MB in
 // f32 at H=300), far beyond one SM's 227 KB of shared memory, and each
@@ -43,29 +48,6 @@ constexpr int KSPLIT = 4;             // contraction split over thread rows
 constexpr int THREADS = COLS * KSPLIT;  // 256
 constexpr int BT = 4;                 // batch rows per register tile
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// L2-coherent loads of h written by other blocks during this launch
-__device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float load_cg(const __nv_bfloat16* p) {
-  const unsigned short bits =
-      __ldcg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(static_cast<unsigned>(bits) << 16);
-}
-
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
 }
@@ -78,11 +60,12 @@ size_t smem_bytes(int batch, int hdim) {
                           static_cast<size_t>(batch) * UNITS);
 }
 
-template <typename T, bool TANH>
+template <typename T, bool TANH, bool SAVE>
 __global__ void __launch_bounds__(THREADS)
 bilstm_scan_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
                    const T* __restrict__ c0, const T* __restrict__ h0,
-                   T* hs, int n_steps, int batch, int hdim) {
+                   T* hs, T* __restrict__ cs, T* __restrict__ acts,
+                   int n_steps, int batch, int hdim) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
   float* w_s = smem;
@@ -138,7 +121,8 @@ bilstm_scan_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
 
     // cell update for this block's (batch row, unit) pairs
     T* hs_t = hs + (static_cast<size_t>(t) * 2 + dir) * bh;
-    const T* xp_t = xp + (static_cast<size_t>(t) * 2 + dir) * batch * g4;
+    const size_t x_off = (static_cast<size_t>(t) * 2 + dir) * batch * g4;
+    const T* xp_t = xp + x_off;
     for (int e = tid; e < batch * UNITS; e += THREADS) {
       const int b = e / UNITS, u = e % UNITS, unit = u0 + u;
       if (unit >= hdim) continue;
@@ -152,72 +136,90 @@ bilstm_scan_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
         a[g] = s;
       }
       const float cand = TANH ? tanhf(a[0]) : a[0];
-      const float c = sigmoid(a[1]) * cand + sigmoid(a[2]) * c_s[e];
+      const float ig = sigmoid(a[1]), fg = sigmoid(a[2]), og = sigmoid(a[3]);
+      const float c = ig * cand + fg * c_s[e];
       c_s[e] = c;
-      hs_t[static_cast<size_t>(b) * hdim + unit] =
-          from_f32<T>(sigmoid(a[3]) * tanhf(c));
+      hs_t[static_cast<size_t>(b) * hdim + unit] = from_f32<T>(og * tanhf(c));
+      if (SAVE) {
+        cs[(static_cast<size_t>(t) * 2 + dir) * bh +
+           static_cast<size_t>(b) * hdim + unit] = from_f32<T>(c);
+        T* act_t = acts + x_off + static_cast<size_t>(b) * g4 + unit;
+        act_t[0] = from_f32<T>(cand);
+        act_t[hdim] = from_f32<T>(ig);
+        act_t[2 * hdim] = from_f32<T>(fg);
+        act_t[3 * hdim] = from_f32<T>(og);
+      }
     }
     grid.sync();  // h_t complete (and visible) before any block reads it
   }
 }
 
-template <typename T, bool TANH>
+template <typename T, bool TANH, bool SAVE>
 int launch(const void* xp, const void* wh, const void* c0, const void* h0,
-           void* hs, int n_steps, int batch, int hdim, cudaStream_t stream) {
-  auto kernel = bilstm_scan_kernel<T, TANH>;
+           void* hs, void* cs, void* acts, int n_steps, int batch, int hdim,
+           cudaStream_t stream) {
+  auto kernel = bilstm_scan_kernel<T, TANH, SAVE>;
   const size_t smem = smem_bytes(batch, hdim);
-  int device = 0, smem_optin = 0, n_sm = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                 device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                 device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > static_cast<size_t>(smem_optin)) return DANET_SMEM_TOO_LARGE;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        THREADS, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((hdim + UNITS - 1) / UNITS, 2);
-  if (static_cast<long>(per_sm) * n_sm < static_cast<long>(grid.x) * grid.y)
-    return DANET_NOT_RESIDENT;  // never degrade: the barrier would hang
+  const int fit = cooperative_fit(kernel, grid, THREADS, smem);
+  if (fit != 0) return fit;  // never degrade: the barrier would hang
 
   const T* xp_ = static_cast<const T*>(xp);
   const T* wh_ = static_cast<const T*>(wh);
   const T* c0_ = static_cast<const T*>(c0);
   const T* h0_ = static_cast<const T*>(h0);
   T* hs_ = static_cast<T*>(hs);
-  void* args[] = {&xp_, &wh_, &c0_, &h0_, &hs_, &n_steps, &batch, &hdim};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid,
-                                    dim3(THREADS), args, smem, stream);
+  T* cs_ = static_cast<T*>(cs);
+  T* acts_ = static_cast<T*>(acts);
+  void* args[] = {&xp_, &wh_, &c0_,    &h0_,   &hs_,
+                  &cs_, &acts_, &n_steps, &batch, &hdim};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), grid, dim3(THREADS), args, smem,
+      stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16 (xp, wh, c0, h0 and hs all of it).
-extern "C" int danet_bilstm_scan(const void* xp, const void* wh,
-                                 const void* c0, const void* h0, void* hs,
-                                 int n_steps, int batch, int hdim, int dtype,
-                                 int tanh_cand, void* stream) {
+template <bool SAVE>
+int dispatch(const void* xp, const void* wh, const void* c0, const void* h0,
+             void* hs, void* cs, void* acts, int n_steps, int batch, int hdim,
+             int dtype, int tanh_cand, void* stream) {
   if (n_steps <= 0 || batch <= 0 || hdim <= 0 || (dtype != 0 && dtype != 1))
     return DANET_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return tanh_cand
-               ? launch<float, true>(xp, wh, c0, h0, hs, n_steps, batch, hdim, s)
-               : launch<float, false>(xp, wh, c0, h0, hs, n_steps, batch, hdim,
-                                      s);
+    return tanh_cand ? launch<float, true, SAVE>(xp, wh, c0, h0, hs, cs, acts,
+                                                 n_steps, batch, hdim, s)
+                     : launch<float, false, SAVE>(xp, wh, c0, h0, hs, cs,
+                                                  acts, n_steps, batch, hdim,
+                                                  s);
   return tanh_cand
-             ? launch<__nv_bfloat16, true>(xp, wh, c0, h0, hs, n_steps, batch,
-                                           hdim, s)
-             : launch<__nv_bfloat16, false>(xp, wh, c0, h0, hs, n_steps, batch,
-                                            hdim, s);
+             ? launch<__nv_bfloat16, true, SAVE>(xp, wh, c0, h0, hs, cs, acts,
+                                                 n_steps, batch, hdim, s)
+             : launch<__nv_bfloat16, false, SAVE>(xp, wh, c0, h0, hs, cs,
+                                                  acts, n_steps, batch, hdim,
+                                                  s);
+}
+
+}  // namespace
+
+// Kernel B.  dtype: 0 = float32, 1 = bfloat16 (every tensor of the call).
+extern "C" int danet_bilstm_scan(const void* xp, const void* wh,
+                                 const void* c0, const void* h0, void* hs,
+                                 int n_steps, int batch, int hdim, int dtype,
+                                 int tanh_cand, void* stream) {
+  return dispatch<false>(xp, wh, c0, h0, hs, nullptr, nullptr, n_steps, batch,
+                         hdim, dtype, tanh_cand, stream);
+}
+
+// Kernel 2: kernel B that also writes cs [T, 2, B, H] and acts
+// [T, 2, B, 4H].
+extern "C" int danet_bilstm_scan_train(const void* xp, const void* wh,
+                                       const void* c0, const void* h0,
+                                       void* hs, void* cs, void* acts,
+                                       int n_steps, int batch, int hdim,
+                                       int dtype, int tanh_cand,
+                                       void* stream) {
+  return dispatch<true>(xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim,
+                        dtype, tanh_cand, stream);
 }

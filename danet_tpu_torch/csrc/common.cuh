@@ -1,4 +1,5 @@
-// Shared by the port's kernels: status codes of the C entry points.
+// Shared by the port's kernels: status codes of the C entry points, and
+// the storage-type helpers of the BiLSTM scan kernels.
 //
 // Every entry point returns 0 on success, a cudaError_t value when the
 // runtime refused or failed the launch (cudaGetLastError right after it),
@@ -6,6 +7,7 @@
 // take.  danet_error_string() turns any of them into text.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 enum DanetStatus : int {
@@ -13,3 +15,59 @@ enum DanetStatus : int {
   DANET_NOT_RESIDENT = -2,   // cooperative grid does not fit on the card
   DANET_SMEM_TOO_LARGE = -3, // a block needs more shared memory than exists
 };
+
+// Storage type <-> float32 (the scans store f32 or bf16, compute in f32).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// L2-coherent loads of values other blocks wrote during this launch
+// (ld.global.cg: never a stale L1 line).
+__device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float load_cg(const __nv_bfloat16* p) {
+  const unsigned short bits =
+      __ldcg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+
+// Launch checks of a cooperative kernel: the device's opt-in shared memory
+// and whether every block of `grid` can be resident at once.  Returns 0,
+// a cudaError_t, or DANET_SMEM_TOO_LARGE / DANET_NOT_RESIDENT (never
+// degrade: a grid barrier over blocks that are not all resident hangs).
+template <typename Kernel>
+inline int cooperative_fit(Kernel kernel, dim3 grid, int threads,
+                           size_t smem) {
+  int device = 0, smem_optin = 0, n_sm = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > static_cast<size_t>(smem_optin)) return DANET_SMEM_TOO_LARGE;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (static_cast<long>(per_sm) * n_sm <
+      static_cast<long>(grid.x) * grid.y * grid.z)
+    return DANET_NOT_RESIDENT;
+  return 0;
+}

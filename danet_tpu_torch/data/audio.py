@@ -1,7 +1,7 @@
-"""WAV I/O for the serving path.
+"""WAV I/O for the serving path and the ri layout of host spectra.
 
-Counterpart of ``danet_tpu/data/audio.py:132-181`` (``load_wav_raw`` and
-``save_wav_raw``): numpy and scipy only.
+Counterpart of ``danet_tpu/data/audio.py:22-25,132-181`` (``to_ri``,
+``load_wav_raw`` and ``save_wav_raw``): numpy and scipy only.
 """
 from __future__ import annotations
 
@@ -10,6 +10,11 @@ from math import ceil
 import numpy as np
 import scipy.io.wavfile
 import scipy.signal
+
+
+def to_ri(x: np.ndarray) -> np.ndarray:
+    """Complex (or real) [...] -> float32 [..., 2], (real, imag) last."""
+    return np.stack([x.real, x.imag], axis=-1).astype(np.float32)
 
 
 def load_wav_raw(filename: str, smprate: int) -> np.ndarray:

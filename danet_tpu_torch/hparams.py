@@ -49,11 +49,17 @@ class Hyperparameter:
     model_registry: Dict[str, Any] = {}
     estimator_registry: Dict[str, Any] = {}
     separator_registry: Dict[str, Any] = {}
+    ozer_registry: Dict[str, Any] = {}
+    dataset_registry: Dict[str, Any] = {}
 
     def digest(self) -> None:
         """Recompute derived hyperparameters (FEATURE_SIZE, FFT_WND_ARRAY)
         after any update."""
         self.FEATURE_SIZE = 1 + self.FFT_SIZE // 2
+        keep = getattr(self, "DROPOUT_KEEP_PROB", 1.0)
+        if not (isinstance(keep, float) and 0.0 < keep <= 1.0):
+            raise ValueError("DROPOUT_KEEP_PROB must be a float in (0, 1], "
+                             "got %r" % (keep,))
         wnd_name = getattr(self, "FFT_WND", "sqrt-hann")
         if wnd_name not in WINDOW_REGISTRY:
             raise KeyError("Unknown FFT_WND %r; valid options: %s"
@@ -118,6 +124,28 @@ class Hyperparameter:
 
     def get_separator(self, name):
         return type(self).separator_registry[name]
+
+    @classmethod
+    def register_optimizer(cls_, name):
+        def wrapper(fn):
+            cls_.ozer_registry[name] = fn
+            return fn
+        return wrapper
+
+    def get_optimizer(self, name=None):
+        return type(self).ozer_registry[
+            self.OPTIMIZER_TYPE if name is None else name]
+
+    @classmethod
+    def register_dataset(cls_, name):
+        def wrapper(cls):
+            cls_.dataset_registry[name] = cls
+            return cls
+        return wrapper
+
+    def get_dataset(self, name=None):
+        return type(self).dataset_registry[
+            self.DATASET_TYPE if name is None else name]
 
 
 def load_config(*json_files: str, **overrides) -> Hyperparameter:

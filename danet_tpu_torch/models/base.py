@@ -26,9 +26,10 @@ class ModelModule:
 
 
 class Encoder(ModelModule):
-    """Maps log-magnitude spectra [B, T, F] to embeddings [B, T, F, E]."""
+    """Maps log-magnitude spectra [B, T, F] to embeddings [B, T, F, E];
+    ``train`` turns on dropout, drawn from ``generator``."""
 
-    def apply(self, params, log_spectra):
+    def apply(self, params, log_spectra, train=False, generator=None):
         raise NotImplementedError()
 
 

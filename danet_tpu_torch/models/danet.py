@@ -1,10 +1,15 @@
-"""DaNet model composition for inference: wave -> STFT -> encoder ->
-attractors -> masks -> iSTFT.
+"""DaNet model composition: features -> encoder -> attractors -> masks,
+the PIT training loss and validation metrics, and inference (wave -> STFT
+-> ... -> iSTFT).
 
-Counterpart of ``danet_tpu/models/danet.py:47-133,310-333,720-754``:
-``__init__``, ``init``, ``_embed``, ``_mix_features``, ``_separate_tail``,
-``separate`` and ``separate_wav``.  Training, ``separate_long``,
-``separate_stream`` and ``separate_sp`` are not ported yet.
+Counterpart of ``danet_tpu/models/danet.py:30-133,136-191,266-333,
+720-754``: ``mixture_features``, ``__init__``, ``init``, ``_embed``,
+``train_loss`` (its 'pit-mse' branch), ``valid_metrics`` (without
+EVAL_SI_SNR / EVAL_SDR), ``_mix_features``, ``_separate_tail``,
+``separate`` and ``separate_wav``.  ``MIX_SNR_DB``, ``DC_LOSS_WEIGHT``,
+``ANCHOR_AUX_LOSS``, ``REG_APPLY`` and the 'pit-si-snr' loss raise
+NotImplementedError; ``separate_long``, ``separate_stream`` and
+``separate_sp`` are not ported yet.
 
 The unit phase vector is ``mix / (|mix| + eps)``, as in the JAX package
 (not atan2).
@@ -15,9 +20,22 @@ import torch
 
 from danet_tpu_torch.hparams import hparams
 from danet_tpu_torch.ops import dsp
+from danet_tpu_torch.ops import loss as loss_ops
 from danet_tpu_torch.ops.cuda import stft as cuda_stft
 
 STFT_BACKENDS = ("auto", "xla", "pallas")
+
+
+def mixture_features(src_ri: torch.Tensor, eps: float):
+    """From per-source ri spectra [B, N, T, F, 2]: (mix_ri [B, T, F, 2],
+    src_pwr [B, N, T, F], mix_pwr [B, T, F], logmag [B, T, F], phase_unit
+    [B, T, F, 2]).  The mixture is the sum of the sources."""
+    mix_ri = torch.sum(src_ri, dim=1)
+    src_pwr = torch.sqrt(torch.sum(torch.square(src_ri), dim=-1))
+    mix_pwr = torch.sqrt(torch.sum(torch.square(mix_ri), dim=-1))
+    logmag = torch.log1p(mix_pwr)
+    phase_unit = mix_ri / (mix_pwr[..., None] + eps)
+    return mix_ri, src_pwr, mix_pwr, logmag, phase_unit
 
 
 @hparams.register_model("danet")
@@ -40,9 +58,12 @@ class DaNet:
         else:
             self.infer_estimator = hp.get_estimator(
                 hp.INFER_ESTIMATOR_METHOD)(hp, "infer_estimator")
-        if self.infer_estimator.USE_TRUTH:
-            raise ValueError("INFER_ESTIMATOR_METHOD %r needs ground truth"
-                             % (hp.INFER_ESTIMATOR_METHOD,))
+            # a separate inference estimator must not need the truth; one
+            # shared with training may (validation passes the sources)
+            if self.infer_estimator.USE_TRUTH:
+                raise ValueError(
+                    "INFER_ESTIMATOR_METHOD %r needs ground truth"
+                    % (hp.INFER_ESTIMATOR_METHOD,))
         self.separator = hp.get_separator(hp.SEPARATOR_TYPE)(hp, "separator")
 
     def init(self, generator: torch.Generator, device=None) -> dict:
@@ -57,10 +78,77 @@ class DaNet:
                 generator, device)
         return params
 
-    def _embed(self, params, logmag):
+    def _embed(self, params, logmag, train=False, generator=None):
         """Encoder forward in COMPUTE_DTYPE; -> [B, T, F, E]."""
         cdt = getattr(torch, getattr(self.hp, "COMPUTE_DTYPE", "float32"))
-        return self.encoder.apply(params["encoder"], logmag.to(cdt))
+        return self.encoder.apply(params["encoder"], logmag.to(cdt),
+                                  train=train, generator=generator)
+
+    def check_train_config(self) -> None:
+        """Raise NotImplementedError for training options not ported."""
+        hp = self.hp
+        for key in ("MIX_SNR_DB", "DC_LOSS_WEIGHT", "ANCHOR_AUX_LOSS"):
+            if float(getattr(hp, key, 0.0) or 0.0) > 0.0:
+                raise NotImplementedError("%s > 0 is not ported" % key)
+        if getattr(hp, "REG_APPLY", False) and hp.REG_TYPE is not None:
+            raise NotImplementedError("REG_APPLY is not ported")
+        loss_type = getattr(hp, "TRAIN_LOSS_TYPE", "pit-mse") or "pit-mse"
+        if loss_type != "pit-mse":
+            raise NotImplementedError(
+                "TRAIN_LOSS_TYPE %r is not ported (only 'pit-mse')"
+                % (loss_type,))
+
+    def train_loss(self, params, src_ri: torch.Tensor,
+                   generator: torch.Generator = None):
+        """PIT loss of the masked complex reconstruction, through the train
+        estimator (which sees the true sources).  src_ri [B, N, T, F, 2]
+        -> (loss, {"snr", "perm_idx"}); ``generator`` draws the encoder's
+        dropout."""
+        self.check_train_config()
+        eps = self.hp.EPS
+        _, src_pwr, mix_pwr, logmag, phase_unit = mixture_features(
+            src_ri, eps)
+        embed = self._embed(params, logmag, train=True, generator=generator)
+        embed_flat = embed.reshape(embed.shape[0], -1, embed.shape[-1])
+        attractors = self.train_estimator.apply(
+            params.get("train_estimator", {}), embed, src_pwr=src_pwr,
+            mix_pwr=mix_pwr)
+        sep_pwr = self.separator.apply(
+            params.get("separator", {}), mix_pwr, attractors, embed_flat)
+        loss, _, perm_idx, snr = loss_ops.pit_mse_masked_ri(
+            src_ri, sep_pwr, phase_unit, eps=eps)
+        return loss, {"snr": torch.mean(snr), "perm_idx": perm_idx}
+
+    def valid_metrics(self, params, src_ri: torch.Tensor) -> dict:
+        """Validation loss and SNR through the inference estimator: PIT
+        loss on magnitudes, un-permute, reconstruct with the mixture phase,
+        SNR against the true sources.  -> {"loss", "SNR", "separated_ri"}."""
+        hp = self.hp
+        if getattr(hp, "EVAL_SI_SNR", False) or getattr(hp, "EVAL_SDR",
+                                                        False):
+            raise NotImplementedError("EVAL_SI_SNR / EVAL_SDR are not ported")
+        _, src_pwr, mix_pwr, logmag, phase_unit = mixture_features(
+            src_ri, hp.EPS)
+        embed = self._embed(params, logmag)
+        embed_flat = embed.reshape(embed.shape[0], -1, embed.shape[-1])
+        attractors = self.infer_estimator.apply(
+            self._infer_est_params(params), embed, src_pwr=src_pwr,
+            mix_pwr=mix_pwr)
+        sep_pwr = self.separator.apply(
+            params.get("separator", {}), mix_pwr, attractors, embed_flat)
+        loss, perms, perm_idx = loss_ops.pit_mse_loss(src_pwr, sep_pwr)
+        sep_ri = loss_ops.unpermute(sep_pwr, perms, perm_idx)[..., None] \
+            * phase_unit[:, None]
+        snr = torch.mean(loss_ops.batch_snr(src_ri, sep_ri, eps=hp.EPS,
+                                            complex_ri=True))
+        return {"loss": loss, "SNR": snr, "separated_ri": sep_ri}
+
+    def _check_truth_free(self) -> None:
+        if self.infer_estimator.USE_TRUTH:
+            raise ValueError(
+                "INFER_ESTIMATOR_METHOD %r needs the true sources: it "
+                "serves valid_metrics, not separation"
+                % (self.hp.INFER_ESTIMATOR_METHOD,))
 
     def _infer_est_params(self, params):
         # components without parameters may be absent (save_npz keeps
@@ -87,6 +175,7 @@ class DaNet:
     def separate(self, params, mix_ri: torch.Tensor) -> torch.Tensor:
         """Mixture ri spectra [B, T, F, 2] -> separated ri [B, N, T, F, 2]
         (source order arbitrary, as in the reference)."""
+        self._check_truth_free()
         mix_pwr, logmag, phase_unit = self._mix_features(mix_ri)
         embed = self._embed(params, logmag)
         return self._separate_tail(params, embed, mix_pwr, phase_unit)

@@ -1,9 +1,10 @@
-"""Encoders: ``bilstm-orig`` and its output head.
+"""Encoders: ``toy``, ``bilstm-orig`` and its output head.
 
-Counterpart of ``danet_tpu/models/encoders.py:25-34,91-113,176-249``, the
-inference path only (no dropout, no pipeline / sequence / tensor
-parallelism yet).  ``HDIM`` and ``N_LAYERS`` are class attributes, as in
-the JAX package, so tests can narrow both packages the same way.
+Counterpart of ``danet_tpu/models/encoders.py:25-34,67-113,176-249``: the
+dense path with per-layer dropout in training (no pipeline, sequence or
+tensor parallelism, no rematerialization).  ``HDIM`` and ``N_LAYERS`` are
+class attributes, as in the JAX package, so tests can narrow both packages
+the same way.
 """
 from __future__ import annotations
 
@@ -20,6 +21,29 @@ def _candidate_activation(hp) -> str:
     """'linear' reproduces the reference's no-tanh candidate cell
     (LSTM_LEGACY_CELL); the default is 'tanh'."""
     return "linear" if getattr(hp, "LSTM_LEGACY_CELL", False) else "tanh"
+
+
+@hparams.register_encoder("toy")
+class ToyEncoder(Encoder):
+    """3-layer MLP for debugging (the default.json encoder)."""
+
+    def init(self, generator, device=None):
+        hp = self.hp
+        return {
+            "linear0": nn.linear_init(generator, hp.FEATURE_SIZE,
+                                      hp.FFT_SIZE * 2, device=device),
+            "linear1": nn.linear_init(generator, hp.FFT_SIZE * 2,
+                                      hp.FEATURE_SIZE * hp.EMBED_SIZE,
+                                      device=device),
+        }
+
+    def apply(self, params, log_spectra, train=False, generator=None):
+        hp = self.hp
+        b, t = log_spectra.shape[0], log_spectra.shape[1]
+        mid = nn.leaky_relu(nn.linear_apply(params["linear0"], log_spectra),
+                            hp.RELU_LEAKAGE)
+        out = nn.linear_apply(params["linear1"], mid)
+        return out.reshape(b, t, hp.FEATURE_SIZE, hp.EMBED_SIZE)
 
 
 class _LstmHead:
@@ -59,11 +83,16 @@ class BiLstmEncoder(Encoder):
         params["output"] = _LstmHead.init(generator, hp, in_dim, device)
         return params
 
-    def apply(self, params, log_spectra):
+    def apply(self, params, log_spectra, train=False, generator=None):
+        """[B, T, F] -> [B, T, F, E]; with ``train``, inverted dropout at
+        DROPOUT_KEEP_PROB after every layer, drawn from ``generator``."""
         hp = self.hp
         act = _candidate_activation(hp)
         backend = getattr(hp, "LSTM_BACKEND", "auto") or "auto"
+        keep = hp.DROPOUT_KEEP_PROB if train else 1.0
         x = log_spectra - torch.mean(log_spectra, dim=(1, 2), keepdim=True)
         for i in range(self.N_LAYERS):
-            x = rnn.bilstm_apply(params[f"lstm{i}"], x, act, backend)
+            x = rnn.bilstm_apply(params[f"lstm{i}"], x, act,
+                                 dropout_rng=generator, keep_prob=keep,
+                                 backend=backend)
         return _LstmHead.apply(params["output"], hp, x)

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Every ``danet_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
-``sm_90a`` into ONE shared library with a plain C interface (no PyTorch
-headers, so the build takes seconds rather than minutes).  The library
+``sm_90a`` (one ``nvcc`` per source, all started together) and linked into
+ONE shared library with a plain C interface (no PyTorch headers, so the
+build takes seconds rather than minutes).  The library
 goes to ``danet_tpu_torch/_build/`` (listed in .gitignore) under a name
 that carries a hash of the sources and flags, so an edited source
 triggers a rebuild.  Nothing is downloaded: only the sources in the
@@ -25,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 # (name, restype, argtypes) of every C entry point in csrc/
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -33,6 +34,10 @@ _SIGNATURES = [
     ("danet_stft_ri", _I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     ("danet_bilstm_scan", _I,
      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    ("danet_bilstm_scan_train", _I,
+     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    ("danet_bilstm_scan_bwd", _I,
+     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     ("danet_error_string", ctypes.c_char_p, [_I]),
 ]
 
@@ -76,13 +81,35 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (out, os.getpid())
-    cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", tmp]
-           + [s for s in _sources() if s.endswith(".cu")])
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
-            proc.returncode, " ".join(cmd), proc.stderr))
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = "%s.%s.o" % (tmp, os.path.basename(src))
+        cmd = [nvcc] + NVCC_FLAGS + ["-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    try:
+        # wait for every compile before raising, so none is left running
+        failed = []
+        for cmd, proc in procs:
+            err = proc.communicate()[1]
+            if proc.returncode != 0:
+                failed.append((cmd, proc.returncode, err))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                "(%d) %s\n%s" % (rc, " ".join(cmd), err)
+                for cmd, rc, err in failed))
+        cmd = [nvcc] + NVCC_FLAGS + ["-shared", "-o", tmp] + objs
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc link failed (%d):\n%s\n%s" % (
+                proc.returncode, " ".join(cmd), proc.stderr))
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     return out
 
 

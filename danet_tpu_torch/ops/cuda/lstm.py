@@ -1,16 +1,25 @@
-"""Kernel B wrapper: fused bidirectional LSTM time loop, one launch per layer.
+"""Wrappers of the fused bidirectional LSTM kernels, one launch per layer.
 
-Replaces the lean (inference) forward of
-``danet_tpu/ops/pallas/lstm.py::bilstm_scan_pallas`` (``_fwd_call`` with
-``n_dirs=2, save=False``).  The CUDA source is
-``danet_tpu_torch/csrc/bilstm_scan.cu``; its header says what bounds it on
-an H100 (the per-step latency of the grid-wide barrier and of the h_{t-1}
-exchange through L2, not FLOPs) and how Wh is split over blocks.
+Replaces ``danet_tpu/ops/pallas/lstm.py::bilstm_scan_pallas`` (n_dirs=2)
+and its custom VJP:
 
-``bilstm_scan`` launches the kernel for CUDA tensors and uses the plain
-version, ``bilstm_scan_plain``, for CPU tensors: a Python loop over T with
-the same float32 gate math and the same per-step rounding of h to the
-storage dtype.  ``bilstm_scan.launches`` counts the kernel launches.
+  * ``bilstm_scan``: kernel B, the lean (inference) forward
+    (``_fwd_call`` with ``save=False``);
+  * ``bilstm_scan_train``: kernel 2, the forward that also stores the
+    residuals ``cs`` and ``acts`` (``_fwd_call`` with ``save=True``);
+  * ``bilstm_scan_bwd``: kernel 3, the reverse-time backward (``_bwd_call``);
+  * ``BiLstmScan``: the ``torch.autograd.Function`` that ties them together
+    as ``_make_scan`` does with ``jax.custom_vjp``.
+
+The CUDA sources are ``danet_tpu_torch/csrc/bilstm_scan.cu`` (kernels B
+and 2) and ``csrc/bilstm_scan_bwd.cu`` (kernel 3); their headers say what
+bounds them on an H100 (the per-step latency of the grid-wide barrier and
+of the exchange through L2, not FLOPs) and how Wh is split over blocks.
+
+Each wrapper launches its kernel for CUDA tensors and uses its plain
+version (``*_plain``: Python loops over T with the same float32 gate math
+and the same roundings to the storage dtype) for CPU tensors; on any other
+device it raises.  ``<wrapper>.launches`` counts the kernel launches.
 """
 from __future__ import annotations
 
@@ -19,18 +28,13 @@ import torch
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def bilstm_scan_plain(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
-                      h0: torch.Tensor, tanh_cand: bool) -> torch.Tensor:
-    """Plain version of kernel B.
-
-    xp [T, 2, B, 4H] (direction 1 already time-reversed), wh [2, H, 4H],
-    c0/h0 [2, B, H] -> hs [T, 2, B, H] in xp's dtype."""
+def _scan_plain(xp, wh, c0, h0, tanh_cand: bool, save: bool):
     hdim = wh.shape[1]
     dt = xp.dtype
     whf = wh.float()
     c = c0.float()
     h = h0.to(dt)
-    hs = torch.empty(xp.shape[:3] + (hdim,), dtype=dt, device=xp.device)
+    hs, cs, acts = [], [], []
     for t in range(xp.shape[0]):
         act = xp[t].float() + torch.bmm(h.float(), whf)   # [2, B, 4H] f32
         cand = act[..., :hdim]
@@ -41,61 +45,202 @@ def bilstm_scan_plain(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
         o = torch.sigmoid(act[..., 3 * hdim:])
         c = i * cand + f * c
         h = (o * torch.tanh(c)).to(dt)
-        hs[t] = h
-    return hs
+        hs.append(h)
+        if save:
+            cs.append(c.to(dt))
+            acts.append(torch.cat([cand, i, f, o], dim=-1).to(dt))
+    if not save:
+        return torch.stack(hs)
+    return torch.stack(hs), torch.stack(cs), torch.stack(acts)
 
 
-def _check(xp, wh, c0, h0):
-    if xp.dim() != 4 or xp.shape[1] != 2:
+def bilstm_scan_plain(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
+                      h0: torch.Tensor, tanh_cand: bool) -> torch.Tensor:
+    """Plain version of kernel B.
+
+    xp [T, 2, B, 4H] (direction 1 already time-reversed), wh [2, H, 4H],
+    c0/h0 [2, B, H] -> hs [T, 2, B, H] in xp's dtype."""
+    return _scan_plain(xp, wh, c0, h0, tanh_cand, False)
+
+
+def bilstm_scan_train_plain(xp, wh, c0, h0, tanh_cand: bool):
+    """Plain version of kernel 2: -> (hs, cs [T, 2, B, H], acts
+    [T, 2, B, 4H]), acts = [cand, i, f, o] after their activations; all in
+    xp's dtype."""
+    return _scan_plain(xp, wh, c0, h0, tanh_cand, True)
+
+
+def bilstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
+    """Plain version of kernel 3: ``_bwd_kernel`` / ``_cell_bwd_step``
+    (lstm.py:80-96,144-197) in reverse time.
+
+    d_hs, cs, c_prev [T, 2, B, H], acts [T, 2, B, 4H], wh [2, H, 4H] ->
+    (dxp [T, 2, B, 4H], dc0, dh0 [2, B, H]) in d_hs's dtype.  dxp is
+    rounded to that dtype before it feeds dh_{t-1} = dxp[t] @ Wh^T."""
+    hdim = wh.shape[1]
+    dt = d_hs.dtype
+    wht = wh.float().transpose(1, 2)                       # [2, 4H, H]
+    dc = torch.zeros(cs.shape[1:], dtype=torch.float32, device=cs.device)
+    dh = torch.zeros_like(dc)
+    dxp = [None] * acts.shape[0]
+    for t in range(acts.shape[0] - 1, -1, -1):
+        a = acts[t].float()
+        cand, i = a[..., :hdim], a[..., hdim:2 * hdim]
+        f, o = a[..., 2 * hdim:3 * hdim], a[..., 3 * hdim:]
+        tanh_c = torch.tanh(cs[t].float())
+        dh_total = d_hs[t].float() + dh
+        do_pre = dh_total * tanh_c * o * (1.0 - o)
+        dc = dc + dh_total * o * (1.0 - tanh_c * tanh_c)
+        dcand = dc * i
+        dcand_pre = dcand * (1.0 - cand * cand) if tanh_cand else dcand
+        di_pre = dc * cand * i * (1.0 - i)
+        df_pre = dc * c_prev[t].float() * f * (1.0 - f)
+        dact = torch.cat([dcand_pre, di_pre, df_pre, do_pre], dim=-1).to(dt)
+        dxp[t] = dact
+        dc = dc * f
+        dh = torch.bmm(dact.float(), wht)
+    return torch.stack(dxp), dc.to(dt), dh.to(dt)
+
+
+def _check(named, shapes):
+    """Shapes, one storage dtype, one device, contiguity."""
+    first = named[0][1]
+    for (name, v), shape in zip(named, shapes):
+        if tuple(v.shape) != tuple(shape):
+            raise ValueError("%s must be %s, got %s"
+                             % (name, tuple(shape), tuple(v.shape)))
+        if v.dtype != first.dtype:
+            raise ValueError("%s is %s, %s is %s: one storage dtype"
+                             % (name, v.dtype, named[0][0], first.dtype))
+        if v.device != first.device:
+            raise ValueError("%s on %s, %s on %s"
+                             % (name, v.device, named[0][0], first.device))
+        if not v.is_contiguous():
+            raise ValueError("%s must be contiguous" % name)
+    if first.dtype not in _DTYPE_CODES:
+        raise ValueError("the BiLSTM kernels take float32 or bfloat16, got %s"
+                         % (first.dtype,))
+
+
+def _fwd_shapes(xp, wh, c0, h0):
+    if xp.dim() != 4 or xp.shape[1] != 2 or xp.shape[-1] % 4:
         raise ValueError("xp must be [T, 2, B, 4H], got %s"
                          % (tuple(xp.shape),))
     t, _, b, g4 = xp.shape
     hdim = g4 // 4
-    if g4 != 4 * hdim or tuple(wh.shape) != (2, hdim, g4):
-        raise ValueError("wh must be [2, H, 4H] = %s, got %s"
-                         % ((2, hdim, g4), tuple(wh.shape)))
-    for name, v in (("c0", c0), ("h0", h0)):
-        if tuple(v.shape) != (2, b, hdim):
-            raise ValueError("%s must be [2, B, H] = %s, got %s"
-                             % (name, (2, b, hdim), tuple(v.shape)))
-    for name, v in (("xp", xp), ("wh", wh), ("c0", c0), ("h0", h0)):
-        if v.dtype != xp.dtype:
-            raise ValueError("%s is %s, xp is %s: one storage dtype"
-                             % (name, v.dtype, xp.dtype))
-        if v.device != xp.device:
-            raise ValueError("%s on %s, xp on %s" % (name, v.device,
-                                                     xp.device))
-        if not v.is_contiguous():
-            raise ValueError("%s must be contiguous" % name)
-    if xp.dtype not in _DTYPE_CODES:
-        raise ValueError("bilstm_scan kernel takes float32 or bfloat16, "
-                         "got %s" % (xp.dtype,))
+    _check([("xp", xp), ("wh", wh), ("c0", c0), ("h0", h0)],
+           [xp.shape, (2, hdim, g4), (2, b, hdim), (2, b, hdim)])
     return t, b, hdim
+
+
+def _on_cuda(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError("%s: unsupported device %s" % (what, x.device))
+    return True
+
+
+def _launch(entry: str, what: str, device, tensors, ints) -> None:
+    from danet_tpu_torch.ops.cuda import _build
+
+    lib = _build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = getattr(lib, entry)(*[v.data_ptr() for v in tensors],
+                                     *ints, stream)
+    _build.check(status, what)
 
 
 def bilstm_scan(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
                 h0: torch.Tensor, tanh_cand: bool) -> torch.Tensor:
-    """Fused bidirectional LSTM scan (signature of the plain version).
-
-    Kernel on CUDA tensors, plain version on CPU tensors."""
-    if xp.device.type == "cpu":
+    """Kernel B, the lean forward (signature of the plain version)."""
+    if not _on_cuda(xp, "bilstm_scan"):
         return bilstm_scan_plain(xp, wh, c0, h0, tanh_cand)
-    if xp.device.type != "cuda":
-        raise ValueError("bilstm_scan: unsupported device %s" % (xp.device,))
-    t, b, hdim = _check(xp, wh, c0, h0)
-    from danet_tpu_torch.ops.cuda import _build
-
+    t, b, hdim = _fwd_shapes(xp, wh, c0, h0)
     hs = torch.empty((t, 2, b, hdim), dtype=xp.dtype, device=xp.device)
-    lib = _build.library()
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream(xp.device).cuda_stream
-        status = lib.danet_bilstm_scan(
-            xp.data_ptr(), wh.data_ptr(), c0.data_ptr(), h0.data_ptr(),
-            hs.data_ptr(), t, b, hdim, _DTYPE_CODES[xp.dtype],
-            int(bool(tanh_cand)), stream)
-    _build.check(status, "bilstm_scan kernel")
+    _launch("danet_bilstm_scan", "bilstm_scan kernel", xp.device,
+            (xp, wh, c0, h0, hs),
+            (t, b, hdim, _DTYPE_CODES[xp.dtype], int(bool(tanh_cand))))
     bilstm_scan.launches += 1
     return hs
 
 
+def bilstm_scan_train(xp, wh, c0, h0, tanh_cand: bool):
+    """Kernel 2, the forward that stores residuals: -> (hs, cs, acts)."""
+    if not _on_cuda(xp, "bilstm_scan_train"):
+        return bilstm_scan_train_plain(xp, wh, c0, h0, tanh_cand)
+    t, b, hdim = _fwd_shapes(xp, wh, c0, h0)
+    hs = torch.empty((t, 2, b, hdim), dtype=xp.dtype, device=xp.device)
+    cs = torch.empty_like(hs)
+    acts = torch.empty_like(xp)
+    _launch("danet_bilstm_scan_train", "bilstm_scan_train kernel", xp.device,
+            (xp, wh, c0, h0, hs, cs, acts),
+            (t, b, hdim, _DTYPE_CODES[xp.dtype], int(bool(tanh_cand))))
+    bilstm_scan_train.launches += 1
+    return hs, cs, acts
+
+
+def bilstm_scan_bwd(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
+    """Kernel 3, the backward: -> (dxp, dc0, dh0) (signature of the plain
+    version)."""
+    if not _on_cuda(d_hs, "bilstm_scan_bwd"):
+        return bilstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand)
+    if acts.dim() != 4 or acts.shape[1] != 2 or acts.shape[-1] % 4:
+        raise ValueError("acts must be [T, 2, B, 4H], got %s"
+                         % (tuple(acts.shape),))
+    t, _, b, g4 = acts.shape
+    hdim = g4 // 4
+    hshape = (t, 2, b, hdim)
+    _check([("d_hs", d_hs), ("acts", acts), ("cs", cs), ("c_prev", c_prev),
+            ("wh", wh)], [hshape, acts.shape, hshape, hshape, (2, hdim, g4)])
+    dxp = torch.empty_like(acts)
+    dc0 = torch.empty((2, b, hdim), dtype=acts.dtype, device=acts.device)
+    dh0 = torch.empty_like(dc0)
+    _launch("danet_bilstm_scan_bwd", "bilstm_scan_bwd kernel", acts.device,
+            (d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0),
+            (t, b, hdim, _DTYPE_CODES[acts.dtype], int(bool(tanh_cand))))
+    bilstm_scan_bwd.launches += 1
+    return dxp, dc0, dh0
+
+
 bilstm_scan.launches = 0
+bilstm_scan_train.launches = 0
+bilstm_scan_bwd.launches = 0
+
+
+class BiLstmScan(torch.autograd.Function):
+    """Differentiable fused BiLSTM scan: the counterpart of ``_make_scan(2)``
+    (lstm.py:309-338).
+
+    ``BiLstmScan.apply(xp, wh, c0, h0, tanh_cand, use_kernel) -> hs``.  The
+    forward runs kernel 2 (or its plain version when ``use_kernel`` is
+    false) and keeps its residuals; the backward runs kernel 3 (or its
+    plain version) and computes dWh = sum_t h_{t-1}^T dxp[t] as one bulk
+    matmul over all timesteps, outside the kernel, as the JAX package does.
+    Callers that need no gradient call ``bilstm_scan`` (kernel B)."""
+
+    @staticmethod
+    def forward(ctx, xp, wh, c0, h0, tanh_cand: bool, use_kernel: bool):
+        fwd = bilstm_scan_train if use_kernel else bilstm_scan_train_plain
+        hs, cs, acts = fwd(xp, wh, c0, h0, tanh_cand)
+        ctx.save_for_backward(wh, c0, h0, hs, cs, acts)
+        ctx.tanh_cand = tanh_cand
+        ctx.use_kernel = use_kernel
+        return hs
+
+    @staticmethod
+    def backward(ctx, d_hs):
+        wh, c0, h0, hs, cs, acts = ctx.saved_tensors
+        c_prev = torch.cat([c0[None], cs[:-1]])
+        h_prev = torch.cat([h0[None], hs[:-1]])
+        bwd = bilstm_scan_bwd if ctx.use_kernel else bilstm_scan_bwd_plain
+        # d_hs arrives through a transpose and a flip of hs
+        dxp, dc0, dh0 = bwd(d_hs.contiguous(), acts, cs, c_prev, wh,
+                            ctx.tanh_cand)
+        t, _, b, hdim = hs.shape
+        dwh = torch.bmm(
+            h_prev.float().permute(1, 3, 0, 2).reshape(2, hdim, t * b),
+            dxp.float().permute(1, 0, 2, 3).reshape(2, t * b, 4 * hdim))
+        return dxp, dwh.to(wh.dtype), dc0, dh0, None, None

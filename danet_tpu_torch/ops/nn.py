@@ -1,9 +1,9 @@
-"""Small functional layer library: the mixed-precision matmul contract and
-the linear layer.
+"""Small functional layer library: the mixed-precision matmul contract, the
+linear layer, leaky ReLU and dropout.
 
-Counterpart of ``danet_tpu/ops/nn.py:17-60``.  ``mm``/``ee`` take operands
-in the compute dtype, accumulate in float32 and cast the result back to
-the first operand's dtype.  Products of bf16 values are exact in float32,
+Counterpart of ``danet_tpu/ops/nn.py:17-80,97-107``.  ``mm``/``ee`` take
+operands in the compute dtype, accumulate in float32 and cast the result
+back to the first operand's dtype.  Products of bf16 values are exact in float32,
 so upcasting the operands and running a float32 product is that contract
 exactly.
 """
@@ -51,3 +51,22 @@ def linear_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     if "b" in params:
         y = y + params["b"].to(x.dtype)
     return y
+
+
+def leaky_relu(x: torch.Tensor, alpha: float = 0.0) -> torch.Tensor:
+    """max(x * alpha, x); plain ReLU for alpha 0."""
+    if alpha == 0.0:
+        return torch.relu(x)
+    return torch.maximum(x * alpha, x)
+
+
+def dropout(generator: torch.Generator, x: torch.Tensor,
+            keep_prob: float) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability ``keep_prob``
+    and scale it by 1 / keep_prob.  The mask is drawn from ``generator``
+    on the generator's device.  ``keep_prob >= 1`` is the identity."""
+    if keep_prob >= 1.0:
+        return x
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    keep = u.to(x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))

@@ -4,11 +4,13 @@ Counterpart of ``danet_tpu/ops/rnn.py:35-54,96-101,180-237``.  Parameters
 are ``wx [I, 4, H]``, ``wh [H, 4, H]``, ``b [4, H]`` with gate order
 cand|i|f|o.  The input projection of all timesteps is one matmul (JAX
 leaves it to XLA; here ``torch.matmul``); only ``h @ Wh`` stays inside the
-time loop, which is kernel B (``ops/cuda/lstm.py``).
+time loop, which is a hand kernel (``ops/cuda/lstm.py``): kernel B when no
+gradient is needed, else ``BiLstmScan`` (kernel 2 forward, kernel 3
+backward).
 
 ``LSTM_BACKEND`` keeps its JAX values: 'auto' and 'pallas' mean the hand
-kernel for CUDA tensors (its plain version for CPU tensors);
-'xla' and 'pallas-interpret' mean the plain version everywhere.
+kernels for CUDA tensors (their plain versions for CPU tensors);
+'xla' and 'pallas-interpret' mean the plain versions everywhere.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
-from danet_tpu_torch.ops.nn import ee, uniform_init
+from danet_tpu_torch.ops.nn import dropout, ee, uniform_init
 
 BACKENDS = ("auto", "xla", "pallas", "pallas-interpret")
 
@@ -57,9 +59,12 @@ def lstm_input_proj(params: dict, x_tm: torch.Tensor) -> torch.Tensor:
 
 def bilstm_apply(params: dict, x: torch.Tensor,
                  candidate_activation: str = "tanh",
+                 dropout_rng: Optional[torch.Generator] = None,
+                 keep_prob: float = 1.0,
                  backend: str = "auto") -> torch.Tensor:
     """BiLSTM: concat(fwd, bwd) [B, T, 2h], both directions in one fused
-    scan (direction 1 runs on the time-reversed input and is restored)."""
+    scan (direction 1 runs on the time-reversed input and is restored),
+    then inverted dropout drawn from ``dropout_rng`` when keep_prob < 1."""
     if backend not in BACKENDS:
         raise ValueError("Unknown RNN backend %r (expected one of %s)"
                          % (backend, ", ".join(BACKENDS)))
@@ -76,9 +81,16 @@ def bilstm_apply(params: dict, x: torch.Tensor,
          params["bwd"]["wh"].to(dt).reshape(hdim, 4 * hdim)]).contiguous()
     z = torch.zeros((2, b, hdim), dtype=dt, device=x.device)
     tanh_cand = candidate_activation == "tanh"
-    if backend in ("auto", "pallas"):
+    use_kernel = backend in ("auto", "pallas")
+    if torch.is_grad_enabled() and (xp2.requires_grad or wh2.requires_grad):
+        hs2 = cuda_lstm.BiLstmScan.apply(xp2, wh2, z, z, tanh_cand,
+                                         use_kernel)
+    elif use_kernel:
         hs2 = cuda_lstm.bilstm_scan(xp2, wh2, z, z, tanh_cand)
     else:
         hs2 = cuda_lstm.bilstm_scan_plain(xp2, wh2, z, z, tanh_cand)
-    return torch.cat([hs2[:, 0].transpose(0, 1),
-                      hs2[:, 1].flip(0).transpose(0, 1)], dim=-1)
+    y = torch.cat([hs2[:, 0].transpose(0, 1),
+                   hs2[:, 1].flip(0).transpose(0, 1)], dim=-1)
+    if dropout_rng is not None and keep_prob < 1.0:
+        y = dropout(dropout_rng, y, keep_prob)
+    return y

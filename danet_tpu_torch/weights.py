@@ -39,10 +39,20 @@ def from_jax(tree: Mapping, device=None) -> dict:
     return out
 
 
+def leaves(tree: Mapping) -> list:
+    """The leaves of a nested dict, depth first in key order."""
+    out = []
+    for v in tree.values():
+        out.extend(leaves(v) if isinstance(v, Mapping) else [v])
+    return out
+
+
 def to_jax(params: Mapping) -> dict:
-    """Nested dict of tensors -> nested dict of numpy arrays."""
+    """Nested dict of tensors (or numpy arrays) -> nested dict of numpy
+    arrays."""
     return {k: to_jax(v) if isinstance(v, Mapping)
-            else v.detach().cpu().numpy() for k, v in params.items()}
+            else v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in params.items()}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict:

@@ -1,6 +1,7 @@
-"""The port must import without jax: the machine that serves it on the GPU
-has none.  Importing the package and its serving module in a fresh
-interpreter must load no jax and no danet_tpu module."""
+"""The port must import without jax: the machine that runs it on the GPU
+has none.  Importing the package and its serving, training, optimizer and
+loss modules in a fresh interpreter must load no jax, no optax and no
+danet_tpu module."""
 import os
 import subprocess
 import sys
@@ -13,9 +14,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_torch_port_imports_no_jax():
-    code = ("import danet_tpu_torch, danet_tpu_torch.serve, sys; "
-            "assert not any(m in ('jax', 'danet_tpu') or m.startswith("
-            "('jax.', 'danet_tpu.')) for m in sys.modules)")
+    code = ("import danet_tpu_torch, danet_tpu_torch.serve, "
+            "danet_tpu_torch.train, danet_tpu_torch.train.__main__, "
+            "danet_tpu_torch.optim, danet_tpu_torch.ops.loss, sys; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'optax', 'danet_tpu')]; assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

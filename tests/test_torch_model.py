@@ -161,3 +161,17 @@ def test_torch_separate_wav_slice_matches_jax(fresh_hparams, monkeypatch,
     tm.hp.STFT_BACKEND = "fft"
     with pytest.raises(ValueError):
         tm.separate_wav(tp, torch.from_numpy(wav))
+
+
+def test_torch_toy_encoder_matches_jax(fresh_hparams):
+    """The default.json encoder (a 3-layer MLP)."""
+    fresh_hparams.ENCODER_TYPE = "toy"
+    jmodel = JaxDaNet()
+    jp = jmodel.init(jax.random.PRNGKey(1))
+    tmodel = TorchDaNet(load_config(ENCODER_TYPE="toy"))
+    x = np.abs(np.random.RandomState(7).randn(2, 6, 129)).astype(np.float32)
+    ref = jmodel.encoder.apply(jp["encoder"], jnp.asarray(x))
+    out = tmodel.encoder.apply(weights.from_jax(jax.device_get(jp))["encoder"],
+                               torch.from_numpy(x))
+    assert tuple(out.shape) == (2, 6, 129, 20)
+    _close(out, ref)

@@ -60,3 +60,166 @@ def test_torch_bilstm_rejects_unknown_backend(fresh_hparams):
                    "b": torch.zeros(4, 3)} for d in ("fwd", "bwd")}
     with pytest.raises(ValueError):
         trnn.bilstm_apply(tparams, torch.zeros(1, 4, 2), backend="cudnn")
+
+
+def _scan_case(seed, t=7, b=2, h=5):
+    """xp, wh, c0, h0 with a nonzero initial state, and a cotangent d_hs."""
+    rs = np.random.RandomState(seed)
+    xp = rs.randn(t, 2, b, 4 * h).astype(np.float32)
+    wh = (rs.randn(2, h, 4 * h) * 0.4).astype(np.float32)
+    c0 = rs.randn(2, b, h).astype(np.float32)
+    h0 = rs.randn(2, b, h).astype(np.float32)
+    d_hs = rs.randn(t, 2, b, h).astype(np.float32)
+    return (xp, wh, c0, h0), d_hs
+
+
+@pytest.mark.parametrize("tanh_cand", [True, False])
+def test_torch_bilstm_scan_train_plain_matches_pallas_interpret(
+        fresh_hparams, tanh_cand):
+    """Kernel 2's plain version against the residual-saving Pallas forward
+    (hs, cs, acts), atol 1e-6."""
+    from danet_tpu.ops.pallas.lstm import _fwd_call_jit
+
+    args, _ = _scan_case(4)
+    ref = _fwd_call_jit(*map(jnp.asarray, args), tanh_cand=tanh_cand,
+                        interpret=True, n_dirs=2, save=True)
+    targs = [torch.from_numpy(a) for a in args]
+    before = cuda_lstm.bilstm_scan_train.launches
+    out = cuda_lstm.bilstm_scan_train(*targs, tanh_cand)
+    assert cuda_lstm.bilstm_scan_train.launches == before
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-6)
+
+
+@pytest.mark.parametrize("tanh_cand", [True, False])
+def test_torch_bilstm_scan_bwd_plain_matches_pallas_interpret(
+        fresh_hparams, tanh_cand):
+    """Kernel 3's plain version against the Pallas backward (dxp, dc0,
+    dh0) on the same residuals, atol 2e-5 / rtol 1e-4."""
+    from danet_tpu.ops.pallas.lstm import _bwd_call_jit, _fwd_call_jit
+
+    (xp, wh, c0, h0), d_hs = _scan_case(5)
+    _, cs, acts = _fwd_call_jit(*map(jnp.asarray, (xp, wh, c0, h0)),
+                                tanh_cand=tanh_cand, interpret=True,
+                                n_dirs=2, save=True)
+    cs, acts = np.array(cs), np.array(acts)
+    c_prev = np.concatenate([c0[None], cs[:-1]])
+    ref = _bwd_call_jit(*map(jnp.asarray, (d_hs, acts, cs, c_prev, wh)),
+                        tanh_cand=tanh_cand, interpret=True, n_dirs=2)
+    before = cuda_lstm.bilstm_scan_bwd.launches
+    out = cuda_lstm.bilstm_scan_bwd(
+        *[torch.from_numpy(a) for a in (d_hs, acts, cs, c_prev, wh)],
+        tanh_cand)
+    assert cuda_lstm.bilstm_scan_bwd.launches == before
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=2e-5,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("tanh_cand", [True, False])
+def test_torch_bilstm_scan_grads_match_jax(fresh_hparams, tanh_cand):
+    """BiLstmScan's gradients of xp, wh, c0 and h0 (nonzero initial state)
+    against jax.grad through bilstm_scan_pallas in interpret mode, atol
+    2e-5 / rtol 1e-4; the plain backward route gives the same."""
+    from danet_tpu.ops.pallas.lstm import bilstm_scan_pallas
+
+    args, d_hs = _scan_case(6)
+    ref = jax.grad(
+        lambda *a: jnp.sum(bilstm_scan_pallas(*a, tanh_cand, True)
+                           * jnp.asarray(d_hs)),
+        argnums=(0, 1, 2, 3))(*map(jnp.asarray, args))
+    for use_kernel in (True, False):
+        targs = [torch.from_numpy(a).requires_grad_(True) for a in args]
+        hs = cuda_lstm.BiLstmScan.apply(*targs, tanh_cand, use_kernel)
+        hs.backward(torch.from_numpy(d_hs))
+        for a, r in zip(targs, ref):
+            np.testing.assert_allclose(a.grad.numpy(), np.asarray(r),
+                                       atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("tanh_cand", [True, False])
+def test_torch_bilstm_scan_bwd_plain_matches_autograd(fresh_hparams,
+                                                      tanh_cand):
+    """The hand-written backward against torch.autograd of the plain
+    forward, on the same inputs and cotangent."""
+    args, d_hs = _scan_case(7)
+    grads = []
+    for custom in (True, False):
+        targs = [torch.from_numpy(a).requires_grad_(True) for a in args]
+        hs = (cuda_lstm.BiLstmScan.apply(*targs, tanh_cand, False) if custom
+              else cuda_lstm.bilstm_scan_plain(*targs, tanh_cand))
+        hs.backward(torch.from_numpy(d_hs))
+        grads.append([a.grad.numpy() for a in targs])
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a, b, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("act", ["tanh", "linear"])
+def test_torch_bilstm_apply_grads_match_jax(fresh_hparams, act):
+    """Parameter and input gradients of bilstm_apply against the JAX
+    package's fused Pallas BiLSTM (interpret mode)."""
+    T, B, I, H = 8, 3, 5, 6
+    params = jrnn.bilstm_init(jax.random.PRNGKey(8), I, H,
+                              gate_bias=(0.0, 1.5, -1.0, 1.0))
+    x = np.random.RandomState(8).randn(B, T, I).astype(np.float32)
+    g_ref, gx_ref = jax.grad(lambda p, v: jnp.sum(jrnn.bilstm_apply(
+        p, v, act, backend="pallas-interpret") ** 2), argnums=(0, 1))(
+            params, jnp.asarray(x))
+    tparams = weights.from_jax(jax.device_get(params))
+    ps = weights.leaves(tparams)
+    for p in ps:
+        p.requires_grad_(True)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    (trnn.bilstm_apply(tparams, tx, act) ** 2).sum().backward()
+    ref = weights.leaves(weights.from_jax(jax.device_get(g_ref)))
+    for p, r in zip(ps, ref):
+        np.testing.assert_allclose(p.grad.numpy(), r.numpy(), atol=2e-5,
+                                   rtol=1e-4)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx_ref),
+                               atol=2e-5, rtol=1e-4)
+
+
+def test_torch_dropout_statistics_and_identity(fresh_hparams):
+    """Inverted dropout keeps about keep_prob of the elements, scaled by
+    1/keep_prob, from an explicit generator; keep_prob 1 is the identity,
+    also through bilstm_apply."""
+    from danet_tpu_torch.ops.nn import dropout
+
+    x = torch.ones(200, 500)
+    y = dropout(torch.Generator().manual_seed(0), x, 0.8)
+    kept = y != 0
+    assert abs(float(kept.float().mean()) - 0.8) < 0.01
+    np.testing.assert_allclose(y[kept].numpy(), 1.0 / 0.8, rtol=1e-6)
+    assert abs(float(y.mean()) - 1.0) < 0.02
+    y2 = dropout(torch.Generator().manual_seed(0), x, 0.8)
+    assert torch.equal(y, y2)
+    assert dropout(torch.Generator(), x, 1.0) is x
+
+    tparams = weights.from_jax(jax.device_get(jrnn.bilstm_init(
+        jax.random.PRNGKey(9), 4, 3)))
+    v = torch.from_numpy(np.random.RandomState(9).randn(2, 5, 4).astype(
+        np.float32))
+    ref = trnn.bilstm_apply(tparams, v)
+    same = trnn.bilstm_apply(tparams, v, dropout_rng=torch.Generator(),
+                             keep_prob=1.0)
+    assert torch.equal(ref, same)
+    dropped = trnn.bilstm_apply(tparams, v,
+                                dropout_rng=torch.Generator().manual_seed(1),
+                                keep_prob=0.5)
+    nz = dropped != 0
+    np.testing.assert_allclose(dropped[nz].numpy(), 2 * ref[nz].numpy(),
+                               rtol=1e-6)
+
+
+def test_torch_bilstm_wrappers_refuse_other_devices(fresh_hparams):
+    """A wrapper takes its plain version only for CPU tensors: on any other
+    device than CPU or CUDA it raises (on CUDA it launches its kernel)."""
+    args = [torch.zeros(s, device="meta") for s in
+            ((3, 2, 1, 8), (2, 2, 8), (2, 1, 2), (2, 1, 2))]
+    with pytest.raises(ValueError):
+        cuda_lstm.bilstm_scan(*args, True)
+    with pytest.raises(ValueError):
+        cuda_lstm.bilstm_scan_train(*args, True)
+    with pytest.raises(ValueError):
+        cuda_lstm.bilstm_scan_bwd(torch.zeros((3, 2, 1, 2), device="meta"),
+                                  args[0], args[2], args[2], args[1], True)
