@@ -56,6 +56,63 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    independently rounded terms, and the 1e-2 bound leaves room for a shift
    of about 2.5 bf16 ulps).  Then the median step time on the card of the
    kernel path and of the plain path (LSTM_BACKEND=xla), both dtypes.
+8. the one-direction LSTM kernels (lstm_scan, lstm_scan_train,
+   lstm_scan_bwd: kernels B, 2 and 3 with one direction) vs their plain
+   versions on the card: H=600 (lstm-orig), (T=1251, B=1) and (T=128,
+   B=32), tanh and identity candidates, float32 and bfloat16, layer-shaped
+   inputs with nonzero c0, h0 and d_hs; phase 4's tolerance on the lean
+   kernel and phase 6's on the other two.
+9. the GRU kernels (gru_scan, gru_scan_train, gru_scan_bwd) vs their plain
+   versions on the card, the same shapes, dtypes and tolerances.  The
+   weights are at 10x gru-v1's init scale (1/sqrt(H) instead of
+   0.1/sqrt(H)), so that the recurrent products move the state.
+10. serving with lstm-orig and with gru-v1 at full width (4 one-direction
+   layers x 600 units, F=129, E=20, N=2, float32, anchor): one 10 s
+   request at B=1 and one 4 x 4 s batch each, checked against the CPU as
+   in phase 5 (waves and embeddings to 1e-4 of the peak); launch counters
+   show kernel A once and the encoder's lean kernel N_LAYERS times per
+   request, and no BiLSTM kernel.
+11. training with lstm-orig and with gru-v1 at full width (B=32, T=128,
+   N=2; truth-weighted, dot-sigmoid-orig, pit-mse, Adam), float32 and
+   bfloat16, card vs CPU: 3 train steps and a valid step under phase 7's
+   bounds on each loss (and float32 SNR), but each step taken from one
+   state: before each step the CPU takes over the card's parameters and
+   Adam moments.  At every step, not only the first, the float32
+   gradients agree per tensor to 1e-4 of that tensor's peak (phase 7's
+   bound).  The parameters are held to the optimizer step rather than to a
+   trajectory: after each step, in both dtypes, the card's parameters
+   agree to one float32 ulp + 1e-6 x LR with the CPU's Adam step from the
+   same state applied to the card's gradients.  Phase 7's check of the
+   parameters after 3 independent steps does not hold for these encoders
+   on an H100: lstm-orig had one bias element at 1.07e-3 of its tensor's
+   peak change (its step-1 gradient 3.5e-5 of the tensor's peak), and
+   gru-v1's trajectory is ill-conditioned: one Adam step at LR 3e-4 takes
+   its SNR from 8.9 to 0.18 dB, a card-vs-CPU loss difference of 1e-6
+   relative at step 1 became 1.3e-5 at step 2 when the two ran apart, and
+   after one step thousands of elements, whose gradients sit near Adam's
+   eps or change sign within the float32 noise, differ by more than 1e-3
+   of the peak change.  The SNR (dB) is compared as the relative error of
+   the power ratio behind it, |dSNR| / max(|SNR|, 10 / ln 10): for |SNR|
+   >= 4.34 dB that is its relative error, and near 0 dB, where gru-v1 sits
+   after one step and a relative error of the dB value means nothing, it
+   is the ratio's.  Launch counters show N_LAYERS training forwards and
+   backwards of the encoder's kernels per train step and only its lean
+   kernel in valid_step.  Then the median step time of the kernel path and
+   of the plain path.
+
+The kernel summary lists all ten kernels.  bound_ms is the least time the
+card could take for the work of the timed call: the larger of its bytes
+(each input read once, each output written once) over 3.35 TB/s and its
+recurrent-product FLOPs (for kernel A, a real FFT's per frame) over 67
+TFLOP/s, the H100 SXM's float32 rate outside the tensor cores (the kernels
+compute in float32; elementwise work is not counted, so the bound stays a
+lower bound).  library_ms is one
+PyTorch call that computes the same function, timed here and never called
+by the port: torch.stft for kernel A; torch.nn.LSTM (cuDNN) for the
+tanh-candidate LSTM kernels, which also computes the input projection
+(and, in its backward, the input projection's backward; no weight
+gradients are asked for); none for the GRU, because cuDNN's GRU applies r
+after the recurrent product and this repo's GRU before it.
 
 The last two lines are the kernel summary JSON and
 {"ok": true, "device": {...}}; the line before them is nvidia-smi's
@@ -76,6 +133,7 @@ from danet_tpu_torch.data.dataset import WhiteNoiseData
 from danet_tpu_torch.hparams import load_config
 from danet_tpu_torch.ops.dsp import stft_frame_count
 from danet_tpu_torch.ops.cuda import _build
+from danet_tpu_torch.ops.cuda import gru as cuda_gru
 from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
 from danet_tpu_torch.ops.cuda import stft as cuda_stft
 from danet_tpu_torch.serve import Separator
@@ -92,6 +150,29 @@ TRAIN_BWD_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (5e-2, 2e-2)}
 STEP_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 TRAIN_STEPS = 3
 PARAM_RTOL = 1e-3  # of each tensor's peak change; why: phase 7 docstring
+# H100 SXM published peaks: float32 outside the tensor cores, HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# every kernel wrapper, by the name it has in the summary
+KERNELS = {
+    "stft_ri": cuda_stft.stft_ri,
+    "bilstm_scan": cuda_lstm.bilstm_scan,
+    "bilstm_scan_train": cuda_lstm.bilstm_scan_train,
+    "bilstm_scan_bwd": cuda_lstm.bilstm_scan_bwd,
+    "lstm_scan": cuda_lstm.lstm_scan,
+    "lstm_scan_train": cuda_lstm.lstm_scan_train,
+    "lstm_scan_bwd": cuda_lstm.lstm_scan_bwd,
+    "gru_scan": cuda_gru.gru_scan,
+    "gru_scan_train": cuda_gru.gru_scan_train,
+    "gru_scan_bwd": cuda_gru.gru_scan_bwd,
+}
+# the recurrent kernels of each encoder: (lean, training forward, backward)
+ENCODER_KERNELS = {
+    "bilstm-orig": ("bilstm_scan", "bilstm_scan_train", "bilstm_scan_bwd"),
+    "lstm-orig": ("lstm_scan", "lstm_scan_train", "lstm_scan_bwd"),
+    "gru-v1": ("gru_scan", "gru_scan_train", "gru_scan_bwd"),
+}
 
 
 def nvidia_smi() -> str:
@@ -234,13 +315,26 @@ def _mixture(rs, b, n):
     return out.astype(np.float32)
 
 
-def phase_serving() -> dict:
-    hp = load_config(ENCODER_TYPE="bilstm-orig")
+def _zero_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def _serve(phase: int, encoder: str, requests, seed: int) -> dict:
+    """Serve ``requests`` [(B, samples)] at full width of ``encoder`` on the
+    card (a warm-up, then the timed request), with launch counts per
+    request; then check each answer against the CPU."""
+    hp = load_config(ENCODER_TYPE=encoder)
     model = hp.get_model()(hp)
     enc = model.encoder
-    print("phase 5 model: %s, %d BiLSTM layers x %d units/dir, F=%d, E=%d, "
+    lean = ENCODER_KERNELS[encoder][0]
+    print("phase %d model: %s, %d layers x %d units, F=%d, E=%d, "
           "NUM_ANCHOR=%d, N=%d, FFT %d/%d @ %d Hz, %s, estimator %s, "
-          "separator %s" % (hp.ENCODER_TYPE, enc.N_LAYERS, enc.HDIM,
+          "separator %s" % (phase, hp.ENCODER_TYPE, enc.N_LAYERS, enc.HDIM,
                             hp.FEATURE_SIZE, hp.EMBED_SIZE, hp.NUM_ANCHOR,
                             hp.MAX_N_SIGNAL, hp.FFT_SIZE, hp.FFT_STRIDE,
                             hp.SMPRATE, hp.COMPUTE_DTYPE,
@@ -248,41 +342,37 @@ def phase_serving() -> dict:
     params = model.init(torch.Generator().manual_seed(0))
     gpu = Separator(model, params, "cuda")
     cpu = Separator(model, params, "cpu")
-    rs = np.random.RandomState(2)
-    requests = [(1, SMPRATE), (1, 4 * SMPRATE), (1, 10 * SMPRATE),
-                (4, 4 * SMPRATE)]
+    rs = np.random.RandomState(seed)
     waves = [_mixture(rs, b, n) for b, n in requests]
     outs, latencies = [], {}
+    per_request = {name: 0 for name in KERNELS}
+    per_request.update({"stft_ri": 1, lean: enc.N_LAYERS})
 
     # the main path: only these requests count kernel launches
-    cuda_stft.stft_ri.launches = 0
-    cuda_lstm.bilstm_scan.launches = 0
+    _zero_counts()
     calls = 0
     for (b, n), wav in zip(requests, waves):
         for _ in range(2):          # warm-up, then the timed request
-            a0 = cuda_stft.stft_ri.launches
-            b0 = cuda_lstm.bilstm_scan.launches
+            before = _counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = gpu.separate(wav)  # numpy result: includes the sync
             dt = time.perf_counter() - t0
             calls += 1
-            da = cuda_stft.stft_ri.launches - a0
-            db = cuda_lstm.bilstm_scan.launches - b0
-            if da != 1 or db != enc.N_LAYERS:
-                raise AssertionError(
-                    "request B=%d L=%d: stft_ri launched %d times (want 1), "
-                    "bilstm_scan %d (want %d)" % (b, n, da, db,
-                                                  enc.N_LAYERS))
+            got = {k: v - before[k] for k, v in _counts().items()}
+            if got != per_request:
+                raise AssertionError("phase %d request B=%d L=%d launched %s, "
+                                     "want %s" % (phase, b, n, got,
+                                                  per_request))
         outs.append(out)
         latencies[(b, n)] = dt * 1e3
-    launches = {"stft_ri": cuda_stft.stft_ri.launches,
-                "bilstm_scan": cuda_lstm.bilstm_scan.launches}
-    if launches["stft_ri"] != calls or \
-            launches["bilstm_scan"] != calls * enc.N_LAYERS:
+    launches = _counts()
+    if launches != {k: v * calls for k, v in per_request.items()}:
         raise AssertionError("launch counts %s over %d requests"
                              % (launches, calls))
-    print("phase 5 launches over %d requests: %s" % (calls, launches))
+    print("phase %d launches over %d requests: stft_ri %d, %s %d (%s)"
+          % (phase, calls, launches["stft_ri"], lean, launches[lean],
+             "no other kernel"))
 
     # correctness against the same model and weights on the CPU
     worst = 0.0
@@ -298,19 +388,30 @@ def phase_serving() -> dict:
                 or not err <= SERVE_RTOL * peak \
                 or not e_err <= SERVE_RTOL * e_peak:
             raise AssertionError(
-                "request B=%d L=%d: shape %s (want %s); vs CPU: wave max abs "
-                "err %.3g (peak %.3g), embedding max abs err %.3g (peak "
-                "%.3g); rtol %g of the peak" % (b, n, out.shape, want, err,
-                                                peak, e_err, e_peak,
-                                                SERVE_RTOL))
+                "phase %d request B=%d L=%d: shape %s (want %s); vs CPU: wave "
+                "max abs err %.3g (peak %.3g), embedding max abs err %.3g "
+                "(peak %.3g); rtol %g of the peak" % (
+                    phase, b, n, out.shape, want, err, peak, e_err, e_peak,
+                    SERVE_RTOL))
         worst = max(worst, err / peak, e_err / e_peak)
-        print("phase 5 request B=%d %.1f s: out %s, latency %.3f ms; vs CPU: "
-              "wave max_abs_err %.3g (peak %.3g), embedding max_abs_err %.3g "
-              "(peak %.3g), rtol %g of the peak"
-              % (b, n / SMPRATE, out.shape, latencies[(b, n)], err, peak,
-                 e_err, e_peak, SERVE_RTOL))
+        print("phase %d %s request B=%d %.1f s: out %s, latency %.3f ms; vs "
+              "CPU: wave max_abs_err %.3g (peak %.3g), embedding max_abs_err "
+              "%.3g (peak %.3g), rtol %g of the peak"
+              % (phase, encoder, b, n / SMPRATE, out.shape,
+                 latencies[(b, n)], err, peak, e_err, e_peak, SERVE_RTOL))
     return {"launches": launches, "latency_ms": latencies,
             "max_rel_err": worst}
+
+
+def phase_serving() -> dict:
+    return _serve(5, "bilstm-orig", [(1, SMPRATE), (1, 4 * SMPRATE),
+                                     (1, 10 * SMPRATE), (4, 4 * SMPRATE)], 2)
+
+
+def phase_serving_unidirectional() -> dict:
+    return {enc: _serve(10, enc, [(1, 10 * SMPRATE), (4, 4 * SMPRATE)],
+                        seed)
+            for enc, seed in (("lstm-orig", 10), ("gru-v1", 11))}
 
 
 def _embeddings(sep, wav) -> torch.Tensor:
@@ -335,67 +436,206 @@ def _allclose_err(out: torch.Tensor, ref: torch.Tensor, atol: float,
                                  .max())
 
 
+def _check_kernels(phase: int, tag: str, dt, checks, worst: dict) -> list:
+    """checks: [(kernel, output names, outputs, plain outputs, (atol,
+    rtol))].  Raises where an output is not finite, not of dtype ``dt`` or
+    not within atol + rtol |plain|; returns "name err" parts for the
+    phase's line and keeps each kernel's worst error per dtype."""
+    parts = []
+    for kernel, names, outs, refs, tol in checks:
+        for name, o, r in zip(names, outs, refs):
+            err, ratio = _allclose_err(o, r, *tol)
+            parts.append("%s %.3g" % (name, err))
+            if o.dtype != dt or tuple(o.shape) != tuple(r.shape) \
+                    or not torch.isfinite(o.float()).all() \
+                    or not ratio <= 1.0:
+                raise AssertionError(
+                    "phase %d %s %s %s: max abs err %.3g beyond atol %g + "
+                    "rtol %g" % (phase, kernel, tag, name, err, *tol))
+            worst.setdefault(kernel, {torch.float32: 0.0,
+                                      torch.bfloat16: 0.0})
+            worst[kernel][dt] = max(worst[kernel][dt], err)
+    return parts
+
+
+def _tag(dt, tanh, t, b) -> str:
+    return "%s%s T=%d B=%d" % (str(dt).replace("torch.", ""),
+                               "" if tanh is None
+                               else " tanh" if tanh else " identity", t, b)
+
+
+def _time_pair(times: dict, name: str, kernel, plain, t: int) -> str:
+    """Kernel (10 launches) and plain (2 runs) times of one call."""
+    times[name] = (cuda_ms(kernel, 10), cuda_ms(plain, 2))
+    ms, plain_ms = times[name]
+    return "; %s kernel %.4f ms (%.3f us/step), plain %.4f ms" % (
+        name, ms, 1e3 * ms / t, plain_ms)
+
+
 def phase_train_kernels() -> dict:
     rs = np.random.RandomState(4)
-    worst = {name: {torch.float32: 0.0, torch.bfloat16: 0.0}
-             for name in ("bilstm_scan_train", "bilstm_scan_bwd")}
-    times = {}
+    worst, times = {}, {}
     for dt in (torch.float32, torch.bfloat16):
         for tanh in (True, False):
             for t, b in ((128, 32), (1251, 1)):
                 xp, wh, c0, h0 = _scan_inputs(rs, t, b, dt)
                 d_hs = torch.from_numpy(rs.randn(t, 2, b, 300).astype(
                     np.float32)).cuda().to(dt)
-                fwd = cuda_lstm.bilstm_scan_train(xp, wh, c0, h0, tanh)
-                fwd_ref = cuda_lstm.bilstm_scan_train_plain(xp, wh, c0, h0,
-                                                            tanh)
+                args = (xp, wh, c0, h0, tanh)
+                fwd = cuda_lstm.bilstm_scan_train(*args)
+                fwd_ref = cuda_lstm.bilstm_scan_train_plain(*args)
                 _, cs, acts = fwd_ref
                 c_prev = torch.cat([c0[None], cs[:-1]])
-                bwd = cuda_lstm.bilstm_scan_bwd(d_hs, acts, cs, c_prev, wh,
-                                                tanh)
-                bwd_ref = cuda_lstm.bilstm_scan_bwd_plain(d_hs, acts, cs,
-                                                          c_prev, wh, tanh)
+                bargs = (d_hs, acts, cs, c_prev, wh, tanh)
+                bwd = cuda_lstm.bilstm_scan_bwd(*bargs)
+                bwd_ref = cuda_lstm.bilstm_scan_bwd_plain(*bargs)
                 torch.cuda.synchronize()
-                tag = "%s %s T=%d B=%d" % (
-                    str(dt).replace("torch.", ""),
-                    "tanh" if tanh else "identity", t, b)
-                parts = []
-                for kernel, names, outs, refs, tol in (
-                        ("bilstm_scan_train", ("hs", "cs", "acts"), fwd,
-                         fwd_ref, TRAIN_FWD_TOL[dt]),
-                        ("bilstm_scan_bwd", ("dxp", "dc0", "dh0"), bwd,
-                         bwd_ref, TRAIN_BWD_TOL[dt])):
-                    for name, o, r in zip(names, outs, refs):
-                        err, ratio = _allclose_err(o, r, *tol)
-                        parts.append("%s %.3g" % (name, err))
-                        if o.dtype != dt or tuple(o.shape) != tuple(r.shape) \
-                                or not torch.isfinite(o.float()).all() \
-                                or not ratio <= 1.0:
-                            raise AssertionError(
-                                "phase 6 %s %s: max abs err %.3g beyond "
-                                "atol %g + rtol %g" % (tag, name, err, *tol))
-                        worst[kernel][dt] = max(worst[kernel][dt], err)
+                tag = _tag(dt, tanh, t, b)
+                parts = _check_kernels(6, tag, dt, (
+                    ("bilstm_scan_train", ("hs", "cs", "acts"), fwd,
+                     fwd_ref, TRAIN_FWD_TOL[dt]),
+                    ("bilstm_scan_bwd", ("dxp", "dc0", "dh0"), bwd,
+                     bwd_ref, TRAIN_BWD_TOL[dt])), worst)
                 line = "phase 6 %s max_abs_err: %s (fwd atol %g rtol %g, " \
                     "bwd atol %g rtol %g)" % (tag, ", ".join(parts),
                                              *TRAIN_FWD_TOL[dt],
                                              *TRAIN_BWD_TOL[dt])
                 if dt == torch.float32 and tanh and (t, b) == (128, 32):
-                    args = (xp, wh, c0, h0, tanh)
-                    bargs = (d_hs, acts, cs, c_prev, wh, tanh)
-                    times["bilstm_scan_train"] = (
-                        cuda_ms(lambda: cuda_lstm.bilstm_scan_train(*args),
-                                10),
-                        cuda_ms(lambda: cuda_lstm.bilstm_scan_train_plain(
-                            *args), 2))
-                    times["bilstm_scan_bwd"] = (
-                        cuda_ms(lambda: cuda_lstm.bilstm_scan_bwd(*bargs), 10),
-                        cuda_ms(lambda: cuda_lstm.bilstm_scan_bwd_plain(
-                            *bargs), 2))
-                    for name in ("bilstm_scan_train", "bilstm_scan_bwd"):
-                        ms, plain = times[name]
-                        line += "; %s kernel %.4f ms (%.3f us/step), plain " \
-                            "%.4f ms" % (name, ms, 1e3 * ms / t, plain)
+                    line += _time_pair(
+                        times, "bilstm_scan_train",
+                        lambda: cuda_lstm.bilstm_scan_train(*args),
+                        lambda: cuda_lstm.bilstm_scan_train_plain(*args), t)
+                    line += _time_pair(
+                        times, "bilstm_scan_bwd",
+                        lambda: cuda_lstm.bilstm_scan_bwd(*bargs),
+                        lambda: cuda_lstm.bilstm_scan_bwd_plain(*bargs), t)
                 print(line)
+    return {"max_abs_err": worst, "times": times}
+
+
+def _cuda(rs_arrays, dtype) -> list:
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+            .to(dtype) for a in rs_arrays]
+
+
+def _lstm_inputs(rs, t, b, dtype):
+    """Layer-shaped inputs of lstm-orig's layers 1-3 (H = I = 600):
+    xp = x @ Wx + gate bias with x ~ a layer's activations, Wx and Wh at
+    lstm-orig's init scale; nonzero c0 and h0, and a cotangent d_hs."""
+    h = 600
+    scale = 1.15 / np.sqrt(h)
+    x = rs.randn(t * b, h).astype(np.float32) * 0.5
+    wx = rs.uniform(-scale, scale, (h, 4 * h)).astype(np.float32)
+    bias = np.repeat(np.array([0.0, 1.5, -1.0, 1.0], np.float32), h)
+    xp = (x @ wx + bias).reshape(t, b, 4 * h)
+    wh = rs.uniform(-scale, scale, (h, 4 * h))
+    c0 = rs.randn(b, h) * 0.5
+    h0 = rs.uniform(-0.5, 0.5, (b, h))
+    return _cuda((xp, wh, c0, h0, rs.randn(t, b, h)), dtype)
+
+
+def phase_lstm_unidirectional() -> dict:
+    rs = np.random.RandomState(8)
+    worst, times = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        for tanh in (True, False):
+            for t, b in ((1251, 1), (128, 32)):
+                xp, wh, c0, h0, d_hs = _lstm_inputs(rs, t, b, dt)
+                args = (xp, wh, c0, h0, tanh)
+                lean = cuda_lstm.lstm_scan(*args)
+                lean_ref = cuda_lstm.lstm_scan_plain(*args)
+                fwd = cuda_lstm.lstm_scan_train(*args)
+                fwd_ref = cuda_lstm.lstm_scan_train_plain(*args)
+                _, cs, acts = fwd_ref
+                c_prev = torch.cat([c0[None], cs[:-1]])
+                bargs = (d_hs, acts, cs, c_prev, wh, tanh)
+                bwd = cuda_lstm.lstm_scan_bwd(*bargs)
+                bwd_ref = cuda_lstm.lstm_scan_bwd_plain(*bargs)
+                torch.cuda.synchronize()
+                tag = _tag(dt, tanh, t, b)
+                parts = _check_kernels(8, tag, dt, (
+                    ("lstm_scan", ("hs",), (lean,), (lean_ref,),
+                     (LSTM_ATOL[dt], 0.0)),
+                    ("lstm_scan_train", ("hs", "cs", "acts"), fwd, fwd_ref,
+                     TRAIN_FWD_TOL[dt]),
+                    ("lstm_scan_bwd", ("dxp", "dc0", "dh0"), bwd, bwd_ref,
+                     TRAIN_BWD_TOL[dt])), worst)
+                line = "phase 8 %s max_abs_err: %s" % (tag, ", ".join(parts))
+                if dt == torch.float32 and tanh and (t, b) == (1251, 1):
+                    line += _time_pair(
+                        times, "lstm_scan",
+                        lambda: cuda_lstm.lstm_scan(*args),
+                        lambda: cuda_lstm.lstm_scan_plain(*args), t)
+                if dt == torch.float32 and tanh and (t, b) == (128, 32):
+                    line += _time_pair(
+                        times, "lstm_scan_train",
+                        lambda: cuda_lstm.lstm_scan_train(*args),
+                        lambda: cuda_lstm.lstm_scan_train_plain(*args), t)
+                    line += _time_pair(
+                        times, "lstm_scan_bwd",
+                        lambda: cuda_lstm.lstm_scan_bwd(*bargs),
+                        lambda: cuda_lstm.lstm_scan_bwd_plain(*bargs), t)
+                print(line)
+    return {"max_abs_err": worst, "times": times}
+
+
+def _gru_inputs(rs, t, b, dtype):
+    """Layer-shaped GRU inputs (H = I = 600): gx = x @ Wgx, cx = x @ Wcx + 1
+    (gru-v1's biases), all weights U(-1/sqrt(H), 1/sqrt(H)), ten times
+    gru-v1's init scale, so that the recurrent products move the state;
+    a nonzero c0 and a cotangent d_cs."""
+    h = 600
+    scale = 1.0 / np.sqrt(h)
+    x = rs.randn(t * b, h).astype(np.float32) * 0.5
+    gx = x @ rs.uniform(-scale, scale, (h, 2 * h)).astype(np.float32)
+    cx = x @ rs.uniform(-scale, scale, (h, h)).astype(np.float32) + 1.0
+    wgh = rs.uniform(-scale, scale, (h, 2 * h))
+    wch = rs.uniform(-scale, scale, (h, h))
+    c0 = rs.randn(b, h) * 0.5
+    return _cuda((gx.reshape(t, b, 2 * h), cx.reshape(t, b, h), wgh, wch, c0,
+                  rs.randn(t, b, h)), dtype)
+
+
+def phase_gru() -> dict:
+    rs = np.random.RandomState(9)
+    worst, times = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        for t, b in ((1251, 1), (128, 32)):
+            gx, cx, wgh, wch, c0, d_cs = _gru_inputs(rs, t, b, dt)
+            args = (gx, cx, wgh, wch, c0)
+            lean = cuda_gru.gru_scan(*args)
+            lean_ref = cuda_gru.gru_scan_plain(*args)
+            fwd = cuda_gru.gru_scan_train(*args)
+            fwd_ref = cuda_gru.gru_scan_train_plain(*args)
+            cs, acts = fwd_ref
+            c_prev = torch.cat([c0[None], cs[:-1]])
+            bargs = (d_cs, acts, c_prev, wgh, wch)
+            bwd = cuda_gru.gru_scan_bwd(*bargs)
+            bwd_ref = cuda_gru.gru_scan_bwd_plain(*bargs)
+            torch.cuda.synchronize()
+            tag = _tag(dt, None, t, b)
+            parts = _check_kernels(9, tag, dt, (
+                ("gru_scan", ("cs",), (lean,), (lean_ref,),
+                 (LSTM_ATOL[dt], 0.0)),
+                ("gru_scan_train", ("cs", "acts"), fwd, fwd_ref,
+                 TRAIN_FWD_TOL[dt]),
+                ("gru_scan_bwd", ("dgx", "dcx", "dc0"), bwd, bwd_ref,
+                 TRAIN_BWD_TOL[dt])), worst)
+            line = "phase 9 %s max_abs_err: %s" % (tag, ", ".join(parts))
+            if dt == torch.float32 and (t, b) == (1251, 1):
+                line += _time_pair(times, "gru_scan",
+                                   lambda: cuda_gru.gru_scan(*args),
+                                   lambda: cuda_gru.gru_scan_plain(*args), t)
+            if dt == torch.float32 and (t, b) == (128, 32):
+                line += _time_pair(
+                    times, "gru_scan_train",
+                    lambda: cuda_gru.gru_scan_train(*args),
+                    lambda: cuda_gru.gru_scan_train_plain(*args), t)
+                line += _time_pair(
+                    times, "gru_scan_bwd",
+                    lambda: cuda_gru.gru_scan_bwd(*bargs),
+                    lambda: cuda_gru.gru_scan_bwd_plain(*bargs), t)
+            print(line)
     return {"max_abs_err": worst, "times": times}
 
 
@@ -415,17 +655,11 @@ def _toy_batches(hp, n: int):
     raise AssertionError("toy dataset gave %d batches" % len(out))
 
 
-def _launch_counts() -> dict:
-    return {"bilstm_scan": cuda_lstm.bilstm_scan.launches,
-            "bilstm_scan_train": cuda_lstm.bilstm_scan_train.launches,
-            "bilstm_scan_bwd": cuda_lstm.bilstm_scan_bwd.launches}
-
-
 def _counted(fn, want: dict, what: str):
-    """Run fn() and check how often each BiLSTM kernel launched in it."""
-    before = _launch_counts()
+    """Run fn() and check how often each kernel launched in it."""
+    before = _counts()
     out = fn()
-    got = {k: v - before[k] for k, v in _launch_counts().items()}
+    got = {k: v - before[k] for k, v in _counts().items()}
     if got != want:
         raise AssertionError("%s launched %s, want %s" % (what, got, want))
     return out
@@ -435,55 +669,149 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def _train_dtype(dtype: str) -> dict:
-    """Phase 7 for one COMPUTE_DTYPE: card vs CPU, launch counts."""
-    hp = load_config(ENCODER_TYPE="bilstm-orig", COMPUTE_DTYPE=dtype)
+def _errs(card: dict, cpu: dict, keys, snr_ratio: bool) -> dict:
+    """Relative errors of the loss and the SNR; with ``snr_ratio`` that of
+    the power ratio behind the SNR (phase 11, see the module docstring)."""
+    return {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 10.0 / np.log(10))
+            if k == "SNR" and snr_ratio else _rel(card[k], cpu[k])
+            for k in keys}
+
+
+def _sync(dst: dict, src: dict) -> None:
+    """The CPU trainer's state takes over the card's parameters and Adam
+    moments."""
+    with torch.no_grad():
+        pairs = list(zip(weights.leaves(dst["params"]),
+                         weights.leaves(src["params"])))
+        pairs += list(zip(dst["opt"].mu, src["opt"].mu))
+        pairs += list(zip(dst["opt"].nu, src["opt"].nu))
+        for d, s in pairs:
+            d.copy_(s.cpu())
+    dst["opt"].count = src["opt"].count
+    dst["step"] = src["step"]
+
+
+def _record_grads(opt, apply=None) -> None:
+    """Make ``opt.step`` keep the gradients it is handed, moved to the CPU,
+    in ``opt.recorded``; with ``apply`` (a callable that returns
+    gradients) it applies those instead of the ones it was handed."""
+    step = opt.step
+
+    def recording_step(grads):
+        opt.recorded = [g.detach().cpu().clone() for g in grads]
+        step(apply() if apply is not None else grads)
+    opt.step = recording_step
+
+
+def _check_synced_step(tag: str, dtype: str, names: list, sg: dict,
+                       sc: dict) -> float:
+    """After one step of phase 11 taken from one state: float32 gradients
+    card vs CPU per tensor to 1e-4 of the tensor's peak; then the card's
+    parameters against the CPU's (the CPU's Adam step applied to the
+    card's gradients) to one float32 ulp + 1e-6 x LR.  -> the worst
+    gradient error as a share of its tensor's peak (0 in bfloat16)."""
+    worst, worst_name = 0.0, names[0]
+    if dtype == "float32":
+        for name, g, r in zip(names, sg["opt"].recorded, sc["opt"].recorded):
+            peak = float(r.abs().max())
+            err = float((g - r).abs().max())
+            if not err <= 1e-4 * peak:
+                raise AssertionError("%s gradient %s: max abs err %.3g > "
+                                     "1e-4 x peak %.3g" % (tag, name, err,
+                                                          peak))
+            if peak and err / peak > worst:
+                worst, worst_name = err / peak, name
+    lr = sg["opt"].lr
+    d_max, share = 0.0, 0.0
+    for name, g, c in zip(names, weights.leaves(sg["params"]),
+                          weights.leaves(sc["params"])):
+        g, c = g.detach().cpu(), c.detach()
+        ulp = torch.nextafter(c.abs(), torch.tensor(float("inf"))) - c.abs()
+        d = (g - c).abs()
+        ratio = float((d / (ulp + 1e-6 * lr)).max())
+        if not ratio <= 1.0:
+            raise AssertionError(
+                "%s parameters %s: max |card - CPU's Adam step on the card's "
+                "gradients| %.3g beyond 1 ulp + 1e-6 x LR" % (
+                    tag, name, float(d.max())))
+        d_max = max(d_max, float(d.max()))
+        share = max(share, ratio)
+    print("%s: %sparameters vs the CPU's Adam step on the card's gradients: "
+          "max abs diff %.3g, worst element at %.3g of its bound (1 ulp + "
+          "1e-6 x LR)"
+          % (tag, "" if dtype != "float32" else
+             "gradients worst max abs err %.3g of the tensor's peak (%s; "
+             "bound 1e-4); " % (worst, worst_name), d_max, share))
+    return worst
+
+
+def _train_dtype(phase: int, encoder: str, dtype: str, synced: bool) -> dict:
+    """One COMPUTE_DTYPE of a training phase: card vs CPU, launch counts;
+    ``synced``: the CPU starts each step from the card's state, and each
+    step's gradients and optimizer step are checked (phase 11)."""
+    hp = load_config(ENCODER_TYPE=encoder, COMPUTE_DTYPE=dtype)
     model = hp.get_model()(hp)
     n_layers = model.encoder.N_LAYERS
     batches = _toy_batches(hp, TRAIN_STEPS + 1)
     p0 = weights.to_jax(model.init(torch.Generator().manual_seed(0)))
     gpu, cpu = Trainer(model, hp, "cuda"), Trainer(model, hp, "cpu")
     sg, sc = gpu.init_state(params=p0), cpu.init_state(params=p0)
-    step_want = {"bilstm_scan": 0, "bilstm_scan_train": n_layers,
-                 "bilstm_scan_bwd": n_layers}
-    valid_want = {"bilstm_scan": n_layers, "bilstm_scan_train": 0,
-                  "bilstm_scan_bwd": 0}
+    if synced:
+        _record_grads(sg["opt"])
+        _record_grads(sc["opt"], apply=lambda: sg["opt"].recorded)
+    names = ["/".join(k) for k in _paths(p0)]
+    lean, fwd, bwd = ENCODER_KERNELS[encoder]
+    step_want = {name: 0 for name in KERNELS}
+    valid_want = dict(step_want, **{lean: n_layers})
+    step_want.update({fwd: n_layers, bwd: n_layers})
     rtol = STEP_RTOL[dtype]
-    worst = 0.0
+    worst = grad_worst = 0.0
     for i, batch in enumerate(batches[:TRAIN_STEPS]):
+        if synced:
+            _sync(sc, sg)
         mg = _counted(lambda: gpu.train_step(sg, batch), step_want,
-                      "train step %d (%s)" % (i + 1, dtype))
+                      "phase %d %s train step %d (%s)"
+                      % (phase, encoder, i + 1, dtype))
         mg = {k: float(v) for k, v in mg.items()}
         mc = {k: float(v) for k, v in cpu.train_step(sc, batch).items()}
+        if synced:
+            grad_worst = max(grad_worst, _check_synced_step(
+                "phase %d %s %s step %d" % (phase, encoder, dtype, i + 1),
+                dtype, names, sg, sc))
         keys = ("loss", "SNR") if dtype == "float32" else ("loss",)
-        errs = {k: _rel(mg[k], mc[k]) for k in keys}
-        print("phase 7 %s step %d: card loss %.9g SNR %.6g, CPU loss %.9g "
-              "SNR %.6g; relative err %s (rtol %g)"
-              % (dtype, i + 1, mg["loss"], mg["SNR"], mc["loss"], mc["SNR"],
+        errs = _errs(mg, mc, keys, synced)
+        print("phase %d %s %s step %d: card loss %.9g SNR %.6g, CPU loss "
+              "%.9g SNR %.6g; relative err %s (rtol %g)"
+              % (phase, encoder, dtype, i + 1, mg["loss"], mg["SNR"],
+                 mc["loss"], mc["SNR"],
                  " ".join("%s %.3g" % kv for kv in errs.items()), rtol))
         if not all(np.isfinite(v) for v in mg.values()) \
                 or not max(errs.values()) <= rtol:
-            raise AssertionError("phase 7 %s step %d: card %s vs CPU %s"
-                                 % (dtype, i + 1, mg, mc))
+            raise AssertionError("phase %d %s %s step %d: card %s vs CPU %s"
+                                 % (phase, encoder, dtype, i + 1, mg, mc))
         worst = max(worst, *errs.values())
+    if synced:
+        _sync(sc, sg)
     vg = _counted(lambda: gpu.valid_step(sg, batches[-1]), valid_want,
-                  "valid step (%s)" % dtype)
+                  "phase %d %s valid step (%s)" % (phase, encoder, dtype))
     vg = {k: float(v) for k, v in vg.items()}
     vc = {k: float(v) for k, v in cpu.valid_step(sc, batches[-1]).items()}
-    print("phase 7 %s valid step: card %s, CPU %s" % (dtype, vg, vc))
+    print("phase %d %s %s valid step: card %s, CPU %s"
+          % (phase, encoder, dtype, vg, vc))
     if not all(np.isfinite(v) for v in vg.values()) \
             or not _rel(vg["loss"], vc["loss"]) <= rtol:
-        raise AssertionError("phase 7 %s valid step: card %s vs CPU %s"
-                             % (dtype, vg, vc))
+        raise AssertionError("phase %d %s %s valid step: card %s vs CPU %s"
+                             % (phase, encoder, dtype, vg, vc))
     return {"model": model, "p0": p0, "batches": batches, "gpu": sg,
-            "cpu": sc, "worst_step_rel": worst}
+            "cpu": sc, "worst_step_rel": worst, "grad_rel": grad_worst}
 
 
-def _check_params_f32(run: dict) -> float:
+def _check_params_f32(phase: int, run: dict) -> float:
     """Step-1 gradients, card vs CPU, per tensor to 1e-4 of the tensor's
-    peak; then the parameters after the last step, to 1e-4 of the
+    peak; then the parameters after TRAIN_STEPS steps to PARAM_RTOL of the
     tensor's peak change from init plus one float32 ulp per step."""
     model, p0, batch = run["model"], run["p0"], run["batches"][0]
+    tag = "phase %d %s" % (phase, model.hp.ENCODER_TYPE)
     names = ["/".join(k) for k in _paths(p0)]
     grads = []
     for dev in ("cuda", "cpu"):
@@ -496,12 +824,11 @@ def _check_params_f32(run: dict) -> float:
         peak = float(r.abs().max())
         err = float((g - r).abs().max())
         if not err <= 1e-4 * peak:
-            raise AssertionError("phase 7 step-1 gradient %s: max abs err "
-                                 "%.3g > 1e-4 x peak %.3g" % (name, err,
-                                                              peak))
+            raise AssertionError("%s step-1 gradient %s: max abs err %.3g > "
+                                 "1e-4 x peak %.3g" % (tag, name, err, peak))
         worst = max(worst, err / peak if peak else 0.0)
-    print("phase 7 float32 step-1 gradients: worst max abs err %.3g of the "
-          "tensor's peak (bound 1e-4), %d tensors" % (worst, len(names)))
+    print("%s float32 step-1 gradients: worst max abs err %.3g of the "
+          "tensor's peak (bound 1e-4), %d tensors" % (tag, worst, len(names)))
     init = weights.leaves(weights.from_jax(p0))
     bad = []
     for name, g, c, p, g1 in zip(names, weights.leaves(run["gpu"]["params"]),
@@ -512,10 +839,10 @@ def _check_params_f32(run: dict) -> float:
         ulp = torch.nextafter(c.abs(), torch.tensor(float("inf"))) - c.abs()
         d = (g - c).abs()
         beyond = d > 1e-4 * change + TRAIN_STEPS * ulp
-        line = ("phase 7 float32 after step %d: %s max |card - CPU| %.3g, "
-                "peak change %.3g; beyond 1e-4 of it + %d ulp: %d of %d"
-                % (TRAIN_STEPS, name, float(d.max()), change, TRAIN_STEPS,
-                   int(beyond.sum()), d.numel()))
+        line = ("%s float32 after step %d: %s max |card - CPU| %.3g, peak "
+                "change %.3g; beyond 1e-4 of it + %d ulp: %d of %d"
+                % (tag, TRAIN_STEPS, name, float(d.max()), change,
+                   TRAIN_STEPS, int(beyond.sum()), d.numel()))
         if beyond.any():
             # Adam's m/(sqrt(v) + eps) amplifies the f32 noise of a
             # gradient element that sits near zero
@@ -527,9 +854,10 @@ def _check_params_f32(run: dict) -> float:
         if (d > PARAM_RTOL * change + TRAIN_STEPS * ulp).any():
             bad.append(name)
     if bad:
-        raise AssertionError("phase 7 parameters after step %d beyond %g of "
-                             "the peak change + %d ulp: %s"
-                             % (TRAIN_STEPS, PARAM_RTOL, TRAIN_STEPS, bad))
+        raise AssertionError("%s parameters after step %d beyond %g of the "
+                             "peak change + %d ulp: %s"
+                             % (tag, TRAIN_STEPS, PARAM_RTOL, TRAIN_STEPS,
+                                bad))
     return worst
 
 
@@ -541,9 +869,9 @@ def _paths(tree, prefix=()):
     return out
 
 
-def _step_ms(dtype: str, backend: str, reps: int) -> float:
+def _step_ms(encoder: str, dtype: str, backend: str, reps: int) -> float:
     """Median wall time of a synchronized train step on the card."""
-    hp = load_config(ENCODER_TYPE="bilstm-orig", COMPUTE_DTYPE=dtype,
+    hp = load_config(ENCODER_TYPE=encoder, COMPUTE_DTYPE=dtype,
                      LSTM_BACKEND=backend)
     model = hp.get_model()(hp)
     batch = _toy_batches(hp, 1)[0]
@@ -557,30 +885,133 @@ def _step_ms(dtype: str, backend: str, reps: int) -> float:
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) * 1e3)
         if not np.isfinite(float(m["loss"])):
-            raise AssertionError("phase 7 timing %s %s: loss %s"
-                                 % (dtype, backend, m["loss"]))
+            raise AssertionError("timing %s %s %s: loss %s"
+                                 % (encoder, dtype, backend, m["loss"]))
     return float(np.median(out[1:]))
 
 
-def phase_training() -> dict:
-    # the main path of this phase: the counts start at 0 here
-    cuda_lstm.bilstm_scan.launches = 0
-    cuda_lstm.bilstm_scan_train.launches = 0
-    cuda_lstm.bilstm_scan_bwd.launches = 0
-    runs = {dt: _train_dtype(dt) for dt in ("float32", "bfloat16")}
-    launches = _launch_counts()
-    print("phase 7 launches over 2 x (%d train steps + 1 valid step): %s"
-          % (TRAIN_STEPS, launches))
-    grad_rel = _check_params_f32(runs["float32"])
+def _train(phase: int, encoder: str, reps: int, plain_reps: int,
+           synced: bool) -> dict:
+    """A training phase for one encoder: both dtypes card vs CPU with the
+    launch counts, the float32 gradients and parameters, step times;
+    ``synced`` selects phase 11's protocol (see the module docstring)."""
+    _zero_counts()  # the main path of this phase: the counts start at 0
+    runs = {dt: _train_dtype(phase, encoder, dt, synced)
+            for dt in ("float32", "bfloat16")}
+    launches = _counts()
+    print("phase %d %s launches over 2 x (%d train steps + 1 valid step): "
+          "%s" % (phase, encoder, TRAIN_STEPS,
+                  {k: v for k, v in launches.items() if v}))
+    grad_rel = runs["float32"]["grad_rel"] if synced \
+        else _check_params_f32(phase, runs["float32"])
+    model = runs["float32"]["model"]
     times = {}
     for dt in ("float32", "bfloat16"):
-        kernel = _step_ms(dt, "auto", 5)
-        plain = _step_ms(dt, "xla", 3)
+        kernel = _step_ms(encoder, dt, "auto", reps)
+        plain = _step_ms(encoder, dt, "xla", plain_reps)
         times[dt] = (kernel, plain)
-        print("phase 7 %s train step (B=32, T=128, 4 x 300): kernel path "
-              "%.3f ms, plain path %.3f ms (medians)" % (dt, kernel, plain))
+        print("phase %d %s %s train step (B=32, T=128, %d x %d): kernel "
+              "path %.3f ms, plain path %.3f ms (medians)"
+              % (phase, encoder, dt, model.encoder.N_LAYERS,
+                 model.encoder.HDIM, kernel, plain))
     return {"launches": launches, "times": times, "grad_rel": grad_rel,
             "step_rel": {dt: r["worst_step_rel"] for dt, r in runs.items()}}
+
+
+def phase_training() -> dict:
+    return _train(7, "bilstm-orig", 5, 3, False)
+
+
+def phase_training_unidirectional() -> dict:
+    return {enc: _train(11, enc, 5, 2, True)
+            for enc in ("lstm-orig", "gru-v1")}
+
+
+def _bound(flops: float, nbytes: float):
+    """(ms, "operations" or "bytes"): the least time of the work on the
+    card, the larger of its FLOPs at the float32 peak and its bytes at the
+    memory rate."""
+    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    by_bytes = nbytes / PEAK_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else \
+        (by_bytes, "bytes")
+
+
+def _cost(name: str, t: int, b: int) -> tuple:
+    """(FLOPs, bytes) of one float32 call of kernel ``name`` at (T, B): the
+    recurrent products, or for kernel A the windowing and a real FFT of
+    each frame (5/2 N log2 N FLOPs at N = 256, what torch.stft needs; the
+    kernel's matmul DFT does 2 x 256 x 258 per frame, which the function
+    does not need); each input read once and each output written once
+    (kernel A: the wave and the window in, the spectrum out)."""
+    if name == "stft_ri":              # here t is the wave length
+        n_frames = stft_frame_count(t, 256, 64)
+        return (b * n_frames * (2.5 * 256 * 8 + 256),
+                4.0 * (b * t + 256 + b * n_frames * 258))
+    if name.startswith("gru"):
+        h = 600
+        flops = 2.0 * t * b * h * 3 * h
+        if name == "gru_scan_bwd":     # d_cs, acts, c_prev, weights, outs
+            return flops, 4.0 * (5 * t * b * h + 3 * h * h + 3 * t * b * h
+                                 + b * h)
+        out = t * b * h * (4 if name == "gru_scan_train" else 1)
+        return flops, 4.0 * (3 * t * b * h + 3 * h * h + b * h + out)
+    d, h = (2, 300) if name.startswith("bilstm") else (1, 600)
+    flops = 2.0 * t * b * h * 4 * h * d
+    if name.endswith("_bwd"):          # d_hs, cs, c_prev, acts, wh; outs
+        return flops, 4.0 * d * (3 * t * b * h + 4 * t * b * h + 4 * h * h
+                                 + 4 * t * b * h + 2 * b * h)
+    out = t * b * h * (6 if name.endswith("_train") else 1)
+    return flops, 4.0 * d * (4 * t * b * h + 4 * h * h + 2 * b * h + out)
+
+
+# the shape each kernel is timed at: its main path's (T or samples, B)
+TIMED_AT = {"stft_ri": (80000, 1), "bilstm_scan": (1251, 1),
+            "lstm_scan": (1251, 1), "gru_scan": (1251, 1)}
+GRU_NO_LIBRARY = ("none: cuDNN's GRU (torch.nn.GRU) computes "
+                  "tanh(W_in x + r * (W_hn h + b_hn)), r after the recurrent "
+                  "product; this repo's GRU computes tanh(cx + (c * r) @ Wch)")
+
+
+def phase_library(window) -> dict:
+    """One PyTorch call per kernel that computes the same function, timed
+    at the kernel's shape, float32; the port never calls these."""
+    rs = np.random.RandomState(12)
+    out = {}
+    x = torch.from_numpy((rs.randn(1, 80000) * 0.3).astype(np.float32)).cuda()
+    w = torch.from_numpy(np.asarray(window, np.float32)).cuda()
+    scale = 1.0 / float(w.sum())
+    out["stft_ri"] = (cuda_ms(lambda: torch.stft(
+        x, 256, 64, window=w, center=True, pad_mode="constant",
+        return_complex=True) * scale, 50),
+        "torch.stft, center=True, pad_mode='constant', times 1/sum(window)")
+    for prefix, hidden, bidir in (("bilstm", 300, True),
+                                  ("lstm", 600, False)):
+        lstm = torch.nn.LSTM(600, hidden, bidirectional=bidir).cuda()
+        note = ("torch.nn.LSTM(600, %d%s) (cuDNN), tanh candidate; it also "
+                "computes the input projection" % (
+                    hidden, ", bidirectional" if bidir else ""))
+        xs = torch.from_numpy(rs.randn(1251, 1, 600).astype(
+            np.float32)).cuda()
+        with torch.no_grad():
+            out[prefix + "_scan"] = (cuda_ms(lambda: lstm(xs), 10), note)
+        xt = torch.from_numpy(rs.randn(128, 32, 600).astype(
+            np.float32)).cuda().requires_grad_(True)
+        out[prefix + "_scan_train"] = (
+            cuda_ms(lambda: lstm(xt), 10), note + ", training forward")
+        y, _ = lstm(xt)
+        g = torch.randn_like(y)
+        out[prefix + "_scan_bwd"] = (
+            cuda_ms(lambda: torch.autograd.grad(y, xt, g, retain_graph=True),
+                    10),
+            note + "; its backward to the input only (no weight gradients), "
+            "which includes the input projection's backward")
+    for name in ("gru_scan", "gru_scan_train", "gru_scan_bwd"):
+        out[name] = (None, GRU_NO_LIBRARY)
+    for name, (ms, note) in out.items():
+        print("phase 12 library %s: %s (%s)" % (
+            name, "%.4f ms" % ms if ms is not None else "null", note))
+    return out
 
 
 def main():
@@ -592,43 +1023,82 @@ def main():
     serving = phase_serving()
     train_kernels = phase_train_kernels()
     training = phase_training()
+    uni_kernels = phase_lstm_unidirectional()
+    gru_kernels = phase_gru()
+    serving_uni = phase_serving_unidirectional()
+    training_uni = phase_training_unidirectional()
+    library = phase_library(window)
     print("summary: bilstm_scan bfloat16 max_abs_err %.3g (atol %g); "
-          "serving worst error vs CPU %.3g of the peak (rtol %g); "
-          "training kernels bfloat16 max_abs_err %.3g; train steps vs CPU: "
-          "worst relative loss/SNR err %s, step-1 gradients %.3g of the peak"
+          "serving worst error vs CPU %.3g of the peak (rtol %g), lstm-orig "
+          "%.3g, gru-v1 %.3g; train steps vs CPU: worst relative loss/SNR "
+          "err %s, step-1 gradients %.3g of the peak; lstm-orig %s, every "
+          "step's gradients %.3g; gru-v1 %s, %.3g"
           % (scan["max_abs_err"][torch.bfloat16], LSTM_ATOL[torch.bfloat16],
              serving["max_rel_err"], SERVE_RTOL,
-             max(w[torch.bfloat16]
-                 for w in train_kernels["max_abs_err"].values()),
-             training["step_rel"], training["grad_rel"]))
-    a_ms, a_plain = stft["times"][(1, 80000)]
-    b_ms, b_plain = scan["times"][(1251, 1)]
-    kernels = [
-        {"name": "stft_ri", "route": "cuda",
-         "source": "danet_tpu_torch/csrc/stft.cu",
-         "replaces": "danet_tpu/ops/pallas/stft.py:95",
-         "launches": serving["launches"]["stft_ri"],
-         "max_abs_err": stft["max_abs_err"], "ms": a_ms,
-         "plain_ms": a_plain},
-        {"name": "bilstm_scan", "route": "cuda",
-         "source": "danet_tpu_torch/csrc/bilstm_scan.cu",
-         "replaces": "danet_tpu/ops/pallas/lstm.py:242",
-         "launches": serving["launches"]["bilstm_scan"]
-         + training["launches"]["bilstm_scan"],
-         "max_abs_err": scan["max_abs_err"][torch.float32], "ms": b_ms,
-         "plain_ms": b_plain},
-    ]
-    for name, source, replaces in (
-            ("bilstm_scan_train", "danet_tpu_torch/csrc/bilstm_scan.cu",
-             "danet_tpu/ops/pallas/lstm.py:242 (save=True)"),
-            ("bilstm_scan_bwd", "danet_tpu_torch/csrc/bilstm_scan_bwd.cu",
-             "danet_tpu/ops/pallas/lstm.py:275")):
-        ms, plain = train_kernels["times"][name]
+             serving_uni["lstm-orig"]["max_rel_err"],
+             serving_uni["gru-v1"]["max_rel_err"],
+             training["step_rel"], training["grad_rel"],
+             training_uni["lstm-orig"]["step_rel"],
+             training_uni["lstm-orig"]["grad_rel"],
+             training_uni["gru-v1"]["step_rel"],
+             training_uni["gru-v1"]["grad_rel"]))
+    # launches: the counts of the main paths that run each kernel, each
+    # zeroed just before its path and read just after it
+    paths = [serving["launches"], training["launches"]] + [
+        run["launches"] for run in list(serving_uni.values())
+        + list(training_uni.values())]
+    launches = {name: sum(p[name] for p in paths) for name in KERNELS}
+    times = dict(stft=stft["times"][(1, 80000)],
+                 bilstm_scan=scan["times"][(1251, 1)],
+                 **train_kernels["times"], **uni_kernels["times"],
+                 **gru_kernels["times"])
+    times["stft_ri"] = times.pop("stft")
+    errs = {"stft_ri": stft["max_abs_err"],
+            "bilstm_scan": scan["max_abs_err"][torch.float32]}
+    for phase in (train_kernels, uni_kernels, gru_kernels):
+        errs.update({k: v[torch.float32]
+                     for k, v in phase["max_abs_err"].items()})
+    sources = {
+        "stft_ri": ("danet_tpu_torch/csrc/stft.cu",
+                    "danet_tpu/ops/pallas/stft.py:95"),
+        "bilstm_scan": ("danet_tpu_torch/csrc/bilstm_scan.cu",
+                        "danet_tpu/ops/pallas/lstm.py:242 (n_dirs=2)"),
+        "bilstm_scan_train": ("danet_tpu_torch/csrc/bilstm_scan.cu",
+                              "danet_tpu/ops/pallas/lstm.py:242 (n_dirs=2, "
+                              "save=True)"),
+        "bilstm_scan_bwd": ("danet_tpu_torch/csrc/bilstm_scan_bwd.cu",
+                            "danet_tpu/ops/pallas/lstm.py:275 (n_dirs=2)"),
+        "lstm_scan": ("danet_tpu_torch/csrc/bilstm_scan.cu",
+                      "danet_tpu/ops/pallas/lstm.py:242 (n_dirs=1)"),
+        "lstm_scan_train": ("danet_tpu_torch/csrc/bilstm_scan.cu",
+                            "danet_tpu/ops/pallas/lstm.py:242 (n_dirs=1, "
+                            "save=True)"),
+        "lstm_scan_bwd": ("danet_tpu_torch/csrc/bilstm_scan_bwd.cu",
+                          "danet_tpu/ops/pallas/lstm.py:275 (n_dirs=1)"),
+        "gru_scan": ("danet_tpu_torch/csrc/gru_scan.cu",
+                     "danet_tpu/ops/pallas/gru.py:145"),
+        "gru_scan_train": ("danet_tpu_torch/csrc/gru_scan.cu",
+                           "danet_tpu/ops/pallas/gru.py:145 (save=True)"),
+        "gru_scan_bwd": ("danet_tpu_torch/csrc/gru_scan_bwd.cu",
+                         "danet_tpu/ops/pallas/gru.py:169"),
+    }
+    kernels = []
+    for name in KERNELS:
+        t, b = TIMED_AT.get(name, (128, 32))
+        bound_ms, bound_by = _bound(*_cost(name, t, b))
+        ms, plain_ms = times[name]
+        lib_ms, lib_note = library[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": training["launches"][name],
-            "max_abs_err": train_kernels["max_abs_err"][name][torch.float32],
-            "ms": ms, "plain_ms": plain})
+            "name": name, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "library": lib_note,
+            "timed_at": "%s=%d, B=%d, float32" % (
+                "L" if name == "stft_ri" else "T", t, b)})
+        if not launches[name]:
+            raise AssertionError("%s was not launched on its main path"
+                                 % name)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
-// Kernels B and 2: the whole time loop of one bidirectional LSTM layer,
-// both directions, in one cooperative launch.
+// Kernels B and 2, and their one-direction forms: the whole time loop of
+// one LSTM layer, all its directions, in one cooperative launch.
 //
-// Replaces the forward of danet_tpu/ops/pallas/lstm.py::bilstm_scan_pallas
-// (_fwd_call with n_dirs=2): SAVE=false is the lean (inference) forward,
-// kernel B; SAVE=true is the training forward, kernel 2, which also writes
-// the residuals that the backward (bilstm_scan_bwd.cu) replays.
+// Replaces the forward of danet_tpu/ops/pallas/lstm.py (_fwd_call):
+// bilstm_scan_pallas (n_dirs=2) and lstm_scan_pallas (n_dirs=1).
+// SAVE=false is the lean (inference) forward, kernel B; SAVE=true is the
+// training forward, kernel 2, which also writes the residuals that the
+// backward (bilstm_scan_bwd.cu) replays.
 //
 //   act_t  = xp_t + h_{t-1} @ Wh           (f32 accumulate)
 //   cand   = tanh(act[0:H]) or act[0:H]     (gate order cand|i|f|o)
@@ -15,16 +16,20 @@
 //   SAVE:  cs[t] = c_t and acts[t] = [cand, i, f, o], each rounded to the
 //          storage type (as the TPU kernel stores its residuals)
 //
-// Shapes: xp [T, 2, B, 4H], wh [2, H, 4H], c0/h0 [2, B, H] -> hs (and cs)
-// [T, 2, B, H], acts [T, 2, B, 4H]; storage f32 or bf16, gate math and the
-// cell carry f32.  Direction 1 sees the time-reversed input; the caller
-// reverses in and out.
+// Shapes, with D = n_dirs (1 or 2): xp [T, D, B, 4H], wh [D, H, 4H],
+// c0/h0 [D, B, H] -> hs (and cs) [T, D, B, H], acts [T, D, B, 4H]; with
+// D = 1 that is exactly [T, B, 4H], [H, 4H], [B, H].  Storage f32 or bf16,
+// gate math and the cell carry f32.  With D = 2, direction 1 sees the
+// time-reversed input; the caller reverses in and out.
 //
 // What bounds it on this card: Wh of one direction is H x 4H (1.44 MB in
-// f32 at H=300), far beyond one SM's 227 KB of shared memory, and each
-// step depends on the whole h_{t-1}.  Design: each direction's hidden
-// units are split over blocks, UNITS per block (19 blocks per direction at
-// H=300, 38 in all, one wave on 132 SMs).  A block keeps its [H, 4*UNITS]
+// f32 at H=300, 5.76 MB at H=600), far beyond one SM's 227 KB of shared
+// memory, and each step depends on the whole h_{t-1}.  Design: each
+// direction's hidden units are split over blocks, UNITS per block (grid.x
+// blocks per direction, grid.y = D; D is also a template parameter, so that
+// the direction stride is a constant in the index arithmetic, as it was
+// when D was fixed at 2: read at run time, it made kernels B and 2 21 % and
+// 32 % slower at H=300).  A block keeps its [H, 4*UNITS]
 // column slice of Wh (all four gates of its units) in shared memory for the
 // whole run and its units' cell state in shared memory.  Each step it reads
 // the full h_{t-1} of its direction straight from hs[t-1] (written by the
@@ -33,6 +38,11 @@
 // slice of h_t into hs[t], and meets the other blocks at a grid-wide
 // barrier.  So the per-step latency of that barrier and of the h exchange
 // through L2, not FLOPs or bytes, sets the speed at serving batch sizes.
+//
+// UNITS is 16 wherever its shared memory fits (every H=300 shape up to
+// B=68, and H=600 up to B=19: 38 blocks per direction at H=600), else 8
+// (H=600 at B=32: 75 blocks, 183 KB).  600 is not a multiple of 16: the
+// last block's units past H are masked (u0 + u < hdim).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
@@ -42,17 +52,25 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int UNITS = 16;             // hidden units per block
-constexpr int COLS = 4 * UNITS;       // gate columns per block
-constexpr int KSPLIT = 4;             // contraction split over thread rows
-constexpr int THREADS = COLS * KSPLIT;  // 256
+constexpr int THREADS = 256;
 constexpr int BT = 4;                 // batch rows per register tile
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
+// UNITS hidden units per block: COLS = 4 * UNITS gate columns, and the
+// contraction over H split KSPLIT ways over the thread rows
+template <int UNITS>
+struct Tile {
+  static constexpr int COLS = 4 * UNITS;
+  static constexpr int KSPLIT = THREADS / COLS;
+  static_assert(KSPLIT * COLS == THREADS, "UNITS must divide 64");
+};
+
+template <int UNITS>
 size_t smem_bytes(int batch, int hdim) {
+  constexpr int COLS = Tile<UNITS>::COLS, KSPLIT = Tile<UNITS>::KSPLIT;
   // w_s [H][COLS] + h_s [B][H] + part_s [KSPLIT][B][COLS] + c_s [B][UNITS]
   return sizeof(float) * (static_cast<size_t>(hdim) * COLS +
                           static_cast<size_t>(batch) * hdim +
@@ -60,12 +78,13 @@ size_t smem_bytes(int batch, int hdim) {
                           static_cast<size_t>(batch) * UNITS);
 }
 
-template <typename T, bool TANH, bool SAVE>
+template <typename T, bool TANH, bool SAVE, int UNITS, int NDIRS>
 __global__ void __launch_bounds__(THREADS)
 bilstm_scan_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
                    const T* __restrict__ c0, const T* __restrict__ h0,
                    T* hs, T* __restrict__ cs, T* __restrict__ acts,
                    int n_steps, int batch, int hdim) {
+  constexpr int COLS = Tile<UNITS>::COLS, KSPLIT = Tile<UNITS>::KSPLIT;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
   float* w_s = smem;
@@ -95,8 +114,9 @@ bilstm_scan_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
   const int col = tid % COLS;  // gate column g*UNITS + u of this block
   const int ks = tid / COLS;   // k = ks, ks + KSPLIT, ...
   for (int t = 0; t < n_steps; ++t) {
-    const T* hprev = (t == 0) ? h0 + dir * bh
-                              : hs + (static_cast<size_t>(t - 1) * 2 + dir) * bh;
+    const T* hprev =
+        (t == 0) ? h0 + dir * bh
+                 : hs + (static_cast<size_t>(t - 1) * NDIRS + dir) * bh;
     for (size_t e = tid; e < bh; e += THREADS) h_s[e] = load_cg(hprev + e);
     __syncthreads();
 
@@ -120,8 +140,8 @@ bilstm_scan_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
     __syncthreads();
 
     // cell update for this block's (batch row, unit) pairs
-    T* hs_t = hs + (static_cast<size_t>(t) * 2 + dir) * bh;
-    const size_t x_off = (static_cast<size_t>(t) * 2 + dir) * batch * g4;
+    T* hs_t = hs + (static_cast<size_t>(t) * NDIRS + dir) * bh;
+    const size_t x_off = (static_cast<size_t>(t) * NDIRS + dir) * batch * g4;
     const T* xp_t = xp + x_off;
     for (int e = tid; e < batch * UNITS; e += THREADS) {
       const int b = e / UNITS, u = e % UNITS, unit = u0 + u;
@@ -141,7 +161,7 @@ bilstm_scan_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
       c_s[e] = c;
       hs_t[static_cast<size_t>(b) * hdim + unit] = from_f32<T>(og * tanhf(c));
       if (SAVE) {
-        cs[(static_cast<size_t>(t) * 2 + dir) * bh +
+        cs[(static_cast<size_t>(t) * NDIRS + dir) * bh +
            static_cast<size_t>(b) * hdim + unit] = from_f32<T>(c);
         T* act_t = acts + x_off + static_cast<size_t>(b) * g4 + unit;
         act_t[0] = from_f32<T>(cand);
@@ -154,13 +174,13 @@ bilstm_scan_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
   }
 }
 
-template <typename T, bool TANH, bool SAVE>
+template <typename T, bool TANH, bool SAVE, int UNITS, int NDIRS>
 int launch(const void* xp, const void* wh, const void* c0, const void* h0,
            void* hs, void* cs, void* acts, int n_steps, int batch, int hdim,
            cudaStream_t stream) {
-  auto kernel = bilstm_scan_kernel<T, TANH, SAVE>;
-  const size_t smem = smem_bytes(batch, hdim);
-  const dim3 grid((hdim + UNITS - 1) / UNITS, 2);
+  auto kernel = bilstm_scan_kernel<T, TANH, SAVE, UNITS, NDIRS>;
+  const size_t smem = smem_bytes<UNITS>(batch, hdim);
+  const dim3 grid((hdim + UNITS - 1) / UNITS, NDIRS);
   const int fit = cooperative_fit(kernel, grid, THREADS, smem);
   if (fit != 0) return fit;  // never degrade: the barrier would hang
 
@@ -180,25 +200,53 @@ int launch(const void* xp, const void* wh, const void* c0, const void* h0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// UNITS = 16 where its shared memory fits the device, else 8 (see header)
+template <typename T, bool TANH, bool SAVE, int NDIRS>
+int launch_units(const void* xp, const void* wh, const void* c0,
+                 const void* h0, void* hs, void* cs, void* acts, int n_steps,
+                 int batch, int hdim, cudaStream_t stream) {
+  int optin = 0;
+  const int err = smem_optin(&optin);
+  if (err != 0) return err;
+  if (smem_bytes<16>(batch, hdim) <= static_cast<size_t>(optin))
+    return launch<T, TANH, SAVE, 16, NDIRS>(xp, wh, c0, h0, hs, cs, acts,
+                                            n_steps, batch, hdim, stream);
+  return launch<T, TANH, SAVE, 8, NDIRS>(xp, wh, c0, h0, hs, cs, acts,
+                                         n_steps, batch, hdim, stream);
+}
+
+template <typename T, bool TANH, bool SAVE>
+int launch_dirs(const void* xp, const void* wh, const void* c0,
+                const void* h0, void* hs, void* cs, void* acts, int n_steps,
+                int batch, int hdim, int n_dirs, cudaStream_t stream) {
+  return n_dirs == 1
+             ? launch_units<T, TANH, SAVE, 1>(xp, wh, c0, h0, hs, cs, acts,
+                                              n_steps, batch, hdim, stream)
+             : launch_units<T, TANH, SAVE, 2>(xp, wh, c0, h0, hs, cs, acts,
+                                              n_steps, batch, hdim, stream);
+}
+
 template <bool SAVE>
 int dispatch(const void* xp, const void* wh, const void* c0, const void* h0,
              void* hs, void* cs, void* acts, int n_steps, int batch, int hdim,
-             int dtype, int tanh_cand, void* stream) {
-  if (n_steps <= 0 || batch <= 0 || hdim <= 0 || (dtype != 0 && dtype != 1))
+             int n_dirs, int dtype, int tanh_cand, void* stream) {
+  if (n_steps <= 0 || batch <= 0 || hdim <= 0 || (dtype != 0 && dtype != 1)
+      || (n_dirs != 1 && n_dirs != 2))
     return DANET_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return tanh_cand ? launch<float, true, SAVE>(xp, wh, c0, h0, hs, cs, acts,
-                                                 n_steps, batch, hdim, s)
-                     : launch<float, false, SAVE>(xp, wh, c0, h0, hs, cs,
-                                                  acts, n_steps, batch, hdim,
-                                                  s);
-  return tanh_cand
-             ? launch<__nv_bfloat16, true, SAVE>(xp, wh, c0, h0, hs, cs, acts,
-                                                 n_steps, batch, hdim, s)
-             : launch<__nv_bfloat16, false, SAVE>(xp, wh, c0, h0, hs, cs,
-                                                  acts, n_steps, batch, hdim,
-                                                  s);
+    return tanh_cand ? launch_dirs<float, true, SAVE>(
+                           xp, wh, c0, h0, hs, cs, acts, n_steps, batch,
+                           hdim, n_dirs, s)
+                     : launch_dirs<float, false, SAVE>(
+                           xp, wh, c0, h0, hs, cs, acts, n_steps, batch,
+                           hdim, n_dirs, s);
+  return tanh_cand ? launch_dirs<__nv_bfloat16, true, SAVE>(
+                         xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim,
+                         n_dirs, s)
+                   : launch_dirs<__nv_bfloat16, false, SAVE>(
+                         xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim,
+                         n_dirs, s);
 }
 
 }  // namespace
@@ -209,7 +257,7 @@ extern "C" int danet_bilstm_scan(const void* xp, const void* wh,
                                  int n_steps, int batch, int hdim, int dtype,
                                  int tanh_cand, void* stream) {
   return dispatch<false>(xp, wh, c0, h0, hs, nullptr, nullptr, n_steps, batch,
-                         hdim, dtype, tanh_cand, stream);
+                         hdim, 2, dtype, tanh_cand, stream);
 }
 
 // Kernel 2: kernel B that also writes cs [T, 2, B, H] and acts
@@ -221,5 +269,25 @@ extern "C" int danet_bilstm_scan_train(const void* xp, const void* wh,
                                        int dtype, int tanh_cand,
                                        void* stream) {
   return dispatch<true>(xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim,
-                        dtype, tanh_cand, stream);
+                        2, dtype, tanh_cand, stream);
+}
+
+// Kernel B with one direction (lstm_scan_pallas): xp [T, B, 4H],
+// wh [H, 4H], c0/h0 [B, H] -> hs [T, B, H].
+extern "C" int danet_lstm_scan(const void* xp, const void* wh,
+                               const void* c0, const void* h0, void* hs,
+                               int n_steps, int batch, int hdim, int dtype,
+                               int tanh_cand, void* stream) {
+  return dispatch<false>(xp, wh, c0, h0, hs, nullptr, nullptr, n_steps, batch,
+                         hdim, 1, dtype, tanh_cand, stream);
+}
+
+// Kernel 2 with one direction: also writes cs [T, B, H], acts [T, B, 4H].
+extern "C" int danet_lstm_scan_train(const void* xp, const void* wh,
+                                     const void* c0, const void* h0,
+                                     void* hs, void* cs, void* acts,
+                                     int n_steps, int batch, int hdim,
+                                     int dtype, int tanh_cand, void* stream) {
+  return dispatch<true>(xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim,
+                        1, dtype, tanh_cand, stream);
 }

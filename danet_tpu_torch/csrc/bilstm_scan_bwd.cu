@@ -1,9 +1,10 @@
-// Kernel 3: the backward of one bidirectional LSTM layer, both directions,
-// the whole reverse time loop in one cooperative launch.
+// Kernel 3 and its one-direction form: the backward of one LSTM layer, all
+// its directions, the whole reverse time loop in one cooperative launch.
 //
-// Replaces danet_tpu/ops/pallas/lstm.py::_bwd_call with n_dirs=2 (the
-// backward of bilstm_scan_pallas, _bwd_kernel and _cell_bwd_step).  For
-// t = T-1 down to 0, per direction, in f32:
+// Replaces danet_tpu/ops/pallas/lstm.py::_bwd_call (the backward of
+// bilstm_scan_pallas with n_dirs=2 and of lstm_scan_pallas with n_dirs=1,
+// _bwd_kernel and _cell_bwd_step).  For t = T-1 down to 0, per direction,
+// in f32:
 //
 //   dh     = d_hs[t] + dh_carry
 //   do     = dh * tanh(c_t) * o * (1 - o)
@@ -17,9 +18,10 @@
 //
 // and after step 0: dc0 = dc, dh0 = dh_carry, rounded.  cand, i, f, o come
 // from the residuals acts[t] and c_t from cs[t] that kernel 2 stored;
-// c_{t-1} is c_prev[t] (c0, then cs[:-1]).  Shapes: d_hs, cs, c_prev
-// [T, 2, B, H], acts and dxp [T, 2, B, 4H], wh [2, H, 4H], dc0/dh0
-// [2, B, H]; storage f32 or bf16.  dWh = sum_t h_{t-1}^T dxp[t] has no
+// c_{t-1} is c_prev[t] (c0, then cs[:-1]).  Shapes, with D = n_dirs (1
+// or 2; grid.y, and a template parameter as in the forward): d_hs, cs,
+// c_prev [T, D, B, H], acts and dxp [T, D, B, 4H], wh [D, H, 4H], dc0/dh0
+// [D, B, H]; storage f32 or bf16.  dWh = sum_t h_{t-1}^T dxp[t] has no
 // sequential dependency and is one bulk matmul outside the kernel, as in
 // the JAX package.
 //
@@ -37,7 +39,9 @@
 // tile of that product over a KS-strided share of the columns, so every
 // shared-memory read of the chunk or of Wh feeds 4 or 8 FMAs.  The reads
 // of acts, cs, c_prev and d_hs run in reverse time by index; no reversed
-// copy is made.
+// copy is made.  At H=600 with one direction (lstm-orig) the block's Wh
+// rows are [16, 2400] (153.6 KB): 218 KB in all at B=32, which fits the
+// 227 KB limit up to B=39.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -65,7 +69,7 @@ size_t smem_bytes(int batch, int hdim) {
                           static_cast<size_t>(2) * batch * UNITS);
 }
 
-template <typename T, bool TANH>
+template <typename T, bool TANH, int NDIRS>
 __global__ void __launch_bounds__(THREADS)
 bilstm_scan_bwd_kernel(const T* __restrict__ d_hs, const T* __restrict__ acts,
                        const T* __restrict__ cs, const T* __restrict__ c_prev,
@@ -108,7 +112,7 @@ bilstm_scan_bwd_kernel(const T* __restrict__ d_hs, const T* __restrict__ acts,
   const int ks = tid / ((UNITS / UG) * BG);
 
   for (int t = n_steps - 1; t >= 0; --t) {
-    const size_t td = static_cast<size_t>(t) * 2 + dir;
+    const size_t td = static_cast<size_t>(t) * NDIRS + dir;
 
     // 1. cell backward of this block's (batch row, unit) pairs
     for (int e = tid; e < batch * UNITS; e += THREADS) {
@@ -196,13 +200,14 @@ bilstm_scan_bwd_kernel(const T* __restrict__ d_hs, const T* __restrict__ acts,
   }
 }
 
-template <typename T, bool TANH>
+template <typename T, bool TANH, int NDIRS>
 int launch(const void* d_hs, const void* acts, const void* cs,
            const void* c_prev, const void* wh, void* dxp, void* dc0,
-           void* dh0, int n_steps, int batch, int hdim, cudaStream_t stream) {
-  auto kernel = bilstm_scan_bwd_kernel<T, TANH>;
+           void* dh0, int n_steps, int batch, int hdim,
+           cudaStream_t stream) {
+  auto kernel = bilstm_scan_bwd_kernel<T, TANH, NDIRS>;
   const size_t smem = smem_bytes(batch, hdim);
-  const dim3 grid((hdim + UNITS - 1) / UNITS, 2);
+  const dim3 grid((hdim + UNITS - 1) / UNITS, NDIRS);
   const int fit = cooperative_fit(kernel, grid, THREADS, smem);
   if (fit != 0) return fit;  // never degrade: the barrier would hang
 
@@ -223,6 +228,42 @@ int launch(const void* d_hs, const void* acts, const void* cs,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool TANH>
+int launch_dirs(const void* d_hs, const void* acts, const void* cs,
+                const void* c_prev, const void* wh, void* dxp, void* dc0,
+                void* dh0, int n_steps, int batch, int hdim, int n_dirs,
+                cudaStream_t stream) {
+  return n_dirs == 1
+             ? launch<T, TANH, 1>(d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0,
+                                  n_steps, batch, hdim, stream)
+             : launch<T, TANH, 2>(d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0,
+                                  n_steps, batch, hdim, stream);
+}
+
+int dispatch(const void* d_hs, const void* acts, const void* cs,
+             const void* c_prev, const void* wh, void* dxp, void* dc0,
+             void* dh0, int n_steps, int batch, int hdim, int n_dirs,
+             int dtype, int tanh_cand, void* stream) {
+  if (n_steps <= 0 || batch <= 0 || hdim <= 0 || (dtype != 0 && dtype != 1)
+      || (n_dirs != 1 && n_dirs != 2))
+    return DANET_BAD_ARGUMENT;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return tanh_cand ? launch_dirs<float, true>(d_hs, acts, cs, c_prev, wh,
+                                                dxp, dc0, dh0, n_steps, batch,
+                                                hdim, n_dirs, s)
+                     : launch_dirs<float, false>(d_hs, acts, cs, c_prev, wh,
+                                                 dxp, dc0, dh0, n_steps,
+                                                 batch, hdim, n_dirs, s);
+  return tanh_cand
+             ? launch_dirs<__nv_bfloat16, true>(d_hs, acts, cs, c_prev, wh,
+                                                dxp, dc0, dh0, n_steps, batch,
+                                                hdim, n_dirs, s)
+             : launch_dirs<__nv_bfloat16, false>(d_hs, acts, cs, c_prev, wh,
+                                                 dxp, dc0, dh0, n_steps,
+                                                 batch, hdim, n_dirs, s);
+}
+
 }  // namespace
 
 // Kernel 3.  dtype: 0 = float32, 1 = bfloat16 (every tensor of the call).
@@ -232,17 +273,19 @@ extern "C" int danet_bilstm_scan_bwd(const void* d_hs, const void* acts,
                                      void* dh0, int n_steps, int batch,
                                      int hdim, int dtype, int tanh_cand,
                                      void* stream) {
-  if (n_steps <= 0 || batch <= 0 || hdim <= 0 || (dtype != 0 && dtype != 1))
-    return DANET_BAD_ARGUMENT;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return tanh_cand ? launch<float, true>(d_hs, acts, cs, c_prev, wh, dxp,
-                                           dc0, dh0, n_steps, batch, hdim, s)
-                     : launch<float, false>(d_hs, acts, cs, c_prev, wh, dxp,
-                                            dc0, dh0, n_steps, batch, hdim, s);
-  return tanh_cand
-             ? launch<__nv_bfloat16, true>(d_hs, acts, cs, c_prev, wh, dxp,
-                                           dc0, dh0, n_steps, batch, hdim, s)
-             : launch<__nv_bfloat16, false>(d_hs, acts, cs, c_prev, wh, dxp,
-                                            dc0, dh0, n_steps, batch, hdim, s);
+  return dispatch(d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0, n_steps, batch,
+                  hdim, 2, dtype, tanh_cand, stream);
+}
+
+// Kernel 3 with one direction (the backward of lstm_scan_pallas): d_hs,
+// cs, c_prev [T, B, H], acts [T, B, 4H], wh [H, 4H] -> dxp [T, B, 4H],
+// dc0/dh0 [B, H].
+extern "C" int danet_lstm_scan_bwd(const void* d_hs, const void* acts,
+                                   const void* cs, const void* c_prev,
+                                   const void* wh, void* dxp, void* dc0,
+                                   void* dh0, int n_steps, int batch,
+                                   int hdim, int dtype, int tanh_cand,
+                                   void* stream) {
+  return dispatch(d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0, n_steps, batch,
+                  hdim, 1, dtype, tanh_cand, stream);
 }

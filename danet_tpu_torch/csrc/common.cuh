@@ -41,6 +41,16 @@ __device__ __forceinline__ float load_cg(const __nv_bfloat16* p) {
   return __uint_as_float(static_cast<unsigned>(bits) << 16);
 }
 
+// The shared memory one block of the current device may opt in to.
+inline int smem_optin(int* bytes) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 device);
+  return static_cast<int>(err);
+}
+
 // Launch checks of a cooperative kernel: the device's opt-in shared memory
 // and whether every block of `grid` can be resident at once.  Returns 0,
 // a cudaError_t, or DANET_SMEM_TOO_LARGE / DANET_NOT_RESIDENT (never
@@ -48,17 +58,15 @@ __device__ __forceinline__ float load_cg(const __nv_bfloat16* p) {
 template <typename Kernel>
 inline int cooperative_fit(Kernel kernel, dim3 grid, int threads,
                            size_t smem) {
-  int device = 0, smem_optin = 0, n_sm = 0, per_sm = 0;
+  int device = 0, optin = 0, n_sm = 0, per_sm = 0;
+  const int status = smem_optin(&optin);
+  if (status != 0) return status;
   cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                 device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
                                  device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > static_cast<size_t>(smem_optin)) return DANET_SMEM_TOO_LARGE;
+  if (smem > static_cast<size_t>(optin)) return DANET_SMEM_TOO_LARGE;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));

@@ -1,8 +1,11 @@
-"""Encoders: ``toy``, ``bilstm-orig`` and its output head.
+"""Encoders: ``toy``, ``lstm-orig``, ``bilstm-orig``, ``gru-v1`` and the
+LSTM output head.
 
-Counterpart of ``danet_tpu/models/encoders.py:25-34,67-113,176-249``: the
-dense path with per-layer dropout in training (no pipeline, sequence or
-tensor parallelism, no rematerialization).  ``HDIM`` and ``N_LAYERS`` are
+Counterpart of ``danet_tpu/models/encoders.py:25-34,67-147,176-249,
+672-725``: the dense paths (no pipeline, sequence or tensor parallelism,
+no rematerialization, no streaming hooks).  ``bilstm-orig`` drops out after
+every layer in training; ``lstm-orig`` and ``gru-v1`` do not, because
+their JAX ``apply`` ignores ``train``.  ``HDIM`` and ``N_LAYERS`` are
 class attributes, as in the JAX package, so tests can narrow both packages
 the same way.
 """
@@ -21,6 +24,15 @@ def _candidate_activation(hp) -> str:
     """'linear' reproduces the reference's no-tanh candidate cell
     (LSTM_LEGACY_CELL); the default is 'tanh'."""
     return "linear" if getattr(hp, "LSTM_LEGACY_CELL", False) else "tanh"
+
+
+def _backend(hp) -> str:
+    """LSTM_BACKEND: 'auto' and 'pallas' take the hand kernels on CUDA."""
+    return getattr(hp, "LSTM_BACKEND", "auto") or "auto"
+
+
+def _centered(log_spectra):
+    return log_spectra - torch.mean(log_spectra, dim=(1, 2), keepdim=True)
 
 
 @hparams.register_encoder("toy")
@@ -63,6 +75,37 @@ class _LstmHead:
                            hp.EMBED_SIZE)
 
 
+@hparams.register_encoder("lstm-orig")
+class LstmEncoder(Encoder):
+    """4x unidirectional LSTM, 600 units (reference modules.py:140-196)."""
+
+    HDIM = 600
+    N_LAYERS = 4
+
+    def init(self, generator, device=None):
+        hp = self.hp
+        w_scale = 1.15 / sqrt(self.HDIM)
+        gate_bias = (0.0, 1.5, -1.0, 1.0)
+        params = {}
+        in_dim = hp.FEATURE_SIZE
+        for i in range(self.N_LAYERS):
+            params[f"lstm{i}"] = rnn.lstm_init(
+                generator, in_dim, self.HDIM, w_scale, gate_bias, device)
+            in_dim = self.HDIM
+        params["output"] = _LstmHead.init(generator, hp, in_dim, device)
+        return params
+
+    def apply(self, params, log_spectra, train=False, generator=None):
+        """[B, T, F] -> [B, T, F, E]; no dropout (``train`` is ignored)."""
+        hp = self.hp
+        act = _candidate_activation(hp)
+        x = _centered(log_spectra)
+        for i in range(self.N_LAYERS):
+            x = rnn.lstm_apply(params[f"lstm{i}"], x, act,
+                               backend=_backend(hp))
+        return _LstmHead.apply(params["output"], hp, x)
+
+
 @hparams.register_encoder("bilstm-orig")
 class BiLstmEncoder(Encoder):
     """4x BiLSTM, 300 units per direction -- the paper architecture."""
@@ -88,11 +131,40 @@ class BiLstmEncoder(Encoder):
         DROPOUT_KEEP_PROB after every layer, drawn from ``generator``."""
         hp = self.hp
         act = _candidate_activation(hp)
-        backend = getattr(hp, "LSTM_BACKEND", "auto") or "auto"
         keep = hp.DROPOUT_KEEP_PROB if train else 1.0
-        x = log_spectra - torch.mean(log_spectra, dim=(1, 2), keepdim=True)
+        x = _centered(log_spectra)
         for i in range(self.N_LAYERS):
             x = rnn.bilstm_apply(params[f"lstm{i}"], x, act,
                                  dropout_rng=generator, keep_prob=keep,
-                                 backend=backend)
+                                 backend=_backend(hp))
+        return _LstmHead.apply(params["output"], hp, x)
+
+
+@hparams.register_encoder("gru-v1")
+class GruEncoder(Encoder):
+    """4x unidirectional GRU, 600 units; the same centering and head as
+    the LSTM encoders.  The dense path only: MESH_SEQ's sequence-parallel
+    GRU stack is not ported."""
+
+    HDIM = 600
+    N_LAYERS = 4
+
+    def init(self, generator, device=None):
+        hp = self.hp
+        w_scale = 0.1 / sqrt(self.HDIM)  # reference main.py:175
+        params = {}
+        in_dim = hp.FEATURE_SIZE
+        for i in range(self.N_LAYERS):
+            params[f"gru{i}"] = rnn.gru_init(generator, in_dim, self.HDIM,
+                                             w_scale, device)
+            in_dim = self.HDIM
+        params["output"] = _LstmHead.init(generator, hp, in_dim, device)
+        return params
+
+    def apply(self, params, log_spectra, train=False, generator=None):
+        """[B, T, F] -> [B, T, F, E]; no dropout (``train`` is ignored)."""
+        hp = self.hp
+        x = _centered(log_spectra)
+        for i in range(self.N_LAYERS):
+            x = rnn.gru_apply(params[f"gru{i}"], x, backend=_backend(hp))
         return _LstmHead.apply(params["output"], hp, x)

@@ -38,6 +38,17 @@ _SIGNATURES = [
      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     ("danet_bilstm_scan_bwd", _I,
      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    ("danet_lstm_scan", _I,
+     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    ("danet_lstm_scan_train", _I,
+     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    ("danet_lstm_scan_bwd", _I,
+     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    ("danet_gru_scan", _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    ("danet_gru_scan_train", _I,
+     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    ("danet_gru_scan_bwd", _I,
+     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     ("danet_error_string", ctypes.c_char_p, [_I]),
 ]
 

@@ -1,20 +1,24 @@
-"""Wrappers of the fused bidirectional LSTM kernels, one launch per layer.
+"""Wrappers of the fused LSTM kernels, one launch per layer.
 
 Replaces ``danet_tpu/ops/pallas/lstm.py::bilstm_scan_pallas`` (n_dirs=2)
-and its custom VJP:
+and ``lstm_scan_pallas`` (n_dirs=1) with their custom VJPs:
 
-  * ``bilstm_scan``: kernel B, the lean (inference) forward
-    (``_fwd_call`` with ``save=False``);
-  * ``bilstm_scan_train``: kernel 2, the forward that also stores the
-    residuals ``cs`` and ``acts`` (``_fwd_call`` with ``save=True``);
-  * ``bilstm_scan_bwd``: kernel 3, the reverse-time backward (``_bwd_call``);
-  * ``BiLstmScan``: the ``torch.autograd.Function`` that ties them together
-    as ``_make_scan`` does with ``jax.custom_vjp``.
+  * ``bilstm_scan`` / ``lstm_scan``: kernel B, the lean (inference)
+    forward (``_fwd_call`` with ``save=False``);
+  * ``bilstm_scan_train`` / ``lstm_scan_train``: kernel 2, the forward that
+    also stores the residuals ``cs`` and ``acts`` (``save=True``);
+  * ``bilstm_scan_bwd`` / ``lstm_scan_bwd``: kernel 3, the reverse-time
+    backward (``_bwd_call``);
+  * ``BiLstmScan`` / ``LstmScan``: the autograd Functions that tie
+    them together as ``_make_scan`` does with ``jax.custom_vjp``.
 
-The CUDA sources are ``danet_tpu_torch/csrc/bilstm_scan.cu`` (kernels B
-and 2) and ``csrc/bilstm_scan_bwd.cu`` (kernel 3); their headers say what
-bounds them on an H100 (the per-step latency of the grid-wide barrier and
-of the exchange through L2, not FLOPs) and how Wh is split over blocks.
+The one-direction wrappers launch the same kernels with the direction
+count as a parameter (``[T, 1, B, .]`` is ``[T, B, .]``), each under its
+own C entry point and launch counter.  The CUDA sources are
+``danet_tpu_torch/csrc/bilstm_scan.cu`` (kernels B and 2) and
+``csrc/bilstm_scan_bwd.cu`` (kernel 3); their headers say what bounds them
+on an H100 (the per-step latency of the grid-wide barrier and of the
+exchange through L2, not FLOPs) and how Wh is split over blocks.
 
 Each wrapper launches its kernel for CUDA tensors and uses its plain
 version (``*_plain``: Python loops over T with the same float32 gate math
@@ -70,6 +74,21 @@ def bilstm_scan_train_plain(xp, wh, c0, h0, tanh_cand: bool):
     return _scan_plain(xp, wh, c0, h0, tanh_cand, True)
 
 
+def lstm_scan_plain(xp, wh, c0, h0, tanh_cand: bool) -> torch.Tensor:
+    """Plain version of the one-direction kernel B: xp [T, B, 4H], wh
+    [H, 4H], c0/h0 [B, H] -> hs [T, B, H]."""
+    return _scan_plain(xp[:, None], wh[None], c0[None], h0[None], tanh_cand,
+                       False)[:, 0]
+
+
+def lstm_scan_train_plain(xp, wh, c0, h0, tanh_cand: bool):
+    """Plain version of the one-direction kernel 2: -> (hs, cs [T, B, H],
+    acts [T, B, 4H])."""
+    out = _scan_plain(xp[:, None], wh[None], c0[None], h0[None], tanh_cand,
+                      True)
+    return tuple(v[:, 0] for v in out)
+
+
 def bilstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
     """Plain version of kernel 3: ``_bwd_kernel`` / ``_cell_bwd_step``
     (lstm.py:80-96,144-197) in reverse time.
@@ -102,6 +121,16 @@ def bilstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
     return torch.stack(dxp), dc.to(dt), dh.to(dt)
 
 
+def lstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
+    """Plain version of the one-direction kernel 3: d_hs, cs, c_prev
+    [T, B, H], acts [T, B, 4H], wh [H, 4H] -> (dxp [T, B, 4H], dc0, dh0
+    [B, H])."""
+    dxp, dc0, dh0 = bilstm_scan_bwd_plain(
+        d_hs[:, None], acts[:, None], cs[:, None], c_prev[:, None], wh[None],
+        tanh_cand)
+    return dxp[:, 0], dc0[0], dh0[0]
+
+
 def _check(named, shapes):
     """Shapes, one storage dtype, one device, contiguity."""
     first = named[0][1]
@@ -118,18 +147,26 @@ def _check(named, shapes):
         if not v.is_contiguous():
             raise ValueError("%s must be contiguous" % name)
     if first.dtype not in _DTYPE_CODES:
-        raise ValueError("the BiLSTM kernels take float32 or bfloat16, got %s"
+        raise ValueError("the scan kernels take float32 or bfloat16, got %s"
                          % (first.dtype,))
 
 
-def _fwd_shapes(xp, wh, c0, h0):
-    if xp.dim() != 4 or xp.shape[1] != 2 or xp.shape[-1] % 4:
-        raise ValueError("xp must be [T, 2, B, 4H], got %s"
-                         % (tuple(xp.shape),))
-    t, _, b, g4 = xp.shape
+def _dirs(n_dirs: int, *shape) -> tuple:
+    """(n_dirs, *shape), without the direction axis for one direction."""
+    return shape if n_dirs == 1 else (n_dirs,) + shape
+
+
+def _fwd_shapes(xp, wh, c0, h0, n_dirs: int):
+    """(T, B, H) of a forward call on ``n_dirs`` directions."""
+    if xp.dim() != 2 + len(_dirs(n_dirs, 0)) or xp.shape[-1] % 4 \
+            or (n_dirs == 2 and xp.shape[1] != 2):
+        raise ValueError("xp must be [T, %sB, 4H], got %s"
+                         % ("2, " if n_dirs == 2 else "", tuple(xp.shape)))
+    t, b, g4 = xp.shape[0], xp.shape[-2], xp.shape[-1]
     hdim = g4 // 4
     _check([("xp", xp), ("wh", wh), ("c0", c0), ("h0", h0)],
-           [xp.shape, (2, hdim, g4), (2, b, hdim), (2, b, hdim)])
+           [xp.shape, _dirs(n_dirs, hdim, g4), _dirs(n_dirs, b, hdim),
+            _dirs(n_dirs, b, hdim)])
     return t, b, hdim
 
 
@@ -153,16 +190,47 @@ def _launch(entry: str, what: str, device, tensors, ints) -> None:
     _build.check(status, what)
 
 
+def _fwd(entry: str, n_dirs: int, save: bool, xp, wh, c0, h0, tanh_cand):
+    """Launch a forward kernel: -> hs, or (hs, cs, acts) when ``save``."""
+    t, b, hdim = _fwd_shapes(xp, wh, c0, h0, n_dirs)
+    hs = torch.empty((t,) + _dirs(n_dirs, b, hdim), dtype=xp.dtype,
+                     device=xp.device)
+    outs = (hs, torch.empty_like(hs), torch.empty_like(xp)) if save \
+        else (hs,)
+    _launch(entry, entry + " kernel", xp.device, (xp, wh, c0, h0) + outs,
+            (t, b, hdim, _DTYPE_CODES[xp.dtype], int(bool(tanh_cand))))
+    return outs if save else hs
+
+
+def _bwd(entry: str, n_dirs: int, d_hs, acts, cs, c_prev, wh, tanh_cand):
+    """Launch a backward kernel: -> (dxp, dc0, dh0)."""
+    if acts.dim() != 2 + len(_dirs(n_dirs, 0)) or acts.shape[-1] % 4 \
+            or (n_dirs == 2 and acts.shape[1] != 2):
+        raise ValueError("acts must be [T, %sB, 4H], got %s"
+                         % ("2, " if n_dirs == 2 else "",
+                            tuple(acts.shape)))
+    t, b, g4 = acts.shape[0], acts.shape[-2], acts.shape[-1]
+    hdim = g4 // 4
+    hshape = (t,) + _dirs(n_dirs, b, hdim)
+    _check([("d_hs", d_hs), ("acts", acts), ("cs", cs), ("c_prev", c_prev),
+            ("wh", wh)],
+           [hshape, acts.shape, hshape, hshape, _dirs(n_dirs, hdim, g4)])
+    dxp = torch.empty_like(acts)
+    dc0 = torch.empty(_dirs(n_dirs, b, hdim), dtype=acts.dtype,
+                      device=acts.device)
+    dh0 = torch.empty_like(dc0)
+    _launch(entry, entry + " kernel", acts.device,
+            (d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0),
+            (t, b, hdim, _DTYPE_CODES[acts.dtype], int(bool(tanh_cand))))
+    return dxp, dc0, dh0
+
+
 def bilstm_scan(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
                 h0: torch.Tensor, tanh_cand: bool) -> torch.Tensor:
     """Kernel B, the lean forward (signature of the plain version)."""
     if not _on_cuda(xp, "bilstm_scan"):
         return bilstm_scan_plain(xp, wh, c0, h0, tanh_cand)
-    t, b, hdim = _fwd_shapes(xp, wh, c0, h0)
-    hs = torch.empty((t, 2, b, hdim), dtype=xp.dtype, device=xp.device)
-    _launch("danet_bilstm_scan", "bilstm_scan kernel", xp.device,
-            (xp, wh, c0, h0, hs),
-            (t, b, hdim, _DTYPE_CODES[xp.dtype], int(bool(tanh_cand))))
+    hs = _fwd("danet_bilstm_scan", 2, False, xp, wh, c0, h0, tanh_cand)
     bilstm_scan.launches += 1
     return hs
 
@@ -171,15 +239,9 @@ def bilstm_scan_train(xp, wh, c0, h0, tanh_cand: bool):
     """Kernel 2, the forward that stores residuals: -> (hs, cs, acts)."""
     if not _on_cuda(xp, "bilstm_scan_train"):
         return bilstm_scan_train_plain(xp, wh, c0, h0, tanh_cand)
-    t, b, hdim = _fwd_shapes(xp, wh, c0, h0)
-    hs = torch.empty((t, 2, b, hdim), dtype=xp.dtype, device=xp.device)
-    cs = torch.empty_like(hs)
-    acts = torch.empty_like(xp)
-    _launch("danet_bilstm_scan_train", "bilstm_scan_train kernel", xp.device,
-            (xp, wh, c0, h0, hs, cs, acts),
-            (t, b, hdim, _DTYPE_CODES[xp.dtype], int(bool(tanh_cand))))
+    out = _fwd("danet_bilstm_scan_train", 2, True, xp, wh, c0, h0, tanh_cand)
     bilstm_scan_train.launches += 1
-    return hs, cs, acts
+    return out
 
 
 def bilstm_scan_bwd(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
@@ -187,27 +249,86 @@ def bilstm_scan_bwd(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
     version)."""
     if not _on_cuda(d_hs, "bilstm_scan_bwd"):
         return bilstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand)
-    if acts.dim() != 4 or acts.shape[1] != 2 or acts.shape[-1] % 4:
-        raise ValueError("acts must be [T, 2, B, 4H], got %s"
-                         % (tuple(acts.shape),))
-    t, _, b, g4 = acts.shape
-    hdim = g4 // 4
-    hshape = (t, 2, b, hdim)
-    _check([("d_hs", d_hs), ("acts", acts), ("cs", cs), ("c_prev", c_prev),
-            ("wh", wh)], [hshape, acts.shape, hshape, hshape, (2, hdim, g4)])
-    dxp = torch.empty_like(acts)
-    dc0 = torch.empty((2, b, hdim), dtype=acts.dtype, device=acts.device)
-    dh0 = torch.empty_like(dc0)
-    _launch("danet_bilstm_scan_bwd", "bilstm_scan_bwd kernel", acts.device,
-            (d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0),
-            (t, b, hdim, _DTYPE_CODES[acts.dtype], int(bool(tanh_cand))))
+    out = _bwd("danet_bilstm_scan_bwd", 2, d_hs, acts, cs, c_prev, wh,
+               tanh_cand)
     bilstm_scan_bwd.launches += 1
-    return dxp, dc0, dh0
+    return out
 
 
-bilstm_scan.launches = 0
-bilstm_scan_train.launches = 0
-bilstm_scan_bwd.launches = 0
+def lstm_scan(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
+              h0: torch.Tensor, tanh_cand: bool) -> torch.Tensor:
+    """Kernel B on one direction: xp [T, B, 4H], wh [H, 4H], c0/h0 [B, H]
+    -> hs [T, B, H]."""
+    if not _on_cuda(xp, "lstm_scan"):
+        return lstm_scan_plain(xp, wh, c0, h0, tanh_cand)
+    hs = _fwd("danet_lstm_scan", 1, False, xp, wh, c0, h0, tanh_cand)
+    lstm_scan.launches += 1
+    return hs
+
+
+def lstm_scan_train(xp, wh, c0, h0, tanh_cand: bool):
+    """Kernel 2 on one direction: -> (hs, cs [T, B, H], acts [T, B, 4H])."""
+    if not _on_cuda(xp, "lstm_scan_train"):
+        return lstm_scan_train_plain(xp, wh, c0, h0, tanh_cand)
+    out = _fwd("danet_lstm_scan_train", 1, True, xp, wh, c0, h0, tanh_cand)
+    lstm_scan_train.launches += 1
+    return out
+
+
+def lstm_scan_bwd(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
+    """Kernel 3 on one direction: -> (dxp [T, B, 4H], dc0, dh0 [B, H])."""
+    if not _on_cuda(d_hs, "lstm_scan_bwd"):
+        return lstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand)
+    out = _bwd("danet_lstm_scan_bwd", 1, d_hs, acts, cs, c_prev, wh,
+               tanh_cand)
+    lstm_scan_bwd.launches += 1
+    return out
+
+
+for _fn in (bilstm_scan, bilstm_scan_train, bilstm_scan_bwd, lstm_scan,
+            lstm_scan_train, lstm_scan_bwd):
+    _fn.launches = 0
+
+
+# (train forward, its plain version, backward, its plain version) by
+# direction count
+_TRAIN_KERNELS = {
+    1: (lstm_scan_train, lstm_scan_train_plain, lstm_scan_bwd,
+        lstm_scan_bwd_plain),
+    2: (bilstm_scan_train, bilstm_scan_train_plain, bilstm_scan_bwd,
+        bilstm_scan_bwd_plain),
+}
+
+
+def _scan_forward(ctx, n_dirs, xp, wh, c0, h0, tanh_cand, use_kernel):
+    fwd, fwd_plain, _, _ = _TRAIN_KERNELS[n_dirs]
+    hs, cs, acts = (fwd if use_kernel else fwd_plain)(xp, wh, c0, h0,
+                                                      tanh_cand)
+    ctx.save_for_backward(wh, c0, h0, hs, cs, acts)
+    ctx.n_dirs = n_dirs
+    ctx.tanh_cand = tanh_cand
+    ctx.use_kernel = use_kernel
+    return hs
+
+
+def _scan_backward(ctx, d_hs):
+    wh, c0, h0, hs, cs, acts = ctx.saved_tensors
+    _, _, bwd, bwd_plain = _TRAIN_KERNELS[ctx.n_dirs]
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    h_prev = torch.cat([h0[None], hs[:-1]])
+    # d_hs may arrive through a transpose and a flip of hs
+    dxp, dc0, dh0 = (bwd if ctx.use_kernel else bwd_plain)(
+        d_hs.contiguous(), acts, cs, c_prev, wh, ctx.tanh_cand)
+    hdim = hs.shape[-1]
+    if ctx.n_dirs == 1:                    # 'tbh,tbg->hg'
+        dwh = torch.mm(h_prev.float().reshape(-1, hdim).t(),
+                       dxp.float().reshape(-1, 4 * hdim))
+    else:                                  # 'tdbh,tdbg->dhg'
+        t, _, b, _ = hs.shape
+        dwh = torch.bmm(
+            h_prev.float().permute(1, 3, 0, 2).reshape(2, hdim, t * b),
+            dxp.float().permute(1, 0, 2, 3).reshape(2, t * b, 4 * hdim))
+    return dxp, dwh.to(wh.dtype), dc0, dh0, None, None
 
 
 class BiLstmScan(torch.autograd.Function):
@@ -223,24 +344,23 @@ class BiLstmScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xp, wh, c0, h0, tanh_cand: bool, use_kernel: bool):
-        fwd = bilstm_scan_train if use_kernel else bilstm_scan_train_plain
-        hs, cs, acts = fwd(xp, wh, c0, h0, tanh_cand)
-        ctx.save_for_backward(wh, c0, h0, hs, cs, acts)
-        ctx.tanh_cand = tanh_cand
-        ctx.use_kernel = use_kernel
-        return hs
+        return _scan_forward(ctx, 2, xp, wh, c0, h0, tanh_cand, use_kernel)
 
     @staticmethod
     def backward(ctx, d_hs):
-        wh, c0, h0, hs, cs, acts = ctx.saved_tensors
-        c_prev = torch.cat([c0[None], cs[:-1]])
-        h_prev = torch.cat([h0[None], hs[:-1]])
-        bwd = bilstm_scan_bwd if ctx.use_kernel else bilstm_scan_bwd_plain
-        # d_hs arrives through a transpose and a flip of hs
-        dxp, dc0, dh0 = bwd(d_hs.contiguous(), acts, cs, c_prev, wh,
-                            ctx.tanh_cand)
-        t, _, b, hdim = hs.shape
-        dwh = torch.bmm(
-            h_prev.float().permute(1, 3, 0, 2).reshape(2, hdim, t * b),
-            dxp.float().permute(1, 0, 2, 3).reshape(2, t * b, 4 * hdim))
-        return dxp, dwh.to(wh.dtype), dc0, dh0, None, None
+        return _scan_backward(ctx, d_hs)
+
+
+class LstmScan(torch.autograd.Function):
+    """``BiLstmScan`` on one direction, the counterpart of
+    ``_make_scan(1)`` (``lstm_scan_pallas``): xp [T, B, 4H], wh [H, 4H],
+    c0/h0 [B, H] -> hs [T, B, H]; dWh is one matmul, 'tbh,tbg->hg'.
+    Callers that need no gradient call ``lstm_scan``."""
+
+    @staticmethod
+    def forward(ctx, xp, wh, c0, h0, tanh_cand: bool, use_kernel: bool):
+        return _scan_forward(ctx, 1, xp, wh, c0, h0, tanh_cand, use_kernel)
+
+    @staticmethod
+    def backward(ctx, d_hs):
+        return _scan_backward(ctx, d_hs)

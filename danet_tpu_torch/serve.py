@@ -3,7 +3,7 @@
 Counterpart of the request path of ``danet_tpu/serve.py:184-239,515-528``.
 The JAX package serves ``jax.export`` artifacts with length buckets; here
 the model runs eagerly on the card (``DaNet.separate_wav``: fused STFT
-kernel, BiLSTM scan kernel per layer, attractors, masks, iSTFT), and
+kernel, a recurrent scan kernel per layer, attractors, masks, iSTFT), and
 ``torch.export`` artifacts are later work.
 
 CLI:

@@ -6,7 +6,7 @@ Counterpart of ``danet_tpu/train/trainer.py``: ``prepare_batch``
 (:492-502), the learning rate (:584-588) and ``train`` (:642-1038).  The
 JAX trainer jits one fused step; here a step runs eagerly on ``device``:
 ingest the prepared numpy batch, forward, backward (autograd, through the
-BiLSTM kernels' ``BiLstmScan``), clip, update in place.
+recurrent kernels' autograd Functions), clip, update in place.
 
 Not ported, and refused with NotImplementedError: GRAD_ACCUM > 1,
 EMA_DECAY > 0, TRAIN_STEPS_PER_CALL > 1, TRANSFER_DOMAIN='wave', wires
@@ -71,11 +71,12 @@ def _dict_format(di) -> str:
 
 
 class Trainer:
-    """Owns the steps and the loop for one model on one ``device``.  The
-    state is {params, opt, step, epoch, generator}: ``opt`` holds the
-    optimizer's moments and learning rate, ``generator`` draws dropout."""
+    """Owns the steps and the loop for one model on one ``device`` (the
+    card unless the caller asks for the CPU).  The state is {params, opt,
+    step, epoch, generator}: ``opt`` holds the optimizer's moments and
+    learning rate, ``generator`` draws dropout."""
 
-    def __init__(self, model, hp=None, device="cpu"):
+    def __init__(self, model, hp=None, device="cuda"):
         self.hp = hp if hp is not None else model.hp
         self.model = model
         self.device = torch.device(device)

@@ -29,13 +29,22 @@ def _close(a, b, tol=1e-5):
                                atol=tol)
 
 
-def _pair(hp_jax, monkeypatch, hdim=8, layers=2, **keys):
+# the recurrent encoders by registry key: (JAX class, port class)
+ENCODERS = {
+    "bilstm-orig": (jenc.BiLstmEncoder, tenc.BiLstmEncoder),
+    "lstm-orig": (jenc.LstmEncoder, tenc.LstmEncoder),
+    "gru-v1": (jenc.GruEncoder, tenc.GruEncoder),
+}
+
+
+def _pair(hp_jax, monkeypatch, hdim=8, layers=2, encoder="bilstm-orig",
+          **keys):
     """(jax model, jax params, torch model, torch params) at the given
-    encoder width, built from default.json + ENCODER_TYPE=bilstm-orig."""
-    for cls in (jenc.BiLstmEncoder, tenc.BiLstmEncoder):
+    encoder width, built from default.json + ENCODER_TYPE=encoder."""
+    for cls in ENCODERS[encoder]:
         monkeypatch.setattr(cls, "HDIM", hdim)
         monkeypatch.setattr(cls, "N_LAYERS", layers)
-    keys = dict(ENCODER_TYPE="bilstm-orig", **keys)
+    keys = dict(ENCODER_TYPE=encoder, **keys)
     hp_jax.load(keys)
     hp_jax.digest()
     jmodel = JaxDaNet()
@@ -175,3 +184,36 @@ def test_torch_toy_encoder_matches_jax(fresh_hparams):
                                torch.from_numpy(x))
     assert tuple(out.shape) == (2, 6, 129, 20)
     _close(out, ref)
+
+
+@pytest.mark.parametrize("encoder,legacy", [
+    ("lstm-orig", False), ("lstm-orig", True), ("gru-v1", False)])
+def test_torch_unidirectional_encoder_matches_jax(fresh_hparams, monkeypatch,
+                                                  encoder, legacy):
+    """lstm-orig (tanh and the legacy linear candidate) and gru-v1 at
+    narrow width against the JAX encoders' Pallas kernels (interpret)."""
+    jm, jp, tm, tp = _pair(fresh_hparams, monkeypatch, encoder=encoder,
+                           LSTM_LEGACY_CELL=legacy)
+    fresh_hparams.LSTM_BACKEND = "pallas-interpret"
+    x = np.abs(np.random.RandomState(8).randn(2, 9, 129)).astype(np.float32)
+    ref = jm.encoder.apply(jp["encoder"], jnp.asarray(x))
+    out = tm.encoder.apply(tp["encoder"], torch.from_numpy(x))
+    assert tuple(out.shape) == (2, 9, 129, 20)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("encoder", ["lstm-orig", "gru-v1"])
+def test_torch_unidirectional_separate_wav_matches_jax(
+        fresh_hparams, monkeypatch, interpret_pallas, encoder):
+    """The serving slice with lstm-orig and gru-v1: wave -> STFT -> 2
+    one-direction layers -> anchor -> sigmoid masks -> iSTFT, the JAX side
+    on its Pallas STFT and recurrent kernels in interpret mode, 1e-4."""
+    jm, jp, tm, tp = _pair(fresh_hparams, monkeypatch, encoder=encoder)
+    fresh_hparams.STFT_BACKEND = "pallas"
+    fresh_hparams.LSTM_BACKEND = "pallas-interpret"
+    wav = (np.random.RandomState(9).randn(2, 3001) * 0.5).astype(np.float32)
+    ref = np.asarray(jm.separate_wav(jp, jnp.asarray(wav)))
+    out = tm.separate_wav(tp, torch.from_numpy(wav)).numpy()
+    assert out.shape == ref.shape == (2, 2, 48 * 64)
+    assert np.all(np.isfinite(out))
+    np.testing.assert_allclose(out, ref, atol=1e-4)

@@ -1,7 +1,10 @@
-"""PyTorch port, BiLSTM: kernel B's plain version and ``bilstm_apply``
-against the JAX package's fused Pallas BiLSTM in interpret mode.
+"""PyTorch port, LSTM: the plain versions of kernels B, 2 and 3 (both
+directions and one), ``BiLstmScan``/``LstmScan``, ``bilstm_apply`` and
+``lstm_apply`` against the JAX package's Pallas LSTM kernels in interpret
+mode.
 
-Forward only, float32, atol 1e-6 (the JAX kernel tests' forward bar).
+float32; atol 1e-6 on forwards, atol 2e-5 + rtol 1e-4 on backwards and
+gradients (the JAX kernel tests' bars).
 """
 import numpy as np
 import pytest
@@ -223,3 +226,175 @@ def test_torch_bilstm_wrappers_refuse_other_devices(fresh_hparams):
     with pytest.raises(ValueError):
         cuda_lstm.bilstm_scan_bwd(torch.zeros((3, 2, 1, 2), device="meta"),
                                   args[0], args[2], args[2], args[1], True)
+
+
+# ------------------------------------------------- one-direction LSTM
+def _uni_case(seed, t=7, b=3, h=5):
+    """xp [T, B, 4H], wh [H, 4H], nonzero c0/h0 [B, H], d_hs [T, B, H]."""
+    rs = np.random.RandomState(seed)
+    xp = rs.randn(t, b, 4 * h).astype(np.float32)
+    wh = (rs.randn(h, 4 * h) * 0.4).astype(np.float32)
+    c0 = rs.randn(b, h).astype(np.float32)
+    h0 = rs.randn(b, h).astype(np.float32)
+    d_hs = rs.randn(t, b, h).astype(np.float32)
+    return (xp, wh, c0, h0), d_hs
+
+
+@pytest.mark.parametrize("tanh_cand", [True, False])
+def test_torch_lstm_scan_plain_matches_pallas_interpret(fresh_hparams,
+                                                        tanh_cand):
+    """The one-direction lean forward against lstm_scan_pallas, atol 1e-6;
+    on CPU tensors the wrapper launches nothing."""
+    from danet_tpu.ops.pallas.lstm import lstm_scan_pallas
+
+    args, _ = _uni_case(11)
+    ref = lstm_scan_pallas(*map(jnp.asarray, args), tanh_cand, True)
+    before = cuda_lstm.lstm_scan.launches
+    out = cuda_lstm.lstm_scan(*[torch.from_numpy(a) for a in args],
+                              tanh_cand)
+    assert cuda_lstm.lstm_scan.launches == before
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
+
+
+@pytest.mark.parametrize("tanh_cand", [True, False])
+def test_torch_lstm_scan_train_plain_matches_pallas_interpret(
+        fresh_hparams, tanh_cand):
+    """hs, cs and acts against _fwd_call with n_dirs=1, save=True."""
+    from danet_tpu.ops.pallas.lstm import _fwd_call_jit
+
+    args, _ = _uni_case(12, t=8)
+    ref = _fwd_call_jit(*map(jnp.asarray, args), tanh_cand=tanh_cand,
+                        interpret=True, n_dirs=1, save=True)
+    before = cuda_lstm.lstm_scan_train.launches
+    out = cuda_lstm.lstm_scan_train(*[torch.from_numpy(a) for a in args],
+                                    tanh_cand)
+    assert cuda_lstm.lstm_scan_train.launches == before
+    assert len(out) == len(ref) == 3
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-6)
+
+
+@pytest.mark.parametrize("tanh_cand", [True, False])
+def test_torch_lstm_scan_bwd_plain_matches_pallas_interpret(
+        fresh_hparams, tanh_cand):
+    """dxp, dc0, dh0 against _bwd_call with n_dirs=1 on the same
+    residuals, atol 2e-5 / rtol 1e-4."""
+    from danet_tpu.ops.pallas.lstm import _bwd_call_jit, _fwd_call_jit
+
+    (xp, wh, c0, h0), d_hs = _uni_case(13)
+    _, cs, acts = (np.array(v) for v in _fwd_call_jit(
+        *map(jnp.asarray, (xp, wh, c0, h0)), tanh_cand=tanh_cand,
+        interpret=True, n_dirs=1, save=True))
+    c_prev = np.concatenate([c0[None], cs[:-1]])
+    ref = _bwd_call_jit(*map(jnp.asarray, (d_hs, acts, cs, c_prev, wh)),
+                        tanh_cand=tanh_cand, interpret=True, n_dirs=1)
+    before = cuda_lstm.lstm_scan_bwd.launches
+    out = cuda_lstm.lstm_scan_bwd(
+        *[torch.from_numpy(a) for a in (d_hs, acts, cs, c_prev, wh)],
+        tanh_cand)
+    assert cuda_lstm.lstm_scan_bwd.launches == before
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=2e-5,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("tanh_cand", [True, False])
+def test_torch_lstm_scan_grads_match_jax(fresh_hparams, tanh_cand):
+    """LstmScan's gradients of xp, wh, c0 and h0 against jax.grad through
+    lstm_scan_pallas in interpret mode; both backward routes."""
+    from danet_tpu.ops.pallas.lstm import lstm_scan_pallas
+
+    args, d_hs = _uni_case(14)
+    ref = jax.grad(
+        lambda *a: jnp.sum(lstm_scan_pallas(*a, tanh_cand, True)
+                           * jnp.asarray(d_hs)),
+        argnums=(0, 1, 2, 3))(*map(jnp.asarray, args))
+    for use_kernel in (True, False):
+        targs = [torch.from_numpy(a).requires_grad_(True) for a in args]
+        cuda_lstm.LstmScan.apply(*targs, tanh_cand, use_kernel).backward(
+            torch.from_numpy(d_hs))
+        for a, r in zip(targs, ref):
+            np.testing.assert_allclose(a.grad.numpy(), np.asarray(r),
+                                       atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("act", ["tanh", "linear"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_torch_lstm_apply_matches_pallas_interpret(fresh_hparams, act,
+                                                   reverse):
+    """lstm_apply against JAX lstm_apply(backend='pallas-interpret'), atol
+    1e-6, on every backend value; explicit nonzero c0/h0 as well."""
+    T, B, I, H = 10, 4, 6, 8
+    params = jrnn.lstm_init(jax.random.PRNGKey(10), I, H,
+                            gate_bias=(0.0, 1.5, -1.0, 1.0))
+    rs = np.random.RandomState(10)
+    x = rs.randn(B, T, I).astype(np.float32)
+    c0, h0 = (rs.randn(B, H).astype(np.float32) for _ in range(2))
+    tparams = weights.from_jax(jax.device_get(params))
+    ref = np.asarray(jrnn.lstm_apply(params, jnp.asarray(x), act,
+                                     reverse=reverse,
+                                     backend="pallas-interpret"))
+    for backend in ("auto", "pallas", "xla", "pallas-interpret"):
+        out = trnn.lstm_apply(tparams, torch.from_numpy(x), act,
+                              reverse=reverse, backend=backend).numpy()
+        assert out.shape == (B, T, H)
+        np.testing.assert_allclose(out, ref, atol=1e-6)
+    ref = np.asarray(jrnn.lstm_apply(
+        params, jnp.asarray(x), act, reverse=reverse, c0=jnp.asarray(c0),
+        h0=jnp.asarray(h0), backend="pallas-interpret"))
+    out = trnn.lstm_apply(tparams, torch.from_numpy(x), act, reverse=reverse,
+                          c0=torch.from_numpy(c0), h0=torch.from_numpy(h0))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-6)
+
+
+@pytest.mark.parametrize("act", ["tanh", "linear"])
+def test_torch_lstm_apply_grads_match_jax(fresh_hparams, act):
+    """Gradients of wx, wh, b and of the input through lstm_apply against
+    the JAX package's Pallas LSTM (interpret mode)."""
+    T, B, I, H = 8, 3, 5, 7
+    params = jrnn.lstm_init(jax.random.PRNGKey(11), I, H,
+                            gate_bias=(0.0, 1.5, -1.0, 1.0))
+    x = np.random.RandomState(11).randn(B, T, I).astype(np.float32)
+    g_ref, gx_ref = jax.grad(lambda p, v: jnp.sum(jrnn.lstm_apply(
+        p, v, act, backend="pallas-interpret") ** 2), argnums=(0, 1))(
+            params, jnp.asarray(x))
+    tparams = weights.from_jax(jax.device_get(params))
+    for p in weights.leaves(tparams):
+        p.requires_grad_(True)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    (trnn.lstm_apply(tparams, tx, act) ** 2).sum().backward()
+    g_ref = jax.device_get(g_ref)
+    for k in ("wx", "wh", "b"):
+        np.testing.assert_allclose(tparams[k].grad.numpy(), g_ref[k],
+                                   atol=2e-5, rtol=1e-4, err_msg=k)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx_ref),
+                               atol=2e-5, rtol=1e-4)
+
+
+def test_torch_lstm_apply_refuses_unported(fresh_hparams):
+    """An unknown backend and return_state (the final carry, streaming
+    only) raise."""
+    tparams = {"wx": torch.zeros(2, 4, 3), "wh": torch.zeros(3, 4, 3),
+               "b": torch.zeros(4, 3)}
+    x = torch.zeros(1, 4, 2)
+    with pytest.raises(ValueError):
+        trnn.lstm_apply(tparams, x, backend="cudnn")
+    with pytest.raises(NotImplementedError):
+        trnn.lstm_apply(tparams, x, return_state=True)
+
+
+def test_torch_lstm_wrappers_refuse_other_devices(fresh_hparams):
+    """The one-direction wrappers, like the bidirectional ones, raise for a
+    tensor on any device other than CPU or CUDA."""
+    xp, wh = torch.zeros(3, 1, 8, device="meta"), \
+        torch.zeros(2, 8, device="meta")
+    z = torch.zeros(1, 2, device="meta")
+    with pytest.raises(ValueError):
+        cuda_lstm.lstm_scan(xp, wh, z, z, True)
+    with pytest.raises(ValueError):
+        cuda_lstm.lstm_scan_train(xp, wh, z, z, True)
+    with pytest.raises(ValueError):
+        cuda_lstm.lstm_scan_bwd(torch.zeros(3, 1, 2, device="meta"), xp,
+                                torch.zeros(3, 1, 2, device="meta"),
+                                torch.zeros(3, 1, 2, device="meta"), wh,
+                                True)

@@ -56,14 +56,23 @@ def _src_ri(seed, b=3, n=2, t=9, f=129):
     return np.stack([z.real, z.imag], -1).astype(np.float32)
 
 
-def _pair(hp_jax, monkeypatch, hdim=6, layers=2, **keys):
+# the recurrent encoders by registry key: (JAX class, port class)
+ENCODERS = {
+    "bilstm-orig": (jenc.BiLstmEncoder, tenc.BiLstmEncoder),
+    "lstm-orig": (jenc.LstmEncoder, tenc.LstmEncoder),
+    "gru-v1": (jenc.GruEncoder, tenc.GruEncoder),
+}
+
+
+def _pair(hp_jax, monkeypatch, hdim=6, layers=2, encoder="bilstm-orig",
+          **keys):
     """(jax model, jax params, torch model) at the given encoder width,
-    built from default.json + ENCODER_TYPE=bilstm-orig + ``keys``, with
-    the JAX LSTM in Pallas interpret mode."""
-    for cls in (jenc.BiLstmEncoder, tenc.BiLstmEncoder):
+    built from default.json + ENCODER_TYPE=encoder + ``keys``, with the
+    JAX recurrent kernels in Pallas interpret mode."""
+    for cls in ENCODERS[encoder]:
         monkeypatch.setattr(cls, "HDIM", hdim)
         monkeypatch.setattr(cls, "N_LAYERS", layers)
-    keys = dict(ENCODER_TYPE="bilstm-orig", **keys)
+    keys = dict(ENCODER_TYPE=encoder, **keys)
     hp_jax.load(dict(keys, LSTM_BACKEND="pallas-interpret"))
     hp_jax.digest()
     jmodel = JaxDaNet()
@@ -218,6 +227,70 @@ def test_torch_train_step_matches_jax(fresh_hparams, monkeypatch):
     out = trainer.valid_step(state, batch)
     _close(out["loss"], ref["loss"])
     _close(out["SNR"], ref["SNR"])
+
+
+@pytest.mark.parametrize("encoder", ["lstm-orig", "gru-v1"])
+def test_torch_unidirectional_train_loss_and_grads_match_jax(
+        fresh_hparams, monkeypatch, encoder):
+    """train_loss of lstm-orig and gru-v1 and its gradient for every
+    parameter against JAX's value_and_grad(train_loss), 2e-5 / 1e-4.  As
+    in the JAX package, these encoders drop nothing in training: the loss
+    at DROPOUT_KEEP_PROB 0.5 is the loss at 1."""
+    jm, jp, tm = _pair(fresh_hparams, monkeypatch, encoder=encoder)
+    batch = _src_ri(40)
+    (jl, aux), jg = jax.value_and_grad(jm.train_loss, has_aux=True)(
+        jp, jnp.asarray(batch))
+    trainer = Trainer(tm, tm.hp, "cpu")
+    state = trainer.init_state(params=jax.device_get(jp))
+    loss, snr, grads = trainer.loss_and_grads(state["params"], _t(batch))
+    _close(loss, jl, atol=2e-5, rtol=1e-4)
+    _close(snr, aux["snr"], atol=2e-5, rtol=1e-4)
+    ref = weights.leaves(weights.from_jax(jax.device_get(jg)))
+    assert len(grads) == len(ref)
+    for a, b in zip(grads, ref):
+        _close(a, b, atol=2e-5, rtol=1e-4)
+    tm.hp.DROPOUT_KEEP_PROB = 0.5
+    dropped = tm.train_loss(state["params"], _t(batch),
+                            torch.Generator().manual_seed(0))[0].detach()
+    assert float(dropped) == float(loss)
+
+
+@pytest.mark.parametrize("encoder", ["lstm-orig", "gru-v1"])
+def test_torch_unidirectional_trainer_step_matches_jax(fresh_hparams,
+                                                       monkeypatch, encoder):
+    """One Trainer step of lstm-orig and gru-v1 (Adam with the value clip)
+    against value_and_grad + danet_tpu.optim: its loss, and every
+    parameter after the update, 2e-5 / 1e-4."""
+    jm, jp, tm = _pair(fresh_hparams, monkeypatch, encoder=encoder)
+    batch = _src_ri(41)
+    (jl, _), g = jax.value_and_grad(jm.train_loss, has_aux=True)(
+        jp, jnp.asarray(batch))
+    opt = joptim.make_optimizer(fresh_hparams)
+    upd, _ = opt.update(g, opt.init(jp), jp)
+    jparams = optax.apply_updates(jp, upd)
+    trainer = Trainer(tm, tm.hp, "cpu")
+    state = trainer.init_state(params=jax.device_get(jp))
+    m = trainer.train_step(state, batch)
+    _close(m["loss"], jl, atol=2e-5, rtol=1e-4)
+    assert state["step"] == 1
+    for a, b in zip(weights.leaves(weights.to_jax(state["params"])),
+                    weights.leaves(jax.device_get(jparams))):
+        _close(a, b, atol=2e-5, rtol=1e-4)
+
+
+def test_torch_trainer_runs_on_the_card_by_default(fresh_hparams):
+    """Trainer's device defaults to CUDA, as the CLI's and
+    serve.load_separator's do: it never falls back to the CPU.  Where
+    torch has no card, init_state (which places the parameters) raises."""
+    hp = load_config(ENCODER_TYPE="bilstm-orig")
+    trainer = Trainer(TorchDaNet(hp), hp)
+    assert trainer.device.type == "cuda"
+    if torch.cuda.is_available():
+        state = trainer.init_state()
+        assert all(p.is_cuda for p in weights.leaves(state["params"]))
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            trainer.init_state()
 
 
 @pytest.mark.parametrize("legacy", [False, True])

@@ -97,3 +97,40 @@ def test_torch_serve_cli_run(jax_tree, tmp_path):
         got = audio.load_wav_raw("%s_%d.wav" % (prefix, i), 8000)
         assert got.shape == (41 * 64,)
         np.testing.assert_allclose(got, ref[0, i], atol=2.0 / 32767)
+
+
+@pytest.mark.parametrize("encoder,cls,layer", [
+    ("lstm-orig", "LstmEncoder", {"wx": (129, 4, 6), "wh": (6, 4, 6),
+                                  "b": (4, 6)}),
+    ("gru-v1", "GruEncoder", {"wgx": (129, 2, 6), "wgh": (6, 2, 6),
+                              "bg": (2, 6), "wcx": (129, 6),
+                              "wch": (6, 6), "bc": (6,)})])
+def test_torch_weights_round_trip_unidirectional(fresh_hparams, monkeypatch,
+                                                 tmp_path, encoder, cls,
+                                                 layer):
+    """The lstm{i}/{wx,wh,b} and gru{i}/{wgx,wgh,bg,wcx,wch,bc} trees cross
+    the bridge key for key (from_jax / to_jax and save_npz / load_npz),
+    with the port's own init giving the same keys and shapes."""
+    for mod in (jenc, tenc):
+        monkeypatch.setattr(getattr(mod, cls), "HDIM", 6)
+        monkeypatch.setattr(getattr(mod, cls), "N_LAYERS", 2)
+    fresh_hparams.ENCODER_TYPE = encoder
+    fresh_hparams.digest()
+    tree = jax.device_get(JaxDaNet().init(jax.random.PRNGKey(1)))
+    prefix = "lstm" if encoder == "lstm-orig" else "gru"
+    assert {k: tuple(v.shape) for k, v in
+            tree["encoder"][prefix + "0"].items()} == layer
+    path = str(tmp_path / "w.npz")
+    weights.save_npz(path, tree)
+    a = _leaves(tree)
+    for back in (weights.to_jax(weights.from_jax(tree)),
+                 weights.to_jax(weights.load_npz(path))):
+        b = _leaves(back)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k])
+    port = TorchDaNet(load_config(ENCODER_TYPE=encoder))
+    mine = _leaves(weights.to_jax(port.init(torch.Generator().manual_seed(0))))
+    assert {k: v.shape for k, v in mine.items()} == \
+        {k: v.shape for k, v in a.items()}
