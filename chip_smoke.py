@@ -99,20 +99,54 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    backwards of the encoder's kernels per train step and only its lean
    kernel in valid_step.  Then the median step time of the kernel path and
    of the plain path.
+12. library yardsticks (below), timed on the card.
+13. the three flash-attention kernels (flash_attn, flash_attn_bwd_dkv,
+   flash_attn_bwd_dq) vs their plain versions on the card at attn-v1's
+   widths (H=4, D=64) and both of its shapes, (T=1280, B=1) serving and
+   (T=128, B=32) training, float32 and bfloat16, q, k and v as views of
+   one [B, T, 3, H, D] projection, and the last row's final 37 frames
+   padded (segment 1), so that padded queries attend only to padded keys.
+   o at phase 6's forward tolerance (float32 atol 1e-5; bfloat16 5e-2 +
+   rtol 2e-2), the gradients at its backward tolerance, l (a float32 sum of up to T terms near 1) at
+   rtol 1e-5 and m at atol 1e-5; the kernels' and plain versions' times.
+14. serving with attn-v1 on its flash path (default.json + ENCODER_TYPE=
+   attn-v1, ATTN_BACKEND=flash: 4 pre-LN blocks of width 256, 4 heads of
+   64, MLP x4, F=129, E=20, N=2, float32, anchor): a 10.2 s request at B=1
+   (L=81,856, T=1280) and a batch of 4 at L=32,704 (T=512), checked
+   against the CPU as in phase 5; launch counters show kernel A once and
+   flash_attn 4 times per request.  Each request's latency on the card is
+   printed beside the dense attention's (ATTN_BACKEND=xla).
+15. training with attn-v1 on its flash path (B=32, T=128: every batch is
+   checked to have 128 frames, as the flash path needs a multiple of 128),
+   float32 and bfloat16, under phase 11's protocol (each step from one
+   state, every step's float32 gradients to 1e-4 of each tensor's peak,
+   the card's Adam step equal to the CPU's on the card's gradients); the
+   counters show flash_attn, flash_attn_bwd_dkv and flash_attn_bwd_dq 4
+   times each per train step and flash_attn 4 times in valid_step; the
+   median step time beside the dense attention's.
+16. kernel 6 (kernel A's (|Z|, log1p|Z|) epilogue, stft_ri with
+   logmag=True) vs its plain version, atol 2e-5, and its time.  No main
+   path of the port (or of the JAX package) calls it, so its summary
+   entry counts this phase's comparison launches and says so.
 
-The kernel summary lists all ten kernels.  bound_ms is the least time the
-card could take for the work of the timed call: the larger of its bytes
-(each input read once, each output written once) over 3.35 TB/s and its
-recurrent-product FLOPs (for kernel A, a real FFT's per frame) over 67
-TFLOP/s, the H100 SXM's float32 rate outside the tensor cores (the kernels
-compute in float32; elementwise work is not counted, so the bound stays a
-lower bound).  library_ms is one
+The kernel summary lists all fourteen kernels.  bound_ms is the least
+time the card could take for the work of the timed call: the larger of its
+bytes (each input read once, each output written once) over 3.35 TB/s and
+its products' FLOPs (for kernel A, a real FFT's per frame; for the flash
+kernels the T x T x D products: two in the forward, four in dK/dV, three
+in dQ) over 67 TFLOP/s, the H100 SXM's float32 rate outside the tensor
+cores (the kernels compute in float32; elementwise work is not counted,
+so the bound stays a lower bound).  library_ms is one
 PyTorch call that computes the same function, timed here and never called
-by the port: torch.stft for kernel A; torch.nn.LSTM (cuDNN) for the
+by the port: torch.stft for kernel A (and, with abs and log1p, kernel 6);
+torch.nn.LSTM (cuDNN) for the
 tanh-candidate LSTM kernels, which also computes the input projection
 (and, in its backward, the input projection's backward; no weight
 gradients are asked for); none for the GRU, because cuDNN's GRU applies r
-after the recurrent product and this repo's GRU before it.
+after the recurrent product and this repo's GRU before it;
+torch.nn.functional.scaled_dot_product_attention with the boolean
+segment-equality mask for the flash kernels (its backward computes dq, dk
+and dv in one call, timed against each backward kernel).
 
 The last two lines are the kernel summary JSON and
 {"ok": true, "device": {...}}; the line before them is nvidia-smi's
@@ -133,6 +167,7 @@ from danet_tpu_torch.data.dataset import WhiteNoiseData
 from danet_tpu_torch.hparams import load_config
 from danet_tpu_torch.ops.dsp import stft_frame_count
 from danet_tpu_torch.ops.cuda import _build
+from danet_tpu_torch.ops.cuda import attention as cuda_attn
 from danet_tpu_torch.ops.cuda import gru as cuda_gru
 from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
 from danet_tpu_torch.ops.cuda import stft as cuda_stft
@@ -146,9 +181,12 @@ SMPRATE = 8000
 # phase 6: (atol, rtol) of kernels 2 and 3 against their plain versions
 TRAIN_FWD_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (5e-2, 2e-2)}
 TRAIN_BWD_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (5e-2, 2e-2)}
+# phase 13: the flash forward's l (a float32 sum of up to T terms near 1)
+STATS_TOL = (0.0, 1e-5)
 # phase 7: card vs CPU
 STEP_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 TRAIN_STEPS = 3
+TRAIN_T = 128  # frames of every training batch (toy data, MAX_TRAIN_LEN)
 PARAM_RTOL = 1e-3  # of each tensor's peak change; why: phase 7 docstring
 # H100 SXM published peaks: float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -166,13 +204,27 @@ KERNELS = {
     "gru_scan": cuda_gru.gru_scan,
     "gru_scan_train": cuda_gru.gru_scan_train,
     "gru_scan_bwd": cuda_gru.gru_scan_bwd,
+    "flash_attn": cuda_attn.flash_attn,
+    "flash_attn_bwd_dkv": cuda_attn.flash_attn_bwd_dkv,
+    "flash_attn_bwd_dq": cuda_attn.flash_attn_bwd_dq,
+    "stft_logmag": cuda_stft.stft_logmag,
 }
-# the recurrent kernels of each encoder: (lean, training forward, backward)
+# the kernels each encoder launches once per layer: (in serving and in
+# valid_step, in a train step)
 ENCODER_KERNELS = {
-    "bilstm-orig": ("bilstm_scan", "bilstm_scan_train", "bilstm_scan_bwd"),
-    "lstm-orig": ("lstm_scan", "lstm_scan_train", "lstm_scan_bwd"),
-    "gru-v1": ("gru_scan", "gru_scan_train", "gru_scan_bwd"),
+    "bilstm-orig": (("bilstm_scan",), ("bilstm_scan_train",
+                                       "bilstm_scan_bwd")),
+    "lstm-orig": (("lstm_scan",), ("lstm_scan_train", "lstm_scan_bwd")),
+    "gru-v1": (("gru_scan",), ("gru_scan_train", "gru_scan_bwd")),
+    "attn-v1": (("flash_attn",), ("flash_attn", "flash_attn_bwd_dkv",
+                                  "flash_attn_bwd_dq")),
 }
+# attn-v1 on its flash path: ATTN_BACKEND 'flash' (the default 'auto' runs
+# the dense attention, as in the JAX package)
+FLASH = {"ATTN_BACKEND": "flash"}
+DENSE = {"ATTN_BACKEND": "xla"}
+# the attention encoder's head count and width at default.json's widths
+ATTN_H, ATTN_D = 4, 64
 
 
 def nvidia_smi() -> str:
@@ -324,21 +376,37 @@ def _counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def _serve(phase: int, encoder: str, requests, seed: int) -> dict:
-    """Serve ``requests`` [(B, samples)] at full width of ``encoder`` on the
-    card (a warm-up, then the timed request), with launch counts per
-    request; then check each answer against the CPU."""
-    hp = load_config(ENCODER_TYPE=encoder)
+def _depth(enc) -> int:
+    """The number of layers (recurrent) or blocks (attention)."""
+    return enc._dims()[2] if hasattr(enc, "_dims") else enc.N_LAYERS
+
+
+def _describe(hp, enc) -> str:
+    if hasattr(enc, "_dims"):
+        d, heads, layers, mlp = enc._dims()
+        return "%d blocks x dim %d, %d heads of %d, MLP x%d, ATTN_BACKEND " \
+            "%s" % (layers, d, heads, d // heads, mlp, hp.ATTN_BACKEND)
+    return "%d layers x %d units" % (enc.N_LAYERS, enc.HDIM)
+
+
+def _serve(phase: int, encoder: str, requests, seed: int, keys=None,
+           other_keys=None) -> dict:
+    """Serve ``requests`` [(B, samples)] at full width of ``encoder`` (with
+    config ``keys``) on the card (a warm-up, then the timed request), with
+    launch counts per request; then check each answer against the CPU.
+    With ``other_keys``, also time each request on the card under that
+    config (attn-v1: the dense attention) for comparison."""
+    keys = keys or {}
+    hp = load_config(ENCODER_TYPE=encoder, **keys)
     model = hp.get_model()(hp)
     enc = model.encoder
     lean = ENCODER_KERNELS[encoder][0]
-    print("phase %d model: %s, %d layers x %d units, F=%d, E=%d, "
-          "NUM_ANCHOR=%d, N=%d, FFT %d/%d @ %d Hz, %s, estimator %s, "
-          "separator %s" % (phase, hp.ENCODER_TYPE, enc.N_LAYERS, enc.HDIM,
-                            hp.FEATURE_SIZE, hp.EMBED_SIZE, hp.NUM_ANCHOR,
-                            hp.MAX_N_SIGNAL, hp.FFT_SIZE, hp.FFT_STRIDE,
-                            hp.SMPRATE, hp.COMPUTE_DTYPE,
-                            hp.INFER_ESTIMATOR_METHOD, hp.SEPARATOR_TYPE))
+    print("phase %d model: %s, %s, F=%d, E=%d, NUM_ANCHOR=%d, N=%d, FFT "
+          "%d/%d @ %d Hz, %s, estimator %s, separator %s" % (
+              phase, hp.ENCODER_TYPE, _describe(hp, enc), hp.FEATURE_SIZE,
+              hp.EMBED_SIZE, hp.NUM_ANCHOR, hp.MAX_N_SIGNAL, hp.FFT_SIZE,
+              hp.FFT_STRIDE, hp.SMPRATE, hp.COMPUTE_DTYPE,
+              hp.INFER_ESTIMATOR_METHOD, hp.SEPARATOR_TYPE))
     params = model.init(torch.Generator().manual_seed(0))
     gpu = Separator(model, params, "cuda")
     cpu = Separator(model, params, "cpu")
@@ -346,7 +414,8 @@ def _serve(phase: int, encoder: str, requests, seed: int) -> dict:
     waves = [_mixture(rs, b, n) for b, n in requests]
     outs, latencies = [], {}
     per_request = {name: 0 for name in KERNELS}
-    per_request.update({"stft_ri": 1, lean: enc.N_LAYERS})
+    per_request["stft_ri"] = 1
+    per_request.update({name: _depth(enc) for name in lean})
 
     # the main path: only these requests count kernel launches
     _zero_counts()
@@ -370,9 +439,19 @@ def _serve(phase: int, encoder: str, requests, seed: int) -> dict:
     if launches != {k: v * calls for k, v in per_request.items()}:
         raise AssertionError("launch counts %s over %d requests"
                              % (launches, calls))
-    print("phase %d launches over %d requests: stft_ri %d, %s %d (%s)"
-          % (phase, calls, launches["stft_ri"], lean, launches[lean],
-             "no other kernel"))
+    print("phase %d launches over %d requests: stft_ri %d, %s (%s)"
+          % (phase, calls, launches["stft_ri"], ", ".join(
+              "%s %d" % (k, launches[k]) for k in lean), "no other kernel"))
+    other = {}
+    if other_keys:
+        ohp = load_config(ENCODER_TYPE=encoder, **other_keys)
+        osep = Separator(ohp.get_model()(ohp), params, "cuda")
+        for (b, n), wav in zip(requests, waves):
+            osep.separate(wav)       # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            osep.separate(wav)
+            other[(b, n)] = (time.perf_counter() - t0) * 1e3
 
     # correctness against the same model and weights on the CPU
     worst = 0.0
@@ -394,13 +473,18 @@ def _serve(phase: int, encoder: str, requests, seed: int) -> dict:
                     phase, b, n, out.shape, want, err, peak, e_err, e_peak,
                     SERVE_RTOL))
         worst = max(worst, err / peak, e_err / e_peak)
-        print("phase %d %s request B=%d %.1f s: out %s, latency %.3f ms; vs "
-              "CPU: wave max_abs_err %.3g (peak %.3g), embedding max_abs_err "
-              "%.3g (peak %.3g), rtol %g of the peak"
-              % (phase, encoder, b, n / SMPRATE, out.shape,
-                 latencies[(b, n)], err, peak, e_err, e_peak, SERVE_RTOL))
+        line = ("phase %d %s request B=%d %.2f s: out %s, latency %.3f ms"
+                % (phase, encoder, b, n / SMPRATE, out.shape,
+                   latencies[(b, n)]))
+        if other:
+            line += " (%s: %.3f ms)" % (
+                ", ".join("%s=%s" % kv for kv in other_keys.items()),
+                other[(b, n)])
+        print(line + "; vs CPU: wave max_abs_err %.3g (peak %.3g), embedding "
+              "max_abs_err %.3g (peak %.3g), rtol %g of the peak"
+              % (err, peak, e_err, e_peak, SERVE_RTOL))
     return {"launches": launches, "latency_ms": latencies,
-            "max_rel_err": worst}
+            "other_latency_ms": other, "max_rel_err": worst}
 
 
 def phase_serving() -> dict:
@@ -438,15 +522,16 @@ def _allclose_err(out: torch.Tensor, ref: torch.Tensor, atol: float,
 
 def _check_kernels(phase: int, tag: str, dt, checks, worst: dict) -> list:
     """checks: [(kernel, output names, outputs, plain outputs, (atol,
-    rtol))].  Raises where an output is not finite, not of dtype ``dt`` or
-    not within atol + rtol |plain|; returns "name err" parts for the
-    phase's line and keeps each kernel's worst error per dtype."""
+    rtol))].  Raises where an output is not finite, not of its plain
+    output's dtype and shape or not within atol + rtol |plain|; returns
+    "name err" parts for the phase's line and keeps each kernel's worst
+    error per storage dtype ``dt``."""
     parts = []
     for kernel, names, outs, refs, tol in checks:
         for name, o, r in zip(names, outs, refs):
             err, ratio = _allclose_err(o, r, *tol)
             parts.append("%s %.3g" % (name, err))
-            if o.dtype != dt or tuple(o.shape) != tuple(r.shape) \
+            if o.dtype != r.dtype or tuple(o.shape) != tuple(r.shape) \
                     or not torch.isfinite(o.float()).all() \
                     or not ratio <= 1.0:
                 raise AssertionError(
@@ -745,14 +830,19 @@ def _check_synced_step(tag: str, dtype: str, names: list, sg: dict,
     return worst
 
 
-def _train_dtype(phase: int, encoder: str, dtype: str, synced: bool) -> dict:
+def _train_dtype(phase: int, encoder: str, dtype: str, synced: bool,
+                 keys: dict) -> dict:
     """One COMPUTE_DTYPE of a training phase: card vs CPU, launch counts;
     ``synced``: the CPU starts each step from the card's state, and each
     step's gradients and optimizer step are checked (phase 11)."""
-    hp = load_config(ENCODER_TYPE=encoder, COMPUTE_DTYPE=dtype)
+    hp = load_config(ENCODER_TYPE=encoder, COMPUTE_DTYPE=dtype, **keys)
     model = hp.get_model()(hp)
-    n_layers = model.encoder.N_LAYERS
+    n_layers = _depth(model.encoder)
     batches = _toy_batches(hp, TRAIN_STEPS + 1)
+    frames = sorted({b.shape[2] for b in batches})
+    if frames != [TRAIN_T]:        # the flash path takes T % 128 == 0 only
+        raise AssertionError("phase %d batches of %s frames, want %d"
+                             % (phase, frames, TRAIN_T))
     p0 = weights.to_jax(model.init(torch.Generator().manual_seed(0)))
     gpu, cpu = Trainer(model, hp, "cuda"), Trainer(model, hp, "cpu")
     sg, sc = gpu.init_state(params=p0), cpu.init_state(params=p0)
@@ -760,10 +850,10 @@ def _train_dtype(phase: int, encoder: str, dtype: str, synced: bool) -> dict:
         _record_grads(sg["opt"])
         _record_grads(sc["opt"], apply=lambda: sg["opt"].recorded)
     names = ["/".join(k) for k in _paths(p0)]
-    lean, fwd, bwd = ENCODER_KERNELS[encoder]
+    lean, train = ENCODER_KERNELS[encoder]
     step_want = {name: 0 for name in KERNELS}
-    valid_want = dict(step_want, **{lean: n_layers})
-    step_want.update({fwd: n_layers, bwd: n_layers})
+    valid_want = dict(step_want, **{name: n_layers for name in lean})
+    step_want.update({name: n_layers for name in train})
     rtol = STEP_RTOL[dtype]
     worst = grad_worst = 0.0
     for i, batch in enumerate(batches[:TRAIN_STEPS]):
@@ -869,10 +959,9 @@ def _paths(tree, prefix=()):
     return out
 
 
-def _step_ms(encoder: str, dtype: str, backend: str, reps: int) -> float:
+def _step_ms(encoder: str, dtype: str, keys: dict, reps: int) -> float:
     """Median wall time of a synchronized train step on the card."""
-    hp = load_config(ENCODER_TYPE=encoder, COMPUTE_DTYPE=dtype,
-                     LSTM_BACKEND=backend)
+    hp = load_config(ENCODER_TYPE=encoder, COMPUTE_DTYPE=dtype, **keys)
     model = hp.get_model()(hp)
     batch = _toy_batches(hp, 1)[0]
     tr = Trainer(model, hp, "cuda")
@@ -886,17 +975,22 @@ def _step_ms(encoder: str, dtype: str, backend: str, reps: int) -> float:
         out.append((time.perf_counter() - t0) * 1e3)
         if not np.isfinite(float(m["loss"])):
             raise AssertionError("timing %s %s %s: loss %s"
-                                 % (encoder, dtype, backend, m["loss"]))
+                                 % (encoder, dtype, keys, m["loss"]))
     return float(np.median(out[1:]))
 
 
 def _train(phase: int, encoder: str, reps: int, plain_reps: int,
-           synced: bool) -> dict:
+           synced: bool, keys=None, plain_keys=None) -> dict:
     """A training phase for one encoder: both dtypes card vs CPU with the
     launch counts, the float32 gradients and parameters, step times;
-    ``synced`` selects phase 11's protocol (see the module docstring)."""
+    ``synced`` selects phase 11's protocol (see the module docstring).
+    ``keys`` configure the kernel path, ``plain_keys`` the path timed
+    beside it (recurrent encoders: LSTM_BACKEND 'auto' and 'xla')."""
+    keys = keys if keys is not None else {"LSTM_BACKEND": "auto"}
+    plain_keys = plain_keys if plain_keys is not None \
+        else {"LSTM_BACKEND": "xla"}
     _zero_counts()  # the main path of this phase: the counts start at 0
-    runs = {dt: _train_dtype(phase, encoder, dt, synced)
+    runs = {dt: _train_dtype(phase, encoder, dt, synced, keys)
             for dt in ("float32", "bfloat16")}
     launches = _counts()
     print("phase %d %s launches over 2 x (%d train steps + 1 valid step): "
@@ -907,13 +1001,14 @@ def _train(phase: int, encoder: str, reps: int, plain_reps: int,
     model = runs["float32"]["model"]
     times = {}
     for dt in ("float32", "bfloat16"):
-        kernel = _step_ms(encoder, dt, "auto", reps)
-        plain = _step_ms(encoder, dt, "xla", plain_reps)
+        kernel = _step_ms(encoder, dt, keys, reps)
+        plain = _step_ms(encoder, dt, plain_keys, plain_reps)
         times[dt] = (kernel, plain)
-        print("phase %d %s %s train step (B=32, T=128, %d x %d): kernel "
-              "path %.3f ms, plain path %.3f ms (medians)"
-              % (phase, encoder, dt, model.encoder.N_LAYERS,
-                 model.encoder.HDIM, kernel, plain))
+        print("phase %d %s %s train step (B=32, T=128, %s): kernel path "
+              "%.3f ms, %s path %.3f ms (medians)"
+              % (phase, encoder, dt, _describe(model.hp, model.encoder),
+                 kernel, ", ".join("%s=%s" % kv for kv in plain_keys.items()),
+                 plain))
     return {"launches": launches, "times": times, "grad_rel": grad_rel,
             "step_rel": {dt: r["worst_step_rel"] for dt, r in runs.items()}}
 
@@ -925,6 +1020,113 @@ def phase_training() -> dict:
 def phase_training_unidirectional() -> dict:
     return {enc: _train(11, enc, 5, 2, True)
             for enc in ("lstm-orig", "gru-v1")}
+
+
+def _flash_inputs(rs, b: int, t: int, dtype):
+    """attn-v1-shaped inputs: q, k, v as views of one [B, T, 3, H, D]
+    projection (as the encoder hands them over), segment ids with the
+    last row's final 37 frames padded, and a cotangent do."""
+    qkv, do = _cuda((rs.randn(b, t, 3, ATTN_H, ATTN_D),
+                     rs.randn(b, t, ATTN_H, ATTN_D)), dtype)
+    seg = torch.zeros(b, t, dtype=torch.int32)
+    seg[-1, t - 37:] = 1                        # 0 = real, 1 = padding
+    seg = seg.cuda()
+    return (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], seg,
+            1.0 / ATTN_D ** 0.5), do
+
+
+def phase_flash_kernels() -> dict:
+    """Phase 13: the three flash kernels vs their plain versions."""
+    rs = np.random.RandomState(13)
+    worst, times = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        for t, b in ((1280, 1), (TRAIN_T, 32)):
+            args, do = _flash_inputs(rs, b, t, dt)
+            fwd = cuda_attn.flash_attn(*args)
+            fwd_ref = cuda_attn.flash_attn_plain(*args)
+            o, l, m = fwd_ref
+            di = torch.sum(o.float() * do.float(), dim=-1).transpose(
+                1, 2).contiguous()
+            bargs = args[:4] + (l, m, do, di, args[4])
+            dkv = cuda_attn.flash_attn_bwd_dkv(*bargs)
+            dkv_ref = cuda_attn.flash_attn_bwd_dkv_plain(*bargs)
+            dq = cuda_attn.flash_attn_bwd_dq(*bargs)
+            dq_ref = cuda_attn.flash_attn_bwd_dq_plain(*bargs)
+            torch.cuda.synchronize()
+            tag = _tag(dt, None, t, b)
+            fwd_tol, bwd_tol = TRAIN_FWD_TOL[dt], TRAIN_BWD_TOL[dt]
+            parts = _check_kernels(13, tag, dt, (
+                ("flash_attn", ("o",), fwd[:1], fwd_ref[:1], fwd_tol),
+                ("flash_attn stats", ("l",), fwd[1:2], fwd_ref[1:2],
+                 STATS_TOL),
+                ("flash_attn stats", ("m",), fwd[2:], fwd_ref[2:],
+                 (1e-5, 0.0)),
+                ("flash_attn_bwd_dkv", ("dk", "dv"), dkv, dkv_ref, bwd_tol),
+                ("flash_attn_bwd_dq", ("dq",), (dq,), (dq_ref,), bwd_tol)),
+                worst)
+            line = ("phase 13 %s H=%d D=%d max_abs_err: %s (o atol %g rtol "
+                    "%g, l rtol %g, m atol 1e-5, grads atol %g rtol %g)"
+                    % (tag, ATTN_H, ATTN_D, ", ".join(parts), *fwd_tol,
+                       STATS_TOL[1], *bwd_tol))
+            if dt == torch.float32:
+                timed = [("flash_attn", cuda_attn.flash_attn,
+                          cuda_attn.flash_attn_plain, args)]
+                if b > 1:
+                    timed += [("flash_attn_bwd_dkv",
+                               cuda_attn.flash_attn_bwd_dkv,
+                               cuda_attn.flash_attn_bwd_dkv_plain, bargs),
+                              ("flash_attn_bwd_dq",
+                               cuda_attn.flash_attn_bwd_dq,
+                               cuda_attn.flash_attn_bwd_dq_plain, bargs)]
+                for name, kernel, plain, a in timed:
+                    pair = (cuda_ms(lambda: kernel(*a), 20),
+                            cuda_ms(lambda: plain(*a), 5))
+                    times[(name, t, b)] = pair
+                    line += "; %s kernel %.4f ms, plain %.4f ms" % (
+                        name, *pair)
+            print(line)
+    return {"max_abs_err": worst, "times": times}
+
+
+def phase_serving_attention() -> dict:
+    """Phase 14: attn-v1 serving on its flash path (T = L / 64 + 1: 1280
+    frames for the 10.2 s request, 512 for the batch of 4)."""
+    return _serve(14, "attn-v1", [(1, 81856), (4, 32704)], 14, FLASH, DENSE)
+
+
+def phase_training_attention() -> dict:
+    """Phase 15: attn-v1 training on its flash path, phase 11's protocol."""
+    return _train(15, "attn-v1", 5, 3, True, FLASH, DENSE)
+
+
+def phase_stft_logmag(window) -> dict:
+    """Phase 16: kernel 6 (kernel A's (|Z|, log1p|Z|) epilogue) vs its
+    plain version.  No main path of the port (or of the JAX package) calls
+    it, so its launch count is this phase's comparison launches."""
+    rs = np.random.RandomState(16)
+    cuda_stft.stft_logmag.launches = 0
+    worst = 0.0
+    for b, n in ((4, 80037), (1, 80000), (1, 81856), (4, 32704)):
+        x = torch.from_numpy((rs.randn(b, n) * 0.3).astype(np.float32)).cuda()
+        out = cuda_stft.stft_logmag(x, 256, 64, window)
+        ref = cuda_stft.stft_ri_plain(x, 256, 64, window, logmag=True)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        if tuple(out.shape) != tuple(ref.shape) \
+                or not torch.isfinite(out).all() or not err <= STFT_ATOL:
+            raise AssertionError("stft_logmag B=%d L=%d: max abs err %.3g > "
+                                 "%g" % (b, n, err, STFT_ATOL))
+        worst = max(worst, err)
+        print("phase 16 stft_logmag B=%d L=%d T=%d: max_abs_err %.3g (atol "
+              "%g)" % (b, n, out.shape[1], err, STFT_ATOL))
+    launches = cuda_stft.stft_logmag.launches
+    x = torch.from_numpy((rs.randn(1, 80000) * 0.3).astype(np.float32)).cuda()
+    times = (cuda_ms(lambda: cuda_stft.stft_logmag(x, 256, 64, window), 50),
+             cuda_ms(lambda: cuda_stft.stft_ri_plain(x, 256, 64, window,
+                                                     logmag=True), 50))
+    print("phase 16 stft_logmag B=1 L=80000: kernel %.4f ms, plain %.4f ms; "
+          "%d comparison launches" % (*times, launches))
+    return {"max_abs_err": worst, "times": times, "launches": launches}
 
 
 def _bound(flops: float, nbytes: float):
@@ -944,7 +1146,17 @@ def _cost(name: str, t: int, b: int) -> tuple:
     kernel's matmul DFT does 2 x 256 x 258 per frame, which the function
     does not need); each input read once and each output written once
     (kernel A: the wave and the window in, the spectrum out)."""
-    if name == "stft_ri":              # here t is the wave length
+    if name.startswith("flash"):       # attn-v1: H=4, D=64
+        bthd, bt, bht = b * t * ATTN_H * ATTN_D, b * t, b * ATTN_H * t
+        products = {"flash_attn": 2, "flash_attn_bwd_dkv": 4,
+                    "flash_attn_bwd_dq": 3}[name]
+        flops = 2.0 * products * b * ATTN_H * t * t * ATTN_D
+        if name == "flash_attn":       # q, k, v, seg in; o, l, m out
+            return flops, 4.0 * (4 * bthd + bt + 2 * bht)
+        # q, k, v, seg, l, m, do, di in; dk and dv, or dq, out
+        outs = 2 if name == "flash_attn_bwd_dkv" else 1
+        return flops, 4.0 * ((4 + outs) * bthd + bt + 3 * bht)
+    if name in ("stft_ri", "stft_logmag"):  # here t is the wave length
         n_frames = stft_frame_count(t, 256, 64)
         return (b * n_frames * (2.5 * 256 * 8 + 256),
                 4.0 * (b * t + 256 + b * n_frames * 258))
@@ -967,10 +1179,47 @@ def _cost(name: str, t: int, b: int) -> tuple:
 
 # the shape each kernel is timed at: its main path's (T or samples, B)
 TIMED_AT = {"stft_ri": (80000, 1), "bilstm_scan": (1251, 1),
-            "lstm_scan": (1251, 1), "gru_scan": (1251, 1)}
+            "lstm_scan": (1251, 1), "gru_scan": (1251, 1),
+            "flash_attn": (1280, 1), "stft_logmag": (80000, 1)}
+SDPA = ("torch.nn.functional.scaled_dot_product_attention with the boolean "
+        "segment-equality mask [B, 1, T, T]")
 GRU_NO_LIBRARY = ("none: cuDNN's GRU (torch.nn.GRU) computes "
                   "tanh(W_in x + r * (W_hn h + b_hn)), r after the recurrent "
                   "product; this repo's GRU computes tanh(cx + (c * r) @ Wch)")
+
+
+def _library_attention(rs) -> dict:
+    """SDPA with the segment mask, float32, H=4, D=64: forward at the
+    serving and training shapes, forward + backward and the backward alone
+    (dq, dk and dv together) at the training shape."""
+    def inputs(b, t):
+        q, k, v = (torch.from_numpy(rs.randn(b, ATTN_H, t, ATTN_D).astype(
+            np.float32)).cuda().requires_grad_(True) for _ in range(3))
+        seg = torch.zeros(b, t, dtype=torch.int32)
+        seg[-1, t - 37:] = 1
+        return q, k, v, (seg[:, None, :, None] == seg[:, None, None, :]).cuda()
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, mask = inputs(1, 1280)
+    with torch.no_grad():
+        serve_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask), 20)
+    q, k, v, mask = inputs(32, TRAIN_T)
+    with torch.no_grad():
+        train_fwd = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask), 20)
+    g = torch.from_numpy(rs.randn(32, ATTN_H, TRAIN_T, ATTN_D).astype(
+        np.float32)).cuda()
+    both = cuda_ms(lambda: torch.autograd.grad(
+        sdpa(q, k, v, attn_mask=mask), (q, k, v), g), 20)
+    y = sdpa(q, k, v, attn_mask=mask)
+    bwd = cuda_ms(lambda: torch.autograd.grad(y, (q, k, v), g,
+                                              retain_graph=True), 20)
+    print("phase 12 library %s: forward B=1 T=1280 %.4f ms, forward B=32 "
+          "T=128 %.4f ms, forward + backward B=32 T=128 %.4f ms, backward "
+          "%.4f ms" % (SDPA, serve_ms, train_fwd, both, bwd))
+    note = SDPA + "; its backward computes dq, dk and dv together"
+    return {"flash_attn": (serve_ms, SDPA + ", forward"),
+            "flash_attn_bwd_dkv": (bwd, note),
+            "flash_attn_bwd_dq": (bwd, note)}
 
 
 def phase_library(window) -> dict:
@@ -1008,6 +1257,11 @@ def phase_library(window) -> dict:
             "which includes the input projection's backward")
     for name in ("gru_scan", "gru_scan_train", "gru_scan_bwd"):
         out[name] = (None, GRU_NO_LIBRARY)
+    out["stft_logmag"] = (cuda_ms(lambda: torch.log1p(torch.abs(torch.stft(
+        x, 256, 64, window=w, center=True, pad_mode="constant",
+        return_complex=True) * scale)), 50),
+        "torch.stft as for stft_ri, then abs and log1p (one output)")
+    out.update(_library_attention(rs))
     for name, (ms, note) in out.items():
         print("phase 12 library %s: %s (%s)" % (
             name, "%.4f ms" % ms if ms is not None else "null", note))
@@ -1028,36 +1282,55 @@ def main():
     serving_uni = phase_serving_unidirectional()
     training_uni = phase_training_unidirectional()
     library = phase_library(window)
+    flash_kernels = phase_flash_kernels()
+    serving_attn = phase_serving_attention()
+    training_attn = phase_training_attention()
+    logmag = phase_stft_logmag(window)
     print("summary: bilstm_scan bfloat16 max_abs_err %.3g (atol %g); "
           "serving worst error vs CPU %.3g of the peak (rtol %g), lstm-orig "
-          "%.3g, gru-v1 %.3g; train steps vs CPU: worst relative loss/SNR "
-          "err %s, step-1 gradients %.3g of the peak; lstm-orig %s, every "
-          "step's gradients %.3g; gru-v1 %s, %.3g"
+          "%.3g, gru-v1 %.3g, attn-v1 %.3g; train steps vs CPU: worst "
+          "relative loss/SNR err %s, step-1 gradients %.3g of the peak; "
+          "lstm-orig %s, every step's gradients %.3g; gru-v1 %s, %.3g; "
+          "attn-v1 %s, %.3g"
           % (scan["max_abs_err"][torch.bfloat16], LSTM_ATOL[torch.bfloat16],
              serving["max_rel_err"], SERVE_RTOL,
              serving_uni["lstm-orig"]["max_rel_err"],
              serving_uni["gru-v1"]["max_rel_err"],
+             serving_attn["max_rel_err"],
              training["step_rel"], training["grad_rel"],
              training_uni["lstm-orig"]["step_rel"],
              training_uni["lstm-orig"]["grad_rel"],
              training_uni["gru-v1"]["step_rel"],
-             training_uni["gru-v1"]["grad_rel"]))
+             training_uni["gru-v1"]["grad_rel"],
+             training_attn["step_rel"], training_attn["grad_rel"]))
     # launches: the counts of the main paths that run each kernel, each
-    # zeroed just before its path and read just after it
-    paths = [serving["launches"], training["launches"]] + [
+    # zeroed just before its path and read just after it; kernel 6 has no
+    # main path and counts its own phase's comparison launches
+    paths = [serving["launches"], training["launches"],
+             serving_attn["launches"], training_attn["launches"]] + [
         run["launches"] for run in list(serving_uni.values())
         + list(training_uni.values())]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}
+    launches["stft_logmag"] = logmag["launches"]
+    ft = flash_kernels["times"]
     times = dict(stft=stft["times"][(1, 80000)],
                  bilstm_scan=scan["times"][(1251, 1)],
                  **train_kernels["times"], **uni_kernels["times"],
-                 **gru_kernels["times"])
+                 **gru_kernels["times"],
+                 flash_attn=ft[("flash_attn", 1280, 1)],
+                 flash_attn_bwd_dkv=ft[("flash_attn_bwd_dkv", TRAIN_T, 32)],
+                 flash_attn_bwd_dq=ft[("flash_attn_bwd_dq", TRAIN_T, 32)],
+                 stft_logmag=logmag["times"])
     times["stft_ri"] = times.pop("stft")
     errs = {"stft_ri": stft["max_abs_err"],
-            "bilstm_scan": scan["max_abs_err"][torch.float32]}
-    for phase in (train_kernels, uni_kernels, gru_kernels):
+            "bilstm_scan": scan["max_abs_err"][torch.float32],
+            "stft_logmag": logmag["max_abs_err"]}
+    for phase in (train_kernels, uni_kernels, gru_kernels, flash_kernels):
         errs.update({k: v[torch.float32]
                      for k, v in phase["max_abs_err"].items()})
+    flash_src = ("danet_tpu/ops/pallas/attention.py:28 (flash_attention_"
+                 "masked) -> jax/experimental/pallas/ops/tpu/"
+                 "flash_attention.py:%d (%s)")
     sources = {
         "stft_ri": ("danet_tpu_torch/csrc/stft.cu",
                     "danet_tpu/ops/pallas/stft.py:95"),
@@ -1081,21 +1354,37 @@ def main():
                            "danet_tpu/ops/pallas/gru.py:145 (save=True)"),
         "gru_scan_bwd": ("danet_tpu_torch/csrc/gru_scan_bwd.cu",
                          "danet_tpu/ops/pallas/gru.py:169"),
+        "flash_attn": ("danet_tpu_torch/csrc/flash_attn.cu",
+                       flash_src % (758, "forward")),
+        "flash_attn_bwd_dkv": ("danet_tpu_torch/csrc/flash_attn_bwd.cu",
+                               flash_src % (1121, "dK/dV")),
+        "flash_attn_bwd_dq": ("danet_tpu_torch/csrc/flash_attn_bwd.cu",
+                              flash_src % (1456, "dQ")),
+        "stft_logmag": ("danet_tpu_torch/csrc/stft.cu",
+                        "danet_tpu/ops/pallas/stft.py:95 (logmag=True, "
+                        "epilogue :72-75)"),
     }
     kernels = []
     for name in KERNELS:
-        t, b = TIMED_AT.get(name, (128, 32))
+        t, b = TIMED_AT.get(name, (TRAIN_T, 32))
         bound_ms, bound_by = _bound(*_cost(name, t, b))
         ms, plain_ms = times[name]
         lib_ms, lib_note = library[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "library": lib_note,
-            "timed_at": "%s=%d, B=%d, float32" % (
-                "L" if name == "stft_ri" else "T", t, b)})
+            "timed_at": "%s=%d, B=%d, %sfloat32" % (
+                "L" if name.startswith("stft") else "T", t, b,
+                "H=%d, D=%d, " % (ATTN_H, ATTN_D)
+                if name.startswith("flash") else "")}
+        if name == "stft_logmag":
+            entry["launches_of"] = ("its own comparison phase (16): no main "
+                                    "path of the port or of the JAX package "
+                                    "calls it")
+        kernels.append(entry)
         if not launches[name]:
             raise AssertionError("%s was not launched on its main path"
                                  % name)

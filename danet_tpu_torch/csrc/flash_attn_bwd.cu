@@ -1,0 +1,359 @@
+// Kernels 5dkv and 5dq: the flash-attention backward with segment masking.
+//
+// Replace the two backward pallas_calls of the stock TPU kernel that
+// danet_tpu/ops/pallas/attention.py::flash_attention_masked wraps
+// (jax/experimental/pallas/ops/tpu/flash_attention.py,
+// _flash_attention_bwd_dkv and _flash_attention_bwd_dq), split the same
+// way.  From the saved row statistics l, m (float32 [B, H, T]), the
+// cotangent do and di = rowsum(o * do) (float32, computed outside):
+//
+//   p_ij  = exp(s_ij - m_i) * (1 / l_i)   (s as in the forward, masked)
+//   ds_ij = (do_i . v_j - di_i) * p_ij * sm_scale
+//   dV_j  = sum_i T(p_ij) do_i,   dK_j = sum_i T(ds_ij) q_i
+//   dQ_i  = sum_j T(ds_ij) k_j
+//
+// with p and ds rounded to the storage type T before their products, as
+// the stock kernel casts them to do's and k's dtype.
+//
+//   * flash_attn_bwd_dkv: one block per (b, h, 64-key tile); it loops over
+//     the query tiles and keeps its dK and dV rows in registers;
+//   * flash_attn_bwd_dq: one block per (b, h, 64-query tile); it loops over
+//     the key tiles and keeps its dQ rows in registers.
+//
+// Each output row is owned by one block, so no atomics and the result is
+// deterministic.  What bounds them on this card: operations -- dK/dV does
+// four T x T x D products (S, dP, dV, dK: 8 B H T^2 D FLOPs), dQ three (S,
+// dP, dQ: 6 B H T^2 D) -- at the float32 rate: the math stays float32 on
+// the CUDA cores, as in the forward (flash_attn.cu).  The products are the
+// forward's 4 x 4 register tiles over 64-row shared-memory tiles
+// (flash_tiles.cuh).
+#include "flash_tiles.cuh"
+
+namespace {
+
+using flash::LD_P;
+using flash::RI;
+using flash::Strides;
+using flash::THREADS;
+using flash::TILE;
+using flash::ld;
+
+// The scores of one (query tile, key tile) pair, rows = queries
+// ty + 16 i, columns = keys tx + 16 j: p and ds in float32 from the two
+// tile products S = Q K^T and dP = dO V^T.
+template <int D>
+__device__ __forceinline__ void scores(float (&p)[RI][RI],
+                                       float (&ds)[RI][RI],
+                                       const float* q_s, const float* k_s,
+                                       const float* do_s, const float* v_s,
+                                       const int* segq_s, const int* segk_s,
+                                       const float* l_s, const float* m_s,
+                                       const float* di_s, int tx, int ty,
+                                       float sm_scale) {
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < RI; ++j) p[i][j] = ds[i][j] = 0.f;
+  flash::tile_abt<D>(p, q_s, k_s, tx, ty);
+  flash::tile_abt<D>(ds, do_s, v_s, tx, ty);
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int r = ty + 16 * i;
+    const float inv_l = 1.f / l_s[r];
+#pragma unroll
+    for (int j = 0; j < RI; ++j) {
+      float s = p[i][j] * sm_scale;
+      if (segq_s[r] != segk_s[tx + 16 * j]) s += flash::MASK_VALUE;
+      p[i][j] = expf(s - m_s[r]) * inv_l;
+      ds[i][j] = (ds[i][j] - di_s[r]) * p[i][j] * sm_scale;
+    }
+  }
+}
+
+// Per-query statistics of rows t0 .. t0 + 63 and their segment ids.
+__device__ __forceinline__ void load_rows(float* l_s, float* m_s,
+                                          float* di_s, int* segq_s,
+                                          const float* l, const float* m,
+                                          const float* di, const int* seg,
+                                          int b, int h, int heads, int seq,
+                                          int t0) {
+  const int tid = threadIdx.x;
+  if (tid < TILE) {
+    const size_t at = (static_cast<size_t>(b) * heads + h) * seq + t0 + tid;
+    l_s[tid] = l[at];
+    m_s[tid] = m[at];
+    di_s[tid] = di[at];
+    segq_s[tid] = seg ? seg[b * seq + t0 + tid] : 0;
+  }
+}
+
+template <int D>
+size_t dkv_smem_bytes() {
+  // k_s, v_s, q_s, do_s [64][D + 1], p_s, ds_s [64][65]; l, m, di and the
+  // segment ids of both tiles
+  return sizeof(float) * (4 * TILE * ld<D>() + 2 * TILE * LD_P + 3 * TILE) +
+         sizeof(int) * 2 * TILE;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const int* __restrict__ seg,
+                     const float* __restrict__ l, const float* __restrict__ m,
+                     const T* __restrict__ dout,
+                     const float* __restrict__ di, T* __restrict__ dk,
+                     T* __restrict__ dv, int heads, int seq, Strides st,
+                     float sm_scale) {
+  constexpr int DJ = D / 16;
+  extern __shared__ float smem[];
+  float* k_s = smem;
+  float* v_s = k_s + TILE * ld<D>();
+  float* q_s = v_s + TILE * ld<D>();
+  float* do_s = q_s + TILE * ld<D>();
+  float* p_s = do_s + TILE * ld<D>();
+  float* ds_s = p_s + TILE * LD_P;
+  float* l_s = ds_s + TILE * LD_P;
+  float* m_s = l_s + TILE;
+  float* di_s = m_s + TILE;
+  int* segq_s = reinterpret_cast<int*>(di_s + TILE);
+  int* segk_s = segq_s + TILE;
+
+  const int k0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+
+  flash::load_tile<T, D>(k_s, k, st, b, k0, h);
+  flash::load_tile<T, D>(v_s, v, st, b, k0, h);
+  if (tid < TILE) segk_s[tid] = seg ? seg[b * seq + k0 + tid] : 0;
+
+  float dk_acc[RI][DJ], dv_acc[RI][DJ];  // key rows ty + 16 i
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  for (int q0 = 0; q0 < seq; q0 += TILE) {
+    flash::load_tile<T, D>(q_s, q, st, b, q0, h);
+    flash::load_tile_dense<T, D>(do_s, dout, b, q0, h, seq, heads);
+    load_rows(l_s, m_s, di_s, segq_s, l, m, di, seg, b, h, heads, seq, q0);
+    __syncthreads();
+
+    float p[RI][RI], ds[RI][RI];
+    scores<D>(p, ds, q_s, k_s, do_s, v_s, segq_s, segk_s, l_s, m_s, di_s, tx,
+              ty, sm_scale);
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < RI; ++j) {
+        const int at = (ty + 16 * i) * LD_P + tx + 16 * j;
+        p_s[at] = flash::round_to<T>(p[i][j]);
+        ds_s[at] = flash::round_to<T>(ds[i][j]);
+      }
+    __syncthreads();
+
+    // dV += P^T dO, dK += dS^T Q: key rows ty + 16 i, columns tx + 16 j
+#pragma unroll 4
+    for (int qq = 0; qq < TILE; ++qq) {
+      float dov[DJ], qv[DJ];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        dov[j] = do_s[qq * ld<D>() + tx + 16 * j];
+        qv[j] = q_s[qq * ld<D>() + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float pv = p_s[qq * LD_P + ty + 16 * i];
+        const float dsv = ds_s[qq * LD_P + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          dv_acc[i][j] = fmaf(pv, dov[j], dv_acc[i][j]);
+          dk_acc[i][j] = fmaf(dsv, qv[j], dk_acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const size_t row =
+        ((static_cast<size_t>(b) * seq + k0 + ty + 16 * i) * heads + h) * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      dk[row + tx + 16 * j] = from_f32<T>(dk_acc[i][j]);
+      dv[row + tx + 16 * j] = from_f32<T>(dv_acc[i][j]);
+    }
+  }
+}
+
+template <int D>
+size_t dq_smem_bytes() {
+  // q_s, do_s, k_s, v_s [64][D + 1], ds_s [64][65]; l, m, di and the
+  // segment ids of both tiles
+  return sizeof(float) * (4 * TILE * ld<D>() + TILE * LD_P + 3 * TILE) +
+         sizeof(int) * 2 * TILE;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ seg,
+                    const float* __restrict__ l, const float* __restrict__ m,
+                    const T* __restrict__ dout, const float* __restrict__ di,
+                    T* __restrict__ dq, int heads, int seq, Strides st,
+                    float sm_scale) {
+  constexpr int DJ = D / 16;
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* do_s = q_s + TILE * ld<D>();
+  float* k_s = do_s + TILE * ld<D>();
+  float* v_s = k_s + TILE * ld<D>();
+  float* ds_s = v_s + TILE * ld<D>();
+  float* l_s = ds_s + TILE * LD_P;
+  float* m_s = l_s + TILE;
+  float* di_s = m_s + TILE;
+  int* segq_s = reinterpret_cast<int*>(di_s + TILE);
+  int* segk_s = segq_s + TILE;
+
+  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+
+  flash::load_tile<T, D>(q_s, q, st, b, q0, h);
+  flash::load_tile_dense<T, D>(do_s, dout, b, q0, h, seq, heads);
+  load_rows(l_s, m_s, di_s, segq_s, l, m, di, seg, b, h, heads, seq, q0);
+
+  float dq_acc[RI][DJ];  // query rows ty + 16 i
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dq_acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < seq; k0 += TILE) {
+    flash::load_tile<T, D>(k_s, k, st, b, k0, h);
+    flash::load_tile<T, D>(v_s, v, st, b, k0, h);
+    if (tid < TILE) segk_s[tid] = seg ? seg[b * seq + k0 + tid] : 0;
+    __syncthreads();
+
+    float p[RI][RI], ds[RI][RI];
+    scores<D>(p, ds, q_s, k_s, do_s, v_s, segq_s, segk_s, l_s, m_s, di_s, tx,
+              ty, sm_scale);
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < RI; ++j)
+        ds_s[(ty + 16 * i) * LD_P + tx + 16 * j] =
+            flash::round_to<T>(ds[i][j]);
+    __syncthreads();
+
+    // dQ += dS K: query rows ty + 16 i, columns tx + 16 j
+#pragma unroll 4
+    for (int kk = 0; kk < TILE; ++kk) {
+      float kv[DJ];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) kv[j] = k_s[kk * ld<D>() + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float dsv = ds_s[(ty + 16 * i) * LD_P + kk];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) dq_acc[i][j] = fmaf(dsv, kv[j],
+                                                         dq_acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const size_t row =
+        ((static_cast<size_t>(b) * seq + q0 + ty + 16 * i) * heads + h) * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j)
+      dq[row + tx + 16 * j] = from_f32<T>(dq_acc[i][j]);
+  }
+}
+
+// The arguments of both entry points, as one struct for the dispatch.
+struct BwdArgs {
+  const void *q, *k, *v, *seg, *l, *m, *dout, *di;
+  void *d0, *d1;  // dk, dv (dK/dV kernel) or dq (dQ kernel)
+  int batch, heads, seq;
+  Strides st;
+  float sm_scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, bool DKV>
+int launch_bwd(const BwdArgs& a) {
+  const dim3 grid(a.seq / TILE, a.heads, a.batch);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const int* seg = static_cast<const int*>(a.seg);
+  const float* l = static_cast<const float*>(a.l);
+  const float* m = static_cast<const float*>(a.m);
+  const T* dout = static_cast<const T*>(a.dout);
+  const float* di = static_cast<const float*>(a.di);
+  if constexpr (DKV) {
+    const size_t smem = dkv_smem_bytes<D>();
+    const int status = flash::allow_smem(flash_bwd_dkv_kernel<T, D>, smem);
+    if (status != 0) return status;
+    flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
+        q, k, v, seg, l, m, dout, di, static_cast<T*>(a.d0),
+        static_cast<T*>(a.d1), a.heads, a.seq, a.st, a.sm_scale);
+  } else {
+    const size_t smem = dq_smem_bytes<D>();
+    const int status = flash::allow_smem(flash_bwd_dq_kernel<T, D>, smem);
+    if (status != 0) return status;
+    flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
+        q, k, v, seg, l, m, dout, di, static_cast<T*>(a.d0), a.heads, a.seq,
+        a.st, a.sm_scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DKV, typename T>
+int bwd_by_dim(int head_dim, const BwdArgs& a) {
+  switch (head_dim) {
+    case 16: return launch_bwd<T, 16, DKV>(a);
+    case 32: return launch_bwd<T, 32, DKV>(a);
+    case 64: return launch_bwd<T, 64, DKV>(a);
+    case 128: return launch_bwd<T, 128, DKV>(a);
+    default: return DANET_BAD_ARGUMENT;
+  }
+}
+
+template <bool DKV>
+int bwd(int head_dim, int dtype, const BwdArgs& a) {
+  if (flash::bad_shape(a.batch, a.heads, a.seq) || a.seq / TILE > 65535)
+    return DANET_BAD_ARGUMENT;
+  if (dtype == 0) return bwd_by_dim<DKV, float>(head_dim, a);
+  if (dtype == 1) return bwd_by_dim<DKV, __nv_bfloat16>(head_dim, a);
+  return DANET_BAD_ARGUMENT;
+}
+
+}  // namespace
+
+// q, k, v as for danet_flash_attn (strided, storage type `dtype`); seg
+// int32 [B, T] or NULL; l, m, di float32 [B, H, T]; do, dk, dv contiguous
+// [B, T, H, D] of the storage type.  Launches on `stream`; no sync.
+extern "C" int danet_flash_attn_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* seg,
+    const void* l, const void* m, const void* dout, const void* di, void* dk,
+    void* dv, int batch, int heads, int seq, int head_dim, int dtype,
+    long long sb, long long st, long long sh, float sm_scale, void* stream) {
+  const BwdArgs a{q, k, v, seg, l, m, dout, di, dk, dv, batch, heads, seq,
+                  Strides{sb, st, sh}, sm_scale,
+                  static_cast<cudaStream_t>(stream)};
+  return bwd<true>(head_dim, dtype, a);
+}
+
+// As danet_flash_attn_bwd_dkv, with dq [B, T, H, D] the one output.
+extern "C" int danet_flash_attn_bwd_dq(
+    const void* q, const void* k, const void* v, const void* seg,
+    const void* l, const void* m, const void* dout, const void* di, void* dq,
+    int batch, int heads, int seq, int head_dim, int dtype, long long sb,
+    long long st, long long sh, float sm_scale, void* stream) {
+  const BwdArgs a{q, k, v, seg, l, m, dout, di, dq, nullptr, batch, heads,
+                  seq, Strides{sb, st, sh}, sm_scale,
+                  static_cast<cudaStream_t>(stream)};
+  return bwd<false>(head_dim, dtype, a);
+}

@@ -5,6 +5,11 @@
 //   out[b, t, c] = sum_n frame(b, t, n) * basis[n, c],   c < 2F
 //   frame(b, t, n) = x[b, t*stride + n - fft/2]  (0 outside [0, L))
 //
+// With LOGMAG (kernel 6, the feature epilogue of stft_ri_pallas with
+// logmag=True) each (re, im) column pair becomes (|Z|, log1p|Z|) in the
+// same [F, 2] layout; a thread then owns adjacent column pairs instead of
+// columns 16 apart, so that both halves of a bin are in its registers.
+//
 // The frame is read by index arithmetic from the UNPADDED wave, which folds
 // scipy's boundary padding (fft/2 zeros each side) and end padding into the
 // load, so no padded or framed copy exists in device memory.  The basis
@@ -32,6 +37,15 @@ constexpr int TM = 4;    // frames per thread
 constexpr int TN = 4;    // columns per thread
 constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
 
+// The output column of a thread's j-th accumulator: columns 16 apart, or
+// with LOGMAG the pairs 2 tx + {0, 1} and 32 + 2 tx + {0, 1}.
+template <bool LOGMAG>
+__device__ __forceinline__ int out_col(int n0, int tx, int j) {
+  return LOGMAG ? n0 + 2 * tx + (j & 1) + 32 * (j >> 1)
+                : n0 + tx + j * (BN / TN);
+}
+
+template <bool LOGMAG>
 __global__ void __launch_bounds__(THREADS)
 stft_ri_kernel(const float* __restrict__ x, const float* __restrict__ basis,
                float* __restrict__ out, int length, int n_frames,
@@ -79,7 +93,7 @@ stft_ri_kernel(const float* __restrict__ x, const float* __restrict__ basis,
 #pragma unroll
       for (int i = 0; i < TM; ++i) av[i] = a_s[kk][ty + i * (BM / TM)];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = b_s[kk][tx + j * (BN / TN)];
+      for (int j = 0; j < TN; ++j) bv[j] = b_s[kk][out_col<LOGMAG>(0, tx, j)];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -93,10 +107,22 @@ stft_ri_kernel(const float* __restrict__ x, const float* __restrict__ basis,
     const int frame = m0 + ty + i * (BM / TM);
     if (frame >= n_frames) continue;
     float* row = out + (static_cast<size_t>(b) * n_frames + frame) * n_cols;
+    if (LOGMAG) {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + tx + j * (BN / TN);
-      if (col < n_cols) row[col] = acc[i][j];
+      for (int j = 0; j < TN; j += 2) {
+        const int col = out_col<LOGMAG>(n0, tx, j);  // even; n_cols is even
+        if (col >= n_cols) continue;
+        const float mag = sqrtf(acc[i][j] * acc[i][j] +
+                                acc[i][j + 1] * acc[i][j + 1]);
+        row[col] = mag;
+        row[col + 1] = log1pf(mag);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int col = out_col<LOGMAG>(n0, tx, j);
+        if (col < n_cols) row[col] = acc[i][j];
+      }
     }
   }
 }
@@ -104,18 +130,26 @@ stft_ri_kernel(const float* __restrict__ x, const float* __restrict__ basis,
 }  // namespace
 
 // x [batch, length] f32, basis [fft_size, n_cols] f32 (interleaved re/im),
-// out [batch, n_frames, n_cols] f32.  Launches on `stream`; no sync.
+// out [batch, n_frames, n_cols] f32: (re, im) per bin, or with `logmag`
+// (|Z|, log1p|Z|).  Launches on `stream`; no sync.
 extern "C" int danet_stft_ri(const void* x, const void* basis, void* out,
                              int batch, int length, int n_frames,
                              int fft_size, int stride, int n_cols,
-                             void* stream) {
+                             int logmag, void* stream) {
   if (batch <= 0 || length <= 0 || n_frames <= 0 || fft_size <= 0 ||
-      stride <= 0 || n_cols <= 0 || batch > 65535)
+      stride <= 0 || n_cols <= 0 || n_cols % 2 != 0 || batch > 65535)
     return DANET_BAD_ARGUMENT;
   const dim3 grid((n_cols + BN - 1) / BN, (n_frames + BM - 1) / BM, batch);
   if (grid.y > 65535) return DANET_BAD_ARGUMENT;
-  stft_ri_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(basis),
-      static_cast<float*>(out), length, n_frames, fft_size, stride, n_cols);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* bf = static_cast<const float*>(basis);
+  float* of = static_cast<float*>(out);
+  if (logmag)
+    stft_ri_kernel<true><<<grid, THREADS, 0, s>>>(
+        xf, bf, of, length, n_frames, fft_size, stride, n_cols);
+  else
+    stft_ri_kernel<false><<<grid, THREADS, 0, s>>>(
+        xf, bf, of, length, n_frames, fft_size, stride, n_cols);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,23 +1,28 @@
-"""Encoders: ``toy``, ``lstm-orig``, ``bilstm-orig``, ``gru-v1`` and the
-LSTM output head.
+"""Encoders: ``toy``, ``lstm-orig``, ``bilstm-orig``, ``gru-v1``,
+``attn-v1`` and the LSTM output head.
 
 Counterpart of ``danet_tpu/models/encoders.py:25-34,67-147,176-249,
-672-725``: the dense paths (no pipeline, sequence or tensor parallelism,
-no rematerialization, no streaming hooks).  ``bilstm-orig`` drops out after
-every layer in training; ``lstm-orig`` and ``gru-v1`` do not, because
-their JAX ``apply`` ignores ``train``.  ``HDIM`` and ``N_LAYERS`` are
-class attributes, as in the JAX package, so tests can narrow both packages
-the same way.
+313-520,672-725``: the dense paths (no pipeline, sequence or tensor
+parallelism, no rematerialization, no streaming hooks).  ``bilstm-orig``
+drops out after every layer in training and ``attn-v1`` after every
+block's MLP; ``lstm-orig`` and ``gru-v1`` do not, because their JAX
+``apply`` ignores ``train``.  ``HDIM`` and ``N_LAYERS`` are class
+attributes of the recurrent encoders, as in the JAX package, so tests can
+narrow both packages the same way; ``attn-v1`` reads its widths from the
+ATTN_* keys.
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from math import sqrt
 
+import numpy as np
 import torch
 
 from danet_tpu_torch.hparams import hparams
 from danet_tpu_torch.models.base import Encoder
 from danet_tpu_torch.ops import nn, rnn
+from danet_tpu_torch.ops.cuda import attention
 
 
 def _candidate_activation(hp) -> str:
@@ -168,3 +173,129 @@ class GruEncoder(Encoder):
         for i in range(self.N_LAYERS):
             x = rnn.gru_apply(params[f"gru{i}"], x, backend=_backend(hp))
         return _LstmHead.apply(params["output"], hp, x)
+
+
+@lru_cache(maxsize=None)
+def _posenc_np(t: int, d: int) -> np.ndarray:
+    """Sinusoidal positions [t, d]: float64 in numpy, rounded to float32."""
+    pos = np.arange(t)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d))
+    return np.concatenate([np.sin(ang), np.cos(ang)],
+                          axis=-1).astype("float32")
+
+
+@hparams.register_encoder("attn-v1")
+class AttentionEncoder(Encoder):
+    """Pre-LN transformer encoder over frames (not in the reference).
+
+    ATTN_DIM, ATTN_HEADS, ATTN_LAYERS, ATTN_MLP_MULT set the widths;
+    ATTN_BACKEND picks the attention: 'flash' the flash kernels
+    (``ops/cuda/attention.py``, T a multiple of 128), 'auto' and 'xla' the
+    dense attention in plain PyTorch.  ATTN_CAUSAL (banded attention and
+    the streaming hooks) and MESH_SEQ > 1 (sequence-parallel attention)
+    are not ported and raise NotImplementedError."""
+
+    def _dims(self):
+        hp = self.hp
+
+        def get(key, default):
+            v = getattr(hp, key, None)
+            return default if v is None else int(v)
+
+        d = get("ATTN_DIM", 256)
+        heads = get("ATTN_HEADS", 4)
+        if d % 2 != 0:
+            raise ValueError("ATTN_DIM must be even (got %d)" % d)
+        if d % heads != 0:
+            raise ValueError(
+                "ATTN_DIM (%d) must divide by ATTN_HEADS (%d)" % (d, heads))
+        return d, heads, get("ATTN_LAYERS", 4), get("ATTN_MLP_MULT", 4)
+
+    def init(self, generator, device=None):
+        hp = self.hp
+        d, _, n_layers, mlp = self._dims()
+        params = {
+            "embed": nn.linear_init(generator, hp.FEATURE_SIZE, d,
+                                    device=device),
+            "output": nn.linear_init(generator, d,
+                                     hp.FEATURE_SIZE * hp.EMBED_SIZE,
+                                     bias=False, device=device),
+        }
+        for i in range(n_layers):
+            params[f"block{i}"] = {
+                "qkv": nn.linear_init(generator, d, 3 * d, device=device),
+                "proj": nn.linear_init(generator, d, d, device=device),
+                "ln1": {"g": torch.ones(d, device=device),
+                        "b": torch.zeros(d, device=device)},
+                "ln2": {"g": torch.ones(d, device=device),
+                        "b": torch.zeros(d, device=device)},
+                "mlp_in": nn.linear_init(generator, d, mlp * d,
+                                         device=device),
+                "mlp_out": nn.linear_init(generator, mlp * d, d,
+                                          device=device),
+            }
+        return params
+
+    @staticmethod
+    def _posenc(t, d, dtype, device):
+        return torch.from_numpy(_posenc_np(t, d)).to(device=device,
+                                                     dtype=dtype)
+
+    @staticmethod
+    def _dense_attention(q, k, v, key_mask):
+        """Full masked multi-head attention: q, k, v [B, T, H, D], key_mask
+        [B, T] bool -> [B, T, H, D].  Logits in q's dtype, masked keys at
+        -1e9 and the softmax in float32, as XLA runs the JAX package's."""
+        hd = q.shape[-1]
+        logits = nn.ee("bqhd,bkhd->bhqk", q, k) / torch.sqrt(
+            torch.tensor(hd, dtype=q.dtype, device=q.device))
+        logits = torch.where(key_mask[:, None, None, :], logits.float(),
+                             torch.tensor(-1e9, dtype=torch.float32,
+                                          device=q.device))
+        attn = torch.softmax(logits, dim=-1).to(q.dtype)
+        return nn.ee("bhqk,bkhd->bqhd", attn, v)
+
+    def apply(self, params, log_spectra, train=False, generator=None):
+        """[B, T, F] -> [B, T, F, E]; with ``train``, inverted dropout at
+        DROPOUT_KEEP_PROB on every block's MLP output, drawn from
+        ``generator``."""
+        hp = self.hp
+        if bool(getattr(hp, "ATTN_CAUSAL", False)):
+            raise NotImplementedError(
+                "ATTN_CAUSAL (banded attention, streaming) is not ported")
+        if int(getattr(hp, "MESH_SEQ", 1) or 1) > 1:
+            raise NotImplementedError(
+                "MESH_SEQ > 1 (sequence-parallel attention) is not ported")
+        d, heads, n_layers, _ = self._dims()
+        b, t = log_spectra.shape[0], log_spectra.shape[1]
+        keep = hp.DROPOUT_KEEP_PROB if train else 1.0
+        drop = generator is not None and keep < 1.0
+        attn_fn = attention.resolve_attn_fn(hp, t, self._dense_attention)
+
+        # zero-padded frames have exactly zero spectra: they are no keys,
+        # and they do not shift the mean of the real frames
+        key_mask = torch.any(log_spectra != 0.0, dim=-1)       # [B, T]
+        mcount = torch.sum(key_mask, dim=1)[:, None, None]
+        # JAX's weakly typed float32 denominator takes the spectra's dtype
+        den = (mcount * log_spectra.shape[-1] + 1e-6).to(log_spectra.dtype)
+        mu = torch.sum(log_spectra * key_mask[..., None], dim=(1, 2),
+                       keepdim=True) / den
+        x = (log_spectra - mu) * key_mask[..., None].to(log_spectra.dtype)
+        h = nn.linear_apply(params["embed"], x)
+        h = h + self._posenc(t, d, h.dtype, h.device)
+        for i in range(n_layers):
+            p = params[f"block{i}"]
+            y = nn.layer_norm(p["ln1"], h)
+            qkv = nn.linear_apply(p["qkv"], y).reshape(b, t, 3, heads,
+                                                       d // heads)
+            o = attn_fn(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], key_mask)
+            h = h + nn.linear_apply(p["proj"], o.reshape(b, t, d))
+            y = nn.layer_norm(p["ln2"], h)
+            y = nn.linear_apply(p["mlp_out"],
+                                nn.gelu(nn.linear_apply(p["mlp_in"], y)))
+            if drop:
+                y = nn.dropout(generator, y, keep)
+            h = h + y
+        out = nn.linear_apply(params["output"], h)
+        return out.reshape(b, t, hp.FEATURE_SIZE, hp.EMBED_SIZE)

@@ -30,8 +30,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # (name, restype, argtypes) of every C entry point in csrc/
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = [
-    ("danet_stft_ri", _I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    ("danet_stft_ri", _I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     ("danet_bilstm_scan", _I,
      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     ("danet_bilstm_scan_train", _I,
@@ -49,6 +50,12 @@ _SIGNATURES = [
      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     ("danet_gru_scan_bwd", _I,
      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    ("danet_flash_attn", _I,
+     [_P] * 7 + [_I] * 5 + [_L] * 3 + [_F, _P]),
+    ("danet_flash_attn_bwd_dkv", _I,
+     [_P] * 10 + [_I] * 5 + [_L] * 3 + [_F, _P]),
+    ("danet_flash_attn_bwd_dq", _I,
+     [_P] * 9 + [_I] * 5 + [_L] * 3 + [_F, _P]),
     ("danet_error_string", ctypes.c_char_p, [_I]),
 ]
 

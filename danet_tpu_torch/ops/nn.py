@@ -1,7 +1,7 @@
 """Small functional layer library: the mixed-precision matmul contract, the
-linear layer, leaky ReLU and dropout.
+linear layer, layer norm, GELU, leaky ReLU and dropout.
 
-Counterpart of ``danet_tpu/ops/nn.py:17-80,97-107``.  ``mm``/``ee`` take
+Counterpart of ``danet_tpu/ops/nn.py:17-80,97-107`` (GELU: ``jax.nn.gelu``).  ``mm``/``ee`` take
 operands in the compute dtype, accumulate in float32 and cast the result
 back to the first operand's dtype.  Products of bf16 values are exact in float32,
 so upcasting the operands and running a float32 product is that contract
@@ -51,6 +51,24 @@ def linear_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     if "b" in params:
         y = y + params["b"].to(x.dtype)
     return y
+
+
+def layer_norm(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm over the last axis with {'g', 'b'} params: population
+    variance, ``rsqrt(var + 1e-6)``.  The mean and variance are taken in
+    float32 and rounded to ``x``'s dtype, as ``jnp.mean``/``jnp.var`` do
+    for bfloat16."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    xn = (x - mu.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + 1e-6)
+    return xn * params["g"].to(x.dtype) + params["b"].to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation (exact GELU
+    differs from it by about 1e-3)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
 
 
 def leaky_relu(x: torch.Tensor, alpha: float = 0.0) -> torch.Tensor:

@@ -1,12 +1,16 @@
 """Where the port's device time goes, on one NVIDIA GPU.
 
     python -m danet_tpu_torch.perf_probe profile [--encoder gru-v1]
-        [--dtype float32|bfloat16]
+        [--dtype float32|bfloat16] [--attn-backend flash|xla|auto]
 
 ``profile``: for one encoder at full width with random weights from seed
 0, in COMPUTE_DTYPE ``--dtype``, ``torch.profiler`` over 5 train steps
 (B=32, T=128, the toy data; after 3 warm-ups) and over 5 10-s requests at
-B=1 (after 2 warm-ups).  Prints the device time per step or request by
+B=1 (after 2 warm-ups; attn-v1's flash path takes T a multiple of 128,
+so its request is L=81,856, T=1280).  ``--attn-backend`` sets
+ATTN_BACKEND for attn-v1: 'flash' (the default here) profiles the flash
+kernels, 'xla' or 'auto' the dense attention.  Prints the device time per
+step or request by
 kernel (the CUDA rows of ``key_averages``), the unprofiled wall time per
 step or request, and the device's busy share of that wall time.
 
@@ -69,7 +73,7 @@ def _wall_ms(fn, reps: int) -> float:
     return float(np.median(out))
 
 
-def profile(encoder: str, dtype: str) -> None:
+def profile(encoder: str, dtype: str, attn_backend: str = "flash") -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -82,7 +86,8 @@ def profile(encoder: str, dtype: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
-    hp = load_config(ENCODER_TYPE=encoder, COMPUTE_DTYPE=dtype)
+    hp = load_config(ENCODER_TYPE=encoder, COMPUTE_DTYPE=dtype,
+                     ATTN_BACKEND=attn_backend)
     model = hp.get_model()(hp)
     ds = WhiteNoiseData(hp, seed=3)
     ds.install_and_load()
@@ -105,7 +110,8 @@ def profile(encoder: str, dtype: str) -> None:
 
     sep = Separator(model, model.init(torch.Generator().manual_seed(0)),
                     "cuda")
-    wav = (np.random.RandomState(4).randn(1, 80000) * 0.1).astype(np.float32)
+    n = 81856 if encoder == "attn-v1" else 80000
+    wav = (np.random.RandomState(4).randn(1, n) * 0.1).astype(np.float32)
     for _ in range(2):
         sep.separate(wav)
     wall = _wall_ms(lambda: sep.separate(wav), 5)
@@ -123,11 +129,14 @@ def main(argv=None) -> None:
     p.add_argument("--encoder", default="gru-v1")
     p.add_argument("--dtype", default="float32",
                    choices=("float32", "bfloat16"))
+    p.add_argument("--attn-backend", default="flash",
+                   choices=("flash", "xla", "auto"),
+                   help="ATTN_BACKEND of attn-v1 (other encoders ignore it)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("perf_probe: no GPU (torch.cuda.is_available() is false)")
     print("card: %s" % _card())
-    profile(args.encoder, args.dtype)
+    profile(args.encoder, args.dtype, args.attn_backend)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,9 @@
 Counterpart of the request path of ``danet_tpu/serve.py:184-239,515-528``.
 The JAX package serves ``jax.export`` artifacts with length buckets; here
 the model runs eagerly on the card (``DaNet.separate_wav``: fused STFT
-kernel, a recurrent scan kernel per layer, attractors, masks, iSTFT), and
+kernel, the encoder -- a recurrent scan kernel per layer, or with attn-v1
+and ATTN_BACKEND 'flash' a flash-attention kernel per block, which needs
+T = L / FFT_STRIDE + 1 a multiple of 128 -- attractors, masks, iSTFT), and
 ``torch.export`` artifacts are later work.
 
 CLI:

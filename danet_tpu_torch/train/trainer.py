@@ -6,7 +6,8 @@ Counterpart of ``danet_tpu/train/trainer.py``: ``prepare_batch``
 (:492-502), the learning rate (:584-588) and ``train`` (:642-1038).  The
 JAX trainer jits one fused step; here a step runs eagerly on ``device``:
 ingest the prepared numpy batch, forward, backward (autograd, through the
-recurrent kernels' autograd Functions), clip, update in place.
+recurrent kernels' and the flash-attention kernels' autograd Functions),
+clip, update in place.
 
 Not ported, and refused with NotImplementedError: GRAD_ACCUM > 1,
 EMA_DECAY > 0, TRAIN_STEPS_PER_CALL > 1, TRANSFER_DOMAIN='wave', wires

@@ -55,6 +55,25 @@ def test_torch_stft_matches_pallas_and_xla(fresh_hparams, interpret_stft,
         cuda_stft.stft_ri(tx[0], 256, 64, w).numpy(), kernel_path[0])
 
 
+def test_torch_stft_logmag_matches_pallas(fresh_hparams, interpret_stft):
+    """Kernel 6's plain version, (|Z|, log1p|Z|), against the JAX kernel's
+    logmag branch in interpret mode, 2e-5; on a CPU tensor neither counter
+    moves."""
+    w = fresh_hparams.FFT_WND_ARRAY
+    x = np.random.RandomState(1).randn(2, 8000).astype(np.float32)
+    ref = np.asarray(interpret_stft.stft_ri_pallas(jnp.asarray(x), 256, 64,
+                                                   w, logmag=True))
+    before = (cuda_stft.stft_ri.launches, cuda_stft.stft_logmag.launches)
+    out = cuda_stft.stft_logmag(torch.from_numpy(x), 256, 64, w).numpy()
+    assert before == (cuda_stft.stft_ri.launches,
+                      cuda_stft.stft_logmag.launches)
+    assert out.shape == ref.shape == (2, 126, 129, 2)
+    np.testing.assert_allclose(out, ref, atol=2e-5)
+    np.testing.assert_array_equal(
+        cuda_stft.stft_ri(torch.from_numpy(x), 256, 64, w,
+                          logmag=True).numpy(), out)
+
+
 def test_torch_stft_wrapper_counts_only_kernel_launches(fresh_hparams):
     before = cuda_stft.stft_ri.launches
     cuda_stft.stft_ri(torch.zeros(1, 1000), 256, 64,
