@@ -26,7 +26,9 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    recurrent steps).
 6. kernels 2 (BiLSTM forward that saves residuals) and 3 (BiLSTM
    backward) vs their plain versions on the card: H=300, (T=128, B=32) the
-   train shape and (T=1251, B=1), tanh and identity candidates, layer-shaped
+   train shape and (T=1251, B=1), tanh and identity candidates, and the
+   ragged (T=64, B=33), whose second pass of 32 rows in kernel 3 has one
+   live row (tanh candidate, both dtypes); layer-shaped
    inputs with a nonzero d_hs.  float32: atol 1e-5 on hs, cs and acts;
    atol 2e-5 + rtol 1e-4 on dxp, dc0 and dh0.  bfloat16: atol 5e-2 + rtol
    2e-2 on every output, for the reason given at phase 4 (one-ulp roundings
@@ -59,7 +61,8 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
 8. the one-direction LSTM kernels (lstm_scan, lstm_scan_train,
    lstm_scan_bwd: kernels B, 2 and 3 with one direction) vs their plain
    versions on the card: H=600 (lstm-orig), (T=1251, B=1) and (T=128,
-   B=32), tanh and identity candidates, float32 and bfloat16, layer-shaped
+   B=32), tanh and identity candidates, float32 and bfloat16, and phase
+   6's ragged (T=64, B=33), layer-shaped
    inputs with nonzero c0, h0 and d_hs; phase 4's tolerance on the lean
    kernel and phase 6's on the other two.
 9. the GRU kernels (gru_scan, gru_scan_train, gru_scan_bwd) vs their plain
@@ -99,7 +102,8 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    backwards of the encoder's kernels per train step and only its lean
    kernel in valid_step.  Then the median step time of the kernel path and
    of the plain path.
-12. library yardsticks (below), timed on the card.
+12. library yardsticks (below), timed on the card; then each kernel 3
+   entry's time and us per step at (T=128, B=32) beside its library call.
 13. the three flash-attention kernels (flash_attn, flash_attn_bwd_dkv,
    flash_attn_bwd_dq) vs their plain versions on the card at attn-v1's
    widths (H=4, D=64) and both of its shapes, (T=1280, B=1) serving and
@@ -171,6 +175,7 @@ from danet_tpu_torch.ops.cuda import attention as cuda_attn
 from danet_tpu_torch.ops.cuda import gru as cuda_gru
 from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
 from danet_tpu_torch.ops.cuda import stft as cuda_stft
+from danet_tpu_torch.perf_probe import cuda_ms
 from danet_tpu_torch.serve import Separator
 from danet_tpu_torch.train import Trainer, prepare_batch
 
@@ -232,21 +237,6 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip()
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back runs, after
-    one warm-up (CUDA events)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -457,7 +447,7 @@ def _serve(phase: int, encoder: str, requests, seed: int, keys=None,
     worst = 0.0
     for (b, n), wav, out in zip(requests, waves, outs):
         ref = cpu.separate(wav)
-        want = (b, 2, stft_frame_count(n, 256, 64) * 64)
+        want = (b, 2, n)             # trimmed to the request length
         peak = float(np.max(np.abs(ref)))
         err = float(np.max(np.abs(out - ref)))
         e_gpu, e_cpu = _embeddings(gpu, wav), _embeddings(cpu, wav)
@@ -549,6 +539,12 @@ def _tag(dt, tanh, t, b) -> str:
                                else " tanh" if tanh else " identity", t, b)
 
 
+def _per_step(kernel, t: int) -> tuple:
+    """(ms, us per step) of a kernel's call over T steps, 10 launches."""
+    ms = cuda_ms(kernel, 10)
+    return ms, 1e3 * ms / t
+
+
 def _time_pair(times: dict, name: str, kernel, plain, t: int) -> str:
     """Kernel (10 launches) and plain (2 runs) times of one call."""
     times[name] = (cuda_ms(kernel, 10), cuda_ms(plain, 2))
@@ -557,44 +553,52 @@ def _time_pair(times: dict, name: str, kernel, plain, t: int) -> str:
         name, ms, 1e3 * ms / t, plain_ms)
 
 
+# phases 6 and 8: the ragged shape that leaves one live row in kernel 3's
+# second pass of 32 rows, tanh candidate, both dtypes, after the others
+RAGGED = [(dt, True, 64, 33) for dt in (torch.float32, torch.bfloat16)]
+
+
 def phase_train_kernels() -> dict:
     rs = np.random.RandomState(4)
     worst, times = {}, {}
-    for dt in (torch.float32, torch.bfloat16):
-        for tanh in (True, False):
-            for t, b in ((128, 32), (1251, 1)):
-                xp, wh, c0, h0 = _scan_inputs(rs, t, b, dt)
-                d_hs = torch.from_numpy(rs.randn(t, 2, b, 300).astype(
-                    np.float32)).cuda().to(dt)
-                args = (xp, wh, c0, h0, tanh)
-                fwd = cuda_lstm.bilstm_scan_train(*args)
-                fwd_ref = cuda_lstm.bilstm_scan_train_plain(*args)
-                _, cs, acts = fwd_ref
-                c_prev = torch.cat([c0[None], cs[:-1]])
-                bargs = (d_hs, acts, cs, c_prev, wh, tanh)
-                bwd = cuda_lstm.bilstm_scan_bwd(*bargs)
-                bwd_ref = cuda_lstm.bilstm_scan_bwd_plain(*bargs)
-                torch.cuda.synchronize()
-                tag = _tag(dt, tanh, t, b)
-                parts = _check_kernels(6, tag, dt, (
-                    ("bilstm_scan_train", ("hs", "cs", "acts"), fwd,
-                     fwd_ref, TRAIN_FWD_TOL[dt]),
-                    ("bilstm_scan_bwd", ("dxp", "dc0", "dh0"), bwd,
-                     bwd_ref, TRAIN_BWD_TOL[dt])), worst)
-                line = "phase 6 %s max_abs_err: %s (fwd atol %g rtol %g, " \
-                    "bwd atol %g rtol %g)" % (tag, ", ".join(parts),
-                                             *TRAIN_FWD_TOL[dt],
-                                             *TRAIN_BWD_TOL[dt])
-                if dt == torch.float32 and tanh and (t, b) == (128, 32):
-                    line += _time_pair(
-                        times, "bilstm_scan_train",
-                        lambda: cuda_lstm.bilstm_scan_train(*args),
-                        lambda: cuda_lstm.bilstm_scan_train_plain(*args), t)
-                    line += _time_pair(
-                        times, "bilstm_scan_bwd",
-                        lambda: cuda_lstm.bilstm_scan_bwd(*bargs),
-                        lambda: cuda_lstm.bilstm_scan_bwd_plain(*bargs), t)
-                print(line)
+    cases = [(dt, tanh, t, b) for dt in (torch.float32, torch.bfloat16)
+             for tanh in (True, False) for t, b in ((128, 32), (1251, 1))]
+    for dt, tanh, t, b in cases + RAGGED:
+        xp, wh, c0, h0 = _scan_inputs(rs, t, b, dt)
+        d_hs = torch.from_numpy(rs.randn(t, 2, b, 300).astype(
+            np.float32)).cuda().to(dt)
+        args = (xp, wh, c0, h0, tanh)
+        fwd = cuda_lstm.bilstm_scan_train(*args)
+        fwd_ref = cuda_lstm.bilstm_scan_train_plain(*args)
+        _, cs, acts = fwd_ref
+        c_prev = torch.cat([c0[None], cs[:-1]])
+        bargs = (d_hs, acts, cs, c_prev, wh, tanh)
+        bwd = cuda_lstm.bilstm_scan_bwd(*bargs)
+        bwd_ref = cuda_lstm.bilstm_scan_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        tag = _tag(dt, tanh, t, b)
+        parts = _check_kernels(6, tag, dt, (
+            ("bilstm_scan_train", ("hs", "cs", "acts"), fwd,
+             fwd_ref, TRAIN_FWD_TOL[dt]),
+            ("bilstm_scan_bwd", ("dxp", "dc0", "dh0"), bwd,
+             bwd_ref, TRAIN_BWD_TOL[dt])), worst)
+        line = "phase 6 %s max_abs_err: %s (fwd atol %g rtol %g, " \
+            "bwd atol %g rtol %g)" % (tag, ", ".join(parts),
+                                     *TRAIN_FWD_TOL[dt],
+                                     *TRAIN_BWD_TOL[dt])
+        if dt == torch.float32 and tanh and (t, b) == (128, 32):
+            line += _time_pair(
+                times, "bilstm_scan_train",
+                lambda: cuda_lstm.bilstm_scan_train(*args),
+                lambda: cuda_lstm.bilstm_scan_train_plain(*args), t)
+            line += _time_pair(
+                times, "bilstm_scan_bwd",
+                lambda: cuda_lstm.bilstm_scan_bwd(*bargs),
+                lambda: cuda_lstm.bilstm_scan_bwd_plain(*bargs), t)
+        elif dt == torch.float32 and (t, b) == (64, 33):
+            line += "; kernel 3 %.4f ms (%.3f us/step)" % _per_step(
+                lambda: cuda_lstm.bilstm_scan_bwd(*bargs), t)
+        print(line)
     return {"max_abs_err": worst, "times": times}
 
 
@@ -622,45 +626,48 @@ def _lstm_inputs(rs, t, b, dtype):
 def phase_lstm_unidirectional() -> dict:
     rs = np.random.RandomState(8)
     worst, times = {}, {}
-    for dt in (torch.float32, torch.bfloat16):
-        for tanh in (True, False):
-            for t, b in ((1251, 1), (128, 32)):
-                xp, wh, c0, h0, d_hs = _lstm_inputs(rs, t, b, dt)
-                args = (xp, wh, c0, h0, tanh)
-                lean = cuda_lstm.lstm_scan(*args)
-                lean_ref = cuda_lstm.lstm_scan_plain(*args)
-                fwd = cuda_lstm.lstm_scan_train(*args)
-                fwd_ref = cuda_lstm.lstm_scan_train_plain(*args)
-                _, cs, acts = fwd_ref
-                c_prev = torch.cat([c0[None], cs[:-1]])
-                bargs = (d_hs, acts, cs, c_prev, wh, tanh)
-                bwd = cuda_lstm.lstm_scan_bwd(*bargs)
-                bwd_ref = cuda_lstm.lstm_scan_bwd_plain(*bargs)
-                torch.cuda.synchronize()
-                tag = _tag(dt, tanh, t, b)
-                parts = _check_kernels(8, tag, dt, (
-                    ("lstm_scan", ("hs",), (lean,), (lean_ref,),
-                     (LSTM_ATOL[dt], 0.0)),
-                    ("lstm_scan_train", ("hs", "cs", "acts"), fwd, fwd_ref,
-                     TRAIN_FWD_TOL[dt]),
-                    ("lstm_scan_bwd", ("dxp", "dc0", "dh0"), bwd, bwd_ref,
-                     TRAIN_BWD_TOL[dt])), worst)
-                line = "phase 8 %s max_abs_err: %s" % (tag, ", ".join(parts))
-                if dt == torch.float32 and tanh and (t, b) == (1251, 1):
-                    line += _time_pair(
-                        times, "lstm_scan",
-                        lambda: cuda_lstm.lstm_scan(*args),
-                        lambda: cuda_lstm.lstm_scan_plain(*args), t)
-                if dt == torch.float32 and tanh and (t, b) == (128, 32):
-                    line += _time_pair(
-                        times, "lstm_scan_train",
-                        lambda: cuda_lstm.lstm_scan_train(*args),
-                        lambda: cuda_lstm.lstm_scan_train_plain(*args), t)
-                    line += _time_pair(
-                        times, "lstm_scan_bwd",
-                        lambda: cuda_lstm.lstm_scan_bwd(*bargs),
-                        lambda: cuda_lstm.lstm_scan_bwd_plain(*bargs), t)
-                print(line)
+    cases = [(dt, tanh, t, b) for dt in (torch.float32, torch.bfloat16)
+             for tanh in (True, False) for t, b in ((1251, 1), (128, 32))]
+    for dt, tanh, t, b in cases + RAGGED:
+        xp, wh, c0, h0, d_hs = _lstm_inputs(rs, t, b, dt)
+        args = (xp, wh, c0, h0, tanh)
+        lean = cuda_lstm.lstm_scan(*args)
+        lean_ref = cuda_lstm.lstm_scan_plain(*args)
+        fwd = cuda_lstm.lstm_scan_train(*args)
+        fwd_ref = cuda_lstm.lstm_scan_train_plain(*args)
+        _, cs, acts = fwd_ref
+        c_prev = torch.cat([c0[None], cs[:-1]])
+        bargs = (d_hs, acts, cs, c_prev, wh, tanh)
+        bwd = cuda_lstm.lstm_scan_bwd(*bargs)
+        bwd_ref = cuda_lstm.lstm_scan_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        tag = _tag(dt, tanh, t, b)
+        parts = _check_kernels(8, tag, dt, (
+            ("lstm_scan", ("hs",), (lean,), (lean_ref,),
+             (LSTM_ATOL[dt], 0.0)),
+            ("lstm_scan_train", ("hs", "cs", "acts"), fwd, fwd_ref,
+             TRAIN_FWD_TOL[dt]),
+            ("lstm_scan_bwd", ("dxp", "dc0", "dh0"), bwd, bwd_ref,
+             TRAIN_BWD_TOL[dt])), worst)
+        line = "phase 8 %s max_abs_err: %s" % (tag, ", ".join(parts))
+        if dt == torch.float32 and tanh and (t, b) == (1251, 1):
+            line += _time_pair(
+                times, "lstm_scan",
+                lambda: cuda_lstm.lstm_scan(*args),
+                lambda: cuda_lstm.lstm_scan_plain(*args), t)
+        if dt == torch.float32 and tanh and (t, b) == (128, 32):
+            line += _time_pair(
+                times, "lstm_scan_train",
+                lambda: cuda_lstm.lstm_scan_train(*args),
+                lambda: cuda_lstm.lstm_scan_train_plain(*args), t)
+            line += _time_pair(
+                times, "lstm_scan_bwd",
+                lambda: cuda_lstm.lstm_scan_bwd(*bargs),
+                lambda: cuda_lstm.lstm_scan_bwd_plain(*bargs), t)
+        elif dt == torch.float32 and (t, b) == (64, 33):
+            line += "; kernel 3 %.4f ms (%.3f us/step)" % _per_step(
+                lambda: cuda_lstm.lstm_scan_bwd(*bargs), t)
+        print(line)
     return {"max_abs_err": worst, "times": times}
 
 
@@ -1282,6 +1289,12 @@ def main():
     serving_uni = phase_serving_unidirectional()
     training_uni = phase_training_unidirectional()
     library = phase_library(window)
+    for name, run in (("bilstm_scan_bwd", train_kernels),
+                      ("lstm_scan_bwd", uni_kernels)):
+        ms = run["times"][name][0]
+        print("kernel 3 %s T=%d B=32 float32: %.4f ms, %.3f us/step; library "
+              "%.4f ms (%s)" % (name, TRAIN_T, ms, 1e3 * ms / TRAIN_T,
+                                *library[name]))
     flash_kernels = phase_flash_kernels()
     serving_attn = phase_serving_attention()
     training_attn = phase_training_attention()

@@ -41,6 +41,27 @@ __device__ __forceinline__ float load_cg(const __nv_bfloat16* p) {
   return __uint_as_float(static_cast<unsigned>(bits) << 16);
 }
 
+// Asynchronous 16-byte copies from device to shared memory through L2 only
+// (cp.async.cg: like ld.global.cg, never an L1 line, so values other blocks
+// wrote during this launch are read fresh).  Both addresses 16-byte
+// aligned.  A thread's copies since its last commit form one group;
+// cp_async_wait<N> returns once at most N of its groups are in flight.
+__device__ __forceinline__ void cp_async16(void* smem_dst,
+                                           const void* gmem_src) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem_src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // The shared memory one block of the current device may opt in to.
 inline int smem_optin(int* bytes) {
   int device = 0;

@@ -9,7 +9,8 @@ EVAL_SI_SNR / EVAL_SDR), ``_mix_features``, ``_separate_tail``,
 ``separate`` and ``separate_wav``.  ``MIX_SNR_DB``, ``DC_LOSS_WEIGHT``,
 ``ANCHOR_AUX_LOSS``, ``REG_APPLY`` and the 'pit-si-snr' loss raise
 NotImplementedError; ``separate_long``, ``separate_stream`` and
-``separate_sp`` are not ported yet.
+``separate_sp`` are not ported yet.  ``_check_parallel_support`` keeps
+JAX's refusals (``:73-105``) and refuses every other MESH_* > 1.
 
 The unit phase vector is ``mix / (|mix| + eps)``, as in the JAX package
 (not atan2).
@@ -65,6 +66,46 @@ class DaNet:
                     "INFER_ESTIMATOR_METHOD %r needs ground truth"
                     % (hp.INFER_ESTIMATOR_METHOD,))
         self.separator = hp.get_separator(hp.SEPARATOR_TYPE)(hp, "separator")
+        self._check_parallel_support()
+
+    def _check_parallel_support(self):
+        """JAX's refusals of a MESH_* axis that the configured encoder has
+        no route for (``ValueError``, word for word); then
+        NotImplementedError for every MESH_* > 1 that JAX accepts: the port
+        runs on one device, in serving and in training."""
+        from danet_tpu_torch.models import encoders as enc_mod
+        hp, enc = self.hp, self.encoder
+
+        def n(key):
+            return int(getattr(hp, key, 1) or 1)
+
+        if n("MESH_PIPE") > 1 and not isinstance(
+                enc, enc_mod.BiLstmEncoder):
+            raise ValueError(
+                "MESH_PIPE>1 requires a pipeline-capable encoder "
+                "(bilstm-orig); got ENCODER_TYPE=%r" % hp.ENCODER_TYPE)
+        if n("MESH_SEQ") > 1 and not isinstance(
+                enc, (enc_mod.BiLstmEncoder, enc_mod.AttentionEncoder,
+                      enc_mod.GruEncoder)):
+            raise ValueError(
+                "MESH_SEQ>1 requires a sequence-parallel encoder "
+                "(bilstm-orig, gru-v1, attn-v1, moe-v1, tcn-v1, "
+                "dprnn-v1, conv-bilstm-v1); got ENCODER_TYPE=%r"
+                % hp.ENCODER_TYPE)
+        if n("MESH_EXPERT") > 1:       # the MoE encoder is not ported
+            raise ValueError(
+                "MESH_EXPERT>1 requires the MoE encoder (moe-v1); got "
+                "ENCODER_TYPE=%r" % hp.ENCODER_TYPE)
+        if n("MESH_PIPE") > 1 and n("MESH_SEQ") > 1:
+            raise ValueError(
+                "MESH_PIPE and MESH_SEQ cannot combine (the encoder "
+                "routes through one strategy); pick one")
+        for key in ("MESH_DATA", "MESH_MODEL", "MESH_PIPE", "MESH_EXPERT",
+                    "MESH_SEQ"):
+            if n(key) > 1:
+                raise NotImplementedError(
+                    "%s > 1 is not ported: the port runs on one device"
+                    % key)
 
     def init(self, generator: torch.Generator, device=None) -> dict:
         """Random parameters with the JAX package's layout."""

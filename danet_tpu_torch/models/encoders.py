@@ -149,7 +149,8 @@ class BiLstmEncoder(Encoder):
 class GruEncoder(Encoder):
     """4x unidirectional GRU, 600 units; the same centering and head as
     the LSTM encoders.  The dense path only: MESH_SEQ's sequence-parallel
-    GRU stack is not ported."""
+    GRU stack is not ported (``DaNet._check_parallel_support`` refuses
+    it)."""
 
     HDIM = 600
     N_LAYERS = 4
@@ -193,8 +194,9 @@ class AttentionEncoder(Encoder):
     ATTN_BACKEND picks the attention: 'flash' the flash kernels
     (``ops/cuda/attention.py``, T a multiple of 128), 'auto' and 'xla' the
     dense attention in plain PyTorch.  ATTN_CAUSAL (banded attention and
-    the streaming hooks) and MESH_SEQ > 1 (sequence-parallel attention)
-    are not ported and raise NotImplementedError."""
+    the streaming hooks) is not ported and raises NotImplementedError;
+    MESH_SEQ > 1 (sequence-parallel attention) is refused by
+    ``DaNet._check_parallel_support``."""
 
     def _dims(self):
         hp = self.hp
@@ -264,9 +266,6 @@ class AttentionEncoder(Encoder):
         if bool(getattr(hp, "ATTN_CAUSAL", False)):
             raise NotImplementedError(
                 "ATTN_CAUSAL (banded attention, streaming) is not ported")
-        if int(getattr(hp, "MESH_SEQ", 1) or 1) > 1:
-            raise NotImplementedError(
-                "MESH_SEQ > 1 (sequence-parallel attention) is not ported")
         d, heads, n_layers, _ = self._dims()
         b, t = log_spectra.shape[0], log_spectra.shape[1]
         keep = hp.DROPOUT_KEEP_PROB if train else 1.0

@@ -40,16 +40,20 @@ class Separator:
 
     @torch.inference_mode()
     def separate(self, wav) -> np.ndarray:
-        """[L] or [B, L] float waveform -> [B, N, L'] float32 separated
-        sources, L' = num_frames * FFT_STRIDE."""
+        """[L] or [B, L] float waveform -> [N, L] or [B, N, L] float32
+        separated sources: trimmed to the request length, and squeezed back
+        to [N, L] for a rank-1 request, as the JAX package's
+        ``SeparatorBundle.separate`` returns them."""
         x = torch.as_tensor(np.asarray(wav, dtype=np.float32))
-        if x.dim() == 1:
+        squeeze = x.dim() == 1
+        if squeeze:
             x = x[None]
         if x.dim() != 2:
             raise ValueError("expected a waveform [L] or [B, L], got %s"
                              % (tuple(x.shape),))
         out = self.model.separate_wav(self.params, x.to(self.device))
-        return out.cpu().numpy()
+        out = out[..., :x.shape[1]].cpu().numpy()
+        return out[0] if squeeze else out
 
 
 def load_separator(weights: str, config_files: Sequence[str] = (),
@@ -79,7 +83,7 @@ def _main(argv=None) -> None:
 
     sep = load_separator(args.weights, args.config, args.device)
     wav = audio.load_wav_raw(args.input_file, sep.hp.SMPRATE)
-    out = sep.separate(wav)[0]
+    out = sep.separate(wav)
     # one shared normalization across all stems keeps relative levels
     scale = max(float(np.max(np.abs(out))), 1.0)
     for i, src in enumerate(out):

@@ -11,10 +11,10 @@ clip, update in place.
 
 Not ported, and refused with NotImplementedError: GRAD_ACCUM > 1,
 EMA_DECAY > 0, TRAIN_STEPS_PER_CALL > 1, TRANSFER_DOMAIN='wave', wires
-other than float32, NAN_CHECKS, MESH_* > 1 and REMAT.  Checkpoints, the
-NaN and valid-crash rollbacks, the hang watchdog, profiling and metric
-files are not ported either: ``train`` raises on a NaN epoch instead of
-rolling back.
+other than float32, NAN_CHECKS, REMAT, the valid-crash rollback
+(VALID_CRASH_FACTOR > 0) and the hang watchdog (WATCHDOG_SECS > 0);
+``DaNet`` itself refuses MESH_* > 1.  Checkpoints, the NaN rollback, profiling and metric files are not
+ported either: ``train`` raises on a NaN epoch instead of rolling back.
 
 The data stream is reproducible: every epoch draws its batches and crops
 from ``np.random.RandomState(crc32(...))`` of the same (epoch, seed) key
@@ -100,9 +100,9 @@ class Trainer:
              str(getattr(hp, "TRANSFER_DTYPE", "float32")) != "float32"),
             ("NAN_CHECKS", bool(getattr(hp, "NAN_CHECKS", False))),
             ("REMAT", bool(getattr(hp, "REMAT", False))),
-        ] + [("%s > 1" % key, num(key) > 1)
-             for key in ("MESH_DATA", "MESH_MODEL", "MESH_PIPE",
-                         "MESH_EXPERT", "MESH_SEQ")]
+            ("VALID_CRASH_FACTOR > 0", num("VALID_CRASH_FACTOR") > 0),
+            ("WATCHDOG_SECS > 0", num("WATCHDOG_SECS") > 0),
+        ]
         for what, bad in refused:
             if bad:
                 raise NotImplementedError(

@@ -48,6 +48,7 @@ DEFAULT_JSON = os.path.join(os.path.dirname(os.path.dirname(
 NARROW = dict(ENCODER_TYPE="attn-v1", ATTN_DIM=32, ATTN_HEADS=2,
               ATTN_LAYERS=2, ATTN_MLP_MULT=2, ATTN_BACKEND="flash")
 PAD_FROM = 100  # batch row 1 is zero from this frame on
+PAD_FROM_256 = 200  # the same at T=256, in the second 128-key block
 
 
 def _close(a, b, atol, rtol=0.0):
@@ -90,6 +91,21 @@ def flash_ref():
             a, b, c, km), *args)
         grads = vjp(jnp.asarray(do))
     return {"o": np.asarray(o), "grads": [np.asarray(g) for g in grads]}
+
+
+@pytest.fixture(scope="module")
+def flash_ref_bf16():
+    """JAX's flash_attention_masked in bfloat16 at T=256 (two of the stock
+    kernel's 128-key blocks), interpret mode, jitted; row 1 padded from
+    PAD_FROM_256 on.  -> (inputs, key mask, output as float32)."""
+    q, k, v, _, _ = _qkv_case(5, t=256)
+    key_mask = np.ones((2, 256), bool)
+    key_mask[1, PAD_FROM_256:] = False
+    args = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    with pltpu.force_tpu_interpret_mode():
+        o = jax.jit(lambda a, b, c: jattn.flash_attention_masked(
+            a, b, c, jnp.asarray(key_mask)))(*args)
+    return (q, k, v), key_mask, np.asarray(o.astype(jnp.float32))
 
 
 @pytest.fixture(scope="module")
@@ -194,6 +210,22 @@ def test_torch_flash_bf16_rounds_probabilities(fresh_hparams):
     assert o16.dtype == torch.bfloat16 and l16.dtype == torch.float32
     o32 = tattn.flash_attn_plain(*[a.float() for a in t16], seg, 0.25)[0]
     _close(o16.float(), o32, 2 * 2 ** -8 * float(o32.abs().max()))
+
+
+def test_torch_flash_bf16_matches_jax_interpret(fresh_hparams,
+                                                flash_ref_bf16):
+    """The plain flash_attention_masked in bfloat16 against JAX's stock
+    kernel in bfloat16 (interpret mode) at T=256, every row, the padded
+    one included.  Tolerance: one bf16 ulp of the output's peak,
+    2^(floor(log2 peak) - 7): the two round p to bfloat16 against
+    different maxima (the plain version the row's final one, the stock
+    kernel the running one over 128-key blocks)."""
+    (q, k, v), key_mask, want = flash_ref_bf16
+    ts = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    o = tattn.flash_attention_masked(*ts, torch.from_numpy(key_mask))
+    assert o.dtype == torch.bfloat16 and tuple(o.shape) == want.shape
+    peak = float(np.abs(want).max())
+    _close(o.float(), want, 2.0 ** (np.floor(np.log2(peak)) - 7))
 
 
 @pytest.mark.parametrize("t", [40, 200])
@@ -352,12 +384,12 @@ def test_torch_attention_weights_round_trip(fresh_hparams, model_ref,
 
 
 def test_torch_attention_encoder_refuses_unported(fresh_hparams):
-    """ATTN_CAUSAL and MESH_SEQ > 1 raise NotImplementedError; _dims keeps
-    JAX's two ValueErrors."""
+    """ATTN_CAUSAL (at apply) and MESH_SEQ > 1 (when the model is built)
+    raise NotImplementedError; _dims keeps JAX's two ValueErrors."""
     x = torch.zeros(1, 128, 129)
     for keys in ({"ATTN_CAUSAL": True}, {"MESH_SEQ": 2}):
-        tm = _port(**keys)
         with pytest.raises(NotImplementedError):
+            tm = _port(**keys)
             tm.encoder.apply(tm.encoder.init(torch.Generator()), x)
     for keys in ({"ATTN_DIM": 33, "ATTN_HEADS": 1},
                  {"ATTN_DIM": 32, "ATTN_HEADS": 3}):

@@ -217,3 +217,34 @@ def test_torch_unidirectional_separate_wav_matches_jax(
     assert out.shape == ref.shape == (2, 2, 48 * 64)
     assert np.all(np.isfinite(out))
     np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("encoder,keys,jax_refuses", [
+    ("lstm-orig", {"MESH_SEQ": 2}, True),
+    ("gru-v1", {"MESH_PIPE": 2}, True),
+    ("bilstm-orig", {"MESH_EXPERT": 2}, True),
+    ("bilstm-orig", {"MESH_PIPE": 2, "MESH_SEQ": 2}, True),
+    ("bilstm-orig", {"MESH_SEQ": 2}, False),
+    ("gru-v1", {"MESH_SEQ": 2}, False),
+    ("bilstm-orig", {"MESH_PIPE": 2}, False),
+    ("bilstm-orig", {"MESH_DATA": 2}, False),
+    ("lstm-orig", {"MESH_MODEL": 2}, False)])
+def test_torch_danet_refuses_mesh_keys(fresh_hparams, encoder, keys,
+                                       jax_refuses):
+    """DaNet raises JAX's _check_parallel_support ValueError, with JAX's
+    message, where JAX refuses the MESH_* combination; where JAX builds
+    the model, the port (one device) raises NotImplementedError, so that
+    neither serving nor training runs the dense path under the key."""
+    fresh_hparams.load(dict(ENCODER_TYPE=encoder, **keys))
+    fresh_hparams.digest()
+    hp = load_config(ENCODER_TYPE=encoder, **keys)
+    if jax_refuses:
+        with pytest.raises(ValueError) as want:
+            JaxDaNet()
+        with pytest.raises(ValueError) as got:
+            TorchDaNet(hp)
+        assert str(got.value) == str(want.value)
+    else:
+        JaxDaNet()
+        with pytest.raises(NotImplementedError):
+            TorchDaNet(hp)

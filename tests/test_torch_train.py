@@ -353,7 +353,8 @@ def test_torch_train_loss_dropout(fresh_hparams, monkeypatch):
     ("TRANSFER_DOMAIN", "wave"), ("TRANSFER_DTYPE", "bfloat16"),
     ("NAN_CHECKS", True), ("MESH_DATA", 2), ("REMAT", True),
     ("MIX_SNR_DB", 6.0), ("DC_LOSS_WEIGHT", 0.1), ("ANCHOR_AUX_LOSS", 0.5),
-    ("TRAIN_LOSS_TYPE", "pit-si-snr")])
+    ("TRAIN_LOSS_TYPE", "pit-si-snr"), ("VALID_CRASH_FACTOR", 1.5),
+    ("WATCHDOG_SECS", 900)])
 def test_torch_trainer_refuses_unported(fresh_hparams, key, value):
     hp = load_config(ENCODER_TYPE="bilstm-orig", **{key: value})
     with pytest.raises(NotImplementedError):

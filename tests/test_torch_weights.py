@@ -92,11 +92,30 @@ def test_torch_serve_cli_run(jax_tree, tmp_path):
                  "-o", prefix, "--device", "cpu"])
     sep = serve.load_separator(w_path, [cfg], "cpu")
     ref = sep.separate(audio.load_wav_raw(wav_path, 8000))
-    assert ref.shape == (1, 2, 41 * 64)
+    assert ref.shape == (2, 2500)
     for i in range(2):
         got = audio.load_wav_raw("%s_%d.wav" % (prefix, i), 8000)
-        assert got.shape == (41 * 64,)
-        np.testing.assert_allclose(got, ref[0, i], atol=2.0 / 32767)
+        assert got.shape == (2500,)
+        np.testing.assert_allclose(got, ref[i], atol=2.0 / 32767)
+
+
+@pytest.mark.parametrize("shape", [(2500,), (3, 1999)])
+def test_torch_separator_trims_and_squeezes(jax_tree, shape):
+    """Separator.separate returns [N, L] for a rank-1 request and [B, N, L]
+    for a rank-2 one, trimmed to the request length L (not a multiple of
+    FFT_STRIDE here), as the JAX package's SeparatorBundle.separate does;
+    the values are JAX's separate_wav trimmed to L, 1e-4."""
+    model, tree = jax_tree
+    wav = (np.random.RandomState(2).randn(*shape) * 0.3).astype(np.float32)
+    sep = serve.Separator(TorchDaNet(load_config(ENCODER_TYPE="bilstm-orig")),
+                          tree, "cpu")
+    out = sep.separate(wav)
+    assert out.shape == shape[:-1] + (2, shape[-1])
+    ref = np.asarray(model.separate_wav(tree, jnp.asarray(wav.reshape(
+        -1, shape[-1]))))
+    assert ref.shape[-1] > shape[-1]
+    np.testing.assert_allclose(out, ref[..., :shape[-1]].reshape(out.shape),
+                               atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("encoder,cls,layer", [
