@@ -66,7 +66,9 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    inputs with nonzero c0, h0 and d_hs; phase 4's tolerance on the lean
    kernel and phase 6's on the other two.
 9. the GRU kernels (gru_scan, gru_scan_train, gru_scan_bwd) vs their plain
-   versions on the card, the same shapes, dtypes and tolerances.  The
+   versions on the card, the same shapes, dtypes and tolerances, at
+   gru-v1's H=600 (75 blocks) and at H=300 (38 blocks, the last with 4
+   live units of 8) at (T=1251, B=1) and the ragged (T=64, B=33).  The
    weights are at 10x gru-v1's init scale (1/sqrt(H) instead of
    0.1/sqrt(H)), so that the recurrent products move the state.
 10. serving with lstm-orig and with gru-v1 at full width (4 one-direction
@@ -109,8 +111,11 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    widths (H=4, D=64) and both of its shapes, (T=1280, B=1) serving and
    (T=128, B=32) training, float32 and bfloat16, q, k and v as views of
    one [B, T, 3, H, D] projection, and the last row's final 37 frames
-   padded (segment 1), so that padded queries attend only to padded keys.
-   o at phase 6's forward tolerance (float32 atol 1e-5; bfloat16 5e-2 +
+   padded (segment 1), so that padded queries attend only to padded keys;
+   also (T=384, B=1), whose 6 key tiles split unevenly over the forward's
+   cluster of 4 blocks.  Each line prints the forward's key split S
+   (ops/cuda/attention.py::flash_splits: 4 at T=1280 and T=384, B=1; 1 at
+   B=32).  o at phase 6's forward tolerance (float32 atol 1e-5; bfloat16 5e-2 +
    rtol 2e-2), the gradients at its backward tolerance, l (a float32 sum of up to T terms near 1) at
    rtol 1e-5 and m at atol 1e-5; the kernels' and plain versions' times.
 14. serving with attn-v1 on its flash path (default.json + ENCODER_TYPE=
@@ -671,12 +676,11 @@ def phase_lstm_unidirectional() -> dict:
     return {"max_abs_err": worst, "times": times}
 
 
-def _gru_inputs(rs, t, b, dtype):
-    """Layer-shaped GRU inputs (H = I = 600): gx = x @ Wgx, cx = x @ Wcx + 1
-    (gru-v1's biases), all weights U(-1/sqrt(H), 1/sqrt(H)), ten times
-    gru-v1's init scale, so that the recurrent products move the state;
-    a nonzero c0 and a cotangent d_cs."""
-    h = 600
+def _gru_inputs(rs, t, b, dtype, h=600):
+    """Layer-shaped GRU inputs (H = I, gru-v1's 600 by default): gx = x @
+    Wgx, cx = x @ Wcx + 1 (gru-v1's biases), all weights U(-1/sqrt(H),
+    1/sqrt(H)), ten times gru-v1's init scale, so that the recurrent
+    products move the state; a nonzero c0 and a cotangent d_cs."""
     scale = 1.0 / np.sqrt(h)
     x = rs.randn(t * b, h).astype(np.float32) * 0.5
     gx = x @ rs.uniform(-scale, scale, (h, 2 * h)).astype(np.float32)
@@ -691,43 +695,46 @@ def _gru_inputs(rs, t, b, dtype):
 def phase_gru() -> dict:
     rs = np.random.RandomState(9)
     worst, times = {}, {}
-    for dt in (torch.float32, torch.bfloat16):
-        for t, b in ((1251, 1), (128, 32)):
-            gx, cx, wgh, wch, c0, d_cs = _gru_inputs(rs, t, b, dt)
-            args = (gx, cx, wgh, wch, c0)
-            lean = cuda_gru.gru_scan(*args)
-            lean_ref = cuda_gru.gru_scan_plain(*args)
-            fwd = cuda_gru.gru_scan_train(*args)
-            fwd_ref = cuda_gru.gru_scan_train_plain(*args)
-            cs, acts = fwd_ref
-            c_prev = torch.cat([c0[None], cs[:-1]])
-            bargs = (d_cs, acts, c_prev, wgh, wch)
-            bwd = cuda_gru.gru_scan_bwd(*bargs)
-            bwd_ref = cuda_gru.gru_scan_bwd_plain(*bargs)
-            torch.cuda.synchronize()
-            tag = _tag(dt, None, t, b)
-            parts = _check_kernels(9, tag, dt, (
-                ("gru_scan", ("cs",), (lean,), (lean_ref,),
-                 (LSTM_ATOL[dt], 0.0)),
-                ("gru_scan_train", ("cs", "acts"), fwd, fwd_ref,
-                 TRAIN_FWD_TOL[dt]),
-                ("gru_scan_bwd", ("dgx", "dcx", "dc0"), bwd, bwd_ref,
-                 TRAIN_BWD_TOL[dt])), worst)
-            line = "phase 9 %s max_abs_err: %s" % (tag, ", ".join(parts))
-            if dt == torch.float32 and (t, b) == (1251, 1):
-                line += _time_pair(times, "gru_scan",
-                                   lambda: cuda_gru.gru_scan(*args),
-                                   lambda: cuda_gru.gru_scan_plain(*args), t)
-            if dt == torch.float32 and (t, b) == (128, 32):
-                line += _time_pair(
-                    times, "gru_scan_train",
-                    lambda: cuda_gru.gru_scan_train(*args),
-                    lambda: cuda_gru.gru_scan_train_plain(*args), t)
-                line += _time_pair(
-                    times, "gru_scan_bwd",
-                    lambda: cuda_gru.gru_scan_bwd(*bargs),
-                    lambda: cuda_gru.gru_scan_bwd_plain(*bargs), t)
-            print(line)
+    cases = [(dt, t, b, 600) for dt in (torch.float32, torch.bfloat16)
+             for t, b in ((1251, 1), (128, 32), (64, 33))]
+    cases += [(dt, t, b, 300) for dt in (torch.float32, torch.bfloat16)
+              for t, b in ((1251, 1), (64, 33))]
+    for dt, t, b, h in cases:
+        gx, cx, wgh, wch, c0, d_cs = _gru_inputs(rs, t, b, dt, h)
+        args = (gx, cx, wgh, wch, c0)
+        lean = cuda_gru.gru_scan(*args)
+        lean_ref = cuda_gru.gru_scan_plain(*args)
+        fwd = cuda_gru.gru_scan_train(*args)
+        fwd_ref = cuda_gru.gru_scan_train_plain(*args)
+        cs, acts = fwd_ref
+        c_prev = torch.cat([c0[None], cs[:-1]])
+        bargs = (d_cs, acts, c_prev, wgh, wch)
+        bwd = cuda_gru.gru_scan_bwd(*bargs)
+        bwd_ref = cuda_gru.gru_scan_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        tag = _tag(dt, None, t, b) + " H=%d" % h
+        parts = _check_kernels(9, tag, dt, (
+            ("gru_scan", ("cs",), (lean,), (lean_ref,),
+             (LSTM_ATOL[dt], 0.0)),
+            ("gru_scan_train", ("cs", "acts"), fwd, fwd_ref,
+             TRAIN_FWD_TOL[dt]),
+            ("gru_scan_bwd", ("dgx", "dcx", "dc0"), bwd, bwd_ref,
+             TRAIN_BWD_TOL[dt])), worst)
+        line = "phase 9 %s max_abs_err: %s" % (tag, ", ".join(parts))
+        if dt == torch.float32 and (t, b, h) == (1251, 1, 600):
+            line += _time_pair(times, "gru_scan",
+                               lambda: cuda_gru.gru_scan(*args),
+                               lambda: cuda_gru.gru_scan_plain(*args), t)
+        if dt == torch.float32 and (t, b) == (128, 32):
+            line += _time_pair(
+                times, "gru_scan_train",
+                lambda: cuda_gru.gru_scan_train(*args),
+                lambda: cuda_gru.gru_scan_train_plain(*args), t)
+            line += _time_pair(
+                times, "gru_scan_bwd",
+                lambda: cuda_gru.gru_scan_bwd(*bargs),
+                lambda: cuda_gru.gru_scan_bwd_plain(*bargs), t)
+        print(line)
     return {"max_abs_err": worst, "times": times}
 
 
@@ -1046,8 +1053,9 @@ def phase_flash_kernels() -> dict:
     """Phase 13: the three flash kernels vs their plain versions."""
     rs = np.random.RandomState(13)
     worst, times = {}, {}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for dt in (torch.float32, torch.bfloat16):
-        for t, b in ((1280, 1), (TRAIN_T, 32)):
+        for t, b in ((1280, 1), (TRAIN_T, 32), (384, 1)):
             args, do = _flash_inputs(rs, b, t, dt)
             fwd = cuda_attn.flash_attn(*args)
             fwd_ref = cuda_attn.flash_attn_plain(*args)
@@ -1071,10 +1079,11 @@ def phase_flash_kernels() -> dict:
                 ("flash_attn_bwd_dkv", ("dk", "dv"), dkv, dkv_ref, bwd_tol),
                 ("flash_attn_bwd_dq", ("dq",), (dq,), (dq_ref,), bwd_tol)),
                 worst)
-            line = ("phase 13 %s H=%d D=%d max_abs_err: %s (o atol %g rtol "
-                    "%g, l rtol %g, m atol 1e-5, grads atol %g rtol %g)"
-                    % (tag, ATTN_H, ATTN_D, ", ".join(parts), *fwd_tol,
-                       STATS_TOL[1], *bwd_tol))
+            line = ("phase 13 %s H=%d D=%d S=%d max_abs_err: %s (o atol %g "
+                    "rtol %g, l rtol %g, m atol 1e-5, grads atol %g rtol %g)"
+                    % (tag, ATTN_H, ATTN_D,
+                       cuda_attn.flash_splits(b, t, ATTN_H, n_sm),
+                       ", ".join(parts), *fwd_tol, STATS_TOL[1], *bwd_tol))
             if dt == torch.float32:
                 timed = [("flash_attn", cuda_attn.flash_attn,
                           cuda_attn.flash_attn_plain, args)]
@@ -1393,6 +1402,10 @@ def main():
                 "L" if name.startswith("stft") else "T", t, b,
                 "H=%d, D=%d, " % (ATTN_H, ATTN_D)
                 if name.startswith("flash") else "")}
+        if name == "flash_attn":
+            entry["splits"] = cuda_attn.flash_splits(
+                b, t, ATTN_H,
+                torch.cuda.get_device_properties(0).multi_processor_count)
         if name == "stft_logmag":
             entry["launches_of"] = ("its own comparison phase (16): no main "
                                     "path of the port or of the JAX package "

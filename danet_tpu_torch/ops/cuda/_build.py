@@ -51,7 +51,7 @@ _SIGNATURES = [
     ("danet_gru_scan_bwd", _I,
      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     ("danet_flash_attn", _I,
-     [_P] * 7 + [_I] * 5 + [_L] * 3 + [_F, _P]),
+     [_P] * 7 + [_I] * 6 + [_L] * 3 + [_F, _P]),
     ("danet_flash_attn_bwd_dkv", _I,
      [_P] * 10 + [_I] * 5 + [_L] * 3 + [_F, _P]),
     ("danet_flash_attn_bwd_dq", _I,

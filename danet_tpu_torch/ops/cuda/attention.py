@@ -9,7 +9,8 @@ and the stock TPU kernel it wraps
 
   * ``flash_attn``: the forward (``_flash_attention_impl``): o, and the
     row statistics l (sum of exponentials) and m (row maximum) that the
-    backward needs;
+    backward needs; ``flash_splits`` picks how many blocks (a thread-block
+    cluster) split the keys of one query tile;
   * ``flash_attn_bwd_dkv``: dK and dV (``_flash_attention_bwd_dkv``);
   * ``flash_attn_bwd_dq``: dQ (``_flash_attention_bwd_dq``; its ``ds``
     output serves only an attention bias, which this repo never passes);
@@ -50,6 +51,11 @@ BLOCK = 128
 HEAD_DIMS = (16, 32, 64, 128)
 # the kernels' own tile: query and key tiles of 64 rows
 TILE = 64
+# the forward's key split: at most this many blocks (one thread-block
+# cluster, the portable size) share a query tile
+MAX_SPLITS = 8
+# streaming multiprocessors of an H100 SXM, where no card is at hand
+H100_SMS = 132
 
 
 def _logits(q, k, seg, sm_scale: float) -> torch.Tensor:
@@ -140,16 +146,48 @@ def _qkv_strides(q, k, v, seg):
     return q, k, v, seg, (b, t, h, d), tuple(q.stride()[:3])
 
 
-def flash_attn(q, k, v, seg, sm_scale: float):
-    """The forward kernel (signature of the plain version)."""
+def flash_splits(b: int, t: int, h: int, n_sm: int = H100_SMS) -> int:
+    """Blocks per query tile of the forward kernel (its key split, one
+    thread-block cluster): 1 where the (T / 64) * H * B query tiles already
+    give every one of the card's ``n_sm`` SMs a block; else the smallest
+    power of two that gives two blocks per SM, at most ``MAX_SPLITS`` and
+    the T / 64 key tiles (so every block has a key tile)."""
+    tiles = t // TILE
+    blocks = tiles * h * b
+    if blocks >= n_sm:
+        return 1
+    s = 1
+    while 2 * s <= min(MAX_SPLITS, tiles) and blocks * s < 2 * n_sm:
+        s *= 2
+    return s
+
+
+def _aligned16(x: torch.Tensor, strides) -> bool:
+    """16-byte aligned data and (b, t, h) strides: the forward kernel
+    stages tiles with 16-byte asynchronous copies."""
+    vec = 16 // x.element_size()
+    return x.data_ptr() % 16 == 0 and all(s % vec == 0 for s in strides)
+
+
+def flash_attn(q, k, v, seg, sm_scale: float, splits: int | None = None):
+    """The forward kernel (signature of the plain version); ``splits``
+    overrides ``flash_splits``'s key split (1, 2, 4 or 8)."""
     if not _on_cuda(q, "flash_attn"):
         return flash_attn_plain(q, k, v, seg, sm_scale)
     q, k, v, seg, (b, t, h, d), strides = _qkv_strides(q, k, v, seg)
+    if not all(_aligned16(x, strides) for x in (q, k, v)):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        strides = tuple(q.stride()[:3])
+    if seg is not None and seg.data_ptr() % 16:
+        seg = seg.clone()
+    if splits is None:
+        splits = flash_splits(b, t, h, torch.cuda.get_device_properties(
+            q.device).multi_processor_count)
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     l = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     m = torch.empty_like(l)
     _launch_flash("danet_flash_attn", (q, k, v), seg, (o, l, m),
-                  (b, h, t, d), strides, sm_scale)
+                  (b, h, t, d, splits), strides, sm_scale)
     flash_attn.launches += 1
     return o, l, m
 
@@ -157,8 +195,8 @@ def flash_attn(q, k, v, seg, sm_scale: float):
 def _launch_flash(entry: str, qkv, seg, outs, dims, strides,
                   sm_scale: float) -> None:
     """Launch one flash kernel: pointers of q, k, v, the segment ids (NULL
-    for none) and ``outs``, then B, H, T, D, the dtype code, the qkv
-    strides and sm_scale."""
+    for none) and ``outs``, then ``dims`` (B, H, T, D, and the forward's
+    key split), the dtype code, the qkv strides and sm_scale."""
     q = qkv[0]
     ptrs = [x.data_ptr() for x in qkv] \
         + [seg.data_ptr() if seg is not None else None] \

@@ -13,7 +13,7 @@ VJP:
 
 The CUDA sources are ``danet_tpu_torch/csrc/gru_scan.cu`` and
 ``csrc/gru_scan_bwd.cu``; their headers say what bounds them on an H100
-(two grid-wide barriers per step and the row exchanges through L2, not
+(the two row exchanges per step between all blocks, through L2, not
 FLOPs) and how the weights are split over blocks.
 
 As in ``ops/cuda/lstm.py``, each wrapper launches its kernel for CUDA
@@ -98,6 +98,14 @@ def gru_scan_bwd_plain(d_cs, acts, c_prev, wgh, wch):
     return torch.stack(dgx), torch.stack(dcx), dc.to(dt)
 
 
+def exchange_rows(b: int, hdim: int, device) -> torch.Tensor:
+    """Scratch of kernel 4f, [2, B, H] words of 8 bytes: the rows its
+    blocks exchange each step, dt(c) and dt(c * r), as value-and-step-tag
+    words at B=1; at B > 1 the dt(c * r) values and the blocks'
+    flags.  The kernel clears what it uses before its first step."""
+    return torch.empty((2, b, hdim), dtype=torch.int64, device=device)
+
+
 def _fwd(entry: str, save: bool, gx, cx, wgh, wch, c0):
     if gx.dim() != 3 or gx.shape[-1] % 2:
         raise ValueError("gx must be [T, B, 2H], got %s"
@@ -107,11 +115,11 @@ def _fwd(entry: str, save: bool, gx, cx, wgh, wch, c0):
     _check([("gx", gx), ("cx", cx), ("wgh", wgh), ("wch", wch), ("c0", c0)],
            [gx.shape, (t, b, hdim), (hdim, g2), (hdim, hdim), (b, hdim)])
     cs = torch.empty_like(cx)
-    cr = torch.empty_like(c0)                       # scratch row dt(c * r)
     outs = (cs, torch.empty((t, b, 3 * hdim), dtype=gx.dtype,
                             device=gx.device)) if save else (cs,)
     _launch(entry, entry + " kernel", gx.device,
-            (gx, cx, wgh, wch, c0) + outs + (cr,),
+            (gx, cx, wgh, wch, c0) + outs + (exchange_rows(b, hdim,
+                                                           gx.device),),
             (t, b, hdim, _DTYPE_CODES[gx.dtype]))
     return outs if save else cs
 

@@ -4,6 +4,10 @@
         [--dtype float32|bfloat16] [--attn-backend flash|xla|auto]
     python -m danet_tpu_torch.perf_probe scan-bwd [--reps 20]
         [--set NAME=VALUE ...] [--cut fma|staging ...]
+    python -m danet_tpu_torch.perf_probe gru-fwd [--reps 10]
+        [--set NAME=VALUE ...] [--cut staging|barrier|fma|gates ...]
+        [--source CSRC_DIR]
+    python -m danet_tpu_torch.perf_probe flash-fwd [--reps 50]
 
 ``profile``: for one encoder at full width with random weights from seed
 0, in COMPUTE_DTYPE ``--dtype``, ``torch.profiler`` over 5 train steps
@@ -31,6 +35,29 @@ with ``constexpr int NAME`` of ``csrc/bilstm_scan_bwd.cu`` set to VALUE
 staging of the row from it, to time the rest (its outputs are then wrong
 and not checked).  A variant builds into its own library under
 ``_build/`` and prints its registers and spills.
+
+``gru-fwd``: kernel 4f alone, ``gru_scan`` at gru-v1's serving shape
+(T=1251, B=1) and ``gru_scan_train`` at its training shape (T=128,
+B=32), H=600, float32 and bfloat16, chip_smoke.py phase 9's inputs and
+tolerances (float32 atol 1e-5, bfloat16 5e-2 + rtol 2e-2): max abs
+error, ms and µs per step; then ``gru_scan``'s µs per step at T=501 (a
+4 s request) for B = 1, 2, 4, 8, 16 and 32, float32, unchecked.  ``--cut staging`` (no row exchange at all),
+``--cut barrier`` (the row read once, no wait for the step's tag or the
+blocks' flags; in the earlier design, no grid barriers), ``--cut fma`` and ``--cut gates`` (no
+gx / cx loads) time a variant without that part, outputs not checked;
+``--set NAME=VALUE`` a constant; ``--source DIR`` builds the gru_scan.cu
+(and headers) of another csrc directory, e.g. the parent commit's under
+``trees/parent/``, whose cuts have their own text in ``GRU_FWD_CUTS``.
+
+``flash-fwd``: kernel 5f (``flash_attn``) alone at attn-v1's widths
+(H=4, D=64), float32 and bfloat16, at the serving shape (B=1, T=1280)
+and the training shape (B=32, T=128), q, k and v as views of one qkv
+projection with the last row's final 37 frames padded: each output
+checked against the plain version at ``chip_smoke.py`` phase 13's
+tolerances, then the kernel's time (CUDA events, ``--reps`` launches after
+a warm-up) with the key split S that ``flash_splits`` picks, and, where
+that S is not 1, with S=1 beside it; in float32, SDPA's time (with the
+boolean segment-equality mask) on the same inputs.
 
 It prints the card's name and power limit first.  There is no CPU
 fallback: without a GPU it exits non-zero.
@@ -168,47 +195,63 @@ SCAN_BWD_CUTS = {
 }
 
 
-def use_scan_bwd_variant(sets: dict, cuts) -> None:
-    """Build kernel 3 with constants ``sets`` and parts ``cuts`` changed,
-    into its own library, and make the wrappers launch from it."""
+def use_variant(kernel: str, sets: dict, cut_table: dict, cuts,
+                source: str = "") -> None:
+    """Build ``kernel`` (a .cu file of ``source``, by default the package's
+    csrc, with the .cuh headers beside it) with constants ``sets`` and the
+    parts ``cuts`` of ``cut_table`` changed, into its own library, and
+    make the wrappers launch from it.  A cut is a list of (text, its
+    replacement), applied wherever the text occurs; it must occur at least
+    once."""
     import ctypes
+    import glob
     import hashlib
     import os
     import re
 
     from danet_tpu_torch.ops.cuda import _build
 
-    src = open(os.path.join(_build.CSRC, "bilstm_scan_bwd.cu")).read()
+    source = source or _build.CSRC
+    files = {os.path.basename(f): open(f).read()
+             for f in glob.glob(os.path.join(source, "*.cuh"))
+             + [os.path.join(source, kernel)]}
     for name, value in sets.items():
-        src, n = re.subn(r"constexpr int %s = \d+;" % name,
-                         "constexpr int %s = %d;" % (name, value), src)
+        files[kernel], n = re.subn(r"constexpr int %s = \d+;" % name,
+                                   "constexpr int %s = %d;" % (name, value),
+                                   files[kernel])
         if n != 1:
-            raise ValueError("no constexpr int %s in kernel 3" % name)
+            raise ValueError("no constexpr int %s in %s" % (name, kernel))
     for cut in cuts:
-        for old, new in SCAN_BWD_CUTS[cut]:
-            if old not in src:
-                raise ValueError("cut %r: %r not in kernel 3" % (cut, old))
-            src = src.replace(old, new)
+        hits = 0
+        for old, new in cut_table[cut]:
+            for f, text in files.items():
+                hits += text.count(old)
+                files[f] = text.replace(old, new)
+        if not hits:
+            raise ValueError("cut %r: none of its text is in %s" % (cut,
+                                                                    source))
     out = os.path.join(_build.BUILD_DIR, "variant_%s" % hashlib.sha256(
-        src.encode()).hexdigest()[:16])
+        repr(sorted(files.items())).encode()).hexdigest()[:16])
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "bilstm_scan_bwd.cu"), "w") as f:
-        f.write(src)
-    nvcc, flags = _build._nvcc(), _build.NVCC_FLAGS + ["-I", _build.CSRC]
+    for f, text in files.items():
+        with open(os.path.join(out, f), "w") as fh:
+            fh.write(text)
+    nvcc, flags = _build._nvcc(), _build.NVCC_FLAGS + ["-I", out]
     objs = []
-    for path in (os.path.join(out, "bilstm_scan_bwd.cu"),
+    for path in (os.path.join(out, kernel),
                  os.path.join(_build.CSRC, "errors.cu")):
         objs.append(os.path.join(out, os.path.basename(path) + ".o"))
         proc = subprocess.run([nvcc] + flags + ["-Xptxas", "-v", "-c", "-o",
                                                 objs[-1], path],
                               capture_output=True, text=True, check=True)
-        if path.endswith("bilstm_scan_bwd.cu"):
-            print("variant %s, cut %s: registers %s, spill stores %s" % (
-                sets, list(cuts),
-                sorted(set(re.findall(r"Used (\d+) registers",
-                                      proc.stderr))),
-                sorted(set(re.findall(r"(\d+) bytes spill stores",
-                                      proc.stderr)))))
+        if path.endswith(kernel):
+            print("variant of %s from %s, %s, cut %s: registers %s, spill "
+                  "stores %s" % (
+                      kernel, source, sets, list(cuts),
+                      sorted(set(re.findall(r"Used (\d+) registers",
+                                            proc.stderr))),
+                      sorted(set(re.findall(r"(\d+) bytes spill stores",
+                                            proc.stderr)))))
     lib_path = os.path.join(out, "lib.so")
     subprocess.run([nvcc] + flags + ["-shared", "-o", lib_path] + objs,
                    check=True)
@@ -280,6 +323,139 @@ def scan_bwd(reps: int, checked: bool = True) -> None:
         sys.exit("scan-bwd: beyond tolerance: %s" % failed)
 
 
+# text cut from kernel 4f's source by gru-fwd --cut, to time what is left;
+# the first entries of each cut serve gru_scan.cu's exchange of tagged words
+# or flagged values, the others the earlier design with grid barriers and
+# row_contract.cuh's chunked staging (gru-fwd --source)
+GRU_FWD_CUTS = {
+    "staging": [("stage_tagged(d_s, row.words + off, row.step, rows * hdim);",
+                 ";"),
+                ("stage_values(d_s, row.values + off, rows * hdim);", ";"),
+                ("wait_flags(row.flags, row.step);", ";"),
+                ("for (int e0 = tid; e0 < n; e0 += THREADS * LOADS) {",
+                 "for (int e0 = n; e0 < n; e0 += THREADS * LOADS) {")],
+    "barrier": [("static_cast<int>(w[j] >> 32) != tag;",
+                 "static_cast<int>(w[j] >> 32) != tag && false;"),
+                ("wait_flags(row.flags, row.step);", ";"),
+                ("grid.sync();  // c * r of every unit complete", ";//"),
+                ("grid.sync();  // c_t complete", ";//")],
+    "fma": [("fma_rows<true>(acc, w, d, hdim, kw * LK + kl, kw_n * LK, "
+             "mine);", ";"),
+            ("fma_rows<false>(acc, w, d, hdim, kw * LK + kl, kw_n * LK, "
+             "mine);", ";"),
+            ("tile_fma<C, KS, true>(acc, w_s, d_s, k0, kn, ks, cg, bg, "
+             "mine);", ";"),
+            ("tile_fma<C, KS, false>(acc, w_s, d_s, k0, kn, ks, cg, bg, "
+             "mine);", ";")],
+    "gates": [("if (own0) {", "if (false) {"),
+              ("if (e != tid) {", "if (false) {"),
+              ("if (e != tid) gc =", "if (false) gc ="),
+              ("to_f32(g[0])", "0.f"), ("to_f32(g[hdim])", "0.f"),
+              ("to_f32(cx[h_off + ix])", "0.f")],
+}
+
+
+def _gru_arrays(rs, t: int, b: int, h: int = 600) -> tuple:
+    """gru-v1-shaped inputs at ten times its init scale (chip_smoke.py
+    phase 9): gx [T, B, 2H], cx [T, B, H], wgh, wch, c0, float32 numpy."""
+    scale = 1.0 / np.sqrt(h)
+    x = rs.randn(t * b, h).astype(np.float32) * 0.5
+    gx = x @ rs.uniform(-scale, scale, (h, 2 * h)).astype(np.float32)
+    cx = x @ rs.uniform(-scale, scale, (h, h)).astype(np.float32) + 1.0
+    return (gx.reshape(t, b, 2 * h), cx.reshape(t, b, h),
+            rs.uniform(-scale, scale, (h, 2 * h)),
+            rs.uniform(-scale, scale, (h, h)), rs.randn(b, h) * 0.5)
+
+
+def gru_fwd(reps: int, checked: bool = True) -> None:
+    from danet_tpu_torch.ops.cuda import gru as cuda_gru
+
+    rs = np.random.RandomState(9)
+    failed = []
+    for name, t, b in (("gru_scan", 1251, 1), ("gru_scan_train", 128, 32)):
+        kernel = getattr(cuda_gru, name)
+        plain = getattr(cuda_gru, name + "_plain")
+        arrays = _gru_arrays(rs, t, b)
+        for dt in (torch.float32, torch.bfloat16):
+            args = [torch.from_numpy(np.asarray(a, np.float32)).cuda().to(dt)
+                    for a in arrays]
+            out, ref = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            out = out if isinstance(out, tuple) else (out,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            atol, rtol = (1e-5, 0.0) if dt == torch.float32 else (5e-2, 2e-2)
+            errs = []
+            for o, r in zip(out, ref):
+                diff = (o.float() - r.float()).abs()
+                errs.append(float(diff.max()))
+                if not torch.isfinite(o.float()).all() or not bool(
+                        (diff <= atol + rtol * r.float().abs()).all()):
+                    failed.append((name, str(dt)))
+            ms = cuda_ms(lambda: kernel(*args), reps)
+            print("gru-fwd %s %s T=%d B=%d H=600: max abs err %s (atol %g "
+                  "rtol %g); kernel %.4f ms, %.3f us/step"
+                  % (name, str(dt).replace("torch.", ""), t, b,
+                     "/".join("%.3g" % e for e in errs), atol, rtol, ms,
+                     1e3 * ms / t))
+    sweep = []
+    for b in (1, 2, 4, 8, 16, 32):
+        args = [torch.from_numpy(np.asarray(a, np.float32)).cuda()
+                for a in _gru_arrays(rs, 501, b)]
+        ms = cuda_ms(lambda: cuda_gru.gru_scan(*args), reps)
+        sweep.append("B=%d %.3f" % (b, 1e3 * ms / 501))
+    print("gru-fwd gru_scan float32 T=501 H=600 us/step by batch: %s"
+          % ", ".join(sweep))
+    if failed and checked:
+        sys.exit("gru-fwd: beyond tolerance: %s" % failed)
+
+
+def flash_fwd(reps: int) -> None:
+    from danet_tpu_torch.ops.cuda import attention as cuda_attn
+
+    rs = np.random.RandomState(13)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    failed = []
+    for dt in (torch.float32, torch.bfloat16):
+        for b, t in ((1, 1280), (32, 128)):
+            qkv = torch.from_numpy(rs.randn(b, t, 3, 4, 64).astype(
+                np.float32)).cuda().to(dt)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            seg = torch.zeros(b, t, dtype=torch.int32)
+            seg[-1, t - 37:] = 1
+            seg = seg.cuda()
+            args = (q, k, v, seg, 0.125)
+            splits = cuda_attn.flash_splits(b, t, 4, n_sm)
+            out, ref = cuda_attn.flash_attn(*args), \
+                cuda_attn.flash_attn_plain(*args)
+            torch.cuda.synchronize()
+            atol, rtol = (1e-5, 0.0) if dt == torch.float32 else (5e-2, 2e-2)
+            diff = (out[0].float() - ref[0].float()).abs()
+            ok = bool((diff <= atol + rtol * ref[0].float().abs()).all()) \
+                and bool(((out[1] - ref[1]).abs() <= 1e-5 * ref[1]).all()) \
+                and bool(((out[2] - ref[2]).abs() <= 1e-5).all())
+            if not ok:
+                failed.append((str(dt), b, t))
+            line = "flash-fwd %s B=%d T=%d H=4 D=64: o max abs err %.3g%s; " \
+                "S=%d %.4f ms" % (str(dt).replace("torch.", ""), b, t,
+                                  float(diff.max()), "" if ok else " FAIL",
+                                  splits,
+                                  cuda_ms(lambda: cuda_attn.flash_attn(
+                                      *args), reps))
+            if splits != 1:
+                line += ", S=1 %.4f ms" % cuda_ms(
+                    lambda: cuda_attn.flash_attn(*args, splits=1), reps)
+            if dt == torch.float32:
+                qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+                mask = seg[:, None, :, None] == seg[:, None, None, :]
+                with torch.no_grad():
+                    line += ", SDPA %.4f ms" % cuda_ms(
+                        lambda: sdpa(qs, ks, vs, attn_mask=mask), reps)
+            print(line)
+    if failed:
+        sys.exit("flash-fwd: beyond tolerance: %s" % failed)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m danet_tpu_torch.perf_probe")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -298,16 +474,39 @@ def main(argv=None) -> None:
     p.add_argument("--cut", action="append", default=[],
                    choices=sorted(SCAN_BWD_CUTS),
                    help="time kernel 3 without this part (outputs wrong)")
+    p = sub.add_parser("gru-fwd", help="kernel 4f alone: check and time")
+    p.add_argument("--reps", type=int, default=10)
+    p.add_argument("--set", action="append", default=[],
+                   metavar="NAME=VALUE",
+                   help="a constexpr int of kernel 4f in a variant build")
+    p.add_argument("--cut", action="append", default=[],
+                   choices=sorted(GRU_FWD_CUTS),
+                   help="time kernel 4f without this part (outputs wrong)")
+    p.add_argument("--source", default="",
+                   help="a csrc directory whose gru_scan.cu to build (e.g. "
+                   "an unpacked parent commit's)")
+    p = sub.add_parser("flash-fwd", help="kernel 5f alone: check and time")
+    p.add_argument("--reps", type=int, default=50)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("perf_probe: no GPU (torch.cuda.is_available() is false)")
     print("card: %s" % _card())
     if args.cmd == "scan-bwd":
         if args.set or args.cut:
-            use_scan_bwd_variant(
+            use_variant(
+                "bilstm_scan_bwd.cu",
                 {k: int(v) for k, v in (a.split("=") for a in args.set)},
-                args.cut)
+                SCAN_BWD_CUTS, args.cut)
         scan_bwd(args.reps, checked=not args.cut)
+    elif args.cmd == "gru-fwd":
+        if args.set or args.cut or args.source:
+            use_variant(
+                "gru_scan.cu",
+                {k: int(v) for k, v in (a.split("=") for a in args.set)},
+                GRU_FWD_CUTS, args.cut, args.source)
+        gru_fwd(args.reps, checked=not args.cut)
+    elif args.cmd == "flash-fwd":
+        flash_fwd(args.reps)
     else:
         profile(args.encoder, args.dtype, args.attn_backend)
 

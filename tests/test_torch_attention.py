@@ -228,6 +228,104 @@ def test_torch_flash_bf16_matches_jax_interpret(fresh_hparams,
     _close(o.float(), want, 2.0 ** (np.floor(np.log2(peak)) - 7))
 
 
+def test_torch_flash_splits_rule(fresh_hparams):
+    """The forward's key split: S > 1 where the query tiles leave SMs idle
+    (attn-v1 serving, B=1, T=1280, H=4: 80 tiles on 132 SMs), 1 where they
+    do not (training, B=32, T=128: 256); always a power of two that the
+    kernel's 64 query rows and T / 64 key tiles take, at most 8 (one
+    portable cluster), so that every block of the cluster axis (T / 64 x S
+    blocks) has a key tile."""
+    assert tattn.flash_splits(1, 1280, 4) == 4
+    assert tattn.flash_splits(32, 128, 4) == 1
+    assert tattn.flash_splits(1, 384, 4) == 4         # 6 tiles: uneven
+    assert tattn.flash_splits(1, 1280, 4, n_sm=80) == 1
+    for b in (1, 2, 4, 32):
+        for t in (64, 128, 384, 512, 1280, 4096):
+            for h in (1, 4, 8):
+                for n_sm in (78, 132):
+                    s = tattn.flash_splits(b, t, h, n_sm)
+                    tiles, blocks = t // tattn.TILE, t // tattn.TILE * h * b
+                    assert s in (1, 2, 4, 8) and s <= tiles
+                    assert tattn.TILE % s == 0 and (tiles * s) % s == 0
+                    assert (s == 1) == (blocks >= n_sm or tiles == 1)
+
+
+def _split_combine(q, k, v, seg, scale, splits):
+    """A model of the forward kernel's key split in float64: rank r takes
+    key tiles [r n / S, (r + 1) n / S) and leaves (m_r, l_r, acc_r); the
+    combination is m = max m_r, l = sum exp(m_r - m) l_r, o = sum exp(m_r -
+    m) acc_r / l."""
+    s = tattn._logits(q.double(), k.double(), seg, scale).double()
+    n = s.shape[-1] // tattn.TILE
+    parts = []
+    for r in range(splits):
+        keys = slice(r * n // splits * tattn.TILE,
+                     (r + 1) * n // splits * tattn.TILE)
+        sr = s[..., keys]
+        m = sr.amax(-1)
+        p = torch.exp(sr - m[..., None])
+        acc = torch.einsum("bhqk,bkhd->bqhd", p, v.double()[:, keys])
+        parts.append((m, p.sum(-1), acc))
+    m = torch.stack([pm for pm, _, _ in parts]).amax(0)
+    w = [torch.exp(pm - m) for pm, _, _ in parts]
+    l = sum(wr * pl for wr, (_, pl, _) in zip(w, parts))
+    o = sum(wr.transpose(1, 2)[..., None] * acc
+            for wr, (_, _, acc) in zip(w, parts))
+    return o / l.transpose(1, 2)[..., None], l, m
+
+
+@pytest.fixture(scope="module")
+def flash_ref_256(flash_ref_bf16):
+    """JAX's flash_attention_masked in float32 on flash_ref_bf16's inputs
+    (T=256, row 1 padded), interpret mode, jitted."""
+    (q, k, v), key_mask, _ = flash_ref_bf16
+    with pltpu.force_tpu_interpret_mode():
+        o = jax.jit(lambda a, b, c: jattn.flash_attention_masked(
+            a, b, c, jnp.asarray(key_mask)))(*map(jnp.asarray, (q, k, v)))
+    return np.asarray(o)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+def test_torch_flash_split_combine_matches_jax_interpret(fresh_hparams,
+                                                         flash_ref_bf16,
+                                                         flash_ref_256,
+                                                         splits):
+    """The key split's combination (a float64 model of the kernel's
+    distributed-shared-memory merge) against JAX's stock kernel in
+    interpret mode at T=256 (4 key tiles, split evenly) and, on 3 tiles of
+    T=192 taken from it, against the plain version (uneven: 1 + 2 at S=2):
+    the output at 1e-6 on every row, the padded row included, and l, m at
+    1e-6 of the plain version's."""
+    (q, k, v), key_mask, _ = flash_ref_bf16
+    seg = torch.from_numpy((~key_mask).astype(np.int32))
+    ts = [torch.from_numpy(a) for a in (q, k, v)]
+    want = flash_ref_256
+    o, l, m = _split_combine(*ts, seg, 0.25, splits)
+    _close(o.float(), want, 1e-6)
+    ref_o, ref_l, ref_m = tattn.flash_attn_plain(*ts, seg, 0.25)
+    _close(l.float(), ref_l, 0.0, 1e-6)
+    _close(m.float(), ref_m, 1e-6)
+    if splits == 2:                        # uneven: 3 key tiles over 2
+        cut = [a[:, :192] for a in ts]
+        o, l, m = _split_combine(*cut, seg[:, :192], 0.25, 2)
+        ref_o, ref_l, ref_m = tattn.flash_attn_plain(*cut, seg[:, :192], 0.25)
+        _close(o.float(), ref_o, 1e-6)
+        _close(l.float(), ref_l, 0.0, 1e-6)
+
+
+def test_torch_flash_alignment_check(fresh_hparams):
+    """The forward stages tiles with 16-byte copies: views whose data or
+    strides are not 16-byte aligned are copied by the wrapper first."""
+    qkv = torch.zeros(2, 128, 3, 4, 16)
+    q = qkv[:, :, 0]
+    assert tattn._aligned16(q, q.stride()[:3])
+    odd = torch.zeros(2 * 128 * 4 * 16 + 1)[1:].view(2, 128, 4, 16)
+    assert not tattn._aligned16(odd, odd.stride()[:3])
+    bf = torch.zeros(2, 128, 3, 4, 16, dtype=torch.bfloat16)[:, :, 1]
+    assert tattn._aligned16(bf, bf.stride()[:3])
+    assert not tattn._aligned16(bf, (bf.stride(0), 12, 4))
+
+
 @pytest.mark.parametrize("t", [40, 200])
 def test_torch_flash_needs_t_multiple_of_128(fresh_hparams, t):
     """Both packages raise ValueError for T not a multiple of 128."""

@@ -195,3 +195,15 @@ def test_torch_gru_wrappers_refuse_other_devices(fresh_hparams):
     with pytest.raises(ValueError):
         cuda_gru.gru_scan_bwd(cx, torch.zeros(t, b, 3 * h, device="meta"),
                               cx, wgh, wch)
+
+
+@pytest.mark.parametrize("b, h", [(1, 600), (33, 300), (2, 5)])
+def test_torch_gru_exchange_rows(fresh_hparams, b, h):
+    """Kernel 4f's scratch: the two rows its blocks exchange each step (dt(c)
+    and dt(c * r)) as [2, B, H] contiguous 8-byte words, each a float32
+    value and its step's tag, on the device of the call."""
+    x = cuda_gru.exchange_rows(b, h, "cpu")
+    assert tuple(x.shape) == (2, b, h) and x.element_size() == 8
+    assert x.is_contiguous() and x.device.type == "cpu"
+    assert x.data_ptr() % 8 == 0
+    assert cuda_gru.exchange_rows(b, h, "meta").device.type == "meta"
