@@ -9,11 +9,13 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    TF32 off for matmuls and cuDNN.  No GPU -> exit non-zero.
 2. build: nvcc compiles danet_tpu_torch/csrc/*.cu for sm_90a.
 3. kernel A (fused STFT) vs its plain version on the card, atol 2e-5.
-4. kernel B (fused BiLSTM scan) vs its plain version on the card: H=300,
-   T=1251, B=1 and 4, tanh and identity candidates; float32 at atol 1e-5,
-   bfloat16 at atol 5e-2 (one-ulp bf16 roundings of h, 2^-8 near 1, that
-   fall differently under another f32 summation order feed every later
-   step, so they compound over T).
+4. kernel B (fused BiLSTM scan, lean) vs its plain version on the card:
+   H=300, T=1251, B=1 and 4, tanh and identity candidates, and (T=128,
+   B=32), the validation batch, tanh; float32 at atol 1e-5, bfloat16 at
+   atol 5e-2 (one-ulp bf16 roundings of h, 2^-8 near 1, that fall
+   differently under another f32 summation order feed every later step,
+   so they compound over T).  Kernel B exchanges h as tagged words at B=1
+   and behind per-block flags above it: both protocols are held here.
 5. serving: DaNet at full bilstm-orig width (default.json +
    ENCODER_TYPE=bilstm-orig: 4 BiLSTM layers x 300 units per direction,
    F=129, E=20, NUM_ANCHOR=6, N=2, float32) with seeded random weights,
@@ -64,7 +66,9 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    B=32), tanh and identity candidates, float32 and bfloat16, and phase
    6's ragged (T=64, B=33), layer-shaped
    inputs with nonzero c0, h0 and d_hs; phase 4's tolerance on the lean
-   kernel and phase 6's on the other two.
+   kernel and phase 6's on the other two.  The lean kernel also at the
+   4 x 4 s serving batch (T=501, B=4), both dtypes, and its time at (T=501,
+   B=4) and (T=128, B=32) beside the one at (T=1251, B=1).
 9. the GRU kernels (gru_scan, gru_scan_train, gru_scan_bwd) vs their plain
    versions on the card, the same shapes, dtypes and tolerances, at
    gru-v1's H=600 (75 blocks) and at H=300 (38 blocks, the last with 4
@@ -320,6 +324,7 @@ def phase_bilstm() -> dict:
     cases = [(dt, tanh, t, b) for dt in (torch.float32, torch.bfloat16)
              for tanh in (True, False) for t, b in ((1251, 1), (1251, 4))]
     cases += [(torch.float32, True, 501, 4), (torch.float32, True, 126, 1)]
+    cases += [(dt, True, 128, 32) for dt in (torch.float32, torch.bfloat16)]
     for dt, tanh, t, b in cases:
         args = _scan_inputs(rs, t, b, dt)
         out = cuda_lstm.bilstm_scan(*args, tanh)
@@ -669,9 +674,28 @@ def phase_lstm_unidirectional() -> dict:
                 times, "lstm_scan_bwd",
                 lambda: cuda_lstm.lstm_scan_bwd(*bargs),
                 lambda: cuda_lstm.lstm_scan_bwd_plain(*bargs), t)
+            line += "; lstm_scan kernel %.4f ms (%.3f us/step)" % _per_step(
+                lambda: cuda_lstm.lstm_scan(*args), t)
         elif dt == torch.float32 and (t, b) == (64, 33):
             line += "; kernel 3 %.4f ms (%.3f us/step)" % _per_step(
                 lambda: cuda_lstm.lstm_scan_bwd(*bargs), t)
+        print(line)
+    # the lean kernel alone at the 4 x 4 s serving batch
+    t, b = 501, 4
+    for dt in (torch.float32, torch.bfloat16):
+        xp, wh, c0, h0, _ = _lstm_inputs(rs, t, b, dt)
+        args = (xp, wh, c0, h0, True)
+        lean = cuda_lstm.lstm_scan(*args)
+        lean_ref = cuda_lstm.lstm_scan_plain(*args)
+        torch.cuda.synchronize()
+        tag = _tag(dt, True, t, b)
+        parts = _check_kernels(8, tag, dt, (
+            ("lstm_scan", ("hs",), (lean,), (lean_ref,),
+             (LSTM_ATOL[dt], 0.0)),), worst)
+        line = "phase 8 %s max_abs_err: %s" % (tag, ", ".join(parts))
+        if dt == torch.float32:
+            line += "; lstm_scan kernel %.4f ms (%.3f us/step)" % _per_step(
+                lambda: cuda_lstm.lstm_scan(*args), t)
         print(line)
     return {"max_abs_err": worst, "times": times}
 
@@ -1356,14 +1380,14 @@ def main():
     sources = {
         "stft_ri": ("danet_tpu_torch/csrc/stft.cu",
                     "danet_tpu/ops/pallas/stft.py:95"),
-        "bilstm_scan": ("danet_tpu_torch/csrc/bilstm_scan.cu",
+        "bilstm_scan": ("danet_tpu_torch/csrc/lstm_scan_lean.cu",
                         "danet_tpu/ops/pallas/lstm.py:242 (n_dirs=2)"),
         "bilstm_scan_train": ("danet_tpu_torch/csrc/bilstm_scan.cu",
                               "danet_tpu/ops/pallas/lstm.py:242 (n_dirs=2, "
                               "save=True)"),
         "bilstm_scan_bwd": ("danet_tpu_torch/csrc/bilstm_scan_bwd.cu",
                             "danet_tpu/ops/pallas/lstm.py:275 (n_dirs=2)"),
-        "lstm_scan": ("danet_tpu_torch/csrc/bilstm_scan.cu",
+        "lstm_scan": ("danet_tpu_torch/csrc/lstm_scan_lean.cu",
                       "danet_tpu/ops/pallas/lstm.py:242 (n_dirs=1)"),
         "lstm_scan_train": ("danet_tpu_torch/csrc/bilstm_scan.cu",
                             "danet_tpu/ops/pallas/lstm.py:242 (n_dirs=1, "

@@ -1,11 +1,11 @@
-// Kernels B and 2, and their one-direction forms: the whole time loop of
-// one LSTM layer, all its directions, in one cooperative launch.
+// Kernel 2 and its one-direction form: the LSTM forward that also saves
+// the residuals the backward (bilstm_scan_bwd.cu) replays, the whole time
+// loop of one layer, all its directions, in one cooperative launch.
 //
-// Replaces the forward of danet_tpu/ops/pallas/lstm.py (_fwd_call):
-// bilstm_scan_pallas (n_dirs=2) and lstm_scan_pallas (n_dirs=1).
-// SAVE=false is the lean (inference) forward, kernel B; SAVE=true is the
-// training forward, kernel 2, which also writes the residuals that the
-// backward (bilstm_scan_bwd.cu) replays.
+// Replaces the forward of danet_tpu/ops/pallas/lstm.py (_fwd_call) with
+// save=True: bilstm_scan_pallas (n_dirs=2) and lstm_scan_pallas (n_dirs=1)
+// under their custom VJPs.  The lean forward (save=False, kernel B) is
+// lstm_scan_lean.cu.
 //
 //   act_t  = xp_t + h_{t-1} @ Wh           (f32 accumulate)
 //   cand   = tanh(act[0:H]) or act[0:H]     (gate order cand|i|f|o)
@@ -13,31 +13,32 @@
 //   c_t    = i*cand + f*c_{t-1}             (f32 carry)
 //   h_t    = o*tanh(c_t), rounded to the storage type before it feeds
 //            the next step and is written to hs
-//   SAVE:  cs[t] = c_t and acts[t] = [cand, i, f, o], each rounded to the
+//   cs[t] = c_t and acts[t] = [cand, i, f, o], each rounded to the
 //          storage type (as the TPU kernel stores its residuals)
 //
 // Shapes, with D = n_dirs (1 or 2): xp [T, D, B, 4H], wh [D, H, 4H],
-// c0/h0 [D, B, H] -> hs (and cs) [T, D, B, H], acts [T, D, B, 4H]; with
-// D = 1 that is exactly [T, B, 4H], [H, 4H], [B, H].  Storage f32 or bf16,
-// gate math and the cell carry f32.  With D = 2, direction 1 sees the
+// c0/h0 [D, B, H] -> hs, cs [T, D, B, H], acts [T, D, B, 4H]; with D = 1
+// that is exactly [T, B, 4H], [H, 4H], [B, H].  Storage f32 or bf16, gate
+// math and the cell carry f32.  With D = 2, direction 1 sees the
 // time-reversed input; the caller reverses in and out.
 //
 // What bounds it on this card: Wh of one direction is H x 4H (1.44 MB in
 // f32 at H=300, 5.76 MB at H=600), far beyond one SM's 227 KB of shared
-// memory, and each step depends on the whole h_{t-1}.  Design: each
-// direction's hidden units are split over blocks, UNITS per block (grid.x
-// blocks per direction, grid.y = D; D is also a template parameter, so that
-// the direction stride is a constant in the index arithmetic, as it was
-// when D was fixed at 2: read at run time, it made kernels B and 2 21 % and
-// 32 % slower at H=300).  A block keeps its [H, 4*UNITS]
-// column slice of Wh (all four gates of its units) in shared memory for the
-// whole run and its units' cell state in shared memory.  Each step it reads
-// the full h_{t-1} of its direction straight from hs[t-1] (written by the
-// other blocks in the previous step; L2-resident, read with ld.global.cg so
-// that no stale L1 line is used), computes its units' gates, writes its
-// slice of h_t into hs[t], and meets the other blocks at a grid-wide
-// barrier.  So the per-step latency of that barrier and of the h exchange
-// through L2, not FLOPs or bytes, sets the speed at serving batch sizes.
+// memory, and each step depends on the whole h_{t-1}.  Design (the first
+// one of the port, which lstm_scan_lean.cu replaced for the lean forward):
+// each direction's hidden units are split over blocks, UNITS per block
+// (grid.x blocks per direction, grid.y = D; D is also a template
+// parameter, so that the direction stride is a constant in the index
+// arithmetic: read at run time, it made the kernel 32 % slower at H=300).
+// A block keeps its [H, 4*UNITS] column slice of Wh (all four gates of its
+// units) in shared memory for the whole run and its units' cell state in
+// shared memory.  Each step it reads the full h_{t-1} of its direction
+// straight from hs[t-1] (written by the other blocks in the previous step;
+// L2-resident, read with ld.global.cg so that no stale L1 line is used),
+// computes its units' gates, writes its slice of h_t, c_t and the gates,
+// and meets every other block, of both directions, at a grid-wide
+// barrier.  So the per-step latency of that barrier and of the element-wise
+// h_s staging through L2, not FLOPs or bytes, sets its speed.
 //
 // UNITS is 16 wherever its shared memory fits (every H=300 shape up to
 // B=68, and H=600 up to B=19: 38 blocks per direction at H=600), else 8
@@ -78,7 +79,7 @@ size_t smem_bytes(int batch, int hdim) {
                           static_cast<size_t>(batch) * UNITS);
 }
 
-template <typename T, bool TANH, bool SAVE, int UNITS, int NDIRS>
+template <typename T, bool TANH, int UNITS, int NDIRS>
 __global__ void __launch_bounds__(THREADS)
 bilstm_scan_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
                    const T* __restrict__ c0, const T* __restrict__ h0,
@@ -160,25 +161,23 @@ bilstm_scan_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
       const float c = ig * cand + fg * c_s[e];
       c_s[e] = c;
       hs_t[static_cast<size_t>(b) * hdim + unit] = from_f32<T>(og * tanhf(c));
-      if (SAVE) {
-        cs[(static_cast<size_t>(t) * NDIRS + dir) * bh +
-           static_cast<size_t>(b) * hdim + unit] = from_f32<T>(c);
-        T* act_t = acts + x_off + static_cast<size_t>(b) * g4 + unit;
-        act_t[0] = from_f32<T>(cand);
-        act_t[hdim] = from_f32<T>(ig);
-        act_t[2 * hdim] = from_f32<T>(fg);
-        act_t[3 * hdim] = from_f32<T>(og);
-      }
+      cs[(static_cast<size_t>(t) * NDIRS + dir) * bh +
+         static_cast<size_t>(b) * hdim + unit] = from_f32<T>(c);
+      T* act_t = acts + x_off + static_cast<size_t>(b) * g4 + unit;
+      act_t[0] = from_f32<T>(cand);
+      act_t[hdim] = from_f32<T>(ig);
+      act_t[2 * hdim] = from_f32<T>(fg);
+      act_t[3 * hdim] = from_f32<T>(og);
     }
     grid.sync();  // h_t complete (and visible) before any block reads it
   }
 }
 
-template <typename T, bool TANH, bool SAVE, int UNITS, int NDIRS>
+template <typename T, bool TANH, int UNITS, int NDIRS>
 int launch(const void* xp, const void* wh, const void* c0, const void* h0,
            void* hs, void* cs, void* acts, int n_steps, int batch, int hdim,
            cudaStream_t stream) {
-  auto kernel = bilstm_scan_kernel<T, TANH, SAVE, UNITS, NDIRS>;
+  auto kernel = bilstm_scan_kernel<T, TANH, UNITS, NDIRS>;
   const size_t smem = smem_bytes<UNITS>(batch, hdim);
   const dim3 grid((hdim + UNITS - 1) / UNITS, NDIRS);
   const int fit = cooperative_fit(kernel, grid, THREADS, smem);
@@ -201,7 +200,7 @@ int launch(const void* xp, const void* wh, const void* c0, const void* h0,
 }
 
 // UNITS = 16 where its shared memory fits the device, else 8 (see header)
-template <typename T, bool TANH, bool SAVE, int NDIRS>
+template <typename T, bool TANH, int NDIRS>
 int launch_units(const void* xp, const void* wh, const void* c0,
                  const void* h0, void* hs, void* cs, void* acts, int n_steps,
                  int batch, int hdim, cudaStream_t stream) {
@@ -209,24 +208,23 @@ int launch_units(const void* xp, const void* wh, const void* c0,
   const int err = smem_optin(&optin);
   if (err != 0) return err;
   if (smem_bytes<16>(batch, hdim) <= static_cast<size_t>(optin))
-    return launch<T, TANH, SAVE, 16, NDIRS>(xp, wh, c0, h0, hs, cs, acts,
-                                            n_steps, batch, hdim, stream);
-  return launch<T, TANH, SAVE, 8, NDIRS>(xp, wh, c0, h0, hs, cs, acts,
-                                         n_steps, batch, hdim, stream);
+    return launch<T, TANH, 16, NDIRS>(xp, wh, c0, h0, hs, cs, acts,
+                                      n_steps, batch, hdim, stream);
+  return launch<T, TANH, 8, NDIRS>(xp, wh, c0, h0, hs, cs, acts, n_steps,
+                                   batch, hdim, stream);
 }
 
-template <typename T, bool TANH, bool SAVE>
+template <typename T, bool TANH>
 int launch_dirs(const void* xp, const void* wh, const void* c0,
                 const void* h0, void* hs, void* cs, void* acts, int n_steps,
                 int batch, int hdim, int n_dirs, cudaStream_t stream) {
   return n_dirs == 1
-             ? launch_units<T, TANH, SAVE, 1>(xp, wh, c0, h0, hs, cs, acts,
-                                              n_steps, batch, hdim, stream)
-             : launch_units<T, TANH, SAVE, 2>(xp, wh, c0, h0, hs, cs, acts,
-                                              n_steps, batch, hdim, stream);
+             ? launch_units<T, TANH, 1>(xp, wh, c0, h0, hs, cs, acts,
+                                        n_steps, batch, hdim, stream)
+             : launch_units<T, TANH, 2>(xp, wh, c0, h0, hs, cs, acts,
+                                        n_steps, batch, hdim, stream);
 }
 
-template <bool SAVE>
 int dispatch(const void* xp, const void* wh, const void* c0, const void* h0,
              void* hs, void* cs, void* acts, int n_steps, int batch, int hdim,
              int n_dirs, int dtype, int tanh_cand, void* stream) {
@@ -235,59 +233,40 @@ int dispatch(const void* xp, const void* wh, const void* c0, const void* h0,
     return DANET_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return tanh_cand ? launch_dirs<float, true, SAVE>(
+    return tanh_cand ? launch_dirs<float, true>(
                            xp, wh, c0, h0, hs, cs, acts, n_steps, batch,
                            hdim, n_dirs, s)
-                     : launch_dirs<float, false, SAVE>(
+                     : launch_dirs<float, false>(
                            xp, wh, c0, h0, hs, cs, acts, n_steps, batch,
                            hdim, n_dirs, s);
-  return tanh_cand ? launch_dirs<__nv_bfloat16, true, SAVE>(
+  return tanh_cand ? launch_dirs<__nv_bfloat16, true>(
                          xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim,
                          n_dirs, s)
-                   : launch_dirs<__nv_bfloat16, false, SAVE>(
+                   : launch_dirs<__nv_bfloat16, false>(
                          xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim,
                          n_dirs, s);
 }
 
 }  // namespace
 
-// Kernel B.  dtype: 0 = float32, 1 = bfloat16 (every tensor of the call).
-extern "C" int danet_bilstm_scan(const void* xp, const void* wh,
-                                 const void* c0, const void* h0, void* hs,
-                                 int n_steps, int batch, int hdim, int dtype,
-                                 int tanh_cand, void* stream) {
-  return dispatch<false>(xp, wh, c0, h0, hs, nullptr, nullptr, n_steps, batch,
-                         hdim, 2, dtype, tanh_cand, stream);
-}
-
-// Kernel 2: kernel B that also writes cs [T, 2, B, H] and acts
-// [T, 2, B, 4H].
+// Kernel 2.  dtype: 0 = float32, 1 = bfloat16 (every tensor of the call).
+// Writes hs, cs [T, 2, B, H] and acts [T, 2, B, 4H].
 extern "C" int danet_bilstm_scan_train(const void* xp, const void* wh,
                                        const void* c0, const void* h0,
                                        void* hs, void* cs, void* acts,
                                        int n_steps, int batch, int hdim,
                                        int dtype, int tanh_cand,
                                        void* stream) {
-  return dispatch<true>(xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim,
-                        2, dtype, tanh_cand, stream);
+  return dispatch(xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim, 2,
+                  dtype, tanh_cand, stream);
 }
 
-// Kernel B with one direction (lstm_scan_pallas): xp [T, B, 4H],
-// wh [H, 4H], c0/h0 [B, H] -> hs [T, B, H].
-extern "C" int danet_lstm_scan(const void* xp, const void* wh,
-                               const void* c0, const void* h0, void* hs,
-                               int n_steps, int batch, int hdim, int dtype,
-                               int tanh_cand, void* stream) {
-  return dispatch<false>(xp, wh, c0, h0, hs, nullptr, nullptr, n_steps, batch,
-                         hdim, 1, dtype, tanh_cand, stream);
-}
-
-// Kernel 2 with one direction: also writes cs [T, B, H], acts [T, B, 4H].
+// Kernel 2 with one direction: hs, cs [T, B, H], acts [T, B, 4H].
 extern "C" int danet_lstm_scan_train(const void* xp, const void* wh,
                                      const void* c0, const void* h0,
                                      void* hs, void* cs, void* acts,
                                      int n_steps, int batch, int hdim,
                                      int dtype, int tanh_cand, void* stream) {
-  return dispatch<true>(xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim,
-                        1, dtype, tanh_cand, stream);
+  return dispatch(xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim, 1,
+                  dtype, tanh_cand, stream);
 }

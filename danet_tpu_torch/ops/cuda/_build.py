@@ -34,13 +34,13 @@ _L, _F = ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = [
     ("danet_stft_ri", _I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     ("danet_bilstm_scan", _I,
-     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     ("danet_bilstm_scan_train", _I,
      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     ("danet_bilstm_scan_bwd", _I,
      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     ("danet_lstm_scan", _I,
-     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     ("danet_lstm_scan_train", _I,
      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     ("danet_lstm_scan_bwd", _I,

@@ -15,10 +15,13 @@ and ``lstm_scan_pallas`` (n_dirs=1) with their custom VJPs:
 The one-direction wrappers launch the same kernels with the direction
 count as a parameter (``[T, 1, B, .]`` is ``[T, B, .]``), each under its
 own C entry point and launch counter.  The CUDA sources are
-``danet_tpu_torch/csrc/bilstm_scan.cu`` (kernels B and 2) and
-``csrc/bilstm_scan_bwd.cu`` (kernel 3); their headers say what bounds them
-on an H100 (the per-step latency of the grid-wide barrier and of the
-exchange through L2, not FLOPs) and how Wh is split over blocks.
+``danet_tpu_torch/csrc/lstm_scan_lean.cu`` (kernel B),
+``csrc/bilstm_scan.cu`` (kernel 2) and ``csrc/bilstm_scan_bwd.cu``
+(kernel 3); their headers say what bounds them on an H100 (the latency of
+each step's exchange of h between the blocks, through L2, not FLOPs) and
+how Wh is split over blocks.  Kernel B passes no grid barrier: its blocks
+exchange h as value-and-step words at B=1 and behind per-block flags
+above it, each direction on its own (``exchange_words``).
 
 Each wrapper launches its kernel for CUDA tensors and uses its plain
 version (``*_plain``: Python loops over T with the same float32 gate math
@@ -190,13 +193,22 @@ def _launch(entry: str, what: str, device, tensors, ints) -> None:
     _build.check(status, what)
 
 
+def exchange_words(n_dirs: int, b: int, hdim: int, device) -> torch.Tensor:
+    """Scratch of kernel B, [2, D, B, H] words of 8 bytes: the rows h_t its
+    blocks exchange each step, as value-and-step-tag words by the parity
+    of t at B=1; at B > 1 the blocks' flags.  The kernel clears what it
+    uses before its first step."""
+    return torch.empty((2, n_dirs, b, hdim), dtype=torch.int64,
+                       device=device)
+
+
 def _fwd(entry: str, n_dirs: int, save: bool, xp, wh, c0, h0, tanh_cand):
     """Launch a forward kernel: -> hs, or (hs, cs, acts) when ``save``."""
     t, b, hdim = _fwd_shapes(xp, wh, c0, h0, n_dirs)
     hs = torch.empty((t,) + _dirs(n_dirs, b, hdim), dtype=xp.dtype,
                      device=xp.device)
     outs = (hs, torch.empty_like(hs), torch.empty_like(xp)) if save \
-        else (hs,)
+        else (hs, exchange_words(n_dirs, b, hdim, xp.device))
     _launch(entry, entry + " kernel", xp.device, (xp, wh, c0, h0) + outs,
             (t, b, hdim, _DTYPE_CODES[xp.dtype], int(bool(tanh_cand))))
     return outs if save else hs

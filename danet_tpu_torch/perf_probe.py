@@ -7,6 +7,9 @@
     python -m danet_tpu_torch.perf_probe gru-fwd [--reps 10]
         [--set NAME=VALUE ...] [--cut staging|barrier|fma|gates ...]
         [--source CSRC_DIR]
+    python -m danet_tpu_torch.perf_probe lstm-fwd [--reps 10]
+        [--set NAME=VALUE ...] [--cut staging|barrier|fma|gates ...]
+        [--source CSRC_DIR]
     python -m danet_tpu_torch.perf_probe flash-fwd [--reps 50]
 
 ``profile``: for one encoder at full width with random weights from seed
@@ -49,6 +52,21 @@ gx / cx loads) time a variant without that part, outputs not checked;
 (and headers) of another csrc directory, e.g. the parent commit's under
 ``trees/parent/``, whose cuts have their own text in ``GRU_FWD_CUTS``.
 
+``lstm-fwd``: kernel B alone, the lean LSTM forward in both of its forms,
+``bilstm_scan`` at bilstm-orig's H=300 and ``lstm_scan`` at lstm-orig's
+H=600, tanh candidate, layer-shaped inputs with nonzero c0 and h0, at
+(T=1251, B=1) (a 10 s request), (T=1251, B=4) and (T=128, B=32) (the
+validation batch), float32 and bfloat16: max abs error against the plain
+version at ``chip_smoke.py`` phase 4's tolerances (float32 atol 1e-5,
+bfloat16 5e-2), ms and µs per step, and in float32 the time of
+``torch.nn.LSTM`` (cuDNN, with the input projection) at the same (T, B)
+beside it; then both kernels' µs per step at T=501 (a 4 s request) for B
+= 1, 2, 4, 8, 16 and 32, float32, unchecked.  ``--cut``, ``--set`` and
+``--source`` as for ``gru-fwd``, on ``csrc/lstm_scan_lean.cu``; a
+``--source`` directory without that file holds the earlier design, whose
+lean forward is ``bilstm_scan.cu``'s (grid barriers, no scratch
+argument), with its own cut texts in ``LSTM_FWD_CUTS``.
+
 ``flash-fwd``: kernel 5f (``flash_attn``) alone at attn-v1's widths
 (H=4, D=64), float32 and bfloat16, at the serving shape (B=1, T=1280)
 and the training shape (B=32, T=128), q, k and v as views of one qkv
@@ -65,6 +83,7 @@ fallback: without a GPU it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import sys
 import time
@@ -409,6 +428,130 @@ def gru_fwd(reps: int, checked: bool = True) -> None:
         sys.exit("gru-fwd: beyond tolerance: %s" % failed)
 
 
+# text cut from kernel B's source by lstm-fwd --cut, to time what is left;
+# the first entries of each cut serve lstm_scan_lean.cu's exchange of
+# tagged words or flagged values, the last the earlier design in
+# bilstm_scan.cu (grid barriers and element-wise h_s staging)
+LSTM_FWD_CUTS = {
+    "staging": [("stage_tagged(d, w_in, t - 1, batch * hdim);", ";"),
+                ("stage_values(d_s, h_in + static_cast<size_t>(p0) * hdim, "
+                 "rows * hdim);", ";"),
+                ("wait_flags(flags, t - 1);", ";"),
+                ("for (size_t e = tid; e < bh; e += THREADS) h_s[e] = "
+                 "load_cg(hprev + e);", ";")],
+    "barrier": [("static_cast<int>(w[j] >> 32) != tag;",
+                 "static_cast<int>(w[j] >> 32) != tag && false;"),
+                ("wait_flags(flags, t - 1);", ";"),
+                ("grid.sync();  // h_t complete", ";//")],
+    "fma": [("if (live) {", "if (false) {"),
+            ("fma_live(mine, acc, w, d, hdim, kw * LK + kl, kw_n * LK);",
+             ";"),
+            ("acc[bb] = fmaf(h_s[(b0 + bb) * hdim + k], w, acc[bb]);", ";")],
+    "gates": [("if (owner) gate_inputs(", "if (false) gate_inputs("),
+              ("if (own0) gate_inputs(", "if (false) gate_inputs("),
+              ("if (p0 > 0 || e != tid) gate_inputs(",
+               "if (false) gate_inputs("),
+              ("to_f32(xp_t[static_cast<size_t>(b) * g4 + g * hdim + unit])",
+               "0.f")],
+}
+# chip_smoke.py phase 4's tolerances of the lean kernels (atol)
+LEAN_ATOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+
+
+def _lean_kernels(legacy: bool) -> dict:
+    """bilstm_scan and lstm_scan by name; for the earlier design (legacy),
+    callers of its entry points, which take no exchange scratch."""
+    import ctypes
+
+    from danet_tpu_torch.ops.cuda import _build
+    from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
+
+    if not legacy:
+        return {"bilstm_scan": cuda_lstm.bilstm_scan,
+                "lstm_scan": cuda_lstm.lstm_scan}
+    lib = _build.library()
+    out = {}
+    for name, d in (("bilstm_scan", 2), ("lstm_scan", 1)):
+        entry = "danet_" + name
+        getattr(lib, entry).argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+        def call(xp, wh, c0, h0, tanh_cand, entry=entry, d=d):
+            t, b, h = cuda_lstm._fwd_shapes(xp, wh, c0, h0, d)
+            hs = torch.empty((t,) + cuda_lstm._dirs(d, b, h),
+                             dtype=xp.dtype, device=xp.device)
+            cuda_lstm._launch(entry, entry, xp.device, (xp, wh, c0, h0, hs),
+                              (t, b, h, cuda_lstm._DTYPE_CODES[xp.dtype],
+                               int(bool(tanh_cand))))
+            return hs
+        out[name] = call
+    return out
+
+
+def _lstm_arrays(rs, t: int, b: int, d: int, h: int) -> tuple:
+    """Layer-shaped inputs of bilstm-orig (d=2, H=300) or lstm-orig (d=1,
+    H=600), input width 600: xp = x @ Wx + gate bias, Wx and Wh at the
+    encoder's init scale, nonzero c0 and h0; float32 numpy."""
+    scale = (0.75 if d == 2 else 1.15) / np.sqrt(h)
+    bias = np.repeat(np.array([0.0, 1.5, -1.0, 1.0], np.float32), h)
+    x = rs.randn(d, t * b, 600).astype(np.float32) * 0.5
+    wx = rs.uniform(-scale, scale, (d, 600, 4 * h)).astype(np.float32)
+    xp = (np.matmul(x, wx) + bias).reshape(d, t, b, 4 * h).transpose(
+        1, 0, 2, 3)
+    lead = (d,) if d == 2 else ()
+    return (xp if d == 2 else xp[:, 0],
+            rs.uniform(-scale, scale, lead + (h, 4 * h)),
+            rs.randn(*lead, b, h) * 0.5, rs.uniform(-0.5, 0.5, lead + (b, h)))
+
+
+def lstm_fwd(reps: int, legacy: bool, checked: bool = True) -> None:
+    from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rs = np.random.RandomState(10)
+    kernels = _lean_kernels(legacy)
+    failed = []
+    for name, d, h in (("bilstm_scan", 2, 300), ("lstm_scan", 1, 600)):
+        kernel, plain = kernels[name], getattr(cuda_lstm, name + "_plain")
+        lstm = torch.nn.LSTM(600, h, bidirectional=d == 2).cuda()
+        for t, b in ((1251, 1), (1251, 4), (128, 32)):
+            arrays = _lstm_arrays(rs, t, b, d, h)
+            xs = torch.from_numpy(rs.randn(t, b, 600).astype(
+                np.float32)).cuda()
+            with torch.no_grad():
+                lib = cuda_ms(lambda: lstm(xs), reps)
+            for dt in (torch.float32, torch.bfloat16):
+                args = [torch.from_numpy(np.ascontiguousarray(
+                    a, np.float32)).cuda().to(dt) for a in arrays] + [True]
+                out, ref = kernel(*args), plain(*args)
+                torch.cuda.synchronize()
+                err = float((out.float() - ref.float()).abs().max())
+                ok = out.dtype == dt and bool(torch.isfinite(
+                    out.float()).all()) and err <= LEAN_ATOL[dt]
+                if not ok:
+                    failed.append((name, str(dt), t, b))
+                ms = cuda_ms(lambda: kernel(*args), reps)
+                print("lstm-fwd %s %s T=%d B=%d H=%d: max abs err %.3g (atol "
+                      "%g)%s; kernel %.4f ms, %.3f us/step%s"
+                      % (name, str(dt).replace("torch.", ""), t, b, h, err,
+                         LEAN_ATOL[dt], "" if ok else " FAIL", ms,
+                         1e3 * ms / t,
+                         "; torch.nn.LSTM(600, %d%s) %.4f ms" % (
+                             h, ", bidirectional" if d == 2 else "", lib)
+                         if dt == torch.float32 else ""))
+        sweep = []
+        for b in (1, 2, 4, 8, 16, 32):
+            args = [torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                    .cuda() for a in _lstm_arrays(rs, 501, b, d, h)] + [True]
+            ms = cuda_ms(lambda: kernel(*args), reps)
+            sweep.append("B=%d %.3f" % (b, 1e3 * ms / 501))
+        print("lstm-fwd %s float32 T=501 H=%d us/step by batch: %s"
+              % (name, h, ", ".join(sweep)))
+    if failed and checked:
+        sys.exit("lstm-fwd: beyond tolerance: %s" % failed)
+
+
 def flash_fwd(reps: int) -> None:
     from danet_tpu_torch.ops.cuda import attention as cuda_attn
 
@@ -485,6 +628,17 @@ def main(argv=None) -> None:
     p.add_argument("--source", default="",
                    help="a csrc directory whose gru_scan.cu to build (e.g. "
                    "an unpacked parent commit's)")
+    p = sub.add_parser("lstm-fwd", help="kernel B alone: check and time")
+    p.add_argument("--reps", type=int, default=10)
+    p.add_argument("--set", action="append", default=[],
+                   metavar="NAME=VALUE",
+                   help="a constexpr int of kernel B in a variant build")
+    p.add_argument("--cut", action="append", default=[],
+                   choices=sorted(LSTM_FWD_CUTS),
+                   help="time kernel B without this part (outputs wrong)")
+    p.add_argument("--source", default="",
+                   help="a csrc directory whose kernel B to build (e.g. an "
+                   "unpacked parent commit's)")
     p = sub.add_parser("flash-fwd", help="kernel 5f alone: check and time")
     p.add_argument("--reps", type=int, default=50)
     args = ap.parse_args(argv)
@@ -505,6 +659,16 @@ def main(argv=None) -> None:
                 {k: int(v) for k, v in (a.split("=") for a in args.set)},
                 GRU_FWD_CUTS, args.cut, args.source)
         gru_fwd(args.reps, checked=not args.cut)
+    elif args.cmd == "lstm-fwd":
+        kernel = "lstm_scan_lean.cu"
+        legacy = bool(args.source) and not os.path.exists(
+            os.path.join(args.source, kernel))
+        if args.set or args.cut or args.source:
+            use_variant(
+                "bilstm_scan.cu" if legacy else kernel,
+                {k: int(v) for k, v in (a.split("=") for a in args.set)},
+                LSTM_FWD_CUTS, args.cut, args.source)
+        lstm_fwd(args.reps, legacy, checked=not args.cut)
     elif args.cmd == "flash-fwd":
         flash_fwd(args.reps)
     else:

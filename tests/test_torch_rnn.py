@@ -36,14 +36,22 @@ def test_torch_bilstm_apply_matches_pallas_interpret(fresh_hparams, act):
         np.testing.assert_allclose(out, ref, atol=1e-6)
 
 
-@pytest.mark.parametrize("tanh_cand", [True, False])
+def _lean_cases(b_default):
+    """(tanh_cand, B) of the lean scans' tests: both candidates at the
+    case's own batch (ids as before) and at the serving batches 1 and 4."""
+    return [pytest.param(tanh, b, id=str(tanh) if b == b_default
+                         else "%s-B%d" % (tanh, b))
+            for b in (b_default, 1, 4) for tanh in (True, False)]
+
+
+@pytest.mark.parametrize("tanh_cand, B", _lean_cases(2))
 def test_torch_bilstm_scan_plain_matches_pallas_interpret(fresh_hparams,
-                                                          tanh_cand):
+                                                          tanh_cand, B):
     """The scan alone, with nonzero initial state (the kernel's full
     contract, not only the zeros bilstm_apply passes)."""
     from danet_tpu.ops.pallas.lstm import bilstm_scan_pallas
 
-    T, B, H = 7, 2, 5
+    T, H = 7, 5
     rs = np.random.RandomState(3)
     xp = rs.randn(T, 2, B, 4 * H).astype(np.float32)
     wh = (rs.randn(2, H, 4 * H) * 0.4).astype(np.float32)
@@ -240,14 +248,14 @@ def _uni_case(seed, t=7, b=3, h=5):
     return (xp, wh, c0, h0), d_hs
 
 
-@pytest.mark.parametrize("tanh_cand", [True, False])
+@pytest.mark.parametrize("tanh_cand, B", _lean_cases(3))
 def test_torch_lstm_scan_plain_matches_pallas_interpret(fresh_hparams,
-                                                        tanh_cand):
+                                                        tanh_cand, B):
     """The one-direction lean forward against lstm_scan_pallas, atol 1e-6;
     on CPU tensors the wrapper launches nothing."""
     from danet_tpu.ops.pallas.lstm import lstm_scan_pallas
 
-    args, _ = _uni_case(11)
+    args, _ = _uni_case(11, b=B)
     ref = lstm_scan_pallas(*map(jnp.asarray, args), tanh_cand, True)
     before = cuda_lstm.lstm_scan.launches
     out = cuda_lstm.lstm_scan(*[torch.from_numpy(a) for a in args],
@@ -398,3 +406,46 @@ def test_torch_lstm_wrappers_refuse_other_devices(fresh_hparams):
                                 torch.zeros(3, 1, 2, device="meta"),
                                 torch.zeros(3, 1, 2, device="meta"), wh,
                                 True)
+
+
+# ------------------------------------------------- kernel B, both forms
+@pytest.mark.parametrize("n_dirs, wrapper, pallas", [
+    (2, "bilstm_scan", "bilstm_scan_pallas"),
+    (1, "lstm_scan", "lstm_scan_pallas")])
+@pytest.mark.parametrize("tanh_cand", [True, False])
+def test_torch_lean_scan_bf16_matches_pallas_interpret(
+        fresh_hparams, n_dirs, wrapper, pallas, tanh_cand):
+    """bfloat16 storage, f32 math: the lean forward's hs against the Pallas
+    kernel in bf16, nonzero initial state.  Both round the same f32 values
+    at the same places (the products of bf16 operands are exact in f32),
+    so they agree but for f32 sums taken in another order, which may move
+    one rounding of h by one bf16 ulp: atol one ulp of the output's peak,
+    2^(floor(log2 peak) - 7)."""
+    from danet_tpu.ops.pallas import lstm as jlstm
+
+    (xp, wh, c0, h0), _ = (_scan_case(14, t=8, b=4, h=8) if n_dirs == 2
+                           else _uni_case(14, t=8, b=4, h=8))
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in (xp, wh, c0, h0)]
+    ref = np.asarray(getattr(jlstm, pallas)(*jargs, tanh_cand, True)
+                     .astype(jnp.float32))
+    targs = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.bfloat16) for a in jargs]
+    out = getattr(cuda_lstm, wrapper)(*targs, tanh_cand)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=ulp)
+
+
+@pytest.mark.parametrize("n_dirs", [1, 2])
+@pytest.mark.parametrize("b", [1, 4, 33])
+@pytest.mark.parametrize("h", [5, 300, 600])
+def test_torch_lean_scan_exchange_words(fresh_hparams, n_dirs, b, h):
+    """Kernel B's scratch: the rows h_t its blocks exchange, [2, D, B, H]
+    contiguous 8-byte words (a float32 value and its step's tag, one
+    buffer per parity of t), 8-byte aligned, on the device of the call."""
+    x = cuda_lstm.exchange_words(n_dirs, b, h, "cpu")
+    assert tuple(x.shape) == (2, n_dirs, b, h) and x.element_size() == 8
+    assert x.is_contiguous() and x.device.type == "cpu"
+    assert x.data_ptr() % 8 == 0
+    m = cuda_lstm.exchange_words(n_dirs, b, h, "meta")
+    assert m.device.type == "meta" and tuple(m.shape) == (2, n_dirs, b, h)
