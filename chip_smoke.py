@@ -60,19 +60,22 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    independently rounded terms, and the 1e-2 bound leaves room for a shift
    of about 2.5 bf16 ulps).  Then the median step time on the card of the
    kernel path and of the plain path (LSTM_BACKEND=xla), both dtypes.
-8. the one-direction LSTM kernels (lstm_scan, lstm_scan_train,
-   lstm_scan_bwd: kernels B, 2 and 3 with one direction) vs their plain
+8. the one-direction LSTM kernels (lstm_scan and lstm_scan_train: kernel
+   B with one direction, lean and saving; lstm_scan_bwd: kernel 3 with
+   one direction) vs their plain
    versions on the card: H=600 (lstm-orig), (T=1251, B=1) and (T=128,
    B=32), tanh and identity candidates, float32 and bfloat16, and phase
    6's ragged (T=64, B=33), layer-shaped
    inputs with nonzero c0, h0 and d_hs; phase 4's tolerance on the lean
    kernel and phase 6's on the other two.  The lean kernel also at the
    4 x 4 s serving batch (T=501, B=4), both dtypes, and its time at (T=501,
-   B=4) and (T=128, B=32) beside the one at (T=1251, B=1).
+   B=4) and (T=128, B=32) beside the one at (T=1251, B=1); lstm_scan_train
+   timed at (T=128, B=32) in both dtypes.
 9. the GRU kernels (gru_scan, gru_scan_train, gru_scan_bwd) vs their plain
    versions on the card, the same shapes, dtypes and tolerances, at
    gru-v1's H=600 (75 blocks) and at H=300 (38 blocks, the last with 4
-   live units of 8) at (T=1251, B=1) and the ragged (T=64, B=33).  The
+   live units of 8) at (T=1251, B=1) and the ragged (T=64, B=33);
+   gru_scan_bwd timed at (T=128, B=32) in both dtypes.  The
    weights are at 10x gru-v1's init scale (1/sqrt(H) instead of
    0.1/sqrt(H)), so that the recurrent products move the state.
 10. serving with lstm-orig and with gru-v1 at full width (4 one-direction
@@ -679,6 +682,9 @@ def phase_lstm_unidirectional() -> dict:
         elif dt == torch.float32 and (t, b) == (64, 33):
             line += "; kernel 3 %.4f ms (%.3f us/step)" % _per_step(
                 lambda: cuda_lstm.lstm_scan_bwd(*bargs), t)
+        elif dt == torch.bfloat16 and tanh and (t, b) == (128, 32):
+            line += "; lstm_scan_train kernel %.4f ms (%.3f us/step)" \
+                % _per_step(lambda: cuda_lstm.lstm_scan_train(*args), t)
         print(line)
     # the lean kernel alone at the 4 x 4 s serving batch
     t, b = 501, 4
@@ -758,6 +764,9 @@ def phase_gru() -> dict:
                 times, "gru_scan_bwd",
                 lambda: cuda_gru.gru_scan_bwd(*bargs),
                 lambda: cuda_gru.gru_scan_bwd_plain(*bargs), t)
+        elif dt == torch.bfloat16 and (t, b) == (128, 32):
+            line += "; gru_scan_bwd kernel %.4f ms (%.3f us/step)" \
+                % _per_step(lambda: cuda_gru.gru_scan_bwd(*bargs), t)
         print(line)
     return {"max_abs_err": worst, "times": times}
 
@@ -1389,7 +1398,7 @@ def main():
                             "danet_tpu/ops/pallas/lstm.py:275 (n_dirs=2)"),
         "lstm_scan": ("danet_tpu_torch/csrc/lstm_scan_lean.cu",
                       "danet_tpu/ops/pallas/lstm.py:242 (n_dirs=1)"),
-        "lstm_scan_train": ("danet_tpu_torch/csrc/bilstm_scan.cu",
+        "lstm_scan_train": ("danet_tpu_torch/csrc/lstm_scan_lean.cu",
                             "danet_tpu/ops/pallas/lstm.py:242 (n_dirs=1, "
                             "save=True)"),
         "lstm_scan_bwd": ("danet_tpu_torch/csrc/bilstm_scan_bwd.cu",

@@ -1,11 +1,11 @@
-// Kernel 2 and its one-direction form: the LSTM forward that also saves
-// the residuals the backward (bilstm_scan_bwd.cu) replays, the whole time
-// loop of one layer, all its directions, in one cooperative launch.
+// Kernel 2: the BiLSTM forward that also saves the residuals the backward
+// (bilstm_scan_bwd.cu) replays, the whole time loop of one layer, both
+// directions, in one cooperative launch.
 //
 // Replaces the forward of danet_tpu/ops/pallas/lstm.py (_fwd_call) with
-// save=True: bilstm_scan_pallas (n_dirs=2) and lstm_scan_pallas (n_dirs=1)
-// under their custom VJPs.  The lean forward (save=False, kernel B) is
-// lstm_scan_lean.cu.
+// save=True and n_dirs=2: bilstm_scan_pallas under its custom VJP.  The
+// lean forward (save=False, kernel B) and the saving forward with one
+// direction (lstm_scan_pallas) are lstm_scan_lean.cu's.
 //
 //   act_t  = xp_t + h_{t-1} @ Wh           (f32 accumulate)
 //   cand   = tanh(act[0:H]) or act[0:H]     (gate order cand|i|f|o)
@@ -16,10 +16,9 @@
 //   cs[t] = c_t and acts[t] = [cand, i, f, o], each rounded to the
 //          storage type (as the TPU kernel stores its residuals)
 //
-// Shapes, with D = n_dirs (1 or 2): xp [T, D, B, 4H], wh [D, H, 4H],
-// c0/h0 [D, B, H] -> hs, cs [T, D, B, H], acts [T, D, B, 4H]; with D = 1
-// that is exactly [T, B, 4H], [H, 4H], [B, H].  Storage f32 or bf16, gate
-// math and the cell carry f32.  With D = 2, direction 1 sees the
+// Shapes, with D = 2 directions: xp [T, D, B, 4H], wh [D, H, 4H], c0/h0
+// [D, B, H] -> hs, cs [T, D, B, H], acts [T, D, B, 4H].  Storage f32 or
+// bf16, gate math and the cell carry f32.  Direction 1 sees the
 // time-reversed input; the caller reverses in and out.
 //
 // What bounds it on this card: Wh of one direction is H x 4H (1.44 MB in
@@ -40,10 +39,9 @@
 // barrier.  So the per-step latency of that barrier and of the element-wise
 // h_s staging through L2, not FLOPs or bytes, sets its speed.
 //
-// UNITS is 16 wherever its shared memory fits (every H=300 shape up to
-// B=68, and H=600 up to B=19: 38 blocks per direction at H=600), else 8
-// (H=600 at B=32: 75 blocks, 183 KB).  600 is not a multiple of 16: the
-// last block's units past H are masked (u0 + u < hdim).
+// UNITS is 16 wherever its shared memory fits (H=300 up to B=68: 19
+// blocks per direction), else 8.  An H that is not a multiple of UNITS
+// leaves the last block units past H, which are masked (u0 + u < hdim).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
@@ -214,37 +212,25 @@ int launch_units(const void* xp, const void* wh, const void* c0,
                                    batch, hdim, stream);
 }
 
-template <typename T, bool TANH>
-int launch_dirs(const void* xp, const void* wh, const void* c0,
-                const void* h0, void* hs, void* cs, void* acts, int n_steps,
-                int batch, int hdim, int n_dirs, cudaStream_t stream) {
-  return n_dirs == 1
-             ? launch_units<T, TANH, 1>(xp, wh, c0, h0, hs, cs, acts,
-                                        n_steps, batch, hdim, stream)
-             : launch_units<T, TANH, 2>(xp, wh, c0, h0, hs, cs, acts,
-                                        n_steps, batch, hdim, stream);
-}
-
 int dispatch(const void* xp, const void* wh, const void* c0, const void* h0,
              void* hs, void* cs, void* acts, int n_steps, int batch, int hdim,
-             int n_dirs, int dtype, int tanh_cand, void* stream) {
-  if (n_steps <= 0 || batch <= 0 || hdim <= 0 || (dtype != 0 && dtype != 1)
-      || (n_dirs != 1 && n_dirs != 2))
+             int dtype, int tanh_cand, void* stream) {
+  if (n_steps <= 0 || batch <= 0 || hdim <= 0 || (dtype != 0 && dtype != 1))
     return DANET_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return tanh_cand ? launch_dirs<float, true>(
+    return tanh_cand ? launch_units<float, true, 2>(
                            xp, wh, c0, h0, hs, cs, acts, n_steps, batch,
-                           hdim, n_dirs, s)
-                     : launch_dirs<float, false>(
+                           hdim, s)
+                     : launch_units<float, false, 2>(
                            xp, wh, c0, h0, hs, cs, acts, n_steps, batch,
-                           hdim, n_dirs, s);
-  return tanh_cand ? launch_dirs<__nv_bfloat16, true>(
+                           hdim, s);
+  return tanh_cand ? launch_units<__nv_bfloat16, true, 2>(
                          xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim,
-                         n_dirs, s)
-                   : launch_dirs<__nv_bfloat16, false>(
+                         s)
+                   : launch_units<__nv_bfloat16, false, 2>(
                          xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim,
-                         n_dirs, s);
+                         s);
 }
 
 }  // namespace
@@ -257,16 +243,6 @@ extern "C" int danet_bilstm_scan_train(const void* xp, const void* wh,
                                        int n_steps, int batch, int hdim,
                                        int dtype, int tanh_cand,
                                        void* stream) {
-  return dispatch(xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim, 2,
-                  dtype, tanh_cand, stream);
-}
-
-// Kernel 2 with one direction: hs, cs [T, B, H], acts [T, B, 4H].
-extern "C" int danet_lstm_scan_train(const void* xp, const void* wh,
-                                     const void* c0, const void* h0,
-                                     void* hs, void* cs, void* acts,
-                                     int n_steps, int batch, int hdim,
-                                     int dtype, int tanh_cand, void* stream) {
-  return dispatch(xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim, 1,
-                  dtype, tanh_cand, stream);
+  return dispatch(xp, wh, c0, h0, hs, cs, acts, n_steps, batch, hdim, dtype,
+                  tanh_cand, stream);
 }

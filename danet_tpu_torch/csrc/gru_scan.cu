@@ -30,7 +30,8 @@
 // memory as planes of 4 columns ([plane][H][4] f32, 57.6 KB at H=600), and
 // its units' f32 carry, r and u in shared memory.
 //
-// Exchange, two protocols chosen by the batch (the same in every block):
+// Exchange (helpers in exchange.cuh), two protocols chosen by the batch
+// (the same in every block):
 //   * B = 1 (a single request; TAGGED_MAX_B): tagged words.  Each phase
 //     publishes its row as the value (float32 bits of dt(c_t) or
 //     dt(c_t * r_t)) and the step t in one aligned 8-byte word, one
@@ -104,48 +105,11 @@ constexpr int BT = 8;          // batch rows per thread tile
 constexpr int PASS = 4 * BT;   // batch rows per pass
 constexpr int LOADS = 8;       // independent polls in flight per thread
 constexpr int TAGGED_MAX_B = 1;  // largest batch that exchanges tagged words
-constexpr unsigned SPIN_LIMIT = 1u << 24;
 // red_s: KW LK residue classes x (8 / KW) BT rows x C = 128 / LK columns,
 // WARPS BT 32 CG sums in every layout, + 1 float for each of <= 128 classes
 constexpr int RED_FLOATS = WARPS * BT * 32 * CG + 128;
 
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.f / (1.f + expf(-v));
-}
-
-// EMU-BEGIN
-__device__ __forceinline__ void store_tagged(unsigned long long* p,
-                                             unsigned long long w) {
-  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" ::"l"(p), "l"(w)
-               : "memory");
-}
-__device__ __forceinline__ unsigned long long load_tagged(
-    const unsigned long long* p) {
-  unsigned long long w;
-  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];\n"
-               : "=l"(w)
-               : "l"(p)
-               : "memory");
-  return w;
-}
-__device__ __forceinline__ void store_flag(int* p, int v) {
-  asm volatile("st.relaxed.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
-               : "memory");
-}
-__device__ __forceinline__ int load_flag(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-// EMU-END
-
-__device__ __forceinline__ unsigned long long tagged(float v, int t) {
-  return static_cast<unsigned long long>(static_cast<unsigned>(t)) << 32 |
-         __float_as_uint(v);
-}
+#include "exchange.cuh"
 
 template <typename T>
 size_t smem_bytes(int batch, int hdim) {
@@ -154,68 +118,6 @@ size_t smem_bytes(int batch, int hdim) {
   return sizeof(float) * static_cast<size_t>(hdim) * 3 * UNITS +
          sizeof(T) * static_cast<size_t>(PASS) * hdim +
          sizeof(float) * (RED_FLOATS + static_cast<size_t>(batch) * 5 * UNITS);
-}
-
-// Rows of the exchange row `src` (tag `tag`), n = rows x H words, into d_s:
-// thread tid polls words tid, tid + THREADS, ..., LOADS in flight before
-// the first is waited for.
-template <typename T>
-__device__ __forceinline__ void stage_tagged(T* d_s,
-                                             const unsigned long long* src,
-                                             int tag, int n) {
-  for (int e0 = threadIdx.x; e0 < n; e0 += THREADS * LOADS) {
-    unsigned long long w[LOADS];
-#pragma unroll
-    for (int j = 0; j < LOADS; ++j) {
-      const int e = e0 + j * THREADS;
-      if (e < n) w[j] = load_tagged(src + e);
-    }
-#pragma unroll
-    for (int j = 0; j < LOADS; ++j) {
-      const int e = e0 + j * THREADS;
-      if (e >= n) continue;
-      for (unsigned k = 0; static_cast<int>(w[j] >> 32) != tag; ++k) {
-        if (k == SPIN_LIMIT) __trap();
-        w[j] = load_tagged(src + e);
-      }
-      d_s[e] = from_f32<T>(__uint_as_float(static_cast<unsigned>(w[j])));
-    }
-  }
-}
-
-// n values of a row the launch wrote (or c0) into d_s, through L2: 16-byte
-// cp.async.cg copies where `src` is 16-byte aligned, all in flight before
-// the wait, else element loads.
-template <typename T>
-__device__ __forceinline__ void stage_values(T* d_s, const T* src, int n) {
-  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
-  int e0 = 0;
-  if (reinterpret_cast<size_t>(src) % 16 == 0) {
-    e0 = n / VEC * VEC;
-    for (int c = threadIdx.x * VEC; c < e0; c += THREADS * VEC)
-      cp_async16(d_s + c, src + c);
-    cp_async_commit();
-  }
-  for (int e = e0 + threadIdx.x; e < n; e += THREADS)
-    d_s[e] = from_f32<T>(load_cg(src + e));
-  cp_async_wait<0>();
-}
-
-// Every flag of `flags` (one per block) at step t or later; the caller's
-// block barrier then orders the row's reads after the flags' acquire.
-__device__ __forceinline__ void wait_flags(const int* flags, int t) {
-  for (int j = threadIdx.x; j < static_cast<int>(gridDim.x); j += THREADS)
-    for (unsigned k = 0; load_flag(flags + j) < t; ++k)
-      if (k == SPIN_LIMIT) __trap();
-}
-
-// This block's values of a row are stored: publish step t in its flag.
-__device__ __forceinline__ void publish(int* flags, int t) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    store_flag(flags + blockIdx.x, t);
-  }
 }
 
 // acc[i * CG + j] += d[i][k] * w[k][j] over k = k0, k0 + step, ... (FULL:

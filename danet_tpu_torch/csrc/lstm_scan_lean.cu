@@ -1,10 +1,12 @@
 // Kernel B and its one-direction form: the lean (inference) LSTM forward,
 // the whole time loop of one layer, all its directions, in one cooperative
-// launch.
+// launch; with SAVE, the forward that also saves the residuals of the
+// backward (bilstm_scan_bwd.cu), for one direction.
 //
 // Replaces danet_tpu/ops/pallas/lstm.py::_fwd_call with save=False:
-// bilstm_scan_pallas (n_dirs=2) and lstm_scan_pallas (n_dirs=1).  The
-// forward that saves residuals (save=True, kernel 2) is bilstm_scan.cu.
+// bilstm_scan_pallas (n_dirs=2) and lstm_scan_pallas (n_dirs=1); with
+// SAVE, save=True and n_dirs=1 (lstm_scan_pallas under its custom VJP).
+// The saving forward with two directions (kernel 2) is bilstm_scan.cu.
 //
 //   act_t  = xp_t + h_{t-1} @ Wh           (f32 accumulate)
 //   cand   = tanh(act[0:H]) or act[0:H]     (gate order cand|i|f|o)
@@ -12,10 +14,13 @@
 //   c_t    = i*cand + f*c_{t-1}             (f32 carry)
 //   h_t    = o*tanh(c_t), rounded to the storage type before it feeds
 //            the next step and is written to hs
+//   SAVE:  cs[t] = c_t and acts[t] = [cand, i, f, o], each rounded to the
+//          storage type (as the TPU kernel stores its residuals)
 //
 // Shapes, with D = n_dirs (1 or 2): xp [T, D, B, 4H], wh [D, H, 4H],
-// c0/h0 [D, B, H] -> hs [T, D, B, H]; with D = 1 that is exactly
-// [T, B, 4H], [H, 4H], [B, H].  xch [2, D, B, H] of 8-byte words is
+// c0/h0 [D, B, H] -> hs [T, D, B, H] (SAVE: and cs [T, D, B, H], acts
+// [T, D, B, 4H]); with D = 1 that is exactly [T, B, 4H], [H, 4H], [B, H].
+// xch [2, D, B, H] of 8-byte words is
 // scratch for the exchange (below).  Storage f32 or bf16, gate math and
 // the cell carry f32.  With D = 2, direction 1 sees the time-reversed
 // input; the caller reverses in and out.  c0 and h0 are taken as given.
@@ -41,29 +46,20 @@
 // stride padded so that the two planes a quarter-warp reads fall on
 // different banks).
 //
-// Exchange, two protocols chosen by the batch (the same in every block):
+// Exchange (exchange.cuh), two protocols chosen by the batch (the same in
+// every block):
 //   * B <= TAGGED_MAX_B (1: a single request): tagged words.  Each block
-//     publishes its units' h_t as one aligned 8-byte word per (batch row,
-//     unit), the float32 bits of dt(h_t) and the step t, with one
-//     st.relaxed.gpu.b64 (single-copy atomic: value and tag arrive
-//     together), into xch[t % 2][dir].  A reader polls each word it needs
-//     with ld.relaxed.gpu.b64 (coherent at gpu scope, never a stale L1
-//     line), LOADS words in flight per thread, until it carries tag t-1:
-//     the data's arrival is the synchronisation, one round trip.
+//     publishes its units' h_t as one word per (batch row, unit), dt(h_t)
+//     and the step t, into xch[t % 2][dir]; a reader polls each word it
+//     needs, LOADS words in flight per thread, until it carries tag t-1.
 //   * B > TAGGED_MAX_B: the row is hs[t-1] itself, plain values that are
 //     never overwritten.  Each block publishes one flag per direction
-//     (xch as int: [D][blocks]) after its values: block barrier, then one
-//     thread __threadfence() and stores the step, as cooperative groups'
-//     grid barrier does.  A reader's threads poll the flags of their own
-//     direction (ld.acquire.gpu), pass a block barrier, then copy the row
-//     with 16-byte cp.async.cg (through L2, all in flight at once; element
-//     loads where the row is not 16-byte aligned: bf16 with odd H, and h0).
+//     (xch as int: [D][blocks]) after its values; a reader's threads poll
+//     the flags of their own direction and copy the row with cp.async.cg
+//     (element loads where the row is not 16-byte aligned: bf16 with odd
+//     H, and h0).
 // The block clears the tags (or flags) and passes one grid.sync() before
-// step 0, so that no tag of an earlier launch matches.  Polling needs
-// every block resident: the launch stays cooperative and cooperative_fit
-// refuses a grid that does not fit.  A word or flag that does not arrive
-// within 2^24 polls traps (a launch failure the caller sees) rather than
-// hanging the card.
+// step 0, so that no tag of an earlier launch matches.
 //
 // Why two word buffers, by the parity of the step, suffice (and one does
 // not).  Block X publishes h_{t+1} only after it has read all of h_t, and
@@ -92,15 +88,23 @@
 // shared memory.  The tile's row count is a template constant (a
 // predicate per row on a run-time count made the loop 2.5 times slower
 // on an H100).  Both orders are fixed, so the result does not depend on
-// timing.  The gate inputs of each thread's first pair are loaded at the
-// top of the step, before the poll, so they arrive during the wait.
+// timing.  SAVE, flags: no butterfly; each lane's residue class of k
+// (modulo KW LK) lands in red_s on its own, and the thread of a (row,
+// unit) pair adds the classes to the gate inputs in the order of the
+// class.  At B=32 (KW=2, LK=4: k mod 8) that is every rounding of the
+// earlier saving design with one direction (kernel 2's 8-way k split at
+// H=600), whose training step the card-vs-CPU gradient checks hold to
+// 1e-4 of each tensor's peak: hs, cs and acts are bit for bit the same.
+// The gate inputs of each thread's first pair are loaded at the top of
+// the step, before the poll, so they arrive during the wait.
 // Batches beyond PASS = 32 rows take more passes of the same.
 //
 // Shared memory: 8 planes of 4 H floats (38.4 KB at H=300, 77.3 KB at
 // H=600), the staged row in the storage type (two buffers of B H values
 // for the words, one of min(B, 32) H for the flags), 8 KB of partial sums
-// and 32 bytes per batch row: 88 KB at H=600, B=1 in f32, 163 KB at B=32,
-// within the 227 KB opt-in up to B=2000 or so.
+// (SAVE: 33 KB) and 32 bytes per batch row: 88 KB at H=600, B=1 in f32,
+// 163 KB at B=32 (SAVE: 188 KB), within the 227 KB opt-in up to B=1392
+// (SAVE) at H=600 in f32.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -117,51 +121,17 @@ constexpr int BT = 8;            // batch rows per thread tile
 constexpr int PASS = 4 * BT;     // batch rows per pass
 constexpr int LOADS = 8;         // independent polls in flight per thread
 constexpr int TAGGED_MAX_B = 1;  // largest batch that exchanges tagged words
-constexpr unsigned SPIN_LIMIT = 1u << 24;
 constexpr int COLS = 4 * UNITS;  // gate columns of a block: 4 u + g
 constexpr int LK = 32 / UNITS;   // lanes of one column group (plane)
-// red_s: KW warps x (8 / KW) BT rows x COLS, WARPS BT COLS in every layout
+// red_s: KW warps x (8 / KW) BT rows x COLS, WARPS BT COLS in every layout;
+// with SAVE, KW LK classes x (8 / KW) BT rows x COLS + 8 floats per class
+// (against bank conflicts), at most WARPS LK of the padding
 constexpr int RED_FLOATS = WARPS * BT * COLS;
+constexpr int SAVE_RED_FLOATS = LK * (WARPS * BT * COLS + 8 * WARPS);
 static_assert(UNITS >= 1 && 32 % UNITS == 0, "UNITS must divide 32");
 static_assert(TAGGED_MAX_B <= 32, "the words' row groups span one warp");
 
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.f / (1.f + expf(-v));
-}
-
-// EMU-BEGIN
-__device__ __forceinline__ void store_tagged(unsigned long long* p,
-                                             unsigned long long w) {
-  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" ::"l"(p), "l"(w)
-               : "memory");
-}
-__device__ __forceinline__ unsigned long long load_tagged(
-    const unsigned long long* p) {
-  unsigned long long w;
-  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];\n"
-               : "=l"(w)
-               : "l"(p)
-               : "memory");
-  return w;
-}
-__device__ __forceinline__ void store_flag(int* p, int v) {
-  asm volatile("st.relaxed.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
-               : "memory");
-}
-__device__ __forceinline__ int load_flag(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-// EMU-END
-
-__device__ __forceinline__ unsigned long long tagged(float v, int t) {
-  return static_cast<unsigned long long>(static_cast<unsigned>(t)) << 32 |
-         __float_as_uint(v);
-}
+#include "exchange.cuh"
 
 // Floats between two planes of w_s: 4 H, padded to 4 LK mod 32, so that
 // the 8 / LK column groups of a quarter-warp's 16-byte reads fall on
@@ -178,85 +148,55 @@ __host__ __device__ __forceinline__ size_t row_bytes(int batch, int hdim) {
   return (rows * hdim * sizeof(T) + 15) / 16 * 16;
 }
 
-template <typename T>
+template <bool SAVE>
+__host__ __device__ __forceinline__ int red_floats() {
+  return SAVE ? SAVE_RED_FLOATS : RED_FLOATS;
+}
+
+// Floats between two classes (SAVE) or warps of red_s, for KW warps on a
+// row tile.
+template <bool SAVE>
+__device__ __forceinline__ int red_stride(int kw_n) {
+  return WARPS / kw_n * BT * COLS + (SAVE ? 8 : 0);
+}
+
+template <typename T, bool SAVE>
 size_t smem_bytes(int batch, int hdim) {
   // w_s [UNITS][plane_stride] f32, d_s (two buffers for the words), red_s
   // f32, c_s [B][UNITS] f32
   return sizeof(float) * UNITS * static_cast<size_t>(plane_stride(hdim)) +
          (batch <= TAGGED_MAX_B ? 2 : 1) * row_bytes<T>(batch, hdim) +
-         sizeof(float) * (RED_FLOATS + static_cast<size_t>(batch) * UNITS);
+         sizeof(float) * (red_floats<SAVE>() +
+                          static_cast<size_t>(batch) * UNITS);
 }
 
-// n words of the exchange row `src` (tag `tag`) into d_s: thread tid polls
-// words tid, tid + THREADS, ..., LOADS in flight before the first is
-// waited for.
+// Where the saving forward stores its residuals: cs [.., B, H] and acts
+// [.., B, 4H] (row r of hs is row r of both); null in the lean one.
 template <typename T>
-__device__ __forceinline__ void stage_tagged(T* d_s,
-                                             const unsigned long long* src,
-                                             int tag, int n) {
-  for (int e0 = threadIdx.x; e0 < n; e0 += THREADS * LOADS) {
-    unsigned long long w[LOADS];
-#pragma unroll
-    for (int j = 0; j < LOADS; ++j) {
-      const int e = e0 + j * THREADS;
-      if (e < n) w[j] = load_tagged(src + e);
-    }
-#pragma unroll
-    for (int j = 0; j < LOADS; ++j) {
-      const int e = e0 + j * THREADS;
-      if (e >= n) continue;
-      for (unsigned k = 0; static_cast<int>(w[j] >> 32) != tag; ++k) {
-        if (k == SPIN_LIMIT) __trap();
-        w[j] = load_tagged(src + e);
-      }
-      d_s[e] = from_f32<T>(__uint_as_float(static_cast<unsigned>(w[j])));
-    }
-  }
-}
-
-// n values of a row the launch wrote (or h0) into d_s, through L2: 16-byte
-// cp.async.cg copies where `src` is 16-byte aligned, all in flight before
-// the wait, else element loads.
-template <typename T>
-__device__ __forceinline__ void stage_values(T* d_s, const T* src, int n) {
-  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
-  int e0 = 0;
-  if (reinterpret_cast<size_t>(src) % 16 == 0) {
-    e0 = n / VEC * VEC;
-    for (int c = threadIdx.x * VEC; c < e0; c += THREADS * VEC)
-      cp_async16(d_s + c, src + c);
-    cp_async_commit();
-  }
-  for (int e = e0 + threadIdx.x; e < n; e += THREADS)
-    d_s[e] = from_f32<T>(load_cg(src + e));
-  cp_async_wait<0>();
-}
-
-// Every flag of `flags` (one per block of this direction) at step t or
-// later; the caller's block barrier then orders the row's reads after the
-// flags' acquire.
-__device__ __forceinline__ void wait_flags(const int* flags, int t) {
-  for (int j = threadIdx.x; j < static_cast<int>(gridDim.x); j += THREADS)
-    for (unsigned k = 0; load_flag(flags + j) < t; ++k)
-      if (k == SPIN_LIMIT) __trap();
-}
-
-// This block's values of h_t are stored: publish step t in its flag.
-__device__ __forceinline__ void publish(int* flags, int t) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    store_flag(flags + blockIdx.x, t);
-  }
-}
+struct Saved {
+  T* cs;
+  T* acts;
+};
 
 // The cell of one (row, unit) pair from its gate pre-activations a =
-// [cand|i|f|o]: updates c, returns dt(h).
-template <typename T, bool TANH>
-__device__ __forceinline__ T cell(const float (&a)[4], float& c) {
+// [cand|i|f|o]: updates c, returns dt(h); SAVE: stores dt(c) and
+// dt([cand, i, f, o]) of hs's row `row`.
+template <typename T, bool TANH, bool SAVE>
+__device__ __forceinline__ T cell(const float (&a)[4], float& c,
+                                  const Saved<T>& saved, size_t row,
+                                  int unit, int hdim) {
   const float cand = TANH ? tanhf(a[0]) : a[0];
-  c = sigmoid(a[1]) * cand + sigmoid(a[2]) * c;
-  return from_f32<T>(sigmoid(a[3]) * tanhf(c));
+  const float ig = sigmoid(a[1]), fg = sigmoid(a[2]), og = sigmoid(a[3]);
+  c = ig * cand + fg * c;
+  if (SAVE) {
+    saved.cs[row * hdim + unit] = from_f32<T>(c);
+    T* act = saved.acts + row * 4 * hdim + unit;
+    act[0] = from_f32<T>(cand);
+    act[hdim] = from_f32<T>(ig);
+    act[2 * hdim] = from_f32<T>(fg);
+    act[3 * hdim] = from_f32<T>(og);
+  }
+  return from_f32<T>(og * tanhf(c));
 }
 
 // The gate inputs xp[.., g H] of one (row, unit) pair, g = cand, i, f, o.
@@ -316,8 +256,9 @@ __device__ __forceinline__ int k_warps(int rows) {
 // The partial products of the staged rows d_s [rows][H] with the block's
 // COLS columns: warp (bg, kw) and lane (cg, kl) sum k = kw LK + kl modulo
 // KW LK over row tile bg and plane (unit) cg; the LK lanes' sums meet in a
-// butterfly, and each warp's land in red_s [kw][row][COLS].
-template <typename T>
+// butterfly, and each warp's land in red_s [kw][row][COLS].  SAVE: no
+// butterfly, each lane's class sum lands in red_s [kw LK + kl][row][COLS].
+template <bool SAVE, typename T>
 __device__ __forceinline__ void row_product(const T* d_s, const float* w_s,
                                             float* red_s, int rows,
                                             int hdim) {
@@ -333,6 +274,17 @@ __device__ __forceinline__ void row_product(const T* d_s, const float* w_s,
   const float* w = w_s + static_cast<size_t>(cg) * plane_stride(hdim);
   const T* d = d_s + static_cast<size_t>(bg) * BT * hdim;
   fma_live(mine, acc, w, d, hdim, kw * LK + kl, kw_n * LK);
+  if (SAVE) {
+    float* dst = red_s + static_cast<size_t>(kw * LK + kl) *
+                             red_stride<true>(kw_n) + bg * BT * COLS + cg * CG;
+#pragma unroll
+    for (int i = 0; i < BT; ++i)
+      if (i < mine)
+        *reinterpret_cast<float4*>(dst + i * COLS) =
+            make_float4(acc[i * CG], acc[i * CG + 1], acc[i * CG + 2],
+                        acc[i * CG + 3]);
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < BT; ++i)
     if (i < mine)
@@ -361,11 +313,12 @@ __device__ __forceinline__ void row_product(const T* d_s, const float* w_s,
 // suffices: a warp still multiplying step t reads the other buffer than
 // the one step t+1 is staged into, and no thread stages step t+2 before
 // every warp has passed step t+1's barrier.
-template <typename T, bool TANH, int NDIRS>
+template <typename T, bool TANH, int NDIRS, bool SAVE>
 __device__ void scan_words(const T* __restrict__ xp, const T* __restrict__ c0,
                            const T* __restrict__ h0, T* hs,
-                           unsigned long long* xch, const float* w_s, T* d_s,
-                           int n_steps, int batch, int hdim) {
+                           const Saved<T>& saved, unsigned long long* xch,
+                           const float* w_s, T* d_s, int n_steps, int batch,
+                           int hdim) {
   const int dir = blockIdx.y, tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32, unit = blockIdx.x * UNITS + warp;
   const int g4 = 4 * hdim;
@@ -411,7 +364,7 @@ __device__ void scan_words(const T* __restrict__ xp, const T* __restrict__ c0,
     if (owner) {
 #pragma unroll
       for (int g = 0; g < 4; ++g) a[g] += acc[g];
-      const T h = cell<T, TANH>(a, c);
+      const T h = cell<T, TANH, SAVE>(a, c, saved, row, unit, hdim);
       hs[row * hdim + unit] = h;
       store_tagged(xch + (static_cast<size_t>(t % 2) * NDIRS + dir) * bh +
                        rg * hdim + unit,
@@ -422,13 +375,14 @@ __device__ void scan_words(const T* __restrict__ xp, const T* __restrict__ c0,
 
 // The step loop of the flags (B > TAGGED_MAX_B): the row is hs[t-1]
 // itself, staged PASS rows at a time and multiplied by row_product; the
-// thread of each (row, unit) pair adds red_s over the warps, in their
-// order, to the gate inputs and runs the cell, its c in c_s.
-template <typename T, bool TANH, int NDIRS>
+// thread of each (row, unit) pair adds red_s over the warps (SAVE: over
+// the classes), in their order, to the gate inputs and runs the cell, its
+// c in c_s.
+template <typename T, bool TANH, int NDIRS, bool SAVE>
 __device__ void scan_flags(const T* __restrict__ xp, const T* __restrict__ h0,
-                           T* hs, int* flags, const float* w_s, T* d_s,
-                           float* red_s, float* c_s, int n_steps, int batch,
-                           int hdim) {
+                           T* hs, const Saved<T>& saved, int* flags,
+                           const float* w_s, T* d_s, float* red_s, float* c_s,
+                           int n_steps, int batch, int hdim) {
   const int dir = blockIdx.y, tid = threadIdx.x, u0 = blockIdx.x * UNITS;
   const int g4 = 4 * hdim;
   const size_t bh = static_cast<size_t>(batch) * hdim;
@@ -450,10 +404,11 @@ __device__ void scan_flags(const T* __restrict__ xp, const T* __restrict__ h0,
       const int rows = min(PASS, batch - p0);
       stage_values(d_s, h_in + static_cast<size_t>(p0) * hdim, rows * hdim);
       __syncthreads();
-      row_product(d_s, w_s, red_s, rows, hdim);
+      row_product<SAVE>(d_s, w_s, red_s, rows, hdim);
       __syncthreads();  // red_s complete; d_s free for the next pass
       const int kw_n = k_warps(rows);
-      const int ld = WARPS / kw_n * BT * COLS;
+      const int nq = SAVE ? kw_n * LK : kw_n;
+      const int ld = red_stride<SAVE>(kw_n);
       for (int e = tid; e < rows * UNITS; e += THREADS) {
         const int r = e / UNITS, u = e % UNITS, unit = u0 + u, b = p0 + r;
         if (unit >= hdim) continue;
@@ -461,25 +416,27 @@ __device__ void scan_flags(const T* __restrict__ xp, const T* __restrict__ h0,
         if (p0 > 0 || e != tid) gate_inputs(a, xp + (row_t + b) * g4 + unit,
                                             hdim);
         const float* part = red_s + r * COLS + u * CG;
-        for (int q = 0; q < kw_n; ++q) {
+        for (int q = 0; q < nq; ++q) {
           const float4 p = *reinterpret_cast<const float4*>(part + q * ld);
           a[0] += p.x;
           a[1] += p.y;
           a[2] += p.z;
           a[3] += p.w;
         }
-        hs[(row_t + b) * hdim + unit] = cell<T, TANH>(a, c_s[b * UNITS + u]);
+        hs[(row_t + b) * hdim + unit] = cell<T, TANH, SAVE>(
+            a, c_s[b * UNITS + u], saved, row_t + b, unit, hdim);
       }
     }
     publish(flags, t);
   }
 }
 
-template <typename T, bool TANH, int NDIRS>
+template <typename T, bool TANH, int NDIRS, bool SAVE>
 __global__ void __launch_bounds__(THREADS)
 lstm_scan_lean_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
                       const T* __restrict__ c0, const T* __restrict__ h0,
-                      T* hs, unsigned long long* xch, int n_steps, int batch,
+                      T* hs, T* __restrict__ cs, T* __restrict__ acts,
+                      unsigned long long* xch, int n_steps, int batch,
                       int hdim) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
@@ -490,7 +447,8 @@ lstm_scan_lean_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
   float* red_s = reinterpret_cast<float*>(
       reinterpret_cast<char*>(d_s) + (words ? 2 : 1) *
                                          row_bytes<T>(batch, hdim));
-  float* c_s = red_s + RED_FLOATS;  // [B][UNITS]
+  float* c_s = red_s + red_floats<SAVE>();  // [B][UNITS]
+  const Saved<T> saved{cs, acts};
 
   const int dir = blockIdx.y;
   const int u0 = blockIdx.x * UNITS;
@@ -527,19 +485,19 @@ lstm_scan_lean_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
   grid.sync();  // tags and flags cleared everywhere; the staging syncs
 
   if (words)
-    scan_words<T, TANH, NDIRS>(xp, c0, h0, hs, xch, w_s, d_s, n_steps, batch,
-                               hdim);
+    scan_words<T, TANH, NDIRS, SAVE>(xp, c0, h0, hs, saved, xch, w_s, d_s,
+                                     n_steps, batch, hdim);
   else
-    scan_flags<T, TANH, NDIRS>(xp, h0, hs, flags, w_s, d_s, red_s, c_s,
-                               n_steps, batch, hdim);
+    scan_flags<T, TANH, NDIRS, SAVE>(xp, h0, hs, saved, flags, w_s, d_s,
+                                     red_s, c_s, n_steps, batch, hdim);
 }
 
-template <typename T, bool TANH, int NDIRS>
+template <typename T, bool TANH, int NDIRS, bool SAVE>
 int launch(const void* xp, const void* wh, const void* c0, const void* h0,
-           void* hs, void* xch, int n_steps, int batch, int hdim,
-           cudaStream_t stream) {
-  auto kernel = lstm_scan_lean_kernel<T, TANH, NDIRS>;
-  const size_t smem = smem_bytes<T>(batch, hdim);
+           void* hs, void* cs, void* acts, void* xch, int n_steps,
+           int batch, int hdim, cudaStream_t stream) {
+  auto kernel = lstm_scan_lean_kernel<T, TANH, NDIRS, SAVE>;
+  const size_t smem = smem_bytes<T, SAVE>(batch, hdim);
   const dim3 grid((hdim + UNITS - 1) / UNITS, NDIRS);
   const int fit = cooperative_fit(kernel, grid, THREADS, smem);
   if (fit != 0) return fit;  // never degrade: the polls would hang
@@ -549,9 +507,11 @@ int launch(const void* xp, const void* wh, const void* c0, const void* h0,
   const T* c0_ = static_cast<const T*>(c0);
   const T* h0_ = static_cast<const T*>(h0);
   T* hs_ = static_cast<T*>(hs);
+  T* cs_ = static_cast<T*>(cs);
+  T* acts_ = static_cast<T*>(acts);
   unsigned long long* xch_ = static_cast<unsigned long long*>(xch);
-  void* args[] = {&xp_, &wh_, &c0_, &h0_, &hs_,
-                  &xch_, &n_steps, &batch, &hdim};
+  void* args[] = {&xp_,  &wh_,     &c0_,   &h0_,  &hs_, &cs_,
+                  &acts_, &xch_, &n_steps, &batch, &hdim};
   cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(kernel), grid, dim3(THREADS), args, smem,
       stream);
@@ -559,37 +519,28 @@ int launch(const void* xp, const void* wh, const void* c0, const void* h0,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool TANH>
-int launch_dirs(const void* xp, const void* wh, const void* c0,
-                const void* h0, void* hs, void* xch, int n_steps, int batch,
-                int hdim, int n_dirs, cudaStream_t stream) {
-  return n_dirs == 1 ? launch<T, TANH, 1>(xp, wh, c0, h0, hs, xch, n_steps,
-                                          batch, hdim, stream)
-                     : launch<T, TANH, 2>(xp, wh, c0, h0, hs, xch, n_steps,
-                                          batch, hdim, stream);
-}
-
+// NDIRS directions, SAVE: also cs and acts (null in the lean forward)
+template <int NDIRS, bool SAVE>
 int dispatch(const void* xp, const void* wh, const void* c0, const void* h0,
-             void* hs, void* xch, int n_steps, int batch, int hdim,
-             int n_dirs, int dtype, int tanh_cand, void* stream) {
+             void* hs, void* cs, void* acts, void* xch, int n_steps,
+             int batch, int hdim, int dtype, int tanh_cand, void* stream) {
   if (n_steps <= 0 || batch <= 0 || hdim <= 0 || (dtype != 0 && dtype != 1)
-      || (n_dirs != 1 && n_dirs != 2) ||
-      reinterpret_cast<size_t>(xch) % 8 != 0)
+      || reinterpret_cast<size_t>(xch) % 8 != 0)
     return DANET_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return tanh_cand ? launch_dirs<float, true>(xp, wh, c0, h0, hs, xch,
-                                                n_steps, batch, hdim, n_dirs,
-                                                s)
-                     : launch_dirs<float, false>(xp, wh, c0, h0, hs, xch,
-                                                 n_steps, batch, hdim,
-                                                 n_dirs, s);
-  return tanh_cand ? launch_dirs<__nv_bfloat16, true>(
-                         xp, wh, c0, h0, hs, xch, n_steps, batch, hdim,
-                         n_dirs, s)
-                   : launch_dirs<__nv_bfloat16, false>(
-                         xp, wh, c0, h0, hs, xch, n_steps, batch, hdim,
-                         n_dirs, s);
+    return tanh_cand ? launch<float, true, NDIRS, SAVE>(
+                           xp, wh, c0, h0, hs, cs, acts, xch, n_steps, batch,
+                           hdim, s)
+                     : launch<float, false, NDIRS, SAVE>(
+                           xp, wh, c0, h0, hs, cs, acts, xch, n_steps, batch,
+                           hdim, s);
+  return tanh_cand ? launch<__nv_bfloat16, true, NDIRS, SAVE>(
+                         xp, wh, c0, h0, hs, cs, acts, xch, n_steps, batch,
+                         hdim, s)
+                   : launch<__nv_bfloat16, false, NDIRS, SAVE>(
+                         xp, wh, c0, h0, hs, cs, acts, xch, n_steps, batch,
+                         hdim, s);
 }
 
 }  // namespace
@@ -600,8 +551,8 @@ extern "C" int danet_bilstm_scan(const void* xp, const void* wh,
                                  const void* c0, const void* h0, void* hs,
                                  void* xch, int n_steps, int batch, int hdim,
                                  int dtype, int tanh_cand, void* stream) {
-  return dispatch(xp, wh, c0, h0, hs, xch, n_steps, batch, hdim, 2, dtype,
-                  tanh_cand, stream);
+  return dispatch<2, false>(xp, wh, c0, h0, hs, nullptr, nullptr, xch,
+                            n_steps, batch, hdim, dtype, tanh_cand, stream);
 }
 
 // Kernel B with one direction (lstm_scan_pallas): xp [T, B, 4H],
@@ -610,6 +561,19 @@ extern "C" int danet_lstm_scan(const void* xp, const void* wh,
                                const void* c0, const void* h0, void* hs,
                                void* xch, int n_steps, int batch, int hdim,
                                int dtype, int tanh_cand, void* stream) {
-  return dispatch(xp, wh, c0, h0, hs, xch, n_steps, batch, hdim, 1, dtype,
-                  tanh_cand, stream);
+  return dispatch<1, false>(xp, wh, c0, h0, hs, nullptr, nullptr, xch,
+                            n_steps, batch, hdim, dtype, tanh_cand, stream);
+}
+
+// The saving forward with one direction (lstm_scan_pallas under its custom
+// VJP): also cs [T, B, H] and acts [T, B, 4H] = [cand, i, f, o];
+// xch [2, 1, B, H].
+extern "C" int danet_lstm_scan_train(const void* xp, const void* wh,
+                                     const void* c0, const void* h0,
+                                     void* hs, void* cs, void* acts,
+                                     void* xch, int n_steps, int batch,
+                                     int hdim, int dtype, int tanh_cand,
+                                     void* stream) {
+  return dispatch<1, true>(xp, wh, c0, h0, hs, cs, acts, xch, n_steps,
+                           batch, hdim, dtype, tanh_cand, stream);
 }

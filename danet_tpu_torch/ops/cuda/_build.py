@@ -41,15 +41,13 @@ _SIGNATURES = [
      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     ("danet_lstm_scan", _I,
      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    ("danet_lstm_scan_train", _I,
-     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    ("danet_lstm_scan_train", _I, [_P] * 8 + [_I] * 5 + [_P]),
     ("danet_lstm_scan_bwd", _I,
      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     ("danet_gru_scan", _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     ("danet_gru_scan_train", _I,
      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    ("danet_gru_scan_bwd", _I,
-     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    ("danet_gru_scan_bwd", _I, [_P] * 9 + [_I] * 4 + [_P]),
     ("danet_flash_attn", _I,
      [_P] * 7 + [_I] * 6 + [_L] * 3 + [_F, _P]),
     ("danet_flash_attn_bwd_dkv", _I,

@@ -106,6 +106,14 @@ def exchange_rows(b: int, hdim: int, device) -> torch.Tensor:
     return torch.empty((2, b, hdim), dtype=torch.int64, device=device)
 
 
+def exchange_flags(hdim: int, device) -> torch.Tensor:
+    """Scratch of kernel 4b, [2, H] int32: one flag per block for each of
+    the two rows its blocks exchange each step (dcx[t] with the du half of
+    dgx[t], then the dr half), H covering any block count.  The kernel
+    clears what it uses before its first step."""
+    return torch.empty((2, hdim), dtype=torch.int32, device=device)
+
+
 def _fwd(entry: str, save: bool, gx, cx, wgh, wch, c0):
     if gx.dim() != 3 or gx.shape[-1] % 2:
         raise ValueError("gx must be [T, B, 2H], got %s"
@@ -161,7 +169,8 @@ def gru_scan_bwd(d_cs, acts, c_prev, wgh, wch):
     dcx = torch.empty_like(d_cs)
     dc0 = torch.empty((b, hdim), dtype=acts.dtype, device=acts.device)
     _launch("danet_gru_scan_bwd", "gru_scan_bwd kernel", acts.device,
-            (d_cs, acts, c_prev, wgh, wch, dgx, dcx, dc0),
+            (d_cs, acts, c_prev, wgh, wch, dgx, dcx, dc0,
+             exchange_flags(hdim, acts.device)),
             (t, b, hdim, _DTYPE_CODES[acts.dtype]))
     gru_scan_bwd.launches += 1
     return dgx, dcx, dc0

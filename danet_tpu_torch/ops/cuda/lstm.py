@@ -5,8 +5,9 @@ and ``lstm_scan_pallas`` (n_dirs=1) with their custom VJPs:
 
   * ``bilstm_scan`` / ``lstm_scan``: kernel B, the lean (inference)
     forward (``_fwd_call`` with ``save=False``);
-  * ``bilstm_scan_train`` / ``lstm_scan_train``: kernel 2, the forward that
-    also stores the residuals ``cs`` and ``acts`` (``save=True``);
+  * ``bilstm_scan_train``: kernel 2, the forward that also stores the
+    residuals ``cs`` and ``acts`` (``save=True``); ``lstm_scan_train``:
+    the same on one direction, kernel B's design with ``SAVE``;
   * ``bilstm_scan_bwd`` / ``lstm_scan_bwd``: kernel 3, the reverse-time
     backward (``_bwd_call``);
   * ``BiLstmScan`` / ``LstmScan``: the autograd Functions that tie
@@ -15,13 +16,14 @@ and ``lstm_scan_pallas`` (n_dirs=1) with their custom VJPs:
 The one-direction wrappers launch the same kernels with the direction
 count as a parameter (``[T, 1, B, .]`` is ``[T, B, .]``), each under its
 own C entry point and launch counter.  The CUDA sources are
-``danet_tpu_torch/csrc/lstm_scan_lean.cu`` (kernel B),
-``csrc/bilstm_scan.cu`` (kernel 2) and ``csrc/bilstm_scan_bwd.cu``
-(kernel 3); their headers say what bounds them on an H100 (the latency of
-each step's exchange of h between the blocks, through L2, not FLOPs) and
-how Wh is split over blocks.  Kernel B passes no grid barrier: its blocks
-exchange h as value-and-step words at B=1 and behind per-block flags
-above it, each direction on its own (``exchange_words``).
+``danet_tpu_torch/csrc/lstm_scan_lean.cu`` (kernel B, and the saving
+forward with one direction), ``csrc/bilstm_scan.cu`` (kernel 2) and
+``csrc/bilstm_scan_bwd.cu`` (kernel 3); their headers say what bounds them
+on an H100 (the latency of each step's exchange of h between the blocks,
+through L2, not FLOPs) and how Wh is split over blocks.  Kernel B passes
+no grid barrier: its blocks exchange h as value-and-step words at B=1 and
+behind per-block flags above it, each direction on its own
+(``exchange_words``).
 
 Each wrapper launches its kernel for CUDA tensors and uses its plain
 version (``*_plain``: Python loops over T with the same float32 gate math
@@ -208,9 +210,12 @@ def _fwd(entry: str, n_dirs: int, save: bool, xp, wh, c0, h0, tanh_cand):
     hs = torch.empty((t,) + _dirs(n_dirs, b, hdim), dtype=xp.dtype,
                      device=xp.device)
     outs = (hs, torch.empty_like(hs), torch.empty_like(xp)) if save \
-        else (hs, exchange_words(n_dirs, b, hdim, xp.device))
-    _launch(entry, entry + " kernel", xp.device, (xp, wh, c0, h0) + outs,
-            (t, b, hdim, _DTYPE_CODES[xp.dtype], int(bool(tanh_cand))))
+        else (hs,)
+    # kernel 2 (two directions, saving) exchanges nothing through scratch
+    xch = () if save and n_dirs == 2 else (
+        exchange_words(n_dirs, b, hdim, xp.device),)
+    _launch(entry, entry + " kernel", xp.device, (xp, wh, c0, h0) + outs
+            + xch, (t, b, hdim, _DTYPE_CODES[xp.dtype], int(bool(tanh_cand))))
     return outs if save else hs
 
 

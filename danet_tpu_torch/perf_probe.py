@@ -10,6 +10,12 @@
     python -m danet_tpu_torch.perf_probe lstm-fwd [--reps 10]
         [--set NAME=VALUE ...] [--cut staging|barrier|fma|gates ...]
         [--source CSRC_DIR]
+    python -m danet_tpu_torch.perf_probe gru-bwd [--reps 10]
+        [--set NAME=VALUE ...] [--cut staging|barrier|fma ...]
+        [--source CSRC_DIR]
+    python -m danet_tpu_torch.perf_probe lstm-train [--reps 10]
+        [--set NAME=VALUE ...] [--cut staging|barrier|fma|gates ...]
+        [--source CSRC_DIR]
     python -m danet_tpu_torch.perf_probe flash-fwd [--reps 50]
 
 ``profile``: for one encoder at full width with random weights from seed
@@ -66,6 +72,34 @@ beside it; then both kernels' µs per step at T=501 (a 4 s request) for B
 ``--source`` directory without that file holds the earlier design, whose
 lean forward is ``bilstm_scan.cu``'s (grid barriers, no scratch
 argument), with its own cut texts in ``LSTM_FWD_CUTS``.
+
+``gru-bwd``: kernel 4b alone (``gru_scan_bwd``, H=600) at the training
+shape (T=128, B=32), phase 6's ragged one (T=64, B=33) and a 10 s
+request's length at B=1 (T=1251), float32 and bfloat16, on phase 9's
+inputs (residuals from the plain training forward): each output's max
+abs error against the plain version at ``chip_smoke.py`` phase 9's
+tolerances (float32 atol 2e-5 + rtol 1e-4, bfloat16 5e-2 + 2e-2), a
+digest of the outputs' bytes (equal digests: bit-identical outputs), ms
+and µs per step; then its float32 µs per step at T=128 for B = 32, 64
+and 128, each checked as above (a batch the kernel refuses prints why).  ``--cut
+staging`` (no exchange: neither the wait for the flags nor the row
+copies), ``--cut barrier`` (no wait for the flags; in the earlier design,
+no grid barriers) and ``--cut fma`` time a variant without that part,
+outputs not checked; ``--set`` and ``--source`` as for ``gru-fwd``, on
+``csrc/gru_scan_bwd.cu``; a ``--source`` whose ``gru_scan_bwd.cu``
+includes ``row_contract.cuh`` holds the earlier design (grid barriers, no
+scratch argument), with its own cut texts in ``GRU_BWD_CUTS``.
+
+``lstm-train``: the one-direction saving LSTM forward alone
+(``lstm_scan_train``, H=600, tanh candidate, nonzero c0 and h0) at the
+same shapes and dtypes, ``lstm-fwd``'s inputs: hs, cs and acts against
+the plain version at ``chip_smoke.py`` phase 8's tolerances (float32 atol
+1e-5, bfloat16 5e-2 + rtol 2e-2), the digest, ms and µs per step, and in
+float32 the time of ``torch.nn.LSTM(600, 600)``'s training forward (cuDNN,
+with the input projection) beside it; then the B = 32, 64, 128 sweep.
+``--cut``, ``--set`` and ``--source`` as for ``lstm-fwd``; a ``--source``
+whose ``lstm_scan_lean.cu`` has no ``danet_lstm_scan_train`` holds the
+earlier design, kernel 2 with one direction in ``bilstm_scan.cu``.
 
 ``flash-fwd``: kernel 5f (``flash_attn``) alone at attn-v1's widths
 (H=4, D=64), float32 and bfloat16, at the serving shape (B=1, T=1280)
@@ -461,28 +495,21 @@ LEAN_ATOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 def _lean_kernels(legacy: bool) -> dict:
     """bilstm_scan and lstm_scan by name; for the earlier design (legacy),
     callers of its entry points, which take no exchange scratch."""
-    import ctypes
-
-    from danet_tpu_torch.ops.cuda import _build
     from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
 
     if not legacy:
         return {"bilstm_scan": cuda_lstm.bilstm_scan,
                 "lstm_scan": cuda_lstm.lstm_scan}
-    lib = _build.library()
     out = {}
     for name, d in (("bilstm_scan", 2), ("lstm_scan", 1)):
-        entry = "danet_" + name
-        getattr(lib, entry).argtypes = [ctypes.c_void_p] * 5 \
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-
-        def call(xp, wh, c0, h0, tanh_cand, entry=entry, d=d):
+        def call(xp, wh, c0, h0, tanh_cand,
+                 launch=_legacy_call("danet_" + name, 5), d=d):
             t, b, h = cuda_lstm._fwd_shapes(xp, wh, c0, h0, d)
             hs = torch.empty((t,) + cuda_lstm._dirs(d, b, h),
                              dtype=xp.dtype, device=xp.device)
-            cuda_lstm._launch(entry, entry, xp.device, (xp, wh, c0, h0, hs),
-                              (t, b, h, cuda_lstm._DTYPE_CODES[xp.dtype],
-                               int(bool(tanh_cand))))
+            launch((xp, wh, c0, h0, hs),
+                   (t, b, h, cuda_lstm._DTYPE_CODES[xp.dtype],
+                    int(bool(tanh_cand))))
             return hs
         out[name] = call
     return out
@@ -550,6 +577,210 @@ def lstm_fwd(reps: int, legacy: bool, checked: bool = True) -> None:
               % (name, h, ", ".join(sweep)))
     if failed and checked:
         sys.exit("lstm-fwd: beyond tolerance: %s" % failed)
+
+
+# chip_smoke.py phase 6's (atol, rtol) of the training forwards and of the
+# backwards, by dtype (phases 8 and 9 hold the one-direction LSTM and the
+# GRU to them)
+TRAIN_FWD_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (5e-2, 2e-2)}
+# the shapes gru-bwd and lstm-train check: the training batch, phase 6's
+# ragged one, a 10 s request's length at B=1; then the batches they time
+TRAIN_SHAPES = ((128, 32), (64, 33), (1251, 1))
+TRAIN_SWEEP = (32, 64, 128)
+
+
+def _digest(outs) -> str:
+    """The first 12 hex digits of a SHA-1 of the outputs' bytes: equal
+    digests from two builds mean bit-identical outputs."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for o in outs:
+        h.update(o.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:12]
+
+
+def _check_train(what: str, name: str, names, out, ref, dt, tol, t: int,
+                 b: int, ms: float, extra: str = "") -> bool:
+    """Print one checked line (max abs errors, digest, time); True if every
+    output is finite, of its reference's dtype and within atol + rtol."""
+    atol, rtol = tol
+    errs, ok = [], True
+    for o, r in zip(out, ref):
+        diff = (o.float() - r.float()).abs()
+        errs.append("%s %.6g" % (names[len(errs)], float(diff.max())))
+        ok &= o.dtype == r.dtype and bool(torch.isfinite(o.float()).all()) \
+            and bool((diff <= atol + rtol * r.float().abs()).all())
+    print("%s %s %s T=%d B=%d H=600: max abs err %s (atol %g rtol %g)%s; "
+          "digest %s; kernel %.4f ms, %.3f us/step%s"
+          % (what, name, str(dt).replace("torch.", ""), t, b, ", ".join(errs),
+             atol, rtol, "" if ok else " FAIL", _digest(out), ms,
+             1e3 * ms / t, extra))
+    return ok
+
+
+def _sweep(what: str, name: str, make, run, plain, tol) -> list:
+    """float32 us per step at T=128 for each batch of TRAIN_SWEEP, each
+    output held to the plain version at tol (the worst error printed); a
+    batch the kernel refuses prints its error.  Returns the batches beyond
+    tolerance."""
+    parts, failed = [], []
+    atol, rtol = tol
+    for b in TRAIN_SWEEP:
+        args = make(b)
+        try:
+            out, ref = run(*args), plain(*args)
+        except RuntimeError as e:
+            parts.append("B=%d refused (%s)" % (b, str(e).split(": ", 1)[-1]))
+            continue
+        diffs = [(o.float() - r.float()).abs() for o, r in zip(out, ref)]
+        if not all(bool((d <= atol + rtol * r.float().abs()).all())
+                   for d, r in zip(diffs, ref)):
+            failed.append(b)
+        parts.append("B=%d %.3f (max abs err %.3g%s)" % (
+            b, 1e3 * cuda_ms(lambda: run(*args), 10) / 128,
+            max(float(d.max()) for d in diffs), "" if b not in failed
+            else " FAIL"))
+    print("%s %s float32 T=128 H=600 us/step by batch: %s"
+          % (what, name, ", ".join(parts)))
+    return failed
+
+
+# text cut from kernel 4b's source by gru-bwd --cut, to time what is left;
+# the first entries of each cut serve gru_scan_bwd.cu's flags and cp.async
+# rows, the others the earlier design with grid barriers and
+# row_contract.cuh's chunked staging (gru-bwd --source)
+GRU_BWD_CUTS = {
+    "staging": [("for (int r = threadIdx.x / 32; r < rows; "
+                 "r += THREADS / 32) {",
+                 "for (int r = rows; r < rows; r += THREADS / 32) {"),
+                ("wait_flags(flag_x, step);", ";"),
+                ("wait_flags(flag_g, step);", ";"),
+                ("for (int e0 = tid; e0 < n; e0 += THREADS * LOADS) {",
+                 "for (int e0 = n; e0 < n; e0 += THREADS * LOADS) {")],
+    "barrier": [("wait_flags(flag_x, step);", ";"),
+                ("wait_flags(flag_g, step);", ";"),
+                ("grid.sync();  // dcx[t] complete", ";//"),
+                ("grid.sync();  // dgx[t] complete", ";//")],
+    "fma": [("for (int k = k0; k < n; k += step) {",
+             "for (int k = n; k < n; k += step) {"),
+            ("tile_fma<C, KS, true>(acc, w_s, d_s, k0, kn, ks, cg, bg, "
+             "mine);", ";"),
+            ("tile_fma<C, KS, false>(acc, w_s, d_s, k0, kn, ks, cg, bg, "
+             "mine);", ";")],
+}
+
+
+def _legacy_call(entry: str, n_ptrs: int):
+    """A caller of the earlier design's C entry ``entry``, which takes no
+    exchange scratch: n_ptrs tensors, then the ints and the stream."""
+    import ctypes
+
+    from danet_tpu_torch.ops.cuda import _build
+    from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
+
+    getattr(_build.library(), entry).argtypes = [ctypes.c_void_p] * n_ptrs \
+        + [ctypes.c_int] * (5 if "lstm" in entry else 4) + [ctypes.c_void_p]
+
+    def call(tensors, ints):
+        cuda_lstm._launch(entry, entry, tensors[0].device, tensors, ints)
+    return call
+
+
+def gru_bwd(reps: int, legacy: bool, checked: bool = True) -> None:
+    from danet_tpu_torch.ops.cuda import gru as cuda_gru
+    from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
+
+    kernel = cuda_gru.gru_scan_bwd
+    if legacy:
+        launch = _legacy_call("danet_gru_scan_bwd", 8)
+
+        def kernel(d_cs, acts, c_prev, wgh, wch):
+            t, b, h = d_cs.shape
+            outs = (d_cs.new_empty((t, b, 2 * h)), torch.empty_like(d_cs),
+                    d_cs.new_empty((b, h)))
+            launch((d_cs, acts, c_prev, wgh, wch) + outs,
+                   (t, b, h, cuda_lstm._DTYPE_CODES[d_cs.dtype]))
+            return outs
+
+    rs = np.random.RandomState(14)
+
+    def inputs(t, b, dt):
+        """phase 9's: _gru_arrays and a cotangent, residuals from the
+        plain training forward"""
+        arrays = _gru_arrays(rs, t, b) + (rs.randn(t, b, 600),)
+        gx, cx, wgh, wch, c0, d_cs = (
+            torch.from_numpy(np.asarray(a, np.float32)).cuda().to(dt)
+            for a in arrays)
+        cs, acts = cuda_gru.gru_scan_train_plain(gx, cx, wgh, wch, c0)
+        return d_cs, acts, torch.cat([c0[None], cs[:-1]]), wgh, wch
+
+    failed = []
+    for t, b in TRAIN_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            args = inputs(t, b, dt)
+            out, ref = kernel(*args), cuda_gru.gru_scan_bwd_plain(*args)
+            torch.cuda.synchronize()
+            if not _check_train("gru-bwd", "gru_scan_bwd",
+                                ("dgx", "dcx", "dc0"), out, ref, dt,
+                                SCAN_BWD_TOL[dt], t, b,
+                                cuda_ms(lambda: kernel(*args), reps)):
+                failed.append((str(dt), t, b))
+    failed += _sweep("gru-bwd", "gru_scan_bwd",
+                     lambda b: inputs(128, b, torch.float32), kernel,
+                     cuda_gru.gru_scan_bwd_plain, SCAN_BWD_TOL[torch.float32])
+    if failed and checked:
+        sys.exit("gru-bwd: beyond tolerance: %s" % failed)
+
+
+def lstm_train(reps: int, legacy: bool, checked: bool = True) -> None:
+    from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernel = cuda_lstm.lstm_scan_train
+    if legacy:
+        launch = _legacy_call("danet_lstm_scan_train", 7)
+
+        def kernel(xp, wh, c0, h0, tanh_cand):
+            t, b, h = cuda_lstm._fwd_shapes(xp, wh, c0, h0, 1)
+            outs = (xp.new_empty((t, b, h)), xp.new_empty((t, b, h)),
+                    torch.empty_like(xp))
+            launch((xp, wh, c0, h0) + outs,
+                   (t, b, h, cuda_lstm._DTYPE_CODES[xp.dtype],
+                    int(bool(tanh_cand))))
+            return outs
+
+    rs = np.random.RandomState(15)
+
+    def inputs(t, b, dt):
+        return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+                .to(dt) for a in _lstm_arrays(rs, t, b, 1, 600)] + [True]
+
+    lstm = torch.nn.LSTM(600, 600).cuda()
+    failed = []
+    for t, b in TRAIN_SHAPES:
+        xs = torch.from_numpy(rs.randn(t, b, 600).astype(
+            np.float32)).cuda().requires_grad_(True)
+        lib = cuda_ms(lambda: lstm(xs), reps)
+        for dt in (torch.float32, torch.bfloat16):
+            args = inputs(t, b, dt)
+            out, ref = kernel(*args), cuda_lstm.lstm_scan_train_plain(*args)
+            torch.cuda.synchronize()
+            if not _check_train(
+                    "lstm-train", "lstm_scan_train", ("hs", "cs", "acts"),
+                    out, ref, dt, TRAIN_FWD_TOL[dt], t, b,
+                    cuda_ms(lambda: kernel(*args), reps),
+                    "; torch.nn.LSTM(600, 600) training forward %.4f ms"
+                    % lib if dt == torch.float32 else ""):
+                failed.append((str(dt), t, b))
+    failed += _sweep("lstm-train", "lstm_scan_train",
+                     lambda b: inputs(128, b, torch.float32), kernel,
+                     cuda_lstm.lstm_scan_train_plain,
+                     TRAIN_FWD_TOL[torch.float32])
+    if failed and checked:
+        sys.exit("lstm-train: beyond tolerance: %s" % failed)
 
 
 def flash_fwd(reps: int) -> None:
@@ -639,6 +870,21 @@ def main(argv=None) -> None:
     p.add_argument("--source", default="",
                    help="a csrc directory whose kernel B to build (e.g. an "
                    "unpacked parent commit's)")
+    for name, what, table in (("gru-bwd", "kernel 4b", GRU_BWD_CUTS),
+                              ("lstm-train", "the one-direction saving "
+                               "LSTM forward", LSTM_FWD_CUTS)):
+        p = sub.add_parser(name, help="%s alone: check and time" % what)
+        p.add_argument("--reps", type=int, default=10)
+        p.add_argument("--set", action="append", default=[],
+                       metavar="NAME=VALUE",
+                       help="a constexpr int of %s in a variant build" % what)
+        p.add_argument("--cut", action="append", default=[],
+                       choices=sorted(table),
+                       help="time %s without this part (outputs wrong)"
+                       % what)
+        p.add_argument("--source", default="",
+                       help="a csrc directory whose %s to build (e.g. an "
+                       "unpacked parent commit's)" % what)
     p = sub.add_parser("flash-fwd", help="kernel 5f alone: check and time")
     p.add_argument("--reps", type=int, default=50)
     args = ap.parse_args(argv)
@@ -669,6 +915,26 @@ def main(argv=None) -> None:
                 {k: int(v) for k, v in (a.split("=") for a in args.set)},
                 LSTM_FWD_CUTS, args.cut, args.source)
         lstm_fwd(args.reps, legacy, checked=not args.cut)
+    elif args.cmd in ("gru-bwd", "lstm-train"):
+        from danet_tpu_torch.ops.cuda import _build
+
+        source = args.source or _build.CSRC
+        if args.cmd == "gru-bwd":
+            kernel, table = "gru_scan_bwd.cu", GRU_BWD_CUTS
+            legacy = '#include "row_contract.cuh"' in open(
+                os.path.join(source, kernel)).read()
+        else:
+            kernel, table = "lstm_scan_lean.cu", LSTM_FWD_CUTS
+            legacy = "danet_lstm_scan_train" not in open(os.path.join(
+                source, kernel)).read()
+            kernel = "bilstm_scan.cu" if legacy else kernel
+        if args.set or args.cut or args.source:
+            use_variant(
+                kernel,
+                {k: int(v) for k, v in (a.split("=") for a in args.set)},
+                table, args.cut, args.source)
+        (gru_bwd if args.cmd == "gru-bwd" else lstm_train)(
+            args.reps, legacy, checked=not args.cut)
     elif args.cmd == "flash-fwd":
         flash_fwd(args.reps)
     else:

@@ -207,3 +207,113 @@ def test_torch_gru_exchange_rows(fresh_hparams, b, h):
     assert x.is_contiguous() and x.device.type == "cpu"
     assert x.data_ptr() % 8 == 0
     assert cuda_gru.exchange_rows(b, h, "meta").device.type == "meta"
+
+
+@pytest.mark.parametrize("b", [1, 5])
+def test_torch_gru_scan_bwd_plain_matches_pallas_interpret_batches(
+        fresh_hparams, b):
+    """The backward at B=1 (a single row) and at an odd B, beside the B=3
+    case above: dgx, dcx, dc0 against _bwd_call, atol 2e-5 / rtol 1e-4."""
+    (gx, cx, wgh, wch, c0), d_cs = _case(7 + b, b=b)
+    cs, acts = (np.array(v) for v in jgru._fwd_call_jit(
+        *map(jnp.asarray, (gx, cx, wgh, wch, c0)), interpret=True,
+        save=True))
+    c_prev = np.concatenate([c0[None], cs[:-1]])
+    ref = jgru._bwd_call_jit(*map(jnp.asarray, (d_cs, acts, c_prev, wgh,
+                                                wch)), interpret=True)
+    out = cuda_gru.gru_scan_bwd(*_t((d_cs, acts, c_prev, wgh, wch)))
+    assert [tuple(o.shape) for o in out] == [(7, b, 10), (7, b, 5), (b, 5)]
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=2e-5,
+                                   rtol=1e-4)
+
+
+def _bf16_ulp(ref: np.ndarray) -> float:
+    """One bfloat16 ulp of the peak of ``ref``: 2^(floor(log2 peak) - 7)."""
+    return 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+
+
+def test_torch_gru_scan_bwd_bf16_matches_pallas_interpret(fresh_hparams):
+    """bfloat16 storage, f32 math: the backward's dgx, dcx and dc0 against
+    the Pallas backward in bf16 on the same bf16 residuals.  Both round
+    the same f32 values at the same places (dcx and dgx before their
+    products, whose bf16 operands multiply exactly in f32), so they agree
+    but for f32 sums taken in another order, which may move one rounding
+    by one bf16 ulp: atol one ulp of each output's peak."""
+    (gx, cx, wgh, wch, c0), d_cs = _case(9, t=8, b=4, h=8)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in (gx, cx, wgh, wch, c0)]
+    cs, acts = jgru._fwd_call_jit(*jargs, interpret=True, save=True)
+    c_prev = jnp.concatenate([jargs[4][None], cs[:-1]])
+    bargs = (jnp.asarray(d_cs, jnp.bfloat16), acts, c_prev, jargs[2],
+             jargs[3])
+    ref = jgru._bwd_call_jit(*bargs, interpret=True)
+    out = cuda_gru.gru_scan_bwd(*[torch.from_numpy(np.array(
+        a.astype(jnp.float32))).to(torch.bfloat16) for a in bargs])
+    for o, r in zip(out, ref):
+        r = np.asarray(r.astype(jnp.float32))
+        assert o.dtype == torch.bfloat16 and tuple(o.shape) == r.shape
+        np.testing.assert_allclose(o.float().numpy(), r, atol=_bf16_ulp(r))
+
+
+@pytest.mark.parametrize("h", [5, 300, 600])
+def test_torch_gru_exchange_flags(fresh_hparams, h):
+    """Kernel 4b's scratch: [2, H] contiguous int32, one flag per block (8
+    units each, so H covers every block) for each of the two rows its
+    blocks exchange each step, 4-byte aligned, on the device of the call."""
+    x = cuda_gru.exchange_flags(h, "cpu")
+    assert tuple(x.shape) == (2, h) and x.dtype == torch.int32
+    assert x.is_contiguous() and x.device.type == "cpu"
+    assert x.data_ptr() % 4 == 0 and x.shape[1] >= -(-h // 8)
+    m = cuda_gru.exchange_flags(h, "meta")
+    assert m.device.type == "meta" and tuple(m.shape) == (2, h)
+
+
+def _c_entries() -> dict:
+    """{name: [ctypes type of each argument]} of every extern "C" entry
+    point in danet_tpu_torch/csrc/*.cu, parsed from the sources."""
+    import ctypes
+    import glob
+    import os
+    import re
+
+    from danet_tpu_torch.ops.cuda import _build
+
+    types = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "float": ctypes.c_float}
+    out = {}
+    for path in glob.glob(os.path.join(_build.CSRC, "*.cu")):
+        text = open(path).read()
+        for name, args in re.findall(
+                r'extern "C" (?:int|const char\*) (danet_\w+)\(([^)]*)\)',
+                text):
+            out[name] = [
+                ctypes.c_void_p if "*" in a else
+                types[re.sub(r"^const ", "", a.strip()).rsplit(" ", 1)[0]]
+                for a in args.split(",")]
+    return out
+
+
+def test_torch_c_entries_all_have_signatures(fresh_hparams):
+    """Every C entry point in the CUDA sources is bound in
+    _build._SIGNATURES and nothing else is: a signature that the sources
+    do not have shows only on the card, when the library loads."""
+    from danet_tpu_torch.ops.cuda import _build
+
+    assert sorted(_c_entries()) == sorted(n for n, _, _ in
+                                          _build._SIGNATURES)
+
+
+@pytest.mark.parametrize("entry", [
+    "danet_stft_ri", "danet_bilstm_scan", "danet_bilstm_scan_train",
+    "danet_bilstm_scan_bwd", "danet_lstm_scan", "danet_lstm_scan_train",
+    "danet_lstm_scan_bwd", "danet_gru_scan", "danet_gru_scan_train",
+    "danet_gru_scan_bwd", "danet_flash_attn", "danet_flash_attn_bwd_dkv",
+    "danet_flash_attn_bwd_dq", "danet_error_string"])
+def test_torch_c_entry_signature_matches_source(fresh_hparams, entry):
+    """The argtypes that ctypes passes to each C entry point (pointers as
+    c_void_p, int, long long, float) are, in count and in order, the
+    arguments of its extern "C" declaration in csrc/*.cu."""
+    from danet_tpu_torch.ops.cuda import _build
+
+    argtypes = {n: a for n, _, a in _build._SIGNATURES}[entry]
+    assert argtypes == _c_entries()[entry]

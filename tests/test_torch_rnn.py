@@ -449,3 +449,27 @@ def test_torch_lean_scan_exchange_words(fresh_hparams, n_dirs, b, h):
     assert x.data_ptr() % 8 == 0
     m = cuda_lstm.exchange_words(n_dirs, b, h, "meta")
     assert m.device.type == "meta" and tuple(m.shape) == (2, n_dirs, b, h)
+
+
+@pytest.mark.parametrize("tanh_cand", [True, False])
+def test_torch_lstm_scan_train_bf16_matches_pallas_interpret(fresh_hparams,
+                                                             tanh_cand):
+    """bfloat16 storage, f32 math: the one-direction saving forward's hs,
+    cs and acts against _fwd_call (n_dirs=1, save=True) in bf16, nonzero
+    initial state; atol one bf16 ulp of each output's peak, for the reason
+    of the lean forward's bf16 test above."""
+    from danet_tpu.ops.pallas.lstm import _fwd_call_jit
+
+    (xp, wh, c0, h0), _ = _uni_case(15, t=8, b=4, h=8)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in (xp, wh, c0, h0)]
+    ref = _fwd_call_jit(*jargs, tanh_cand=tanh_cand, interpret=True,
+                        n_dirs=1, save=True)
+    out = cuda_lstm.lstm_scan_train(*[torch.from_numpy(np.array(
+        a.astype(jnp.float32))).to(torch.bfloat16) for a in jargs],
+        tanh_cand)
+    assert len(out) == len(ref) == 3
+    for o, r in zip(out, ref):
+        r = np.asarray(r.astype(jnp.float32))
+        assert o.dtype == torch.bfloat16 and tuple(o.shape) == r.shape
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(r).max())) - 7)
+        np.testing.assert_allclose(o.float().numpy(), r, atol=ulp)
