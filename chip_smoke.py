@@ -31,7 +31,9 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    train shape and (T=1251, B=1), tanh and identity candidates, and the
    ragged (T=64, B=33), whose second pass of 32 rows in kernel 3 has one
    live row (tanh candidate, both dtypes); layer-shaped
-   inputs with a nonzero d_hs.  float32: atol 1e-5 on hs, cs and acts;
+   inputs with a nonzero d_hs.  Kernel 2 also alone at (T=128, B=70),
+   three passes of 32 rows with a ragged last one, and (T=128, B=128),
+   float32, tanh, each with its time.  float32: atol 1e-5 on hs, cs and acts;
    atol 2e-5 + rtol 1e-4 on dxp, dc0 and dh0.  bfloat16: atol 5e-2 + rtol
    2e-2 on every output, for the reason given at phase 4 (one-ulp roundings
    of the stored values, 2^-8 relative, compound over the recurrence in
@@ -612,6 +614,20 @@ def phase_train_kernels() -> dict:
             line += "; kernel 3 %.4f ms (%.3f us/step)" % _per_step(
                 lambda: cuda_lstm.bilstm_scan_bwd(*bargs), t)
         print(line)
+    # kernel 2 alone at larger batches: several passes of 32 rows
+    for t, b in ((TRAIN_T, 70), (TRAIN_T, 128)):
+        args = tuple(_scan_inputs(rs, t, b, torch.float32)) + (True,)
+        fwd = cuda_lstm.bilstm_scan_train(*args)
+        fwd_ref = cuda_lstm.bilstm_scan_train_plain(*args)
+        torch.cuda.synchronize()
+        tag = _tag(torch.float32, True, t, b)
+        parts = _check_kernels(6, tag, torch.float32, (
+            ("bilstm_scan_train", ("hs", "cs", "acts"), fwd, fwd_ref,
+             TRAIN_FWD_TOL[torch.float32]),), worst)
+        print("phase 6 %s max_abs_err: %s (fwd atol %g rtol %g); "
+              "bilstm_scan_train kernel %.4f ms (%.3f us/step)"
+              % (tag, ", ".join(parts), *TRAIN_FWD_TOL[torch.float32],
+                 *_per_step(lambda: cuda_lstm.bilstm_scan_train(*args), t)))
     return {"max_abs_err": worst, "times": times}
 
 
@@ -1391,7 +1407,7 @@ def main():
                     "danet_tpu/ops/pallas/stft.py:95"),
         "bilstm_scan": ("danet_tpu_torch/csrc/lstm_scan_lean.cu",
                         "danet_tpu/ops/pallas/lstm.py:242 (n_dirs=2)"),
-        "bilstm_scan_train": ("danet_tpu_torch/csrc/bilstm_scan.cu",
+        "bilstm_scan_train": ("danet_tpu_torch/csrc/lstm_scan_lean.cu",
                               "danet_tpu/ops/pallas/lstm.py:242 (n_dirs=2, "
                               "save=True)"),
         "bilstm_scan_bwd": ("danet_tpu_torch/csrc/bilstm_scan_bwd.cu",

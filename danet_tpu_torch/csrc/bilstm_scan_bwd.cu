@@ -71,8 +71,8 @@
 // Shared memory: w_s [2][4H][4] f32, 8 rings of 16 KB, dc_s [B][UNITS] and
 // red_s [KW][B][UNITS] f32: 96 bytes per batch row, so only the carries
 // grow with B.  At H=600, D=1: 207.9 KB + 96 B per row, within the 227 KB
-// opt-in up to B=256 (the forward, kernel 2, bounds lstm-orig's batch
-// first); at H=300, D=2: 169.5 KB + 96 B, up to B=656; either dtype.  A
+// opt-in up to B=256; at H=300, D=2: 169.5 KB + 96 B, up to B=656; either
+// dtype.  A
 // launch that does not fit returns DANET_SMEM_TOO_LARGE or
 // DANET_NOT_RESIDENT through cooperative_fit and never degrades.
 //

@@ -65,19 +65,16 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using flash::LDP;
 using flash::RI;
 using flash::Strides;
 using flash::THREADS;
 using flash::TILE;
+using flash::ldr;
+using flash::stage_seg;
+using flash::stage_tile;
 
 constexpr int MAX_SPLITS = 8;     // the portable cluster size
-constexpr int LDP = TILE + 4;     // row stride of p_s: 16-byte rows
-
-// Row stride (elements) of a staged [64, D] tile of T: 16 bytes of padding.
-template <typename T, int D>
-__host__ __device__ constexpr int ldr() {
-  return D + 16 / static_cast<int>(sizeof(T));
-}
 
 template <typename T, int D>
 size_t fwd_smem_bytes() {
@@ -85,83 +82,6 @@ size_t fwd_smem_bytes() {
   // segment ids of the queries and of both key stages
   return sizeof(T) * 5 * TILE * ldr<T, D>() + sizeof(float) * TILE * LDP +
          sizeof(int) * 3 * TILE;
-}
-
-// N consecutive values at p (16-byte aligned for N * sizeof(T) >= 16,
-// else aligned to N * sizeof(T)) as float32
-template <int N>
-__device__ __forceinline__ void load_row(float (&out)[N], const float* p) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int e = 0; e < N; e += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p + e);
-      out[e] = v.x;
-      out[e + 1] = v.y;
-      out[e + 2] = v.z;
-      out[e + 3] = v.w;
-    }
-  } else if constexpr (N == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-  } else {
-    out[0] = p[0];
-  }
-}
-
-// two bf16 in one 32-bit word (element 0 in the low half) -> float32
-__device__ __forceinline__ void bf16x2(unsigned w, float* out) {
-  out[0] = __uint_as_float(w << 16);
-  out[1] = __uint_as_float(w & 0xffff0000u);
-}
-
-template <int N>
-__device__ __forceinline__ void load_row(float (&out)[N],
-                                         const __nv_bfloat16* p) {
-  if constexpr (N % 8 == 0) {
-#pragma unroll
-    for (int e = 0; e < N; e += 8) {
-      const uint4 v = *reinterpret_cast<const uint4*>(p + e);
-      bf16x2(v.x, out + e);
-      bf16x2(v.y, out + e + 2);
-      bf16x2(v.z, out + e + 4);
-      bf16x2(v.w, out + e + 6);
-    }
-  } else if constexpr (N == 4) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    bf16x2(v.x, out);
-    bf16x2(v.y, out + 2);
-  } else if constexpr (N == 2) {
-    bf16x2(*reinterpret_cast<const unsigned*>(p), out);
-  } else {
-    out[0] = __bfloat162float(p[0]);
-  }
-}
-
-// Issue the 16-byte copies of rows t0 .. t0 + 63 of head h of batch b into
-// tile[64][ldr] (raw T).
-template <typename T, int D>
-__device__ __forceinline__ void stage_tile(T* tile, const T* base, Strides s,
-                                           int b, int t0, int h) {
-  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
-  constexpr int CPR = D / VEC;  // 16-byte copies per row, a power of 2
-  const T* p = base + b * s.b + h * s.h;
-  for (int c = threadIdx.x; c < TILE * CPR; c += THREADS) {
-    const int r = c / CPR, k = c % CPR * VEC;
-    cp_async16(tile + r * ldr<T, D>() + k, p + (t0 + r) * s.t + k);
-  }
-}
-
-// the segment ids of rows t0 .. t0 + 63 (zeros without masking)
-__device__ __forceinline__ void stage_seg(int* dst, const int* seg, int b,
-                                          int seq, int t0) {
-  const int tid = threadIdx.x;
-  if (seg == nullptr) {
-    if (tid < TILE) dst[tid] = 0;
-  } else if (tid < TILE / 4) {
-    cp_async16(dst + 4 * tid,
-               seg + static_cast<size_t>(b) * seq + t0 + 4 * tid);
-  }
 }
 
 template <typename T, int D>
@@ -172,7 +92,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float* __restrict__ m_out, int heads, int seq, int splits,
                  Strides st, float sm_scale) {
   constexpr int DJ = D / 16;  // output columns per thread (contiguous)
-  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   constexpr int L = ldr<T, D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);
@@ -223,22 +142,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int jj = 0; jj < RI; ++jj) s[i][jj] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; d += VEC) {
-      float a[RI][VEC], c[RI][VEC];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) load_row<VEC>(a[i], q_s + (ty + 16 * i) * L + d);
-#pragma unroll
-      for (int jj = 0; jj < RI; ++jj)
-        load_row<VEC>(c[jj], k_t + (tx + 16 * jj) * L + d);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
-#pragma unroll
-          for (int jj = 0; jj < RI; ++jj)
-            s[i][jj] = fmaf(a[i][e], c[jj][e], s[i][jj]);
-    }
+    flash::tile_abt16<T, D>(s, q_s, k_t, tx, ty);
 
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
@@ -268,22 +172,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // O += P V: rows ty + 16 i, columns DJ tx .. DJ tx + DJ - 1, keys in
     // order
-#pragma unroll 2
-    for (int kk = 0; kk < TILE; kk += 4) {
-      float p[RI][4];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) load_row<4>(p[i], p_s + (ty + 16 * i) * LDP + kk);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float vv[DJ];
-        load_row<DJ>(vv, v_t + (kk + e) * L + DJ * tx);
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
-#pragma unroll
-          for (int jj = 0; jj < DJ; ++jj)
-            acc[i][jj] = fmaf(p[i][e], vv[jj], acc[i][jj]);
-      }
-    }
+    flash::tile_pb16<T, D>(acc, p_s, v_t, tx, ty);
     __syncthreads();  // stage j % 2 and p_s are free
   }
   cp_async_wait<0>();
@@ -402,15 +291,6 @@ int fwd_by_dim(int head_dim, const void* q, const void* k, const void* v,
   }
 }
 
-// 16-byte alignment of a pointer, and of strides of `elem`-byte elements
-bool aligned16(const void* p) {
-  return reinterpret_cast<size_t>(p) % 16 == 0;
-}
-bool strides_aligned(const Strides& s, int elem) {
-  const long long vec = 16 / elem;
-  return s.b % vec == 0 && s.t % vec == 0 && s.h % vec == 0;
-}
-
 }  // namespace
 
 // q, k, v [B, T, H, D] of storage type `dtype` (0 float32, 1 bfloat16) at
@@ -430,8 +310,9 @@ extern "C" int danet_flash_attn(const void* q, const void* k, const void* v,
   if (flash::bad_shape(batch, heads, seq) || splits < 1 ||
       splits > MAX_SPLITS || TILE % splits != 0 || splits > seq / TILE ||
       static_cast<long long>(seq / TILE) * splits > 0x7fffffff ||
-      !aligned16(q) || !aligned16(k) || !aligned16(v) ||
-      (seg != nullptr && !aligned16(seg)) || !strides_aligned(strides, elem))
+      !flash::aligned16(q) || !flash::aligned16(k) || !flash::aligned16(v) ||
+      (seg != nullptr && !flash::aligned16(seg)) ||
+      !flash::strides_aligned(strides, elem))
     return DANET_BAD_ARGUMENT;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

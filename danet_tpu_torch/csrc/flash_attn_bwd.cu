@@ -27,16 +27,40 @@
 // the CUDA cores, as in the forward (flash_attn.cu).  The products are the
 // forward's 4 x 4 register tiles over 64-row shared-memory tiles
 // (flash_tiles.cuh).
+//
+// dK/dV staging, the forward's: K and V once, then per query tile Q and dO
+// (and l, m, di and the segment ids), each copied raw, in the storage
+// type, by 16-byte cp.async into rows padded by 16 bytes, and read 16
+// bytes at a time in all four products.  One buffer per tile, in an order
+// that hides the copies: dP = dO V^T runs while Q lands, dK += dS^T Q
+// while the next dO lands, and the next dP while the next Q lands (the
+// first dO and Q are in flight with K and V).  So the block needs 103 KB
+// at D=64 in float32 (71 KB in bfloat16) and two blocks share an SM: the
+// training shape (B=32, H=4, T=128: 256 blocks) is one wave on 132 SMs.
+// P and dS are stored transposed, [key][query], so that dV += P^T dO and
+// dK += dS^T Q read them 16 bytes at a time.  Each output element sums its
+// queries in increasing order in one fmaf chain, and S, dP, p and ds are
+// computed as the earlier design of this kernel computed them (scalar
+// shared loads into [64][D + 1] float32 tiles), so the outputs are bit for
+// bit that design's.  The dQ kernel keeps that design (load_tile,
+// tile_abt).  On an H100 at the training shape, a layout that read both
+// operands of every product k-major, through transposes of K, V, Q and dO
+// in shared memory, was 5 % slower than this one: the products do not
+// wait on the width of the shared reads (PERF.md).
 #include "flash_tiles.cuh"
 
 namespace {
 
 using flash::LD_P;
+using flash::LDP;
 using flash::RI;
 using flash::Strides;
 using flash::THREADS;
 using flash::TILE;
 using flash::ld;
+using flash::ldr;
+using flash::stage_seg;
+using flash::stage_tile;
 
 // The scores of one (query tile, key tile) pair, rows = queries
 // ty + 16 i, columns = keys tx + 16 j: p and ds in float32 from the two
@@ -87,16 +111,34 @@ __device__ __forceinline__ void load_rows(float* l_s, float* m_s,
   }
 }
 
-template <int D>
+template <typename T, int D>
 size_t dkv_smem_bytes() {
-  // k_s, v_s, q_s, do_s [64][D + 1], p_s, ds_s [64][65]; l, m, di and the
-  // segment ids of both tiles
-  return sizeof(float) * (4 * TILE * ld<D>() + 2 * TILE * LD_P + 3 * TILE) +
-         sizeof(int) * 2 * TILE;
+  // k, v, q, do [64][ldr] of T; pT, dsT [64][LDP] f32; l, m, di [64] f32;
+  // the segment ids of the query and key tiles
+  return sizeof(T) * 4 * TILE * ldr<T, D>() +
+         sizeof(float) * (2 * TILE * LDP + 3 * TILE) + sizeof(int) * 2 * TILE;
+}
+
+// Issue the copies of l, m and di (float32 rows at `at`) and the segment
+// ids of query rows t0 .. t0 + 63.
+__device__ __forceinline__ void stage_stats(float* l_s, float* m_s,
+                                            float* di_s, int* segq_s,
+                                            const float* l, const float* m,
+                                            const float* di, const int* seg,
+                                            size_t at, int b, int seq,
+                                            int t0) {
+  const int tid = threadIdx.x;
+  if (tid < 16)
+    cp_async16(l_s + 4 * tid, l + at + 4 * tid);
+  else if (tid < 32)
+    cp_async16(m_s + 4 * (tid - 16), m + at + 4 * (tid - 16));
+  else if (tid < 48)
+    cp_async16(di_s + 4 * (tid - 32), di + at + 4 * (tid - 32));
+  stage_seg(segq_s, seg, b, seq, t0);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ seg,
                      const float* __restrict__ l, const float* __restrict__ m,
@@ -104,15 +146,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ di, T* __restrict__ dk,
                      T* __restrict__ dv, int heads, int seq, Strides st,
                      float sm_scale) {
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* k_s = smem;
-  float* v_s = k_s + TILE * ld<D>();
-  float* q_s = v_s + TILE * ld<D>();
-  float* do_s = q_s + TILE * ld<D>();
-  float* p_s = do_s + TILE * ld<D>();
-  float* ds_s = p_s + TILE * LD_P;
-  float* l_s = ds_s + TILE * LD_P;
+  constexpr int DJ = D / 16;  // output columns per thread (contiguous)
+  constexpr int L = ldr<T, D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* k_s = reinterpret_cast<T*>(smem_raw);
+  T* v_s = k_s + TILE * L;
+  T* q_s = v_s + TILE * L;
+  T* do_s = q_s + TILE * L;
+  float* pt_s = reinterpret_cast<float*>(do_s + TILE * L);  // [key][query]
+  float* dst_s = pt_s + TILE * LDP;                          // [key][query]
+  float* l_s = dst_s + TILE * LDP;
   float* m_s = l_s + TILE;
   float* di_s = m_s + TILE;
   int* segq_s = reinterpret_cast<int*>(di_s + TILE);
@@ -120,10 +163,26 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int k0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-
-  flash::load_tile<T, D>(k_s, k, st, b, k0, h);
-  flash::load_tile<T, D>(v_s, v, st, b, k0, h);
-  if (tid < TILE) segk_s[tid] = seg ? seg[b * seq + k0 + tid] : 0;
+  const size_t stats = (static_cast<size_t>(b) * heads + h) * seq;
+  const Strides sd{static_cast<long long>(seq) * heads * D,
+                   static_cast<long long>(heads) * D, D};  // do, contiguous
+  auto issue_do = [&](int q0) {  // dO and the statistics of query tile q0
+    stage_tile<T, D>(do_s, dout, sd, b, q0, h);
+    stage_stats(l_s, m_s, di_s, segq_s, l, m, di, seg, stats + q0, b, seq,
+                q0);
+    cp_async_commit();
+  };
+  auto issue_q = [&](int q0) {  // Q of query tile q0
+    stage_tile<T, D>(q_s, q, st, b, q0, h);
+    cp_async_commit();
+  };
+  // two groups: V with the first dO tile (dP), then K with the first Q
+  // tile (S), so that dP runs while K and Q land
+  stage_tile<T, D>(v_s, v, st, b, k0, h);
+  issue_do(0);
+  stage_tile<T, D>(k_s, k, st, b, k0, h);
+  stage_seg(segk_s, seg, b, seq, k0);
+  issue_q(0);
 
   float dk_acc[RI][DJ], dv_acc[RI][DJ];  // key rows ty + 16 i
 #pragma unroll
@@ -132,55 +191,54 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
   for (int q0 = 0; q0 < seq; q0 += TILE) {
-    flash::load_tile<T, D>(q_s, q, st, b, q0, h);
-    flash::load_tile_dense<T, D>(do_s, dout, b, q0, h, seq, heads);
-    load_rows(l_s, m_s, di_s, segq_s, l, m, di, seg, b, h, heads, seq, q0);
-    __syncthreads();
-
+    // dP = dO V^T, then S = Q K^T: query rows ty + 16 i, key columns
+    // tx + 16 j
     float p[RI][RI], ds[RI][RI];
-    scores<D>(p, ds, q_s, k_s, do_s, v_s, segq_s, segk_s, l_s, m_s, di_s, tx,
-              ty, sm_scale);
 #pragma unroll
     for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < RI; ++j) {
-        const int at = (ty + 16 * i) * LD_P + tx + 16 * j;
-        p_s[at] = flash::round_to<T>(p[i][j]);
-        ds_s[at] = flash::round_to<T>(ds[i][j]);
-      }
+      for (int j = 0; j < RI; ++j) p[i][j] = ds[i][j] = 0.f;
+    cp_async_wait<1>();  // this thread's dO (and statistics) landed
+    __syncthreads();     // ... and every other thread's
+    flash::tile_abt16<T, D>(ds, do_s, v_s, tx, ty);
+    cp_async_wait<0>();  // Q
     __syncthreads();
-
-    // dV += P^T dO, dK += dS^T Q: key rows ty + 16 i, columns tx + 16 j
-#pragma unroll 4
-    for (int qq = 0; qq < TILE; ++qq) {
-      float dov[DJ], qv[DJ];
+    flash::tile_abt16<T, D>(p, q_s, k_s, tx, ty);
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        dov[j] = do_s[qq * ld<D>() + tx + 16 * j];
-        qv[j] = q_s[qq * ld<D>() + tx + 16 * j];
-      }
+    for (int i = 0; i < RI; ++i) {
+      const int r = ty + 16 * i;
+      const float inv_l = 1.f / l_s[r];
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float pv = p_s[qq * LD_P + ty + 16 * i];
-        const float dsv = ds_s[qq * LD_P + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          dv_acc[i][j] = fmaf(pv, dov[j], dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(dsv, qv[j], dk_acc[i][j]);
-        }
+      for (int j = 0; j < RI; ++j) {
+        const int c = tx + 16 * j;
+        float s = p[i][j] * sm_scale;
+        if (segq_s[r] != segk_s[c]) s += flash::MASK_VALUE;
+        const float pv = expf(s - m_s[r]) * inv_l;
+        const float dsv = (ds[i][j] - di_s[r]) * pv * sm_scale;
+        pt_s[c * LDP + r] = flash::round_to<T>(pv);
+        dst_s[c * LDP + r] = flash::round_to<T>(dsv);
       }
     }
-    __syncthreads();
+    __syncthreads();  // pT and dsT complete; the statistics are free
+    // dV += P^T dO, then dK += dS^T Q: key rows ty + 16 i, columns
+    // DJ tx .. DJ tx + DJ - 1, queries in order
+    flash::tile_pb16<T, D>(dv_acc, pt_s, do_s, tx, ty);
+    __syncthreads();  // do_s free: the next dO lands during dK
+    if (q0 + TILE < seq) issue_do(q0 + TILE);
+    flash::tile_pb16<T, D>(dk_acc, dst_s, q_s, tx, ty);
+    __syncthreads();  // q_s, pT and dsT free: the next Q lands during dP
+    if (q0 + TILE < seq) issue_q(q0 + TILE);
   }
 
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const size_t row =
-        ((static_cast<size_t>(b) * seq + k0 + ty + 16 * i) * heads + h) * D;
+        ((static_cast<size_t>(b) * seq + k0 + ty + 16 * i) * heads + h) * D +
+        DJ * tx;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      dk[row + tx + 16 * j] = from_f32<T>(dk_acc[i][j]);
-      dv[row + tx + 16 * j] = from_f32<T>(dv_acc[i][j]);
+      dk[row + j] = from_f32<T>(dk_acc[i][j]);
+      dv[row + j] = from_f32<T>(dv_acc[i][j]);
     }
   }
 }
@@ -293,7 +351,7 @@ int launch_bwd(const BwdArgs& a) {
   const T* dout = static_cast<const T*>(a.dout);
   const float* di = static_cast<const float*>(a.di);
   if constexpr (DKV) {
-    const size_t smem = dkv_smem_bytes<D>();
+    const size_t smem = dkv_smem_bytes<T, D>();
     const int status = flash::allow_smem(flash_bwd_dkv_kernel<T, D>, smem);
     if (status != 0) return status;
     flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
@@ -332,9 +390,11 @@ int bwd(int head_dim, int dtype, const BwdArgs& a) {
 
 }  // namespace
 
-// q, k, v as for danet_flash_attn (strided, storage type `dtype`); seg
-// int32 [B, T] or NULL; l, m, di float32 [B, H, T]; do, dk, dv contiguous
-// [B, T, H, D] of the storage type.  Launches on `stream`; no sync.
+// q, k, v as for danet_flash_attn (strided, storage type `dtype`, 16-byte
+// aligned pointers and strides); seg int32 [B, T] or NULL; l, m, di
+// float32 [B, H, T]; do, dk, dv contiguous [B, T, H, D] of the storage
+// type; seg, l, m, di and do 16-byte aligned.  Launches on `stream`; no
+// sync.
 extern "C" int danet_flash_attn_bwd_dkv(
     const void* q, const void* k, const void* v, const void* seg,
     const void* l, const void* m, const void* dout, const void* di, void* dk,
@@ -343,6 +403,12 @@ extern "C" int danet_flash_attn_bwd_dkv(
   const BwdArgs a{q, k, v, seg, l, m, dout, di, dk, dv, batch, heads, seq,
                   Strides{sb, st, sh}, sm_scale,
                   static_cast<cudaStream_t>(stream)};
+  const void* staged[] = {q, k, v, l, m, dout, di};
+  for (const void* p : staged)
+    if (!flash::aligned16(p)) return DANET_BAD_ARGUMENT;
+  if ((seg != nullptr && !flash::aligned16(seg)) ||
+      !flash::strides_aligned(a.st, dtype == 1 ? 2 : 4))
+    return DANET_BAD_ARGUMENT;
   return bwd<true>(head_dim, dtype, a);
 }
 

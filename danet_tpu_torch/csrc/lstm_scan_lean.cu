@@ -1,12 +1,12 @@
-// Kernel B and its one-direction form: the lean (inference) LSTM forward,
+// Kernel B and the saving forwards: the lean (inference) LSTM forward,
 // the whole time loop of one layer, all its directions, in one cooperative
 // launch; with SAVE, the forward that also saves the residuals of the
-// backward (bilstm_scan_bwd.cu), for one direction.
+// backward (bilstm_scan_bwd.cu): kernel 2 with two directions, and its
+// one-direction form.
 //
-// Replaces danet_tpu/ops/pallas/lstm.py::_fwd_call with save=False:
+// Replaces danet_tpu/ops/pallas/lstm.py::_fwd_call: with save=False,
 // bilstm_scan_pallas (n_dirs=2) and lstm_scan_pallas (n_dirs=1); with
-// SAVE, save=True and n_dirs=1 (lstm_scan_pallas under its custom VJP).
-// The saving forward with two directions (kernel 2) is bilstm_scan.cu.
+// SAVE, save=True (both under their custom VJPs).
 //
 //   act_t  = xp_t + h_{t-1} @ Wh           (f32 accumulate)
 //   cand   = tanh(act[0:H]) or act[0:H]     (gate order cand|i|f|o)
@@ -80,21 +80,31 @@
 // adds the gate inputs and runs the cell, its c in a register.  So a step
 // is a poll, one block barrier, the FMAs, five shuffles and the cell: no
 // partial sums in shared memory.  Flags (scan_flags): a thread holds a
-// register tile of up to BT = 8 rows x 4 columns (one unit's gates) over
-// a strided share of k; the LK lanes of a unit split k, and so do the KW
-// warps on one row tile: 8 at B <= 8, 2 at B=32; the lanes' sums meet in
-// a butterfly, the warps' in red_s, added in the order of the warp by the
-// thread of each (row, unit) pair, which then runs the cell, its c in
-// shared memory.  The tile's row count is a template constant (a
-// predicate per row on a run-time count made the loop 2.5 times slower
-// on an H100).  Both orders are fixed, so the result does not depend on
-// timing.  SAVE, flags: no butterfly; each lane's residue class of k
-// (modulo KW LK) lands in red_s on its own, and the thread of a (row,
-// unit) pair adds the classes to the gate inputs in the order of the
-// class.  At B=32 (KW=2, LK=4: k mod 8) that is every rounding of the
-// earlier saving design with one direction (kernel 2's 8-way k split at
-// H=600), whose training step the card-vs-CPU gradient checks hold to
-// 1e-4 of each tensor's peak: hs, cs and acts are bit for bit the same.
+// register tile of up to RT rows x 4 columns (one unit's gates) over a
+// strided share of k, RT = BT = 8 rows, or SAVE2_BT = 4 in the float32
+// two-direction saving forward (kernel 2); the LK lanes of a unit split k,
+// and so do the KW warps on one row tile (8 / KW tiles of a pass of 32
+// rows: KW = 8 at B <= RT, 2 at B=32 with 8-row tiles, 1 with 4-row
+// ones); the lanes' sums meet in a butterfly, the warps' in red_s, added
+// in the order of the warp by the thread of each (row, unit) pair, which
+// then runs the cell, its c in shared memory.  The tile's row count is a
+// template constant (a predicate per row on a run-time count made the
+// loop 2.5 times slower on an H100).  Both orders are fixed, so the
+// result does not depend on timing.  SAVE, flags: no butterfly; each
+// lane's residue class of k (modulo KW LK) lands in red_s on its own, and
+// the thread of a (row, unit) pair adds the classes to the gate inputs in
+// the order of the class.  At B=32 that is every rounding of the earlier
+// saving design (the port's first, with a grid barrier per step): with
+// one direction (H=600) KW=2, LK=4, the classes k mod 8 of its 8-way k
+// split; with two (H=300) 4-row tiles, KW=1, the classes k mod 4 of its
+// 4-way split, at the same 1,200 FMAs per thread as 8-row tiles with
+// KW=2.  The card-vs-CPU gradient checks hold both float32 training steps
+// to 1e-4 of each tensor's peak: hs, cs and acts are bit for bit the
+// earlier design's.  In bfloat16 kernel 2 keeps 8-row tiles (k mod 8, other
+// roundings than the earlier design's): on an H100 the 4-row tile took
+// 1.30 ms at (T=128, B=32) against 0.86 ms for the 8-row one (0.88 and
+// 0.80 ms in float32), and the bfloat16 training step is held to its
+// losses at 1e-2, far above a reordered f32 sum.
 // The gate inputs of each thread's first pair are loaded at the top of
 // the step, before the poll, so they arrive during the wait.
 // Batches beyond PASS = 32 rows take more passes of the same.
@@ -104,7 +114,7 @@
 // for the words, one of min(B, 32) H for the flags), 8 KB of partial sums
 // (SAVE: 33 KB) and 32 bytes per batch row: 88 KB at H=600, B=1 in f32,
 // 163 KB at B=32 (SAVE: 188 KB), within the 227 KB opt-in up to B=1392
-// (SAVE) at H=600 in f32.
+// (SAVE) at H=600 in f32; kernel 2 (H=300) 112 KB at B=32 in f32.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -118,18 +128,23 @@ constexpr int WARPS = THREADS / 32;
 constexpr int UNITS = WARPS;     // hidden units per block: one per warp
 constexpr int CG = 4;            // product columns per thread (one plane)
 constexpr int BT = 8;            // batch rows per thread tile
-constexpr int PASS = 4 * BT;     // batch rows per pass
+constexpr int SAVE2_BT = 4;      // ... in the float32 two-direction saving
+                                 // forward
+constexpr int PASS = 32;         // batch rows per pass
 constexpr int LOADS = 8;         // independent polls in flight per thread
 constexpr int TAGGED_MAX_B = 1;  // largest batch that exchanges tagged words
 constexpr int COLS = 4 * UNITS;  // gate columns of a block: 4 u + g
 constexpr int LK = 32 / UNITS;   // lanes of one column group (plane)
-// red_s: KW warps x (8 / KW) BT rows x COLS, WARPS BT COLS in every layout;
-// with SAVE, KW LK classes x (8 / KW) BT rows x COLS + 8 floats per class
+// red_s: KW warps x (8 / KW) RT rows x COLS, at most WARPS BT COLS; with
+// SAVE, KW LK classes x (8 / KW) RT rows x COLS + 8 floats per class
 // (against bank conflicts), at most WARPS LK of the padding
 constexpr int RED_FLOATS = WARPS * BT * COLS;
 constexpr int SAVE_RED_FLOATS = LK * (WARPS * BT * COLS + 8 * WARPS);
 static_assert(UNITS >= 1 && 32 % UNITS == 0, "UNITS must divide 32");
 static_assert(TAGGED_MAX_B <= 32, "the words' row groups span one warp");
+static_assert(SAVE2_BT <= BT && PASS % BT == 0 && PASS % SAVE2_BT == 0 &&
+                  PASS / SAVE2_BT <= WARPS && PASS / BT <= WARPS,
+              "a pass is at most one row tile per warp");
 
 #include "exchange.cuh"
 
@@ -153,11 +168,17 @@ __host__ __device__ __forceinline__ int red_floats() {
   return SAVE ? SAVE_RED_FLOATS : RED_FLOATS;
 }
 
+// Rows of a thread's register tile in the flags' product (RT above).
+template <typename T, int NDIRS, bool SAVE>
+__host__ __device__ constexpr int row_tile() {
+  return NDIRS == 2 && SAVE && sizeof(T) == 4 ? SAVE2_BT : BT;
+}
+
 // Floats between two classes (SAVE) or warps of red_s, for KW warps on a
-// row tile.
-template <bool SAVE>
+// row tile of RT rows.
+template <bool SAVE, int RT>
 __device__ __forceinline__ int red_stride(int kw_n) {
-  return WARPS / kw_n * BT * COLS + (SAVE ? 8 : 0);
+  return WARPS / kw_n * RT * COLS + (SAVE ? 8 : 0);
 }
 
 template <typename T, bool SAVE>
@@ -210,8 +231,8 @@ __device__ __forceinline__ void gate_inputs(float (&a)[4], const T* x,
 // acc[i * CG + j] += d[i][k] * w[k][j] for the ROWS live rows i over k =
 // k0, k0 + step, ... (ROWS a constant: a predicate per row on a run-time
 // count made the loop 2.5 times slower)
-template <int ROWS, typename T>
-__device__ __forceinline__ void fma_rows(float (&acc)[BT * CG],
+template <int ROWS, int RT, typename T>
+__device__ __forceinline__ void fma_rows(float (&acc)[RT * CG],
                                          const float* w, const T* d,
                                          int hdim, int k0, int step) {
 #pragma unroll 2
@@ -229,28 +250,36 @@ __device__ __forceinline__ void fma_rows(float (&acc)[BT * CG],
   }
 }
 
-// fma_rows for the `mine` live rows of a tile, a constant in each case.
-template <typename T>
-__device__ __forceinline__ void fma_live(int mine, float (&acc)[BT * CG],
+// fma_rows for the `mine` live rows of a tile of RT, a constant in each
+// case (the cases past RT never run).
+template <int RT, typename T>
+__device__ __forceinline__ void fma_live(int mine, float (&acc)[RT * CG],
                                          const float* w, const T* d,
                                          int hdim, int k0, int step) {
+  constexpr int R5 = RT < 5 ? RT : 5, R6 = RT < 6 ? RT : 6;
+  constexpr int R7 = RT < 7 ? RT : 7;
   switch (mine) {
-    case 1: fma_rows<1>(acc, w, d, hdim, k0, step); break;
-    case 2: fma_rows<2>(acc, w, d, hdim, k0, step); break;
-    case 3: fma_rows<3>(acc, w, d, hdim, k0, step); break;
-    case 4: fma_rows<4>(acc, w, d, hdim, k0, step); break;
-    case 5: fma_rows<5>(acc, w, d, hdim, k0, step); break;
-    case 6: fma_rows<6>(acc, w, d, hdim, k0, step); break;
-    case 7: fma_rows<7>(acc, w, d, hdim, k0, step); break;
-    default: fma_rows<8>(acc, w, d, hdim, k0, step);
+    case 1: fma_rows<1, RT>(acc, w, d, hdim, k0, step); break;
+    case 2: fma_rows<2, RT>(acc, w, d, hdim, k0, step); break;
+    case 3: fma_rows<3, RT>(acc, w, d, hdim, k0, step); break;
+    case 4: fma_rows<4, RT>(acc, w, d, hdim, k0, step); break;
+    case 5: fma_rows<R5, RT>(acc, w, d, hdim, k0, step); break;
+    case 6: fma_rows<R6, RT>(acc, w, d, hdim, k0, step); break;
+    case 7: fma_rows<R7, RT>(acc, w, d, hdim, k0, step); break;
+    default: fma_rows<RT, RT>(acc, w, d, hdim, k0, step);
   }
 }
 
-// Warps splitting k over one row tile, for a pass of `rows` rows: 8, 4 or
-// 2 (all 8 warps on one tile up to 8 rows).
+// Warps splitting k over one row tile of RT rows, for a pass of `rows`
+// rows: 8, 4, 2 or (4-row tiles) 1 (all 8 warps on one tile up to RT
+// rows).
+template <int RT>
 __device__ __forceinline__ int k_warps(int rows) {
-  const int tiles = (rows + BT - 1) / BT;
-  return tiles == 1 ? WARPS : tiles == 2 ? WARPS / 2 : WARPS / 4;
+  const int tiles = (rows + RT - 1) / RT;
+  return tiles == 1                      ? WARPS
+         : tiles == 2                    ? WARPS / 2
+         : RT == BT || tiles <= 4        ? WARPS / 4
+                                         : WARPS / 8;
 }
 
 // The partial products of the staged rows d_s [rows][H] with the block's
@@ -258,27 +287,28 @@ __device__ __forceinline__ int k_warps(int rows) {
 // KW LK over row tile bg and plane (unit) cg; the LK lanes' sums meet in a
 // butterfly, and each warp's land in red_s [kw][row][COLS].  SAVE: no
 // butterfly, each lane's class sum lands in red_s [kw LK + kl][row][COLS].
-template <bool SAVE, typename T>
+template <bool SAVE, int RT, typename T>
 __device__ __forceinline__ void row_product(const T* d_s, const float* w_s,
                                             float* red_s, int rows,
                                             int hdim) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int cg = lane / LK, kl = lane % LK;
-  const int kw_n = k_warps(rows);
+  const int kw_n = k_warps<RT>(rows);
   const int bg = warp / kw_n, kw = warp % kw_n;
-  const int mine = min(BT, rows - bg * BT);  // the same in a whole warp
+  const int mine = min(RT, rows - bg * RT);  // the same in a whole warp
   if (mine <= 0) return;
-  float acc[BT * CG];
+  float acc[RT * CG];
 #pragma unroll
-  for (int e = 0; e < BT * CG; ++e) acc[e] = 0.f;
+  for (int e = 0; e < RT * CG; ++e) acc[e] = 0.f;
   const float* w = w_s + static_cast<size_t>(cg) * plane_stride(hdim);
-  const T* d = d_s + static_cast<size_t>(bg) * BT * hdim;
-  fma_live(mine, acc, w, d, hdim, kw * LK + kl, kw_n * LK);
+  const T* d = d_s + static_cast<size_t>(bg) * RT * hdim;
+  fma_live<RT>(mine, acc, w, d, hdim, kw * LK + kl, kw_n * LK);
   if (SAVE) {
     float* dst = red_s + static_cast<size_t>(kw * LK + kl) *
-                             red_stride<true>(kw_n) + bg * BT * COLS + cg * CG;
+                             red_stride<true, RT>(kw_n) + bg * RT * COLS +
+                 cg * CG;
 #pragma unroll
-    for (int i = 0; i < BT; ++i)
+    for (int i = 0; i < RT; ++i)
       if (i < mine)
         *reinterpret_cast<float4*>(dst + i * COLS) =
             make_float4(acc[i * CG], acc[i * CG + 1], acc[i * CG + 2],
@@ -286,7 +316,7 @@ __device__ __forceinline__ void row_product(const T* d_s, const float* w_s,
     return;
   }
 #pragma unroll
-  for (int i = 0; i < BT; ++i)
+  for (int i = 0; i < RT; ++i)
     if (i < mine)
 #pragma unroll
       for (int j = 0; j < CG; ++j)
@@ -294,10 +324,10 @@ __device__ __forceinline__ void row_product(const T* d_s, const float* w_s,
         for (int m = 1; m < LK; m *= 2)
           acc[i * CG + j] += __shfl_xor_sync(0xffffffffu, acc[i * CG + j], m);
   // every lane of the group holds the sums: lane kl stores rows kl mod LK
-  float* dst = red_s + (static_cast<size_t>(kw) * (WARPS / kw_n) * BT +
-                        bg * BT) * COLS + cg * CG;
+  float* dst = red_s + (static_cast<size_t>(kw) * (WARPS / kw_n) * RT +
+                        bg * RT) * COLS + cg * CG;
 #pragma unroll
-  for (int i = 0; i < BT; ++i)
+  for (int i = 0; i < RT; ++i)
     if (i < mine && i % LK == kl)
       *reinterpret_cast<float4*>(dst + i * COLS) =
           make_float4(acc[i * CG], acc[i * CG + 1], acc[i * CG + 2],
@@ -383,6 +413,7 @@ __device__ void scan_flags(const T* __restrict__ xp, const T* __restrict__ h0,
                            T* hs, const Saved<T>& saved, int* flags,
                            const float* w_s, T* d_s, float* red_s, float* c_s,
                            int n_steps, int batch, int hdim) {
+  constexpr int RT = row_tile<T, NDIRS, SAVE>();
   const int dir = blockIdx.y, tid = threadIdx.x, u0 = blockIdx.x * UNITS;
   const int g4 = 4 * hdim;
   const size_t bh = static_cast<size_t>(batch) * hdim;
@@ -404,11 +435,11 @@ __device__ void scan_flags(const T* __restrict__ xp, const T* __restrict__ h0,
       const int rows = min(PASS, batch - p0);
       stage_values(d_s, h_in + static_cast<size_t>(p0) * hdim, rows * hdim);
       __syncthreads();
-      row_product<SAVE>(d_s, w_s, red_s, rows, hdim);
+      row_product<SAVE, RT>(d_s, w_s, red_s, rows, hdim);
       __syncthreads();  // red_s complete; d_s free for the next pass
-      const int kw_n = k_warps(rows);
+      const int kw_n = k_warps<RT>(rows);
       const int nq = SAVE ? kw_n * LK : kw_n;
-      const int ld = red_stride<SAVE>(kw_n);
+      const int ld = red_stride<SAVE, RT>(kw_n);
       for (int e = tid; e < rows * UNITS; e += THREADS) {
         const int r = e / UNITS, u = e % UNITS, unit = u0 + u, b = p0 + r;
         if (unit >= hdim) continue;
@@ -563,6 +594,19 @@ extern "C" int danet_lstm_scan(const void* xp, const void* wh,
                                int dtype, int tanh_cand, void* stream) {
   return dispatch<1, false>(xp, wh, c0, h0, hs, nullptr, nullptr, xch,
                             n_steps, batch, hdim, dtype, tanh_cand, stream);
+}
+
+// Kernel 2, the saving forward with two directions (bilstm_scan_pallas
+// under its custom VJP): also cs [T, 2, B, H] and acts [T, 2, B, 4H] =
+// [cand, i, f, o]; xch [2, 2, B, H].
+extern "C" int danet_bilstm_scan_train(const void* xp, const void* wh,
+                                       const void* c0, const void* h0,
+                                       void* hs, void* cs, void* acts,
+                                       void* xch, int n_steps, int batch,
+                                       int hdim, int dtype, int tanh_cand,
+                                       void* stream) {
+  return dispatch<2, true>(xp, wh, c0, h0, hs, cs, acts, xch, n_steps,
+                           batch, hdim, dtype, tanh_cand, stream);
 }
 
 // The saving forward with one direction (lstm_scan_pallas under its custom

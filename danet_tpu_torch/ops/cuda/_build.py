@@ -35,8 +35,7 @@ _SIGNATURES = [
     ("danet_stft_ri", _I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     ("danet_bilstm_scan", _I,
      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    ("danet_bilstm_scan_train", _I,
-     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    ("danet_bilstm_scan_train", _I, [_P] * 8 + [_I] * 5 + [_P]),
     ("danet_bilstm_scan_bwd", _I,
      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     ("danet_lstm_scan", _I,

@@ -163,10 +163,24 @@ def flash_splits(b: int, t: int, h: int, n_sm: int = H100_SMS) -> int:
 
 
 def _aligned16(x: torch.Tensor, strides) -> bool:
-    """16-byte aligned data and (b, t, h) strides: the forward kernel
-    stages tiles with 16-byte asynchronous copies."""
+    """16-byte aligned data and (b, t, h) strides: the forward and dK/dV
+    kernels stage tiles with 16-byte asynchronous copies."""
     vec = 16 // x.element_size()
     return x.data_ptr() % 16 == 0 and all(s % vec == 0 for s in strides)
+
+
+def _staged(q, k, v, seg, strides, *rows):
+    """The inputs of a kernel that stages them with 16-byte copies: q, k
+    and v (with their strides) copied where their data or strides are not
+    16-byte aligned, seg and the contiguous ``rows`` where their data is
+    not.  -> (q, k, v, seg, strides, *rows)."""
+    if not all(_aligned16(x, strides) for x in (q, k, v)):
+        q, k, v = (x.clone(memory_format=torch.contiguous_format)
+                   for x in (q, k, v))
+        strides = tuple(q.stride()[:3])
+    seg, *rows = (x if x is None or x.data_ptr() % 16 == 0 else x.clone()
+                  for x in (seg,) + rows)
+    return (q, k, v, seg, strides, *rows)
 
 
 def flash_attn(q, k, v, seg, sm_scale: float, splits: int | None = None):
@@ -175,11 +189,7 @@ def flash_attn(q, k, v, seg, sm_scale: float, splits: int | None = None):
     if not _on_cuda(q, "flash_attn"):
         return flash_attn_plain(q, k, v, seg, sm_scale)
     q, k, v, seg, (b, t, h, d), strides = _qkv_strides(q, k, v, seg)
-    if not all(_aligned16(x, strides) for x in (q, k, v)):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        strides = tuple(q.stride()[:3])
-    if seg is not None and seg.data_ptr() % 16:
-        seg = seg.clone()
+    q, k, v, seg, strides = _staged(q, k, v, seg, strides)
     if splits is None:
         splits = flash_splits(b, t, h, torch.cuda.get_device_properties(
             q.device).multi_processor_count)
@@ -229,6 +239,8 @@ def flash_attn_bwd_dkv(q, k, v, seg, l, m, do, di, sm_scale: float):
         return flash_attn_bwd_dkv_plain(q, k, v, seg, l, m, do, di, sm_scale)
     q, k, v, seg, (b, t, h, d), strides = _bwd_inputs(q, k, v, seg, l, m,
                                                       do, di)
+    q, k, v, seg, strides, l, m, do, di = _staged(q, k, v, seg, strides, l,
+                                                  m, do, di)
     dk = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     _launch_flash("danet_flash_attn_bwd_dkv", (q, k, v), seg,

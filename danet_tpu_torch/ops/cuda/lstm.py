@@ -6,8 +6,8 @@ and ``lstm_scan_pallas`` (n_dirs=1) with their custom VJPs:
   * ``bilstm_scan`` / ``lstm_scan``: kernel B, the lean (inference)
     forward (``_fwd_call`` with ``save=False``);
   * ``bilstm_scan_train``: kernel 2, the forward that also stores the
-    residuals ``cs`` and ``acts`` (``save=True``); ``lstm_scan_train``:
-    the same on one direction, kernel B's design with ``SAVE``;
+    residuals ``cs`` and ``acts`` (``save=True``), kernel B's design with
+    ``SAVE``; ``lstm_scan_train``: the same on one direction;
   * ``bilstm_scan_bwd`` / ``lstm_scan_bwd``: kernel 3, the reverse-time
     backward (``_bwd_call``);
   * ``BiLstmScan`` / ``LstmScan``: the autograd Functions that tie
@@ -16,14 +16,13 @@ and ``lstm_scan_pallas`` (n_dirs=1) with their custom VJPs:
 The one-direction wrappers launch the same kernels with the direction
 count as a parameter (``[T, 1, B, .]`` is ``[T, B, .]``), each under its
 own C entry point and launch counter.  The CUDA sources are
-``danet_tpu_torch/csrc/lstm_scan_lean.cu`` (kernel B, and the saving
-forward with one direction), ``csrc/bilstm_scan.cu`` (kernel 2) and
-``csrc/bilstm_scan_bwd.cu`` (kernel 3); their headers say what bounds them
-on an H100 (the latency of each step's exchange of h between the blocks,
-through L2, not FLOPs) and how Wh is split over blocks.  Kernel B passes
-no grid barrier: its blocks exchange h as value-and-step words at B=1 and
-behind per-block flags above it, each direction on its own
-(``exchange_words``).
+``danet_tpu_torch/csrc/lstm_scan_lean.cu`` (kernel B, and with ``SAVE``
+kernel 2 and its one-direction form) and ``csrc/bilstm_scan_bwd.cu``
+(kernel 3); their headers say what bounds them on an H100 (the latency of
+each step's exchange of h between the blocks, through L2, not FLOPs) and
+how Wh is split over blocks.  The forwards pass no grid barrier: their
+blocks exchange h as value-and-step words at B=1 and behind per-block
+flags above it, each direction on its own (``exchange_words``).
 
 Each wrapper launches its kernel for CUDA tensors and uses its plain
 version (``*_plain``: Python loops over T with the same float32 gate math
@@ -87,8 +86,8 @@ def lstm_scan_plain(xp, wh, c0, h0, tanh_cand: bool) -> torch.Tensor:
 
 
 def lstm_scan_train_plain(xp, wh, c0, h0, tanh_cand: bool):
-    """Plain version of the one-direction kernel 2: -> (hs, cs [T, B, H],
-    acts [T, B, 4H])."""
+    """Plain version of the one-direction saving forward: -> (hs, cs
+    [T, B, H], acts [T, B, 4H])."""
     out = _scan_plain(xp[:, None], wh[None], c0[None], h0[None], tanh_cand,
                       True)
     return tuple(v[:, 0] for v in out)
@@ -196,7 +195,7 @@ def _launch(entry: str, what: str, device, tensors, ints) -> None:
 
 
 def exchange_words(n_dirs: int, b: int, hdim: int, device) -> torch.Tensor:
-    """Scratch of kernel B, [2, D, B, H] words of 8 bytes: the rows h_t its
+    """Scratch of the forwards, [2, D, B, H] words of 8 bytes: the rows h_t its
     blocks exchange each step, as value-and-step-tag words by the parity
     of t at B=1; at B > 1 the blocks' flags.  The kernel clears what it
     uses before its first step."""
@@ -211,11 +210,10 @@ def _fwd(entry: str, n_dirs: int, save: bool, xp, wh, c0, h0, tanh_cand):
                      device=xp.device)
     outs = (hs, torch.empty_like(hs), torch.empty_like(xp)) if save \
         else (hs,)
-    # kernel 2 (two directions, saving) exchanges nothing through scratch
-    xch = () if save and n_dirs == 2 else (
-        exchange_words(n_dirs, b, hdim, xp.device),)
+    xch = exchange_words(n_dirs, b, hdim, xp.device)
     _launch(entry, entry + " kernel", xp.device, (xp, wh, c0, h0) + outs
-            + xch, (t, b, hdim, _DTYPE_CODES[xp.dtype], int(bool(tanh_cand))))
+            + (xch,), (t, b, hdim, _DTYPE_CODES[xp.dtype],
+                       int(bool(tanh_cand))))
     return outs if save else hs
 
 
@@ -284,7 +282,8 @@ def lstm_scan(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
 
 
 def lstm_scan_train(xp, wh, c0, h0, tanh_cand: bool):
-    """Kernel 2 on one direction: -> (hs, cs [T, B, H], acts [T, B, 4H])."""
+    """The saving forward on one direction: -> (hs, cs [T, B, H], acts
+    [T, B, 4H])."""
     if not _on_cuda(xp, "lstm_scan_train"):
         return lstm_scan_train_plain(xp, wh, c0, h0, tanh_cand)
     out = _fwd("danet_lstm_scan_train", 1, True, xp, wh, c0, h0, tanh_cand)

@@ -13,10 +13,13 @@
     python -m danet_tpu_torch.perf_probe gru-bwd [--reps 10]
         [--set NAME=VALUE ...] [--cut staging|barrier|fma ...]
         [--source CSRC_DIR]
-    python -m danet_tpu_torch.perf_probe lstm-train [--reps 10]
-        [--set NAME=VALUE ...] [--cut staging|barrier|fma|gates ...]
-        [--source CSRC_DIR]
+    python -m danet_tpu_torch.perf_probe lstm-train [--dirs 1|2]
+        [--reps 10] [--set NAME=VALUE ...]
+        [--cut staging|barrier|fma|gates ...] [--source CSRC_DIR]
     python -m danet_tpu_torch.perf_probe flash-fwd [--reps 50]
+    python -m danet_tpu_torch.perf_probe flash-bwd [--reps 20]
+        [--cut products|staging ...] [--source CSRC_DIR]
+    python -m danet_tpu_torch.perf_probe device-ms [--reps 20]
 
 ``profile``: for one encoder at full width with random weights from seed
 0, in COMPUTE_DTYPE ``--dtype``, ``torch.profiler`` over 5 train steps
@@ -97,9 +100,13 @@ the plain version at ``chip_smoke.py`` phase 8's tolerances (float32 atol
 1e-5, bfloat16 5e-2 + rtol 2e-2), the digest, ms and µs per step, and in
 float32 the time of ``torch.nn.LSTM(600, 600)``'s training forward (cuDNN,
 with the input projection) beside it; then the B = 32, 64, 128 sweep.
-``--cut``, ``--set`` and ``--source`` as for ``lstm-fwd``; a ``--source``
-whose ``lstm_scan_lean.cu`` has no ``danet_lstm_scan_train`` holds the
-earlier design, kernel 2 with one direction in ``bilstm_scan.cu``.
+``--dirs 2``: the same for kernel 2 (``bilstm_scan_train``, H=300, phase
+6's tolerances, which are phase 8's) beside ``torch.nn.LSTM(600, 300,
+bidirectional=True)``'s training forward.  ``--cut``, ``--set`` and
+``--source`` as for ``lstm-fwd``; a ``--source`` holding the earlier
+design (a ``lstm_scan_lean.cu`` without ``danet_lstm_scan_train`` for one
+direction, a ``bilstm_scan.cu`` for two) builds that design's
+``bilstm_scan.cu`` (grid barriers, no scratch argument).
 
 ``flash-fwd``: kernel 5f (``flash_attn``) alone at attn-v1's widths
 (H=4, D=64), float32 and bfloat16, at the serving shape (B=1, T=1280)
@@ -110,6 +117,30 @@ tolerances, then the kernel's time (CUDA events, ``--reps`` launches after
 a warm-up) with the key split S that ``flash_splits`` picks, and, where
 that S is not 1, with S=1 beside it; in float32, SDPA's time (with the
 boolean segment-equality mask) on the same inputs.
+
+``flash-bwd``: kernels 5dkv (``flash_attn_bwd_dkv``) and 5dq
+(``flash_attn_bwd_dq``) alone at ``chip_smoke.py`` phase 13's inputs and
+shapes ((T=1280, B=1), (T=128, B=32), (T=384, B=1); H=4, D=64), float32
+and bfloat16: each output's max abs error against the plain version at
+phase 13's gradient tolerances (float32 atol 2e-5 + rtol 1e-4, bfloat16
+5e-2 + 2e-2), the digest of the outputs' bytes, and in float32 the time
+of ``--reps`` back-to-back wrapper calls between CUDA events (``ms``, as
+``chip_smoke.py`` times them: host-paced below about 0.1 ms) beside the
+kernel's own device time (``device ms``: the ``torch.profiler`` CUDA row
+of the kernel over ``--reps`` launches after a warm-up), and, at (T=128,
+B=32), SDPA's backward (dq, dk and dv in one call, with the boolean
+segment mask) both ways.  ``--source DIR`` builds the flash_attn_bwd.cu
+(and headers) of another csrc directory, e.g. the parent commit's, and
+prints its registers and spills; ``--cut products|staging`` times 5dkv
+without its four tile products or without the per-tile copies of Q and
+dO (outputs not checked).
+
+``device-ms``: the kernels whose ``chip_smoke.py`` time is under 0.1 ms,
+each at the shape its summary entry is timed at (``TIMED_AT``), float32:
+kernel A (``stft_ri``, L=80000, B=1), kernel 6 (``stft_logmag``, the
+same), 5f (``flash_attn``, T=1280, B=1), 5dkv and 5dq (T=128, B=32; H=4,
+D=64): the event-timed ``ms`` and the profiler's ``device ms`` as for
+``flash-bwd``.
 
 It prints the card's name and power limit first.  There is no CPU
 fallback: without a GPU it exits non-zero.
@@ -296,7 +327,9 @@ def use_variant(kernel: str, sets: dict, cut_table: dict, cuts,
         objs.append(os.path.join(out, os.path.basename(path) + ".o"))
         proc = subprocess.run([nvcc] + flags + ["-Xptxas", "-v", "-c", "-o",
                                                 objs[-1], path],
-                              capture_output=True, text=True, check=True)
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed on %s:\n%s" % (path, proc.stderr))
         if path.endswith(kernel):
             print("variant of %s from %s, %s, cut %s: registers %s, spill "
                   "stores %s" % (
@@ -602,7 +635,7 @@ def _digest(outs) -> str:
 
 
 def _check_train(what: str, name: str, names, out, ref, dt, tol, t: int,
-                 b: int, ms: float, extra: str = "") -> bool:
+                 b: int, ms: float, extra: str = "", h: int = 600) -> bool:
     """Print one checked line (max abs errors, digest, time); True if every
     output is finite, of its reference's dtype and within atol + rtol."""
     atol, rtol = tol
@@ -612,15 +645,15 @@ def _check_train(what: str, name: str, names, out, ref, dt, tol, t: int,
         errs.append("%s %.6g" % (names[len(errs)], float(diff.max())))
         ok &= o.dtype == r.dtype and bool(torch.isfinite(o.float()).all()) \
             and bool((diff <= atol + rtol * r.float().abs()).all())
-    print("%s %s %s T=%d B=%d H=600: max abs err %s (atol %g rtol %g)%s; "
+    print("%s %s %s T=%d B=%d H=%d: max abs err %s (atol %g rtol %g)%s; "
           "digest %s; kernel %.4f ms, %.3f us/step%s"
-          % (what, name, str(dt).replace("torch.", ""), t, b, ", ".join(errs),
-             atol, rtol, "" if ok else " FAIL", _digest(out), ms,
-             1e3 * ms / t, extra))
+          % (what, name, str(dt).replace("torch.", ""), t, b, h,
+             ", ".join(errs), atol, rtol, "" if ok else " FAIL", _digest(out),
+             ms, 1e3 * ms / t, extra))
     return ok
 
 
-def _sweep(what: str, name: str, make, run, plain, tol) -> list:
+def _sweep(what: str, name: str, make, run, plain, tol, h: int = 600) -> list:
     """float32 us per step at T=128 for each batch of TRAIN_SWEEP, each
     output held to the plain version at tol (the worst error printed); a
     batch the kernel refuses prints its error.  Returns the batches beyond
@@ -642,8 +675,8 @@ def _sweep(what: str, name: str, make, run, plain, tol) -> list:
             b, 1e3 * cuda_ms(lambda: run(*args), 10) / 128,
             max(float(d.max()) for d in diffs), "" if b not in failed
             else " FAIL"))
-    print("%s %s float32 T=128 H=600 us/step by batch: %s"
-          % (what, name, ", ".join(parts)))
+    print("%s %s float32 T=128 H=%d us/step by batch: %s"
+          % (what, name, h, ", ".join(parts)))
     return failed
 
 
@@ -734,21 +767,25 @@ def gru_bwd(reps: int, legacy: bool, checked: bool = True) -> None:
         sys.exit("gru-bwd: beyond tolerance: %s" % failed)
 
 
-def lstm_train(reps: int, legacy: bool, checked: bool = True) -> None:
+def lstm_train(reps: int, legacy: bool, checked: bool = True,
+               dirs: int = 1) -> None:
     from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernel = cuda_lstm.lstm_scan_train
+    prefix, h = ("lstm", 600) if dirs == 1 else ("bilstm", 300)
+    name = prefix + "_scan_train"
+    kernel = getattr(cuda_lstm, name)
+    plain = getattr(cuda_lstm, name + "_plain")
     if legacy:
-        launch = _legacy_call("danet_lstm_scan_train", 7)
+        launch = _legacy_call("danet_" + name, 7)
 
         def kernel(xp, wh, c0, h0, tanh_cand):
-            t, b, h = cuda_lstm._fwd_shapes(xp, wh, c0, h0, 1)
-            outs = (xp.new_empty((t, b, h)), xp.new_empty((t, b, h)),
-                    torch.empty_like(xp))
+            t, b, hdim = cuda_lstm._fwd_shapes(xp, wh, c0, h0, dirs)
+            hs = xp.new_empty((t,) + cuda_lstm._dirs(dirs, b, hdim))
+            outs = (hs, torch.empty_like(hs), torch.empty_like(xp))
             launch((xp, wh, c0, h0) + outs,
-                   (t, b, h, cuda_lstm._DTYPE_CODES[xp.dtype],
+                   (t, b, hdim, cuda_lstm._DTYPE_CODES[xp.dtype],
                     int(bool(tanh_cand))))
             return outs
 
@@ -756,9 +793,11 @@ def lstm_train(reps: int, legacy: bool, checked: bool = True) -> None:
 
     def inputs(t, b, dt):
         return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
-                .to(dt) for a in _lstm_arrays(rs, t, b, 1, 600)] + [True]
+                .to(dt) for a in _lstm_arrays(rs, t, b, dirs, h)] + [True]
 
-    lstm = torch.nn.LSTM(600, 600).cuda()
+    lstm = torch.nn.LSTM(600, h, bidirectional=dirs == 2).cuda()
+    lib_name = "torch.nn.LSTM(600, %d%s)" % (
+        h, ", bidirectional" if dirs == 2 else "")
     failed = []
     for t, b in TRAIN_SHAPES:
         xs = torch.from_numpy(rs.randn(t, b, 600).astype(
@@ -766,19 +805,18 @@ def lstm_train(reps: int, legacy: bool, checked: bool = True) -> None:
         lib = cuda_ms(lambda: lstm(xs), reps)
         for dt in (torch.float32, torch.bfloat16):
             args = inputs(t, b, dt)
-            out, ref = kernel(*args), cuda_lstm.lstm_scan_train_plain(*args)
+            out, ref = kernel(*args), plain(*args)
             torch.cuda.synchronize()
             if not _check_train(
-                    "lstm-train", "lstm_scan_train", ("hs", "cs", "acts"),
+                    "lstm-train", name, ("hs", "cs", "acts"),
                     out, ref, dt, TRAIN_FWD_TOL[dt], t, b,
                     cuda_ms(lambda: kernel(*args), reps),
-                    "; torch.nn.LSTM(600, 600) training forward %.4f ms"
-                    % lib if dt == torch.float32 else ""):
+                    "; %s training forward %.4f ms" % (lib_name, lib)
+                    if dt == torch.float32 else "", h):
                 failed.append((str(dt), t, b))
-    failed += _sweep("lstm-train", "lstm_scan_train",
-                     lambda b: inputs(128, b, torch.float32), kernel,
-                     cuda_lstm.lstm_scan_train_plain,
-                     TRAIN_FWD_TOL[torch.float32])
+    failed += _sweep("lstm-train", name,
+                     lambda b: inputs(128, b, torch.float32), kernel, plain,
+                     TRAIN_FWD_TOL[torch.float32], h)
     if failed and checked:
         sys.exit("lstm-train: beyond tolerance: %s" % failed)
 
@@ -830,6 +868,155 @@ def flash_fwd(reps: int) -> None:
         sys.exit("flash-fwd: beyond tolerance: %s" % failed)
 
 
+def device_ms(fn, reps: int, key: str):
+    """Device time of one run of ``fn``: the ``torch.profiler`` CUDA rows
+    whose kernel name holds ``key`` (every row for ""), summed over
+    ``reps`` runs after a warm-up, per run; None if no row matches."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [ms for name, ms in _device_rows(prof, reps) if key in name]
+    return sum(rows) if rows else None
+
+
+def _ms(v) -> str:
+    return "none" if v is None else "%.4f" % v
+
+
+# text cut from 5dkv's source by flash-bwd --cut, to time what is left:
+# the four tile products, the per-tile copies of Q and dO
+FLASH_BWD_CUTS = {
+    "products": [("flash::tile_abt16<T, D>(ds, do_s, v_s, tx, ty);", ";"),
+                 ("flash::tile_abt16<T, D>(p, q_s, k_s, tx, ty);", ";"),
+                 ("flash::tile_pb16<T, D>(dv_acc, pt_s, do_s, tx, ty);",
+                  ";"),
+                 ("flash::tile_pb16<T, D>(dk_acc, dst_s, q_s, tx, ty);",
+                  ";")],
+    "staging": [("stage_tile<T, D>(do_s, dout, sd, b, q0, h);", ";"),
+                ("stage_tile<T, D>(q_s, q, st, b, q0, h);", ";")],
+}
+# chip_smoke.py phase 13's shapes (T, B) and the flash kernels' widths
+FLASH_SHAPES = ((1280, 1), (128, 32), (384, 1))
+FLASH_H, FLASH_D = 4, 64
+
+
+def _flash_bwd_args(rs, t: int, b: int, dt) -> tuple:
+    """phase 13's backward inputs: q, k, v views of one [B, T, 3, H, D]
+    projection, the last row's final 37 frames padded, a cotangent do, l
+    and m from the plain forward, di = rowsum(o do)."""
+    from danet_tpu_torch.ops.cuda import attention as cuda_attn
+
+    qkv, do = (torch.from_numpy(a.astype(np.float32)).cuda().to(dt) for a in
+               (rs.randn(b, t, 3, FLASH_H, FLASH_D),
+                rs.randn(b, t, FLASH_H, FLASH_D)))
+    seg = torch.zeros(b, t, dtype=torch.int32)
+    seg[-1, t - 37:] = 1
+    args = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], seg.cuda(),
+            1.0 / FLASH_D ** 0.5)
+    o, l, m = cuda_attn.flash_attn_plain(*args)
+    di = torch.sum(o.float() * do.float(), dim=-1).transpose(1, 2)
+    return args[:4] + (l, m, do, di.contiguous(), args[4])
+
+
+def _sdpa_bwd(rs, t: int, b: int):
+    """SDPA's backward (dq, dk, dv in one call) at (T, B), float32, with
+    the boolean segment-equality mask: a function to time."""
+    q, k, v = (torch.from_numpy(rs.randn(b, FLASH_H, t, FLASH_D).astype(
+        np.float32)).cuda().requires_grad_(True) for _ in range(3))
+    seg = torch.zeros(b, t, dtype=torch.int32)
+    seg[-1, t - 37:] = 1
+    mask = (seg[:, None, :, None] == seg[:, None, None, :]).cuda()
+    y = torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                         attn_mask=mask)
+    g = torch.randn_like(y)
+    return lambda: torch.autograd.grad(y, (q, k, v), g, retain_graph=True)
+
+
+def flash_bwd(reps: int, checked: bool = True) -> None:
+    from danet_tpu_torch.ops.cuda import attention as cuda_attn
+
+    rs = np.random.RandomState(13)
+    failed = []
+    for dt in (torch.float32, torch.bfloat16):
+        atol, rtol = (2e-5, 1e-4) if dt == torch.float32 else (5e-2, 2e-2)
+        for t, b in FLASH_SHAPES:
+            bargs = _flash_bwd_args(rs, t, b, dt)
+            for name, key, names in (
+                    ("flash_attn_bwd_dkv", "flash_bwd_dkv_kernel",
+                     ("dk", "dv")),
+                    ("flash_attn_bwd_dq", "flash_bwd_dq_kernel", ("dq",))):
+                kernel = getattr(cuda_attn, name)
+                out, ref = kernel(*bargs), getattr(cuda_attn,
+                                                   name + "_plain")(*bargs)
+                out, ref = ((out,), (ref,)) if len(names) == 1 else (out,
+                                                                     ref)
+                torch.cuda.synchronize()
+                errs, ok = [], True
+                for n, o, r in zip(names, out, ref):
+                    diff = (o.float() - r.float()).abs()
+                    errs.append("%s %.6g" % (n, float(diff.max())))
+                    ok &= bool(torch.isfinite(o.float()).all()) and bool(
+                        (diff <= atol + rtol * r.float().abs()).all())
+                if not ok:
+                    failed.append((name, str(dt), t, b))
+                line = ("flash-bwd %s %s T=%d B=%d H=%d D=%d: max abs err %s "
+                        "(atol %g rtol %g)%s; digest %s" % (
+                            name, str(dt).replace("torch.", ""), t, b,
+                            FLASH_H, FLASH_D, ", ".join(errs), atol, rtol,
+                            "" if ok else " FAIL", _digest(out)))
+                if dt == torch.float32:
+                    run = lambda: kernel(*bargs)  # noqa: E731
+                    line += "; ms %.4f, device ms %s" % (
+                        cuda_ms(run, reps), _ms(device_ms(run, reps, key)))
+                print(line)
+            if dt == torch.float32 and b > 1:
+                sdpa = _sdpa_bwd(rs, t, b)
+                print("flash-bwd SDPA backward (dq, dk, dv) float32 T=%d "
+                      "B=%d: ms %.4f, device ms %s" % (
+                          t, b, cuda_ms(sdpa, reps),
+                          _ms(device_ms(sdpa, reps, ""))))
+    if failed and checked:
+        sys.exit("flash-bwd: beyond tolerance: %s" % failed)
+
+
+def device_rows(reps: int) -> None:
+    """The device-ms reading of the kernels under 0.1 ms (docstring)."""
+    from danet_tpu_torch.hparams import load_config
+    from danet_tpu_torch.ops.cuda import attention as cuda_attn
+    from danet_tpu_torch.ops.cuda import stft as cuda_stft
+
+    rs = np.random.RandomState(12)
+    window = load_config().FFT_WND_ARRAY
+    x = torch.from_numpy((rs.randn(1, 80000) * 0.3).astype(np.float32)).cuda()
+    qkv = torch.from_numpy(rs.randn(1, 1280, 3, FLASH_H, FLASH_D).astype(
+        np.float32)).cuda()
+    seg = torch.zeros(1, 1280, dtype=torch.int32)
+    seg[-1, 1280 - 37:] = 1
+    fwd = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], seg.cuda(), 0.125)
+    bargs = _flash_bwd_args(rs, 128, 32, torch.float32)
+    rows = (
+        ("A", "stft_ri L=80000 B=1", "stft_ri_kernel",
+         lambda: cuda_stft.stft_ri(x, 256, 64, window)),
+        ("6", "stft_logmag L=80000 B=1", "stft_ri_kernel",
+         lambda: cuda_stft.stft_logmag(x, 256, 64, window)),
+        ("5f", "flash_attn T=1280 B=1", "flash_fwd_kernel",
+         lambda: cuda_attn.flash_attn(*fwd)),
+        ("5dkv", "flash_attn_bwd_dkv T=128 B=32", "flash_bwd_dkv_kernel",
+         lambda: cuda_attn.flash_attn_bwd_dkv(*bargs)),
+        ("5dq", "flash_attn_bwd_dq T=128 B=32", "flash_bwd_dq_kernel",
+         lambda: cuda_attn.flash_attn_bwd_dq(*bargs)))
+    for row, what, key, run in rows:
+        print("device-ms %s %s float32: ms %.4f, device ms %s" % (
+            row, what, cuda_ms(run, reps), _ms(device_ms(run, reps, key))))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m danet_tpu_torch.perf_probe")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -871,8 +1058,8 @@ def main(argv=None) -> None:
                    help="a csrc directory whose kernel B to build (e.g. an "
                    "unpacked parent commit's)")
     for name, what, table in (("gru-bwd", "kernel 4b", GRU_BWD_CUTS),
-                              ("lstm-train", "the one-direction saving "
-                               "LSTM forward", LSTM_FWD_CUTS)):
+                              ("lstm-train", "the saving LSTM forward",
+                               LSTM_FWD_CUTS)):
         p = sub.add_parser(name, help="%s alone: check and time" % what)
         p.add_argument("--reps", type=int, default=10)
         p.add_argument("--set", action="append", default=[],
@@ -885,8 +1072,24 @@ def main(argv=None) -> None:
         p.add_argument("--source", default="",
                        help="a csrc directory whose %s to build (e.g. an "
                        "unpacked parent commit's)" % what)
+        if name == "lstm-train":
+            p.add_argument("--dirs", type=int, default=1, choices=(1, 2),
+                           help="2: kernel 2 (bilstm_scan_train, H=300)")
     p = sub.add_parser("flash-fwd", help="kernel 5f alone: check and time")
     p.add_argument("--reps", type=int, default=50)
+    p = sub.add_parser("flash-bwd",
+                       help="kernels 5dkv and 5dq alone: check and time")
+    p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--source", default="",
+                   help="a csrc directory whose flash_attn_bwd.cu to build "
+                   "(e.g. an unpacked parent commit's), printing its "
+                   "registers and spills")
+    p.add_argument("--cut", action="append", default=[],
+                   choices=sorted(FLASH_BWD_CUTS),
+                   help="time 5dkv without this part (outputs wrong)")
+    p = sub.add_parser("device-ms", help="device time of the kernels under "
+                       "0.1 ms")
+    p.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("perf_probe: no GPU (torch.cuda.is_available() is false)")
@@ -923,20 +1126,33 @@ def main(argv=None) -> None:
             kernel, table = "gru_scan_bwd.cu", GRU_BWD_CUTS
             legacy = '#include "row_contract.cuh"' in open(
                 os.path.join(source, kernel)).read()
-        else:
+        elif args.dirs == 1:
             kernel, table = "lstm_scan_lean.cu", LSTM_FWD_CUTS
             legacy = "danet_lstm_scan_train" not in open(os.path.join(
                 source, kernel)).read()
             kernel = "bilstm_scan.cu" if legacy else kernel
+        else:
+            table = LSTM_FWD_CUTS
+            legacy = os.path.exists(os.path.join(source, "bilstm_scan.cu"))
+            kernel = "bilstm_scan.cu" if legacy else "lstm_scan_lean.cu"
         if args.set or args.cut or args.source:
             use_variant(
                 kernel,
                 {k: int(v) for k, v in (a.split("=") for a in args.set)},
                 table, args.cut, args.source)
-        (gru_bwd if args.cmd == "gru-bwd" else lstm_train)(
-            args.reps, legacy, checked=not args.cut)
+        if args.cmd == "gru-bwd":
+            gru_bwd(args.reps, legacy, checked=not args.cut)
+        else:
+            lstm_train(args.reps, legacy, not args.cut, args.dirs)
     elif args.cmd == "flash-fwd":
         flash_fwd(args.reps)
+    elif args.cmd == "flash-bwd":
+        if args.source or args.cut:
+            use_variant("flash_attn_bwd.cu", {}, FLASH_BWD_CUTS, args.cut,
+                        args.source)
+        flash_bwd(args.reps, checked=not args.cut)
+    elif args.cmd == "device-ms":
+        device_rows(args.reps)
     else:
         profile(args.encoder, args.dtype, args.attn_backend)
 

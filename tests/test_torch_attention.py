@@ -326,6 +326,43 @@ def test_torch_flash_alignment_check(fresh_hparams):
     assert not tattn._aligned16(bf, (bf.stride(0), 12, 4))
 
 
+@pytest.mark.parametrize("kernel", ["flash_attn", "flash_attn_bwd_dkv"])
+def test_torch_flash_wrappers_align_staged_inputs(fresh_hparams,
+                                                  monkeypatch, kernel):
+    """The forward and dK/dV kernels stage their inputs with 16-byte
+    copies: handed misaligned q, k, v, segment ids, l, m, do and di, the
+    wrapper launches with 16-byte aligned pointers and strides, and the
+    same values.  Recorded on the CPU with the launch replaced."""
+    calls = []
+    monkeypatch.setattr(tattn, "_on_cuda", lambda x, what: True)
+    monkeypatch.setattr(tattn, "_launch_flash",
+                        lambda *a: calls.append(a))
+
+    def odd(*shape, dtype=torch.float32):
+        n = int(np.prod(shape))
+        x = torch.zeros(n + 1, dtype=dtype)[1:].view(*shape)
+        x.copy_(torch.arange(n, dtype=torch.float32).view(*shape) % 7)
+        return x
+
+    b, t, h, d = 2, 128, 4, 16
+    q, k, v = (odd(b, t, h, d) for _ in range(3))
+    seg = odd(b, t, dtype=torch.int32)
+    rows = (odd(b, h, t), odd(b, h, t), odd(b, t, h, d), odd(b, h, t))
+    if kernel == "flash_attn":
+        tattn.flash_attn(q, k, v, seg, 0.25, splits=1)
+        staged = (q, k, v, seg)
+    else:
+        tattn.flash_attn_bwd_dkv(q, k, v, seg, *rows, 0.25)
+        staged = (q, k, v, seg) + rows
+    (entry, qkv, seg_in, outs, _, strides, _), = calls
+    assert entry == "danet_" + kernel
+    given = tuple(qkv) + (seg_in,) + tuple(outs[:4] if len(staged) > 4
+                                           else ())
+    for x, want in zip(given, staged):
+        assert x.data_ptr() % 16 == 0 and torch.equal(x, want)
+    assert all(s % 4 == 0 for s in strides)
+
+
 @pytest.mark.parametrize("t", [40, 200])
 def test_torch_flash_needs_t_multiple_of_128(fresh_hparams, t):
     """Both packages raise ValueError for T not a multiple of 128."""

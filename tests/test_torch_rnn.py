@@ -473,3 +473,90 @@ def test_torch_lstm_scan_train_bf16_matches_pallas_interpret(fresh_hparams,
         assert o.dtype == torch.bfloat16 and tuple(o.shape) == r.shape
         ulp = 2.0 ** (np.floor(np.log2(np.abs(r).max())) - 7)
         np.testing.assert_allclose(o.float().numpy(), r, atol=ulp)
+
+
+@pytest.mark.parametrize("tanh_cand", [True, False])
+def test_torch_bilstm_scan_train_bf16_matches_pallas_interpret(fresh_hparams,
+                                                               tanh_cand):
+    """bfloat16 storage, f32 math: kernel 2's hs, cs and acts against
+    _fwd_call (n_dirs=2, save=True) in bf16, nonzero initial state; atol one
+    bf16 ulp of each output's peak, for the reason of the lean forward's
+    bf16 test above."""
+    from danet_tpu.ops.pallas.lstm import _fwd_call_jit
+
+    (xp, wh, c0, h0), _ = _scan_case(16, t=8, b=4, h=8)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in (xp, wh, c0, h0)]
+    ref = _fwd_call_jit(*jargs, tanh_cand=tanh_cand, interpret=True,
+                        n_dirs=2, save=True)
+    out = cuda_lstm.bilstm_scan_train(*[torch.from_numpy(np.array(
+        a.astype(jnp.float32))).to(torch.bfloat16) for a in jargs],
+        tanh_cand)
+    assert len(out) == len(ref) == 3
+    for o, r in zip(out, ref):
+        r = np.asarray(r.astype(jnp.float32))
+        assert o.dtype == torch.bfloat16 and tuple(o.shape) == r.shape
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(r).max())) - 7)
+        np.testing.assert_allclose(o.float().numpy(), r, atol=ulp)
+
+
+def _c_arg_names(entry: str) -> list:
+    """The argument names of ``entry``'s extern "C" declaration in
+    csrc/*.cu."""
+    import glob
+    import os
+    import re
+
+    from danet_tpu_torch.ops.cuda import _build
+
+    for path in glob.glob(os.path.join(_build.CSRC, "*.cu")):
+        found = re.search(r'extern "C" int %s\(([^)]*)\)' % entry,
+                          open(path).read())
+        if found:
+            return [a.strip().rsplit(" ", 1)[1].lstrip("*")
+                    for a in found.group(1).split(",")]
+    raise AssertionError("no extern \"C\" %s in csrc" % entry)
+
+
+@pytest.mark.parametrize("wrapper, n_dirs, save", [
+    ("bilstm_scan_train", 2, True), ("lstm_scan_train", 1, True),
+    ("bilstm_scan", 2, False), ("lstm_scan", 1, False)])
+@pytest.mark.parametrize("b", [1, 33])
+def test_torch_forward_launch_passes_exchange_scratch(fresh_hparams,
+                                                      monkeypatch, wrapper,
+                                                      n_dirs, save, b):
+    """Every LSTM forward, kernel 2 included, hands its C entry point the
+    inputs, the outputs and an exchange scratch of [2, D, B, H] int64
+    words, contiguous and 8-byte aligned on the device of the call, then
+    (T, B, H, dtype code, tanh_cand), in the order of its extern "C"
+    declaration.  Recorded on the CPU with the launch replaced."""
+    calls = []
+    monkeypatch.setattr(cuda_lstm, "_on_cuda", lambda x, what: True)
+    monkeypatch.setattr(cuda_lstm, "_launch",
+                        lambda *a: calls.append(a))
+    t, h = 3, 5
+    args, _ = _scan_case(17, t=t, b=b, h=h)
+    targs = [torch.from_numpy(np.ascontiguousarray(
+        a if n_dirs == 2 else a[:, 0] if a.ndim == 4 else a[0]))
+        for a in args]
+    getattr(cuda_lstm, wrapper)(*targs, True)
+    assert len(calls) == 1
+    entry, _, device, tensors, ints = calls[0]
+    assert entry == "danet_" + wrapper and device == targs[0].device
+    names = _c_arg_names(entry)
+    assert names[len(tensors):] == ["n_steps", "batch", "hdim", "dtype",
+                                    "tanh_cand", "stream"]
+    by_name = dict(zip(names, tensors))
+    assert list(by_name) == ["xp", "wh", "c0", "h0", "hs"] + (
+        ["cs", "acts"] if save else []) + ["xch"]
+    for name, x in zip(("xp", "wh", "c0", "h0"), targs):
+        assert by_name[name] is x
+    hshape = (t,) + ((2, b, h) if n_dirs == 2 else (b, h))
+    for name in ("hs", "cs") if save else ("hs",):
+        assert tuple(by_name[name].shape) == hshape
+    if save:
+        assert tuple(by_name["acts"].shape) == tuple(targs[0].shape)
+    xch = by_name["xch"]
+    assert xch.dtype == torch.int64 and tuple(xch.shape) == (2, n_dirs, b, h)
+    assert xch.is_contiguous() and xch.data_ptr() % 8 == 0
+    assert xch.device == targs[0].device
+    assert tuple(ints) == (t, b, h, 0, 1)
