@@ -8,7 +8,11 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
 1. environment: torch / CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN.  No GPU -> exit non-zero.
 2. build: nvcc compiles danet_tpu_torch/csrc/*.cu for sm_90a.
-3. kernel A (fused STFT) vs its plain version on the card, atol 2e-5.
+3. kernel A (fused STFT) vs its plain version on the card, atol 2e-5, at
+   fft 256, stride 64 (the serving shapes), and at strides that do not
+   divide the fft, (fft 256, stride 100) and (fft 512, stride 128), B=3,
+   odd L; each line prints the digest of the output's bytes (equal
+   digests from two trees: bit-identical outputs).
 4. kernel B (fused BiLSTM scan, lean) vs its plain version on the card:
    H=300, T=1251, B=1 and 4, tanh and identity candidates, and (T=128,
    B=32), the validation batch, tanh; float32 at atol 1e-5, bfloat16 at
@@ -126,7 +130,8 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    (ops/cuda/attention.py::flash_splits: 4 at T=1280 and T=384, B=1; 1 at
    B=32).  o at phase 6's forward tolerance (float32 atol 1e-5; bfloat16 5e-2 +
    rtol 2e-2), the gradients at its backward tolerance, l (a float32 sum of up to T terms near 1) at
-   rtol 1e-5 and m at atol 1e-5; the kernels' and plain versions' times.
+   rtol 1e-5 and m at atol 1e-5; the digests of the backward kernels'
+   outputs; the kernels' and plain versions' times.
 14. serving with attn-v1 on its flash path (default.json + ENCODER_TYPE=
    attn-v1, ATTN_BACKEND=flash: 4 pre-LN blocks of width 256, 4 heads of
    64, MLP x4, F=129, E=20, N=2, float32, anchor): a 10.2 s request at B=1
@@ -143,7 +148,8 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    times each per train step and flash_attn 4 times in valid_step; the
    median step time beside the dense attention's.
 16. kernel 6 (kernel A's (|Z|, log1p|Z|) epilogue, stft_ri with
-   logmag=True) vs its plain version, atol 2e-5, and its time.  No main
+   logmag=True) vs its plain version, atol 2e-5, with each output's
+   digest, and its time.  No main
    path of the port (or of the JAX package) calls it, so its summary
    entry counts this phase's comparison launches and says so.
 
@@ -182,14 +188,14 @@ import torch
 
 from danet_tpu_torch import weights
 from danet_tpu_torch.data.dataset import WhiteNoiseData
-from danet_tpu_torch.hparams import load_config
+from danet_tpu_torch.hparams import WINDOW_REGISTRY, load_config
 from danet_tpu_torch.ops.dsp import stft_frame_count
 from danet_tpu_torch.ops.cuda import _build
 from danet_tpu_torch.ops.cuda import attention as cuda_attn
 from danet_tpu_torch.ops.cuda import gru as cuda_gru
 from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
 from danet_tpu_torch.ops.cuda import stft as cuda_stft
-from danet_tpu_torch.perf_probe import cuda_ms
+from danet_tpu_torch.perf_probe import _digest, cuda_ms
 from danet_tpu_torch.serve import Separator
 from danet_tpu_torch.train import Trainer, prepare_batch
 
@@ -279,31 +285,43 @@ def phase_build():
     print("phase 2 build: %s in %.3f s" % (path, time.perf_counter() - t0))
 
 
+# phase 3's shapes at other strides: (B, L, fft, stride)
+OTHER_STRIDES = ((3, 12345, 256, 100), (3, 24691, 512, 128))
+
+
 def phase_stft(window) -> dict:
     rs = np.random.RandomState(0)
     worst = 0.0
     times = {}
-    for b, n in ((4, 80000), (4, 80037), (1, 80000), (4, 32000),
-                 (1, 32000), (1, 8000), (3, 12345)):
+    shapes = [(b, n, 256, 64) for b, n in (
+        (4, 80000), (4, 80037), (1, 80000), (4, 32000), (1, 32000),
+        (1, 8000), (3, 12345))] + list(OTHER_STRIDES)
+    for b, n, fft, stride in shapes:
+        w = window if fft == 256 else WINDOW_REGISTRY["sqrt-hann"](
+            fft).astype(np.float32)
         x = torch.from_numpy(
             (rs.randn(b, n) * 0.3).astype(np.float32)).cuda()
-        out = cuda_stft.stft_ri(x, 256, 64, window)
-        ref = cuda_stft.stft_ri_plain(x, 256, 64, window)
+        out = cuda_stft.stft_ri(x, fft, stride, w)
+        ref = cuda_stft.stft_ri_plain(x, fft, stride, w)
         torch.cuda.synchronize()
         err = max_err(out, ref)
         if tuple(out.shape) != tuple(ref.shape) or not err <= STFT_ATOL:
-            raise AssertionError("stft_ri B=%d L=%d: shape %s vs %s, max "
-                                 "abs err %.3g > %g" % (
-                                     b, n, tuple(out.shape),
+            raise AssertionError("stft_ri B=%d L=%d fft=%d stride=%d: shape "
+                                 "%s vs %s, max abs err %.3g > %g" % (
+                                     b, n, fft, stride, tuple(out.shape),
                                      tuple(ref.shape), err, STFT_ATOL))
         worst = max(worst, err)
-        ms = cuda_ms(lambda: cuda_stft.stft_ri(x, 256, 64, window), 50)
-        plain = cuda_ms(
-            lambda: cuda_stft.stft_ri_plain(x, 256, 64, window), 50)
-        times[(b, n)] = (ms, plain)
-        print("phase 3 stft_ri B=%d L=%d T=%d: max_abs_err %.3g (atol %g); "
-              "kernel %.4f ms, plain %.4f ms"
-              % (b, n, out.shape[1], err, STFT_ATOL, ms, plain))
+        line = ("phase 3 stft_ri B=%d L=%d T=%d fft=%d stride=%d: max_abs_err "
+                "%.3g (atol %g), digest %s" % (b, n, out.shape[1], fft,
+                                               stride, err, STFT_ATOL,
+                                               _digest([out])))
+        if (fft, stride) == (256, 64):
+            ms = cuda_ms(lambda: cuda_stft.stft_ri(x, 256, 64, w), 50)
+            plain = cuda_ms(
+                lambda: cuda_stft.stft_ri_plain(x, 256, 64, w), 50)
+            times[(b, n)] = (ms, plain)
+            line += "; kernel %.4f ms, plain %.4f ms" % (ms, plain)
+        print(line)
     return {"max_abs_err": worst, "times": times}
 
 
@@ -1129,10 +1147,12 @@ def phase_flash_kernels() -> dict:
                 ("flash_attn_bwd_dq", ("dq",), (dq,), (dq_ref,), bwd_tol)),
                 worst)
             line = ("phase 13 %s H=%d D=%d S=%d max_abs_err: %s (o atol %g "
-                    "rtol %g, l rtol %g, m atol 1e-5, grads atol %g rtol %g)"
+                    "rtol %g, l rtol %g, m atol 1e-5, grads atol %g rtol %g);"
+                    " digests dk, dv %s, dq %s"
                     % (tag, ATTN_H, ATTN_D,
                        cuda_attn.flash_splits(b, t, ATTN_H, n_sm),
-                       ", ".join(parts), *fwd_tol, STATS_TOL[1], *bwd_tol))
+                       ", ".join(parts), *fwd_tol, STATS_TOL[1], *bwd_tol,
+                       _digest(dkv), _digest([dq])))
             if dt == torch.float32:
                 timed = [("flash_attn", cuda_attn.flash_attn,
                           cuda_attn.flash_attn_plain, args)]
@@ -1183,7 +1203,8 @@ def phase_stft_logmag(window) -> dict:
                                  "%g" % (b, n, err, STFT_ATOL))
         worst = max(worst, err)
         print("phase 16 stft_logmag B=%d L=%d T=%d: max_abs_err %.3g (atol "
-              "%g)" % (b, n, out.shape[1], err, STFT_ATOL))
+              "%g), digest %s" % (b, n, out.shape[1], err, STFT_ATOL,
+                                  _digest([out])))
     launches = cuda_stft.stft_logmag.launches
     x = torch.from_numpy((rs.randn(1, 80000) * 0.3).astype(np.float32)).cuda()
     times = (cuda_ms(lambda: cuda_stft.stft_logmag(x, 256, 64, window), 50),

@@ -54,6 +54,18 @@ __device__ __forceinline__ void cp_async16(void* smem_dst,
                "l"(gmem_src)
                : "memory");
 }
+// A copy of N = 4, 8 or 16 bytes through L1 (cp.async.ca), where the
+// overlapping reads of one block hit; both addresses N-byte aligned; the
+// same groups as above.
+template <int N>
+__device__ __forceinline__ void cp_async_ca(void* smem_dst,
+                                            const void* gmem_src) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+               "l"(gmem_src), "n"(N)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -24,92 +24,60 @@
 // deterministic.  What bounds them on this card: operations -- dK/dV does
 // four T x T x D products (S, dP, dV, dK: 8 B H T^2 D FLOPs), dQ three (S,
 // dP, dQ: 6 B H T^2 D) -- at the float32 rate: the math stays float32 on
-// the CUDA cores, as in the forward (flash_attn.cu).  The products are the
-// forward's 4 x 4 register tiles over 64-row shared-memory tiles
-// (flash_tiles.cuh).
+// the CUDA cores, as in the forward (flash_attn.cu).  The products are
+// register tiles over 64-row shared-memory tiles (flash_tiles.cuh): the
+// forward's 4 x 4 per thread in dK/dV (256 threads), 8 x 4 in dQ (128
+// threads, DQ_ROWS).
 //
-// dK/dV staging, the forward's: K and V once, then per query tile Q and dO
-// (and l, m, di and the segment ids), each copied raw, in the storage
-// type, by 16-byte cp.async into rows padded by 16 bytes, and read 16
-// bytes at a time in all four products.  One buffer per tile, in an order
-// that hides the copies: dP = dO V^T runs while Q lands, dK += dS^T Q
-// while the next dO lands, and the next dP while the next Q lands (the
-// first dO and Q are in flight with K and V).  So the block needs 103 KB
-// at D=64 in float32 (71 KB in bfloat16) and two blocks share an SM: the
-// training shape (B=32, H=4, T=128: 256 blocks) is one wave on 132 SMs.
-// P and dS are stored transposed, [key][query], so that dV += P^T dO and
-// dK += dS^T Q read them 16 bytes at a time.  Each output element sums its
-// queries in increasing order in one fmaf chain, and S, dP, p and ds are
-// computed as the earlier design of this kernel computed them (scalar
-// shared loads into [64][D + 1] float32 tiles), so the outputs are bit for
-// bit that design's.  The dQ kernel keeps that design (load_tile,
-// tile_abt).  On an H100 at the training shape, a layout that read both
-// operands of every product k-major, through transposes of K, V, Q and dO
-// in shared memory, was 5 % slower than this one: the products do not
-// wait on the width of the shared reads (PERF.md).
+// Both kernels stage their tiles as the forward does: each tile copied
+// raw, in the storage type, by 16-byte cp.async into rows padded by 16
+// bytes, and read 16 bytes at a time in every product.  One buffer per
+// tile, in an order that hides the copies behind the products:
+//
+//   * dK/dV: K and V once, then per query tile Q and dO (and l, m, di and
+//     the segment ids); dP = dO V^T runs while Q lands, dK += dS^T Q while
+//     the next dO lands, and the next dP while the next Q lands (the first
+//     dO and Q are in flight with K and V).  103 KB at D=64 in float32
+//     (71 KB in bfloat16).  P and dS are stored transposed, [key][query],
+//     so that dV += P^T dO and dK += dS^T Q read them 16 bytes at a time.
+//   * dQ: Q, dO and the row statistics once, then per key tile K and V;
+//     dP = dO V^T runs while the first Q and K land, the next V is issued
+//     as soon as dP has read V and lands during S = Q K^T, the scores and
+//     dQ += dS K, and the next K is issued once dQ has read K and lands
+//     during the next dP.  88 KB at D=64 in float32 (56 KB in bfloat16).
+//     dS is stored [query][key], so that dQ += dS K reads it 16 bytes at a
+//     time.
+//
+// So two blocks share an SM at D <= 64, and the training shape (B=32, H=4,
+// T=128: 256 blocks per kernel) is one wave on 132 SMs.  Each output
+// element sums its queries (dK, dV) or keys (dQ) in increasing order in
+// one fmaf chain, S, dP, p and ds are computed as the first design of
+// these kernels computed them (d in increasing order from 0), and ds is
+// rounded to the storage type before its products, so the outputs are bit
+// for bit that design's (scalar loads into float32 tiles).  On an H100 at
+// the training shape, a layout that read both operands of every product
+// k-major, through transposes of K, V, Q and dO in shared memory, made
+// dK/dV 5 % slower: the products do not wait on the width of the shared
+// reads (PERF.md).
 #include "flash_tiles.cuh"
 
 namespace {
 
-using flash::LD_P;
 using flash::LDP;
 using flash::RI;
 using flash::Strides;
 using flash::THREADS;
 using flash::TILE;
-using flash::ld;
 using flash::ldr;
 using flash::stage_seg;
 using flash::stage_tile;
 
-// The scores of one (query tile, key tile) pair, rows = queries
-// ty + 16 i, columns = keys tx + 16 j: p and ds in float32 from the two
-// tile products S = Q K^T and dP = dO V^T.
-template <int D>
-__device__ __forceinline__ void scores(float (&p)[RI][RI],
-                                       float (&ds)[RI][RI],
-                                       const float* q_s, const float* k_s,
-                                       const float* do_s, const float* v_s,
-                                       const int* segq_s, const int* segk_s,
-                                       const float* l_s, const float* m_s,
-                                       const float* di_s, int tx, int ty,
-                                       float sm_scale) {
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < RI; ++j) p[i][j] = ds[i][j] = 0.f;
-  flash::tile_abt<D>(p, q_s, k_s, tx, ty);
-  flash::tile_abt<D>(ds, do_s, v_s, tx, ty);
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = ty + 16 * i;
-    const float inv_l = 1.f / l_s[r];
-#pragma unroll
-    for (int j = 0; j < RI; ++j) {
-      float s = p[i][j] * sm_scale;
-      if (segq_s[r] != segk_s[tx + 16 * j]) s += flash::MASK_VALUE;
-      p[i][j] = expf(s - m_s[r]) * inv_l;
-      ds[i][j] = (ds[i][j] - di_s[r]) * p[i][j] * sm_scale;
-    }
-  }
-}
-
-// Per-query statistics of rows t0 .. t0 + 63 and their segment ids.
-__device__ __forceinline__ void load_rows(float* l_s, float* m_s,
-                                          float* di_s, int* segq_s,
-                                          const float* l, const float* m,
-                                          const float* di, const int* seg,
-                                          int b, int h, int heads, int seq,
-                                          int t0) {
-  const int tid = threadIdx.x;
-  if (tid < TILE) {
-    const size_t at = (static_cast<size_t>(b) * heads + h) * seq + t0 + tid;
-    l_s[tid] = l[at];
-    m_s[tid] = m[at];
-    di_s[tid] = di[at];
-    segq_s[tid] = seg ? seg[b * seq + t0 + tid] : 0;
-  }
-}
+// 5dq's query rows per thread: 8 (128 threads, an 8 x 4 tile), or 4 (256
+// threads, the 4 x 4 tile of the other kernels), which read 5 % slower at
+// the training shape on an H100 (PERF.md)
+constexpr int DQ_ROWS = 8;
+constexpr int DQ_STEP = TILE / DQ_ROWS;     // rows ty + DQ_STEP i
+constexpr int DQ_THREADS = 16 * DQ_STEP;
 
 template <typename T, int D>
 size_t dkv_smem_bytes() {
@@ -243,30 +211,31 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D>
+template <typename T, int D>
 size_t dq_smem_bytes() {
-  // q_s, do_s, k_s, v_s [64][D + 1], ds_s [64][65]; l, m, di and the
-  // segment ids of both tiles
-  return sizeof(float) * (4 * TILE * ld<D>() + TILE * LD_P + 3 * TILE) +
-         sizeof(int) * 2 * TILE;
+  // q, do, k, v [64][ldr] of T; ds [64][LDP] f32; l, m, di [64] f32; the
+  // segment ids of the query and key tiles
+  return sizeof(T) * 4 * TILE * ldr<T, D>() +
+         sizeof(float) * (TILE * LDP + 3 * TILE) + sizeof(int) * 2 * TILE;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(DQ_THREADS, D <= 64 ? 2 : 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ seg,
                     const float* __restrict__ l, const float* __restrict__ m,
                     const T* __restrict__ dout, const float* __restrict__ di,
                     T* __restrict__ dq, int heads, int seq, Strides st,
                     float sm_scale) {
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* do_s = q_s + TILE * ld<D>();
-  float* k_s = do_s + TILE * ld<D>();
-  float* v_s = k_s + TILE * ld<D>();
-  float* ds_s = v_s + TILE * ld<D>();
-  float* l_s = ds_s + TILE * LD_P;
+  constexpr int DJ = D / 16;  // output columns per thread (contiguous)
+  constexpr int L = ldr<T, D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* do_s = q_s + TILE * L;
+  T* k_s = do_s + TILE * L;
+  T* v_s = k_s + TILE * L;
+  float* ds_s = reinterpret_cast<float*>(v_s + TILE * L);  // [query][key]
+  float* l_s = ds_s + TILE * LDP;
   float* m_s = l_s + TILE;
   float* di_s = m_s + TILE;
   int* segq_s = reinterpret_cast<int*>(di_s + TILE);
@@ -274,58 +243,77 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const size_t stats = (static_cast<size_t>(b) * heads + h) * seq;
+  const Strides sd{static_cast<long long>(seq) * heads * D,
+                   static_cast<long long>(heads) * D, D};  // do, contiguous
+  auto issue_v = [&](int kt) {  // V of key tile kt
+    stage_tile<T, D, DQ_THREADS>(v_s, v, st, b, kt, h);
+    cp_async_commit();
+  };
+  auto issue_k = [&](int kt) {  // K and the segment ids of key tile kt
+    stage_tile<T, D, DQ_THREADS>(k_s, k, st, b, kt, h);
+    stage_seg(segk_s, seg, b, seq, kt);
+    cp_async_commit();
+  };
+  // two groups: dO and the statistics with the first V tile (dP), then Q
+  // with the first K tile (S), so that dP runs while Q and K land
+  stage_tile<T, D, DQ_THREADS>(do_s, dout, sd, b, q0, h);
+  stage_stats(l_s, m_s, di_s, segq_s, l, m, di, seg, stats + q0, b, seq, q0);
+  issue_v(0);
+  stage_tile<T, D, DQ_THREADS>(q_s, q, st, b, q0, h);
+  issue_k(0);
 
-  flash::load_tile<T, D>(q_s, q, st, b, q0, h);
-  flash::load_tile_dense<T, D>(do_s, dout, b, q0, h, seq, heads);
-  load_rows(l_s, m_s, di_s, segq_s, l, m, di, seg, b, h, heads, seq, q0);
-
-  float dq_acc[RI][DJ];  // query rows ty + 16 i
+  float dq_acc[DQ_ROWS][DJ];  // query rows ty + DQ_STEP i
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
+  for (int i = 0; i < DQ_ROWS; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dq_acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < seq; k0 += TILE) {
-    flash::load_tile<T, D>(k_s, k, st, b, k0, h);
-    flash::load_tile<T, D>(v_s, v, st, b, k0, h);
-    if (tid < TILE) segk_s[tid] = seg ? seg[b * seq + k0 + tid] : 0;
-    __syncthreads();
-
-    float p[RI][RI], ds[RI][RI];
-    scores<D>(p, ds, q_s, k_s, do_s, v_s, segq_s, segk_s, l_s, m_s, di_s, tx,
-              ty, sm_scale);
+    // dP = dO V^T, then S = Q K^T: query rows ty + DQ_STEP i, key columns
+    // tx + 16 j
+    float p[DQ_ROWS][RI], ds[DQ_ROWS][RI];
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+    for (int i = 0; i < DQ_ROWS; ++i)
 #pragma unroll
-      for (int j = 0; j < RI; ++j)
-        ds_s[(ty + 16 * i) * LD_P + tx + 16 * j] =
-            flash::round_to<T>(ds[i][j]);
-    __syncthreads();
-
-    // dQ += dS K: query rows ty + 16 i, columns tx + 16 j
-#pragma unroll 4
-    for (int kk = 0; kk < TILE; ++kk) {
-      float kv[DJ];
+      for (int j = 0; j < RI; ++j) p[i][j] = ds[i][j] = 0.f;
+    cp_async_wait<1>();  // this thread's V (and dO, statistics) landed
+    __syncthreads();     // ... and every other thread's
+    flash::tile_abt16<T, D, DQ_ROWS>(ds, do_s, v_s, tx, ty);
+    cp_async_wait<0>();  // K (and Q)
+    __syncthreads();     // ... everywhere; v_s is free
+    if (k0 + TILE < seq) issue_v(k0 + TILE);
+    flash::tile_abt16<T, D, DQ_ROWS>(p, q_s, k_s, tx, ty);
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = k_s[kk * ld<D>() + tx + 16 * j];
+    for (int i = 0; i < DQ_ROWS; ++i) {
+      const int r = ty + DQ_STEP * i;
+      const float inv_l = 1.f / l_s[r];
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float dsv = ds_s[(ty + 16 * i) * LD_P + kk];
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) dq_acc[i][j] = fmaf(dsv, kv[j],
-                                                         dq_acc[i][j]);
+      for (int j = 0; j < RI; ++j) {
+        const int c = tx + 16 * j;
+        float s = p[i][j] * sm_scale;
+        if (segq_s[r] != segk_s[c]) s += flash::MASK_VALUE;
+        const float pv = expf(s - m_s[r]) * inv_l;
+        const float dsv = (ds[i][j] - di_s[r]) * pv * sm_scale;
+        ds_s[r * LDP + c] = flash::round_to<T>(dsv);
       }
     }
-    __syncthreads();
+    __syncthreads();  // dS complete
+    // dQ += dS K: query rows ty + DQ_STEP i, columns DJ tx .. DJ tx + DJ
+    // - 1, keys in order
+    flash::tile_pb16<T, D, DQ_ROWS>(dq_acc, ds_s, k_s, tx, ty);
+    __syncthreads();  // k_s, dS and the key segment ids free
+    if (k0 + TILE < seq) issue_k(k0 + TILE);
   }
 
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
+  for (int i = 0; i < DQ_ROWS; ++i) {
     const size_t row =
-        ((static_cast<size_t>(b) * seq + q0 + ty + 16 * i) * heads + h) * D;
+        ((static_cast<size_t>(b) * seq + q0 + ty + DQ_STEP * i) * heads + h) *
+            D +
+        DJ * tx;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      dq[row + tx + 16 * j] = from_f32<T>(dq_acc[i][j]);
+    for (int j = 0; j < DJ; ++j) dq[row + j] = from_f32<T>(dq_acc[i][j]);
   }
 }
 
@@ -358,10 +346,10 @@ int launch_bwd(const BwdArgs& a) {
         q, k, v, seg, l, m, dout, di, static_cast<T*>(a.d0),
         static_cast<T*>(a.d1), a.heads, a.seq, a.st, a.sm_scale);
   } else {
-    const size_t smem = dq_smem_bytes<D>();
+    const size_t smem = dq_smem_bytes<T, D>();
     const int status = flash::allow_smem(flash_bwd_dq_kernel<T, D>, smem);
     if (status != 0) return status;
-    flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
+    flash_bwd_dq_kernel<T, D><<<grid, DQ_THREADS, smem, a.stream>>>(
         q, k, v, seg, l, m, dout, di, static_cast<T*>(a.d0), a.heads, a.seq,
         a.st, a.sm_scale);
   }
@@ -388,6 +376,16 @@ int bwd(int head_dim, int dtype, const BwdArgs& a) {
   return DANET_BAD_ARGUMENT;
 }
 
+// The 16-byte alignment both entry points need: every staged pointer
+// (seg may be NULL) and the qkv strides in elements of the storage type.
+bool misaligned(const BwdArgs& a, int dtype) {
+  const void* staged[] = {a.q, a.k, a.v, a.l, a.m, a.dout, a.di};
+  for (const void* p : staged)
+    if (!flash::aligned16(p)) return true;
+  return (a.seg != nullptr && !flash::aligned16(a.seg)) ||
+         !flash::strides_aligned(a.st, dtype == 1 ? 2 : 4);
+}
+
 }  // namespace
 
 // q, k, v as for danet_flash_attn (strided, storage type `dtype`, 16-byte
@@ -403,12 +401,7 @@ extern "C" int danet_flash_attn_bwd_dkv(
   const BwdArgs a{q, k, v, seg, l, m, dout, di, dk, dv, batch, heads, seq,
                   Strides{sb, st, sh}, sm_scale,
                   static_cast<cudaStream_t>(stream)};
-  const void* staged[] = {q, k, v, l, m, dout, di};
-  for (const void* p : staged)
-    if (!flash::aligned16(p)) return DANET_BAD_ARGUMENT;
-  if ((seg != nullptr && !flash::aligned16(seg)) ||
-      !flash::strides_aligned(a.st, dtype == 1 ? 2 : 4))
-    return DANET_BAD_ARGUMENT;
+  if (misaligned(a, dtype)) return DANET_BAD_ARGUMENT;
   return bwd<true>(head_dim, dtype, a);
 }
 
@@ -421,5 +414,6 @@ extern "C" int danet_flash_attn_bwd_dq(
   const BwdArgs a{q, k, v, seg, l, m, dout, di, dq, nullptr, batch, heads,
                   seq, Strides{sb, st, sh}, sm_scale,
                   static_cast<cudaStream_t>(stream)};
+  if (misaligned(a, dtype)) return DANET_BAD_ARGUMENT;
   return bwd<false>(head_dim, dtype, a);
 }

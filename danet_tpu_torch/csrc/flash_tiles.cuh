@@ -8,12 +8,11 @@
 // D / 16).  The 16 threads of one row are 16 consecutive lanes of one
 // warp, so a row reduction is four xor-shuffles.
 //
-// Two ways to stage a tile.  The forward (5f) and dK/dV (5dkv) kernels
-// copy rows raw, in the storage type T, by 16-byte cp.async into rows
-// padded by 16 bytes (stage_tile, ldr), and read them 16 bytes at a time
-// (load_row): the padding puts the 16-byte reads of 8 different rows (a
-// quarter warp) in distinct banks.  The dQ kernel (5dq) still loads
-// elements synchronously into float32 rows of D + 1 (load_tile, ld).
+// Every kernel (5f, 5dkv, 5dq) stages its tiles the same way: rows copied
+// raw, in the storage type T, by 16-byte cp.async into rows padded by 16
+// bytes (stage_tile, ldr), and read 16 bytes at a time (load_row): the
+// padding puts the 16-byte reads of 8 different rows (a quarter warp) in
+// distinct banks.
 #pragma once
 
 #include "common.cuh"
@@ -23,16 +22,10 @@ namespace flash {
 constexpr int TILE = 64;      // query rows and key rows per tile
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int RI = 4;         // rows per thread
-constexpr int LD_P = TILE + 1;  // row stride of a [64, 64] score tile (5dq)
-constexpr int LDP = TILE + 4;   // ... of the 16-byte-read score tiles
+constexpr int LDP = TILE + 4;  // row stride of a [64, 64] score tile
 // -0.7 * float32 max, computed in double and rounded once, as the Python
 // float DEFAULT_MASK_VALUE becomes a float32 when it meets float32 logits
 constexpr float MASK_VALUE = static_cast<float>(-0.7 * 3.4028234663852886e38);
-
-// The row stride of a [64, D] tile in shared memory: D + 1 floats, so that
-// 16 threads reading one column of 16 different rows hit 16 banks.
-template <int D>
-__host__ __device__ constexpr int ld() { return D + 1; }
 
 // Input addressing: element (b, t, h, d) of q, k or v sits at
 // b * sb + t * st + h * sh + d (the [B, T, 3, H, D] qkv projection's
@@ -46,48 +39,6 @@ struct Strides {
 template <typename T>
 __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
-}
-
-// Load rows t0 .. t0 + 63 of head h of batch b into tile[64][D + 1] (f32).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* tile, const T* base,
-                                          Strides s, int b, int t0, int h) {
-  const T* p = base + b * s.b + h * s.h;
-  for (int e = threadIdx.x; e < TILE * D; e += THREADS) {
-    const int r = e / D, d = e % D;
-    tile[r * ld<D>() + d] = to_f32(p[(t0 + r) * s.t + d]);
-  }
-}
-
-// Load rows t0 .. t0 + 63 of a contiguous [B, T, H, D] tensor.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile_dense(float* tile, const T* base,
-                                                int b, int t0, int h,
-                                                int seq, int heads) {
-  const Strides s{static_cast<long long>(seq) * heads * D,
-                  static_cast<long long>(heads) * D, D};
-  load_tile<T, D>(tile, base, s, b, t0, h);
-}
-
-// acc[i][j] += sum_d a[r_i][d] * c[c_j][d] over two [64, D] tiles: the
-// thread's 4 x 4 block of a 64 x 64 product with the second operand
-// transposed (S = Q K^T, dP = dO V^T).
-template <int D>
-__device__ __forceinline__ void tile_abt(float (&acc)[RI][RI],
-                                         const float* a, const float* c,
-                                         int tx, int ty) {
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[RI], cv[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) av[i] = a[(ty + 16 * i) * ld<D>() + d];
-#pragma unroll
-    for (int j = 0; j < RI; ++j) cv[j] = c[(tx + 16 * j) * ld<D>() + d];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < RI; ++j) acc[i][j] = fmaf(av[i], cv[j], acc[i][j]);
-  }
 }
 
 // The 16 lanes that share a row (xor-shuffles within each half warp).
@@ -161,14 +112,14 @@ __device__ __forceinline__ void load_row(float (&out)[N],
 }
 
 // Issue the 16-byte copies of rows t0 .. t0 + 63 of head h of batch b into
-// tile[64][ldr] (raw T).
-template <typename T, int D>
+// tile[64][ldr] (raw T), by a block of NT threads.
+template <typename T, int D, int NT = THREADS>
 __device__ __forceinline__ void stage_tile(T* tile, const T* base, Strides s,
                                            int b, int t0, int h) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   constexpr int CPR = D / VEC;  // 16-byte copies per row, a power of 2
   const T* p = base + b * s.b + h * s.h;
-  for (int c = threadIdx.x; c < TILE * CPR; c += THREADS) {
+  for (int c = threadIdx.x; c < TILE * CPR; c += NT) {
     const int r = c / CPR, k = c % CPR * VEC;
     cp_async16(tile + r * ldr<T, D>() + k, p + (t0 + r) * s.t + k);
   }
@@ -186,11 +137,12 @@ __device__ __forceinline__ void stage_seg(int* dst, const int* seg, int b,
   }
 }
 
-// acc[i][j] += sum_d a[ty + 16 i][d] c[tx + 16 j][d] over two staged
+// acc[i][j] += sum_d a[ty + 64 / R i][d] c[tx + 16 j][d] over two staged
 // [64][ldr] tiles of T, d in increasing order, 16 bytes per shared read:
-// S = Q K^T, dP = dO V^T.
-template <typename T, int D>
-__device__ __forceinline__ void tile_abt16(float (&acc)[RI][RI], const T* a,
+// S = Q K^T, dP = dO V^T.  R rows per thread (a block of 16 x 64 / R
+// threads, ty < 64 / R).
+template <typename T, int D, int R = RI>
+__device__ __forceinline__ void tile_abt16(float (&acc)[R][RI], const T* a,
                                            const T* c, int tx, int ty) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   constexpr int L = ldr<T, D>();
@@ -200,9 +152,9 @@ __device__ __forceinline__ void tile_abt16(float (&acc)[RI][RI], const T* a,
 #pragma unroll
     for (int j = 0; j < RI; ++j) load_row<VEC>(cv[j], c + (tx + 16 * j) * L + d);
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
+    for (int i = 0; i < R; ++i) {
       float av[VEC];
-      load_row<VEC>(av, a + (ty + 16 * i) * L + d);
+      load_row<VEC>(av, a + (ty + TILE / R * i) * L + d);
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
 #pragma unroll
@@ -212,27 +164,29 @@ __device__ __forceinline__ void tile_abt16(float (&acc)[RI][RI], const T* a,
   }
 }
 
-// acc[i][jj] += sum_k p[ty + 16 i][k] b[k][DJ tx + jj] over a [64][LDP]
-// float32 tile p and a staged [64][ldr] tile b of T, k in increasing
-// order, 16 bytes per read of p: O = P V (p by query), dV = P^T dO and
-// dK = dS^T Q (p stored transposed, by key).
-template <typename T, int D>
-__device__ __forceinline__ void tile_pb16(float (&acc)[RI][D / 16],
+// acc[i][jj] += sum_k p[ty + 64 / R i][k] b[k][DJ tx + jj] over a
+// [64][LDP] float32 tile p and a staged [64][ldr] tile b of T, k in
+// increasing order, 16 bytes per read of p: O = P V and dQ = dS K (p by
+// query), dV = P^T dO and dK = dS^T Q (p stored transposed, by key).  R
+// rows per thread, as for tile_abt16.
+template <typename T, int D, int R = RI>
+__device__ __forceinline__ void tile_pb16(float (&acc)[R][D / 16],
                                           const float* p, const T* bt,
                                           int tx, int ty) {
   constexpr int DJ = D / 16;
   constexpr int L = ldr<T, D>();
 #pragma unroll 2
   for (int kk = 0; kk < TILE; kk += 4) {
-    float pv[RI][4];
+    float pv[R][4];
 #pragma unroll
-    for (int i = 0; i < RI; ++i) load_row<4>(pv[i], p + (ty + 16 * i) * LDP + kk);
+    for (int i = 0; i < R; ++i)
+      load_row<4>(pv[i], p + (ty + TILE / R * i) * LDP + kk);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float bv[DJ];
       load_row<DJ>(bv, bt + (kk + e) * L + DJ * tx);
 #pragma unroll
-      for (int i = 0; i < RI; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int jj = 0; jj < DJ; ++jj)
           acc[i][jj] = fmaf(pv[i][e], bv[jj], acc[i][jj]);

@@ -163,8 +163,8 @@ def flash_splits(b: int, t: int, h: int, n_sm: int = H100_SMS) -> int:
 
 
 def _aligned16(x: torch.Tensor, strides) -> bool:
-    """16-byte aligned data and (b, t, h) strides: the forward and dK/dV
-    kernels stage tiles with 16-byte asynchronous copies."""
+    """16-byte aligned data and (b, t, h) strides: every flash kernel
+    stages its tiles with 16-byte asynchronous copies."""
     vec = 16 // x.element_size()
     return x.data_ptr() % 16 == 0 and all(s % vec == 0 for s in strides)
 
@@ -255,6 +255,8 @@ def flash_attn_bwd_dq(q, k, v, seg, l, m, do, di, sm_scale: float):
         return flash_attn_bwd_dq_plain(q, k, v, seg, l, m, do, di, sm_scale)
     q, k, v, seg, (b, t, h, d), strides = _bwd_inputs(q, k, v, seg, l, m,
                                                       do, di)
+    q, k, v, seg, strides, l, m, do, di = _staged(q, k, v, seg, strides, l,
+                                                  m, do, di)
     dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     _launch_flash("danet_flash_attn_bwd_dq", (q, k, v), seg,
                   (l, m, do, di, dq), (b, h, t, d), strides, sm_scale)

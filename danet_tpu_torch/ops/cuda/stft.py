@@ -5,13 +5,16 @@ Replaces ``danet_tpu/ops/pallas/stft.py::_stft_pallas_padded`` (reached by
 feature epilogue (kernel 6: ``(|Z|, log1p|Z|)`` in place of ``(re, im)``,
 which nothing in either package calls on a main path).  The CUDA source is
 ``danet_tpu_torch/csrc/stft.cu``; its header says what bounds it on an H100
-(f32 FMA rate and launch latency at serving shapes, not bytes: a 10 s wave
-is 0.3 MB in and 1.3 MB out, all L2-resident) and how it tiles.
+and how it tiles: blocks of 32 frames x 64 columns (the Nyquist pair folded
+into the last column block), the frames and the block's basis slice staged
+once by ``cp.async``.  It frames any stride.
 
 ``stft_ri`` launches the kernel for a CUDA tensor and uses the plain
 version, ``stft_ri_plain``, for a CPU tensor: framing plus one float32
-``torch.matmul`` against the same basis.  ``stft_ri.launches`` counts the
-kernel launches with ``logmag=False``, ``stft_logmag.launches`` those with
+``torch.matmul`` against the interleaved basis ``[fft, 2F]``.  The kernel
+reads the same values in its own layout (``kernel_basis_np``), built once
+and cached beside the plain basis.  ``stft_ri.launches`` counts the kernel
+launches with ``logmag=False``, ``stft_logmag.launches`` those with
 ``logmag=True``.
 """
 from __future__ import annotations
@@ -20,8 +23,13 @@ import numpy as np
 import torch
 
 from danet_tpu_torch.ops import dsp
+from danet_tpu_torch.ops.cuda.lstm import _launch, _on_cuda
 
 _BASIS_CACHE: dict = {}
+# the kernel's basis layout (csrc/stft.cu): column blocks of BLOCK_COLS,
+# each row ROW_COLS wide (the block, a folded pair of columns, padding)
+BLOCK_COLS = 64
+ROW_COLS = BLOCK_COLS + 4
 
 
 def _basis_np(fft_size: int, window: np.ndarray) -> np.ndarray:
@@ -34,13 +42,35 @@ def _basis_np(fft_size: int, window: np.ndarray) -> np.ndarray:
         fft_size, -1).astype(np.float32)
 
 
+def kernel_basis_np(basis: np.ndarray) -> np.ndarray:
+    """The kernel's layout of a ``[fft, 2F]`` basis: ``[blocks, fft4,
+    ROW_COLS]`` f32, fft4 = fft rounded up to 4.  Block j holds columns
+    64 j .. 64 j + 63; a remainder of 2 columns (2F = fft + 2 for an fft
+    that is a multiple of 64) is folded into the last block as its columns
+    64 and 65, a larger one gets a block of its own; everything else is
+    zero."""
+    fft, n_cols = basis.shape
+    full, rest = divmod(n_cols, BLOCK_COLS)
+    blocks = full if full and rest <= 2 else full + 1
+    out = np.zeros((blocks, -(-fft // 4) * 4, ROW_COLS), np.float32)
+    for j in range(blocks):
+        lo = j * BLOCK_COLS
+        hi = n_cols if j == blocks - 1 else lo + BLOCK_COLS
+        out[j, :fft, :hi - lo] = basis[:, lo:hi]
+    return out
+
+
 def _basis(fft_size: int, stride: int, window: np.ndarray,
-           device: torch.device) -> torch.Tensor:
-    """The basis on ``device``, cached per (fft, stride, window bytes)."""
-    key = (fft_size, stride, window.tobytes(), str(device))
+           device: torch.device, kernel: bool = False) -> torch.Tensor:
+    """The basis on ``device`` (with ``kernel``, in the kernel's layout),
+    cached per (fft, stride, window bytes)."""
+    key = (fft_size, stride, window.tobytes(), str(device), kernel)
     hit = _BASIS_CACHE.get(key)
     if hit is None:
-        hit = torch.from_numpy(_basis_np(fft_size, window)).to(device)
+        basis = _basis_np(fft_size, window)
+        if kernel:
+            basis = kernel_basis_np(basis)
+        hit = torch.from_numpy(basis).to(device)
         _BASIS_CACHE[key] = hit
     return hit
 
@@ -73,29 +103,20 @@ def stft_ri(x: torch.Tensor, fft_size: int, stride: int,
     if x.dim() != 2:
         raise ValueError("stft_ri expects [B, L] or [L], got %s"
                          % (tuple(x.shape),))
-    if x.device.type == "cpu":
+    if not _on_cuda(x, "stft_ri"):
         return stft_ri_plain(x, fft_size, stride, window, logmag)
-    if x.device.type != "cuda":
-        raise ValueError("stft_ri: unsupported device %s" % (x.device,))
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("stft_ri kernel takes a contiguous float32 wave, "
                          "got %s%s" % (x.dtype, "" if x.is_contiguous()
                                        else " (non-contiguous)"))
-    from danet_tpu_torch.ops.cuda import _build
-
     b, n = x.shape
     n_frames = dsp.stft_frame_count(n, fft_size, stride)
     n_cols = 2 * (fft_size // 2 + 1)
-    basis = _basis(fft_size, stride, window, x.device)
+    basis = _basis(fft_size, stride, window, x.device, kernel=True)
     out = torch.empty((b, n_frames, n_cols // 2, 2), dtype=torch.float32,
                       device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        status = lib.danet_stft_ri(x.data_ptr(), basis.data_ptr(),
-                                   out.data_ptr(), b, n, n_frames, fft_size,
-                                   stride, n_cols, int(bool(logmag)), stream)
-    _build.check(status, "stft_ri kernel")
+    _launch("danet_stft_ri", "stft_ri kernel", x.device, (x, basis, out),
+            (b, n, n_frames, fft_size, stride, n_cols, int(bool(logmag))))
     if logmag:
         stft_logmag.launches += 1
     else:

@@ -131,9 +131,25 @@ of the kernel over ``--reps`` launches after a warm-up), and, at (T=128,
 B=32), SDPA's backward (dq, dk and dv in one call, with the boolean
 segment mask) both ways.  ``--source DIR`` builds the flash_attn_bwd.cu
 (and headers) of another csrc directory, e.g. the parent commit's, and
-prints its registers and spills; ``--cut products|staging`` times 5dkv
-without its four tile products or without the per-tile copies of Q and
-dO (outputs not checked).
+prints its registers and spills; ``--cut products|staging`` times both
+kernels without their tile products (5dkv's four, 5dq's three) or
+without their per-tile copies (5dkv: Q and dO; 5dq: K and V; outputs not
+checked); ``--set DQ_ROWS=8`` builds 5dq with 8 query rows per thread
+(128 threads) in place of 4.
+
+``stft``: kernels A and 6 (``stft_ri``, ``stft_logmag``) at
+``STFT_SHAPES``: ``chip_smoke.py`` phase 3's and 16's shapes (fft 256,
+stride 64) and strides that do not divide the fft ((256, 100) and (512,
+128) at B=3, odd L): each output's max abs error against the plain
+version (atol 2e-5) and its digest, and at (L=80000, B=1) and (L=32000,
+B=4) the event-timed ``ms``, the profiler's ``device ms``, the plain
+version's ms and torch.stft's device ms.  ``--source DIR`` builds another
+csrc directory's stft.cu (a tree without the kernel basis layout is fed
+the plain basis), ``--cut`` (repeatable) times kernel A without a part
+(``STFT_CUTS``: its products, its copies of the frames and the basis, the
+whole staging of its frames, its basis copies, its stores; outputs not
+checked) or with 32 or 24 frames per block forced (``frames32``,
+``frames24``; outputs checked).
 
 ``device-ms``: the kernels whose ``chip_smoke.py`` time is under 0.1 ms,
 each at the shape its summary entry is timed at (``TIMED_AT``), float32:
@@ -890,17 +906,27 @@ def _ms(v) -> str:
     return "none" if v is None else "%.4f" % v
 
 
-# text cut from 5dkv's source by flash-bwd --cut, to time what is left:
-# the four tile products, the per-tile copies of Q and dO
+# text cut from the backward kernels' source by flash-bwd --cut, to time
+# what is left: the tile products (5dkv's four, 5dq's three), the per-tile
+# copies (5dkv: Q and dO; 5dq: K and V)
 FLASH_BWD_CUTS = {
     "products": [("flash::tile_abt16<T, D>(ds, do_s, v_s, tx, ty);", ";"),
                  ("flash::tile_abt16<T, D>(p, q_s, k_s, tx, ty);", ";"),
                  ("flash::tile_pb16<T, D>(dv_acc, pt_s, do_s, tx, ty);",
                   ";"),
                  ("flash::tile_pb16<T, D>(dk_acc, dst_s, q_s, tx, ty);",
-                  ";")],
+                  ";"),
+                 ("flash::tile_abt16<T, D, DQ_ROWS>(ds, do_s, v_s, tx, ty);",
+                  ";"),
+                 ("flash::tile_abt16<T, D, DQ_ROWS>(p, q_s, k_s, tx, ty);",
+                  ";"),
+                 ("flash::tile_pb16<T, D, DQ_ROWS>(dq_acc, ds_s, k_s, tx, "
+                  "ty);", ";")],
     "staging": [("stage_tile<T, D>(do_s, dout, sd, b, q0, h);", ";"),
-                ("stage_tile<T, D>(q_s, q, st, b, q0, h);", ";")],
+                ("stage_tile<T, D>(q_s, q, st, b, q0, h);", ";"),
+                ("stage_tile<T, D, DQ_THREADS>(v_s, v, st, b, kt, h);", ";"),
+                ("stage_tile<T, D, DQ_THREADS>(k_s, k, st, b, kt, h);",
+                 ";")],
 }
 # chip_smoke.py phase 13's shapes (T, B) and the flash kernels' widths
 FLASH_SHAPES = ((1280, 1), (128, 32), (384, 1))
@@ -984,6 +1010,89 @@ def flash_bwd(reps: int, checked: bool = True) -> None:
                           _ms(device_ms(sdpa, reps, ""))))
     if failed and checked:
         sys.exit("flash-bwd: beyond tolerance: %s" % failed)
+
+
+# text cut from kernel A's source by stft --cut, to time what is left: the
+# products (main tile and folded pair), the copies of the frames and the
+# basis ("staging"), the whole staging of the frames, the basis copies, the
+# output stores; "frames32" / "frames24" force 32 or 24 frames per block
+STFT_CUTS = {
+    "products": [("contract<TM>(acc, a_s + ty * pitch + r0, pitch, bc + 4 * "
+                  "cq, rows);", ";"),
+                 ("contract_pair(acc2, a_s + lane * pitch + r0, bc + BN, "
+                  "rows);", ";")],
+    "staging": [("cp_async_ca<16>(dst + q, xb + s0 + q);", ";"),
+                ("cp_async_ca<4>(dst + n, xb + s);", ";"),
+                ("cp_async16(dst + 4 * e, src + 4 * e);", ";")],
+    "frames": [("stage_frames<BM>(a_s, x + static_cast<size_t>(b) * length, "
+                "length, m0,", "if (0) stage_frames<BM>(a_s, x + "
+                "static_cast<size_t>(b) * length, length, m0,")],
+    "basis": [("cp_async16(dst + 4 * e, src + 4 * e);", ";")],
+    "stores": [("if (col + j < n_cols) store_pair", "if (0) store_pair"),
+               ("store_pair<LOGMAG>(\n        ob +",
+                "if (0) store_pair<LOGMAG>(\n        ob +")],
+    "frames32": [("const int tm : {4, 3, 1}", "const int tm : {4, 1}")],
+    "frames24": [("const int tm : {4, 3, 1}", "const int tm : {3, 1}")],
+}
+STFT_ATOL = 2e-5
+# (B, L, fft, stride): chip_smoke.py phase 3's and 16's shapes, then the
+# strides that do not divide the fft; the first two are timed
+STFT_SHAPES = ((1, 80000, 256, 64), (4, 32000, 256, 64), (4, 80000, 256, 64),
+               (4, 80037, 256, 64), (1, 32000, 256, 64), (1, 8000, 256, 64),
+               (3, 12345, 256, 64), (1, 81856, 256, 64), (4, 32704, 256, 64),
+               (3, 12345, 256, 100), (3, 24691, 512, 128))
+
+
+def stft(reps: int, checked: bool = True) -> None:
+    """Kernels A and 6 (``stft_ri``, ``stft_logmag``) at STFT_SHAPES: max
+    abs error against the plain version (atol 2e-5), digest, and at the
+    first two shapes the event-timed ms, the profiler's device ms, the
+    plain version's ms and torch.stft's device ms."""
+    from danet_tpu_torch.hparams import WINDOW_REGISTRY
+    from danet_tpu_torch.ops.cuda import stft as cuda_stft
+
+    rs = np.random.RandomState(3)
+    failed = []
+    for i, (b, n, fft, stride) in enumerate(STFT_SHAPES):
+        w = WINDOW_REGISTRY["sqrt-hann"](fft).astype(np.float32)
+        x = torch.from_numpy((rs.randn(b, n) * 0.3).astype(np.float32)).cuda()
+        for logmag in (False, True):
+            name = "stft_logmag" if logmag else "stft_ri"
+            run = lambda: cuda_stft.stft_ri(x, fft, stride, w,  # noqa: E731
+                                            logmag)
+            out = run()
+            ref = cuda_stft.stft_ri_plain(x, fft, stride, w, logmag)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            ok = tuple(out.shape) == tuple(ref.shape) and bool(
+                torch.isfinite(out).all()) and err <= STFT_ATOL
+            if not ok:
+                failed.append((name, b, n, fft, stride))
+            line = ("stft %s B=%d L=%d fft=%d stride=%d T=%d: max abs err "
+                    "%.6g (atol %g)%s; digest %s" % (
+                        name, b, n, fft, stride, out.shape[1], err,
+                        STFT_ATOL, "" if ok else " FAIL", _digest([out])))
+            if i < 2:
+                wt = torch.from_numpy(w).cuda()
+                scale = 1.0 / float(wt.sum())
+
+                def library():
+                    z = torch.stft(x, fft, stride, window=wt, center=True,
+                                   pad_mode="constant",
+                                   return_complex=True) * scale
+                    return torch.log1p(torch.abs(z)) if logmag else z
+
+                line += ("; ms %.4f, device ms %s; plain ms %.4f; torch.stft"
+                         "%s device ms %s" % (
+                             cuda_ms(run, reps),
+                             _ms(device_ms(run, reps, "stft_ri_kernel")),
+                             cuda_ms(lambda: cuda_stft.stft_ri_plain(
+                                 x, fft, stride, w, logmag), reps),
+                             " + abs, log1p" if logmag else "",
+                             _ms(device_ms(library, reps, ""))))
+            print(line)
+    if failed and checked:
+        sys.exit("stft: beyond tolerance: %s" % failed)
 
 
 def device_rows(reps: int) -> None:
@@ -1084,9 +1193,24 @@ def main(argv=None) -> None:
                    help="a csrc directory whose flash_attn_bwd.cu to build "
                    "(e.g. an unpacked parent commit's), printing its "
                    "registers and spills")
+    p.add_argument("--set", action="append", default=[],
+                   metavar="NAME=VALUE",
+                   help="a constexpr int of flash_attn_bwd.cu in a variant "
+                   "build (DQ_ROWS=8: 5dq's 8 x 4 tile)")
     p.add_argument("--cut", action="append", default=[],
                    choices=sorted(FLASH_BWD_CUTS),
-                   help="time 5dkv without this part (outputs wrong)")
+                   help="time 5dkv and 5dq without this part (outputs "
+                   "wrong)")
+    p = sub.add_parser("stft", help="kernels A and 6 alone: check and time")
+    p.add_argument("--reps", type=int, default=50)
+    p.add_argument("--source", default="",
+                   help="a csrc directory whose stft.cu to build (e.g. an "
+                   "unpacked parent commit's), printing its registers and "
+                   "spills")
+    p.add_argument("--cut", action="append", default=[],
+                   choices=sorted(STFT_CUTS),
+                   help="time kernel A without this part (outputs wrong), "
+                   "or with its frames per block forced")
     p = sub.add_parser("device-ms", help="device time of the kernels under "
                        "0.1 ms")
     p.add_argument("--reps", type=int, default=20)
@@ -1147,10 +1271,25 @@ def main(argv=None) -> None:
     elif args.cmd == "flash-fwd":
         flash_fwd(args.reps)
     elif args.cmd == "flash-bwd":
-        if args.source or args.cut:
-            use_variant("flash_attn_bwd.cu", {}, FLASH_BWD_CUTS, args.cut,
-                        args.source)
+        if args.source or args.cut or args.set:
+            use_variant(
+                "flash_attn_bwd.cu",
+                {k: int(v) for k, v in (a.split("=") for a in args.set)},
+                FLASH_BWD_CUTS, args.cut, args.source)
         flash_bwd(args.reps, checked=not args.cut)
+    elif args.cmd == "stft":
+        if args.source or args.cut:
+            use_variant("stft.cu", {}, STFT_CUTS, args.cut, args.source)
+        if args.source and "col_blocks" not in open(
+                os.path.join(args.source, "stft.cu")).read():
+            # the earlier design reads the plain [fft, 2F] basis
+            from danet_tpu_torch.ops.cuda import stft as cuda_stft
+
+            plain = cuda_stft._basis
+            cuda_stft._basis = lambda fft, stride, w, dev, kernel=False: \
+                plain(fft, stride, w, dev)
+        stft(args.reps, checked=not set(args.cut) - {"frames32",
+                                                       "frames24"})
     elif args.cmd == "device-ms":
         device_rows(args.reps)
     else:

@@ -326,13 +326,14 @@ def test_torch_flash_alignment_check(fresh_hparams):
     assert not tattn._aligned16(bf, (bf.stride(0), 12, 4))
 
 
-@pytest.mark.parametrize("kernel", ["flash_attn", "flash_attn_bwd_dkv"])
+@pytest.mark.parametrize("kernel", ["flash_attn", "flash_attn_bwd_dkv",
+                                    "flash_attn_bwd_dq"])
 def test_torch_flash_wrappers_align_staged_inputs(fresh_hparams,
                                                   monkeypatch, kernel):
-    """The forward and dK/dV kernels stage their inputs with 16-byte
-    copies: handed misaligned q, k, v, segment ids, l, m, do and di, the
-    wrapper launches with 16-byte aligned pointers and strides, and the
-    same values.  Recorded on the CPU with the launch replaced."""
+    """Every flash kernel stages its inputs with 16-byte copies: handed
+    misaligned q, k, v, segment ids, l, m, do and di, the wrapper launches
+    with 16-byte aligned pointers and strides, and the same values.
+    Recorded on the CPU with the launch replaced."""
     calls = []
     monkeypatch.setattr(tattn, "_on_cuda", lambda x, what: True)
     monkeypatch.setattr(tattn, "_launch_flash",
@@ -352,7 +353,7 @@ def test_torch_flash_wrappers_align_staged_inputs(fresh_hparams,
         tattn.flash_attn(q, k, v, seg, 0.25, splits=1)
         staged = (q, k, v, seg)
     else:
-        tattn.flash_attn_bwd_dkv(q, k, v, seg, *rows, 0.25)
+        getattr(tattn, kernel)(q, k, v, seg, *rows, 0.25)
         staged = (q, k, v, seg) + rows
     (entry, qkv, seg_in, outs, _, strides, _), = calls
     assert entry == "danet_" + kernel

@@ -84,6 +84,98 @@ def test_torch_stft_wrapper_counts_only_kernel_launches(fresh_hparams):
                           fresh_hparams.FFT_WND_ARRAY)
 
 
+@pytest.mark.parametrize("fft, stride", [(256, 64), (256, 100), (512, 128),
+                                         (256, 256)])
+def test_torch_stft_plain_any_stride_matches_xla(fresh_hparams, fft, stride):
+    """Kernel A's plain version against the JAX package's XLA STFT at
+    strides that do and do not divide the FFT size (the CUDA kernel frames
+    any stride; the TPU kernel only divisors), B=3, odd L, 2e-5."""
+    from danet_tpu_torch.hparams import WINDOW_REGISTRY
+
+    w = WINDOW_REGISTRY["sqrt-hann"](fft).astype(np.float32)
+    x = np.random.RandomState(fft + stride).randn(3, 9999).astype(np.float32)
+    ref = np.asarray(jdsp.stft_ri(jnp.asarray(x), fft, stride, w))
+    out = cuda_stft.stft_ri(torch.from_numpy(x), fft, stride, w).numpy()
+    t = tdsp.stft_frame_count(9999, fft, stride)
+    assert out.shape == ref.shape == (3, t, fft // 2 + 1, 2)
+    np.testing.assert_allclose(out, ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("fft, blocks", [(256, 4), (512, 8), (200, 4),
+                                         (30, 1)])
+def test_torch_stft_kernel_basis_layout(fresh_hparams, fft, blocks):
+    """The kernel's cached basis layout holds exactly the plain basis's
+    values, column for column: column c in block c // 64 at c % 64, the
+    pair beyond 64 x blocks (2F = fft + 2) folded into the last block at 64
+    and 65, a larger remainder in a block of its own; every other entry
+    (padding columns, rows up to the fft rounded to 4) zero."""
+    w = np.hanning(fft).astype(np.float32) + 0.5
+    plain = cuda_stft._basis(fft, 64, w, torch.device("cpu")).numpy()
+    kernel = cuda_stft._basis(fft, 64, w, torch.device("cpu"),
+                              kernel=True).numpy()
+    n_cols = 2 * (fft // 2 + 1)
+    assert plain.shape == (fft, n_cols)
+    assert kernel.shape == (blocks, -(-fft // 4) * 4, cuda_stft.ROW_COLS)
+    seen = np.zeros(kernel.shape, bool)
+    for c in range(n_cols):
+        j = min(c // 64, blocks - 1)
+        np.testing.assert_array_equal(kernel[j, :fft, c - 64 * j],
+                                      plain[:, c])
+        seen[j, :fft, c - 64 * j] = True
+    assert not kernel[~seen].any()
+    assert cuda_stft._basis(fft, 64, w, torch.device("cpu"),
+                            kernel=True) is cuda_stft._basis(
+        fft, 64, w, torch.device("cpu"), kernel=True)
+
+
+@pytest.mark.parametrize("logmag", [False, True])
+def test_torch_stft_launch_passes_kernel_layout(fresh_hparams, monkeypatch,
+                                                logmag):
+    """stft_ri hands danet_stft_ri its arguments in the order of its
+    extern "C" declaration: the wave, the basis in the kernel's layout, the
+    output, then (B, L, T, fft, stride, 2F, logmag) and the stream; one
+    launch counted under the right counter.  Recorded on the CPU with the
+    kernel library replaced."""
+    import contextlib
+    import types
+
+    from danet_tpu_torch.ops.cuda import _build
+    from test_torch_rnn import _c_arg_names
+
+    calls = []
+
+    class Lib:
+        def danet_stft_ri(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(cuda_stft, "_on_cuda", lambda x, what: True)
+    monkeypatch.setattr(_build, "library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=7))
+    w = fresh_hparams.FFT_WND_ARRAY
+    x = torch.zeros(3, 12345)
+    counts = (cuda_stft.stft_ri.launches, cuda_stft.stft_logmag.launches)
+    out = cuda_stft.stft_ri(x, 256, 100, w, logmag=logmag)
+    (args,) = calls
+    names = _c_arg_names("danet_stft_ri")
+    assert names == ["x", "basis", "out", "batch", "length", "n_frames",
+                     "fft_size", "stride", "n_cols", "logmag", "stream"]
+    by_name = dict(zip(names, args))
+    t = tdsp.stft_frame_count(12345, 256, 100)
+    basis = cuda_stft._basis(256, 100, w, x.device, kernel=True)
+    assert by_name["x"] == x.data_ptr() and by_name["out"] == out.data_ptr()
+    assert by_name["basis"] == basis.data_ptr()
+    np.testing.assert_array_equal(
+        basis.numpy(), cuda_stft.kernel_basis_np(cuda_stft._basis_np(256, w)))
+    assert args[3:] == (3, 12345, t, 256, 100, 258, int(logmag), 7)
+    assert tuple(out.shape) == (3, t, 129, 2)
+    assert (cuda_stft.stft_ri.launches, cuda_stft.stft_logmag.launches) == (
+        counts[0] + (not logmag), counts[1] + logmag)
+
+
 @pytest.mark.parametrize("frames", [40, 57])
 def test_torch_istft_matches_jax(fresh_hparams, frames):
     w = fresh_hparams.FFT_WND_ARRAY
