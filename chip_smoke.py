@@ -152,8 +152,30 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    digest, and its time.  No main
    path of the port (or of the JAX package) calls it, so its summary
    entry counts this phase's comparison launches and says so.
+17. training with configs/tpu.json's model half (the JAX package's
+   shipping config: attn-v1 on its flash path at phase 15's widths,
+   INFER_ESTIMATOR_METHOD kmeans with KMEANS_ITER 5, ANCHOR_AUX_LOSS 0.5,
+   EVAL_SI_SNR, B=64), loaded from the file with the keys the port still
+   refuses or cannot serve here (the trainer's TRAIN_STEPS_PER_CALL and
+   WATCHDOG_SECS, the wave wire's TRANSFER_DOMAIN, TRANSFER_DTYPE and
+   WAVE_PCM_SCALE, DATASET_TYPE: toy data in its place, METRICS_EVERY)
+   reset to default.json's values and printed: float32 and bfloat16 under
+   phase 11's protocol and bounds, the float32 valid step's SI_SNR held
+   like the SNR (bfloat16, as in phase 11, holds the losses); the
+   comparisons at DROPOUT_KEEP_PROB 1 (the card's and the CPU's
+   generators draw other masks), the median step times at the config's
+   0.9, beside the dense attention's.  Then one valid batch with EVAL_SDR
+   (BSS_FILT_LEN 512) at B=4, float32, card vs CPU: SDR, SIR and SAR
+   within 0.05 dB (BSS-eval's float32 Gram is ill-conditioned and
+   cuSOLVER's solve rounds otherwise than LAPACK's; the JAX package's own
+   test allows 0.05 dB against a float64 oracle).
+18. serving with configs/tpu.json's model half (the kmeans inference
+   estimator), float32, as phase 14: a 10.2 s request at B=1 and a batch
+   of 4 at L=32,704, against the CPU, kernel A once and flash_attn 4
+   times per request, each latency beside the dense attention's.
 
-The kernel summary lists all fourteen kernels.  bound_ms is the least
+The kernel summary lists all fourteen kernels; its launches count the
+main paths of phases 5, 7, 10, 11, 14, 15, 17 and 18.  bound_ms is the least
 time the card could take for the work of the timed call: the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its products' FLOPs (for kernel A, a real FFT's per frame; for the flash
@@ -179,6 +201,7 @@ name and power limit.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -188,7 +211,8 @@ import torch
 
 from danet_tpu_torch import weights
 from danet_tpu_torch.data.dataset import WhiteNoiseData
-from danet_tpu_torch.hparams import WINDOW_REGISTRY, load_config
+from danet_tpu_torch.hparams import DEFAULT_JSON, WINDOW_REGISTRY, load_config
+from danet_tpu_torch.ops import loss as loss_ops
 from danet_tpu_torch.ops.dsp import stft_frame_count
 from danet_tpu_torch.ops.cuda import _build
 from danet_tpu_torch.ops.cuda import attention as cuda_attn
@@ -250,6 +274,20 @@ FLASH = {"ATTN_BACKEND": "flash"}
 DENSE = {"ATTN_BACKEND": "xla"}
 # the attention encoder's head count and width at default.json's widths
 ATTN_H, ATTN_D = 4, 64
+# configs/tpu.json, the JAX package's shipping config (phases 17, 18)
+TPU_JSON = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "tpu.json")
+# its keys that the port still refuses (the trainer's, the wave wire) or
+# cannot serve here (the wsj0 data set: toy data in its place), reset to
+# default.json's values
+TPU_RESET = ("TRAIN_STEPS_PER_CALL", "WATCHDOG_SECS", "TRANSFER_DOMAIN",
+             "TRANSFER_DTYPE", "WAVE_PCM_SCALE", "DATASET_TYPE",
+             "METRICS_EVERY")
+# phase 17: BSS-eval (float32 Gram solves, cuSOLVER vs LAPACK), card vs CPU
+SDR_ATOL = 0.05
+# phase 17: two PIT permutations whose float64 costs differ by at most this
+# share of the cost tie within float32 rounding (see _PitTies)
+TIE_RTOL = 1e-5
 
 
 def nvidia_smi() -> str:
@@ -501,8 +539,8 @@ def _serve(phase: int, encoder: str, requests, seed: int, keys=None,
                    latencies[(b, n)]))
         if other:
             line += " (%s: %.3f ms)" % (
-                ", ".join("%s=%s" % kv for kv in other_keys.items()),
-                other[(b, n)])
+                ", ".join("%s=%s" % kv for kv in other_keys.items()
+                          if keys.get(kv[0]) != kv[1]), other[(b, n)])
         print(line + "; vs CPU: wave max_abs_err %.3g (peak %.3g), embedding "
               "max_abs_err %.3g (peak %.3g), rtol %g of the peak"
               % (err, peak, e_err, e_peak, SERVE_RTOL))
@@ -836,10 +874,11 @@ def _rel(a: float, b: float) -> float:
 
 
 def _errs(card: dict, cpu: dict, keys, snr_ratio: bool) -> dict:
-    """Relative errors of the loss and the SNR; with ``snr_ratio`` that of
-    the power ratio behind the SNR (phase 11, see the module docstring)."""
+    """Relative errors of the loss and the SNR (and SI_SNR); with
+    ``snr_ratio`` that of the power ratio behind the SNR (phase 11, see
+    the module docstring)."""
     return {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 10.0 / np.log(10))
-            if k == "SNR" and snr_ratio else _rel(card[k], cpu[k])
+            if k in ("SNR", "SI_SNR") and snr_ratio else _rel(card[k], cpu[k])
             for k in keys}
 
 
@@ -911,6 +950,59 @@ def _check_synced_step(tag: str, dtype: str, names: list, sg: dict,
     return worst
 
 
+class _PitTies:
+    """Phase 11's protocol takes each step from one state; in float32,
+    whose gradients it compares, this carries it over to the permutation
+    that ``pit_mse_loss`` picks (in phase 17, the ANCHOR_AUX_LOSS term
+    through kmeans).  Under random weights kmeans can give both sources
+    nearly the same mask, so that both permutations cost the same to
+    within float32 rounding, and the card and the CPU, summing in other
+    orders, may pick different ones: the same loss, but the gradient of
+    the other permutation.  While installed, the card's calls record their
+    choice; a CPU call that picked otherwise takes the card's choice (and
+    that permutation's loss) where the float64 costs of the two tie within
+    TIE_RTOL, and prints so; anything else fails."""
+
+    def __init__(self, tag: str):
+        self.tag, self.real, self.card, self.side = tag, None, [], None
+
+    def __enter__(self):
+        self.real = loss_ops.pit_mse_loss
+        loss_ops.pit_mse_loss = self
+        return self
+
+    def __exit__(self, *exc):
+        loss_ops.pit_mse_loss = self.real
+
+    def __call__(self, x, y, complex_ri=False, method="gemm"):
+        loss, perms, idx = self.real(x, y, complex_ri, method)
+        if self.side == "card":
+            self.card.append(idx.cpu())
+        elif self.side == "cpu":
+            want = self.card.pop(0).to(idx.device)
+            rows = torch.nonzero(idx != want).flatten().tolist()
+            if rows:
+                def cost(x, y, sel):   # [B]: the sum over sources of MSEs
+                    d2 = torch.square(x - loss_ops.unpermute(y, perms, sel))
+                    if complex_ri:
+                        d2 = torch.sum(d2, dim=-1)
+                    return torch.sum(torch.mean(d2, dim=tuple(
+                        range(2, d2.dim()))), dim=1)
+                with torch.no_grad():
+                    own = cost(x.double(), y.double(), idx)
+                    card = cost(x.double(), y.double(), want)
+                    gap = ((card - own).abs() / own.abs())[rows].tolist()
+                line = ("%s: the CPU's PIT permutation differs from the "
+                        "card's at rows %s, float64 cost gap %s of the cost "
+                        "(TIE_RTOL %g)" % (self.tag, rows, ", ".join(
+                            "%.3g" % g for g in gap), TIE_RTOL))
+                if not max(gap) <= TIE_RTOL:
+                    raise AssertionError(line)
+                print(line + ": a tie, the CPU takes the card's")
+                return torch.mean(cost(x, y, want)), perms, want
+        return loss, perms, idx
+
+
 def _train_dtype(phase: int, encoder: str, dtype: str, synced: bool,
                  keys: dict) -> dict:
     """One COMPUTE_DTYPE of a training phase: card vs CPU, launch counts;
@@ -940,11 +1032,19 @@ def _train_dtype(phase: int, encoder: str, dtype: str, synced: bool,
     for i, batch in enumerate(batches[:TRAIN_STEPS]):
         if synced:
             _sync(sc, sg)
-        mg = _counted(lambda: gpu.train_step(sg, batch), step_want,
-                      "phase %d %s train step %d (%s)"
-                      % (phase, encoder, i + 1, dtype))
+        # only float32 compares gradients, which a tie makes jump; the
+        # losses that bfloat16 compares are continuous across one
+        aligned = synced and dtype == "float32"
+        with _PitTies("phase %d %s %s step %d" % (phase, encoder, dtype,
+                                                  i + 1)) as ties:
+            ties.side = "card" if aligned else None
+            mg = _counted(lambda: gpu.train_step(sg, batch), step_want,
+                          "phase %d %s train step %d (%s)"
+                          % (phase, encoder, i + 1, dtype))
+            ties.side = "cpu" if aligned else None
+            mc = cpu.train_step(sc, batch)
         mg = {k: float(v) for k, v in mg.items()}
-        mc = {k: float(v) for k, v in cpu.train_step(sc, batch).items()}
+        mc = {k: float(v) for k, v in mc.items()}
         if synced:
             grad_worst = max(grad_worst, _check_synced_step(
                 "phase %d %s %s step %d" % (phase, encoder, dtype, i + 1),
@@ -969,8 +1069,12 @@ def _train_dtype(phase: int, encoder: str, dtype: str, synced: bool,
     vc = {k: float(v) for k, v in cpu.valid_step(sc, batches[-1]).items()}
     print("phase %d %s %s valid step: card %s, CPU %s"
           % (phase, encoder, dtype, vg, vc))
+    # float32 also holds SI_SNR (dB, EVAL_SI_SNR) as phase 11 holds the SNR
+    valid_errs = _errs(vg, vc, [k for k in ("loss", "SI_SNR") if k in vg
+                                and (k == "loss" or dtype == "float32")],
+                       True)
     if not all(np.isfinite(v) for v in vg.values()) \
-            or not _rel(vg["loss"], vc["loss"]) <= rtol:
+            or not max(valid_errs.values()) <= rtol:
         raise AssertionError("phase %d %s %s valid step: card %s vs CPU %s"
                              % (phase, encoder, dtype, vg, vc))
     return {"model": model, "p0": p0, "batches": batches, "gpu": sg,
@@ -989,7 +1093,7 @@ def _check_params_f32(phase: int, run: dict) -> float:
         tr = Trainer(model, model.hp, dev)
         st = tr.init_state(params=p0)
         grads.append([g.cpu() for g in tr.loss_and_grads(
-            st["params"], tr.ingest(batch))[2]])
+            st["params"], tr.ingest(batch))[1]])
     worst = 0.0
     for name, g, r in zip(names, *grads):
         peak = float(r.abs().max())
@@ -1061,15 +1165,17 @@ def _step_ms(encoder: str, dtype: str, keys: dict, reps: int) -> float:
 
 
 def _train(phase: int, encoder: str, reps: int, plain_reps: int,
-           synced: bool, keys=None, plain_keys=None) -> dict:
+           synced: bool, keys=None, plain_keys=None, time_keys=None) -> dict:
     """A training phase for one encoder: both dtypes card vs CPU with the
     launch counts, the float32 gradients and parameters, step times;
     ``synced`` selects phase 11's protocol (see the module docstring).
     ``keys`` configure the kernel path, ``plain_keys`` the path timed
-    beside it (recurrent encoders: LSTM_BACKEND 'auto' and 'xla')."""
+    beside it (recurrent encoders: LSTM_BACKEND 'auto' and 'xla');
+    ``time_keys`` are laid over both in the timed steps only."""
     keys = keys if keys is not None else {"LSTM_BACKEND": "auto"}
     plain_keys = plain_keys if plain_keys is not None \
         else {"LSTM_BACKEND": "xla"}
+    time_keys = time_keys or {}
     _zero_counts()  # the main path of this phase: the counts start at 0
     runs = {dt: _train_dtype(phase, encoder, dt, synced, keys)
             for dt in ("float32", "bfloat16")}
@@ -1082,14 +1188,17 @@ def _train(phase: int, encoder: str, reps: int, plain_reps: int,
     model = runs["float32"]["model"]
     times = {}
     for dt in ("float32", "bfloat16"):
-        kernel = _step_ms(encoder, dt, keys, reps)
-        plain = _step_ms(encoder, dt, plain_keys, plain_reps)
+        kernel = _step_ms(encoder, dt, dict(keys, **time_keys), reps)
+        plain = _step_ms(encoder, dt, dict(plain_keys, **time_keys),
+                         plain_reps)
         times[dt] = (kernel, plain)
-        print("phase %d %s %s train step (B=32, T=128, %s): kernel path "
+        print("phase %d %s %s train step (B=%d, T=%d, %s%s): kernel path "
               "%.3f ms, %s path %.3f ms (medians)"
-              % (phase, encoder, dt, _describe(model.hp, model.encoder),
-                 kernel, ", ".join("%s=%s" % kv for kv in plain_keys.items()),
-                 plain))
+              % (phase, encoder, dt, model.hp.BATCH_SIZE, TRAIN_T,
+                 _describe(model.hp, model.encoder), "".join(
+                     ", %s=%s" % kv for kv in time_keys.items()),
+                 kernel, ", ".join("%s=%s" % kv for kv in plain_keys.items()
+                                   if keys.get(kv[0]) != kv[1]), plain))
     return {"launches": launches, "times": times, "grad_rel": grad_rel,
             "step_rel": {dt: r["worst_step_rel"] for dt, r in runs.items()}}
 
@@ -1213,6 +1322,86 @@ def phase_stft_logmag(window) -> dict:
     print("phase 16 stft_logmag B=1 L=80000: kernel %.4f ms, plain %.4f ms; "
           "%d comparison launches" % (*times, launches))
     return {"max_abs_err": worst, "times": times, "launches": launches}
+
+
+def tpu_keys(phase: int) -> dict:
+    """configs/tpu.json as config keys, with TPU_RESET at default.json's
+    values (printed), without ENCODER_TYPE and COMPUTE_DTYPE (each phase
+    sets them), and DROPOUT_KEEP_PROB at 1: the card's and the CPU's
+    generators draw other masks, so the comparisons run without dropout
+    and only the timed steps take the config's own."""
+    with open(TPU_JSON) as f:
+        keys = json.load(f)
+    with open(DEFAULT_JSON) as f:
+        default = json.load(f)
+    reset = {k: default[k] for k in TPU_RESET}
+    print("phase %d configs/tpu.json: reset to default.json's values: %s"
+          % (phase, ", ".join("%s %r -> %r" % (k, keys[k], v)
+                              for k, v in reset.items())))
+    keys.update(reset, DROPOUT_KEEP_PROB=1.0)
+    for k in ("ENCODER_TYPE", "COMPUTE_DTYPE"):
+        del keys[k]
+    return keys
+
+
+def _valid_sdr(keys: dict) -> dict:
+    """Phase 17: one valid batch with EVAL_SDR (BSS_FILT_LEN 512) at B=4,
+    float32, card vs CPU from the same weights: SDR, SIR and SAR within
+    SDR_ATOL dB, the loss within phase 7's rtol.  -> its launches."""
+    hp = load_config(ENCODER_TYPE="attn-v1", **dict(
+        keys, BATCH_SIZE=4, EVAL_SDR=True, BSS_FILT_LEN=512))
+    model = hp.get_model()(hp)
+    batch = _toy_batches(hp, 1)[0]
+    p0 = weights.to_jax(model.init(torch.Generator().manual_seed(0)))
+    want = {name: 0 for name in KERNELS}
+    want["flash_attn"] = _depth(model.encoder)
+    _zero_counts()  # the main path of this check: the counts start at 0
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(model, hp, dev)
+        st = tr.init_state(params=p0)
+        run = (lambda: tr.valid_step(st, batch)) if dev == "cpu" else \
+            (lambda: _counted(lambda: tr.valid_step(st, batch), want,
+                              "phase 17 EVAL_SDR valid step"))
+        out[dev] = {k: float(v) for k, v in run().items()}
+    launches = _counts()
+    card, cpu = out["cuda"], out["cpu"]
+    errs = {k: abs(card[k] - cpu[k])
+            for k in ("SDR", "SIR", "SAR", "SI_SNR")}
+    print("phase 17 attn-v1 float32 valid step B=4 with EVAL_SDR (BSS_FILT_LEN "
+          "512): card %s, CPU %s; abs err (dB) %s (atol %g dB), loss relative "
+          "err %.3g (rtol %g)" % (card, cpu, " ".join(
+              "%s %.3g" % kv for kv in errs.items()), SDR_ATOL,
+              _rel(card["loss"], cpu["loss"]), STEP_RTOL["float32"]))
+    if not all(np.isfinite(v) for v in card.values()) \
+            or not max(errs.values()) <= SDR_ATOL \
+            or not _rel(card["loss"], cpu["loss"]) <= STEP_RTOL["float32"]:
+        raise AssertionError("phase 17 EVAL_SDR valid step: card %s vs CPU %s"
+                             % (card, cpu))
+    return launches
+
+
+def phase_training_tpu() -> dict:
+    """Phase 17: configs/tpu.json's model half in training on attn-v1's
+    flash path (kmeans, ANCHOR_AUX_LOSS, EVAL_SI_SNR, B=64), phase 11's
+    protocol; the steps timed at the config's DROPOUT_KEEP_PROB 0.9 beside
+    the dense attention's; then one EVAL_SDR valid batch."""
+    keys = tpu_keys(17)
+    with open(TPU_JSON) as f:
+        keep = json.load(f)["DROPOUT_KEEP_PROB"]
+    run = _train(17, "attn-v1", 5, 3, True, dict(keys, **FLASH),
+                 dict(keys, **DENSE), {"DROPOUT_KEEP_PROB": keep})
+    sdr = _valid_sdr(dict(keys, **FLASH))
+    run["launches"] = {k: v + sdr[k] for k, v in run["launches"].items()}
+    return run
+
+
+def phase_serving_tpu() -> dict:
+    """Phase 18: configs/tpu.json's model half serving on the flash path
+    (the kmeans inference estimator), float32, as phase 14."""
+    keys = dict(tpu_keys(18), **FLASH)
+    return _serve(18, "attn-v1", [(1, 81856), (4, 32704)], 18, keys,
+                  dict(keys, **DENSE))
 
 
 def _bound(flops: float, nbytes: float):
@@ -1378,12 +1567,15 @@ def main():
     serving_attn = phase_serving_attention()
     training_attn = phase_training_attention()
     logmag = phase_stft_logmag(window)
+    training_tpu = phase_training_tpu()
+    serving_tpu = phase_serving_tpu()
     print("summary: bilstm_scan bfloat16 max_abs_err %.3g (atol %g); "
           "serving worst error vs CPU %.3g of the peak (rtol %g), lstm-orig "
           "%.3g, gru-v1 %.3g, attn-v1 %.3g; train steps vs CPU: worst "
           "relative loss/SNR err %s, step-1 gradients %.3g of the peak; "
           "lstm-orig %s, every step's gradients %.3g; gru-v1 %s, %.3g; "
-          "attn-v1 %s, %.3g"
+          "attn-v1 %s, %.3g; configs/tpu.json serving %.3g, training %s, "
+          "%.3g"
           % (scan["max_abs_err"][torch.bfloat16], LSTM_ATOL[torch.bfloat16],
              serving["max_rel_err"], SERVE_RTOL,
              serving_uni["lstm-orig"]["max_rel_err"],
@@ -1394,12 +1586,15 @@ def main():
              training_uni["lstm-orig"]["grad_rel"],
              training_uni["gru-v1"]["step_rel"],
              training_uni["gru-v1"]["grad_rel"],
-             training_attn["step_rel"], training_attn["grad_rel"]))
+             training_attn["step_rel"], training_attn["grad_rel"],
+             serving_tpu["max_rel_err"], training_tpu["step_rel"],
+             training_tpu["grad_rel"]))
     # launches: the counts of the main paths that run each kernel, each
     # zeroed just before its path and read just after it; kernel 6 has no
     # main path and counts its own phase's comparison launches
     paths = [serving["launches"], training["launches"],
-             serving_attn["launches"], training_attn["launches"]] + [
+             serving_attn["launches"], training_attn["launches"],
+             serving_tpu["launches"], training_tpu["launches"]] + [
         run["launches"] for run in list(serving_uni.values())
         + list(training_uni.values())]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}

@@ -1,11 +1,17 @@
-"""Attractor estimators: ``truth-weighted`` and ``anchor``.
+"""Attractor estimators: ``truth``, ``truth-threshold``, ``truth-weighted``,
+``anchor`` and ``kmeans``.
 
-Counterpart of ``danet_tpu/models/estimators.py:84-102,185-276``.
-``truth-weighted`` is the default train estimator and is here so that
-``DaNet`` builds from ``default.json``; ``anchor`` is the inference
-estimator of the serving path, with the JAX package's N=2 sigmoid strength
-reduction and its eq-8 diagonal exclusion (pairwise similarity between
-DISTINCT attractors only).
+Counterpart of ``danet_tpu/models/estimators.py``.  The three truth
+estimators average each source's embeddings over the bins it dominates:
+``truth`` with the reference's ``/(count + 1)``, ``truth-threshold`` over
+the bins whose mixture magnitude exceeds 5, ``truth-weighted`` (the
+default train estimator) weighted by the mixture magnitude.  ``anchor`` is
+the inference estimator of the serving path, with the JAX package's N=2
+sigmoid strength reduction and its eq-8 diagonal exclusion (pairwise
+similarity between DISTINCT attractors only).  ``kmeans`` (the inference
+estimator of ``configs/tpu.json``) starts from the anchor's attractors and
+refines them by KMEANS_ITER unrolled rounds of mixture-magnitude-weighted
+soft assignment.
 """
 from __future__ import annotations
 
@@ -25,6 +31,38 @@ def _hard_assignment(src_pwr: torch.Tensor) -> torch.Tensor:
     labels = torch.argmax(src_pwr, dim=1)
     onehot = torch.nn.functional.one_hot(labels, n).to(src_pwr.dtype)
     return onehot.reshape(b, -1, n)
+
+
+@hparams.register_estimator("truth")
+class AverageEstimator(Estimator):
+    """Per-source mean of the embeddings, over the reference's
+    ``count + 1``."""
+
+    USE_TRUTH = True
+
+    def apply(self, params, embed, src_pwr=None, mix_pwr=None):
+        b, e = embed.shape[0], embed.shape[-1]
+        embed_flat = embed.reshape(b, -1, e)
+        onehot = _hard_assignment(src_pwr).to(embed_flat.dtype)
+        sums = ee("bkn,bke->bne", onehot, embed_flat)
+        counts = torch.sum(onehot, dim=1)
+        return sums / (counts[..., None] + 1.0)
+
+
+@hparams.register_estimator("truth-threshold")
+class ThresholdedAverageEstimator(Estimator):
+    """Per-source mean over the bins whose mixture magnitude exceeds 5."""
+
+    USE_TRUTH = True
+
+    def apply(self, params, embed, src_pwr=None, mix_pwr=None):
+        b, e = embed.shape[0], embed.shape[-1]
+        embed_flat = embed.reshape(b, -1, e)
+        w = (mix_pwr.reshape(b, -1, 1) > 5.0).to(embed_flat.dtype)
+        wgt = _hard_assignment(src_pwr).to(embed_flat.dtype) * w
+        sums = ee("bkn,bke->bne", wgt, embed_flat)
+        wsum = torch.sum(wgt, dim=1)[..., None]
+        return sums / (wsum + self.hp.EPS)
 
 
 @hparams.register_estimator("truth-weighted")
@@ -107,3 +145,55 @@ class AnchoredEstimator(Estimator):
     def apply(self, params, embed, src_pwr=None, mix_pwr=None):
         sets, choice = self.subset_choice(params, embed)
         return sets[torch.arange(sets.shape[0], device=sets.device), choice]
+
+
+@hparams.register_estimator("kmeans")
+class KMeansEstimator(AnchoredEstimator):
+    """Truth-free k-means attractors: centroids start from the anchor
+    mechanism (eq. 6-9, the same parameters) and take KMEANS_ITER (default
+    5) unrolled rounds of soft assignment weighted by the mixture
+    magnitude (uniform without one), then a weighted mean per centroid.
+
+    N=2 takes the anchor's strength reduction: the two-way softmax is a
+    sigmoid of the logit difference, and the complement centroid follows
+    from the loop-invariant weighted totals.  The weight sums run in
+    float32 and are rounded to the compute dtype, as in the JAX package."""
+
+    def apply(self, params, embed, src_pwr=None, mix_pwr=None):
+        hp = self.hp
+        n_iter = getattr(hp, "KMEANS_ITER", None)
+        n_iter = 5 if n_iter is None else int(n_iter)
+        b, e = embed.shape[0], embed.shape[-1]
+        embed_flat = embed.reshape(b, -1, e)               # [B, K, E]
+        if mix_pwr is not None:
+            w = mix_pwr.reshape(b, -1, 1).to(embed_flat.dtype)
+        else:
+            w = torch.ones(embed_flat.shape[:2] + (1,),
+                           dtype=embed_flat.dtype, device=embed.device)
+        centroids = super().apply(params, embed)           # [B, N, E]
+        if centroids.shape[1] == 2:
+            w1 = w[..., 0]                                 # [B, K]
+            sums_w = ee("bk,bke->be", w1, embed_flat)      # loop-invariant
+            wsum_w = torch.sum(w1.float(), dim=1, keepdim=True)
+
+            def step(c):
+                dc = (c[:, 0] - c[:, 1]).to(embed_flat.dtype)
+                s = torch.sigmoid(ee("bke,be->bk", embed_flat, dc)) * w1
+                sums0 = ee("bk,bke->be", s, embed_flat)
+                wsum0 = torch.sum(s.float(), dim=1, keepdim=True)
+                c0 = sums0 / (wsum0 + hp.EPS).to(sums0.dtype)
+                c1 = (sums_w - sums0) / (wsum_w - wsum0
+                                         + hp.EPS).to(sums0.dtype)
+                return torch.stack([c0, c1], dim=1).to(c.dtype)
+        else:
+            def step(c):
+                logits = ee("bke,bne->bkn", embed_flat,
+                            c.to(embed_flat.dtype))
+                assign = torch.softmax(logits, dim=-1) * w     # [B, K, N]
+                sums = ee("bkn,bke->bne", assign, embed_flat)
+                wsum = torch.sum(assign, dim=1)[..., None]
+                return (sums / (wsum + hp.EPS)).to(c.dtype)
+
+        for _ in range(n_iter):
+            centroids = step(centroids)
+        return centroids

@@ -2,6 +2,7 @@
 
     python -m danet_tpu_torch.perf_probe profile [--encoder gru-v1]
         [--dtype float32|bfloat16] [--attn-backend flash|xla|auto]
+        [-c CONFIG.json ...] [--key KEY=VALUE ...]
     python -m danet_tpu_torch.perf_probe scan-bwd [--reps 20]
         [--set NAME=VALUE ...] [--cut fma|staging ...]
     python -m danet_tpu_torch.perf_probe gru-fwd [--reps 10]
@@ -23,11 +24,17 @@
 
 ``profile``: for one encoder at full width with random weights from seed
 0, in COMPUTE_DTYPE ``--dtype``, ``torch.profiler`` over 5 train steps
-(B=32, T=128, the toy data; after 3 warm-ups) and over 5 10-s requests at
+(BATCH_SIZE, default.json's 32, T=128, the toy data; after 3 warm-ups)
+and over 5 10-s requests at
 B=1 (after 2 warm-ups; attn-v1's flash path takes T a multiple of 128,
 so its request is L=81,856, T=1280).  ``--attn-backend`` sets
 ATTN_BACKEND for attn-v1: 'flash' (the default here) profiles the flash
-kernels, 'xla' or 'auto' the dense attention.  Prints the device time per
+kernels, 'xla' or 'auto' the dense attention.  ``-c`` lays config files
+over default.json and ``--key`` single keys over them (a JSON value, else
+a string): configs/tpu.json's model half is ``--encoder attn-v1 -c
+configs/tpu.json --key TRAIN_STEPS_PER_CALL=1 --key WATCHDOG_SECS=0 --key
+TRANSFER_DOMAIN=spectra --key TRANSFER_DTYPE=float32`` (the trainer keys
+the port refuses, at default.json's values).  Prints the device time per
 step or request by
 kernel (the CUDA rows of ``key_averages``), the unprofiled wall time per
 step or request, and the device's busy share of that wall time.
@@ -164,6 +171,7 @@ fallback: without a GPU it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -218,7 +226,8 @@ def _wall_ms(fn, reps: int) -> float:
     return float(np.median(out))
 
 
-def profile(encoder: str, dtype: str, attn_backend: str = "flash") -> None:
+def profile(encoder: str, dtype: str, attn_backend: str = "flash",
+            configs=(), keys=None) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -231,8 +240,9 @@ def profile(encoder: str, dtype: str, attn_backend: str = "flash") -> None:
     torch.backends.cudnn.allow_tf32 = False
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
-    hp = load_config(ENCODER_TYPE=encoder, COMPUTE_DTYPE=dtype,
-                     ATTN_BACKEND=attn_backend)
+    hp = load_config(*configs, **dict(keys or {}, ENCODER_TYPE=encoder,
+                                      COMPUTE_DTYPE=dtype,
+                                      ATTN_BACKEND=attn_backend))
     model = hp.get_model()(hp)
     ds = WhiteNoiseData(hp, seed=3)
     ds.install_and_load()
@@ -251,7 +261,8 @@ def profile(encoder: str, dtype: str, attn_backend: str = "flash") -> None:
         for _ in range(5):
             tr.train_step(st, batch)
         torch.cuda.synchronize()
-    _report("%s train B=32 T=128 %s" % (encoder, dtype), prof, 5, wall)
+    _report("%s train B=%d T=%d %s" % (encoder, hp.BATCH_SIZE,
+                                        batch.shape[2], dtype), prof, 5, wall)
 
     sep = Separator(model, model.init(torch.Generator().manual_seed(0)),
                     "cuda")
@@ -265,6 +276,15 @@ def profile(encoder: str, dtype: str, attn_backend: str = "flash") -> None:
             sep.separate(wav)
         torch.cuda.synchronize()
     _report("%s serve 10 s B=1 %s" % (encoder, dtype), prof, 5, wall)
+
+
+def _key_value(arg: str) -> tuple:
+    """'KEY=VALUE' -> (KEY, the value as JSON, else as a string)."""
+    key, value = arg.split("=", 1)
+    try:
+        return key, json.loads(value)
+    except json.JSONDecodeError:
+        return key, value
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1136,6 +1156,10 @@ def main(argv=None) -> None:
     p.add_argument("--attn-backend", default="flash",
                    choices=("flash", "xla", "auto"),
                    help="ATTN_BACKEND of attn-v1 (other encoders ignore it)")
+    p.add_argument("-c", "--config", action="append", default=[],
+                   help="config JSON layered over default.json (repeatable)")
+    p.add_argument("--key", action="append", default=[],
+                   help="KEY=VALUE laid over the configs (repeatable)")
     p = sub.add_parser("scan-bwd", help="kernel 3 alone: check and time")
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--set", action="append", default=[],
@@ -1293,7 +1317,8 @@ def main(argv=None) -> None:
     elif args.cmd == "device-ms":
         device_rows(args.reps)
     else:
-        profile(args.encoder, args.dtype, args.attn_backend)
+        profile(args.encoder, args.dtype, args.attn_backend, args.config,
+                dict(_key_value(a) for a in args.key))
 
 
 if __name__ == "__main__":

@@ -136,29 +136,36 @@ class Trainer:
 
     def loss_and_grads(self, params: dict, src_ri: torch.Tensor,
                        generator: Optional[torch.Generator] = None):
-        """(loss, snr, grads): the train loss and its gradient, aligned
-        with ``leaves(params)`` (zeros where the loss does not reach)."""
+        """(metrics, grads): {"loss", "SNR"} and "DC" (the raw
+        deep-clustering term, with DC_LOSS_WEIGHT > 0) as detached 0-d
+        tensors, and the train loss's gradient aligned with
+        ``leaves(params)`` (zeros where the loss does not reach)."""
         loss, aux = self.model.train_loss(params, src_ri, generator)
         ps = leaves(params)
         grads = torch.autograd.grad(loss, ps, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(ps, grads)]
-        return loss.detach(), aux["snr"].detach(), grads
+        metrics = {"loss": loss.detach(), "SNR": aux["snr"].detach()}
+        if "dc" in aux:
+            metrics["DC"] = aux["dc"].detach()
+        return metrics, grads
 
     def train_step(self, state: dict, batch_np: np.ndarray) -> dict:
         """One step on a prepared batch: ingest, forward, backward, clip,
-        update.  -> {"loss", "SNR"} as 0-d tensors on the device."""
-        loss, snr, grads = self.loss_and_grads(
+        update.  -> {"loss", "SNR"} (and "DC") as 0-d tensors on the
+        device."""
+        metrics, grads = self.loss_and_grads(
             state["params"], self.ingest(batch_np), state["generator"])
         state["opt"].step(grads)
         state["step"] += 1
-        return {"loss": loss, "SNR": snr}
+        return metrics
 
     @torch.no_grad()
     def valid_step(self, state: dict, batch_np: np.ndarray) -> dict:
-        """Validation metrics of one prepared batch -> {"loss", "SNR"}."""
+        """Validation metrics of one prepared batch: every metric of
+        ``valid_metrics`` but the separated spectra."""
         m = self.model.valid_metrics(state["params"], self.ingest(batch_np))
-        return {"loss": m["loss"], "SNR": m["SNR"]}
+        return {k: v for k, v in m.items() if k != "separated_ri"}
 
     def set_learn_rate(self, state: dict, lr: float) -> None:
         optim_lib.set_learn_rate(state["opt"], lr)

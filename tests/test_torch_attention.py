@@ -542,10 +542,10 @@ def test_torch_attention_train_loss_and_grads_match_jax(fresh_hparams,
     tm = _port()
     trainer = Trainer(tm, tm.hp, "cpu")
     state = trainer.init_state(params=model_ref["params"])
-    loss, snr, grads = trainer.loss_and_grads(
+    m, grads = trainer.loss_and_grads(
         state["params"], torch.from_numpy(_src_ri(2)))
-    _close(loss, model_ref["loss"], 2e-5, 1e-4)
-    _close(snr, model_ref["snr"], 2e-5, 1e-4)
+    _close(m["loss"], model_ref["loss"], 2e-5, 1e-4)
+    _close(m["SNR"], model_ref["snr"], 2e-5, 1e-4)
     ref = weights.leaves(weights.from_jax(model_ref["grads"]))
     assert len(grads) == len(ref)
     for a, b in zip(grads, ref):

@@ -201,7 +201,7 @@ def test_torch_train_step_matches_jax(fresh_hparams, monkeypatch):
 
     trainer = Trainer(tm, tm.hp, "cpu")
     state = trainer.init_state(params=jax.device_get(jp))
-    _, _, tg1 = trainer.loss_and_grads(state["params"], _t(batches[0]))
+    _, tg1 = trainer.loss_and_grads(state["params"], _t(batches[0]))
     for a, b in zip(tg1, weights.leaves(weights.from_jax(
             jax.device_get(g1)))):
         _close(a, b, atol=2e-5, rtol=1e-4)
@@ -242,9 +242,10 @@ def test_torch_unidirectional_train_loss_and_grads_match_jax(
         jp, jnp.asarray(batch))
     trainer = Trainer(tm, tm.hp, "cpu")
     state = trainer.init_state(params=jax.device_get(jp))
-    loss, snr, grads = trainer.loss_and_grads(state["params"], _t(batch))
+    m, grads = trainer.loss_and_grads(state["params"], _t(batch))
+    loss = m["loss"]
     _close(loss, jl, atol=2e-5, rtol=1e-4)
-    _close(snr, aux["snr"], atol=2e-5, rtol=1e-4)
+    _close(m["SNR"], aux["snr"], atol=2e-5, rtol=1e-4)
     ref = weights.leaves(weights.from_jax(jax.device_get(jg)))
     assert len(grads) == len(ref)
     for a, b in zip(grads, ref):
@@ -352,13 +353,29 @@ def test_torch_train_loss_dropout(fresh_hparams, monkeypatch):
     ("GRAD_ACCUM", 2), ("EMA_DECAY", 0.99), ("TRAIN_STEPS_PER_CALL", 4),
     ("TRANSFER_DOMAIN", "wave"), ("TRANSFER_DTYPE", "bfloat16"),
     ("NAN_CHECKS", True), ("MESH_DATA", 2), ("REMAT", True),
-    ("MIX_SNR_DB", 6.0), ("DC_LOSS_WEIGHT", 0.1), ("ANCHOR_AUX_LOSS", 0.5),
-    ("TRAIN_LOSS_TYPE", "pit-si-snr"), ("VALID_CRASH_FACTOR", 1.5),
-    ("WATCHDOG_SECS", 900)])
+    ("VALID_CRASH_FACTOR", 1.5), ("WATCHDOG_SECS", 900)])
 def test_torch_trainer_refuses_unported(fresh_hparams, key, value):
     hp = load_config(ENCODER_TYPE="bilstm-orig", **{key: value})
     with pytest.raises(NotImplementedError):
         Trainer(TorchDaNet(hp), hp, "cpu")
+
+
+@pytest.mark.parametrize("keys", [
+    {"TRAIN_LOSS_TYPE": "pit-l1"},
+    {"DC_LOSS_WEIGHT": 0.1, "DC_WEIGHT_TYPE": "log"}])
+def test_torch_train_loss_refuses_unknown_types(fresh_hparams, monkeypatch,
+                                                keys):
+    """An unknown TRAIN_LOSS_TYPE, or DC_WEIGHT_TYPE under
+    DC_LOSS_WEIGHT > 0, raises ValueError in train_loss, as in the JAX
+    package, and already when the Trainer is built."""
+    jm, jp, tm = _pair(fresh_hparams, monkeypatch, **keys)
+    batch = _src_ri(42)
+    with pytest.raises(ValueError):
+        jm.train_loss(jp, jnp.asarray(batch))
+    with pytest.raises(ValueError):
+        tm.train_loss(weights.from_jax(jax.device_get(jp)), _t(batch))
+    with pytest.raises(ValueError):
+        Trainer(tm, tm.hp, "cpu")
 
 
 # ------------------------------------------------------------- data path
