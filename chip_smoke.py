@@ -155,11 +155,11 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
 17. training with configs/tpu.json's model half (the JAX package's
    shipping config: attn-v1 on its flash path at phase 15's widths,
    INFER_ESTIMATOR_METHOD kmeans with KMEANS_ITER 5, ANCHOR_AUX_LOSS 0.5,
-   EVAL_SI_SNR, B=64), loaded from the file with the keys the port still
-   refuses or cannot serve here (the trainer's TRAIN_STEPS_PER_CALL and
-   WATCHDOG_SECS, the wave wire's TRANSFER_DOMAIN, TRANSFER_DTYPE and
-   WAVE_PCM_SCALE, DATASET_TYPE: toy data in its place, METRICS_EVERY)
-   reset to default.json's values and printed: float32 and bfloat16 under
+   EVAL_SI_SNR, B=64), loaded from the file with its trainer keys (the
+   trainer's TRAIN_STEPS_PER_CALL and WATCHDOG_SECS, the wave wire's
+   TRANSFER_DOMAIN, TRANSFER_DTYPE and WAVE_PCM_SCALE, DATASET_TYPE: toy
+   data in its place, METRICS_EVERY; phase 19 holds them) reset to
+   default.json's values and printed: float32 and bfloat16 under
    phase 11's protocol and bounds, the float32 valid step's SI_SNR held
    like the SNR (bfloat16, as in phase 11, holds the losses); the
    comparisons at DROPOUT_KEEP_PROB 1 (the card's and the CPU's
@@ -173,9 +173,36 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    estimator), float32, as phase 14: a 10.2 s request at B=1 and a batch
    of 4 at L=32,704, against the CPU, kernel A once and flash_attn 4
    times per request, each latency beside the dense attention's.
+19. configs/tpu.json whole: the file with its trainer keys in force (the
+   int16 wave wire, TRAIN_STEPS_PER_CALL 8, METRICS_EVERY 30,
+   WATCHDOG_SECS 900; B=64, bfloat16), cut as printed (TPU_CUTS: the
+   synth-speech corpus at WAVE_PCM_SCALE 4 in place of WSJ0, which the
+   repository does not hold; the flash path, with TIME_BUCKET 128 so that
+   the uncropped valid utterances fit it; 20 batches an epoch, two 8-step
+   graph calls and 4 single steps).  (a) kernel A on the wire's ingest
+   against the plain dsp.stft_ri of the dequantised batch, atol 2e-5, and
+   the int16 round trip exact; (b) from one state, float32 at
+   DROPOUT_KEEP_PROB 1, one 8-step CUDA graph call against 8 eager train
+   steps: every parameter, Adam moment and per-step metric bit for bit;
+   at the config's 0.9 the dropout generator's offset grows with every
+   replay (two replays draw other masks); (c) the same 8 steps, card
+   (eager, equal to the graph by (b)) against the CPU under phase 11's
+   protocol and bounds; (d) two epochs through the CLI's path
+   (``python -m danet_tpu_torch.train -c configs/tpu.json -c <cuts>``):
+   finite Epoch and Valid lines, the watchdog silent, metrics.jsonl with a
+   row per step; its launches are this phase's main path, a graph's
+   counted as its captured launches times its replays (the counters
+   count at capture); (e) bilstm-orig (B=32, float32, the int16 wave wire,
+   K=8): graph against eager bit for bit, kernels 2 and 3 (cooperative
+   launches) under capture.  Then, printed for the record beside the
+   card's name and power limit, the loop's ms per step (one epoch) and the
+   device busy share (torch.profiler over 8 steps) of tpu.json's step with
+   the f32 spectra wire at K=1 and METRICS_EVERY=1 (as phase 17), with the
+   int16 wave wire and the prefetch only, and with every key, on the flash
+   and the dense attention.
 
 The kernel summary lists all fourteen kernels; its launches count the
-main paths of phases 5, 7, 10, 11, 14, 15, 17 and 18.  bound_ms is the least
+main paths of phases 5, 7, 10, 11, 14, 15, 17, 18 and 19.  bound_ms is the least
 time the card could take for the work of the timed call: the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its products' FLOPs (for kernel A, a real FFT's per frame; for the flash
@@ -200,6 +227,7 @@ name and power limit.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -213,6 +241,7 @@ from danet_tpu_torch import weights
 from danet_tpu_torch.data.dataset import WhiteNoiseData
 from danet_tpu_torch.hparams import DEFAULT_JSON, WINDOW_REGISTRY, load_config
 from danet_tpu_torch.ops import loss as loss_ops
+from danet_tpu_torch.ops import dsp
 from danet_tpu_torch.ops.dsp import stft_frame_count
 from danet_tpu_torch.ops.cuda import _build
 from danet_tpu_torch.ops.cuda import attention as cuda_attn
@@ -222,6 +251,7 @@ from danet_tpu_torch.ops.cuda import stft as cuda_stft
 from danet_tpu_torch.perf_probe import _digest, cuda_ms
 from danet_tpu_torch.serve import Separator
 from danet_tpu_torch.train import Trainer, prepare_batch
+from danet_tpu_torch.train.trainer import StepGraph
 
 STFT_ATOL = 2e-5
 LSTM_ATOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
@@ -277,9 +307,9 @@ ATTN_H, ATTN_D = 4, 64
 # configs/tpu.json, the JAX package's shipping config (phases 17, 18)
 TPU_JSON = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "configs", "tpu.json")
-# its keys that the port still refuses (the trainer's, the wave wire) or
-# cannot serve here (the wsj0 data set: toy data in its place), reset to
-# default.json's values
+# its trainer keys (the wave wire, the K-step calls, which phase 19 holds)
+# and the wsj0 data set (toy data in its place), reset to default.json's
+# values in phases 17 and 18
 TPU_RESET = ("TRAIN_STEPS_PER_CALL", "WATCHDOG_SECS", "TRANSFER_DOMAIN",
              "TRANSFER_DTYPE", "WAVE_PCM_SCALE", "DATASET_TYPE",
              "METRICS_EVERY")
@@ -1003,6 +1033,47 @@ class _PitTies:
         return loss, perms, idx
 
 
+def _step_vs_cpu(phase: int, encoder: str, dtype: str, i: int, gpu, cpu,
+                 sg: dict, sc: dict, batch, synced: bool, names: list,
+                 step_want: dict) -> tuple:
+    """Train step i + 1 on the card and on the CPU; ``synced``: from one
+    state, with the gradients and the optimizer step checked (phase 11).
+    -> (worst relative loss/SNR error, worst gradient error)."""
+    rtol = STEP_RTOL[dtype]
+    grad_err = 0.0
+    if synced:
+        _sync(sc, sg)
+    # only float32 compares gradients, which a tie makes jump; the
+    # losses that bfloat16 compares are continuous across one
+    aligned = synced and dtype == "float32"
+    with _PitTies("phase %d %s %s step %d" % (phase, encoder, dtype,
+                                              i + 1)) as ties:
+        ties.side = "card" if aligned else None
+        mg = _counted(lambda: gpu.train_step(sg, batch), step_want,
+                      "phase %d %s train step %d (%s)"
+                      % (phase, encoder, i + 1, dtype))
+        ties.side = "cpu" if aligned else None
+        mc = cpu.train_step(sc, batch)
+    mg = {k: float(v) for k, v in mg.items()}
+    mc = {k: float(v) for k, v in mc.items()}
+    if synced:
+        grad_err = _check_synced_step(
+            "phase %d %s %s step %d" % (phase, encoder, dtype, i + 1),
+            dtype, names, sg, sc)
+    keys = ("loss", "SNR") if dtype == "float32" else ("loss",)
+    errs = _errs(mg, mc, keys, synced)
+    print("phase %d %s %s step %d: card loss %.9g SNR %.6g, CPU loss "
+          "%.9g SNR %.6g; relative err %s (rtol %g)"
+          % (phase, encoder, dtype, i + 1, mg["loss"], mg["SNR"],
+             mc["loss"], mc["SNR"],
+             " ".join("%s %.3g" % kv for kv in errs.items()), rtol))
+    if not all(np.isfinite(v) for v in mg.values()) \
+            or not max(errs.values()) <= rtol:
+        raise AssertionError("phase %d %s %s step %d: card %s vs CPU %s"
+                             % (phase, encoder, dtype, i + 1, mg, mc))
+    return max(errs.values()), grad_err
+
+
 def _train_dtype(phase: int, encoder: str, dtype: str, synced: bool,
                  keys: dict) -> dict:
     """One COMPUTE_DTYPE of a training phase: card vs CPU, launch counts;
@@ -1030,37 +1101,9 @@ def _train_dtype(phase: int, encoder: str, dtype: str, synced: bool,
     rtol = STEP_RTOL[dtype]
     worst = grad_worst = 0.0
     for i, batch in enumerate(batches[:TRAIN_STEPS]):
-        if synced:
-            _sync(sc, sg)
-        # only float32 compares gradients, which a tie makes jump; the
-        # losses that bfloat16 compares are continuous across one
-        aligned = synced and dtype == "float32"
-        with _PitTies("phase %d %s %s step %d" % (phase, encoder, dtype,
-                                                  i + 1)) as ties:
-            ties.side = "card" if aligned else None
-            mg = _counted(lambda: gpu.train_step(sg, batch), step_want,
-                          "phase %d %s train step %d (%s)"
-                          % (phase, encoder, i + 1, dtype))
-            ties.side = "cpu" if aligned else None
-            mc = cpu.train_step(sc, batch)
-        mg = {k: float(v) for k, v in mg.items()}
-        mc = {k: float(v) for k, v in mc.items()}
-        if synced:
-            grad_worst = max(grad_worst, _check_synced_step(
-                "phase %d %s %s step %d" % (phase, encoder, dtype, i + 1),
-                dtype, names, sg, sc))
-        keys = ("loss", "SNR") if dtype == "float32" else ("loss",)
-        errs = _errs(mg, mc, keys, synced)
-        print("phase %d %s %s step %d: card loss %.9g SNR %.6g, CPU loss "
-              "%.9g SNR %.6g; relative err %s (rtol %g)"
-              % (phase, encoder, dtype, i + 1, mg["loss"], mg["SNR"],
-                 mc["loss"], mc["SNR"],
-                 " ".join("%s %.3g" % kv for kv in errs.items()), rtol))
-        if not all(np.isfinite(v) for v in mg.values()) \
-                or not max(errs.values()) <= rtol:
-            raise AssertionError("phase %d %s %s step %d: card %s vs CPU %s"
-                                 % (phase, encoder, dtype, i + 1, mg, mc))
-        worst = max(worst, *errs.values())
+        err, grad_err = _step_vs_cpu(phase, encoder, dtype, i, gpu, cpu, sg,
+                                     sc, batch, synced, names, step_want)
+        worst, grad_worst = max(worst, err), max(grad_worst, grad_err)
     if synced:
         _sync(sc, sg)
     vg = _counted(lambda: gpu.valid_step(sg, batches[-1]), valid_want,
@@ -1404,6 +1447,392 @@ def phase_serving_tpu() -> dict:
                   dict(keys, **DENSE))
 
 
+# phase 19: configs/tpu.json whole, its trainer keys in force; the cuts
+TPU_CUTS = {"DATASET_TYPE": "synth-speech", "WAVE_PCM_SCALE": 4.0,
+            "ATTN_BACKEND": "flash", "TIME_BUCKET": 128, "SYNTH_BATCHES": 20}
+TPU_CUT_WHY = ("the WSJ0 corpus is not in the repository: synth-speech in its "
+               "place, at its WAVE_SCALE; the flash path as in phase 17, "
+               "which takes T a multiple of 128: the uncropped valid "
+               "utterances (189 frames) bucket to 256; 20 batches an epoch: "
+               "two 8-step graph calls and 4 single steps")
+
+
+def tpu_whole_keys() -> dict:
+    """configs/tpu.json with its trainer keys and the cuts of TPU_CUTS,
+    printed."""
+    with open(TPU_JSON) as f:
+        keys = json.load(f)
+    print("phase 19 configs/tpu.json whole: %s; cut: %s (%s)"
+          % (", ".join("%s=%r" % kv for kv in sorted(keys.items())),
+             ", ".join("%s %r -> %r" % (k, keys.get(k), v)
+                       for k, v in TPU_CUTS.items()), TPU_CUT_WHY))
+    keys.update(TPU_CUTS)
+    return keys
+
+
+_SPEECH: dict = {}
+
+
+def _speech_batches(hp, n: int, seed: int = 0) -> list:
+    """n prepared wave batches of synth-speech (train subset) as the loop
+    prepares them: crops of MAX_TRAIN_LEN frames, the TIME_BUCKET (made
+    once per shape)."""
+    from danet_tpu_torch.data.synth_speech import SyntheticSpeechData
+    from danet_tpu_torch.train.trainer import prepare_batch_wave
+    key = (n, seed, hp.BATCH_SIZE, hp.MAX_N_SIGNAL, hp.SMPRATE, hp.FFT_SIZE,
+           hp.FFT_STRIDE, hp.MAX_TRAIN_LEN, hp.TIME_BUCKET)
+    if key in _SPEECH:
+        return _SPEECH[key]
+    ds = SyntheticSpeechData(hp, seed=seed)
+    ds.install_and_load()
+    rng = np.random.RandomState(seed)
+    out = []
+    for (flat,) in ds.epoch_wave("train", hp.BATCH_SIZE * hp.MAX_N_SIGNAL):
+        out.append(prepare_batch_wave(
+            flat, hp.BATCH_SIZE, hp.MAX_N_SIGNAL, hp.FFT_SIZE,
+            hp.FFT_STRIDE, max_len=hp.MAX_TRAIN_LEN, bucket=hp.TIME_BUCKET,
+            rng=rng))
+        if len(out) == n:
+            _SPEECH[key] = out
+            return out
+    raise AssertionError("synth-speech gave %d batches" % len(out))
+
+
+def _ingest_check(keys: dict) -> float:
+    """(a): kernel A on the wire's ingest (int16, WAVE_PCM_SCALE 4) against
+    the plain dsp.stft_ri of the dequantised batch, float32 atol 2e-5; the
+    int16 round trip exact."""
+    hp = load_config(**dict(keys, COMPUTE_DTYPE="float32"))
+    tr = Trainer(hp.get_model()(hp), hp, "cuda")
+    batch = _speech_batches(hp, 1)[0]
+    wire = tr.wire_cast(batch)
+    dev = wire.cuda()
+    deq = dev.float() * tr._dequant
+    host = wire.numpy().astype(np.float32) * np.float32(tr._dequant)
+    back = np.round(host * np.float32(32768.0 / tr._pcm_scale))
+    if not (np.array_equal(deq.cpu().numpy(), host)
+            and np.array_equal(back, wire.numpy())):
+        raise AssertionError("phase 19 int16 round trip not exact")
+    want = {name: 0 for name in KERNELS}
+    want["stft_ri"] = 1
+    spec = _counted(lambda: tr.ingest(dev), want, "phase 19 ingest")
+    b, n, s = deq.shape
+    ref = dsp.stft_ri(deq.reshape(b * n, s), hp.FFT_SIZE, hp.FFT_STRIDE,
+                      hp.FFT_WND_ARRAY).reshape(spec.shape)
+    torch.cuda.synchronize()
+    err = max_err(spec, ref)
+    print("phase 19 (a) ingest: int16 wire [%d, %d, %d] (WAVE_PCM_SCALE %g) "
+          "round trip exact; kernel A spectra %s vs the plain dsp.stft_ri "
+          "of the dequantised batch: max_abs_err %.3g (atol %g)"
+          % (b, n, s, tr._pcm_scale, tuple(spec.shape), err, STFT_ATOL))
+    if not torch.isfinite(spec).all() or not err <= STFT_ATOL:
+        raise AssertionError("phase 19 ingest: max abs err %.3g" % err)
+    return err
+
+
+def _state_tensors(state: dict) -> list:
+    opt = state["opt"]
+    return [("param " + n, p) for n, p in zip(
+        ["/".join(k) for k in _paths(weights.to_jax(state["params"]))],
+        weights.leaves(state["params"]))] + \
+        [("mu %d" % i, t) for i, t in enumerate(opt.mu)] + \
+        [("nu %d" % i, t) for i, t in enumerate(opt.nu)]
+
+
+def _graph_vs_eager(tag: str, keys: dict, k: int) -> dict:
+    """One K-step graph call against K eager train steps on the card from
+    one state (DROPOUT_KEEP_PROB 1, float32): every parameter, Adam moment
+    and per-step metric bit for bit.  Also checks the launches the first
+    call counted: the eager warm-up step's and the capture's, K steps'
+    worth (one replay's)."""
+    hp = load_config(**dict(keys, COMPUTE_DTYPE="float32",
+                            DROPOUT_KEEP_PROB=1.0))
+    model = hp.get_model()(hp)
+    p0 = weights.to_jax(model.init(torch.Generator().manual_seed(0)))
+    batches = _speech_batches(hp, k)
+    tr = Trainer(model, hp, "cuda")
+    sg, se = tr.init_state(params=p0), tr.init_state(params=p0)
+    stack = np.stack(batches)
+    _zero_counts()
+    mg = tr.train_steps(sg, stack)
+    first = _counts()
+    _zero_counts()
+    me = [tr.train_step(se, b) for b in batches]
+    eager = _counts()
+    captured = {n: v - eager[n] // k for n, v in first.items()}
+    torch.cuda.synchronize()
+    diffs = []
+    for (name, a), (_, b) in zip(_state_tensors(sg), _state_tensors(se)):
+        if not torch.equal(a.detach(), b.detach()):
+            diffs.append((name, float((a - b).abs().max())))
+    for name in mg:
+        got = mg[name].cpu()
+        ref = torch.stack([m[name] for m in me]).cpu()
+        if not torch.equal(got, ref):
+            diffs.append((name, float((got - ref).abs().max())))
+    print("phase 19 %s: one %d-step CUDA graph call vs %d eager train steps "
+          "(float32, DROPOUT_KEEP_PROB 1): %d state tensors and %s per step, "
+          "%s; losses graph %s eager %s; the capture counted %s (one "
+          "replay's launches; the eager warm-up step before it %s)"
+          % (tag, k, k, len(_state_tensors(sg)), sorted(mg),
+             "bit for bit" if not diffs else "DIFFER: %s" % diffs[:6],
+             ["%.9g" % v for v in mg["loss"].tolist()],
+             ["%.9g" % float(m["loss"]) for m in me],
+             {n: v for n, v in captured.items() if v},
+             {n: v // k for n, v in eager.items() if v}))
+    if diffs or any(first[n] * k != eager[n] * (k + 1) for n in first):
+        raise AssertionError("phase 19 %s: graph vs eager %s, launches %s vs "
+                             "%s" % (tag, diffs, captured, eager))
+
+
+def _replays_draw_new_masks(keys: dict, k: int) -> None:
+    """At tpu.json's DROPOUT_KEEP_PROB 0.9: the dropout generator moves on
+    with every replay (its Philox offset grows), so two replays draw
+    different masks; printed beside, the graph's parameters against K
+    eager steps from the same generator seed."""
+    hp = load_config(**dict(keys, COMPUTE_DTYPE="float32"))
+    model = hp.get_model()(hp)
+    p0 = weights.to_jax(model.init(torch.Generator().manual_seed(0)))
+    batches = _speech_batches(hp, k)
+    tr = Trainer(model, hp, "cuda")
+    sg = tr.init_state(torch.Generator().manual_seed(5), params=p0)
+    se = tr.init_state(torch.Generator().manual_seed(5), params=p0)
+    stack = np.stack(batches)
+    offsets = [sg["generator"].get_offset()]
+    for _ in range(2):
+        tr.train_steps(sg, stack)
+        offsets.append(sg["generator"].get_offset())
+    for _ in range(2):
+        for b in batches:
+            tr.train_step(se, b)
+    torch.cuda.synchronize()
+    d = max(float((a - b).detach().abs().max()) for (_, a), (_, b)
+            in zip(_state_tensors(sg), _state_tensors(se)))
+    print("phase 19 (b) DROPOUT_KEEP_PROB %g: the dropout generator's Philox "
+          "offset %s over two replays; after them, max |graph - eager| over "
+          "the state %.3g (the same seed)" % (hp.DROPOUT_KEEP_PROB, offsets,
+                                              d))
+    if not offsets[0] < offsets[1] < offsets[2]:
+        raise AssertionError("phase 19: replays do not move the dropout "
+                             "generator: %s" % offsets)
+
+
+def _step_launches(model) -> dict:
+    """The launches of one attn-v1 train step on the flash path and the
+    wave wire: each flash kernel once per block, kernel A once."""
+    want = {name: 0 for name in KERNELS}
+    want.update({name: _depth(model.encoder) for name in
+                 ENCODER_KERNELS["attn-v1"][1]}, stft_ri=1)
+    return want
+
+
+def _tpu_vs_cpu(keys: dict, k: int) -> tuple:
+    """(c): the same K steps (float32, DROPOUT_KEEP_PROB 1) on the card and
+    on the CPU under phase 11's protocol and bounds; the card's steps are
+    eager, which (b) showed equal to the graph's."""
+    hp = load_config(**dict(keys, COMPUTE_DTYPE="float32",
+                            DROPOUT_KEEP_PROB=1.0))
+    model = hp.get_model()(hp)
+    p0 = weights.to_jax(model.init(torch.Generator().manual_seed(0)))
+    batches = _speech_batches(hp, k)
+    gpu, cpu = Trainer(model, hp, "cuda"), Trainer(model, hp, "cpu")
+    sg, sc = gpu.init_state(params=p0), cpu.init_state(params=p0)
+    _record_grads(sg["opt"])
+    _record_grads(sc["opt"], apply=lambda: sg["opt"].recorded)
+    names = ["/".join(p) for p in _paths(p0)]
+    step_want = _step_launches(model)
+    worst = grad = 0.0
+    for i, b in enumerate(batches):
+        err, g = _step_vs_cpu(19, "attn-v1 (c)", "float32", i, gpu, cpu, sg,
+                              sc, b, True, names, step_want)
+        worst, grad = max(worst, err), max(grad, g)
+    return worst, grad
+
+
+def _run_cli(argv: list) -> str:
+    """python -m danet_tpu_torch.train's main(argv) in this process, its
+    stdout captured (and printed after)."""
+    import contextlib
+    import io
+    from danet_tpu_torch.train.__main__ import main as train_main
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_main(argv)
+    return out.getvalue()
+
+
+def _loop_through_cli(keys: dict, tmp: str) -> dict:
+    """(d): two epochs of Trainer.train through the CLI's path at B=64,
+    bfloat16, every key of tpu.json (the cuts aside): finite epoch lines,
+    the watchdog silent, metrics.jsonl with a row per step.  -> the
+    launches of this main path: the wrappers count a graph's launches
+    once, at its capture, so each further replay adds K steps'."""
+    cut = os.path.join(tmp, "tpu-cuts.json")
+    with open(cut, "w") as f:
+        json.dump(dict(TPU_CUTS, SUMMARY_DIR=os.path.join(tmp, "logs")), f)
+    _zero_counts()  # the main path of phase 19: the counts start at 0
+    StepGraph.captures = StepGraph.replays = 0
+    t0 = time.perf_counter()
+    text = _run_cli(["-c", TPU_JSON, "-c", cut, "-ne", "2"])
+    seconds = time.perf_counter() - t0
+    hp = load_config(**keys)
+    k = int(hp.TRAIN_STEPS_PER_CALL)
+    extra = (StepGraph.replays - StepGraph.captures) * k
+    launches = {name: n + extra * _step_launches(hp.get_model()(hp))[name]
+                for name, n in _counts().items()}
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith(("Epoch ", "Valid ", "done ("))]
+    for ln in lines:
+        print("phase 19 (d) %s" % ln)
+    epochs = [ln for ln in lines if ln.startswith("Epoch ")]
+    valids = [ln for ln in lines if ln.startswith("Valid ")]
+    values = [float(p.split("=", 1)[1]) for ln in epochs + valids
+              for p in ln.split() if "=" in p]
+    (run_dir,) = os.listdir(os.path.join(tmp, "logs"))
+    with open(os.path.join(tmp, "logs", run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    steps = [r["step"] for r in rows if "train/loss" in r]
+    print("phase 19 (d) CLI, 2 epochs in %.1f s: %d graph(s) captured, "
+          "%d replays; metrics.jsonl %d train rows (steps %d-%d), %d valid; "
+          "launches (graph launches = captured x replays) %s"
+          % (seconds, StepGraph.captures, StepGraph.replays,
+             len(steps), min(steps), max(steps), len(rows) - len(steps),
+             {k: v for k, v in launches.items() if v}))
+    if len(epochs) != 2 or len(valids) != 2 or "[watchdog]" in text \
+            or not all(np.isfinite(v) for v in values) \
+            or steps != list(range(40)) or StepGraph.captures != 1:
+        raise AssertionError("phase 19 (d): %s" % text[-2000:])
+    return launches
+
+
+class _NullWriter:
+    def scalars(self, *a):
+        pass
+
+
+def _quiet_epoch(tr, st: dict, ds) -> float:
+    """One epoch of the loop (no valid sweep, its stdout dropped), between
+    synchronizes.  -> ms per step."""
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train(1, ds, valid_on_epoch=False, state=st, writer=_NullWriter())
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / ds.N_BATCHES
+
+
+class _FirstBatches:
+    """The first ``n`` batches of each epoch of ``ds`` (its cache shared)."""
+
+    def __init__(self, ds, n: int):
+        self.ds, self.N_BATCHES, self.WAVE_SCALE = ds, n, ds.WAVE_SCALE
+
+    def epoch(self, *args, **kw):
+        return itertools.islice(self.ds.epoch(*args, **kw), self.N_BATCHES)
+
+    def epoch_wave(self, *args, **kw):
+        return itertools.islice(self.ds.epoch_wave(*args, **kw),
+                                self.N_BATCHES)
+
+
+def _loop_times(keys: dict) -> dict:
+    """The loop's ms per step and device busy share of tpu.json's step
+    (B=64, bfloat16, DROPOUT_KEEP_PROB 0.9) in three setups, on the flash
+    and the dense attention, printed beside the card's name and power
+    limit.  The synthetic batches of both wires are made first (set-up:
+    the dataset caches them).  Per setup: a short epoch of warm-up (and
+    capture: the first 8 batches, one 8-step call), one timed epoch, then
+    the short epoch under torch.profiler (CUDA activity only), whose device
+    time per step over the timed epoch's wall time per step is the busy
+    share.  Every wall time is taken before the first profiler session,
+    which slows the host's launches after it."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from danet_tpu_torch.data.synth_speech import SyntheticSpeechData
+    from danet_tpu_torch.perf_probe import _device_rows
+    hp = load_config(**keys)
+    ds = SyntheticSpeechData(hp)
+    ds.install_and_load()
+    t0 = time.perf_counter()
+    for epoch in (ds.epoch, ds.epoch_wave):
+        for _ in epoch("train", hp.BATCH_SIZE * hp.MAX_N_SIGNAL):
+            pass
+    made = time.perf_counter() - t0
+    short = _FirstBatches(ds, int(hp.TRAIN_STEPS_PER_CALL))
+    setups = [
+        ("f32 spectra wire, K=1, METRICS_EVERY=1 (as phase 17)",
+         dict(TRANSFER_DOMAIN="spectra", TRANSFER_DTYPE="float32",
+              TRAIN_STEPS_PER_CALL=1, METRICS_EVERY=1)),
+        ("int16 wave wire, K=1, METRICS_EVERY=1",
+         dict(TRAIN_STEPS_PER_CALL=1, METRICS_EVERY=1)),
+        ("every key of tpu.json (int16 wave wire, K=8, METRICS_EVERY=30)",
+         {})]
+    card = nvidia_smi()
+    runs = []
+    t0 = time.perf_counter()
+    for attn in ("flash", "xla"):
+        for label, over in setups:
+            hp = load_config(**dict(keys, ATTN_BACKEND=attn, **over))
+            tr = Trainer(hp.get_model()(hp), hp, "cuda")
+            st = tr.init_state(torch.Generator().manual_seed(0))
+            _quiet_epoch(tr, st, short)
+            runs.append((attn, label, tr, st, _quiet_epoch(tr, st, ds)))
+    out = {}
+    t1 = time.perf_counter()
+    for attn, label, tr, st, wall in runs:
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _quiet_epoch(tr, st, short)
+        device = sum(ms for _, ms in _device_rows(prof, short.N_BATCHES))
+        out[(attn, label)] = (wall, device / wall)
+        print("phase 19 timing ATTN_BACKEND=%s, %s: %.3f ms per step (the "
+              "loop, an epoch of %d steps), device %.3f ms per step (%d "
+              "steps profiled), busy %.1f %% (%s)"
+              % (attn, label, wall, ds.N_BATCHES, device, short.N_BATCHES,
+                 100 * device / wall, card))
+    print("phase 19 timing: making the batches %.1f s, warm-up and timed "
+          "epochs %.1f s, profiled %.1f s"
+          % (made, t1 - t0, time.perf_counter() - t1))
+    return out
+
+
+def phase_tpu_whole() -> dict:
+    """Phase 19: configs/tpu.json whole (module docstring)."""
+    import shutil
+    import tempfile
+    keys = tpu_whole_keys()
+    k = int(keys["TRAIN_STEPS_PER_CALL"])
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print("phase 19 %s took %.1f s" % (what, now - clock[0]))
+        clock[0] = now
+
+    ingest_err = _ingest_check(keys)
+    _graph_vs_eager("(b) tpu.json attn-v1 flash", keys, k)
+    _replays_draw_new_masks(keys, k)
+    lap("(a), (b)")
+    step_rel, grad_rel = _tpu_vs_cpu(keys, k)
+    lap("(c)")
+    tmp = tempfile.mkdtemp(prefix="danet-phase19-")
+    try:
+        launches = _loop_through_cli(keys, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lap("(d)")
+    bilstm = dict(TRANSFER_DOMAIN="wave", TRANSFER_DTYPE="int16",
+                  WAVE_PCM_SCALE=4.0, TRAIN_STEPS_PER_CALL=k,
+                  ENCODER_TYPE="bilstm-orig", BATCH_SIZE=32)
+    _graph_vs_eager("(e) bilstm-orig B=32", bilstm, k)
+    lap("(e)")
+    times = _loop_times(keys)
+    lap("timing")
+    return {"launches": launches, "ingest_err": ingest_err,
+            "step_rel": step_rel, "grad_rel": grad_rel, "times": times}
+
+
 def _bound(flops: float, nbytes: float):
     """(ms, "operations" or "bytes"): the least time of the work on the
     card, the larger of its FLOPs at the float32 peak and its bytes at the
@@ -1569,13 +1998,14 @@ def main():
     logmag = phase_stft_logmag(window)
     training_tpu = phase_training_tpu()
     serving_tpu = phase_serving_tpu()
+    tpu_whole = phase_tpu_whole()
     print("summary: bilstm_scan bfloat16 max_abs_err %.3g (atol %g); "
           "serving worst error vs CPU %.3g of the peak (rtol %g), lstm-orig "
           "%.3g, gru-v1 %.3g, attn-v1 %.3g; train steps vs CPU: worst "
           "relative loss/SNR err %s, step-1 gradients %.3g of the peak; "
           "lstm-orig %s, every step's gradients %.3g; gru-v1 %s, %.3g; "
           "attn-v1 %s, %.3g; configs/tpu.json serving %.3g, training %s, "
-          "%.3g"
+          "%.3g; configs/tpu.json whole: ingest %.3g, 8 steps %.3g, %.3g"
           % (scan["max_abs_err"][torch.bfloat16], LSTM_ATOL[torch.bfloat16],
              serving["max_rel_err"], SERVE_RTOL,
              serving_uni["lstm-orig"]["max_rel_err"],
@@ -1588,13 +2018,15 @@ def main():
              training_uni["gru-v1"]["grad_rel"],
              training_attn["step_rel"], training_attn["grad_rel"],
              serving_tpu["max_rel_err"], training_tpu["step_rel"],
-             training_tpu["grad_rel"]))
+             training_tpu["grad_rel"], tpu_whole["ingest_err"],
+             tpu_whole["step_rel"], tpu_whole["grad_rel"]))
     # launches: the counts of the main paths that run each kernel, each
     # zeroed just before its path and read just after it; kernel 6 has no
     # main path and counts its own phase's comparison launches
     paths = [serving["launches"], training["launches"],
              serving_attn["launches"], training_attn["launches"],
-             serving_tpu["launches"], training_tpu["launches"]] + [
+             serving_tpu["launches"], training_tpu["launches"],
+             tpu_whole["launches"]] + [
         run["launches"] for run in list(serving_uni.values())
         + list(training_uni.values())]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}

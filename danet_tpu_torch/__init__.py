@@ -10,5 +10,8 @@ from danet_tpu_torch.hparams import hparams  # noqa: F401
 import danet_tpu_torch.models  # noqa: F401
 import danet_tpu_torch.optim  # noqa: F401
 import danet_tpu_torch.data.dataset  # noqa: F401
+import danet_tpu_torch.data.synth  # noqa: F401
+import danet_tpu_torch.data.synth_speech  # noqa: F401
+import danet_tpu_torch.data.wsj0  # noqa: F401
 
 __version__ = "0.1.0"

@@ -53,8 +53,10 @@ class Hyperparameter:
     dataset_registry: Dict[str, Any] = {}
 
     def digest(self) -> None:
-        """Recompute derived hyperparameters (FEATURE_SIZE, FFT_WND_ARRAY)
-        after any update."""
+        """Recompute derived hyperparameters (COMPLEXX, FEATURE_SIZE,
+        FFT_WND_ARRAY) after any update."""
+        self.COMPLEXX = {"float32": "complex64",
+                         "float64": "complex128"}[self.FLOATX]
         self.FEATURE_SIZE = 1 + self.FFT_SIZE // 2
         keep = getattr(self, "DROPOUT_KEEP_PROB", 1.0)
         if not (isinstance(keep, float) and 0.0 < keep <= 1.0):

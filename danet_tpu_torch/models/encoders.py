@@ -13,7 +13,6 @@ ATTN_* keys.
 """
 from __future__ import annotations
 
-from functools import lru_cache
 from math import sqrt
 
 import numpy as np
@@ -176,14 +175,10 @@ class GruEncoder(Encoder):
         return _LstmHead.apply(params["output"], hp, x)
 
 
-@lru_cache(maxsize=None)
-def _posenc_np(t: int, d: int) -> np.ndarray:
-    """Sinusoidal positions [t, d]: float64 in numpy, rounded to float32."""
-    pos = np.arange(t)[:, None]
-    dim = np.arange(d // 2)[None, :]
-    ang = pos / (10000.0 ** (2 * dim / d))
-    return np.concatenate([np.sin(ang), np.cos(ang)],
-                          axis=-1).astype("float32")
+def _posenc_denominators(d: int) -> np.ndarray:
+    """10000 ** (2 i / d) for i < d / 2, float64: the sinusoidal positions'
+    wavelengths over 2 pi."""
+    return 10000.0 ** (2 * np.arange(d // 2) / d)
 
 
 @hparams.register_encoder("attn-v1")
@@ -241,8 +236,16 @@ class AttentionEncoder(Encoder):
 
     @staticmethod
     def _posenc(t, d, dtype, device):
-        return torch.from_numpy(_posenc_np(t, d)).to(device=device,
-                                                     dtype=dtype)
+        """Sinusoidal positions [t, d] in ``dtype``: angles and sines in
+        float64 on ``device``, rounded to float32 first, as the JAX
+        package's numpy table.  Built on each call (it depends on t); only
+        the wavelengths are cached."""
+        den = nn.device_constant(("posenc-denominators", d),
+                                 lambda: _posenc_denominators(d), device)
+        ang = torch.arange(t, dtype=torch.float64, device=device)[:, None] \
+            / den[None, :]
+        pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+        return pe.float().to(dtype)
 
     @staticmethod
     def _dense_attention(q, k, v, key_mask):
@@ -251,10 +254,10 @@ class AttentionEncoder(Encoder):
         -1e9 and the softmax in float32, as XLA runs the JAX package's."""
         hd = q.shape[-1]
         logits = nn.ee("bqhd,bkhd->bhqk", q, k) / torch.sqrt(
-            torch.tensor(hd, dtype=q.dtype, device=q.device))
+            torch.full((), hd, dtype=q.dtype, device=q.device))
         logits = torch.where(key_mask[:, None, None, :], logits.float(),
-                             torch.tensor(-1e9, dtype=torch.float32,
-                                          device=q.device))
+                             torch.full((), -1e9, dtype=torch.float32,
+                                        device=q.device))
         attn = torch.softmax(logits, dim=-1).to(q.dtype)
         return nn.ee("bhqk,bkhd->bqhd", attn, v)
 

@@ -22,14 +22,17 @@ import torch
 
 from danet_tpu_torch.hparams import hparams
 from danet_tpu_torch.models.base import Estimator
-from danet_tpu_torch.ops.nn import ee
+from danet_tpu_torch.ops.nn import device_constant, ee
 
 
 def _hard_assignment(src_pwr: torch.Tensor) -> torch.Tensor:
     """[B, N, T, F] -> one-hot dominant source [B, T*F, N]."""
     b, n = src_pwr.shape[0], src_pwr.shape[1]
     labels = torch.argmax(src_pwr, dim=1)
-    onehot = torch.nn.functional.one_hot(labels, n).to(src_pwr.dtype)
+    # one_hot by comparison: torch's one_hot checks its labels on the
+    # host off the card, which a step in a CUDA graph must not do
+    onehot = (labels[..., None] == torch.arange(
+        n, device=labels.device)).to(src_pwr.dtype)
     return onehot.reshape(b, -1, n)
 
 
@@ -97,20 +100,22 @@ class AnchoredEstimator(Estimator):
     @staticmethod
     def _attractor_sets_pairs(embed, anchors, combs):
         """N=2: a two-way softmax is a sigmoid of the logit difference, so
-        the per-subset assignment never materializes; slot 1 follows by
-        sum-complement.  -> [B, P, 2, E]"""
+        the per-subset assignment never materializes.  -> [B, P, 2, E]
+
+        Slot 1 takes the sigmoid of the negated difference and its own sums
+        over the K = T*F bins, as slot 0 does.  The JAX package takes slot
+        1's sums as the totals minus slot 0's, equal in real arithmetic but
+        a cancelling float32 difference: with it, the order in which the
+        card's GEMM sums over K put the anchors' gradient (through kmeans
+        and ANCHOR_AUX_LOSS) 1e-4 of its peak away from the CPU's."""
         b, e_dim = embed.shape[0], embed.shape[-1]
         e_flat = embed.reshape(b, -1, e_dim)                 # [B, K, E]
-        k = e_flat.shape[1]
         d = ee("bke,ae->bka", e_flat, anchors)               # [B, K, A]
-        s = torch.sigmoid(d[..., combs[:, 0]] - d[..., combs[:, 1]])
-        num0 = ee("bkp,bke->bpe", s, e_flat)                 # [B, P, E]
-        num1 = torch.sum(e_flat, dim=1)[:, None] - num0
-        den0 = torch.sum(s.float(), dim=1)                   # [B, P]
-        den1 = k - den0
-        att0 = num0 / den0[..., None].to(embed.dtype)
-        att1 = num1 / den1[..., None].to(embed.dtype)
-        return torch.stack([att0, att1], dim=2)
+        diff = d[..., combs[:, 0]] - d[..., combs[:, 1]]     # [B, K, P]
+        s = torch.sigmoid(torch.stack([diff, -diff], dim=-1))
+        num = ee("bkpc,bke->bpce", s, e_flat)                # [B, P, 2, E]
+        den = torch.sum(s.float(), dim=1)                    # [B, P, 2]
+        return num / den[..., None].to(embed.dtype)
 
     @staticmethod
     def _attractor_sets_general(embed, anchors, combs):
@@ -126,9 +131,10 @@ class AnchoredEstimator(Estimator):
         """(attractor sets [B, P, N, E], chosen subset index [B])."""
         hp = self.hp
         n = hp.MAX_N_SIGNAL
-        combs = torch.as_tensor(
-            np.asarray(list(itertools.combinations(range(hp.NUM_ANCHOR), n)),
-                       dtype=np.int64), device=embed.device)
+        combs = device_constant(
+            ("anchor-subsets", hp.NUM_ANCHOR, n), lambda: np.asarray(
+                list(itertools.combinations(range(hp.NUM_ANCHOR), n)),
+                dtype=np.int64), embed.device)
         anchors = params["anchors"].to(embed.dtype)
         if n == 2:
             sets = self._attractor_sets_pairs(embed, anchors, combs)

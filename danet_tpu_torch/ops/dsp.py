@@ -20,6 +20,8 @@ import functools
 import numpy as np
 import torch
 
+from danet_tpu_torch.ops.nn import device_constant
+
 
 def stft_frame_count(n_samples: int, fft_size: int, stride: int) -> int:
     """Number of STFT frames scipy.signal.stft produces for n_samples."""
@@ -73,20 +75,27 @@ def stft_ri(x: torch.Tensor, fft_size: int, stride: int,
     frames = frame_signal(x.to(tdt), fft_size, stride)
     cos_b, sin_b = _dft_basis(fft_size, dtype)
     scale = 1.0 / float(np.sum(window))
-    wcos = torch.from_numpy(window[:, None] * cos_b * scale).to(x.device)
-    wsin = torch.from_numpy(window[:, None] * sin_b * scale).to(x.device)
+    key = ("stft-basis", fft_size, window.tobytes(), dtype)
+    wcos = device_constant(key + ("cos",),
+                           lambda: window[:, None] * cos_b * scale, x.device)
+    wsin = device_constant(key + ("sin",),
+                           lambda: window[:, None] * sin_b * scale, x.device)
     return torch.stack([frames @ wcos, frames @ wsin], dim=-1)
 
 
-def _ola_denominator(n_used: int, stride: int, window: np.ndarray,
-                     out_len: int) -> np.ndarray:
-    """Static overlap-add window**2 sum, zero entries replaced by 1."""
-    fft_size = window.shape[0]
-    wsum = np.zeros(out_len, dtype=np.float64)
-    idx = np.arange(n_used)[:, None] * stride + np.arange(fft_size)[None]
-    np.add.at(wsum, idx.reshape(-1),
-              np.tile(np.asarray(window, np.float64) ** 2, n_used))
-    return np.where(wsum != 0, wsum, 1.0).astype(window.dtype)
+def _ola_denominator(idx: torch.Tensor, window: np.ndarray, out_len: int,
+                     key: tuple) -> torch.Tensor:
+    """The overlap-add sum of window**2 at the output samples ``idx`` (the
+    frames' flattened sample indices), summed in float64 on ``idx``'s
+    device and rounded to the window's dtype, zero entries replaced by 1.
+    Built on each call: it depends on the length."""
+    dev = idx.device
+    w2 = device_constant(key + ("window-squared",),
+                         lambda: np.asarray(window, np.float64) ** 2, dev)
+    wsum = torch.zeros(out_len, dtype=torch.float64, device=dev)
+    wsum.index_add_(0, idx, w2.repeat(idx.numel() // w2.numel()))
+    wsum = torch.where(wsum != 0, wsum, torch.ones_like(wsum))
+    return wsum.to(getattr(torch, str(window.dtype)))
 
 
 def istft_ri(spectra_ri: torch.Tensor, stride: int, window: np.ndarray,
@@ -101,19 +110,20 @@ def istft_ri(spectra_ri: torch.Tensor, stride: int, window: np.ndarray,
     n_used = max(0, -(-(out_len - fft_size) // stride))
 
     cos_b, sin_b = _idft_basis(fft_size, str(window.dtype))
+    key = ("istft", fft_size, stride, window.tobytes(), str(window.dtype))
     re = spectra_ri[..., :n_used, :, 0].to(tdt)
     im = spectra_ri[..., :n_used, :, 1].to(tdt)
-    frames = (re @ torch.from_numpy(cos_b).to(dev)
-              + im @ torch.from_numpy(sin_b).to(dev))
-    frames = frames * torch.from_numpy(np.asarray(window)).to(dev)
+    frames = (re @ device_constant(key + ("cos",), lambda: cos_b, dev)
+              + im @ device_constant(key + ("sin",), lambda: sin_b, dev))
+    frames = frames * device_constant(key + ("window",),
+                                      lambda: np.asarray(window), dev)
 
     idx = (torch.arange(n_used, device=dev)[:, None] * stride
            + torch.arange(fft_size, device=dev)[None, :]).reshape(-1)
     lead = frames.shape[:-2]
     out = torch.zeros(lead + (out_len,), dtype=tdt, device=dev)
     out.index_add_(-1, idx, frames.reshape(lead + (-1,)))
-    denom = _ola_denominator(n_used, stride, window, out_len)
-    out = out / torch.from_numpy(denom).to(dev)
+    out = out / _ola_denominator(idx, window, out_len, key)
     if length is not None:
         out = out[..., :length]
     return out

@@ -18,6 +18,8 @@ from math import prod
 import numpy as np
 import torch
 
+from danet_tpu_torch.ops.nn import device_constant
+
 SNR_COEFF = 4.342944819  # 10 / ln(10)
 
 
@@ -29,11 +31,16 @@ def permutations_array(n: int) -> np.ndarray:
 def _perm_onehot(n: int, device):
     """(perms [P, N] int64, one-hot stack [P, N, N] float32):
     onehot[p, i, perms[p, i]] = 1."""
-    perms = permutations_array(n)
-    onehot = np.zeros((len(perms), n, n), dtype=np.float32)
-    onehot[np.arange(len(perms))[:, None], np.arange(n)[None, :], perms] = 1
-    return (torch.from_numpy(perms).to(device),
-            torch.from_numpy(onehot).to(device))
+    def make_onehot():
+        perms = permutations_array(n)
+        onehot = np.zeros((len(perms), n, n), dtype=np.float32)
+        onehot[np.arange(len(perms))[:, None], np.arange(n)[None, :],
+               perms] = 1
+        return onehot
+
+    return (device_constant(("perms", n), lambda: permutations_array(n),
+                            device),
+            device_constant(("perm-onehot", n), make_onehot, device))
 
 
 def pit_mse_loss(x: torch.Tensor, y: torch.Tensor, complex_ri: bool = False,
@@ -287,7 +294,8 @@ def dc_loss(embed: torch.Tensor, src_pwr: torch.Tensor,
     v = v * torch.rsqrt(torch.sum(torch.square(v), dim=-1, keepdim=True)
                         + eps)
     labels = torch.argmax(src_pwr, dim=1).reshape(b, t * f)
-    y = torch.nn.functional.one_hot(labels, n).float()       # [B, TF, N]
+    y = (labels[..., None] == torch.arange(                  # [B, TF, N]
+        n, device=labels.device)).float()
     if weights is not None:
         w = weights.reshape(b, t * f).float()
         w = w * (t * f / (torch.sum(w, dim=-1, keepdim=True) + eps))

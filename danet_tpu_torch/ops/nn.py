@@ -1,5 +1,6 @@
 """Small functional layer library: the mixed-precision matmul contract, the
-linear layer, layer norm, GELU, leaky ReLU and dropout.
+linear layer, layer norm, GELU, leaky ReLU, dropout, and the cache of host
+constants on the device.
 
 Counterpart of ``danet_tpu/ops/nn.py:17-80,97-107`` (GELU: ``jax.nn.gelu``).  ``mm``/``ee`` take
 operands in the compute dtype, accumulate in float32 and cast the result
@@ -13,6 +14,27 @@ import math
 from typing import Optional
 
 import torch
+
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(key, make, device, dtype=None) -> torch.Tensor:
+    """``torch.from_numpy(make())`` on ``device`` (in ``dtype``, if given),
+    built at the first call per (key, device, dtype) and cached: later
+    calls copy nothing from the host, which a step captured in a CUDA graph
+    must not do.  ``key`` names everything ``make`` depends on, never an
+    input's length: the cache is never emptied, so a constant of every
+    request length would grow it for the life of a server.  Built outside
+    inference mode even under it (serving), so that training can save it
+    for backward."""
+    full = (key, str(torch.device(device)), dtype)
+    hit = _CONSTANTS.get(full)
+    if hit is None:
+        with torch.inference_mode(False):
+            hit = torch.from_numpy(make()).to(device=device, dtype=dtype)
+        _CONSTANTS[full] = hit
+    return hit
 
 
 def uniform_init(generator: torch.Generator, shape, scale: float,

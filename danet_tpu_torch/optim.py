@@ -10,6 +10,15 @@ under ``torch.no_grad``).  The clip step first scales the whole gradient
 to a global norm of at most GRAD_CLIP_NORM (when set, > 0), then clips
 every element to +/- GRAD_CLIP_THRES (when not None).
 
+The step's scalars, Adam's reciprocal bias corrections and the negated
+learning rate, are a float32 tensor on the parameters' device
+(``host_scalars``; on a card copied from pinned memory) rather than Python
+numbers, on every device alike, so that a step captured in a CUDA graph
+reads the values of its replay and the card and the CPU run the same
+arithmetic.  ``m * (1 / bc)`` is how a CUDA op divides by a Python number
+(a product with its float32 reciprocal); JAX divides by ``bc``, which
+differs from it by at most one float32 ulp.
+
 ``make_optimizer(hp, params)`` builds the OPTIMIZER_TYPE registered with
 ``hparams.register_optimizer``; ``set_learn_rate`` / ``get_learn_rate``
 read and write its learning rate.
@@ -18,6 +27,7 @@ from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from danet_tpu_torch.hparams import hparams
@@ -44,6 +54,7 @@ class Optimizer:
         self.clip_norm = clip_norm
         self.weight_decay = float(weight_decay)
         self.count = 0
+        self.mu = self.nu = None
         if rule != "sgd":
             self.mu = [torch.zeros_like(p) for p in self.params]
             self.nu = [torch.zeros_like(p) for p in self.params]
@@ -63,26 +74,58 @@ class Optimizer:
             grads = [torch.clamp(g, -c, c) for g in grads]
         return grads
 
+    def host_scalars(self, count: int, k: int = 1) -> np.ndarray:
+        """float32 [k, 3] of the steps that take the count to ``count``,
+        ``count + 1``, ...: 1 / (1 - B1^c) and 1 / (1 - B2^c), each the
+        float32 reciprocal of the float32 rounding of the float64 value,
+        and -LR."""
+        out = np.ones((k, 3), np.float32)
+        out[:, 2] = np.float32(-self.lr)
+        if self.rule != "sgd":
+            for j in range(k):
+                c = count + j
+                out[j, 0] = np.float32(1.0) / np.float32(1.0 - B1 ** c)
+                out[j, 1] = np.float32(1.0) / np.float32(1.0 - B2 ** c)
+        return out
+
+    def device_scalars(self, count: int, k: int = 1) -> torch.Tensor:
+        """``host_scalars`` on the parameters' device: on a card by a
+        non-blocking copy from pinned memory (PyTorch's host allocator
+        keeps the pinned block until the copy has run)."""
+        host = torch.from_numpy(self.host_scalars(count, k))
+        dev = self.params[0].device
+        if dev.type != "cuda":
+            return host.to(dev)
+        return host.pin_memory().to(dev, non_blocking=True)
+
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor]) -> None:
+    def step(self, grads: List[torch.Tensor],
+             scalars: Optional[torch.Tensor] = None) -> None:
         """Apply one update; ``grads`` are aligned with ``leaves(params)``
-        (zeros for parameters the loss does not reach)."""
+        (zeros for parameters the loss does not reach).  ``scalars`` is
+        this step's row of ``device_scalars`` (without one, the step makes
+        its own)."""
         grads = self.clip(grads)
         self.count += 1
-        if self.rule != "sgd":
-            bc1 = 1.0 - B1 ** self.count
-            bc2 = 1.0 - B2 ** self.count
-        for i, (p, g) in enumerate(zip(self.params, grads)):
+        if scalars is None:
+            scalars = self.device_scalars(self.count)[0]
+        self.update(self.params, self.mu, self.nu, grads, scalars)
+
+    def update(self, params, mu, nu, grads, scalars) -> None:
+        """The update rule in place on ``params`` (and the moments ``mu``,
+        ``nu``) from clipped ``grads``, with ``scalars`` a row of
+        ``device_scalars``."""
+        inv1, inv2, neg_lr = scalars[0], scalars[1], scalars[2]
+        for i, (p, g) in enumerate(zip(params, grads)):
             if self.rule == "sgd":
                 u = g
             else:
-                mu = self.mu[i].copy_((1.0 - B1) * g + B1 * self.mu[i])
-                nu = self.nu[i].copy_((1.0 - B2) * torch.square(g)
-                                      + B2 * self.nu[i])
-                u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
+                m = mu[i].copy_((1.0 - B1) * g + B1 * mu[i])
+                v = nu[i].copy_((1.0 - B2) * torch.square(g) + B2 * nu[i])
+                u = (m * inv1) / (torch.sqrt(v * inv2) + EPS)
                 if self.rule == "adamw":
                     u = u + self.weight_decay * p
-            p.add_(u * -self.lr)
+            p.add_(u * neg_lr)
 
 
 @hparams.register_optimizer("sgd")

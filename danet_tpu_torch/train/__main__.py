@@ -4,9 +4,15 @@ train``):
     python -m danet_tpu_torch.train [-c cfg.json] [-ds toy] [-ne N] \\
         [-bs B] [-lr LR] [--seed S] [--no-valid-on-epoch] [--device cuda]
 
-Configs layer over ``default.json`` as in the JAX package.  Prints the
+Configs layer over ``default.json`` as in the JAX package.  The dataset
+is the registered DATASET_TYPE (``toy``, ``synth``, ``synth-speech``,
+``wsj0``, the last from WSJ0_PATH; h5py is needed for it).  Prints the
 per-epoch loss / SNR / LR line and the validation line that the JAX CLI
-prints; saves nothing (checkpoints are not ported).
+prints and writes ``metrics.jsonl`` under SUMMARY_DIR (and TensorBoard
+scalars where tensorboardX is installed); saves no checkpoint
+(checkpoints are not ported).  ``configs/tpu.json`` trains with its own
+trainer keys: the int16 wave wire, TRAIN_STEPS_PER_CALL (CUDA graphs on
+the card), METRICS_EVERY and WATCHDOG_SECS.
 """
 from __future__ import annotations
 

@@ -1,29 +1,56 @@
-"""Training loop: batch preparation, the train and valid steps, and a
-plain epoch loop.
+"""Training loop: batch preparation, the wire, the train and valid steps,
+K steps per call, and the epoch loop.
 
-Counterpart of ``danet_tpu/train/trainer.py``: ``prepare_batch``
-(:143-169), ``Trainer`` with its steps (:223-393), ``init_state``
-(:492-502), the learning rate (:584-588) and ``train`` (:642-1038).  The
-JAX trainer jits one fused step; here a step runs eagerly on ``device``:
-ingest the prepared numpy batch, forward, backward (autograd, through the
-recurrent kernels' and the flash-attention kernels' autograd Functions),
-clip, update in place.
+Counterpart of ``danet_tpu/train/trainer.py``: ``prefetch_to_device``
+(:68-118), ``prepare_batch`` (:143-169), ``prepare_batch_wave``
+(:172-220), ``Trainer`` with its wire and steps (:223-582), the learning
+rate (:584-588), the hang watchdog (:661-710), ``train`` (:738-1103) and
+the valid sweep (:1106-1144).  The JAX trainer jits one fused step; here a
+step runs eagerly on ``device``: ingest, forward, backward (autograd,
+through the kernels' autograd Functions), clip, update in place.
+
+The wire (TRANSFER_DOMAIN, TRANSFER_DTYPE, WAVE_PCM_SCALE): a prepared
+batch is either ri spectra [B, N, T, F, 2] or, on the wave wire, waveforms
+[B, N, S] whose STFT runs on the device (kernel A, ``ops/cuda/stft.py``,
+under STFT_BACKEND 'auto' or 'pallas'; the plain framing and matmul under
+'xla').  The host casts a train batch to bfloat16 (round to nearest even)
+or, on the wave wire, to int16 PCM (``clip(round(x * 32768 / scale))``);
+eval sweeps ship float32.  On the device the batch is upcast, int16
+dequantised by ``scale / 32768``, then transformed.
+
+The loop: a daemon thread prepares the batches (crop, pad, stack, wire
+cast) into pinned host buffers, and the main thread copies each without
+blocking (``prefetch_to_device``, ``PinnedStaging``).
+TRAIN_STEPS_PER_CALL = K > 1 stacks K batches of one shape into one
+transfer and one call, which on the card replays a CUDA graph of K whole
+steps (captured once per input shape and K; ``train_steps``); a group
+whose shape changes and the epoch's remainder run as single steps.  The
+per-step metrics stay on the device and are fetched once every
+METRICS_EVERY steps; every row goes to the epoch report and to the metric
+files (``train/metrics.py``).  WATCHDOG_SECS > 0 exits the process with
+WATCHDOG_EXIT_CODE when no step, valid batch or metric fetch has finished
+for that long.
 
 Not ported, and refused with NotImplementedError: GRAD_ACCUM > 1,
-EMA_DECAY > 0, TRAIN_STEPS_PER_CALL > 1, TRANSFER_DOMAIN='wave', wires
-other than float32, NAN_CHECKS, REMAT, the valid-crash rollback
-(VALID_CRASH_FACTOR > 0) and the hang watchdog (WATCHDOG_SECS > 0);
-``DaNet`` itself refuses MESH_* > 1.  Checkpoints, the NaN rollback, profiling and metric files are not
+EMA_DECAY > 0, NAN_CHECKS, REMAT and the valid-crash rollback
+(VALID_CRASH_FACTOR > 0); ``DaNet`` itself refuses MESH_* > 1.
+Checkpoints, the NaN rollback, the preemption save and profiling are not
 ported either: ``train`` raises on a NaN epoch instead of rolling back.
 
 The data stream is reproducible: every epoch draws its batches and crops
-from ``np.random.RandomState(crc32(...))`` of the same (epoch, seed) key
-that the JAX trainer seeds numpy's global generator with.
+from ``np.random.RandomState(crc32(...))``, and the random zero-pad splits
+from ``random.Random(crc32(...))``, of the same (epoch, seed) key that
+the JAX trainer seeds numpy's global generator with.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import os
+import queue
+import random
 import sys
+import threading
 import time
 import zlib
 from collections import OrderedDict
@@ -35,7 +62,103 @@ import torch
 from danet_tpu_torch import optim as optim_lib
 from danet_tpu_torch import weights
 from danet_tpu_torch.data import audio
+from danet_tpu_torch.models.danet import STFT_BACKENDS
+from danet_tpu_torch.ops import dsp
+from danet_tpu_torch.ops.cuda import stft as cuda_stft
+from danet_tpu_torch.train.metrics import MetricsWriter, StepTimer
 from danet_tpu_torch.weights import leaves
+
+# exit code of the hang watchdog (WATCHDOG_SECS), as the JAX trainer's: a
+# supervisor tells "hung, relaunch" from a crash by it
+WATCHDOG_EXIT_CODE = 114
+WIRE_DTYPES = ("float32", "bfloat16", "int16")
+
+
+def prefetch_to_device(batch_iter, put_fn, depth: int = 2):
+    """Pipelined input: a daemon thread runs ``batch_iter`` (the host-side
+    batch preparation) while the main thread calls ``put_fn`` on each item
+    (the copy to the device) and yields its result.  Puts are bounded and
+    watch a stop flag, so that a consumer that abandons the generator
+    releases the worker; an exception in the worker is raised here."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+    err = []
+    stop = threading.Event()
+
+    def worker():
+        try:
+            for item in batch_iter:
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.5)
+                        break
+                    except queue.Full:
+                        continue
+                if stop.is_set():
+                    return
+        except BaseException as e:  # raised on the consumer's side
+            err.append(e)
+        finally:
+            while not stop.is_set():
+                try:
+                    q.put(sentinel, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+
+    t = threading.Thread(target=worker, daemon=True, name="prefetch")
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if err:
+                    raise err[0]
+                return
+            yield put_fn(item)
+    finally:
+        stop.set()
+
+
+class PinnedStaging:
+    """Pinned host buffers for the batch copies, by shape and dtype.  A
+    buffer lent to a non-blocking copy goes back to the pool only once the
+    CUDA event recorded after that copy has completed, so that the next
+    batch is never written into bytes still in flight.  The pool keeps at
+    most ``max_free`` idle buffers, the most recently returned (a corpus of
+    variable lengths brings many shapes)."""
+
+    def __init__(self, max_free: int = 8):
+        self._free: list = []
+        self._lent: list = []
+        self._lock = threading.Lock()
+        self.max_free = max_free
+
+    def take(self, shape, dtype) -> torch.Tensor:
+        shape = tuple(shape)
+        with self._lock:
+            lent = []
+            for event, buf in self._lent:
+                if event.query():
+                    self._free.append(buf)
+                else:
+                    lent.append((event, buf))
+            self._lent = lent
+            del self._free[:-self.max_free]
+            for i, buf in enumerate(self._free):
+                if tuple(buf.shape) == shape and buf.dtype == dtype:
+                    return self._free.pop(i)
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+    def to_device(self, buf: torch.Tensor, device) -> torch.Tensor:
+        """A non-blocking copy of ``buf`` on the device's current stream;
+        ``buf`` is lent until the copy has run."""
+        out = buf.to(device, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        with self._lock:
+            self._lent.append((event, buf))
+        return out
 
 
 def prepare_batch(flat_spectra: np.ndarray, batch_size: int, n_signal: int,
@@ -67,15 +190,77 @@ def prepare_batch(flat_spectra: np.ndarray, batch_size: int, n_signal: int,
     return audio.to_ri(spectra)
 
 
+def prepare_batch_wave(flat_wave: np.ndarray, batch_size: int, n_signal: int,
+                       fft_size: int, stride: int,
+                       max_len: Optional[int] = None,
+                       bucket: Optional[int] = None,
+                       rng: Optional[np.random.RandomState] = None
+                       ) -> np.ndarray:
+    """Host-side prep for the wave wire: flat [B*N, S] -> [B, N, S']
+    float32, the crop and the bucket counted in STFT frames, so that the
+    device's STFT lands on the frame grid the spectra wire would ship.
+
+    A crop of ``max_len`` frames (its start drawn from ``rng``) spans
+    (max_len - 1) * stride samples; the bucket pads the frame count up to
+    its multiple; the length snaps up to (t - 1) * stride, the shortest
+    of the lengths that give t frames.  Frames padded here are the STFT of
+    the zero tail, not zero frames, and a crop's edge frames see zeros,
+    not the neighbouring samples: the two wires agree frame for frame only
+    uncropped and unbucketed."""
+    if flat_wave.shape[0] != batch_size * n_signal:
+        raise ValueError("got %d utterances for batch %d x %d sources"
+                         % (flat_wave.shape[0], batch_size, n_signal))
+    wave = flat_wave.reshape(batch_size, n_signal, -1)
+    t = dsp.stft_frame_count(wave.shape[-1], fft_size, stride)
+    if max_len is not None and t > max_len:
+        if rng is None:
+            raise ValueError("cropping to MAX_TRAIN_LEN needs an explicit "
+                             "np.random.RandomState")
+        beg = rng.randint(0, t - max_len)
+        span = (max_len - 1) * stride
+        wave = wave[:, :, beg * stride:beg * stride + span]
+        t = max_len
+    if bucket:
+        t = t + ((-t) % bucket)
+    target = (t - 1) * stride
+    if wave.shape[-1] < target:
+        wave = np.pad(wave, [(0, 0), (0, 0), (0, target - wave.shape[-1])])
+    return wave.astype(np.float32)
+
+
 def _dict_format(di) -> str:
     return " ".join("%s=%s" % (k, v) for k, v in di.items())
+
+
+def _tree_clone(tree: dict) -> dict:
+    return {k: _tree_clone(v) if isinstance(v, dict)
+            else v.detach().clone().requires_grad_(v.requires_grad)
+            for k, v in tree.items()}
+
+
+class StepGraph:
+    """A CUDA graph of K train steps and its static tensors: the wire
+    batches it reads (``inp``, [K, ...]), the optimizer scalars
+    (``scalars``, [K, 3]) and the per-step metrics it writes (``out``,
+    [K, len(names)]).  ``StepGraph.captures`` and ``StepGraph.replays``
+    count the graphs captured and the replays run, by every Trainer (as
+    the kernel wrappers' ``launches`` count launches: a wrapper counts its
+    launches in a graph once, at the capture)."""
+    captures = 0
+    replays = 0
+
+    def __init__(self, graph, inp, scalars, out, names):
+        self.graph, self.inp, self.scalars = graph, inp, scalars
+        self.out, self.names = out, names
 
 
 class Trainer:
     """Owns the steps and the loop for one model on one ``device`` (the
     card unless the caller asks for the CPU).  The state is {params, opt,
-    step, epoch, generator}: ``opt`` holds the optimizer's moments and
-    learning rate, ``generator`` draws dropout."""
+    step, epoch, generator} and, once a K-step call has run on the card,
+    ``graphs``: ``opt`` holds the optimizer's moments and learning rate,
+    ``generator`` draws dropout, ``graphs`` the captured K-step graphs,
+    which update the state's tensors in place."""
 
     def __init__(self, model, hp=None, device="cuda"):
         self.hp = hp if hp is not None else model.hp
@@ -83,6 +268,35 @@ class Trainer:
         self.device = torch.device(device)
         self._check_config()
         model.check_train_config()
+        hp = self.hp
+        domain = str(getattr(hp, "TRANSFER_DOMAIN", "spectra"))
+        if domain not in ("spectra", "wave"):
+            raise ValueError(
+                "TRANSFER_DOMAIN=%r: expected 'spectra' or 'wave'" % domain)
+        self._wave_mode = domain == "wave"
+        wire_dtype = str(getattr(hp, "TRANSFER_DTYPE", "float32"))
+        if wire_dtype not in WIRE_DTYPES:
+            raise ValueError(
+                "TRANSFER_DTYPE=%r: expected 'float32', 'bfloat16' or "
+                "'int16'" % wire_dtype)
+        if wire_dtype == "int16" and not self._wave_mode:
+            raise ValueError(
+                "TRANSFER_DTYPE='int16' is PCM quantization of the wave "
+                "wire: it requires TRANSFER_DOMAIN='wave'")
+        stft_backend = getattr(hp, "STFT_BACKEND", "auto") or "auto"
+        if self._wave_mode and stft_backend not in STFT_BACKENDS:
+            raise ValueError("Unknown STFT_BACKEND %r" % (stft_backend,))
+        # frozen here, so that the host cast and the device's
+        # dequantisation cannot disagree after a change of hp
+        self._wire_dtype = wire_dtype
+        self._pcm_scale = float(getattr(hp, "WAVE_PCM_SCALE", 1.0) or 1.0)
+        self._dequant = self._pcm_scale / 32768.0
+        self._stft_backend = stft_backend
+        self._steps_per_call = int(
+            getattr(hp, "TRAIN_STEPS_PER_CALL", 1) or 1)
+        self._staging = PinnedStaging()
+        self._heartbeat = time.monotonic()
+        self._watchdog_on = False
 
     def _check_config(self) -> None:
         hp = self.hp
@@ -93,15 +307,9 @@ class Trainer:
         refused = [
             ("GRAD_ACCUM > 1", num("GRAD_ACCUM") > 1),
             ("EMA_DECAY > 0", num("EMA_DECAY") > 0),
-            ("TRAIN_STEPS_PER_CALL > 1", num("TRAIN_STEPS_PER_CALL") > 1),
-            ("TRANSFER_DOMAIN other than 'spectra'",
-             str(getattr(hp, "TRANSFER_DOMAIN", "spectra")) != "spectra"),
-            ("TRANSFER_DTYPE other than 'float32'",
-             str(getattr(hp, "TRANSFER_DTYPE", "float32")) != "float32"),
             ("NAN_CHECKS", bool(getattr(hp, "NAN_CHECKS", False))),
             ("REMAT", bool(getattr(hp, "REMAT", False))),
             ("VALID_CRASH_FACTOR > 0", num("VALID_CRASH_FACTOR") > 0),
-            ("WATCHDOG_SECS > 0", num("WATCHDOG_SECS") > 0),
         ]
         for what, bad in refused:
             if bad:
@@ -129,11 +337,67 @@ class Trainer:
                 "step": 0, "epoch": 0,
                 "generator": torch.Generator(self.device).manual_seed(seed)}
 
-    def ingest(self, batch_np: np.ndarray) -> torch.Tensor:
-        """A prepared float32 batch [B, N, T, F, 2] onto the device."""
-        return torch.from_numpy(
-            np.ascontiguousarray(batch_np, dtype=np.float32)).to(self.device)
+    # ------------------------------------------------------------------
+    # the wire
+    def wire_cast(self, batch_np: np.ndarray,
+                  for_eval: bool = False) -> torch.Tensor:
+        """The host side of the wire: a prepared float32 batch as a CPU
+        tensor in the wire dtype.  bfloat16 rounds to nearest even; int16
+        is ``clip(round(x * 32768 / WAVE_PCM_SCALE))``; ``for_eval``
+        (valid and test sweeps) ships float32 whatever the wire."""
+        batch_np = np.ascontiguousarray(batch_np, dtype=np.float32)
+        if not for_eval and self._wire_dtype == "int16":
+            return torch.from_numpy(np.clip(
+                np.round(batch_np * (32768.0 / self._pcm_scale)),
+                -32768, 32767).astype(np.int16))
+        out = torch.from_numpy(batch_np)
+        if not for_eval and self._wire_dtype == "bfloat16":
+            out = out.to(torch.bfloat16)
+        return out
 
+    def _host_batch(self, batch_np: np.ndarray,
+                    for_eval: bool = False) -> torch.Tensor:
+        """``wire_cast``, into a pinned buffer when the device is a card."""
+        out = self.wire_cast(batch_np, for_eval)
+        if self.device.type != "cuda":
+            return out
+        buf = self._staging.take(out.shape, out.dtype)
+        return buf.copy_(out)
+
+    def _put(self, host: torch.Tensor) -> torch.Tensor:
+        """A host batch of ``_host_batch`` onto the device."""
+        if self.device.type != "cuda":
+            return host.to(self.device)
+        return self._staging.to_device(host, self.device)
+
+    def ingest(self, batch, for_eval: bool = False) -> torch.Tensor:
+        """A batch as the model's input, ri spectra [B, N, T, F, 2]
+        float32 on the device: a prepared numpy batch crosses the wire
+        first (``for_eval``: in float32); a tensor is one on the device
+        that crossed it.  Then the upcast, int16's dequantisation and, on
+        the wave wire, the STFT (STFT_BACKEND 'auto' and 'pallas': kernel
+        A on the card, its plain version on the CPU; 'xla': the plain
+        framing and matmul).  No gradient flows into the wire."""
+        if not torch.is_tensor(batch):
+            batch = self._put(self._host_batch(batch, for_eval))
+        x = batch.float()
+        if batch.dtype == torch.int16:
+            x = x * self._dequant
+        if not self._wave_mode:
+            return x
+        hp = self.hp
+        b, n, s = x.shape
+        flat = x.reshape(b * n, s)
+        if self._stft_backend == "xla":
+            spec = dsp.stft_ri(flat, hp.FFT_SIZE, hp.FFT_STRIDE,
+                               hp.FFT_WND_ARRAY)
+        else:
+            spec = cuda_stft.stft_ri(flat, hp.FFT_SIZE, hp.FFT_STRIDE,
+                                     hp.FFT_WND_ARRAY)
+        return spec.reshape((b, n) + tuple(spec.shape[1:]))
+
+    # ------------------------------------------------------------------
+    # the steps
     def loss_and_grads(self, params: dict, src_ri: torch.Tensor,
                        generator: Optional[torch.Generator] = None):
         """(metrics, grads): {"loss", "SNR"} and "DC" (the raw
@@ -150,21 +414,111 @@ class Trainer:
             metrics["DC"] = aux["dc"].detach()
         return metrics, grads
 
-    def train_step(self, state: dict, batch_np: np.ndarray) -> dict:
-        """One step on a prepared batch: ingest, forward, backward, clip,
+    def train_step(self, state: dict, batch) -> dict:
+        """One step on a batch (see ``ingest``): forward, backward, clip,
         update.  -> {"loss", "SNR"} (and "DC") as 0-d tensors on the
         device."""
         metrics, grads = self.loss_and_grads(
-            state["params"], self.ingest(batch_np), state["generator"])
+            state["params"], self.ingest(batch), state["generator"])
         state["opt"].step(grads)
         state["step"] += 1
         return metrics
 
+    def train_steps(self, state: dict, stack) -> dict:
+        """K steps on a stack of K batches of one shape, [K, ...] (a numpy
+        stack, or its wire tensor on the device), as K ``train_step``s.
+        -> the metrics as [K] tensors on the device.
+
+        On the card the K steps are one CUDA graph, captured at the first
+        call per (shape, dtype) of the stack and replayed: it holds K
+        forward, backward, clip and update steps, reads the stack and the
+        optimizer's scalars from static buffers filled before each replay,
+        and draws dropout from the state's generator (registered with the
+        graph).  A capture or replay that fails raises.  On the CPU the K
+        steps run eagerly."""
+        if not torch.is_tensor(stack):
+            stack = self._put(self._host_batch(stack))
+        k = stack.shape[0]
+        if self.device.type != "cuda":
+            rows = [self.train_step(state, stack[i]) for i in range(k)]
+            return {n: torch.stack([r[n] for r in rows]) for n in rows[0]}
+        graphs = state.setdefault("graphs", {})
+        key = (tuple(stack.shape), stack.dtype)
+        g = graphs.get(key)
+        if g is None:
+            g = graphs[key] = self._capture(state, stack)
+        opt = state["opt"]
+        g.inp.copy_(stack)
+        g.scalars.copy_(torch.from_numpy(
+            opt.host_scalars(opt.count + 1, k)).pin_memory(),
+            non_blocking=True)
+        g.graph.replay()
+        StepGraph.replays += 1
+        opt.count += k
+        state["step"] += k
+        out = g.out.clone()
+        return {n: out[:, j] for j, n in enumerate(g.names)}
+
+    def _warm_up(self, state: dict, batch: torch.Tensor,
+                 scalars: torch.Tensor) -> None:
+        """One step on copies of the parameters and moments, on a side
+        stream (as PyTorch asks before a capture): lazy initialisations
+        (the kernel library, cuBLAS, the cached constants) must not happen
+        under capture, and the state must not move."""
+        dev = self.device
+        opt = state["opt"]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            params = _tree_clone(state["params"])
+            _, grads = self.loss_and_grads(
+                params, self.ingest(batch),
+                torch.Generator(dev).manual_seed(0))
+            moments = [None if m is None else [t.clone() for t in m]
+                       for m in (opt.mu, opt.nu)]
+            with torch.no_grad():
+                opt.update(leaves(params), *moments, opt.clip(grads),
+                           scalars)
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+    def _capture(self, state: dict, stack: torch.Tensor) -> StepGraph:
+        """Capture K steps of ``state`` into a CUDA graph, after a
+        warm-up step (``_warm_up``)."""
+        dev = self.device
+        k = stack.shape[0]
+        opt = state["opt"]
+        inp = stack.clone()
+        scalars = torch.ones((k, 3), dtype=torch.float32, device=dev)
+        self._warm_up(state, inp[0], scalars[0])
+        graph = torch.cuda.CUDAGraph()
+        if not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                "this PyTorch cannot register the dropout generator with a "
+                "CUDA graph (CUDAGraph.register_generator_state)")
+        graph.register_generator_state(state["generator"])
+        count = opt.count
+        # thread_local: the prefetch thread's pinned allocations and event
+        # queries go on during the capture
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            rows, names = [], None
+            for i in range(k):
+                metrics, grads = self.loss_and_grads(
+                    state["params"], self.ingest(inp[i]), state["generator"])
+                opt.step(grads, scalars[i])
+                names = list(metrics)
+                rows.append(torch.stack([metrics[n] for n in names]))
+            out = torch.stack(rows)
+        opt.count = count
+        StepGraph.captures += 1
+        return StepGraph(graph, inp, scalars, out, names)
+
     @torch.no_grad()
-    def valid_step(self, state: dict, batch_np: np.ndarray) -> dict:
-        """Validation metrics of one prepared batch: every metric of
-        ``valid_metrics`` but the separated spectra."""
-        m = self.model.valid_metrics(state["params"], self.ingest(batch_np))
+    def valid_step(self, state: dict, batch) -> dict:
+        """Validation metrics of one batch, shipped in float32 (see
+        ``ingest``): every metric of ``valid_metrics`` but the separated
+        spectra, as 0-d tensors on the device."""
+        m = self.model.valid_metrics(state["params"],
+                                     self.ingest(batch, for_eval=True))
         return {k: v for k, v in m.items() if k != "separated_ri"}
 
     def set_learn_rate(self, state: dict, lr: float) -> None:
@@ -174,31 +528,154 @@ class Trainer:
         return optim_lib.get_learn_rate(state["opt"])
 
     # ------------------------------------------------------------------
-    def _batches(self, dataset, subset, rng, max_len):
-        hp = self.hp
-        for data_pt in dataset.epoch(subset, hp.BATCH_SIZE * hp.MAX_N_SIGNAL,
-                                     shuffle=subset == "train", rng=rng):
-            yield prepare_batch(data_pt[0], hp.BATCH_SIZE, hp.MAX_N_SIGNAL,
-                                max_len=max_len,
-                                bucket=getattr(hp, "TIME_BUCKET", None),
-                                rng=rng)
+    # the data
+    def _epoch_fn(self, dataset, for_eval: bool = False):
+        """The dataset's epoch generator for the configured wire: the
+        wave wire needs ``epoch_wave`` and, for int16 train batches, a
+        WAVE_PCM_SCALE equal to the dataset's WAVE_SCALE (eval sweeps ship
+        float32 and skip that check)."""
+        if not self._wave_mode:
+            return dataset.epoch
+        fn = getattr(dataset, "epoch_wave", None)
+        if fn is None:
+            raise ValueError(
+                "TRANSFER_DOMAIN='wave' needs a wave-capable dataset "
+                "(synth, synth-speech, wsj0 expose epoch_wave); %s stores "
+                "spectra only: use the default spectra wire"
+                % type(dataset).__name__)
+        if self._wire_dtype == "int16" and not for_eval:
+            want = float(getattr(dataset, "WAVE_SCALE", 1.0))
+            if self._pcm_scale != want:
+                raise ValueError(
+                    "TRANSFER_DTYPE='int16' with WAVE_PCM_SCALE=%g but %s "
+                    "declares WAVE_SCALE=%g: set WAVE_PCM_SCALE=%g in the "
+                    "config" % (self._pcm_scale, type(dataset).__name__,
+                                want, want))
+        return fn
 
-    def _metrics_sweep(self, state, dataset, subset, rng) -> OrderedDict:
-        acc, n = {}, 0
-        for batch in self._batches(dataset, subset, rng, None):
-            for k, v in self.valid_step(state, batch).items():
-                acc[k] = acc.get(k, 0.0) + float(v)
+    def _prepare(self, flat: np.ndarray, max_len, rng) -> np.ndarray:
+        hp = self.hp
+        bucket = getattr(hp, "TIME_BUCKET", None)
+        if self._wave_mode:
+            return prepare_batch_wave(
+                flat, hp.BATCH_SIZE, hp.MAX_N_SIGNAL, hp.FFT_SIZE,
+                hp.FFT_STRIDE, max_len=max_len, bucket=bucket, rng=rng)
+        return prepare_batch(flat, hp.BATCH_SIZE, hp.MAX_N_SIGNAL,
+                             max_len=max_len, bucket=bucket, rng=rng)
+
+    def _train_batches(self, epoch_fn, rng, rand):
+        """The epoch's host batches, pinned, in the wire dtype, as (k,
+        batch): single batches (k = 1) and, with TRAIN_STEPS_PER_CALL = K
+        > 1, stacks of K batches of one shape (k = K); a group whose shape
+        changes is flushed as single batches, and so is the epoch's
+        remainder."""
+        hp = self.hp
+        k = self._steps_per_call
+        buf = []
+        for data_pt in epoch_fn("train", hp.BATCH_SIZE * hp.MAX_N_SIGNAL,
+                                shuffle=True, rng=rng, rand=rand):
+            b = self._prepare(data_pt[0], hp.MAX_TRAIN_LEN, rng)
+            if k == 1:
+                yield 1, self._host_batch(b)
+                continue
+            if buf and b.shape != buf[0].shape:
+                for x in buf:
+                    yield 1, self._host_batch(x)
+                buf = []
+            buf.append(b)
+            if len(buf) == k:
+                yield k, self._host_batch(np.stack(buf))
+                buf = []
+        for x in buf:
+            yield 1, self._host_batch(x)
+
+    # ------------------------------------------------------------------
+    # the loop
+    @contextlib.contextmanager
+    def _hang_watchdog(self):
+        """WATCHDOG_SECS > 0: a daemon thread watches the heartbeat that
+        every step, valid batch and metric fetch refreshes, and when it is
+        older than the limit prints a diagnosis and ends the process with
+        ``os._exit(WATCHDOG_EXIT_CODE)`` (a hung device call never returns,
+        so nothing else would end it; an orderly shutdown could hang as
+        well).  Nested use is a no-op."""
+        secs = float(getattr(self.hp, "WATCHDOG_SECS", 0) or 0)
+        if secs <= 0 or self._watchdog_on:
+            yield
+            return
+        self._heartbeat = time.monotonic()
+        self._watchdog_on = True
+        stop = threading.Event()
+
+        def watch():
+            while not stop.wait(min(15.0, secs / 4)):
+                stale = time.monotonic() - self._heartbeat
+                if stale > secs:
+                    msg = ("\n[watchdog] no step/batch completed in %.0f s "
+                           "(WATCHDOG_SECS=%.0f): device presumed hung; "
+                           "exiting %d for a supervised relaunch\n"
+                           % (stale, secs, WATCHDOG_EXIT_CODE))
+                    for stream in (sys.stderr, sys.stdout):
+                        try:
+                            stream.write(msg)
+                            stream.flush()
+                        except Exception:
+                            pass
+                    os._exit(WATCHDOG_EXIT_CODE)
+
+        thread = threading.Thread(target=watch, daemon=True,
+                                  name="hang-watchdog")
+        thread.start()
+        try:
+            yield
+        finally:
+            stop.set()
+            self._watchdog_on = False
+
+    def _metrics_sweep(self, state, dataset, subset, rng,
+                       rand) -> OrderedDict:
+        """One metrics pass, float32 on the wire; the per-batch metrics
+        are summed on the device and fetched once."""
+        hp = self.hp
+        acc, n = None, 0
+        for data_pt in self._epoch_fn(dataset, for_eval=True)(
+                subset, hp.BATCH_SIZE * hp.MAX_N_SIGNAL, shuffle=False,
+                rng=rng, rand=rand):
+            m = self.valid_step(state, self._prepare(data_pt[0], None, rng))
+            acc = m if acc is None else {k: acc[k] + v for k, v in m.items()}
             n += 1
+            self._heartbeat = time.monotonic()
             sys.stdout.write(".")
             sys.stdout.flush()
-        return OrderedDict((k, v / n) for k, v in sorted(acc.items()))
+        if acc is None:
+            return OrderedDict()
+        names = sorted(acc)
+        fetched = torch.stack([acc[k] for k in names]).cpu().tolist()
+        return OrderedDict((k, v / n) for k, v in zip(names, fetched))
 
     def train(self, n_epoch: int, dataset, valid_on_epoch: bool = True,
               state: Optional[dict] = None, seed: int = 0,
-              lr: Optional[float] = None) -> dict:
-        """Plain epoch loop: per-epoch mean loss, SNR and LR on stdout
-        (':' per step), the LR_DECAY_TYPE policy, and a validation sweep
-        ('.' per batch) after each epoch when ``valid_on_epoch``."""
+              lr: Optional[float] = None,
+              writer: Optional[MetricsWriter] = None) -> dict:
+        """The epoch loop: per-epoch mean loss, SNR and LR on stdout (':'
+        per step), the LR_DECAY_TYPE policy, and a validation sweep ('.'
+        per batch) after each epoch when ``valid_on_epoch``; every step's
+        row and every sweep go to ``writer`` (by default a new
+        ``MetricsWriter`` in SUMMARY_DIR, closed on return).  Under the hang
+        watchdog (WATCHDOG_SECS)."""
+        own = writer is None
+        if own:
+            writer = MetricsWriter(self.hp.SUMMARY_DIR, self.hp.SUMMARY_TITLE)
+        try:
+            with self._hang_watchdog():
+                return self._train_impl(n_epoch, dataset, valid_on_epoch,
+                                        state, seed, lr, writer)
+        finally:
+            if own:
+                writer.close()
+
+    def _train_impl(self, n_epoch, dataset, valid_on_epoch, state, seed, lr,
+                    writer) -> dict:
         hp = self.hp
         if state is None:
             state = self.init_state(torch.Generator().manual_seed(seed))
@@ -208,25 +685,70 @@ class Trainer:
         else:
             print("Learning rate: %f" % self.get_learn_rate(state))
         base_lr = self.get_learn_rate(state)
+        metrics_every = int(getattr(hp, "METRICS_EVERY", 1) or 1)
+        epoch_fn = self._epoch_fn(dataset)
         best_loss, best_loss_time = float("inf"), 0
         epoch0 = int(state["epoch"])
         n_total = epoch0 + n_epoch
         for epoch in range(epoch0, n_total):
-            rng = np.random.RandomState(zlib.crc32(
-                b"danet-epoch-%d-retry-0-seed-%d" % (epoch, seed)))
-            report, n_steps, seconds = OrderedDict(), 0, 0.0
-            for batch in self._batches(dataset, "train", rng,
-                                       hp.MAX_TRAIN_LEN):
-                t0 = time.perf_counter()
-                metrics = self.train_step(state, batch)
-                row = {k: float(v) for k, v in metrics.items()}  # syncs
-                seconds += time.perf_counter() - t0
-                row["LR"] = self.get_learn_rate(state)
-                for k, v in row.items():
-                    report[k] = report.get(k, 0.0) + v
-                n_steps += 1
-                sys.stdout.write(":")
-                sys.stdout.flush()
+            key = zlib.crc32(b"danet-epoch-%d-retry-0-seed-%d" % (epoch, seed))
+            rng, rand = np.random.RandomState(key), random.Random(key)
+            report = OrderedDict()
+            # (first step, {name: 0-d or [k] metrics on the device},
+            #  s/step, k) of the steps not fetched yet
+            pending, pending_steps = [], 0
+
+            def flush():
+                nonlocal pending_steps
+                if not pending:
+                    return
+                parts = [v.reshape(-1) for _, m, _, _ in pending
+                         for v in m.values()]
+                host = torch.cat(parts).cpu().tolist()   # one fetch
+                lr_now = self.get_learn_rate(state)
+                at = 0
+                for step0, m, st, k in pending:
+                    cols = {}
+                    for name in m:
+                        cols[name] = host[at:at + k]
+                        at += k
+                    for j in range(k):
+                        row = {name: cols[name][j] for name in m}
+                        row["LR"] = lr_now
+                        writer.scalars("train", dict(row, step_time=st),
+                                       step0 + j)
+                        for name, v in row.items():
+                            report[name] = report.get(name, 0.0) + v
+                pending.clear()
+                pending_steps = 0
+                self._heartbeat = time.monotonic()
+
+            timer = StepTimer()
+            n_steps = 0
+            batches = prefetch_to_device(
+                self._train_batches(epoch_fn, rng, rand),
+                lambda kb: (kb[0], self._put(kb[1])))
+            try:
+                for k, src in batches:
+                    step0 = state["step"]
+                    timer.start()
+                    if k > 1:
+                        metrics = self.train_steps(state, src)
+                        st = timer.stop() / k
+                    else:
+                        metrics = self.train_step(state, src)
+                        st = timer.stop()
+                    pending.append((step0, metrics, st, k))
+                    pending_steps += k
+                    n_steps += k
+                    self._heartbeat = time.monotonic()
+                    if pending_steps >= metrics_every:
+                        flush()
+                    sys.stdout.write(":" * k)
+                    sys.stdout.flush()
+            finally:
+                batches.close()
+            flush()
             if n_steps == 0:
                 raise RuntimeError(
                     "dataset yielded no training batches for batch size %d"
@@ -262,10 +784,12 @@ class Trainer:
                     "ported)" % (epoch + 1))
             state["epoch"] = epoch + 1
             sys.stdout.write("\nEpoch %d/%d %s (%.3fs/step)\n" % (
-                epoch + 1, n_total, _dict_format(report), seconds / n_steps))
+                epoch + 1, n_total, _dict_format(report), timer.mean))
             sys.stdout.flush()
             if valid_on_epoch:
-                report = self._metrics_sweep(state, dataset, "valid", rng)
+                report = self._metrics_sweep(state, dataset, "valid", rng,
+                                             rand)
+                writer.scalars("valid", report, state["step"])
                 sys.stdout.write("\nValid  %d/%d %s\n" % (
                     epoch + 1, n_total, _dict_format(report)))
                 sys.stdout.flush()

@@ -323,6 +323,38 @@ def test_torch_kmeans_estimator_bf16_matches_jax(fresh_hparams):
     _close(out.float(), np.asarray(ref.astype(jnp.float32)), **BF16)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_attractor_sets_pairs_match_jax(fresh_hparams, dtype):
+    """The N=2 attractor sets (kmeans' init and ANCHOR_AUX_LOSS) and their
+    gradients by the embedding and the anchors, over K = 32 x 129 bins:
+    the port sums slot 1 directly, JAX as the totals minus slot 0; the
+    objectives' tolerances (bfloat16 at its own)."""
+    rs = np.random.RandomState(11)
+    embed = rs.randn(2, 32, 129, 20).astype(np.float32)
+    anchors = rs.randn(6, 20).astype(np.float32)
+    combs = np.asarray([(i, j) for i in range(6) for j in range(i + 1, 6)])
+    w = rs.randn(2, len(combs), 2, 20).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+
+    def jax_sets(e, a):
+        return jest.AnchoredEstimator._attractor_sets_pairs(
+            e.astype(jdt), a.astype(jdt), combs).astype(jnp.float32)
+
+    ref = jax_sets(jnp.asarray(embed), jnp.asarray(anchors))
+    jg = jax.grad(lambda e, a: jnp.sum(jax_sets(e, a) * w), (0, 1))(
+        jnp.asarray(embed), jnp.asarray(anchors))
+    te, ta = _t(embed).requires_grad_(), _t(anchors).requires_grad_()
+    tdt = getattr(torch, dtype)
+    out = test_.AnchoredEstimator._attractor_sets_pairs(
+        te.to(tdt), ta.to(tdt), torch.from_numpy(combs)).float()
+    tg = torch.autograd.grad(torch.sum(out * _t(w)), (te, ta))
+    assert tuple(out.shape) == (2, len(combs), 2, 20)
+    fwd, grad = (FWD, GRAD) if dtype == "float32" else (BF16, BF16)
+    _close(out.detach(), ref, **fwd)
+    for a, b in zip(tg, jg):
+        _close(a, b, **grad)
+
+
 # --------------------------------------------------------------- train_loss
 def _train_loss_case(jm, jp, tm, tp, batch, rng=None, generator=None):
     """train_loss and every gradient, port vs JAX; -> the port's aux."""
@@ -463,21 +495,27 @@ def test_torch_trainer_reports_dc_and_si_snr(fresh_hparams):
 
 
 def test_torch_tpu_json_model_keys(fresh_hparams, tmp_path):
-    """configs/tpu.json builds under the port; with its trainer keys at
-    default.json's values a Trainer takes a step on the CPU (narrow
-    widths, bfloat16 as the config says); the trainer keys themselves
-    stay refused."""
+    """configs/tpu.json builds under the port, and a Trainer takes its
+    trainer keys (the int16 wave wire at WAVE_PCM_SCALE 32768,
+    TRAIN_STEPS_PER_CALL 8, WATCHDOG_SECS), all and one at a time
+    (TRANSFER_DTYPE int16 alone, on the spectra wire, raises JAX's
+    ValueError); with them at default.json's values a Trainer takes a
+    step on the CPU (narrow widths, bfloat16 as the config says)."""
     hp = load_config(TPU_JSON)
     model = TorchDaNet(hp)
     assert type(model.infer_estimator).__name__ == "KMeansEstimator"
-    with pytest.raises(NotImplementedError):
-        Trainer(model, hp, "cpu")
+    trainer = Trainer(model, hp, "cpu")
+    assert (trainer._wave_mode, trainer._wire_dtype, trainer._pcm_scale,
+            trainer._steps_per_call) == (True, "int16", 32768.0, 8)
     for key in ("TRAIN_STEPS_PER_CALL", "WATCHDOG_SECS", "TRANSFER_DOMAIN",
                 "TRANSFER_DTYPE"):
         one = dict(TRAINER_DEFAULTS)
         del one[key]
         hp = load_config(TPU_JSON, **one)
-        with pytest.raises(NotImplementedError):
+        if key == "TRANSFER_DTYPE":
+            with pytest.raises(ValueError, match="int16"):
+                Trainer(TorchDaNet(hp), hp, "cpu")
+        else:
             Trainer(TorchDaNet(hp), hp, "cpu")
     keys = dict(TRAINER_DEFAULTS, ATTN_DIM=32, ATTN_HEADS=2, ATTN_LAYERS=1,
                 ATTN_MLP_MULT=2, BATCH_SIZE=2)

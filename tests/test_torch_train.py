@@ -9,6 +9,7 @@ in interpret mode.  Tolerances: 1e-5 on losses and metrics (float32 sums
 in another order); 2e-5 atol / 1e-4 rtol on gradients and on parameters
 after 3 optimizer steps, the JAX kernel tests' gradient bar.
 """
+import json
 import os
 import subprocess
 import sys
@@ -350,10 +351,8 @@ def test_torch_train_loss_dropout(fresh_hparams, monkeypatch):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("GRAD_ACCUM", 2), ("EMA_DECAY", 0.99), ("TRAIN_STEPS_PER_CALL", 4),
-    ("TRANSFER_DOMAIN", "wave"), ("TRANSFER_DTYPE", "bfloat16"),
-    ("NAN_CHECKS", True), ("MESH_DATA", 2), ("REMAT", True),
-    ("VALID_CRASH_FACTOR", 1.5), ("WATCHDOG_SECS", 900)])
+    ("GRAD_ACCUM", 2), ("EMA_DECAY", 0.99), ("NAN_CHECKS", True),
+    ("MESH_DATA", 2), ("REMAT", True), ("VALID_CRASH_FACTOR", 1.5)])
 def test_torch_trainer_refuses_unported(fresh_hparams, key, value):
     hp = load_config(ENCODER_TYPE="bilstm-orig", **{key: value})
     with pytest.raises(NotImplementedError):
@@ -405,13 +404,17 @@ def test_torch_toy_data_and_prepare_batch_match_jax(fresh_hparams):
         prepare_batch(flat, 2, 2, max_len=50)
 
 
-def test_torch_train_cli_toy(fresh_hparams):
+def test_torch_train_cli_toy(fresh_hparams, tmp_path):
     """python -m danet_tpu_torch.train on the toy dataset and encoder
     (default.json): one epoch with its validation sweep, printed as the
-    JAX CLI prints them."""
+    JAX CLI prints them (the metric files under a temporary
+    SUMMARY_DIR)."""
+    cfg = tmp_path / "logs.json"
+    cfg.write_text(json.dumps({"SUMMARY_DIR": str(tmp_path / "logs")}))
     proc = subprocess.run(
         [sys.executable, "-m", "danet_tpu_torch.train", "-ds", "toy",
-         "-ne", "1", "-bs", "2", "--device", "cpu"], cwd=REPO,
+         "-ne", "1", "-bs", "2", "--device", "cpu", "-c", str(cfg)],
+        cwd=REPO,
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
@@ -419,3 +422,100 @@ def test_torch_train_cli_toy(fresh_hparams):
     valid = [ln for ln in lines if ln.startswith("Valid  1/1 SNR=")]
     assert epoch and valid, proc.stdout
     assert "LR=0.0003" in epoch[0]
+
+
+# ------------------------------------------------------------ epoch loop
+def _epoch_lines(out: str) -> list:
+    """[(kind, epoch, {key: value})] of every 'Epoch i/N ...' and 'Valid
+    i/N ...' line the train loop printed (the s/step figure dropped)."""
+    rows = []
+    for line in out.splitlines():
+        parts = line.split()
+        if not parts or parts[0] not in ("Epoch", "Valid"):
+            continue
+        kv = dict(p.split("=", 1) for p in parts[2:] if "=" in p)
+        rows.append((parts[0], parts[1], {k: float(v) for k, v in kv.items()}))
+    return rows
+
+
+def _assert_epoch_lines_match(out, ref, n_epoch, valid=True):
+    assert len(ref) == n_epoch * (2 if valid else 1), ref
+    assert [r[:2] for r in out] == [r[:2] for r in ref]
+    for (_, _, a), (_, _, b) in zip(out, ref):
+        assert sorted(a) == sorted(b)
+        for key in b:
+            _close(a[key], b[key], atol=0.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("decay", ["fixed", "adaptive", "cosine"])
+def test_torch_epoch_loop_matches_jax(fresh_hparams, tmp_path, capsys,
+                                      decay):
+    """Trainer.train against the JAX loop: the toy encoder and dataset, 3
+    epochs at B=2 and LR 1e-3 from the same weights under each LR policy
+    (NUM_EPOCH_PER_LR_DECAY 1).  Every epoch's loss, SNR and LR and every
+    validation line agree to 1e-5 relative."""
+    from danet_tpu.parallel import make_mesh
+    from danet_tpu.train.trainer import Trainer as JaxTrainer
+    keys = dict(BATCH_SIZE=2, LR=1e-3, LR_DECAY_TYPE=decay,
+                NUM_EPOCH_PER_LR_DECAY=1, SUMMARY_DIR=str(tmp_path / "logs"))
+    fresh_hparams.load(keys)
+    fresh_hparams.digest()
+    jtr = JaxTrainer(JaxDaNet(), name="loop", save_dir=str(tmp_path),
+                     mesh=make_mesh(1, 1, devices=jax.devices()[:1]))
+    jstate = jtr.init_state(jax.random.PRNGKey(0))
+    p0 = jax.device_get(jstate["params"])
+    jds = JaxToy()
+    jds.install_and_load()
+    capsys.readouterr()
+    jtr.train(3, jds, save_on_epoch=False, valid_on_epoch=True,
+              state=jstate)
+    ref = _epoch_lines(capsys.readouterr().out)
+
+    hp = load_config(**keys)
+    tr = Trainer(TorchDaNet(hp), hp, "cpu")
+    ds = WhiteNoiseData(hp)
+    ds.install_and_load()
+    tr.train(3, ds, valid_on_epoch=True, state=tr.init_state(params=p0))
+    out = _epoch_lines(capsys.readouterr().out)
+    _assert_epoch_lines_match(out, ref, 3)
+
+
+@pytest.mark.parametrize("dtype", ["int16", "bfloat16"])
+def test_torch_epoch_loop_wave_wire_matches_jax(fresh_hparams, tmp_path,
+                                                capsys, dtype):
+    """The same on the wave wire: synth (5 batches, SMPRATE 4000),
+    TRAIN_STEPS_PER_CALL 2 (two 2-step calls and a single step; JAX scans
+    them in one call, the port's CPU runs them eagerly), METRICS_EVERY 3,
+    crops of 32 frames, the int16 and the bfloat16 wires; 2 epochs, each
+    line within 1e-5 relative."""
+    from danet_tpu.data.synth import SyntheticTonesData as JaxSynth
+    from danet_tpu.parallel import make_mesh
+    from danet_tpu.train.trainer import Trainer as JaxTrainer
+    from danet_tpu_torch.data.synth import SyntheticTonesData
+    keys = dict(BATCH_SIZE=2, SMPRATE=4000, SYNTH_BATCHES=5, LR=1e-3,
+                TRANSFER_DOMAIN="wave", TRANSFER_DTYPE=dtype,
+                TRAIN_STEPS_PER_CALL=2, METRICS_EVERY=3, MAX_TRAIN_LEN=32,
+                LR_DECAY_TYPE="fixed", NUM_EPOCH_PER_LR_DECAY=1,
+                SUMMARY_DIR=str(tmp_path / "logs"))
+    fresh_hparams.load(keys)
+    fresh_hparams.digest()
+    jtr = JaxTrainer(JaxDaNet(), name="waveloop", save_dir=str(tmp_path),
+                     mesh=make_mesh(1, 1, devices=jax.devices()[:1]))
+    jstate = jtr.init_state(jax.random.PRNGKey(0))
+    p0 = jax.device_get(jstate["params"])
+    jds = JaxSynth()
+    jds.install_and_load()
+    capsys.readouterr()
+    jtr.train(2, jds, save_on_epoch=False, valid_on_epoch=True,
+              state=jstate)
+    ref = _epoch_lines(capsys.readouterr().out)
+
+    hp = load_config(**keys)
+    tr = Trainer(TorchDaNet(hp), hp, "cpu")
+    ds = SyntheticTonesData(hp)
+    ds.install_and_load()
+    state = tr.train(2, ds, valid_on_epoch=True,
+                     state=tr.init_state(params=p0))
+    out = _epoch_lines(capsys.readouterr().out)
+    assert state["step"] == 10
+    _assert_epoch_lines_match(out, ref, 2)
