@@ -188,7 +188,8 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    replay (two replays draw other masks); (c) the same 8 steps, card
    (eager, equal to the graph by (b)) against the CPU under phase 11's
    protocol and bounds; (d) two epochs through the CLI's path
-   (``python -m danet_tpu_torch.train -c configs/tpu.json -c <cuts>``):
+   (``python -m danet_tpu_torch -m train -c configs/tpu.json -c <cuts>
+   --no-save-on-epoch``):
    finite Epoch and Valid lines, the watchdog silent, metrics.jsonl with a
    row per step; its launches are this phase's main path, a graph's
    counted as its captured launches times its replays (the counters
@@ -200,9 +201,34 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    the f32 spectra wire at K=1 and METRICS_EVERY=1 (as phase 17), with the
    int16 wave wire and the prefetch only, and with every key, on the flash
    and the dense attention.
+20. checkpoints, rollbacks, the preemption save, the step options and the
+   CLI's modes on the paper model: bilstm-orig at full width, B=32,
+   float32, the int16 wave wire, K=8, DROPOUT_KEEP_PROB 0.9, synth-speech
+   (10 batches an epoch: one 8-step call, 2 single steps), through
+   ``python -m danet_tpu_torch`` in a temporary directory.  (a) 2 epochs straight against 1 epoch, ``-i
+   saves/<n>_e1`` and 1 more: parameters, Adam moments, the dropout
+   generator's state (seed and Philox offset) and the 20 per-step losses
+   bit for bit, CUDA graphs included; the resumed process's first 8-step
+   call (it captures its graph) beside a replay's.  (b) EMA_DECAY 0.999
+   and GRAD_ACCUM 2: one 8-step graph call against 8 eager steps bit for
+   bit (the EMA included), then 2 eager steps card vs CPU under phase 11's
+   protocol and bounds, the EMA within one ulp + 1e-6 x LR.  (c) on the
+   float32 wave wire (int16 holds no NaN), epoch 2's first attempt meets a
+   NaN utterance: the loop restores saves/nan_e1 into the tensors the
+   graph holds, retries and ends finite with one capture.  (d) SIGTERM to
+   a CLI subprocess after its first 8-step call: it writes
+   saves/<n>_preempt and exits 0; a resume from it finishes the epoch.
+   (e) ``-m test`` and ``-m demo`` from (a)'s checkpoint on the card; the
+   demo's separated spectra against the CPU's from the same checkpoint
+   within 1e-4 of their peak.  Then, beside the card's name and power
+   limit, the save and load times of the state with its EMA, the first
+   8-step call after a resume (a new Trainer captures its graph; a load in
+   place keeps it), and the ms per step of the K=8 graph with each step
+   option and of eager steps with and without NAN_CHECKS.
 
 The kernel summary lists all fourteen kernels; its launches count the
-main paths of phases 5, 7, 10, 11, 14, 15, 17, 18 and 19.  bound_ms is the least
+main paths of phases 5, 7, 10, 11, 14, 15, 17, 18, 19 and 20 (20: (a),
+(c), (d)'s resume and (e)).  bound_ms is the least
 time the card could take for the work of the timed call: the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its products' FLOPs (for kernel A, a real FFT's per frame; for the flash
@@ -913,13 +939,16 @@ def _errs(card: dict, cpu: dict, keys, snr_ratio: bool) -> dict:
 
 
 def _sync(dst: dict, src: dict) -> None:
-    """The CPU trainer's state takes over the card's parameters and Adam
-    moments."""
+    """The CPU trainer's state takes over the card's parameters, Adam
+    moments and EMA."""
     with torch.no_grad():
         pairs = list(zip(weights.leaves(dst["params"]),
                          weights.leaves(src["params"])))
         pairs += list(zip(dst["opt"].mu, src["opt"].mu))
         pairs += list(zip(dst["opt"].nu, src["opt"].nu))
+        if src.get("ema") is not None:
+            pairs += list(zip(weights.leaves(dst["ema"]),
+                              weights.leaves(src["ema"])))
         for d, s in pairs:
             d.copy_(s.cpu())
     dst["opt"].count = src["opt"].count
@@ -1536,10 +1565,12 @@ def _state_tensors(state: dict) -> list:
         ["/".join(k) for k in _paths(weights.to_jax(state["params"]))],
         weights.leaves(state["params"]))] + \
         [("mu %d" % i, t) for i, t in enumerate(opt.mu)] + \
-        [("nu %d" % i, t) for i, t in enumerate(opt.nu)]
+        [("nu %d" % i, t) for i, t in enumerate(opt.nu)] + \
+        [("ema %d" % i, t) for i, t in enumerate(
+            weights.leaves(state.get("ema") or {}))]
 
 
-def _graph_vs_eager(tag: str, keys: dict, k: int) -> dict:
+def _graph_vs_eager(tag: str, keys: dict, k: int, phase: int = 19) -> dict:
     """One K-step graph call against K eager train steps on the card from
     one state (DROPOUT_KEEP_PROB 1, float32): every parameter, Adam moment
     and per-step metric bit for bit.  Also checks the launches the first
@@ -1570,19 +1601,19 @@ def _graph_vs_eager(tag: str, keys: dict, k: int) -> dict:
         ref = torch.stack([m[name] for m in me]).cpu()
         if not torch.equal(got, ref):
             diffs.append((name, float((got - ref).abs().max())))
-    print("phase 19 %s: one %d-step CUDA graph call vs %d eager train steps "
+    print("phase %d %s: one %d-step CUDA graph call vs %d eager train steps "
           "(float32, DROPOUT_KEEP_PROB 1): %d state tensors and %s per step, "
           "%s; losses graph %s eager %s; the capture counted %s (one "
           "replay's launches; the eager warm-up step before it %s)"
-          % (tag, k, k, len(_state_tensors(sg)), sorted(mg),
+          % (phase, tag, k, k, len(_state_tensors(sg)), sorted(mg),
              "bit for bit" if not diffs else "DIFFER: %s" % diffs[:6],
              ["%.9g" % v for v in mg["loss"].tolist()],
              ["%.9g" % float(m["loss"]) for m in me],
              {n: v for n, v in captured.items() if v},
              {n: v // k for n, v in eager.items() if v}))
     if diffs or any(first[n] * k != eager[n] * (k + 1) for n in first):
-        raise AssertionError("phase 19 %s: graph vs eager %s, launches %s vs "
-                             "%s" % (tag, diffs, captured, eager))
+        raise AssertionError("phase %d %s: graph vs eager %s, launches %s vs "
+                             "%s" % (phase, tag, diffs, captured, eager))
 
 
 def _replays_draw_new_masks(keys: dict, k: int) -> None:
@@ -1649,18 +1680,6 @@ def _tpu_vs_cpu(keys: dict, k: int) -> tuple:
     return worst, grad
 
 
-def _run_cli(argv: list) -> str:
-    """python -m danet_tpu_torch.train's main(argv) in this process, its
-    stdout captured (and printed after)."""
-    import contextlib
-    import io
-    from danet_tpu_torch.train.__main__ import main as train_main
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        train_main(argv)
-    return out.getvalue()
-
-
 def _loop_through_cli(keys: dict, tmp: str) -> dict:
     """(d): two epochs of Trainer.train through the CLI's path at B=64,
     bfloat16, every key of tpu.json (the cuts aside): finite epoch lines,
@@ -1673,7 +1692,8 @@ def _loop_through_cli(keys: dict, tmp: str) -> dict:
     _zero_counts()  # the main path of phase 19: the counts start at 0
     StepGraph.captures = StepGraph.replays = 0
     t0 = time.perf_counter()
-    text = _run_cli(["-c", TPU_JSON, "-c", cut, "-ne", "2"])
+    text = _port_cli(["-m", "train", "-c", TPU_JSON, "-c", cut, "-ne", "2",
+                      "--no-save-on-epoch"], os.getcwd())
     seconds = time.perf_counter() - t0
     hp = load_config(**keys)
     k = int(hp.TRAIN_STEPS_PER_CALL)
@@ -1718,7 +1738,8 @@ def _quiet_epoch(tr, st: dict, ds) -> float:
     with contextlib.redirect_stdout(io.StringIO()):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tr.train(1, ds, valid_on_epoch=False, state=st, writer=_NullWriter())
+        tr.train(1, ds, save_on_epoch=False, valid_on_epoch=False, state=st,
+                 writer=_NullWriter())
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / ds.N_BATCHES
 
@@ -1831,6 +1852,474 @@ def phase_tpu_whole() -> dict:
     lap("timing")
     return {"launches": launches, "ingest_err": ingest_err,
             "step_rel": step_rel, "grad_rel": grad_rel, "times": times}
+
+
+# ---------------------------------------------------------------- phase 20
+# the paper model through the trainer's whole path: bilstm-orig at full
+# width, B=32, float32 with the int16 wave wire and K=8 (phase 19 (e)'s
+# step), dropout at 0.9, on synth-speech at its WAVE_SCALE with 10 batches
+# an epoch (one 8-step graph call and 2 single steps)
+CKPT_KEYS = {"ENCODER_TYPE": "bilstm-orig", "BATCH_SIZE": 32,
+             "TRANSFER_DOMAIN": "wave", "TRANSFER_DTYPE": "int16",
+             "WAVE_PCM_SCALE": 4.0, "TRAIN_STEPS_PER_CALL": 8,
+             "DATASET_TYPE": "synth-speech", "SYNTH_BATCHES": 10,
+             "DROPOUT_KEEP_PROB": 0.9}
+# (b): the step options in the K-step graph
+STEP_OPTIONS = {"EMA_DECAY": 0.999, "GRAD_ACCUM": 2}
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _port_cli(argv: list, cwd: str) -> str:
+    """python -m danet_tpu_torch's main(argv) in this process, in ``cwd``,
+    its stdout captured."""
+    import contextlib
+    import io
+    from danet_tpu_torch import __main__ as port_cli
+    out = io.StringIO()
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(out):
+            port_cli.main(argv)
+    finally:
+        os.chdir(here)
+    return out.getvalue()
+
+
+def _bilstm_step(accum: int = 1) -> dict:
+    """One bilstm-orig train step's launches on the wave wire: kernel A
+    once, kernels 2 and 3 once per layer and microbatch."""
+    hp = load_config(**CKPT_KEYS)
+    n = _depth(hp.get_model()(hp).encoder) * accum
+    return {"stft_ri": 1, "bilstm_scan_train": n, "bilstm_scan_bwd": n}
+
+
+def _main_path(fn, k: int = 8):
+    """fn() as a main path of phase 20: the counts zeroed before it and
+    read after it, each graph replay counted as K bilstm-orig steps'
+    launches (the wrappers count a graph's launches once, at capture).
+    -> (fn's result, launches, graphs captured)."""
+    _zero_counts()
+    StepGraph.captures = StepGraph.replays = 0
+    out = fn()
+    extra = (StepGraph.replays - StepGraph.captures) * k
+    step = _bilstm_step()
+    return out, {n: v + extra * step.get(n, 0)
+                 for n, v in _counts().items()}, StepGraph.captures
+
+
+def _jsonl_losses(logs: str) -> list:
+    rows = []
+    for run in sorted(os.listdir(logs)):
+        with open(os.path.join(logs, run, "metrics.jsonl")) as f:
+            rows += [json.loads(line) for line in f]
+    return [(r["step"], r["train/loss"], r["train/step_time"])
+            for r in rows if "train/loss" in r]
+
+
+def _same_state(tag: str, a: dict, b: dict) -> None:
+    diffs = [name for (name, x), (_, y) in zip(_state_tensors(a),
+                                               _state_tensors(b))
+             if not torch.equal(x.detach(), y.detach())]
+    ga, gb = a["generator"].get_state(), b["generator"].get_state()
+    if diffs or not torch.equal(ga, gb) or a["step"] != b["step"] \
+            or a["opt"].count != b["opt"].count or a["opt"].lr != b["opt"].lr:
+        raise AssertionError("phase 20 %s: states differ: %s, generator %s "
+                             "vs %s" % (tag, diffs[:6], ga.tolist(),
+                                        gb.tolist()))
+
+
+def _resume_vs_straight(tmp: str, cfg: str) -> tuple:
+    """(a): through the CLI, 2 epochs straight against 1 epoch, then ``-i
+    saves/<n>_e1`` and 1 more: the parameters, Adam moments, dropout
+    generator (seed and Philox offset) and every step's loss bit for bit,
+    graphs included.  -> (launches, the resumed run's first call's ms per
+    step (its capture included) and the straight run's second one's (a
+    replay), the captures of the resumed run)."""
+    from danet_tpu_torch import __main__ as port_cli
+
+    def run(tag, args):
+        text = _port_cli(["-m", "train", "-c", cfg, "--set",
+                          'SUMMARY_DIR="%s"' % os.path.join(tmp, tag)]
+                         + args, tmp)
+        for ln in text.splitlines():
+            if ln.startswith(("Epoch ", "Valid ", "Loading ")):
+                print("phase 20 (a) %s: %s" % (tag, ln))
+        return port_cli.g_state, StepGraph.captures
+
+    def runs():
+        straight, _ = run("straight", ["-n", "straight", "-ne", "2"])
+        run("first", ["-n", "resumed", "-ne", "1"])
+        c0 = StepGraph.captures
+        resumed, c1 = run("resumed", ["-n", "resumed", "-ne", "1", "-i",
+                                      "saves/resumed_e1"])
+        return straight, resumed, c1 - c0
+
+    (straight, resumed, recaptures), launches, _ = _main_path(runs)
+    _same_state("(a) 2 epochs vs 1 + -i + 1", straight, resumed)
+    a = _jsonl_losses(os.path.join(tmp, "straight"))
+    b = _jsonl_losses(os.path.join(tmp, "first")) + _jsonl_losses(
+        os.path.join(tmp, "resumed"))
+    if [r[:2] for r in a] != [r[:2] for r in b] \
+            or [r[0] for r in a] != list(range(20)):
+        raise AssertionError("phase 20 (a): per-step losses differ: %s vs "
+                             "%s" % (a[:4], b[:4]))
+    first, later = b[10][2] * 1e3, a[10][2] * 1e3
+    print("phase 20 (a) 2 epochs vs 1 epoch + -i saves/resumed_e1 + 1: %d "
+          "state tensors, the generator (seed, offset) and 20 per-step "
+          "losses bit for bit; the loop's step_time (host, not synchronized) "
+          "of the resumed process's first 8-step call %.2f ms per step (it "
+          "captured %d graph), of the straight run's second (a replay) %.2f"
+          % (len(_state_tensors(straight)), first, recaptures, later))
+    return launches, first, later, recaptures
+
+
+def _options_vs_cpu(keys: dict, n: int) -> tuple:
+    """(b), after the graph: n eager steps with EMA_DECAY and GRAD_ACCUM,
+    card against CPU under phase 11's protocol and bounds (float32,
+    DROPOUT_KEEP_PROB 1, each step from the card's state, EMA included);
+    the EMAs after each step within one float32 ulp + 1e-6 x LR."""
+    hp = load_config(**dict(keys, COMPUTE_DTYPE="float32",
+                            DROPOUT_KEEP_PROB=1.0))
+    model = hp.get_model()(hp)
+    p0 = weights.to_jax(model.init(torch.Generator().manual_seed(0)))
+    batches = _speech_batches(hp, n)
+    gpu, cpu = Trainer(model, hp, "cuda"), Trainer(model, hp, "cpu")
+    sg, sc = gpu.init_state(params=p0), cpu.init_state(params=p0)
+    _record_grads(sg["opt"])
+    _record_grads(sc["opt"], apply=lambda: sg["opt"].recorded)
+    names = ["/".join(p) for p in _paths(p0)]
+    accum = int(hp.GRAD_ACCUM)
+    want = dict({name: 0 for name in KERNELS}, **_bilstm_step(accum))
+    worst = grad = ema_share = 0.0
+    for i, b in enumerate(batches):
+        err, g = _step_vs_cpu(20, "bilstm-orig (b)", "float32", i, gpu, cpu,
+                              sg, sc, b, True, names, want)
+        worst, grad = max(worst, err), max(grad, g)
+        for e, c in zip(weights.leaves(sg["ema"]), weights.leaves(sc["ema"])):
+            e = e.cpu()
+            ulp = torch.nextafter(c.abs(), torch.tensor(float("inf"))) \
+                - c.abs()
+            ema_share = max(ema_share, float(
+                ((e - c).abs() / (ulp + 1e-6 * sg["opt"].lr)).max()))
+    print("phase 20 (b) EMA_DECAY %g, GRAD_ACCUM %d, %d eager steps card vs "
+          "CPU: worst relative loss/SNR err %.3g, gradients %.3g of the "
+          "peak; EMA worst element at %.3g of its bound (1 ulp + 1e-6 x LR)"
+          % (hp.EMA_DECAY, accum, n, worst, grad, ema_share))
+    if not ema_share <= 1.0:
+        raise AssertionError("phase 20 (b): EMA card vs CPU beyond bound")
+    return worst, grad
+
+
+class _PoisonEpoch:
+    """A wave dataset whose ``epoch``-th train epoch (1-based calls of
+    epoch_wave('train')) has a first batch whose first utterance is NaN
+    (all of it: the loop crops at random)."""
+
+    def __init__(self, ds, epoch: int):
+        self.ds, self.epoch, self.calls = ds, epoch, 0
+        self.WAVE_SCALE = ds.WAVE_SCALE
+
+    def epoch_wave(self, subset, *args, **kw):
+        if subset == "train":
+            self.calls += 1
+        for i, (batch,) in enumerate(self.ds.epoch_wave(subset, *args,
+                                                        **kw)):
+            if subset == "train" and self.calls == self.epoch and i == 0:
+                batch = batch.copy()
+                batch[0] = np.nan
+            yield (batch,)
+
+
+def _nan_rollback(tmp: str) -> tuple:
+    """(c): the float32 wave wire (int16 holds no NaN), 8 batches an epoch
+    (one 8-step graph call), 2 epochs with epoch checkpoints; epoch 2's
+    first attempt carries a NaN: the loop restores saves/nan_e1 into the
+    state's tensors, retries on the retry-1 streams and ends finite, with
+    the graph captured once (the restore copies into the tensors it
+    holds)."""
+    import contextlib
+    import io
+    from danet_tpu_torch.data.synth_speech import SyntheticSpeechData
+    hp = load_config(**dict(CKPT_KEYS, TRANSFER_DTYPE="float32",
+                            SYNTH_BATCHES=8))
+    tr = Trainer(hp.get_model()(hp), hp, "cuda", name="nan",
+                 save_dir=os.path.join(tmp, "saves"))
+    ds = SyntheticSpeechData(hp)
+    ds.install_and_load()
+    data = _PoisonEpoch(ds, 2)
+    out = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(out):
+            return tr.train(2, data, save_on_epoch=True,
+                            valid_on_epoch=False, writer=_NullWriter())
+
+    state, launches, captures = _main_path(run)
+    text = out.getvalue()
+    said = [ln.strip(":S") for ln in text.splitlines() if "NaN" in ln]
+    last = [ln for ln in text.splitlines()
+            if ln.startswith("Epoch 2/2 ") and "NaN" not in ln]
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in weights.leaves(state["params"]))
+    print("phase 20 (c) NaN epoch: %s; then %s; %d train epochs drawn, "
+          "graphs captured %d, parameters finite %s"
+          % (said, last, data.calls, captures, finite))
+    if said != ["Epoch 2/2 got NaN values, restoring last checkpoint ... "
+                "done"] or len(last) != 1 or "nan" in last[0] \
+            or data.calls != 3 or captures != 1 or not finite \
+            or state["step"] != 16:
+        raise AssertionError("phase 20 (c): %s" % text[-2000:])
+    return launches
+
+
+def _preempt_subprocess(tmp: str, cfg: str) -> tuple:
+    """(d): SIGTERM to ``python -m danet_tpu_torch -m train`` after its
+    first 8-step call: it writes saves/pre_preempt and exits 0; a resume
+    from it finishes the interrupted epoch (in this process).  -> the
+    resume's launches."""
+    import signal
+    import threading
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "danet_tpu_torch", "-m", "train", "-c", cfg,
+         "-ne", "50", "-n", "pre", "--no-valid-on-epoch", "--set",
+         'SUMMARY_DIR="%s"' % os.path.join(tmp, "pre")],
+        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    got = []
+    reader = threading.Thread(target=lambda: got.extend(
+        iter(lambda: proc.stdout.read(1), "")), daemon=True)
+    reader.start()
+    t0 = time.perf_counter()
+    try:
+        while time.perf_counter() - t0 < 240 and proc.poll() is None \
+                and "".join(got).count(":") < 8:
+            time.sleep(0.05)
+        steps = "".join(got).count(":")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    text = "".join(got)
+    path = os.path.join(tmp, "saves", "pre_preempt")
+    saved = [ln for ln in text.splitlines() if "preempted: saved" in ln]
+    print("phase 20 (d) SIGTERM after %d steps (%.1f s after the start): "
+          "exit %d, %s" % (steps, time.perf_counter() - t0, rc, saved))
+    if rc != 0 or not saved or not os.path.isfile(
+            os.path.join(path, "state.npz")):
+        raise AssertionError("phase 20 (d): exit %s: %s" % (rc, text[-3000:]))
+
+    def resume():
+        return _port_cli(["-m", "train", "-c", cfg, "-ne", "1", "-n",
+                          "pre2", "-i", path, "--no-valid-on-epoch",
+                          "--no-save-on-epoch", "--set",
+                          'SUMMARY_DIR="%s"' % os.path.join(tmp, "pre2")],
+                         tmp)
+
+    text, launches, _ = _main_path(resume)
+    from danet_tpu_torch import __main__ as port_cli
+    lines = [ln for ln in text.splitlines() if ln.startswith("Epoch ")]
+    print("phase 20 (d) resumed from %s at step %s: %s" % (
+        path, port_cli.g_state["step"] - 10, lines))
+    if len(lines) != 1 or "nan" in lines[0]:
+        raise AssertionError("phase 20 (d) resume: %s" % text[-2000:])
+    return launches
+
+
+def _test_and_demo(tmp: str, cfg: str) -> dict:
+    """(e): -m test and -m demo from (a)'s checkpoint on the card (kernel
+    A and kernel B in the test sweep, kernel B in the demo); the demo's
+    separated spectra against the CPU's from the same checkpoint within
+    1e-4 of their peak."""
+    ckpt = os.path.join(tmp, "saves", "straight_e2")
+    seen = []
+    real = Trainer.separate
+
+    def recording(self, state, mix_ri):
+        out = real(self, state, mix_ri)
+        seen.append((mix_ri, out))
+        return out
+
+    def run():
+        text = _port_cli(["-m", "test", "-c", cfg, "-i", ckpt], tmp)
+        Trainer.separate = recording
+        try:
+            text += _port_cli(["-m", "demo", "-c", cfg, "-i", ckpt], tmp)
+        finally:
+            Trainer.separate = real
+        return text
+
+    text, launches, _ = _main_path(run)
+    test = [ln for ln in text.splitlines() if ln.startswith("Test: ")]
+    wavs = sorted(f for f in os.listdir(tmp) if "_separated_" in f)
+    hp = load_config(**CKPT_KEYS)
+    cpu = Trainer(hp.get_model()(hp), hp, "cpu")
+    st = cpu.load_params(cpu.init_state(), ckpt)
+    (mix, out), = seen
+    ref = cpu.separate(st, mix)
+    err = float(np.abs(out - ref).max())
+    peak = float(np.abs(ref).max())
+    print("phase 20 (e) -m test: %s; -m demo: %s, separated spectra %s vs "
+          "the CPU's from the same checkpoint: max abs err %.3g, %.3g of the "
+          "peak (bound 1e-4); launches %s"
+          % (test, wavs, out.shape, err, err / peak,
+             {k: v for k, v in launches.items() if v}))
+    vals = [float(p.split("=")[1]) for ln in test for p in ln.split()[1:]]
+    if len(test) != 1 or not all(np.isfinite(vals)) or wavs != [
+            "demo_separated_1.wav", "demo_separated_2.wav"] \
+            or not err <= 1e-4 * peak or not launches["bilstm_scan"]:
+        raise AssertionError("phase 20 (e): %s" % text[-2000:])
+    return launches
+
+
+def _checkpoint_times(tmp: str) -> dict:
+    """Save and load of the full-width bilstm-orig train state with its
+    EMA (params, two Adam moments, EMA: 4 x 9.07 M float32), on the card,
+    each the median of 3 (synchronized; the load copies into the state's
+    tensors).  Then the first 8-step call after a resume, between
+    synchronizes: into a new Trainer (as a new process: it captures its
+    graph) and, after a second load into the same state, in place (as a
+    rollback: the graph replays), beside a plain replay."""
+    hp = load_config(**dict(CKPT_KEYS, **STEP_OPTIONS))
+    tr = Trainer(hp.get_model()(hp), hp, "cuda",
+                 save_dir=os.path.join(tmp, "saves"))
+    st = tr.init_state()
+    n = sum(t.numel() for _, t in _state_tensors(st))
+    path = os.path.join(tmp, "saves", "timed")
+    saves, loads = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.save_params(st, path)
+        t1 = time.perf_counter()
+        tr.load_params(st, path)
+        torch.cuda.synchronize()
+        saves.append(t1 - t0)
+        loads.append(time.perf_counter() - t1)
+    size = os.path.getsize(os.path.join(path, "state.npz"))
+    out = {"save": float(np.median(saves)) * 1e3,
+           "load": float(np.median(loads)) * 1e3}
+    stack = tr._put(tr._host_batch(np.stack(_speech_batches(hp, 8))))
+
+    def call_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_steps(st, stack)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / 8
+
+    captures = StepGraph.captures
+    out["first"] = call_ms()
+    out["replay"] = call_ms()
+    tr.load_params(st, path)
+    out["after_load"] = call_ms()
+    captured = StepGraph.captures - captures
+    print("phase 20 timing checkpoint: %d float32 values (%.1f MB on disk): "
+          "save %.1f ms, load %.1f ms (median of 3); the first 8-step call "
+          "after a resume into a new Trainer %.2f ms per step (warm-up and "
+          "capture), a replay %.2f, the first call after a load in place "
+          "%.2f (graphs captured in all: %d; EMA_DECAY 0.999, GRAD_ACCUM 2; "
+          "%s)" % (n, size / 1e6, out["save"], out["load"], out["first"],
+                   out["replay"], out["after_load"], captured, nvidia_smi()))
+    if captured != 1:
+        raise AssertionError("phase 20: a load in place recaptured")
+    return out
+
+
+def _option_costs() -> dict:
+    """ms per step of the K=8 graph call with each step option, and of
+    eager steps with and without NAN_CHECKS (which runs single steps),
+    on one stack of 8 synth-speech batches, each after a warm-up."""
+    hp0 = load_config(**CKPT_KEYS)
+    stack = np.stack(_speech_batches(hp0, 8))
+    out = {}
+    for label, over in (("K=8 graph", {}),
+                        ("K=8 graph, EMA_DECAY 0.999", {"EMA_DECAY": 0.999}),
+                        ("K=8 graph, GRAD_ACCUM 2", {"GRAD_ACCUM": 2}),
+                        ("K=8 graph, both", STEP_OPTIONS),
+                        ("eager", {"TRAIN_STEPS_PER_CALL": 1}),
+                        ("eager, NAN_CHECKS", {"NAN_CHECKS": True})):
+        hp = load_config(**dict(CKPT_KEYS, **over))
+        tr = Trainer(hp.get_model()(hp), hp, "cuda")
+        st = tr.init_state()
+        dev = tr._put(tr._host_batch(stack))
+        if tr._steps_per_call > 1:
+            tr.train_steps(st, dev)
+            reps, run = 5, lambda: tr.train_steps(st, dev)
+        else:
+            tr.train_step(st, dev[0])
+            reps = 1
+
+            def run():
+                for i in range(8):
+                    tr.train_step(st, dev[i])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        out[label] = (time.perf_counter() - t0) * 1e3 / (8 * reps)
+        del st, tr
+    print("phase 20 timing step options (bilstm-orig, B=32, float32, int16 "
+          "wave wire; %s): %s ms per step"
+          % (nvidia_smi(), ", ".join("%s %.3f" % kv for kv in out.items())))
+    return out
+
+
+def phase_checkpoints() -> dict:
+    """Phase 20: checkpoints, rollbacks, the preemption save, the step
+    options and the CLI's modes on the paper model (module docstring)."""
+    import shutil
+    import tempfile
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print("phase 20 %s took %.1f s" % (what, now - clock[0]))
+        clock[0] = now
+
+    print("phase 20 keys: %s" % ", ".join(
+        "%s=%r" % kv for kv in sorted(CKPT_KEYS.items())))
+    tmp = tempfile.mkdtemp(prefix="danet-phase20-")
+    try:
+        cfg = os.path.join(tmp, "phase20.json")
+        with open(cfg, "w") as f:
+            json.dump(CKPT_KEYS, f)
+        paths = []
+        a_launches, first_ms, later_ms, recaptures = _resume_vs_straight(
+            tmp, cfg)
+        paths.append(a_launches)
+        lap("(a)")
+        opts = dict(CKPT_KEYS, **STEP_OPTIONS)
+        _graph_vs_eager("(b) bilstm-orig EMA_DECAY 0.999 GRAD_ACCUM 2", opts,
+                        int(opts["TRAIN_STEPS_PER_CALL"]), phase=20)
+        step_rel, grad_rel = _options_vs_cpu(opts, 2)
+        lap("(b)")
+        paths.append(_nan_rollback(tmp))
+        lap("(c)")
+        paths.append(_preempt_subprocess(tmp, cfg))
+        lap("(d)")
+        paths.append(_test_and_demo(tmp, cfg))
+        lap("(e)")
+        times = _checkpoint_times(tmp)
+        costs = _option_costs()
+        lap("timing")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {n: sum(p[n] for p in paths) for n in KERNELS}
+    print("phase 20 launches over (a), (c), (d)'s resume and (e): %s"
+          % {k: v for k, v in launches.items() if v})
+    for name in ("stft_ri", "bilstm_scan", "bilstm_scan_train",
+                 "bilstm_scan_bwd"):
+        if not launches[name]:
+            raise AssertionError("phase 20: %s not launched" % name)
+    return {"launches": launches, "step_rel": step_rel, "grad_rel": grad_rel,
+            "times": times, "first_ms": first_ms, "later_ms": later_ms,
+            "recaptures": recaptures, "costs": costs}
 
 
 def _bound(flops: float, nbytes: float):
@@ -1999,13 +2488,16 @@ def main():
     training_tpu = phase_training_tpu()
     serving_tpu = phase_serving_tpu()
     tpu_whole = phase_tpu_whole()
+    checkpoints = phase_checkpoints()
     print("summary: bilstm_scan bfloat16 max_abs_err %.3g (atol %g); "
           "serving worst error vs CPU %.3g of the peak (rtol %g), lstm-orig "
           "%.3g, gru-v1 %.3g, attn-v1 %.3g; train steps vs CPU: worst "
           "relative loss/SNR err %s, step-1 gradients %.3g of the peak; "
           "lstm-orig %s, every step's gradients %.3g; gru-v1 %s, %.3g; "
           "attn-v1 %s, %.3g; configs/tpu.json serving %.3g, training %s, "
-          "%.3g; configs/tpu.json whole: ingest %.3g, 8 steps %.3g, %.3g"
+          "%.3g; configs/tpu.json whole: ingest %.3g, 8 steps %.3g, %.3g; "
+          "checkpoints: resumed bit for bit, EMA and GRAD_ACCUM steps %.3g, "
+          "%.3g"
           % (scan["max_abs_err"][torch.bfloat16], LSTM_ATOL[torch.bfloat16],
              serving["max_rel_err"], SERVE_RTOL,
              serving_uni["lstm-orig"]["max_rel_err"],
@@ -2019,14 +2511,15 @@ def main():
              training_attn["step_rel"], training_attn["grad_rel"],
              serving_tpu["max_rel_err"], training_tpu["step_rel"],
              training_tpu["grad_rel"], tpu_whole["ingest_err"],
-             tpu_whole["step_rel"], tpu_whole["grad_rel"]))
+             tpu_whole["step_rel"], tpu_whole["grad_rel"],
+             checkpoints["step_rel"], checkpoints["grad_rel"]))
     # launches: the counts of the main paths that run each kernel, each
     # zeroed just before its path and read just after it; kernel 6 has no
     # main path and counts its own phase's comparison launches
     paths = [serving["launches"], training["launches"],
              serving_attn["launches"], training_attn["launches"],
              serving_tpu["launches"], training_tpu["launches"],
-             tpu_whole["launches"]] + [
+             tpu_whole["launches"], checkpoints["launches"]] + [
         run["launches"] for run in list(serving_uni.values())
         + list(training_uni.values())]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}

@@ -1,9 +1,10 @@
 """Host-side audio: WAV I/O, the ri layout of host spectra, the
 scipy-convention STFT and its inverses, and the random zero-pad.
 
-Counterpart of ``danet_tpu/data/audio.py:22-107,132-181`` (``to_ri``,
-``stft_np``, ``istft_np``, ``spectra_to_wave``, ``random_zeropad``,
-``load_wav_raw`` and ``save_wav_raw``): numpy and scipy only.  The FFT
+Counterpart of ``danet_tpu/data/audio.py:22-181`` (``to_ri``,
+``from_ri``, ``stft_np``, ``istft_np``, ``spectra_to_wave``,
+``random_zeropad``, ``load_wavfile``, ``save_wavfile``, ``load_wav_raw``
+and ``save_wav_raw``): numpy and scipy only.  The FFT
 parameters are arguments where the JAX functions read its global
 hparams; ``random_zeropad`` draws from an explicit ``random.Random``,
 where the JAX function draws from Python's global, unseeded generator.
@@ -21,6 +22,11 @@ import scipy.signal
 def to_ri(x: np.ndarray) -> np.ndarray:
     """Complex (or real) [...] -> float32 [..., 2], (real, imag) last."""
     return np.stack([x.real, x.imag], axis=-1).astype(np.float32)
+
+
+def from_ri(x: np.ndarray) -> np.ndarray:
+    """float [..., 2] (real, imag) -> complex64 [...]."""
+    return (x[..., 0] + 1j * x[..., 1]).astype(np.complex64)
 
 
 def stft_np(data: np.ndarray, fft_size: int, stride: int,
@@ -80,6 +86,30 @@ def random_zeropad(x: np.ndarray, padlen: int, axis: int,
     axis %= x.ndim
     pad = [(0, 0)] * axis + [(left, right)] + [(0, 0)] * (x.ndim - axis - 1)
     return np.pad(x, pad, mode="constant")
+
+
+def load_wavfile(filename: str, smprate: int, fft_size: int, stride: int,
+                 window: np.ndarray) -> np.ndarray:
+    """WAV -> mono, resampled to ``smprate`` -> ``stft_np`` -> complex
+    [T, F]; the samples as the file stores them (no PCM scaling)."""
+    if filename is None:
+        raise IOError("WAV file not specified, please specify via "
+                      "--input-file argument.")
+    in_rate, data = scipy.io.wavfile.read(filename)
+    if data.ndim > 1:
+        data = data.mean(axis=-1)
+    if in_rate != smprate:
+        data = scipy.signal.resample(
+            data, int(ceil(len(data) * smprate / in_rate)))
+    return stft_np(np.asarray(data, dtype=np.float64), fft_size, stride,
+                   window)
+
+
+def save_wavfile(filename: str, spectra: np.ndarray, smprate: int,
+                 stride: int, window: np.ndarray) -> None:
+    """complex [T, F] -> ``istft_np`` -> a float64 WAV at ``smprate``."""
+    scipy.io.wavfile.write(filename, smprate,
+                           istft_np(spectra, stride, window))
 
 
 def load_wav_raw(filename: str, smprate: int) -> np.ndarray:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import sys
 from typing import Any, Callable, Dict
 
 import numpy as np
@@ -160,6 +161,27 @@ def load_config(*json_files: str, **overrides) -> Hyperparameter:
     hp.load(overrides)
     hp.digest()
     return hp
+
+
+def apply_overrides(hp, pairs) -> None:
+    """CLI ``--set KEY=VALUE`` overrides (``danet_tpu/hparams.py:179-202``):
+    values are JSON-typed (``--set TCN_BLOCKS=5`` -> int 5,
+    ``--set NAN_CHECKS=true`` -> bool), else a bare string.  A missing
+    '=' raises ValueError; a key the loaded config does not carry gets a
+    warning on stderr (a misspelt key would otherwise train the default).
+    The caller digests afterwards."""
+    for kv in pairs:
+        key, eq, val = kv.partition("=")
+        if not eq:
+            raise ValueError("--set expects KEY=VALUE, got %r" % (kv,))
+        try:
+            val = json.loads(val)
+        except ValueError:
+            pass  # a bare string
+        if not hasattr(hp, key):
+            print("WARNING: --set %s: key not present in the loaded "
+                  "config (new key, or a typo?)" % key, file=sys.stderr)
+        hp.load({key: val})
 
 
 hparams = Hyperparameter()

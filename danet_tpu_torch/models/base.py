@@ -27,10 +27,27 @@ class ModelModule:
 
 class Encoder(ModelModule):
     """Maps log-magnitude spectra [B, T, F] to embeddings [B, T, F, E];
-    ``train`` turns on dropout, drawn from ``generator``."""
+    ``train`` turns on dropout, drawn from ``generator``.  An encoder may
+    take ``tap(name, value)``, which it calls with its internal
+    activations (per-layer hidden sequences), for debug mode."""
 
-    def apply(self, params, log_spectra, train=False, generator=None):
+    def apply(self, params, log_spectra, train=False, generator=None,
+              tap=None):
         raise NotImplementedError()
+
+    def apply_debug(self, params, log_spectra):
+        """(embed, fetches): the forward pass and a dict of the internal
+        activations that ``apply`` taps, for the debug mode's .mat dump.
+        An encoder whose ``apply`` takes no ``tap`` contributes none."""
+        import inspect
+        sig = inspect.signature(self.apply).parameters
+        fetches = {}
+        if "tap" in sig or any(p.kind is inspect.Parameter.VAR_KEYWORD
+                               for p in sig.values()):
+            embed = self.apply(params, log_spectra, tap=fetches.__setitem__)
+        else:
+            embed = self.apply(params, log_spectra)
+        return embed, fetches
 
 
 class Estimator(ModelModule):

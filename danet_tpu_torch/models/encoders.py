@@ -53,11 +53,14 @@ class ToyEncoder(Encoder):
                                       device=device),
         }
 
-    def apply(self, params, log_spectra, train=False, generator=None):
+    def apply(self, params, log_spectra, train=False, generator=None,
+              tap=None):
         hp = self.hp
         b, t = log_spectra.shape[0], log_spectra.shape[1]
         mid = nn.leaky_relu(nn.linear_apply(params["linear0"], log_spectra),
                             hp.RELU_LEAKAGE)
+        if tap:
+            tap("mid_act", mid)
         out = nn.linear_apply(params["linear1"], mid)
         return out.reshape(b, t, hp.FEATURE_SIZE, hp.EMBED_SIZE)
 
@@ -99,14 +102,18 @@ class LstmEncoder(Encoder):
         params["output"] = _LstmHead.init(generator, hp, in_dim, device)
         return params
 
-    def apply(self, params, log_spectra, train=False, generator=None):
-        """[B, T, F] -> [B, T, F, E]; no dropout (``train`` is ignored)."""
+    def apply(self, params, log_spectra, train=False, generator=None,
+              tap=None):
+        """[B, T, F] -> [B, T, F, E]; no dropout (``train`` is ignored);
+        taps ``lstm<i>_h``."""
         hp = self.hp
         act = _candidate_activation(hp)
         x = _centered(log_spectra)
         for i in range(self.N_LAYERS):
             x = rnn.lstm_apply(params[f"lstm{i}"], x, act,
                                backend=_backend(hp))
+            if tap:
+                tap("lstm%d_h" % i, x)
         return _LstmHead.apply(params["output"], hp, x)
 
 
@@ -130,9 +137,11 @@ class BiLstmEncoder(Encoder):
         params["output"] = _LstmHead.init(generator, hp, in_dim, device)
         return params
 
-    def apply(self, params, log_spectra, train=False, generator=None):
+    def apply(self, params, log_spectra, train=False, generator=None,
+              tap=None):
         """[B, T, F] -> [B, T, F, E]; with ``train``, inverted dropout at
-        DROPOUT_KEEP_PROB after every layer, drawn from ``generator``."""
+        DROPOUT_KEEP_PROB after every layer, drawn from ``generator``;
+        taps ``lstm<i>_h``."""
         hp = self.hp
         act = _candidate_activation(hp)
         keep = hp.DROPOUT_KEEP_PROB if train else 1.0
@@ -141,6 +150,8 @@ class BiLstmEncoder(Encoder):
             x = rnn.bilstm_apply(params[f"lstm{i}"], x, act,
                                  dropout_rng=generator, keep_prob=keep,
                                  backend=_backend(hp))
+            if tap:
+                tap("lstm%d_h" % i, x)
         return _LstmHead.apply(params["output"], hp, x)
 
 
@@ -166,12 +177,16 @@ class GruEncoder(Encoder):
         params["output"] = _LstmHead.init(generator, hp, in_dim, device)
         return params
 
-    def apply(self, params, log_spectra, train=False, generator=None):
-        """[B, T, F] -> [B, T, F, E]; no dropout (``train`` is ignored)."""
+    def apply(self, params, log_spectra, train=False, generator=None,
+              tap=None):
+        """[B, T, F] -> [B, T, F, E]; no dropout (``train`` is ignored);
+        taps ``gru<i>_h``."""
         hp = self.hp
         x = _centered(log_spectra)
         for i in range(self.N_LAYERS):
             x = rnn.gru_apply(params[f"gru{i}"], x, backend=_backend(hp))
+            if tap:
+                tap("gru%d_h" % i, x)
         return _LstmHead.apply(params["output"], hp, x)
 
 
@@ -261,10 +276,11 @@ class AttentionEncoder(Encoder):
         attn = torch.softmax(logits, dim=-1).to(q.dtype)
         return nn.ee("bhqk,bkhd->bqhd", attn, v)
 
-    def apply(self, params, log_spectra, train=False, generator=None):
+    def apply(self, params, log_spectra, train=False, generator=None,
+              tap=None):
         """[B, T, F] -> [B, T, F, E]; with ``train``, inverted dropout at
         DROPOUT_KEEP_PROB on every block's MLP output, drawn from
-        ``generator``."""
+        ``generator``; taps ``block<i>_h``."""
         hp = self.hp
         if bool(getattr(hp, "ATTN_CAUSAL", False)):
             raise NotImplementedError(
@@ -299,5 +315,7 @@ class AttentionEncoder(Encoder):
             if drop:
                 y = nn.dropout(generator, y, keep)
             h = h + y
+            if tap:
+                tap("block%d_h" % i, h)
         out = nn.linear_apply(params["output"], h)
         return out.reshape(b, t, hp.FEATURE_SIZE, hp.EMBED_SIZE)

@@ -13,13 +13,16 @@ CLI:
     python -m danet_tpu_torch.serve run -c cfg.json -w weights.npz \\
         -if mixture.wav -o prefix [--device cuda]
 
-writes ``prefix_0.wav``, ``prefix_1.wav``, ...  ``weights.npz`` is a
-parameter tree saved by ``danet_tpu_torch.weights.save_npz`` (for example
-from a JAX session: ``save_npz(path, jax.device_get(params))``).
+writes ``prefix_0.wav``, ``prefix_1.wav``, ...  ``-w`` is a parameter
+tree saved by ``danet_tpu_torch.weights.save_npz`` (for example from a JAX
+session: ``save_npz(path, jax.device_get(params))``), or a checkpoint
+directory of the port's trainer (``train/checkpoint.py``), whose EMA is
+served when it holds one.
 """
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Sequence
 
 import numpy as np
@@ -58,11 +61,17 @@ class Separator:
 
 def load_separator(weights: str, config_files: Sequence[str] = (),
                    device="cuda") -> Separator:
-    """default.json + ``config_files`` -> model; ``weights`` (.npz) ->
-    parameters on ``device``."""
+    """default.json + ``config_files`` -> model; ``weights`` (a .npz, or
+    a checkpoint directory: its EMA if it holds one, else its parameters,
+    checked against the model's) -> parameters on ``device``."""
     hp = load_config(*config_files)
     model = hp.get_model()(hp)
-    return Separator(model, weights_lib.load_npz(weights), device)
+    if os.path.isdir(weights):
+        from danet_tpu_torch.train.checkpoint import load_eval_params
+        params = load_eval_params(weights, model.init(torch.Generator()))
+    else:
+        params = weights_lib.load_npz(weights)
+    return Separator(model, params, device)
 
 
 def _main(argv=None) -> None:
@@ -73,7 +82,8 @@ def _main(argv=None) -> None:
                      help="config JSON layered over default.json "
                           "(repeatable)")
     run.add_argument("-w", "--weights", required=True,
-                     help=".npz parameter tree (weights.save_npz)")
+                     help=".npz parameter tree (weights.save_npz) or a "
+                          "checkpoint directory of the trainer")
     run.add_argument("-if", "--input-file", required=True)
     run.add_argument("-o", "--output-prefix", required=True)
     run.add_argument("--device", default="cuda")

@@ -31,11 +31,24 @@ files (``train/metrics.py``).  WATCHDOG_SECS > 0 exits the process with
 WATCHDOG_EXIT_CODE when no step, valid batch or metric fetch has finished
 for that long.
 
-Not ported, and refused with NotImplementedError: GRAD_ACCUM > 1,
-EMA_DECAY > 0, NAN_CHECKS, REMAT and the valid-crash rollback
-(VALID_CRASH_FACTOR > 0); ``DaNet`` itself refuses MESH_* > 1.
-Checkpoints, the NaN rollback, the preemption save and profiling are not
-ported either: ``train`` raises on a NaN epoch instead of rolling back.
+The step options: GRAD_ACCUM = A splits a batch into A microbatches and
+takes one update on their summed gradient times 1/A; EMA_DECAY keeps an
+exponential average of the parameters (``state["ema"]``), which the valid
+sweep, ``test`` and ``separate`` run on; both run in the eager step and in
+the K-step graph.  NAN_CHECKS raises FloatingPointError at the first step
+whose loss or gradient is not finite (and runs single steps).  REMAT is
+refused with NotImplementedError; ``DaNet`` itself refuses MESH_* > 1.
+
+Checkpoints (``train/checkpoint.py``): ``save_on_epoch`` writes
+``saves/<name>_e<k>`` after epoch k, ``save_best`` keeps
+``saves/<name>_best`` on the valid loss.  A NaN epoch rolls back to the
+previous epoch's checkpoint and retries with perturbed data and dropout
+streams (or exits with -1 without one); VALID_CRASH_FACTOR > 0 rolls a
+valid-loss spike back to the best or the previous checkpoint, at most 3
+times a run; SIGTERM or SIGINT saves ``saves/<name>_preempt`` at the next
+step (or K-step call) and returns.  A load copies into the state's
+tensors, so that the captured graphs, which hold their addresses, stay
+valid.
 
 The data stream is reproducible: every epoch draws its batches and crops
 from ``np.random.RandomState(crc32(...))``, and the random zero-pad splits
@@ -49,6 +62,8 @@ import math
 import os
 import queue
 import random
+import shutil
+import signal
 import sys
 import threading
 import time
@@ -65,8 +80,9 @@ from danet_tpu_torch.data import audio
 from danet_tpu_torch.models.danet import STFT_BACKENDS
 from danet_tpu_torch.ops import dsp
 from danet_tpu_torch.ops.cuda import stft as cuda_stft
+from danet_tpu_torch.train import checkpoint as ckpt_lib
 from danet_tpu_torch.train.metrics import MetricsWriter, StepTimer
-from danet_tpu_torch.weights import leaves
+from danet_tpu_torch.weights import leaf_names, leaves
 
 # exit code of the hang watchdog (WATCHDOG_SECS), as the JAX trainer's: a
 # supervisor tells "hung, relaunch" from a crash by it
@@ -232,6 +248,12 @@ def _dict_format(di) -> str:
     return " ".join("%s=%s" % (k, v) for k, v in di.items())
 
 
+def _tree_detach(tree: dict) -> dict:
+    """A copy of a tree of tensors, detached, on the same device."""
+    return {k: _tree_detach(v) if isinstance(v, dict)
+            else v.detach().clone() for k, v in tree.items()}
+
+
 def _tree_clone(tree: dict) -> dict:
     return {k: _tree_clone(v) if isinstance(v, dict)
             else v.detach().clone().requires_grad_(v.requires_grad)
@@ -257,15 +279,20 @@ class StepGraph:
 class Trainer:
     """Owns the steps and the loop for one model on one ``device`` (the
     card unless the caller asks for the CPU).  The state is {params, opt,
-    step, epoch, generator} and, once a K-step call has run on the card,
-    ``graphs``: ``opt`` holds the optimizer's moments and learning rate,
-    ``generator`` draws dropout, ``graphs`` the captured K-step graphs,
-    which update the state's tensors in place."""
+    step, epoch, generator}, with ``ema`` under EMA_DECAY > 0 and, once a
+    K-step call has run on the card, ``graphs``: ``opt`` holds the
+    optimizer's moments and learning rate, ``generator`` draws dropout,
+    ``graphs`` the captured K-step graphs, which update the state's
+    tensors in place.  Checkpoints go to ``save_dir``, named after
+    ``name``."""
 
-    def __init__(self, model, hp=None, device="cuda"):
+    def __init__(self, model, hp=None, device="cuda",
+                 name: str = "UnnamedExperiment", save_dir: str = "saves"):
         self.hp = hp if hp is not None else model.hp
         self.model = model
         self.device = torch.device(device)
+        self.name = name
+        self.save_dir = save_dir
         self._check_config()
         model.check_train_config()
         hp = self.hp
@@ -292,37 +319,48 @@ class Trainer:
         self._pcm_scale = float(getattr(hp, "WAVE_PCM_SCALE", 1.0) or 1.0)
         self._dequant = self._pcm_scale / 32768.0
         self._stft_backend = stft_backend
-        self._steps_per_call = int(
-            getattr(hp, "TRAIN_STEPS_PER_CALL", 1) or 1)
         self._staging = PinnedStaging()
         self._heartbeat = time.monotonic()
         self._watchdog_on = False
+        self._preempt = False
 
     def _check_config(self) -> None:
+        """The step options, with the JAX trainer's refusals and notes:
+        EMA_DECAY in [0, 1), GRAD_ACCUM dividing BATCH_SIZE, NAN_CHECKS
+        forcing single steps; REMAT is not ported."""
         hp = self.hp
-
-        def num(key):
-            return float(getattr(hp, key, 0) or 0)
-
-        refused = [
-            ("GRAD_ACCUM > 1", num("GRAD_ACCUM") > 1),
-            ("EMA_DECAY > 0", num("EMA_DECAY") > 0),
-            ("NAN_CHECKS", bool(getattr(hp, "NAN_CHECKS", False))),
-            ("REMAT", bool(getattr(hp, "REMAT", False))),
-            ("VALID_CRASH_FACTOR > 0", num("VALID_CRASH_FACTOR") > 0),
-        ]
-        for what, bad in refused:
-            if bad:
-                raise NotImplementedError(
-                    "%s is not ported to the PyTorch trainer" % what)
+        if bool(getattr(hp, "REMAT", False)):
+            raise NotImplementedError(
+                "REMAT is not ported to the PyTorch trainer")
+        self.ema_decay = float(getattr(hp, "EMA_DECAY", 0.0) or 0.0)
+        if not 0.0 <= self.ema_decay < 1.0:
+            raise ValueError(
+                "EMA_DECAY=%r must be in [0, 1)" % (self.ema_decay,))
+        accum = int(getattr(hp, "GRAD_ACCUM", 1) or 1)
+        if accum > 1 and hp.BATCH_SIZE % accum != 0:
+            raise ValueError("GRAD_ACCUM=%d must divide BATCH_SIZE=%d"
+                             % (accum, hp.BATCH_SIZE))
+        if accum > 1 and float(getattr(hp, "DC_LOSS_WEIGHT", 0) or 0):
+            print("[note] the raw-DC diagnostic column is unavailable under "
+                  "GRAD_ACCUM>1 (fixed scan-carry structure); DC still "
+                  "contributes to the loss")
+        self._accum = accum
+        self._nan_checks = bool(getattr(hp, "NAN_CHECKS", False))
+        k = int(getattr(hp, "TRAIN_STEPS_PER_CALL", 1) or 1)
+        if k > 1 and self._nan_checks:
+            print("[TRAIN_STEPS_PER_CALL disabled under NAN_CHECKS — "
+                  "checkify locates NaNs per single step]")
+            k = 1
+        self._steps_per_call = k
 
     # ------------------------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None,
                    params: Optional[dict] = None) -> dict:
         """Fresh state: parameters drawn from ``generator`` (or a copy of
         ``params``, a tree of tensors or numpy arrays), a fresh optimizer
-        at LR, and a dropout generator on the device seeded from
-        ``generator``."""
+        at LR, a dropout generator on the device seeded from
+        ``generator``, and under EMA_DECAY > 0 the EMA, a copy of the
+        parameters."""
         generator = generator if generator is not None \
             else torch.Generator().manual_seed(0)
         if params is None:
@@ -332,10 +370,24 @@ class Trainer:
         for p in leaves(params):
             p.requires_grad_(True)
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
-        return {"params": params,
-                "opt": optim_lib.make_optimizer(self.hp, params),
-                "step": 0, "epoch": 0,
-                "generator": torch.Generator(self.device).manual_seed(seed)}
+        state = {"params": params,
+                 "opt": optim_lib.make_optimizer(self.hp, params),
+                 "step": 0, "epoch": 0,
+                 "generator": torch.Generator(self.device).manual_seed(seed)}
+        self._ensure_ema(state)
+        return state
+
+    def _ensure_ema(self, state: dict) -> None:
+        """Under EMA_DECAY > 0, a state without an EMA gets a copy of its
+        parameters (the EMA starts there)."""
+        if self.ema_decay and state.get("ema") is None:
+            state["ema"] = _tree_detach(state["params"])
+
+    def eval_params(self, state: dict) -> dict:
+        """The weights that evaluation and inference run on: the EMA when
+        the state has one, else the parameters."""
+        ema = state.get("ema")
+        return ema if ema is not None else state["params"]
 
     # ------------------------------------------------------------------
     # the wire
@@ -398,12 +450,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     # the steps
-    def loss_and_grads(self, params: dict, src_ri: torch.Tensor,
-                       generator: Optional[torch.Generator] = None):
-        """(metrics, grads): {"loss", "SNR"} and "DC" (the raw
-        deep-clustering term, with DC_LOSS_WEIGHT > 0) as detached 0-d
-        tensors, and the train loss's gradient aligned with
-        ``leaves(params)`` (zeros where the loss does not reach)."""
+    def _loss_and_grads(self, params: dict, src_ri: torch.Tensor,
+                        generator: Optional[torch.Generator]):
         loss, aux = self.model.train_loss(params, src_ri, generator)
         ps = leaves(params)
         grads = torch.autograd.grad(loss, ps, allow_unused=True)
@@ -414,13 +462,73 @@ class Trainer:
             metrics["DC"] = aux["dc"].detach()
         return metrics, grads
 
+    def loss_and_grads(self, params: dict, src_ri: torch.Tensor,
+                       generator: Optional[torch.Generator] = None):
+        """(metrics, grads): {"loss", "SNR"} and "DC" (the raw
+        deep-clustering term, with DC_LOSS_WEIGHT > 0) as detached 0-d
+        tensors, and the train loss's gradient aligned with
+        ``leaves(params)`` (zeros where the loss does not reach).
+
+        GRAD_ACCUM = A > 1: the batch's rows split into A microbatches in
+        order, each a forward and backward (dropout drawn from
+        ``generator`` in that order); the gradients and the loss and SNR
+        summed, then times 1/A, as the JAX trainer's scan; no DC column."""
+        a = self._accum
+        if a == 1:
+            return self._loss_and_grads(params, src_ri, generator)
+        micro = src_ri.reshape((a, src_ri.shape[0] // a)
+                               + tuple(src_ri.shape[1:]))
+        grads = loss = snr = None
+        for mb in micro:
+            m, g = self._loss_and_grads(params, mb, generator)
+            if grads is None:
+                grads, loss, snr = g, m["loss"], m["SNR"]
+            else:
+                grads = [x + y for x, y in zip(grads, g)]
+                loss, snr = loss + m["loss"], snr + m["SNR"]
+        inv = 1.0 / a
+        return ({"loss": loss * inv, "SNR": snr * inv},
+                [g * inv for g in grads])
+
+    @torch.no_grad()
+    def _ema_update(self, ema: list, params: list) -> None:
+        """EMA_DECAY = d: e * d + p * (1 - d) over the parameter list, in
+        ``torch._foreach_*`` passes (one kernel per pass on the card)."""
+        d = self.ema_decay
+        torch._foreach_mul_(ema, d)
+        torch._foreach_add_(ema, torch._foreach_mul(params, 1.0 - d))
+
+    def _check_finite(self, state: dict, metrics: dict, grads) -> None:
+        """NAN_CHECKS: FloatingPointError when the loss or a gradient is
+        not finite, naming the first parameter whose gradient is not (one
+        fetch of the flags per step)."""
+        flags = torch.stack([torch.isfinite(metrics["loss"])]
+                            + [torch.isfinite(g).all() for g in grads])
+        flags = flags.cpu().tolist()
+        if all(flags):
+            return
+        bad = [n for n, ok in zip(leaf_names(state["params"]), flags[1:])
+               if not ok]
+        raise FloatingPointError(
+            "NAN_CHECKS: step %d: non-finite %s (loss %s)"
+            % (state["step"] + 1,
+               "gradient of %s, the first of %d parameter leaves" % (
+                   bad[0], len(bad)) if bad else "loss",
+               float(metrics["loss"])))
+
     def train_step(self, state: dict, batch) -> dict:
-        """One step on a batch (see ``ingest``): forward, backward, clip,
-        update.  -> {"loss", "SNR"} (and "DC") as 0-d tensors on the
+        """One step on a batch (see ``ingest``): forward, backward
+        (GRAD_ACCUM microbatches), the NAN_CHECKS check, clip, update and
+        the EMA.  -> {"loss", "SNR"} (and "DC") as 0-d tensors on the
         device."""
+        self._ensure_ema(state)
         metrics, grads = self.loss_and_grads(
             state["params"], self.ingest(batch), state["generator"])
+        if self._nan_checks:
+            self._check_finite(state, metrics, grads)
         state["opt"].step(grads)
+        if self.ema_decay:
+            self._ema_update(leaves(state["ema"]), leaves(state["params"]))
         state["step"] += 1
         return metrics
 
@@ -431,17 +539,18 @@ class Trainer:
 
         On the card the K steps are one CUDA graph, captured at the first
         call per (shape, dtype) of the stack and replayed: it holds K
-        forward, backward, clip and update steps, reads the stack and the
-        optimizer's scalars from static buffers filled before each replay,
-        and draws dropout from the state's generator (registered with the
-        graph).  A capture or replay that fails raises.  On the CPU the K
-        steps run eagerly."""
+        forward, backward, clip, update and EMA steps, reads the stack and
+        the optimizer's scalars from static buffers filled before each
+        replay, and draws dropout from the state's generator (registered
+        with the graph).  A capture or replay that fails raises.  On the
+        CPU the K steps run eagerly."""
         if not torch.is_tensor(stack):
             stack = self._put(self._host_batch(stack))
         k = stack.shape[0]
         if self.device.type != "cuda":
             rows = [self.train_step(state, stack[i]) for i in range(k)]
             return {n: torch.stack([r[n] for r in rows]) for n in rows[0]}
+        self._ensure_ema(state)
         graphs = state.setdefault("graphs", {})
         key = (tuple(stack.shape), stack.dtype)
         g = graphs.get(key)
@@ -461,10 +570,10 @@ class Trainer:
 
     def _warm_up(self, state: dict, batch: torch.Tensor,
                  scalars: torch.Tensor) -> None:
-        """One step on copies of the parameters and moments, on a side
-        stream (as PyTorch asks before a capture): lazy initialisations
-        (the kernel library, cuBLAS, the cached constants) must not happen
-        under capture, and the state must not move."""
+        """One step on copies of the parameters, moments and EMA, on a
+        side stream (as PyTorch asks before a capture): lazy
+        initialisations (the kernel library, cuBLAS, the cached constants)
+        must not happen under capture, and the state must not move."""
         dev = self.device
         opt = state["opt"]
         side = torch.cuda.Stream(dev)
@@ -479,6 +588,9 @@ class Trainer:
             with torch.no_grad():
                 opt.update(leaves(params), *moments, opt.clip(grads),
                            scalars)
+            if self.ema_decay:
+                self._ema_update([t.clone() for t in leaves(state["ema"])],
+                                 leaves(params))
         torch.cuda.current_stream(dev).wait_stream(side)
 
     def _capture(self, state: dict, stack: torch.Tensor) -> StepGraph:
@@ -497,6 +609,8 @@ class Trainer:
                 "CUDA graph (CUDAGraph.register_generator_state)")
         graph.register_generator_state(state["generator"])
         count = opt.count
+        params = leaves(state["params"])
+        ema = leaves(state["ema"]) if self.ema_decay else None
         # thread_local: the prefetch thread's pinned allocations and event
         # queries go on during the capture
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
@@ -505,6 +619,8 @@ class Trainer:
                 metrics, grads = self.loss_and_grads(
                     state["params"], self.ingest(inp[i]), state["generator"])
                 opt.step(grads, scalars[i])
+                if ema is not None:
+                    self._ema_update(ema, params)
                 names = list(metrics)
                 rows.append(torch.stack([metrics[n] for n in names]))
             out = torch.stack(rows)
@@ -515,9 +631,9 @@ class Trainer:
     @torch.no_grad()
     def valid_step(self, state: dict, batch) -> dict:
         """Validation metrics of one batch, shipped in float32 (see
-        ``ingest``): every metric of ``valid_metrics`` but the separated
-        spectra, as 0-d tensors on the device."""
-        m = self.model.valid_metrics(state["params"],
+        ``ingest``), on ``eval_params``: every metric of ``valid_metrics``
+        but the separated spectra, as 0-d tensors on the device."""
+        m = self.model.valid_metrics(self.eval_params(state),
                                      self.ingest(batch, for_eval=True))
         return {k: v for k, v in m.items() if k != "separated_ri"}
 
@@ -526,6 +642,73 @@ class Trainer:
 
     def get_learn_rate(self, state: dict) -> float:
         return optim_lib.get_learn_rate(state["opt"])
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    def save_path(self, epoch: int) -> str:
+        return os.path.join(self.save_dir, "%s_e%d" % (self.name, epoch))
+
+    def save_params(self, state: dict, path: str) -> None:
+        ckpt_lib.save_checkpoint(path, state)
+
+    def load_params(self, state: dict, path: str) -> dict:
+        """The checkpoint at ``path`` restored into ``state`` in place
+        (``restore``); -> ``state``."""
+        return self.restore(state, ckpt_lib.load_checkpoint(path, state))
+
+    @torch.no_grad()
+    def restore(self, state: dict, tree: dict) -> dict:
+        """Copy a host tree (``checkpoint.load_checkpoint``,
+        ``weights.from_jax_state``) into ``state``: the parameters, the
+        moments and the EMA with ``copy_`` into the tensors the state
+        already has, because the optimizer and the captured K-step graphs
+        hold their addresses (a rebound tensor would leave a graph
+        updating the old one); then the step count, learning rate,
+        counters and, when the tree has one, the dropout generator (from a
+        generator of another device type only its seed).  -> ``state``."""
+        flat = dict(zip(leaf_names(tree), leaves(tree)))
+        names = leaf_names(state["params"])
+
+        def copy(prefix, dsts):
+            for name, dst in zip(names, dsts):
+                src = np.require(flat[prefix + name], requirements="W")
+                dst.copy_(torch.from_numpy(src))
+
+        copy("params/", leaves(state["params"]))
+        opt = state["opt"]
+        if opt.mu is not None:
+            copy("opt/mu/", opt.mu)
+            copy("opt/nu/", opt.nu)
+        opt.count = int(tree["opt"]["count"])
+        opt.lr = float(tree["opt"]["lr"])
+        state["step"], state["epoch"] = int(tree["step"]), int(tree["epoch"])
+        if self.ema_decay:
+            self._ensure_ema(state)
+            copy("ema/" if "ema" in tree else "params/",
+                 leaves(state["ema"]))
+        else:
+            state.pop("ema", None)
+        gen = tree.get("generator")
+        if gen is not None:
+            mine = state["generator"]
+            if str(gen["device"]) == mine.device.type:
+                mine.set_state(torch.from_numpy(np.array(gen["state"])))
+            else:
+                mine.manual_seed(int(gen["seed"]))
+        return state
+
+    def _reseed_dropout(self, state: dict, seed: int) -> None:
+        """The dropout generator reseeded; on the card at the Philox
+        offset it has reached, so that a return to the run's own seed
+        continues the stream where a run without the retry would be (the
+        CPU's generator has no offset: it restarts the seed's stream)."""
+        gen = state["generator"]
+        if gen.device.type == "cuda":
+            offset = gen.get_offset()
+            gen.manual_seed(seed)
+            gen.set_offset(offset)
+        else:
+            gen.manual_seed(seed)
 
     # ------------------------------------------------------------------
     # the data
@@ -653,32 +836,67 @@ class Trainer:
         fetched = torch.stack([acc[k] for k in names]).cpu().tolist()
         return OrderedDict((k, v / n) for k, v in zip(names, fetched))
 
-    def train(self, n_epoch: int, dataset, valid_on_epoch: bool = True,
-              state: Optional[dict] = None, seed: int = 0,
-              lr: Optional[float] = None,
-              writer: Optional[MetricsWriter] = None) -> dict:
+    def train(self, n_epoch: int, dataset, save_on_epoch: bool = True,
+              valid_on_epoch: bool = True, state: Optional[dict] = None,
+              seed: int = 0, lr: Optional[float] = None,
+              writer: Optional[MetricsWriter] = None,
+              save_best: bool = False) -> dict:
         """The epoch loop: per-epoch mean loss, SNR and LR on stdout (':'
-        per step), the LR_DECAY_TYPE policy, and a validation sweep ('.'
-        per batch) after each epoch when ``valid_on_epoch``; every step's
-        row and every sweep go to ``writer`` (by default a new
-        ``MetricsWriter`` in SUMMARY_DIR, closed on return).  Under the hang
-        watchdog (WATCHDOG_SECS)."""
+        per step), the LR_DECAY_TYPE policy, a checkpoint after each epoch
+        when ``save_on_epoch`` ('S'), a validation sweep ('.' per batch)
+        after each epoch when ``valid_on_epoch`` with the keep-best
+        checkpoint when ``save_best`` ('B'), the NaN and valid-crash
+        rollbacks; every step's row and every sweep go to ``writer`` (by
+        default a new ``MetricsWriter`` in SUMMARY_DIR, closed on return).
+        Under the hang watchdog (WATCHDOG_SECS) and the preemption
+        signals: SIGTERM or SIGINT saves ``<name>_preempt`` at the next
+        step boundary and returns the state (a resume from it restarts the
+        interrupted epoch with the mid-epoch state); a second signal
+        restores the default handlers, so that a third ends the process."""
         own = writer is None
         if own:
             writer = MetricsWriter(self.hp.SUMMARY_DIR, self.hp.SUMMARY_TITLE)
         try:
-            with self._hang_watchdog():
-                return self._train_impl(n_epoch, dataset, valid_on_epoch,
-                                        state, seed, lr, writer)
+            with self._preempt_signals(), self._hang_watchdog():
+                return self._train_impl(n_epoch, dataset, save_on_epoch,
+                                        valid_on_epoch, state, seed, lr,
+                                        writer, save_best)
         finally:
             if own:
                 writer.close()
 
-    def _train_impl(self, n_epoch, dataset, valid_on_epoch, state, seed, lr,
-                    writer) -> dict:
+    @contextlib.contextmanager
+    def _preempt_signals(self):
+        """SIGTERM and SIGINT set the preemption flag (in the main thread
+        only, where Python delivers signals)."""
+        self._preempt = False
+        installed = {}
+
+        def handler(signum, frame):
+            if self._preempt:  # a second signal: the next one ends it
+                for sig, h in installed.items():
+                    signal.signal(sig, h)
+            self._preempt = True
+            sys.stdout.write(
+                "\n[signal %d: checkpointing at the next step boundary]\n"
+                % signum)
+            sys.stdout.flush()
+
+        if threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                installed[sig] = signal.signal(sig, handler)
+        try:
+            yield
+        finally:
+            for sig, h in installed.items():
+                signal.signal(sig, h)
+
+    def _train_impl(self, n_epoch, dataset, save_on_epoch, valid_on_epoch,
+                    state, seed, lr, writer, save_best) -> dict:
         hp = self.hp
         if state is None:
             state = self.init_state(torch.Generator().manual_seed(seed))
+        self._ensure_ema(state)
         if lr is not None:
             self.set_learn_rate(state, lr)
             print("Set learning rate to %f" % lr)
@@ -686,12 +904,19 @@ class Trainer:
             print("Learning rate: %f" % self.get_learn_rate(state))
         base_lr = self.get_learn_rate(state)
         metrics_every = int(getattr(hp, "METRICS_EVERY", 1) or 1)
+        crash_factor = float(getattr(hp, "VALID_CRASH_FACTOR", 0.0) or 0.0)
         epoch_fn = self._epoch_fn(dataset)
         best_loss, best_loss_time = float("inf"), 0
+        best_valid_loss = float("inf")
         epoch0 = int(state["epoch"])
-        n_total = epoch0 + n_epoch
-        for epoch in range(epoch0, n_total):
-            key = zlib.crc32(b"danet-epoch-%d-retry-0-seed-%d" % (epoch, seed))
+        epoch, n_total = epoch0, epoch0 + n_epoch
+        # NaN-rollback retries: they perturb the data and dropout streams
+        # of the retried epoch; valid-crash rollbacks this invocation
+        nan_retries = crash_retries = 0
+        own_seed = None  # the dropout generator's seed while perturbed
+        while epoch < n_total:
+            key = zlib.crc32(b"danet-epoch-%d-retry-%d-seed-%d"
+                             % (epoch, nan_retries, seed))
             rng, rand = np.random.RandomState(key), random.Random(key)
             report = OrderedDict()
             # (first step, {name: 0-d or [k] metrics on the device},
@@ -746,9 +971,20 @@ class Trainer:
                         flush()
                     sys.stdout.write(":" * k)
                     sys.stdout.flush()
+                    if self._preempt:
+                        break
             finally:
                 batches.close()
             flush()
+            if self._preempt:
+                path = os.path.join(self.save_dir, "%s_preempt" % self.name)
+                self.save_params(state, path)
+                sys.stdout.write(
+                    "\n[preempted: saved %s at step %d (epoch %d "
+                    "incomplete); resume with -i to continue]\n"
+                    % (path, state["step"], epoch + 1))
+                sys.stdout.flush()
+                return state
             if n_steps == 0:
                 raise RuntimeError(
                     "dataset yielded no training batches for batch size %d"
@@ -778,19 +1014,121 @@ class Trainer:
                 self.set_learn_rate(state, old_lr * hp.LR_DECAY)
                 sys.stdout.write("[LR %f -> %f]" % (
                     old_lr, self.get_learn_rate(state)))
-            if any(math.isnan(v) for v in report.values()):
-                raise FloatingPointError(
-                    "epoch %d got NaN values (the NaN rollback is not "
-                    "ported)" % (epoch + 1))
-            state["epoch"] = epoch + 1
-            sys.stdout.write("\nEpoch %d/%d %s (%.3fs/step)\n" % (
-                epoch + 1, n_total, _dict_format(report), timer.mean))
-            sys.stdout.flush()
-            if valid_on_epoch:
-                report = self._metrics_sweep(state, dataset, "valid", rng,
-                                             rand)
-                writer.scalars("valid", report, state["step"])
-                sys.stdout.write("\nValid  %d/%d %s\n" % (
-                    epoch + 1, n_total, _dict_format(report)))
                 sys.stdout.flush()
+
+            # the NaN rollback: to the previous epoch's checkpoint (also
+            # the one a previous invocation wrote, for a resumed run)
+            if any(math.isnan(v) for v in report.values()):
+                rollback = self.save_path(epoch)
+                if save_on_epoch and ckpt_lib.exists(rollback):
+                    sys.stdout.write(
+                        "\nEpoch %d/%d got NaN values, restoring last "
+                        "checkpoint ... " % (epoch + 1, n_total))
+                    state = self.load_params(state, rollback)
+                    nan_retries += 1
+                    own_seed = self._perturb_dropout(state, nan_retries)
+                    sys.stdout.write("done\n")
+                    continue
+                sys.stdout.write(
+                    "\nRun into NaN during epoch %d with no checkpoint to "
+                    "roll back to, exiting ...\n" % (epoch + 1))
+                sys.stdout.flush()
+                sys.exit(-1)
+            # a clean epoch returns to the canonical streams
+            if own_seed is not None:
+                self._reseed_dropout(state, own_seed)
+                own_seed = None
+            nan_retries = 0
+            # incremented before the save, so that <name>_e<k> holds epoch
+            # k and a resume from it continues at epoch k
+            epoch += 1
+            state["epoch"] = epoch
+            if save_on_epoch:
+                self.save_params(state, self.save_path(epoch))
+                sys.stdout.write("S")
+            sys.stdout.write("\nEpoch %d/%d %s (%.3fs/step)\n" % (
+                epoch, n_total, _dict_format(report), timer.mean))
+            sys.stdout.flush()
+            if not valid_on_epoch:
+                continue
+            report = self._metrics_sweep(state, dataset, "valid", rng, rand)
+            writer.scalars("valid", report, state["step"])
+            sys.stdout.write("\nValid  %d/%d %s\n" % (
+                epoch, n_total, _dict_format(report)))
+            sys.stdout.flush()
+            # the valid-crash rollback: a finite spike of the valid loss
+            # past VALID_CRASH_FACTOR x the best of this invocation goes
+            # back to the best (or the previous epoch's) checkpoint, at
+            # most 3 times an invocation
+            if (crash_factor > 0.0 and crash_retries < 3
+                    and best_valid_loss < float("inf")
+                    and report.get("loss", 0.0)
+                    > best_valid_loss * crash_factor):
+                target = os.path.join(self.save_dir, "%s_best" % self.name)
+                if not (save_best and ckpt_lib.exists(target)):
+                    target = self.save_path(epoch - 1)
+                if ckpt_lib.exists(target):
+                    sys.stdout.write(
+                        "\n[valid loss %.6g > %.2fx best %.6g: crash "
+                        "rollback to %s]\n" % (
+                            report["loss"], crash_factor, best_valid_loss,
+                            target))
+                    sys.stdout.flush()
+                    # the spiked epoch's checkpoint was written before the
+                    # sweep saw the spike: a preemption during the replay
+                    # must not resume from it
+                    spiked = self.save_path(epoch)
+                    if (save_on_epoch and os.path.exists(spiked)
+                            and os.path.abspath(spiked)
+                            != os.path.abspath(target)):
+                        shutil.rmtree(spiked, ignore_errors=True)
+                    state = self.load_params(state, target)
+                    epoch = int(state["epoch"])
+                    crash_retries += 1
+                    nan_retries = crash_retries
+                    own_seed = self._perturb_dropout(state, nan_retries)
+                    continue
+                sys.stdout.write(
+                    "\n[valid loss spiked but no checkpoint to roll back "
+                    "to; continuing]\n")
+                sys.stdout.flush()
+            # keep-best on the valid loss (tracked without save_best too:
+            # the crash rollback compares against it)
+            if report.get("loss", float("inf")) < best_valid_loss:
+                best_valid_loss = report["loss"]
+                if save_best:
+                    self.save_params(state, os.path.join(
+                        self.save_dir, "%s_best" % self.name))
+                    sys.stdout.write("B")
+                    sys.stdout.flush()
         return state
+
+    def _perturb_dropout(self, state: dict, retry: int) -> int:
+        """After a rollback: the dropout generator reseeded from its
+        restored seed and ``retry``.  -> the restored seed, which the loop
+        returns to after a clean epoch."""
+        own = state["generator"].initial_seed()
+        self._reseed_dropout(state, zlib.crc32(
+            b"danet-dropout-%d-retry-%d" % (own, retry)))
+        return own
+
+    def test(self, state: dict, dataset, subset: str = "test",
+             name: str = "Test", seed: int = 0) -> dict:
+        """One metrics sweep over ``subset`` on ``eval_params`` (the mean
+        over batches), printed as '<name>: ...'; its data drawn from a
+        stream of (subset, seed)."""
+        key = zlib.crc32(b"danet-%s-seed-%d" % (subset.encode(), seed))
+        with self._hang_watchdog():
+            report = self._metrics_sweep(state, dataset, subset,
+                                         np.random.RandomState(key),
+                                         random.Random(key))
+        sys.stdout.write("\n%s: %s\n" % (name, _dict_format(report)))
+        return report
+
+    @torch.no_grad()
+    def separate(self, state: dict, mix_ri: np.ndarray) -> np.ndarray:
+        """Inference on a mixture batch, ri spectra [B, T, F, 2] ->
+        [B, N, T, F, 2] float32, on ``eval_params``."""
+        x = torch.as_tensor(np.asarray(mix_ri, dtype=np.float32))
+        out = self.model.separate(self.eval_params(state), x.to(self.device))
+        return out.cpu().numpy()

@@ -1,6 +1,7 @@
 """The port must import without jax: the machine that runs it on the GPU
-has none.  Importing the package, its serving, training, optimizer, loss,
-attention and profiling modules and chip_smoke.py in a fresh interpreter
+has none.  Importing the package, its command line, serving, training,
+checkpoint, optimizer, loss, attention and profiling modules and
+chip_smoke.py in a fresh interpreter
 must load no jax, no optax and no danet_tpu module."""
 import os
 import subprocess
@@ -14,8 +15,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_torch_port_imports_no_jax():
-    code = ("import danet_tpu_torch, danet_tpu_torch.serve, "
-            "danet_tpu_torch.train, danet_tpu_torch.train.__main__, "
+    code = ("import danet_tpu_torch, danet_tpu_torch.__main__, "
+            "danet_tpu_torch.serve, danet_tpu_torch.train, "
+            "danet_tpu_torch.train.__main__, "
+            "danet_tpu_torch.train.checkpoint, "
             "danet_tpu_torch.optim, danet_tpu_torch.ops.loss, "
             "danet_tpu_torch.ops.cuda.attention, danet_tpu_torch.perf_probe, "
             "chip_smoke, sys; "

@@ -354,7 +354,14 @@ def test_torch_train_loss_dropout(fresh_hparams, monkeypatch):
     ("GRAD_ACCUM", 2), ("EMA_DECAY", 0.99), ("NAN_CHECKS", True),
     ("MESH_DATA", 2), ("REMAT", True), ("VALID_CRASH_FACTOR", 1.5)])
 def test_torch_trainer_refuses_unported(fresh_hparams, key, value):
+    """The options still to port raise NotImplementedError when the
+    Trainer is built; the ported ones (GRAD_ACCUM, EMA_DECAY, NAN_CHECKS,
+    VALID_CRASH_FACTOR) build."""
     hp = load_config(ENCODER_TYPE="bilstm-orig", **{key: value})
+    if key in ("GRAD_ACCUM", "EMA_DECAY", "NAN_CHECKS",
+               "VALID_CRASH_FACTOR"):
+        assert Trainer(TorchDaNet(hp), hp, "cpu").hp is hp
+        return
     with pytest.raises(NotImplementedError):
         Trainer(TorchDaNet(hp), hp, "cpu")
 
@@ -408,14 +415,17 @@ def test_torch_train_cli_toy(fresh_hparams, tmp_path):
     """python -m danet_tpu_torch.train on the toy dataset and encoder
     (default.json): one epoch with its validation sweep, printed as the
     JAX CLI prints them (the metric files under a temporary
-    SUMMARY_DIR)."""
+    SUMMARY_DIR), and its epoch checkpoint saved under saves/ in the
+    working directory."""
     cfg = tmp_path / "logs.json"
     cfg.write_text(json.dumps({"SUMMARY_DIR": str(tmp_path / "logs")}))
     proc = subprocess.run(
         [sys.executable, "-m", "danet_tpu_torch.train", "-ds", "toy",
          "-ne", "1", "-bs", "2", "--device", "cpu", "-c", str(cfg)],
-        cwd=REPO,
+        cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=REPO),
         capture_output=True, text=True, timeout=300)
+    assert os.path.isfile(str(tmp_path / "saves" / "UnnamedExperiment_e1"
+                              / "state.npz")), proc.stdout
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
     epoch = [ln for ln in lines if ln.startswith("Epoch 1/1 loss=")]
@@ -475,7 +485,8 @@ def test_torch_epoch_loop_matches_jax(fresh_hparams, tmp_path, capsys,
     tr = Trainer(TorchDaNet(hp), hp, "cpu")
     ds = WhiteNoiseData(hp)
     ds.install_and_load()
-    tr.train(3, ds, valid_on_epoch=True, state=tr.init_state(params=p0))
+    tr.train(3, ds, save_on_epoch=False, valid_on_epoch=True,
+             state=tr.init_state(params=p0))
     out = _epoch_lines(capsys.readouterr().out)
     _assert_epoch_lines_match(out, ref, 3)
 
@@ -514,7 +525,7 @@ def test_torch_epoch_loop_wave_wire_matches_jax(fresh_hparams, tmp_path,
     tr = Trainer(TorchDaNet(hp), hp, "cpu")
     ds = SyntheticTonesData(hp)
     ds.install_and_load()
-    state = tr.train(2, ds, valid_on_epoch=True,
+    state = tr.train(2, ds, save_on_epoch=False, valid_on_epoch=True,
                      state=tr.init_state(params=p0))
     out = _epoch_lines(capsys.readouterr().out)
     assert state["step"] == 10

@@ -219,7 +219,7 @@ def _run_k(tmp_path, k, dataset_cls=WhiteNoiseData, **keys):
     tr = Trainer(DaNet(hp), hp, "cpu")
     ds = dataset_cls(hp)
     ds.install_and_load()
-    state = tr.train(1, ds, valid_on_epoch=False,
+    state = tr.train(1, ds, save_on_epoch=False, valid_on_epoch=False,
                      state=tr.init_state(torch.Generator().manual_seed(0)))
     return state
 
@@ -268,7 +268,7 @@ def test_torch_metrics_rows_independent_of_metrics_every(tmp_path):
         tr = Trainer(DaNet(hp), hp, "cpu")
         ds = WhiteNoiseData(hp)
         ds.install_and_load()
-        tr.train(1, ds, state=tr.init_state(
+        tr.train(1, ds, save_on_epoch=False, state=tr.init_state(
             torch.Generator().manual_seed(0)))
         runs.append(_train_rows(tmp_path, k))
     ref = runs[0]
@@ -390,7 +390,7 @@ def test_torch_train_cli_tpu_json_on_wsj0_fixture(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "danet_tpu_torch.train",
          "-c", os.path.join(REPO, "configs", "tpu.json"), "-c", str(cfg),
-         "-ne", "1", "--device", "cpu"], cwd=REPO,
+         "-ne", "1", "--no-save-on-epoch", "--device", "cpu"], cwd=REPO,
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
