@@ -226,11 +226,48 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    place keeps it), and the ms per step of the K=8 graph with each step
    option and of eager steps with and without NAN_CHECKS.
 
+21. the single-device encoders tcn-v1, dprnn-v1 and conv-bilstm-v1.  (a)
+   the LSTM kernels at their shapes against the plain versions, phase 4's
+   and 6's tolerances, float32 and bfloat16, tanh candidate, layer-shaped
+   inputs: kernels B, 2 and 3 at dprnn-v1's inter-chunk shape (T=3, B=2048
+   and 4096 = 32 and 64 x DPRNN_CHUNK, H=128) and intra-chunk shape (T=64,
+   B=96, H=128), the one-direction forms (DPRNN_INTER_CAUSAL) at the
+   inter-chunk shapes, and conv-bilstm-v1's (T=32, B=32 and T=312, B=1,
+   H=256 over 512 inputs); each line prints the launches a call made (a
+   batch above a kernel's row ceiling is split across launches), and in
+   float32 each kernel's time beside its plain version's, torch.nn.LSTM's
+   and its bound.  Then, with cuDNN at PyTorch's defaults from here to
+   the phase's end (TF32 allowed: the port's convolutions turn it off,
+   and on deterministic algorithms, themselves), the port's conv2d and
+   depthwise conv1d forward and backward against float64 to CONV_RTOL
+   (2e-5) of the peak.  (b) serving configs/tcn.json and
+   configs/dprnn.json (their model keys as written, the card held to the
+   CPU in float32 as in phase 18, each request also timed in the files'
+   bfloat16) and conv-bilstm-v1 at default.json's widths: about 10 s at
+   B=1 and 4 x 4 s (conv-bilstm-v1 at 1248 and 504 frames, multiples of
+   4), against the CPU at phase 5's bounds, kernel A once and each
+   BiLSTM's lean kernel once per request (more where a batch is split).
+   (c) training the same three at B=32, T=128 under phase 11's protocol
+   and bounds, the comparisons at DROPOUT_KEEP_PROB 1 and RELU_LEAKAGE 1,
+   the timed steps at the files' keys; the counters show kernels 2 and 3
+   per step.  (b) and (c) compare from a well-conditioned state: tcn-v1
+   and dprnn-v1 with their LSTM head's weight scaled by HEAD_SCALE (0.02),
+   and (c) without the leaky ReLUs' kinks (see HEAD_SCALE).  Then
+   conv-bilstm-v1 on the int16 wave wire through one 8-step CUDA graph
+   call against 8 eager steps bit for bit (as phase 19 (e)).  (d)
+   REMAT on bilstm-orig at full width (B=32, T=128, float32,
+   DROPOUT_KEEP_PROB 0.9): an eager step and an 8-step graph call against
+   no REMAT bit for bit, the REMAT step launching kernel 2 twice per layer
+   (the checkpoint's forward and its recompute) and kernel 3 once; then,
+   beside the card's name and power limit, the peak device memory of a
+   step and its time with REMAT and without, B=8 at T=128 and T=512.
+
 The kernel summary lists all fourteen kernels; its launches count the
-main paths of phases 5, 7, 10, 11, 14, 15, 17, 18, 19 and 20 (20: (a),
-(c), (d)'s resume and (e)).  bound_ms is the least
-time the card could take for the work of the timed call: the larger of its
-bytes (each input read once, each output written once) over 3.35 TB/s and
+main paths of phases 5, 7, 10, 11, 14, 15, 17, 18, 19, 20 (20: (a),
+(c), (d)'s resume and (e)) and 21 ((b) and (c)'s card-vs-CPU part).
+bound_ms is the least time the card could take for the work of the timed
+call: the larger of its bytes (each input read once, each output written
+once) over 3.35 TB/s and
 its products' FLOPs (for kernel A, a real FFT's per frame; for the flash
 kernels the T x T x D products: two in the forward, four in dK/dV, three
 in dQ) over 67 TFLOP/s, the H100 SXM's float32 rate outside the tensor
@@ -266,8 +303,10 @@ import torch
 from danet_tpu_torch import weights
 from danet_tpu_torch.data.dataset import WhiteNoiseData
 from danet_tpu_torch.hparams import DEFAULT_JSON, WINDOW_REGISTRY, load_config
+from danet_tpu_torch.models import encoders
 from danet_tpu_torch.ops import loss as loss_ops
 from danet_tpu_torch.ops import dsp
+from danet_tpu_torch.ops import nn as nn_ops
 from danet_tpu_torch.ops.dsp import stft_frame_count
 from danet_tpu_torch.ops.cuda import _build
 from danet_tpu_torch.ops.cuda import attention as cuda_attn
@@ -314,12 +353,9 @@ KERNELS = {
     "flash_attn_bwd_dq": cuda_attn.flash_attn_bwd_dq,
     "stft_logmag": cuda_stft.stft_logmag,
 }
-# the kernels each encoder launches once per layer: (in serving and in
-# valid_step, in a train step)
+# the kernels gru-v1 and attn-v1 launch once per layer: (in serving and in
+# valid_step, in a train step); the LSTM encoders' by ``_scan_launches``
 ENCODER_KERNELS = {
-    "bilstm-orig": (("bilstm_scan",), ("bilstm_scan_train",
-                                       "bilstm_scan_bwd")),
-    "lstm-orig": (("lstm_scan",), ("lstm_scan_train", "lstm_scan_bwd")),
     "gru-v1": (("gru_scan",), ("gru_scan_train", "gru_scan_bwd")),
     "attn-v1": (("flash_attn",), ("flash_attn", "flash_attn_bwd_dkv",
                                   "flash_attn_bwd_dq")),
@@ -494,16 +530,93 @@ def _counts() -> dict:
 
 
 def _depth(enc) -> int:
-    """The number of layers (recurrent) or blocks (attention)."""
+    """The number of layers (recurrent) or blocks (attention, tcn-v1,
+    dprnn-v1); conv-bilstm-v1's two BiLSTMs."""
+    if isinstance(enc, encoders.TcnEncoder):
+        return enc._n_blocks()
+    if isinstance(enc, encoders.DprnnEncoder):
+        return enc._dims()[4]
+    if isinstance(enc, encoders.ConvBiLstmEncoder):
+        return 2
     return enc._dims()[2] if hasattr(enc, "_dims") else enc.N_LAYERS
 
 
 def _describe(hp, enc) -> str:
+    if isinstance(enc, encoders.TcnEncoder):
+        d, h, k, x_blocks, repeats, causal = enc._dims()
+        return "%d x %d blocks, dim %d, hidden %d, kernel %d%s" % (
+            repeats, x_blocks, d, h, k, ", causal" if causal else "")
+    if isinstance(enc, encoders.DprnnEncoder):
+        d, h, p, hop, blocks, causal = enc._dims()
+        return "%d blocks, dim %d, %d units per direction, chunk %d, hop " \
+            "%d%s" % (blocks, d, h, p, hop,
+                      ", one-direction inter path" if causal else "")
+    if isinstance(enc, encoders.ConvBiLstmEncoder):
+        return "convolutions, 2 BiLSTMs x %d units per direction" \
+            % hp.FFT_SIZE
     if hasattr(enc, "_dims"):
         d, heads, layers, mlp = enc._dims()
         return "%d blocks x dim %d, %d heads of %d, MLP x%d, ATTN_BACKEND " \
             "%s" % (layers, d, heads, d // heads, mlp, hp.ATTN_BACKEND)
     return "%d layers x %d units" % (enc.N_LAYERS, enc.HDIM)
+
+
+def _lstm_launches(rows: int, hdim: int, dt, train: bool,
+                   n_dirs: int) -> dict:
+    """The launches of one (Bi)LSTM layer over ``rows`` batch rows: a
+    batch above a kernel's row ceiling is split across launches."""
+    pre, dev = "bi" if n_dirs == 2 else "", torch.device("cuda")
+
+    def n(kind):
+        return -(-rows // max(cuda_lstm.max_rows(dev, hdim, dt, kind), 1))
+    if not train:
+        return {pre + "lstm_scan": n("lean")}
+    return {pre + "lstm_scan_train": n("save"),
+            pre + "lstm_scan_bwd": n("bwd")}
+
+
+def _scan_launches(model, b: int, t: int, train: bool) -> dict:
+    """The launches of the encoder's kernels in one forward over [B, T]
+    frames (serving, valid_step) or one train step, by summary name."""
+    enc, hp = model.encoder, model.hp
+    want = {name: 0 for name in KERNELS}
+
+    def add(counts):
+        for name, v in counts.items():
+            want[name] += v
+    dt = getattr(torch, hp.COMPUTE_DTYPE)
+    if isinstance(enc, encoders.TcnEncoder):
+        pass                                       # no scan: convolutions
+    elif isinstance(enc, encoders.DprnnEncoder):
+        _, h, p, hop, blocks, causal = enc._dims()
+        p_eff = min(p, t)
+        hop = hop if p_eff == p else max(p_eff // 2, 1)
+        s = max(-(-(t - p_eff) // hop), 0) + 1     # chunks
+        for _ in range(blocks):
+            add(_lstm_launches(b * s, h, dt, train, 2))          # intra
+            add(_lstm_launches(b * p_eff, h, dt, train, 1 if causal else 2))
+    elif isinstance(enc, encoders.ConvBiLstmEncoder):
+        for _ in range(2):
+            add(_lstm_launches(b, hp.FFT_SIZE, dt, train, 2))
+    elif isinstance(enc, (encoders.BiLstmEncoder, encoders.LstmEncoder)):
+        for _ in range(enc.N_LAYERS):
+            add(_lstm_launches(b, enc.HDIM, dt, train, 2 if isinstance(
+                enc, encoders.BiLstmEncoder) else 1))
+    else:
+        lean, trained = ENCODER_KERNELS[hp.ENCODER_TYPE]
+        add({name: _depth(enc) for name in (trained if train else lean)})
+    return want
+
+
+def _init(model) -> dict:
+    """The seeded weights (seed 0) that the card-vs-CPU comparisons start
+    from; an encoder in HEAD_SCALE with its LSTM head's weight scaled."""
+    params = model.init(torch.Generator().manual_seed(0))
+    scale = HEAD_SCALE.get(model.hp.ENCODER_TYPE)
+    if scale is not None:
+        params["encoder"]["output"]["w"] = \
+            params["encoder"]["output"]["w"] * scale
+    return params
 
 
 def _serve(phase: int, encoder: str, requests, seed: int, keys=None,
@@ -517,27 +630,27 @@ def _serve(phase: int, encoder: str, requests, seed: int, keys=None,
     hp = load_config(ENCODER_TYPE=encoder, **keys)
     model = hp.get_model()(hp)
     enc = model.encoder
-    lean = ENCODER_KERNELS[encoder][0]
     print("phase %d model: %s, %s, F=%d, E=%d, NUM_ANCHOR=%d, N=%d, FFT "
           "%d/%d @ %d Hz, %s, estimator %s, separator %s" % (
               phase, hp.ENCODER_TYPE, _describe(hp, enc), hp.FEATURE_SIZE,
               hp.EMBED_SIZE, hp.NUM_ANCHOR, hp.MAX_N_SIGNAL, hp.FFT_SIZE,
               hp.FFT_STRIDE, hp.SMPRATE, hp.COMPUTE_DTYPE,
               hp.INFER_ESTIMATOR_METHOD, hp.SEPARATOR_TYPE))
-    params = model.init(torch.Generator().manual_seed(0))
+    params = _init(model)
     gpu = Separator(model, params, "cuda")
     cpu = Separator(model, params, "cpu")
     rs = np.random.RandomState(seed)
     waves = [_mixture(rs, b, n) for b, n in requests]
     outs, latencies = [], {}
-    per_request = {name: 0 for name in KERNELS}
-    per_request["stft_ri"] = 1
-    per_request.update({name: _depth(enc) for name in lean})
+    total = {name: 0 for name in KERNELS}
 
     # the main path: only these requests count kernel launches
     _zero_counts()
     calls = 0
     for (b, n), wav in zip(requests, waves):
+        per_request = _scan_launches(
+            model, b, stft_frame_count(n, hp.FFT_SIZE, hp.FFT_STRIDE), False)
+        per_request["stft_ri"] += 1
         for _ in range(2):          # warm-up, then the timed request
             before = _counts()
             torch.cuda.synchronize()
@@ -550,15 +663,17 @@ def _serve(phase: int, encoder: str, requests, seed: int, keys=None,
                 raise AssertionError("phase %d request B=%d L=%d launched %s, "
                                      "want %s" % (phase, b, n, got,
                                                   per_request))
+            for k, v in per_request.items():
+                total[k] += v
         outs.append(out)
         latencies[(b, n)] = dt * 1e3
     launches = _counts()
-    if launches != {k: v * calls for k, v in per_request.items()}:
+    if launches != total:
         raise AssertionError("launch counts %s over %d requests"
                              % (launches, calls))
-    print("phase %d launches over %d requests: stft_ri %d, %s (%s)"
-          % (phase, calls, launches["stft_ri"], ", ".join(
-              "%s %d" % (k, launches[k]) for k in lean), "no other kernel"))
+    print("phase %d launches over %d requests: %s (no other kernel)"
+          % (phase, calls, ", ".join("%s %d" % (k, v)
+                                     for k, v in launches.items() if v)))
     other = {}
     if other_keys:
         ohp = load_config(ENCODER_TYPE=encoder, **other_keys)
@@ -1110,23 +1225,20 @@ def _train_dtype(phase: int, encoder: str, dtype: str, synced: bool,
     step's gradients and optimizer step are checked (phase 11)."""
     hp = load_config(ENCODER_TYPE=encoder, COMPUTE_DTYPE=dtype, **keys)
     model = hp.get_model()(hp)
-    n_layers = _depth(model.encoder)
     batches = _toy_batches(hp, TRAIN_STEPS + 1)
     frames = sorted({b.shape[2] for b in batches})
     if frames != [TRAIN_T]:        # the flash path takes T % 128 == 0 only
         raise AssertionError("phase %d batches of %s frames, want %d"
                              % (phase, frames, TRAIN_T))
-    p0 = weights.to_jax(model.init(torch.Generator().manual_seed(0)))
+    p0 = weights.to_jax(_init(model))
     gpu, cpu = Trainer(model, hp, "cuda"), Trainer(model, hp, "cpu")
     sg, sc = gpu.init_state(params=p0), cpu.init_state(params=p0)
     if synced:
         _record_grads(sg["opt"])
         _record_grads(sc["opt"], apply=lambda: sg["opt"].recorded)
     names = ["/".join(k) for k in _paths(p0)]
-    lean, train = ENCODER_KERNELS[encoder]
-    step_want = {name: 0 for name in KERNELS}
-    valid_want = dict(step_want, **{name: n_layers for name in lean})
-    step_want.update({name: n_layers for name in train})
+    step_want = _scan_launches(model, hp.BATCH_SIZE, TRAIN_T, True)
+    valid_want = _scan_launches(model, hp.BATCH_SIZE, TRAIN_T, False)
     rtol = STEP_RTOL[dtype]
     worst = grad_worst = 0.0
     for i, batch in enumerate(batches[:TRAIN_STEPS]):
@@ -1243,7 +1355,9 @@ def _train(phase: int, encoder: str, reps: int, plain_reps: int,
     ``synced`` selects phase 11's protocol (see the module docstring).
     ``keys`` configure the kernel path, ``plain_keys`` the path timed
     beside it (recurrent encoders: LSTM_BACKEND 'auto' and 'xla');
-    ``time_keys`` are laid over both in the timed steps only."""
+    ``time_keys`` are laid over both in the timed steps only.
+    ``plain_reps`` 0: no plain path is timed (an encoder without scan
+    kernels)."""
     keys = keys if keys is not None else {"LSTM_BACKEND": "auto"}
     plain_keys = plain_keys if plain_keys is not None \
         else {"LSTM_BACKEND": "xla"}
@@ -1262,15 +1376,17 @@ def _train(phase: int, encoder: str, reps: int, plain_reps: int,
     for dt in ("float32", "bfloat16"):
         kernel = _step_ms(encoder, dt, dict(keys, **time_keys), reps)
         plain = _step_ms(encoder, dt, dict(plain_keys, **time_keys),
-                         plain_reps)
+                         plain_reps) if plain_reps else None
         times[dt] = (kernel, plain)
         print("phase %d %s %s train step (B=%d, T=%d, %s%s): kernel path "
-              "%.3f ms, %s path %.3f ms (medians)"
+              "%.3f ms, %s (medians)"
               % (phase, encoder, dt, model.hp.BATCH_SIZE, TRAIN_T,
                  _describe(model.hp, model.encoder), "".join(
                      ", %s=%s" % kv for kv in time_keys.items()),
-                 kernel, ", ".join("%s=%s" % kv for kv in plain_keys.items()
-                                   if keys.get(kv[0]) != kv[1]), plain))
+                 kernel, "%s path %.3f ms" % (", ".join(
+                     "%s=%s" % kv for kv in plain_keys.items()
+                     if keys.get(kv[0]) != kv[1]), plain)
+                 if plain is not None else "no scan kernel, no plain path"))
     return {"launches": launches, "times": times, "grad_rel": grad_rel,
             "step_rel": {dt: r["worst_step_rel"] for dt, r in runs.items()}}
 
@@ -2322,6 +2438,379 @@ def phase_checkpoints() -> dict:
             "recaptures": recaptures, "costs": costs}
 
 
+# ---------------------------------------------------------------- phase 21
+# the single-device encoders tcn-v1, dprnn-v1 and conv-bilstm-v1: the config
+# files as written (conv-bilstm-v1: default.json's widths)
+V2_CONFIGS = {"tcn-v1": "tcn.json", "dprnn-v1": "dprnn.json",
+              "conv-bilstm-v1": None}
+# (b): ~10 s at B=1 and a batch of 4 x 4 s; conv-bilstm-v1 at frame counts
+# that are multiples of 4 (1248 and 504)
+V2_REQUESTS = {"tcn-v1": [(1, 10 * SMPRATE), (4, 4 * SMPRATE)],
+               "dprnn-v1": [(1, 10 * SMPRATE), (4, 4 * SMPRATE)],
+               "conv-bilstm-v1": [(1, 79808), (4, 32192)]}
+# (a): the LSTM kernels at the new encoders' shapes: (what, T, B, H, input
+# width, directions, gate bias, Wx and Wh init scale)
+DPRNN_LAYER = (128, 128, (0.0, 0.0, 1.0, 0.0), 1.0 / np.sqrt(128))
+CONV_LAYER = (256, 512, (0.0, 1.0, -1.0, 1.0), 2.0 / np.sqrt(256))
+NEW_SHAPES = (
+    ("dprnn-v1 inter", 3, 2048) + DPRNN_LAYER[:2] + (2,) + DPRNN_LAYER[2:],
+    ("dprnn-v1 inter", 3, 4096) + DPRNN_LAYER[:2] + (2,) + DPRNN_LAYER[2:],
+    ("dprnn-v1 intra", 64, 96) + DPRNN_LAYER[:2] + (2,) + DPRNN_LAYER[2:],
+    ("dprnn-v1 inter causal", 3, 2048) + DPRNN_LAYER[:2] + (1,)
+    + DPRNN_LAYER[2:],
+    ("dprnn-v1 inter causal", 3, 4096) + DPRNN_LAYER[:2] + (1,)
+    + DPRNN_LAYER[2:],
+    ("conv-bilstm-v1", 32, 32) + CONV_LAYER[:2] + (2,) + CONV_LAYER[2:],
+    ("conv-bilstm-v1 10 s", 312, 1) + CONV_LAYER[:2] + (2,) + CONV_LAYER[2:],
+)
+# (c): conv-bilstm-v1 through one 8-step CUDA graph on the wave wire
+CONV_GRAPH = dict(TRANSFER_DOMAIN="wave", TRANSFER_DTYPE="int16",
+                  WAVE_PCM_SCALE=4.0, TRAIN_STEPS_PER_CALL=8,
+                  ENCODER_TYPE="conv-bilstm-v1", BATCH_SIZE=32)
+# (b), (c): the card against the CPU from a well-conditioned state.  The
+# LSTM head's init (scaled for LSTM outputs, which its centering makes
+# small) turns tcn-v1's and dprnn-v1's residual streams into embeddings of
+# peak 140-250, over which kmeans' and the anchors' soft assignments are so
+# sharp that one float32 rounding moves the CPU's own waves and gradients
+# by up to 1e-1 of their peak; the comparisons start these two with the
+# head's weight scaled by HEAD_SCALE (embeddings of peak about 3-5).  A
+# leaky ReLU's gradient jumps where a rounding moves an element across 0:
+# the training comparisons run at COMPARE_LEAKAGE (the identity; tcn-v1
+# and conv-bilstm-v1 have leaky ReLUs).  At B=4 on the CPU the gradients
+# then move by at most 7e-6 of their peak under a 1e-7 relative change of
+# the input, against 1e-1 (tcn-v1) and 5e-3 (dprnn-v1) as the configs'
+# inits stand, and 8e-4 (conv-bilstm-v1 at step 2) with its leaky ReLUs.
+# Serving keeps the configs' leakage (a forward is continuous across the
+# kink), and the timed steps keep every key and init as written.
+HEAD_SCALE = {"tcn-v1": 0.02, "dprnn-v1": 0.02}
+COMPARE_LEAKAGE = 1.0
+# (a): the convolutions against float64; float32 sums land about 1e-6 of
+# the peak from it, TF32's 10-bit mantissa about 1e-4 to 5e-4
+CONV_RTOL = 2e-5
+# (d): REMAT on bilstm-orig at full width
+REMAT_KEEP = 0.9
+
+
+def _layer_inputs(rs, t, b, h, i_dim, n_dirs, bias, scale, dtype):
+    """Layer-shaped inputs of one (Bi)LSTM layer: xp = x @ Wx + gate bias
+    with x ~ N(0, 0.25), Wx and Wh ~ U(-scale, scale), zero c0 and h0 (each
+    layer of these encoders starts from zeros), and a cotangent d_hs;
+    without the direction axis for one direction."""
+    x = rs.randn(n_dirs, t * b, i_dim).astype(np.float32) * 0.5
+    wx = rs.uniform(-scale, scale, (n_dirs, i_dim, 4 * h)).astype(np.float32)
+    xp = (np.matmul(x, wx) + np.repeat(np.asarray(bias, np.float32), h))
+    xp = xp.reshape(n_dirs, t, b, 4 * h).transpose(1, 0, 2, 3)
+    wh = rs.uniform(-scale, scale, (n_dirs, h, 4 * h))
+    z = np.zeros((n_dirs, b, h))
+    d_hs = rs.randn(t, n_dirs, b, h)
+    out = (xp, wh, z, z, d_hs)
+    if n_dirs == 1:
+        out = (xp[:, 0], wh[0], z[0], z[0], d_hs[:, 0])
+    return _cuda(out, dtype)
+
+
+def _nn_lstm_ms(rs, t: int, b: int, h: int, i_dim: int, n_dirs: int):
+    """torch.nn.LSTM (cuDNN, tanh candidate) at this shape, float32, ms:
+    the inference forward, the training forward and the backward to the
+    input (each also computes the input projection)."""
+    lstm = torch.nn.LSTM(i_dim, h, bidirectional=n_dirs == 2).cuda()
+    x = torch.from_numpy(rs.randn(t, b, i_dim).astype(np.float32)).cuda()
+    with torch.no_grad():
+        lean = cuda_ms(lambda: lstm(x), 10)
+    xt = x.clone().requires_grad_(True)
+    fwd = cuda_ms(lambda: lstm(xt), 10)
+    y, _ = lstm(xt)
+    g = torch.randn_like(y)
+    bwd = cuda_ms(lambda: torch.autograd.grad(y, xt, g, retain_graph=True),
+                  10)
+    return lean, fwd, bwd
+
+
+def _new_shape_kernels() -> dict:
+    """Phase 21 (a): the lean, saving and backward LSTM kernels at the new
+    encoders' shapes against their plain versions, phase 4's and 6's
+    tolerances, both dtypes; float32 timed beside the plain versions,
+    nn.LSTM and each call's bound."""
+    rs = np.random.RandomState(21)
+    worst, times = {}, {}
+    for what, t, b, h, i_dim, nd, bias, scale in NEW_SHAPES:
+        pre = "bi" if nd == 2 else ""
+        names = [pre + n for n in ("lstm_scan", "lstm_scan_train",
+                                   "lstm_scan_bwd")]
+        kern = [getattr(cuda_lstm, n) for n in names]
+        plain = [getattr(cuda_lstm, n + "_plain") for n in names]
+        for dt in (torch.float32, torch.bfloat16):
+            xp, wh, c0, h0, d_hs = _layer_inputs(rs, t, b, h, i_dim, nd,
+                                                 bias, scale, dt)
+            args = (xp, wh, c0, h0, True)
+            before = _counts()
+            lean, fwd = kern[0](*args), kern[1](*args)
+            lean_ref, fwd_ref = plain[0](*args), plain[1](*args)
+            _, cs, acts = fwd_ref
+            c_prev = torch.cat([c0[None], cs[:-1]])
+            bargs = (d_hs, acts, cs, c_prev, wh, True)
+            bwd, bwd_ref = kern[2](*bargs), plain[2](*bargs)
+            torch.cuda.synchronize()
+            calls = {n: v - before[n] for n, v in _counts().items()
+                     if v - before[n]}
+            tag = "%s %s H=%d" % (what, _tag(dt, True, t, b), h)
+            parts = _check_kernels(21, tag, dt, (
+                (names[0], ("hs",), (lean,), (lean_ref,),
+                 (LSTM_ATOL[dt], 0.0)),
+                (names[1], ("hs", "cs", "acts"), fwd, fwd_ref,
+                 TRAIN_FWD_TOL[dt]),
+                (names[2], ("dxp", "dc0", "dh0"), bwd, bwd_ref,
+                 TRAIN_BWD_TOL[dt])), worst)
+            line = "phase 21 (a) %s max_abs_err: %s; launches %s" % (
+                tag, ", ".join(parts), calls)
+            if dt == torch.float32:
+                lib = _nn_lstm_ms(rs, t, b, h, i_dim, nd)
+                for name, k, p, a, lib_ms in zip(
+                        names, kern, plain, (args, args, bargs), lib):
+                    ms, plain_ms = cuda_ms(lambda: k(*a), 10), \
+                        cuda_ms(lambda: p(*a), 2)
+                    bound_ms, by = _bound(*_cost(name, t, b, h))
+                    times[(what, t, b, name)] = (ms, plain_ms, lib_ms,
+                                                 bound_ms)
+                    line += ("; %s %.4f ms (%.3f us/step), plain %.4f ms, "
+                             "nn.LSTM %.4f ms, bound %.4f ms (%s)"
+                             % (name, ms, 1e3 * ms / t, plain_ms, lib_ms,
+                                bound_ms, by))
+            print(line)
+    print("phase 21 (a) nn.LSTM(%s): torch.nn.LSTM (cuDNN), float32, the "
+          "inference forward beside the lean kernel, the training forward "
+          "beside the saving one, the backward to the input beside kernel "
+          "3; each also computes the input projection" % ", ".join(
+              sorted({"%d, %d" % (s[4], s[3]) for s in NEW_SHAPES})))
+    return {"max_abs_err": worst, "times": times}
+
+
+def _v2_keys(encoder: str) -> dict:
+    """The model keys of the encoder's config file as written (conv-bilstm-
+    v1: none, default.json's), without ENCODER_TYPE and COMPUTE_DTYPE,
+    which each part sets."""
+    name = V2_CONFIGS[encoder]
+    if name is None:
+        return {}
+    with open(os.path.join(REPO_ROOT, "configs", name)) as f:
+        keys = json.load(f)
+    if keys.pop("ENCODER_TYPE") != encoder:
+        raise AssertionError("configs/%s names another encoder" % name)
+    keys.pop("COMPUTE_DTYPE")
+    return keys
+
+
+def _remat_states(tag: str, keys: dict, run) -> None:
+    """REMAT against no REMAT from one state and one dropout seed:
+    ``run(trainer, state)`` on both, then every parameter, Adam moment and
+    metric bit for bit."""
+    out = []
+    p0 = None
+    for remat in (False, True):
+        hp = load_config(**dict(keys, REMAT=remat))
+        model = hp.get_model()(hp)
+        if p0 is None:
+            p0 = weights.to_jax(model.init(torch.Generator().manual_seed(0)))
+        tr = Trainer(model, hp, "cuda")
+        st = tr.init_state(torch.Generator().manual_seed(5), params=p0)
+        metrics = run(tr, st)
+        torch.cuda.synchronize()
+        out.append((metrics, _state_tensors(st),
+                    st["generator"].get_state()))
+    (m0, s0, g0), (m1, s1, g1) = out
+    diffs = [name for (name, a), (_, b) in zip(s0, s1)
+             if not torch.equal(a.detach(), b.detach())]
+    diffs += [k for k in m0 if not torch.equal(m0[k], m1[k])]
+    print("phase 21 (d) %s: REMAT vs no REMAT at DROPOUT_KEEP_PROB %g: %d "
+          "state tensors and %s %s; losses %s; the dropout generators' "
+          "states %s" % (tag, keys["DROPOUT_KEEP_PROB"], len(s0),
+                         sorted(m0), "bit for bit" if not diffs
+                         else "DIFFER: %s" % diffs[:6],
+                         m1["loss"].flatten().tolist(),
+                         "equal" if torch.equal(g0, g1) else "DIFFER"))
+    if diffs or not torch.equal(g0, g1):
+        raise AssertionError("phase 21 (d) %s: REMAT differs: %s" % (tag,
+                                                                     diffs))
+
+
+def _remat_cost(t: int, b: int) -> dict:
+    """Peak device memory of a bilstm-orig train step (float32, random
+    spectra [B, 2, T, 129]) and its median time over 5 steps, with REMAT
+    and without."""
+    rs = np.random.RandomState(t)
+    z = rs.randn(b, 2, t, 129) + 1j * rs.randn(b, 2, t, 129)
+    batch = np.stack([z.real, z.imag], -1).astype(np.float32)
+    out = {}
+    for remat in (False, True):
+        hp = load_config(ENCODER_TYPE="bilstm-orig", BATCH_SIZE=b,
+                         DROPOUT_KEEP_PROB=REMAT_KEEP, REMAT=remat)
+        tr = Trainer(hp.get_model()(hp), hp, "cuda")
+        st = tr.init_state(torch.Generator().manual_seed(0))
+        tr.train_step(st, batch)               # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        tr.train_step(st, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            tr.train_step(st, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[remat] = (peak / 2 ** 20, (peak - held) / 2 ** 20,
+                      float(np.median(ms)))
+        del tr, st
+        torch.cuda.empty_cache()
+    print("phase 21 (d) bilstm-orig float32 B=%d T=%d: peak device memory "
+          "of a step %.1f MiB (%.1f above the state) without REMAT, %.1f MiB "
+          "(%.1f) with; step %.3f ms without, %.3f ms with (medians of 5)"
+          % (b, t, out[False][0], out[False][1], out[True][0], out[True][1],
+             out[False][2], out[True][2]))
+    return out
+
+
+def _remat_phase() -> dict:
+    """Phase 21 (d): REMAT on bilstm-orig at full width, B=32, T=128,
+    float32, DROPOUT_KEEP_PROB 0.9: one eager step and one 8-step graph
+    call against no REMAT bit for bit (the REMAT step launching kernel 2
+    twice per layer and kernel 3 once); then the memory and time at B=8,
+    T=128 and T=512."""
+    keys = dict(ENCODER_TYPE="bilstm-orig", DROPOUT_KEEP_PROB=REMAT_KEEP,
+                COMPUTE_DTYPE="float32")
+    hp = load_config(**keys)
+    batches = _toy_batches(hp, 8)
+
+    def step(tr, n=1):
+        """n steps' launches; REMAT runs each saving forward twice."""
+        want = _scan_launches(tr.model, hp.BATCH_SIZE, TRAIN_T, True)
+        if tr.hp.REMAT:
+            want["bilstm_scan_train"] *= 2
+        return {k: v * n for k, v in want.items()}
+
+    def eager(tr, st):
+        return _counted(lambda: tr.train_step(st, batches[0]), step(tr),
+                        "phase 21 (d) a step, REMAT %s" % tr.hp.REMAT)
+    _remat_states("eager step", keys, eager)
+
+    def graph(tr, st):
+        # the first call: the eager warm-up step, then the 8 captured steps
+        return _counted(lambda: tr.train_steps(st, np.stack(batches)),
+                        step(tr, 9), "phase 21 (d) 8-step graph call, "
+                        "REMAT %s" % tr.hp.REMAT)
+    _remat_states("one 8-step CUDA graph call", keys, graph)
+    return {t: _remat_cost(t, 8) for t in (TRAIN_T, 512)}
+
+
+def _conv_ops_vs_float64() -> float:
+    """Phase 21 (a): the port's convolutions at conv-bilstm-v1's and
+    tcn-v1's shapes on the card, forward and the backward to input and
+    weights, against torch.nn.functional's in float64 on the CPU to
+    CONV_RTOL of each output's peak, run with cuDNN's TF32 at PyTorch's
+    default (allowed): the ops turn it off themselves.  -> the worst error
+    as a share of its peak."""
+    functional = torch.nn.functional
+    rs = np.random.RandomState(2101)
+
+    def depthwise_ref(p, x):          # dilation 8, split padding 8 | 8
+        y = functional.conv1d(functional.pad(x.transpose(1, 2), (8, 8)),
+                              p["w"], dilation=8, groups=p["w"].shape[0])
+        return (y + p["b"][None, :, None]).transpose(1, 2)
+
+    cases = (("conv2d 16 -> 32, 5 x 5, [8, 16, 32, 32]", nn_ops.conv2d_apply,
+              lambda p, x: functional.conv2d(x, p["w"], padding=2)
+              + p["b"][None, :, None, None],
+              {"w": rs.randn(32, 16, 5, 5) * 0.05, "b": rs.randn(32)},
+              rs.randn(8, 16, 32, 32)),
+             ("depthwise conv1d 512, K 3, dilation 8, [8, 128, 512]",
+              lambda p, x: nn_ops.conv1d_depthwise_apply(p, x, dilation=8),
+              depthwise_ref,
+              {"w": rs.randn(512, 1, 3) * 0.5, "b": rs.randn(512)},
+              rs.randn(8, 128, 512)))
+    worst = 0.0
+    for what, op, ref_op, params, x in cases:
+        outs = []
+        for fn, dev, dt in ((op, "cuda", torch.float32),
+                            (ref_op, "cpu", torch.float64)):
+            p = {k: torch.tensor(v, dtype=dt, device=dev, requires_grad=True)
+                 for k, v in params.items()}
+            xt = torch.tensor(x, dtype=dt, device=dev, requires_grad=True)
+            y = fn(p, xt)
+            y.backward(torch.from_numpy(np.random.RandomState(1).randn(
+                *y.shape)).to(dev, dt))
+            outs.append([v.detach().double().cpu()
+                         for v in (y, xt.grad, p["w"].grad)])
+        errs = []
+        for name, got, ref in zip(("y", "dx", "dw"), *outs):
+            rel = float((got - ref).abs().max() / ref.abs().max())
+            errs.append("%s %.3g" % (name, rel))
+            if not rel <= CONV_RTOL:
+                raise AssertionError("phase 21 (a) %s %s: %.3g of the peak "
+                                     "from float64 > %g (TF32?)"
+                                     % (what, name, rel, CONV_RTOL))
+            worst = max(worst, rel)
+        print("phase 21 (a) %s, cudnn.allow_tf32=%s: float32 on the card "
+              "vs float64, max abs err as a share of the peak: %s (bound %g)"
+              % (what, torch.backends.cudnn.allow_tf32, ", ".join(errs),
+                 CONV_RTOL))
+    return worst
+
+
+def phase_new_encoders() -> dict:
+    """Phase 21: tcn-v1, dprnn-v1 and conv-bilstm-v1 (module docstring)."""
+    t0 = time.perf_counter()
+    kernels = _new_shape_kernels()
+    # the rest of the phase runs with cuDNN at PyTorch's defaults (TF32
+    # allowed, nondeterministic algorithms allowed): the port's convolutions
+    # set what they need themselves
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = _new_encoders(t0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    out["kernels"] = kernels
+    return out
+
+
+def _new_encoders(t0: float) -> dict:
+    """Phase 21 (a)'s convolutions, (b), (c) and (d)."""
+    if torch.backends.cudnn.deterministic or torch.backends.cudnn.benchmark:
+        raise AssertionError("cuDNN flags off PyTorch's defaults")
+    conv_rel = _conv_ops_vs_float64()
+    serving, training = {}, {}
+    for encoder, seed in (("tcn-v1", 21), ("dprnn-v1", 22),
+                          ("conv-bilstm-v1", 23)):
+        keys = _v2_keys(encoder)
+        print("phase 21 %s: %s, keys %s" % (
+            encoder, "configs/%s as written" % V2_CONFIGS[encoder]
+            if V2_CONFIGS[encoder] else "default.json's widths", keys))
+        serving[encoder] = _serve(
+            21, encoder, V2_REQUESTS[encoder], seed,
+            dict(keys, COMPUTE_DTYPE="float32"),
+            dict(keys, COMPUTE_DTYPE="bfloat16"))
+        hp = load_config(ENCODER_TYPE=encoder, **keys)
+        train_keys = dict(keys, DROPOUT_KEEP_PROB=1.0,
+                          RELU_LEAKAGE=COMPARE_LEAKAGE, LSTM_BACKEND="auto")
+        training[encoder] = _train(
+            21, encoder, 5, 0 if encoder == "tcn-v1" else 2, True,
+            train_keys, dict(train_keys, LSTM_BACKEND="xla"),
+            {"DROPOUT_KEEP_PROB": hp.DROPOUT_KEEP_PROB,
+             "RELU_LEAKAGE": hp.RELU_LEAKAGE})
+    print("phase 21 (b), (c) took %.1f s" % (time.perf_counter() - t0))
+    _graph_vs_eager("(c) conv-bilstm-v1 B=32", CONV_GRAPH, 8, phase=21)
+    remat = _remat_phase()
+    launches = {name: sum(run["launches"][name] for run in
+                          list(serving.values()) + list(training.values()))
+                for name in KERNELS}
+    print("phase 21 took %.1f s on %s; main-path launches %s"
+          % (time.perf_counter() - t0, nvidia_smi(),
+             {k: v for k, v in launches.items() if v}))
+    return {"conv_rel": conv_rel, "serving": serving, "training": training,
+            "remat": remat, "launches": launches}
+
+
 def _bound(flops: float, nbytes: float):
     """(ms, "operations" or "bytes"): the least time of the work on the
     card, the larger of its FLOPs at the float32 peak and its bytes at the
@@ -2332,8 +2821,10 @@ def _bound(flops: float, nbytes: float):
         (by_bytes, "bytes")
 
 
-def _cost(name: str, t: int, b: int) -> tuple:
-    """(FLOPs, bytes) of one float32 call of kernel ``name`` at (T, B): the
+def _cost(name: str, t: int, b: int, h=None) -> tuple:
+    """(FLOPs, bytes) of one float32 call of kernel ``name`` at (T, B) (and
+    for the LSTM kernels H = ``h``, by default bilstm-orig's 300 or
+    lstm-orig's 600): the
     recurrent products, or for kernel A the windowing and a real FFT of
     each frame (5/2 N log2 N FLOPs at N = 256, what torch.stft needs; the
     kernel's matmul DFT does 2 x 256 x 258 per frame, which the function
@@ -2361,7 +2852,8 @@ def _cost(name: str, t: int, b: int) -> tuple:
                                  + b * h)
         out = t * b * h * (4 if name == "gru_scan_train" else 1)
         return flops, 4.0 * (3 * t * b * h + 3 * h * h + b * h + out)
-    d, h = (2, 300) if name.startswith("bilstm") else (1, 600)
+    d = 2 if name.startswith("bilstm") else 1
+    h = h or (300 if d == 2 else 600)
     flops = 2.0 * t * b * h * 4 * h * d
     if name.endswith("_bwd"):          # d_hs, cs, c_prev, acts, wh; outs
         return flops, 4.0 * d * (3 * t * b * h + 4 * t * b * h + 4 * h * h
@@ -2489,6 +2981,7 @@ def main():
     serving_tpu = phase_serving_tpu()
     tpu_whole = phase_tpu_whole()
     checkpoints = phase_checkpoints()
+    new_encoders = phase_new_encoders()
     print("summary: bilstm_scan bfloat16 max_abs_err %.3g (atol %g); "
           "serving worst error vs CPU %.3g of the peak (rtol %g), lstm-orig "
           "%.3g, gru-v1 %.3g, attn-v1 %.3g; train steps vs CPU: worst "
@@ -2519,7 +3012,8 @@ def main():
     paths = [serving["launches"], training["launches"],
              serving_attn["launches"], training_attn["launches"],
              serving_tpu["launches"], training_tpu["launches"],
-             tpu_whole["launches"], checkpoints["launches"]] + [
+             tpu_whole["launches"], checkpoints["launches"],
+             new_encoders["launches"]] + [
         run["launches"] for run in list(serving_uni.values())
         + list(training_uni.values())]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}

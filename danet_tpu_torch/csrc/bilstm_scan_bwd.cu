@@ -71,8 +71,11 @@
 // Shared memory: w_s [2][4H][4] f32, 8 rings of 16 KB, dc_s [B][UNITS] and
 // red_s [KW][B][UNITS] f32: 96 bytes per batch row, so only the carries
 // grow with B.  At H=600, D=1: 207.9 KB + 96 B per row, within the 227 KB
-// opt-in up to B=256; at H=300, D=2: 169.5 KB + 96 B, up to B=656; either
-// dtype.  A
+// opt-in up to B=256; at H=300, D=2: 169.5 KB + 96 B, up to B=656; at
+// H=128, 144 KB + 96 B, up to B=885, and at H=256, 160 KB + 96 B, up to
+// B=714; either dtype and direction count (danet_lstm_scan_bwd_max_rows;
+// the wrapper splits a larger batch into launches of at most that many
+// rows).  A
 // launch that does not fit returns DANET_SMEM_TOO_LARGE or
 // DANET_NOT_RESIDENT through cooperative_fit and never degrades.
 //
@@ -471,4 +474,12 @@ extern "C" int danet_lstm_scan_bwd(const void* d_hs, const void* acts,
                                    void* stream) {
   return dispatch(d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0, n_steps, batch,
                   hdim, 1, dtype, tanh_cand, stream);
+}
+
+// The row ceiling of one backward launch at H = hdim (either dtype and
+// direction count): the largest batch whose shared memory fits the
+// device's opt-in, written to *rows.
+extern "C" int danet_lstm_scan_bwd_max_rows(int hdim, int* rows) {
+  if (hdim <= 0 || rows == nullptr) return DANET_BAD_ARGUMENT;
+  return max_rows_fitting([=](int b) { return smem_bytes(b, hdim); }, rows);
 }

@@ -84,6 +84,26 @@ inline int smem_optin(int* bytes) {
   return static_cast<int>(err);
 }
 
+// The row ceiling of a kernel whose shared memory, bytes(batch), grows with
+// the batch: the largest batch that fits the device's opt-in, written to
+// *rows (0 when not even one row fits).  Returns 0 or a cudaError_t.
+template <typename Bytes>
+inline int max_rows_fitting(Bytes bytes, int* rows) {
+  int optin = 0;
+  const int status = smem_optin(&optin);
+  if (status != 0) return status;
+  int lo = 0, hi = 1 << 24;
+  while (lo < hi) {
+    const int mid = lo + (hi - lo + 1) / 2;
+    if (bytes(mid) <= static_cast<size_t>(optin))
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  *rows = lo;
+  return 0;
+}
+
 // Launch checks of a cooperative kernel: the device's opt-in shared memory
 // and whether every block of `grid` can be resident at once.  Returns 0,
 // a cudaError_t, or DANET_SMEM_TOO_LARGE / DANET_NOT_RESIDENT (never

@@ -114,7 +114,11 @@
 // for the words, one of min(B, 32) H for the flags), 8 KB of partial sums
 // (SAVE: 33 KB) and 32 bytes per batch row: 88 KB at H=600, B=1 in f32,
 // 163 KB at B=32 (SAVE: 188 KB), within the 227 KB opt-in up to B=1392
-// (SAVE) at H=600 in f32; kernel 2 (H=300) 112 KB at B=32 in f32.
+// (SAVE) at H=600 in f32; kernel 2 (H=300) 112 KB at B=32 in f32.  Row
+// ceilings of the 227 KB, by danet_lstm_scan_max_rows: at H=128, 5968 rows
+// (SAVE 5168) in f32 and 6224 (5424) in bf16; at H=256, 4944 (4144) in f32
+// and 5456 (4656) in bf16.  The wrapper splits a larger batch into
+// launches of at most that many rows (the rows are independent).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -620,4 +624,31 @@ extern "C" int danet_lstm_scan_train(const void* xp, const void* wh,
                                      void* stream) {
   return dispatch<1, true>(xp, wh, c0, h0, hs, cs, acts, xch, n_steps,
                            batch, hdim, dtype, tanh_cand, stream);
+}
+
+// The row ceiling of one forward launch at H = hdim (the same for one and
+// two directions): the largest batch whose shared memory fits the device's
+// opt-in, written to *rows.  save: the saving forward.  The wrapper splits a
+// larger batch into launches of at most that many rows.
+extern "C" int danet_lstm_scan_max_rows(int save, int hdim, int dtype,
+                                        int* rows) {
+  if (hdim <= 0 || (dtype != 0 && dtype != 1) || rows == nullptr)
+    return DANET_BAD_ARGUMENT;
+  if (dtype == 0)
+    return save ? max_rows_fitting(
+                      [=](int b) { return smem_bytes<float, true>(b, hdim); },
+                      rows)
+                : max_rows_fitting(
+                      [=](int b) { return smem_bytes<float, false>(b, hdim); },
+                      rows);
+  return save ? max_rows_fitting(
+                    [=](int b) {
+                      return smem_bytes<__nv_bfloat16, true>(b, hdim);
+                    },
+                    rows)
+              : max_rows_fitting(
+                    [=](int b) {
+                      return smem_bytes<__nv_bfloat16, false>(b, hdim);
+                    },
+                    rows);
 }

@@ -89,7 +89,8 @@ class DaNet:
                 "(bilstm-orig); got ENCODER_TYPE=%r" % hp.ENCODER_TYPE)
         if n("MESH_SEQ") > 1 and not isinstance(
                 enc, (enc_mod.BiLstmEncoder, enc_mod.AttentionEncoder,
-                      enc_mod.GruEncoder)):
+                      enc_mod.GruEncoder, enc_mod.TcnEncoder,
+                      enc_mod.DprnnEncoder, enc_mod.ConvBiLstmEncoder)):
             raise ValueError(
                 "MESH_SEQ>1 requires a sequence-parallel encoder "
                 "(bilstm-orig, gru-v1, attn-v1, moe-v1, tcn-v1, "

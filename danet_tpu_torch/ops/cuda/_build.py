@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (name, restype, argtypes) of every C entry point in csrc/
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = [
     ("danet_stft_ri", _I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     ("danet_bilstm_scan", _I,
@@ -53,6 +54,8 @@ _SIGNATURES = [
      [_P] * 10 + [_I] * 5 + [_L] * 3 + [_F, _P]),
     ("danet_flash_attn_bwd_dq", _I,
      [_P] * 9 + [_I] * 5 + [_L] * 3 + [_F, _P]),
+    ("danet_lstm_scan_max_rows", _I, [_I, _I, _I, _IP]),
+    ("danet_lstm_scan_bwd_max_rows", _I, [_I, _IP]),
     ("danet_error_string", ctypes.c_char_p, [_I]),
 ]
 

@@ -28,8 +28,17 @@ Each wrapper launches its kernel for CUDA tensors and uses its plain
 version (``*_plain``: Python loops over T with the same float32 gate math
 and the same roundings to the storage dtype) for CPU tensors; on any other
 device it raises.  ``<wrapper>.launches`` counts the kernel launches.
+
+A kernel's shared memory grows with the batch, so one launch takes at most
+a ceiling of rows (``max_rows``: from the kernel library, by H, dtype and
+kind; at H=128 about 5,000 rows for the forwards and 885 for the
+backward).  A larger batch is split into launches of at most that many
+rows each; the rows are independent, so the split is exact.
 """
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 
@@ -203,22 +212,81 @@ def exchange_words(n_dirs: int, b: int, hdim: int, device) -> torch.Tensor:
                        device=device)
 
 
-def _fwd(entry: str, n_dirs: int, save: bool, xp, wh, c0, h0, tanh_cand):
-    """Launch a forward kernel: -> hs, or (hs, cs, acts) when ``save``."""
+_MAX_ROWS: dict = {}
+
+
+def max_rows(device, hdim: int, dtype, kind: str) -> int:
+    """The most batch rows one launch of a ``kind`` ('lean', 'save' or
+    'bwd') kernel takes at H = ``hdim`` in ``dtype`` on ``device``: the
+    largest batch whose shared memory fits the card's opt-in, from the
+    kernel library (the same for one and two directions); cached.  0 (no
+    split) for a device that is not a card, where no kernel launches."""
+    if torch.device(device).type != "cuda":
+        return 0
+    from danet_tpu_torch.ops.cuda import _build
+
+    lib = _build.library()
+    key = (id(lib), str(device), hdim, dtype, kind)
+    rows = _MAX_ROWS.get(key)
+    if rows is None:
+        entry = "danet_lstm_scan_%smax_rows" % ("bwd_" if kind == "bwd"
+                                                else "")
+        out = ctypes.c_int(0)
+        args = (hdim,) if kind == "bwd" else (
+            int(kind == "save"), hdim, _DTYPE_CODES[dtype])
+        with torch.cuda.device(device):
+            status = getattr(lib, entry)(*args, ctypes.byref(out))
+        _build.check(status, entry)
+        rows = _MAX_ROWS[key] = out.value
+    return rows
+
+
+def _by_rows(run, rows: int, *batched):
+    """``run(*batched)`` over the batch axis (-2) of every tensor in
+    ``batched``, in launches of at most ``rows`` rows (as even as can be)
+    when the batch exceeds it, the outputs joined on that axis; run once
+    as it is otherwise (a ceiling below one row included: the launch then
+    reports the kernel's refusal)."""
+    b = batched[0].shape[-2]
+    if rows < 1 or b <= rows:
+        return run(*batched)
+    step = -(-b // math.ceil(b / rows))
+    parts = [run(*[v[..., lo:lo + step, :].contiguous() for v in batched])
+             for lo in range(0, b, step)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p, dim=-2) for p in zip(*parts))
+    return torch.cat(parts, dim=-2)
+
+
+def _fwd(wrapper, entry: str, n_dirs: int, save: bool, xp, wh, c0, h0,
+         tanh_cand, rows=None):
+    """Launch a forward kernel, ``wrapper.launches`` counting each launch:
+    -> hs, or (hs, cs, acts) when ``save``.  A batch above ``rows``
+    (``max_rows`` by default) is split across launches."""
     t, b, hdim = _fwd_shapes(xp, wh, c0, h0, n_dirs)
-    hs = torch.empty((t,) + _dirs(n_dirs, b, hdim), dtype=xp.dtype,
-                     device=xp.device)
-    outs = (hs, torch.empty_like(hs), torch.empty_like(xp)) if save \
-        else (hs,)
-    xch = exchange_words(n_dirs, b, hdim, xp.device)
-    _launch(entry, entry + " kernel", xp.device, (xp, wh, c0, h0) + outs
-            + (xch,), (t, b, hdim, _DTYPE_CODES[xp.dtype],
-                       int(bool(tanh_cand))))
-    return outs if save else hs
+    if rows is None:
+        rows = max_rows(xp.device, hdim, xp.dtype, "save" if save else "lean")
+
+    def launch(xp, c0, h0):
+        b = xp.shape[-2]
+        hs = torch.empty((t,) + _dirs(n_dirs, b, hdim), dtype=xp.dtype,
+                         device=xp.device)
+        outs = (hs, torch.empty_like(hs), torch.empty_like(xp)) if save \
+            else (hs,)
+        xch = exchange_words(n_dirs, b, hdim, xp.device)
+        _launch(entry, entry + " kernel", xp.device, (xp, wh, c0, h0) + outs
+                + (xch,), (t, b, hdim, _DTYPE_CODES[xp.dtype],
+                           int(bool(tanh_cand))))
+        wrapper.launches += 1
+        return outs if save else hs
+    return _by_rows(launch, rows, xp, c0, h0)
 
 
-def _bwd(entry: str, n_dirs: int, d_hs, acts, cs, c_prev, wh, tanh_cand):
-    """Launch a backward kernel: -> (dxp, dc0, dh0)."""
+def _bwd(wrapper, entry: str, n_dirs: int, d_hs, acts, cs, c_prev, wh,
+         tanh_cand, rows=None):
+    """Launch a backward kernel, ``wrapper.launches`` counting each launch:
+    -> (dxp, dc0, dh0).  A batch above ``rows`` (``max_rows`` by default)
+    is split across launches."""
     if acts.dim() != 2 + len(_dirs(n_dirs, 0)) or acts.shape[-1] % 4 \
             or (n_dirs == 2 and acts.shape[1] != 2):
         raise ValueError("acts must be [T, %sB, 4H], got %s"
@@ -230,14 +298,21 @@ def _bwd(entry: str, n_dirs: int, d_hs, acts, cs, c_prev, wh, tanh_cand):
     _check([("d_hs", d_hs), ("acts", acts), ("cs", cs), ("c_prev", c_prev),
             ("wh", wh)],
            [hshape, acts.shape, hshape, hshape, _dirs(n_dirs, hdim, g4)])
-    dxp = torch.empty_like(acts)
-    dc0 = torch.empty(_dirs(n_dirs, b, hdim), dtype=acts.dtype,
-                      device=acts.device)
-    dh0 = torch.empty_like(dc0)
-    _launch(entry, entry + " kernel", acts.device,
-            (d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0),
-            (t, b, hdim, _DTYPE_CODES[acts.dtype], int(bool(tanh_cand))))
-    return dxp, dc0, dh0
+    if rows is None:
+        rows = max_rows(acts.device, hdim, acts.dtype, "bwd")
+
+    def launch(d_hs, acts, cs, c_prev):
+        b = acts.shape[-2]
+        dxp = torch.empty_like(acts)
+        dc0 = torch.empty(_dirs(n_dirs, b, hdim), dtype=acts.dtype,
+                          device=acts.device)
+        dh0 = torch.empty_like(dc0)
+        _launch(entry, entry + " kernel", acts.device,
+                (d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0),
+                (t, b, hdim, _DTYPE_CODES[acts.dtype], int(bool(tanh_cand))))
+        wrapper.launches += 1
+        return dxp, dc0, dh0
+    return _by_rows(launch, rows, d_hs, acts, cs, c_prev)
 
 
 def bilstm_scan(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
@@ -245,18 +320,16 @@ def bilstm_scan(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
     """Kernel B, the lean forward (signature of the plain version)."""
     if not _on_cuda(xp, "bilstm_scan"):
         return bilstm_scan_plain(xp, wh, c0, h0, tanh_cand)
-    hs = _fwd("danet_bilstm_scan", 2, False, xp, wh, c0, h0, tanh_cand)
-    bilstm_scan.launches += 1
-    return hs
+    return _fwd(bilstm_scan, "danet_bilstm_scan", 2, False, xp, wh, c0, h0,
+                tanh_cand)
 
 
 def bilstm_scan_train(xp, wh, c0, h0, tanh_cand: bool):
     """Kernel 2, the forward that stores residuals: -> (hs, cs, acts)."""
     if not _on_cuda(xp, "bilstm_scan_train"):
         return bilstm_scan_train_plain(xp, wh, c0, h0, tanh_cand)
-    out = _fwd("danet_bilstm_scan_train", 2, True, xp, wh, c0, h0, tanh_cand)
-    bilstm_scan_train.launches += 1
-    return out
+    return _fwd(bilstm_scan_train, "danet_bilstm_scan_train", 2, True, xp,
+                wh, c0, h0, tanh_cand)
 
 
 def bilstm_scan_bwd(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
@@ -264,10 +337,8 @@ def bilstm_scan_bwd(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
     version)."""
     if not _on_cuda(d_hs, "bilstm_scan_bwd"):
         return bilstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand)
-    out = _bwd("danet_bilstm_scan_bwd", 2, d_hs, acts, cs, c_prev, wh,
-               tanh_cand)
-    bilstm_scan_bwd.launches += 1
-    return out
+    return _bwd(bilstm_scan_bwd, "danet_bilstm_scan_bwd", 2, d_hs, acts, cs,
+                c_prev, wh, tanh_cand)
 
 
 def lstm_scan(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
@@ -276,9 +347,8 @@ def lstm_scan(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
     -> hs [T, B, H]."""
     if not _on_cuda(xp, "lstm_scan"):
         return lstm_scan_plain(xp, wh, c0, h0, tanh_cand)
-    hs = _fwd("danet_lstm_scan", 1, False, xp, wh, c0, h0, tanh_cand)
-    lstm_scan.launches += 1
-    return hs
+    return _fwd(lstm_scan, "danet_lstm_scan", 1, False, xp, wh, c0, h0,
+                tanh_cand)
 
 
 def lstm_scan_train(xp, wh, c0, h0, tanh_cand: bool):
@@ -286,19 +356,16 @@ def lstm_scan_train(xp, wh, c0, h0, tanh_cand: bool):
     [T, B, 4H])."""
     if not _on_cuda(xp, "lstm_scan_train"):
         return lstm_scan_train_plain(xp, wh, c0, h0, tanh_cand)
-    out = _fwd("danet_lstm_scan_train", 1, True, xp, wh, c0, h0, tanh_cand)
-    lstm_scan_train.launches += 1
-    return out
+    return _fwd(lstm_scan_train, "danet_lstm_scan_train", 1, True, xp, wh,
+                c0, h0, tanh_cand)
 
 
 def lstm_scan_bwd(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
     """Kernel 3 on one direction: -> (dxp [T, B, 4H], dc0, dh0 [B, H])."""
     if not _on_cuda(d_hs, "lstm_scan_bwd"):
         return lstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand)
-    out = _bwd("danet_lstm_scan_bwd", 1, d_hs, acts, cs, c_prev, wh,
-               tanh_cand)
-    lstm_scan_bwd.launches += 1
-    return out
+    return _bwd(lstm_scan_bwd, "danet_lstm_scan_bwd", 1, d_hs, acts, cs,
+                c_prev, wh, tanh_cand)
 
 
 for _fn in (bilstm_scan, bilstm_scan_train, bilstm_scan_bwd, lstm_scan,

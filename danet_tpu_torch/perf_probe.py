@@ -383,6 +383,13 @@ def use_variant(kernel: str, sets: dict, cut_table: dict, cuts,
             fn = getattr(lib, name)
             fn.restype, fn.argtypes = restype, argtypes
     _build._lib = lib
+    if not any(hasattr(lib, name) for name in (
+            "danet_lstm_scan_max_rows", "danet_lstm_scan_bwd_max_rows")):
+        # a source without the LSTM kernels' row ceilings (or without an
+        # LSTM kernel): the probes' batches, 64 rows at most, launch whole
+        from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
+
+        cuda_lstm.max_rows = lambda device, hdim, dtype, kind: 0
 
 
 def scan_bwd(reps: int, checked: bool = True) -> None:

@@ -36,8 +36,9 @@ takes one update on their summed gradient times 1/A; EMA_DECAY keeps an
 exponential average of the parameters (``state["ema"]``), which the valid
 sweep, ``test`` and ``separate`` run on; both run in the eager step and in
 the K-step graph.  NAN_CHECKS raises FloatingPointError at the first step
-whose loss or gradient is not finite (and runs single steps).  REMAT is
-refused with NotImplementedError; ``DaNet`` itself refuses MESH_* > 1.
+whose loss or gradient is not finite (and runs single steps).  REMAT
+recomputes the encoder's layers in the backward (``models/encoders.py``);
+``DaNet`` itself refuses MESH_* > 1.
 
 Checkpoints (``train/checkpoint.py``): ``save_on_epoch`` writes
 ``saves/<name>_e<k>`` after epoch k, ``save_best`` keeps
@@ -327,11 +328,9 @@ class Trainer:
     def _check_config(self) -> None:
         """The step options, with the JAX trainer's refusals and notes:
         EMA_DECAY in [0, 1), GRAD_ACCUM dividing BATCH_SIZE, NAN_CHECKS
-        forcing single steps; REMAT is not ported."""
+        forcing single steps.  REMAT is the encoders' (``_maybe_remat``):
+        it takes effect in every step, the K-step graph's included."""
         hp = self.hp
-        if bool(getattr(hp, "REMAT", False)):
-            raise NotImplementedError(
-                "REMAT is not ported to the PyTorch trainer")
         self.ema_decay = float(getattr(hp, "EMA_DECAY", 0.0) or 0.0)
         if not 0.0 <= self.ema_decay < 1.0:
             raise ValueError(

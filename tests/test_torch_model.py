@@ -228,7 +228,11 @@ def test_torch_unidirectional_separate_wav_matches_jax(
     ("gru-v1", {"MESH_SEQ": 2}, False),
     ("bilstm-orig", {"MESH_PIPE": 2}, False),
     ("bilstm-orig", {"MESH_DATA": 2}, False),
-    ("lstm-orig", {"MESH_MODEL": 2}, False)])
+    ("lstm-orig", {"MESH_MODEL": 2}, False),
+    ("tcn-v1", {"MESH_SEQ": 2}, False),
+    ("dprnn-v1", {"MESH_SEQ": 2}, False),
+    ("conv-bilstm-v1", {"MESH_SEQ": 2}, False),
+    ("tcn-v1", {"MESH_PIPE": 2}, True)])
 def test_torch_danet_refuses_mesh_keys(fresh_hparams, encoder, keys,
                                        jax_refuses):
     """DaNet raises JAX's _check_parallel_support ValueError, with JAX's

@@ -356,9 +356,9 @@ def test_torch_train_loss_dropout(fresh_hparams, monkeypatch):
 def test_torch_trainer_refuses_unported(fresh_hparams, key, value):
     """The options still to port raise NotImplementedError when the
     Trainer is built; the ported ones (GRAD_ACCUM, EMA_DECAY, NAN_CHECKS,
-    VALID_CRASH_FACTOR) build."""
+    REMAT, VALID_CRASH_FACTOR) build."""
     hp = load_config(ENCODER_TYPE="bilstm-orig", **{key: value})
-    if key in ("GRAD_ACCUM", "EMA_DECAY", "NAN_CHECKS",
+    if key in ("GRAD_ACCUM", "EMA_DECAY", "NAN_CHECKS", "REMAT",
                "VALID_CRASH_FACTOR"):
         assert Trainer(TorchDaNet(hp), hp, "cpu").hp is hp
         return
