@@ -261,10 +261,43 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    (the checkpoint's forward and its recompute) and kernel 3 once; then,
    beside the card's name and power limit, the peak device memory of a
    step and its time with REMAT and without, B=8 at T=128 and T=512.
+22. tasnet-v1 (MODEL_TYPE, default.json's TASNET_* widths: 512 filters
+   of 16 samples at hop 8, bottleneck 128, hidden 512, kernel 3, 8 x 3
+   blocks, RELU_LEAKAGE 0.3, sigmoid masks; seed 0), the wav-dir and
+   timit datasets through the CLI, and PROFILE_STEPS.  (a) serve.Separator
+   on the card: a 10 s request at B=1 and a 4 x 4 s batch against the CPU
+   at SERVE_RTOL (1e-4) of the peak, each timed in float32 and bfloat16;
+   TASNET_CAUSAL on the 10 s request; serving launches no kernel (no
+   STFT).  (b) training: phase 11's protocol (each step from one state,
+   float32 gradients to 1e-4 of each tensor's peak, the card's Adam step
+   equal to the CPU's on the card's gradients; bfloat16 losses at 1e-2)
+   at B=4 on toy spectra, at RELU_LEAKAGE 1 (COMPARE_LEAKAGE: at the
+   config's 0.3 a rounding that moves one element across a leaky ReLU's
+   kink moves the CPU's own float32 gradients by 2e-2 of their peak);
+   then at the config's 0.3 one step's loss and gradients of the card in
+   float64 against the CPU in float64 (the port's plain path with
+   COMPUTE_DTYPE and FLOATX float64) at the same bounds, and the card's
+   and the CPU's float32 against that float64 step, printed (the loss
+   held to 1e-4); the train step's time at B=32, T=128 in float32 and
+   bfloat16; one 8-step CUDA graph call on the int16 wave wire (kernel A
+   in the step) against 8 eager steps bit for bit; the cost of
+   PROFILE_STEPS' window over one replay (its start, the traced replay,
+   its stop), whose trace must hold kernel A's rows (of 8, printed with
+   the row count).  (c) 200 int16 WAVs of 2 s (synth-speech) in a flat
+   folder: ``-m train -ds wav-dir -ne 1 -bs 4`` with the int16 wave wire,
+   TRAIN_STEPS_PER_CALL 8 and PROFILE_STEPS 2 (one capture, the window on
+   the second call, a replay: its trace holds kernel A's rows), ``-m
+   test``, ``-m demo -if`` one WAV (TasNet.separate: kernel A) against
+   the CPU from the same checkpoint and ``serve run`` on it, the card's
+   Separator against the CPU's at SERVE_RTOL.  (d) TIMIT pickles in the
+   reference's layout: ``-m train -ds timit -ne 1 -tl 64 -bs 8`` with
+   configs/reference-parity.json (bilstm-orig), ``-m debug`` and ``-m
+   test``: kernels B, 2 and 3 on this dataset's batches.
 
 The kernel summary lists all fourteen kernels; its launches count the
 main paths of phases 5, 7, 10, 11, 14, 15, 17, 18, 19, 20 (20: (a),
-(c), (d)'s resume and (e)) and 21 ((b) and (c)'s card-vs-CPU part).
+(c), (d)'s resume and (e)), 21 ((b) and (c)'s card-vs-CPU part) and 22
+((a), (c) and (d)).
 bound_ms is the least time the card could take for the work of the timed
 call: the larger of its bytes (each input read once, each output written
 once) over 3.35 TB/s and
@@ -578,8 +611,10 @@ def _lstm_launches(rows: int, hdim: int, dt, train: bool,
 def _scan_launches(model, b: int, t: int, train: bool) -> dict:
     """The launches of the encoder's kernels in one forward over [B, T]
     frames (serving, valid_step) or one train step, by summary name."""
-    enc, hp = model.encoder, model.hp
+    enc, hp = getattr(model, "encoder", None), model.hp
     want = {name: 0 for name in KERNELS}
+    if enc is None:            # tasnet-v1: no scan, cuDNN's convolutions
+        return want
 
     def add(counts):
         for name, v in counts.items():
@@ -2010,16 +2045,17 @@ def _bilstm_step(accum: int = 1) -> dict:
     return {"stft_ri": 1, "bilstm_scan_train": n, "bilstm_scan_bwd": n}
 
 
-def _main_path(fn, k: int = 8):
-    """fn() as a main path of phase 20: the counts zeroed before it and
-    read after it, each graph replay counted as K bilstm-orig steps'
-    launches (the wrappers count a graph's launches once, at capture).
-    -> (fn's result, launches, graphs captured)."""
+def _main_path(fn, k: int = 8, per_step=None):
+    """fn() as a main path of phase 20 or 22: the counts zeroed before it
+    and read after it, each graph replay beyond the captures counted as K
+    steps of ``per_step`` launches (by default a bilstm-orig step's; the
+    wrappers count a graph's launches once, at capture).  -> (fn's result,
+    launches, graphs captured)."""
     _zero_counts()
     StepGraph.captures = StepGraph.replays = 0
     out = fn()
     extra = (StepGraph.replays - StepGraph.captures) * k
-    step = _bilstm_step()
+    step = _bilstm_step() if per_step is None else per_step
     return out, {n: v + extra * step.get(n, 0)
                  for n, v in _counts().items()}, StepGraph.captures
 
@@ -2811,6 +2847,479 @@ def _new_encoders(t0: float) -> dict:
             "remat": remat, "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 22
+# tasnet-v1 at default.json's TASNET_* widths (512 filters of 16 samples at
+# hop 8, bottleneck 128, hidden 512, kernel 3, 8 x 3 blocks, sigmoid masks)
+TASNET = {"MODEL_TYPE": "tasnet-v1"}
+# (a): ~10 s at B=1 and a batch of 4 x 4 s; TASNET_CAUSAL on the first
+TASNET_REQUESTS = [(1, 10 * SMPRATE), (4, 4 * SMPRATE)]
+# (b): the card against the CPU at this batch (a CPU step at B=32 takes tens
+# of seconds); phase 11's protocol at RELU_LEAKAGE COMPARE_LEAKAGE, where a
+# float32 rounding moves the CPU's own gradients by 7e-6 of their peak
+# under a 1e-7 input change, against 2e-2 at the config's 0.3 (a rounding
+# that moves an element across a leaky ReLU's kink); the config's 0.3 is
+# held in float64 on both sides (see _tasnet_float64)
+TASNET_CMP_B = 4
+# (b): the 8-step CUDA graph on the int16 wave wire (kernel A in the step)
+TASNET_GRAPH = dict(TASNET, TRANSFER_DOMAIN="wave", TRANSFER_DTYPE="int16",
+                    WAVE_PCM_SCALE=4.0, TRAIN_STEPS_PER_CALL=8,
+                    BATCH_SIZE=32)
+# (c): the wav-dir corpus: int16 WAVs of synth-speech at SMPRATE, one
+# length, so that every batch has one shape (one capture, then replays)
+WAVDIR_FILES, WAVDIR_SAMPLES = 200, 2 * SMPRATE
+# (d): the TIMIT pickles: utterances per split and their frame counts
+TIMIT_UTTS = {"train": 64, "test": 16}
+TIMIT_FRAMES = (70, 140)
+
+
+def _tasnet_describe(model) -> str:
+    d = model._dims()
+    return ("tasnet-v1: %d basis filters of %d samples at hop %d, bottleneck "
+            "%d, hidden %d, kernel %d, %d x %d blocks, RELU_LEAKAGE %g, "
+            "TASNET_MASK %s%s, N=%d, %s" % (
+                d["n_basis"], d["win"], d["stride"], d["bottleneck"],
+                d["hidden"], d["kernel"], d["repeats"], d["x_blocks"],
+                model.hp.RELU_LEAKAGE, d["mask"],
+                ", TASNET_CAUSAL" if d["causal"] else "",
+                model.hp.MAX_N_SIGNAL, model.hp.COMPUTE_DTYPE))
+
+
+def _tasnet_serving() -> dict:
+    """(a): serve.Separator on the card, float32, against the CPU at
+    SERVE_RTOL of the peak, each request's latency in float32 and
+    bfloat16; TASNET_CAUSAL on the 10 s request.  Serving runs no kernel
+    of the port (no STFT: waveform in, waveform out)."""
+    rs = np.random.RandomState(22)
+    waves = [_mixture(rs, b, n) for b, n in TASNET_REQUESTS]
+    params = None
+    worst, latencies = 0.0, {}
+    _zero_counts()
+    for causal in (False, True):
+        keys = dict(TASNET, TASNET_CAUSAL=causal)
+        seps = {}
+        for dt in ("float32", "bfloat16"):
+            hp = load_config(**dict(keys, COMPUTE_DTYPE=dt))
+            model = hp.get_model()(hp)
+            if params is None:
+                params = model.init(torch.Generator().manual_seed(0))
+                print("phase 22 (a) model: %s, %d parameters"
+                      % (_tasnet_describe(model),
+                         model.parameter_count(params)))
+            seps[dt] = Separator(model, params, "cuda")
+        cpu = Separator(seps["float32"].model, params, "cpu")
+        reqs = TASNET_REQUESTS[:1] if causal else TASNET_REQUESTS
+        for (b, n), wav in zip(reqs, waves):
+            outs, ms = {}, {}
+            for dt, sep in seps.items():
+                sep.separate(wav)                    # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[dt] = sep.separate(wav)         # numpy: synchronized
+                ms[dt] = (time.perf_counter() - t0) * 1e3
+            ref = cpu.separate(wav)
+            peak = float(np.max(np.abs(ref)))
+            err = float(np.max(np.abs(outs["float32"] - ref)))
+            err16 = float(np.max(np.abs(outs["bfloat16"] - ref)))
+            line = ("phase 22 (a) tasnet-v1%s request B=%d %.2f s: out %s, "
+                    "latency float32 %.3f ms, bfloat16 %.3f ms; float32 vs "
+                    "CPU max_abs_err %.3g (peak %.3g, rtol %g of the peak); "
+                    "bfloat16 vs the CPU's float32 %.3g of the peak"
+                    % (" TASNET_CAUSAL" if causal else "", b, n / SMPRATE,
+                       outs["float32"].shape, ms["float32"], ms["bfloat16"],
+                       err, peak, SERVE_RTOL, err16 / peak))
+            print(line)
+            if outs["float32"].shape != (b, 2, n) or not all(
+                    np.all(np.isfinite(o)) for o in outs.values()) \
+                    or not err <= SERVE_RTOL * peak:
+                raise AssertionError(line)
+            worst = max(worst, err / peak)
+            latencies[(causal, b, n)] = ms
+    launches = _counts()
+    if any(launches.values()):
+        raise AssertionError("phase 22 (a) serving launched %s" % launches)
+    return {"max_rel_err": worst, "latency_ms": latencies,
+            "launches": launches}
+
+
+def _tasnet_float64() -> dict:
+    """(b): at the config's keys (RELU_LEAKAGE 0.3), one train step's loss
+    and gradients from one state on a toy batch of TASNET_CMP_B: the card
+    in float64 against the CPU in float64 (the port's plain path with
+    COMPUTE_DTYPE and FLOATX float64), the loss to STEP_RTOL's 1e-4 and
+    each gradient to 1e-4 of its peak (phase 11's bounds); then the card's
+    and the CPU's float32 against the same float64 step, printed (the loss
+    held to 1e-4; the gradients are not held to a bound: a leaky ReLU's
+    kink turns one rounding into a jump, in the CPU's own float32 too)."""
+    batch = _toy_batches(load_config(BATCH_SIZE=TASNET_CMP_B), 1)[0]
+    p0 = None
+    res = {}
+    for dev, dt in (("cpu", "float64"), ("cuda", "float64"),
+                    ("cuda", "float32"), ("cpu", "float32")):
+        hp = load_config(**dict(TASNET, BATCH_SIZE=TASNET_CMP_B,
+                                COMPUTE_DTYPE=dt, FLOATX=dt))
+        model = hp.get_model()(hp)
+        if p0 is None:
+            p0 = weights.to_jax(model.init(torch.Generator().manual_seed(0)))
+        tdt = getattr(torch, dt)
+        params = weights.from_jax(p0, dev)
+        leaves = weights.leaves(params)
+        for p in leaves:
+            p.data = p.data.to(tdt)
+            p.requires_grad_(True)
+        loss, _ = model.train_loss(params, torch.from_numpy(batch).to(
+            dev, tdt))
+        grads = torch.autograd.grad(loss, leaves)
+        res[(dev, dt)] = (float(loss.detach()), [g.detach().double().cpu()
+                                        for g in grads])
+    names = ["/".join(k) for k in _paths(p0)]
+    ref_loss, ref_grads = res[("cpu", "float64")]
+    out = {}
+    for key in (("cuda", "float64"), ("cuda", "float32"), ("cpu", "float32")):
+        loss, grads = res[key]
+        rel = _rel(loss, ref_loss)
+        shares = [(float((g - r).abs().max()) / float(r.abs().max()), n)
+                  for g, r, n in zip(grads, ref_grads, names)]
+        share, name = max(shares)
+        over = sum(1 for v, _ in shares if v > 1e-4)
+        out[key] = (rel, share)
+        line = ("phase 22 (b) RELU_LEAKAGE 0.3, B=%d: the %s in %s vs the "
+                "CPU in float64: loss %.12g vs %.12g, relative err %.3g "
+                "(bound %g); gradients worst %.3g of the tensor's peak (%s), "
+                "%d of %d tensors beyond 1e-4"
+                % (TASNET_CMP_B, "card" if key[0] == "cuda" else "CPU",
+                   key[1], loss, ref_loss, rel, STEP_RTOL["float32"], share,
+                   name, over, len(names)))
+        print(line)
+        held = key == ("cuda", "float64")
+        if not np.isfinite(loss) or not rel <= STEP_RTOL["float32"] \
+                or (held and not share <= 1e-4):
+            raise AssertionError(line)
+    return out
+
+
+def _tasnet_step_ms(dtype: str, reps: int = 5) -> float:
+    """Median wall time of a synchronized train step at B=32, T=128 (toy
+    spectra), on the card."""
+    hp = load_config(**dict(TASNET, COMPUTE_DTYPE=dtype))
+    tr = Trainer(hp.get_model()(hp), hp, "cuda")
+    st = tr.init_state(torch.Generator().manual_seed(0))
+    batch = _toy_batches(hp, 1)[0]
+    ms = []
+    for _ in range(reps + 1):                  # the first warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(st, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError("phase 22 timing %s: loss %s"
+                                 % (dtype, m["loss"]))
+    return float(np.median(ms[1:]))
+
+
+def _trace_kernels(path: str) -> list:
+    """The names of the CUDA kernel rows of a Chrome trace written by
+    torch.profiler, in time order."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [name for _, name in sorted(
+        (e.get("ts", 0), e.get("name", "")) for e in events
+        if e.get("cat") == "kernel")]
+
+
+def _profile_cost(tmp: str) -> dict:
+    """(b): the cost of PROFILE_STEPS' trace over one 8-step graph replay
+    (B=32, the int16 wave wire; Trainer.ProfileWindow, CPU and CUDA
+    activity): the window's start, the replay's synchronized ms per step
+    inside it against outside it, and the stop (synchronize, write the
+    trace).  The trace must hold kernel A's rows (the replayed kernels are
+    recorded); their row indices and the row count are printed (a replay
+    of tasnet-v1's step launches 7,176 kernels a step)."""
+    from danet_tpu_torch.train.trainer import ProfileWindow
+    hp = load_config(**TASNET_GRAPH)
+    tr = Trainer(hp.get_model()(hp), hp, "cuda")
+    st = tr.init_state(torch.Generator().manual_seed(0))
+    stack = tr._put(tr._host_batch(np.stack(_speech_batches(hp, 8))))
+    tr.train_steps(st, stack)                  # the capture
+    plain = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_steps(st, stack)
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+    window = ProfileWindow(8, 0, os.path.join(tmp, "profile-cost"), "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window.before(st["step"], tr._captures(st, 8, stack))
+    t1 = time.perf_counter()
+    tr.train_steps(st, stack)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    window.after(st["step"])
+    t3 = time.perf_counter()
+    kernels = _trace_kernels(window.path)
+    rows_a = [i for i, k in enumerate(kernels) if "stft_ri_kernel" in k]
+    out = {"plain_ms": float(np.median(plain)) / 8,
+           "start_ms": (t1 - t0) * 1e3, "traced_ms": (t2 - t1) * 1e3 / 8,
+           "stop_ms": (t3 - t2) * 1e3,
+           "trace_mb": os.path.getsize(window.path) / 2 ** 20,
+           "kernel_rows": len(kernels), "stft_rows": len(rows_a)}
+    print("phase 22 (b) PROFILE_STEPS' cost over one 8-step graph replay "
+          "(B=32, int16 wave wire): %.3f ms per step untraced (median of "
+          "3), %.3f ms per step traced (CPU and CUDA activity); starting the "
+          "window %.1f ms, closing it (synchronize, write) %.1f ms; a trace "
+          "of %.1f MiB with %d CUDA kernel rows, kernel A's %d of 8 at rows "
+          "%s (%s)"
+          % (out["plain_ms"], out["traced_ms"], out["start_ms"],
+             out["stop_ms"], out["trace_mb"], len(kernels), len(rows_a),
+             rows_a, nvidia_smi()))
+    if not rows_a:
+        raise AssertionError("phase 22 (b): the traced replay shows no "
+                             "kernel A row")
+    return out
+
+
+def _tasnet_training(tmp: str) -> dict:
+    """(b): card vs CPU (phase 11's protocol at COMPARE_LEAKAGE, float32
+    and bfloat16, B=TASNET_CMP_B; the config's leakage in float64), the
+    timed steps at B=32, the 8-step graph bit for bit, the profiler's
+    cost."""
+    keys = dict(TASNET, BATCH_SIZE=TASNET_CMP_B, RELU_LEAKAGE=COMPARE_LEAKAGE)
+    runs = {dt: _train_dtype(22, "tasnet-v1", dt, True, keys)
+            for dt in ("float32", "bfloat16")}
+    f64 = _tasnet_float64()
+    times = {dt: _tasnet_step_ms(dt) for dt in ("float32", "bfloat16")}
+    print("phase 22 (b) tasnet-v1 train step (B=32, T=128, toy spectra, "
+          "Adam): float32 %.3f ms, bfloat16 %.3f ms (medians of 5; %s)"
+          % (times["float32"], times["bfloat16"], nvidia_smi()))
+    _graph_vs_eager("(b) tasnet-v1 B=32 int16 wave wire", TASNET_GRAPH, 8,
+                    phase=22)
+    return {"step_rel": {dt: r["worst_step_rel"] for dt, r in runs.items()},
+            "grad_rel": runs["float32"]["grad_rel"], "float64": f64,
+            "times": times, "profile": _profile_cost(tmp)}
+
+
+def _write_wavdir(folder: str) -> list:
+    """WAVDIR_FILES int16 WAVs of WAVDIR_SAMPLES samples at SMPRATE in a
+    flat folder: synth-speech utterances (seed 22) at int16 scale (x 32768
+    / WAVE_SCALE), each tiled to the one length."""
+    from danet_tpu_torch.data.synth_speech import SyntheticSpeechData
+    os.makedirs(folder)
+    hp = load_config(SMPRATE=SMPRATE, SYNTH_BATCHES=WAVDIR_FILES // 10)
+    ds = SyntheticSpeechData(hp, seed=22)
+    ds.install_and_load()
+    paths = []
+    for (batch,) in ds.epoch_wave("train", 10):
+        for wav in batch:
+            pcm = np.clip(np.round(np.resize(wav, WAVDIR_SAMPLES) * (
+                32768.0 / ds.WAVE_SCALE)), -32768, 32767).astype(np.int16)
+            paths.append(os.path.join(folder, "u%03d.wav" % len(paths)))
+            import scipy.io.wavfile
+            scipy.io.wavfile.write(paths[-1], SMPRATE, pcm)
+    return paths
+
+
+def _tasnet_wavdir_cli(tmp: str) -> dict:
+    """(c): the CLI from a wav-dir folder: -m train (int16 wave wire, K=8,
+    PROFILE_STEPS 2, -bs 4: 8 files a batch), -m test, -m demo on one WAV
+    and ``serve run`` on it (against the CPU from the same checkpoint)."""
+    corpus = os.path.join(tmp, "wavs")
+    paths = _write_wavdir(corpus)
+    logs = os.path.join(tmp, "logs")
+    keys = dict(TASNET, WAVDIR_PATH=corpus, TRANSFER_DOMAIN="wave",
+                TRANSFER_DTYPE="int16", WAVE_PCM_SCALE=32768.0,
+                TRAIN_STEPS_PER_CALL=8, PROFILE_STEPS=2, SUMMARY_DIR=logs)
+    cfg = os.path.join(tmp, "wavdir.json")
+    with open(cfg, "w") as f:
+        json.dump(keys, f)
+    ckpt = os.path.join(tmp, "wavdir-ckpt")
+    t0 = time.perf_counter()
+    text, train_launches, captures = _main_path(
+        lambda: _port_cli(["-m", "train", "-ds", "wav-dir", "-ne", "1", "-bs",
+                           "4", "-c", cfg, "-n", "wavdir", "-o", ckpt,
+                           "--no-save-on-epoch"], tmp),
+        per_step={"stft_ri": 1})
+    replays = StepGraph.replays
+    train_s = time.perf_counter() - t0
+    (run_dir,) = os.listdir(logs)
+    with open(os.path.join(logs, run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    steps = [r for r in rows if "train/loss" in r]
+    trace = os.path.join(logs, run_dir, "profile", "trace.json")
+    kernels = _trace_kernels(trace) if os.path.exists(trace) else []
+    stft = sum(1 for k in kernels if "stft_ri_kernel" in k)
+    window = [ln for ln in text.splitlines() if ln.startswith("[profile:")]
+    epoch = [ln for ln in text.splitlines() if ln.startswith(("Epoch",
+                                                              "Valid"))]
+    line = ("phase 22 (c) -m train -ds wav-dir (%d int16 WAVs of %.1f s, "
+            "-bs 4, K=8, PROFILE_STEPS 2): %s; %d steps in %.1f s, %d "
+            "capture(s), %d replay(s); %s; trace %s: %d CUDA kernel rows, %d "
+            "of them kernel A's; launches %s"
+            % (len(paths), WAVDIR_SAMPLES / SMPRATE, epoch, len(steps),
+               train_s, captures, replays, window, trace, len(kernels), stft,
+               {k: v for k, v in train_launches.items() if v}))
+    print(line)
+    if len(epoch) != 2 or "nan" in text.lower() or captures != 1 \
+            or replays < 2 or not window or not stft \
+            or not all(np.isfinite(r["train/loss"]) for r in steps):
+        raise AssertionError(line + "\n" + text[-3000:])
+
+    wav = paths[0]
+    seen = []
+    real = Trainer.separate
+
+    def recording(self, state, mix_ri):
+        out = real(self, state, mix_ri)
+        seen.append((mix_ri, out))
+        return out
+
+    def evaluate():
+        from danet_tpu_torch import serve
+        out = _port_cli(["-m", "test", "-ds", "wav-dir", "-c", cfg, "-i",
+                         ckpt], tmp)
+        Trainer.separate = recording
+        try:
+            out += _port_cli(["-m", "demo", "-ds", "wav-dir", "-c", cfg,
+                              "-i", ckpt, "-if", wav], tmp)
+        finally:
+            Trainer.separate = real
+        here = os.getcwd()
+        os.chdir(tmp)
+        try:
+            serve._main(["run", "-c", cfg, "-w", ckpt, "-if", wav, "-o",
+                         os.path.join(tmp, "served")])
+        finally:
+            os.chdir(here)
+        return out
+
+    text, eval_launches, _ = _main_path(evaluate, per_step={})
+    test = [ln for ln in text.splitlines() if ln.startswith("Test: ")]
+    from danet_tpu_torch import serve
+    from danet_tpu_torch.data import audio
+    import scipy.io.wavfile
+    served = [scipy.io.wavfile.read(os.path.join(tmp, "served_%d.wav" % i))[1]
+              for i in range(2)]
+    cpu_sep = serve.load_separator(ckpt, [cfg], "cpu")
+    gpu_sep = serve.load_separator(ckpt, [cfg], "cuda")
+    x = audio.load_wav_raw(wav, SMPRATE)
+    ref, got = cpu_sep.separate(x), gpu_sep.separate(x)
+    peak = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    hp = load_config(cfg)
+    cpu_tr = Trainer(hp.get_model()(hp), hp, "cpu")
+    st = cpu_tr.load_params(cpu_tr.init_state(), ckpt)
+    (mix, demo_out), = seen
+    demo_ref = cpu_tr.separate(st, mix)
+    demo_err = float(np.abs(demo_out - demo_ref).max())
+    demo_peak = float(np.abs(demo_ref).max())
+    line = ("phase 22 (c) -m test: %s; -m demo -if %s: separated spectra %s "
+            "vs the CPU's %.3g of the peak; serve run: %s, the card's "
+            "Separator vs the CPU's from the checkpoint %.3g of the peak "
+            "(rtol %g); launches %s"
+            % (test, os.path.basename(wav), demo_out.shape,
+               demo_err / demo_peak, [s.shape for s in served], err / peak,
+               SERVE_RTOL, {k: v for k, v in eval_launches.items() if v}))
+    print(line)
+    vals = [float(p.split("=")[1]) for ln in test for p in ln.split()[1:]]
+    if len(test) != 1 or not all(np.isfinite(vals)) \
+            or [s.shape for s in served] != [(WAVDIR_SAMPLES,)] * 2 \
+            or not err <= SERVE_RTOL * peak \
+            or not demo_err <= SERVE_RTOL * demo_peak \
+            or not eval_launches["stft_ri"]:
+        raise AssertionError(line + "\n" + text[-2000:])
+    return {n: train_launches[n] + eval_launches[n] for n in KERNELS}
+
+
+def _write_timit(folder: str) -> None:
+    """{train,test}_set.pkl in the reference's layout (three pickled lists:
+    complex64 spectra [T, F], phoneme codes, text codes), as
+    tests/test_data.py writes them, TIMIT_UTTS utterances of TIMIT_FRAMES
+    frames."""
+    import pickle
+    rs = np.random.RandomState(22)
+    os.makedirs(folder)
+    for subset, n in TIMIT_UTTS.items():
+        sigs = [(rs.randn(rs.randint(*TIMIT_FRAMES), 129)
+                 + 1j * rs.randn(1, 129)).astype(np.complex64)
+                for _ in range(n)]
+        phonemes = [rs.randint(0, 60, size=(5,)).astype(np.int32)
+                    for _ in range(n)]
+        texts = [rs.randint(0, 27, size=(8,)).astype(np.int32)
+                 for _ in range(n)]
+        with open(os.path.join(folder, "%s_set.pkl" % subset), "wb") as f:
+            for obj in (sigs, phonemes, texts):
+                pickle.dump(obj, f, -1)
+
+
+def _timit_cli(tmp: str) -> dict:
+    """(d): the CLI from TIMIT pickles with bilstm-orig
+    (configs/reference-parity.json; the recipe of experiments/timit_1.sh):
+    -m train -ne 1 -tl 64 -bs 8, then -m debug and -m test; kernels B, 2
+    and 3 on this dataset's batches."""
+    folder = os.path.join(tmp, "timit")
+    _write_timit(folder)
+    base = ["-ds", "timit", "-c", os.path.join(REPO_ROOT, "configs",
+                                               "reference-parity.json"),
+            "--set", "TIMIT_DIR=%s" % folder,
+            "--set", "SUMMARY_DIR=%s" % os.path.join(tmp, "timit-logs")]
+    ckpt = os.path.join(tmp, "timit-ckpt")
+
+    def run():
+        out = _port_cli(base + ["-m", "train", "-ne", "1", "-tl", "64", "-bs",
+                                "8", "-o", ckpt, "--no-save-on-epoch"], tmp)
+        out += _port_cli(base + ["-m", "debug", "-i", ckpt], tmp)
+        out += _port_cli(base + ["-m", "test", "-i", ckpt, "-bs", "8"], tmp)
+        return out
+
+    t0 = time.perf_counter()
+    text, launches, _ = _main_path(run, per_step={})
+    lines = [ln for ln in text.splitlines() if ln.startswith(
+        ("Epoch", "Valid", "Test: ", "Debug data"))]
+    line = ("phase 22 (d) -ds timit (%s utterances, %d-%d frames), "
+            "reference-parity bilstm-orig, -tl 64 -bs 8: %s in %.1f s; "
+            "launches %s" % (TIMIT_UTTS, TIMIT_FRAMES[0], TIMIT_FRAMES[1] - 1,
+                             lines, time.perf_counter() - t0,
+                             {k: v for k, v in launches.items() if v}))
+    print(line)
+    if len(lines) != 4 or "nan" in text.lower() or not all(
+            "loss=" in ln for ln in lines if ln.startswith(
+                ("Epoch", "Valid", "Test"))) or not os.path.exists(
+            os.path.join(tmp, "debug", "debug_data.mat")) or not all(
+            launches[n] for n in ("bilstm_scan", "bilstm_scan_train",
+                                  "bilstm_scan_bwd")):
+        raise AssertionError(line + "\n" + text[-2000:])
+    return launches
+
+
+def phase_tasnet() -> dict:
+    """Phase 22: tasnet-v1, the wav-dir and timit datasets through the CLI,
+    PROFILE_STEPS (module docstring)."""
+    import shutil
+    import tempfile
+    t0 = clock = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="danet-phase22-")
+    times = {}
+    try:
+        serving = _tasnet_serving()
+        times["(a)"], clock = time.perf_counter() - clock, time.perf_counter()
+        training = _tasnet_training(tmp)
+        times["(b)"], clock = time.perf_counter() - clock, time.perf_counter()
+        wavdir = _tasnet_wavdir_cli(tmp)
+        times["(c)"], clock = time.perf_counter() - clock, time.perf_counter()
+        timit = _timit_cli(tmp)
+        times["(d)"] = time.perf_counter() - clock
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {n: serving["launches"][n] + wavdir[n] + timit[n]
+                for n in KERNELS}
+    print("phase 22 took %.1f s (%s) on %s; main-path launches %s"
+          % (time.perf_counter() - t0, ", ".join(
+              "%s %.1f s" % kv for kv in times.items()), nvidia_smi(),
+             {k: v for k, v in launches.items() if v}))
+    return {"serving": serving, "training": training, "launches": launches}
+
+
 def _bound(flops: float, nbytes: float):
     """(ms, "operations" or "bytes"): the least time of the work on the
     card, the larger of its FLOPs at the float32 peak and its bytes at the
@@ -2982,6 +3491,7 @@ def main():
     tpu_whole = phase_tpu_whole()
     checkpoints = phase_checkpoints()
     new_encoders = phase_new_encoders()
+    tasnet = phase_tasnet()
     print("summary: bilstm_scan bfloat16 max_abs_err %.3g (atol %g); "
           "serving worst error vs CPU %.3g of the peak (rtol %g), lstm-orig "
           "%.3g, gru-v1 %.3g, attn-v1 %.3g; train steps vs CPU: worst "
@@ -2990,7 +3500,8 @@ def main():
           "attn-v1 %s, %.3g; configs/tpu.json serving %.3g, training %s, "
           "%.3g; configs/tpu.json whole: ingest %.3g, 8 steps %.3g, %.3g; "
           "checkpoints: resumed bit for bit, EMA and GRAD_ACCUM steps %.3g, "
-          "%.3g"
+          "%.3g; tasnet-v1: serving %.3g, training %s, %.3g, RELU_LEAKAGE "
+          "0.3 in float64 %.3g"
           % (scan["max_abs_err"][torch.bfloat16], LSTM_ATOL[torch.bfloat16],
              serving["max_rel_err"], SERVE_RTOL,
              serving_uni["lstm-orig"]["max_rel_err"],
@@ -3005,7 +3516,10 @@ def main():
              serving_tpu["max_rel_err"], training_tpu["step_rel"],
              training_tpu["grad_rel"], tpu_whole["ingest_err"],
              tpu_whole["step_rel"], tpu_whole["grad_rel"],
-             checkpoints["step_rel"], checkpoints["grad_rel"]))
+             checkpoints["step_rel"], checkpoints["grad_rel"],
+             tasnet["serving"]["max_rel_err"],
+             tasnet["training"]["step_rel"], tasnet["training"]["grad_rel"],
+             tasnet["training"]["float64"][("cuda", "float64")][1]))
     # launches: the counts of the main paths that run each kernel, each
     # zeroed just before its path and read just after it; kernel 6 has no
     # main path and counts its own phase's comparison launches
@@ -3013,7 +3527,7 @@ def main():
              serving_attn["launches"], training_attn["launches"],
              serving_tpu["launches"], training_tpu["launches"],
              tpu_whole["launches"], checkpoints["launches"],
-             new_encoders["launches"]] + [
+             new_encoders["launches"], tasnet["launches"]] + [
         run["launches"] for run in list(serving_uni.values())
         + list(training_uni.values())]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}

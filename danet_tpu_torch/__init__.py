@@ -13,5 +13,7 @@ import danet_tpu_torch.data.dataset  # noqa: F401
 import danet_tpu_torch.data.synth  # noqa: F401
 import danet_tpu_torch.data.synth_speech  # noqa: F401
 import danet_tpu_torch.data.wsj0  # noqa: F401
+import danet_tpu_torch.data.wavdir  # noqa: F401
+import danet_tpu_torch.data.timit  # noqa: F401
 
 __version__ = "0.1.0"

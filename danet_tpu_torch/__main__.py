@@ -17,16 +17,17 @@ train`` keeps the checkpoint's learning rate unless ``-lr`` is given.
 mean metrics.  ``demo`` separates ``-if`` (or a test mixture it writes to
 ``demo.wav``) into ``*_separated_<i>.wav``; ``debug`` writes one test
 batch's inputs, encoder activations, embeddings, attractors, masks and
-outputs to ``debug/debug_data.mat``; ``interactive`` builds everything and
-returns, for ``python -i -m danet_tpu_torch -m interactive``, with the
-module's ``g_args``, ``g_model``, ``g_trainer``, ``g_state`` and
-``g_dataset`` set.  Demo and debug run at BATCH_SIZE 1.
+outputs to ``debug/debug_data.mat`` (for a waveform model, MODEL_TYPE
+tasnet-v1: the input, the mixture waveform, the basis features, each
+block's output, the masks and the separated waveforms); ``interactive``
+builds everything and returns, for ``python -i -m danet_tpu_torch -m
+interactive``, with the module's ``g_args``, ``g_model``, ``g_trainer``,
+``g_state`` and ``g_dataset`` set.  Demo and debug run at BATCH_SIZE 1.
 
 ``--stream`` (and ``--stream-chunk``, ``--stream-warmup``) and demo with
 DEMO_CHUNK_FRAMES > 0 need ``DaNet.separate_stream`` / ``separate_long``,
 which are not ported (ROADMAP.md, queue 1 item 5): they raise
-NotImplementedError.  The debug mode's waveform-model branch (MODEL_TYPE
-tasnet-v1) waits for that model's port.
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ import torch
 import danet_tpu_torch  # noqa: F401  (populates the registries)
 from danet_tpu_torch.data import audio
 from danet_tpu_torch.hparams import apply_overrides, load_config
+from danet_tpu_torch.models import DaNet
 from danet_tpu_torch.train.trainer import Trainer
 from danet_tpu_torch.weights import leaves
 
@@ -210,12 +212,25 @@ def debug_fetch(model, params: dict, src_ri: torch.Tensor) -> dict:
                 output=sep_pwr[..., None] * phase_unit[:, None], **fetches)
 
 
+@torch.no_grad()
+def debug_fetch_wave(model, params: dict, src_ri: torch.Tensor) -> dict:
+    """One batch through a waveform model (tasnet-v1) with its taps: the
+    mixture waveform, the basis features, each block's output, the masks
+    and the separated waveforms of the padded forward."""
+    fetches = {}
+    mix = torch.sum(model._src_wavs(src_ri), dim=1)
+    sep = model._separate_wav_padded(params, model._pad(mix),
+                                     tap=fetches.__setitem__)
+    return dict(fetches, mixture=mix, output=sep)
+
+
 def run_debug(args):
     import scipy.io
     hp = g_hp
     src = _draw_test_mixture(hp, g_dataset, shuffle=True)
     src_ri = torch.from_numpy(audio.to_ri(src[None])).to(g_trainer.device)
-    data = debug_fetch(g_model, g_trainer.eval_params(g_state), src_ri)
+    fetch = debug_fetch if isinstance(g_model, DaNet) else debug_fetch_wave
+    data = fetch(g_model, g_trainer.eval_params(g_state), src_ri)
     data = {k: v.detach().float().cpu().numpy() for k, v in data.items()}
     data["input"] = np.stack([src.real, src.imag], -1)
     os.makedirs("debug", exist_ok=True)

@@ -112,15 +112,19 @@ def save_wavfile(filename: str, spectra: np.ndarray, smprate: int,
                            istft_np(spectra, stride, window))
 
 
-def load_wav_raw(filename: str, smprate: int) -> np.ndarray:
+def load_wav_raw(filename: str, smprate: int, normalize: bool = True,
+                 with_dtype: bool = False):
     """WAV -> mono float32 waveform resampled to ``smprate``.
 
     Integer PCM is scaled to [-1, 1) per sample width (8-bit WAVs are
-    unsigned, centred at 128)."""
+    unsigned, centred at 128).  ``normalize=False`` keeps the samples as
+    the file stores them (8-bit ones with their +128 offset), the samples
+    ``load_wavfile`` transforms.  ``with_dtype=True`` returns ``(wav,
+    source dtype)``."""
     in_rate, data = scipy.io.wavfile.read(filename)
     dtype = data.dtype
     data = np.asarray(data, dtype=np.float64)
-    if np.issubdtype(dtype, np.integer):
+    if normalize and np.issubdtype(dtype, np.integer):
         info = np.iinfo(dtype)
         if info.min == 0:
             data = data - (info.max + 1) / 2.0
@@ -131,7 +135,8 @@ def load_wav_raw(filename: str, smprate: int) -> np.ndarray:
     if in_rate != smprate:
         data = scipy.signal.resample(
             data, int(ceil(len(data) * smprate / in_rate)))
-    return data.astype(np.float32)
+    out = data.astype(np.float32)
+    return (out, dtype) if with_dtype else out
 
 
 def save_wav_raw(filename: str, wav: np.ndarray, smprate: int,

@@ -4,3 +4,4 @@ import danet_tpu_torch.models.encoders  # noqa: F401
 import danet_tpu_torch.models.estimators  # noqa: F401
 import danet_tpu_torch.models.separators  # noqa: F401
 from danet_tpu_torch.models.danet import DaNet  # noqa: F401
+from danet_tpu_torch.models.tasnet import TasNet  # noqa: F401

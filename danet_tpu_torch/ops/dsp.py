@@ -83,17 +83,39 @@ def stft_ri(x: torch.Tensor, fft_size: int, stride: int,
     return torch.stack([frames @ wcos, frames @ wsin], dim=-1)
 
 
-def _ola_denominator(idx: torch.Tensor, window: np.ndarray, out_len: int,
-                     key: tuple) -> torch.Tensor:
-    """The overlap-add sum of window**2 at the output samples ``idx`` (the
-    frames' flattened sample indices), summed in float64 on ``idx``'s
-    device and rounded to the window's dtype, zero entries replaced by 1.
-    Built on each call: it depends on the length."""
-    dev = idx.device
+def overlap_add(frames: torch.Tensor, stride: int) -> torch.Tensor:
+    """Overlap-add of frames [..., K, win] at hop ``stride`` -> [...,
+    (K - 1) * stride + win]: frame k lands on samples k * stride onwards.
+
+    Deterministic, with no atomics: the frames, zero-padded to m = ceil(win
+    / stride) segments of ``stride`` samples, are summed as m shifted slabs
+    (segment q of frame k lands on block k + q), from q = m - 1 down to 0,
+    so that every sample adds its frames in ascending order, the order of
+    a sequential scatter-add into zeros (``index_add_`` on the CPU)."""
+    k, win = frames.shape[-2], frames.shape[-1]
+    m = -(-win // stride)
+    lead = tuple(frames.shape[:-2])
+    if m * stride != win:
+        frames = torch.nn.functional.pad(frames, (0, m * stride - win))
+    segs = frames.reshape(lead + (k, m, stride))
+    out = None
+    for q in range(m - 1, -1, -1):
+        slab = torch.nn.functional.pad(segs[..., q, :], (0, 0, q, m - 1 - q))
+        out = slab if out is None else out + slab
+    out = out.reshape(lead + ((k + m - 1) * stride,))
+    return out[..., :(k - 1) * stride + win]
+
+
+def _ola_denominator(n_used: int, stride: int, window: np.ndarray,
+                     out_len: int, key: tuple, dev) -> torch.Tensor:
+    """The overlap-add sum of window**2 over ``n_used`` frames, out to
+    ``out_len`` samples, summed in float64 and rounded to the window's
+    dtype, zero entries replaced by 1.  Built on each call: it depends on
+    the length."""
     w2 = device_constant(key + ("window-squared",),
                          lambda: np.asarray(window, np.float64) ** 2, dev)
-    wsum = torch.zeros(out_len, dtype=torch.float64, device=dev)
-    wsum.index_add_(0, idx, w2.repeat(idx.numel() // w2.numel()))
+    wsum = overlap_add(w2.expand(n_used, w2.numel()), stride)
+    wsum = torch.nn.functional.pad(wsum, (0, out_len - wsum.shape[-1]))
     wsum = torch.where(wsum != 0, wsum, torch.ones_like(wsum))
     return wsum.to(getattr(torch, str(window.dtype)))
 
@@ -101,13 +123,18 @@ def _ola_denominator(idx: torch.Tensor, window: np.ndarray, out_len: int,
 def istft_ri(spectra_ri: torch.Tensor, stride: int, window: np.ndarray,
              length: int | None = None) -> torch.Tensor:
     """Inverse STFT from ri [..., T, F, 2] -> [..., T*stride] (or
-    ``length``)."""
+    ``length``).  The overlap-add is ``overlap_add``: deterministic on the
+    card too."""
     fft_size = (spectra_ri.shape[-2] - 1) * 2
     tdt = getattr(torch, str(window.dtype))
     dev = spectra_ri.device
     out_len = spectra_ri.shape[-3] * stride
     # reference loop: range(0, out_len - fft_size, stride)
     n_used = max(0, -(-(out_len - fft_size) // stride))
+    lead = tuple(spectra_ri.shape[:-3])
+    if n_used == 0:
+        out = torch.zeros(lead + (out_len,), dtype=tdt, device=dev)
+        return out if length is None else out[..., :length]
 
     cos_b, sin_b = _idft_basis(fft_size, str(window.dtype))
     key = ("istft", fft_size, stride, window.tobytes(), str(window.dtype))
@@ -117,13 +144,9 @@ def istft_ri(spectra_ri: torch.Tensor, stride: int, window: np.ndarray,
               + im @ device_constant(key + ("sin",), lambda: sin_b, dev))
     frames = frames * device_constant(key + ("window",),
                                       lambda: np.asarray(window), dev)
-
-    idx = (torch.arange(n_used, device=dev)[:, None] * stride
-           + torch.arange(fft_size, device=dev)[None, :]).reshape(-1)
-    lead = frames.shape[:-2]
-    out = torch.zeros(lead + (out_len,), dtype=tdt, device=dev)
-    out.index_add_(-1, idx, frames.reshape(lead + (-1,)))
-    out = out / _ola_denominator(idx, window, out_len, key)
+    out = overlap_add(frames, stride)
+    out = torch.nn.functional.pad(out, (0, out_len - out.shape[-1]))
+    out = out / _ola_denominator(n_used, stride, window, out_len, key, dev)
     if length is not None:
         out = out[..., :length]
     return out

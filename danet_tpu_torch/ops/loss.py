@@ -1,10 +1,13 @@
 """Losses and metrics: permutation-invariant MSE and SI-SNR, batched SNR,
 SI-SNR, BSS-eval and the deep-clustering objective.
 
-Counterpart of ``danet_tpu/ops/loss.py:20-243,246-310,313-431,469-528``
-(``permutations_array``, ``pit_mse_loss`` with its 'gemm' and 'dense'
-methods, ``pit_mse_masked_ri``, ``unpermute``, ``batch_snr``, ``si_snr``,
-``pit_si_snr_loss``, ``bss_eval_sources``, ``dc_loss``).  The permutation
+Counterpart of ``danet_tpu/ops/loss.py:20-528`` (``permutations_array``,
+``pit_mse_loss`` with its 'gemm' and 'dense' methods,
+``pit_mse_masked_ri``, ``unpermute``, ``batch_snr``, ``si_snr``,
+``pit_si_snr_loss``, ``bss_eval_sources``, ``combinations_gather``,
+``batch_cross_snr``, ``dc_loss``).  No model calls
+``combinations_gather`` or ``batch_cross_snr``: they are public utilities
+of the package, as in JAX.  The permutation
 search is a dense product against a constant one-hot permutation stack;
 in the 'gemm' forms the cost matrix only picks the permutation and is
 computed from detached tensors (JAX's ``stop_gradient``), and the loss of
@@ -18,7 +21,7 @@ from math import prod
 import numpy as np
 import torch
 
-from danet_tpu_torch.ops.nn import device_constant
+from danet_tpu_torch.ops.nn import acc_dtype, device_constant
 
 SNR_COEFF = 4.342944819  # 10 / ln(10)
 
@@ -186,7 +189,8 @@ def pit_si_snr_loss(target_wav: torch.Tensor, estimate_wav: torch.Tensor,
     perms, onehot = _perm_onehot(n, target_wav.device)
     t = target_wav - torch.mean(target_wav, dim=-1, keepdim=True)
     e = estimate_wav - torch.mean(estimate_wav, dim=-1, keepdim=True)
-    d = torch.einsum("bil,bjl->bij", t.float(), e.float())   # [B, N, N]
+    dt = acc_dtype(t, e)
+    d = torch.einsum("bil,bjl->bij", t.to(dt), e.to(dt))     # [B, N, N]
     t_pwr = torch.sum(torch.square(t), dim=-1)                # [B, N]
     e_pwr = torch.sum(torch.square(e), dim=-1)
     proj_pwr = torch.square(d) / (t_pwr[:, :, None] + eps)
@@ -194,7 +198,8 @@ def pit_si_snr_loss(target_wav: torch.Tensor, estimate_wav: torch.Tensor,
     noise_pwr = torch.maximum(e_pwr[:, None, :] - proj_pwr,
                               proj_pwr.new_zeros(()))
     cross = 10.0 * torch.log10(proj_pwr / (noise_pwr + eps) + eps)
-    score_sets = torch.einsum("bij,pij->bp", cross, onehot) / n
+    score_sets = torch.einsum("bij,pij->bp", cross,
+                              onehot.to(cross.dtype)) / n
     perm_idx = torch.argmax(score_sets, dim=1)
     loss = -torch.mean(torch.gather(score_sets, 1, perm_idx[:, None]))
     return loss, perms, perm_idx
@@ -277,6 +282,41 @@ def bss_eval_sources(ref: torch.Tensor, est: torch.Tensor,
     return {"sdr": db(pwr(s_target), pwr(e_interf + e_artif)),
             "sir": db(pwr(s_target), pwr(e_interf)),
             "sar": db(pwr(s_target + e_interf), pwr(e_artif))}
+
+
+def combinations_gather(data: torch.Tensor,
+                        subset_size: int) -> torch.Tensor:
+    """All C(total, subset_size) subsets of the rows of ``data``, in
+    ``itertools.combinations`` order: [total, ...] -> [C, k, ...]."""
+    total = data.shape[0]
+    combs = device_constant(
+        ("combinations", total, subset_size),
+        lambda: np.asarray(list(itertools.combinations(
+            range(total), subset_size)), dtype=np.int64), data.device)
+    return data[combs]
+
+
+def batch_cross_snr(clear_signal: torch.Tensor, noisy_signal: torch.Tensor,
+                    eps: float = 1e-7,
+                    complex_ri: bool = False) -> torch.Tensor:
+    """The SNR in dB of every pair of sources, [B, m, n]: entry (b, i, j)
+    is ``batch_snr`` of clear source i against noisy source j, over the
+    axes after the source axis (with ``complex_ri``, the last one is
+    (real, imag) and is summed, not averaged)."""
+    xs = clear_signal.unsqueeze(2)                      # [B, m, 1, ...]
+    ys = noisy_signal.unsqueeze(1)                      # [B, 1, n, ...]
+    noise = xs - ys
+    if complex_ri:
+        xs, noise = (torch.sum(torch.square(v), dim=-1) for v in (xs, noise))
+    else:
+        if xs.is_complex():
+            xs, noise = xs.abs(), noise.abs()
+        xs, noise = torch.square(xs), torch.square(noise)
+    # torch.mean over dim=() would reduce every axis; JAX's reduces none
+    dims = tuple(range(3, xs.dim()))
+    sig_pwr = torch.mean(xs, dim=dims) if dims else xs
+    noise_pwr = torch.mean(noise, dim=dims) if dims else noise
+    return SNR_COEFF * (torch.log(sig_pwr + eps) - torch.log(noise_pwr + eps))
 
 
 def dc_loss(embed: torch.Tensor, src_pwr: torch.Tensor,

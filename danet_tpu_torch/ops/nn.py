@@ -12,7 +12,10 @@ algorithms (a K-step CUDA graph and eager steps sum alike) and
 ``torch.backends.cudnn.benchmark`` off, so that the algorithm cuDNN
 picks at the graph's eager warm-up is the one the capture records.
 ``mm``/``ee`` take operands in the compute dtype, accumulate in float32
-and cast the result back to the first operand's dtype.  Products of bf16
+and cast the result back to the first operand's dtype; float64 operands
+(a float64 run of the plain path, the reference of ``chip_smoke.py``
+phase 22) accumulate in float64, and so do the layer norm and the
+depthwise convolution.  Products of bf16
 values are exact in float32, so upcasting the operands and running a
 float32 product is that contract exactly.
 """
@@ -54,14 +57,27 @@ def uniform_init(generator: torch.Generator, shape, scale: float,
     return ((w * 2.0 - 1.0) * scale).to(device=device, dtype=dtype)
 
 
+def acc_dtype(*ts: torch.Tensor) -> torch.dtype:
+    """The dtype sums of these tensors accumulate in: float32, or float64
+    when one of them is float64 (a float64 run of the plain path)."""
+    dt = torch.float32
+    for t in ts:
+        dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Matmul with float32 accumulation, output in ``a``'s dtype."""
-    return torch.matmul(a.float(), b.float()).to(a.dtype)
+    """Matmul with float32 accumulation (float64 for float64 operands),
+    output in ``a``'s dtype."""
+    dt = acc_dtype(a, b)
+    return torch.matmul(a.to(dt), b.to(dt)).to(a.dtype)
 
 
 def ee(subscripts: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Einsum with float32 accumulation, output in ``a``'s dtype."""
-    return torch.einsum(subscripts, a.float(), b.float()).to(a.dtype)
+    """Einsum with float32 accumulation (float64 for float64 operands),
+    output in ``a``'s dtype."""
+    dt = acc_dtype(a, b)
+    return torch.einsum(subscripts, a.to(dt), b.to(dt)).to(a.dtype)
 
 
 def linear_init(generator: torch.Generator, idim: int, odim: int,
@@ -87,9 +103,9 @@ def linear_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
 def layer_norm(params: dict, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm over the last axis with {'g', 'b'} params: population
     variance, ``rsqrt(var + 1e-6)``.  The mean and variance are taken in
-    float32 and rounded to ``x``'s dtype, as ``jnp.mean``/``jnp.var`` do
-    for bfloat16."""
-    xf = x.float()
+    float32 (float64 for float64 ``x``) and rounded to ``x``'s dtype, as
+    ``jnp.mean``/``jnp.var`` do for bfloat16."""
+    xf = x.to(acc_dtype(x))
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
     xn = (x - mu.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + 1e-6)
@@ -218,15 +234,16 @@ def conv1d_depthwise_init(generator: torch.Generator, channels: int,
 def conv1d_depthwise_apply(params: dict, x: torch.Tensor, dilation: int = 1,
                            causal: bool = False) -> torch.Tensor:
     """Depthwise dilated convolution over axis 1 of [B, T, C] -> [B, T, C],
-    always in float32 and cast back to x's dtype.  ``causal`` pads
-    (K - 1) dilation zeros on the left; otherwise that span splits as
-    (span // 2, span - span // 2)."""
+    in float32 (float64 for float64 ``x``) and cast back to x's dtype.
+    ``causal`` pads (K - 1) dilation zeros on the left; otherwise that
+    span splits as (span // 2, span - span // 2)."""
     w = params["w"]
+    dt = acc_dtype(x)
     span = (w.shape[-1] - 1) * dilation
     pad = (span, 0) if causal else (span // 2, span - span // 2)
-    xt = torch.nn.functional.pad(x.transpose(1, 2).float(), pad)
-    y = _Conv.apply(xt, w.float(), [0], [dilation], w.shape[0])
-    y = (y + params["b"].float()[None, :, None]).to(x.dtype)
+    xt = torch.nn.functional.pad(x.transpose(1, 2).to(dt), pad)
+    y = _Conv.apply(xt, w.to(dt), [0], [dilation], w.shape[0])
+    y = (y + params["b"].to(dt)[None, :, None]).to(x.dtype)
     return y.transpose(1, 2)
 
 

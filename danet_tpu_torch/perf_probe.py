@@ -31,7 +31,9 @@ so its request is L=81,856, T=1280).  ``--attn-backend`` sets
 ATTN_BACKEND for attn-v1: 'flash' (the default here) profiles the flash
 kernels, 'xla' or 'auto' the dense attention.  ``-c`` lays config files
 over default.json and ``--key`` single keys over them (a JSON value, else
-a string): configs/tpu.json's model half is ``--encoder attn-v1 -c
+a string): ``--key MODEL_TYPE=tasnet-v1`` profiles tasnet-v1 (its
+step, and a 10 s request through ``separate_wav``); configs/tpu.json's
+model half is ``--encoder attn-v1 -c
 configs/tpu.json --key TRAIN_STEPS_PER_CALL=1 --key WATCHDOG_SECS=0 --key
 TRANSFER_DOMAIN=spectra --key TRANSFER_DTYPE=float32`` (the trainer keys
 the port refuses, at default.json's values).  Prints the device time per
@@ -244,6 +246,9 @@ def profile(encoder: str, dtype: str, attn_backend: str = "flash",
                                       COMPUTE_DTYPE=dtype,
                                       ATTN_BACKEND=attn_backend))
     model = hp.get_model()(hp)
+    # the model's name: the encoder for DaNet, else MODEL_TYPE (tasnet-v1)
+    if getattr(hp, "MODEL_TYPE", "danet") not in ("danet", None):
+        encoder = hp.MODEL_TYPE
     ds = WhiteNoiseData(hp, seed=3)
     ds.install_and_load()
     rng = np.random.RandomState(3)

@@ -29,7 +29,11 @@ per-step metrics stay on the device and are fetched once every
 METRICS_EVERY steps; every row goes to the epoch report and to the metric
 files (``train/metrics.py``).  WATCHDOG_SECS > 0 exits the process with
 WATCHDOG_EXIT_CODE when no step, valid batch or metric fetch has finished
-for that long.
+for that long.  PROFILE_STEPS = N > 0 traces N train steps with
+``torch.profiler`` (``ProfileWindow``): from the first call at or after
+the train call's starting step + 3, whole K-step calls, CPU activity and,
+on the card, CUDA activity, into ``<run dir>/profile/trace.json``; a call
+that captures a new K-step graph stays out of the window.
 
 The step options: GRAD_ACCUM = A splits a batch into A microbatches and
 takes one update on their summed gradient times 1/A; EMA_DECAY keeps an
@@ -275,6 +279,60 @@ class StepGraph:
     def __init__(self, graph, inp, scalars, out, names):
         self.graph, self.inp, self.scalars = graph, inp, scalars
         self.out, self.names = out, names
+
+
+class ProfileWindow:
+    """PROFILE_STEPS = N > 0: one ``torch.profiler`` trace of about N train
+    steps of a ``Trainer.train`` call.  It starts before the first call
+    whose step is at least ``start_step`` + 3 (the first steps warm up),
+    and stops after the call that takes the step count N past the step it
+    started at: with K-step calls, it covers whole calls.  A call that
+    captures a new K-step CUDA graph is kept out of it: the trace starts
+    after such a call, or stops before one, so that no capture runs under
+    the profiler.  CPU activity, and CUDA activity on the card (only
+    there).  ``stop`` synchronizes the card, so that the trace holds every
+    kernel of the window, and writes ``<out_dir>/trace.json`` (Chrome trace
+    format: Perfetto, chrome://tracing, TensorBoard's profiler plugin)."""
+
+    def __init__(self, steps: int, start_step: int, out_dir: str, device):
+        self.steps, self.at = steps, start_step + 3
+        self.dir, self.device = out_dir, torch.device(device)
+        self.prof, self.started, self.path = None, None, None
+
+    def before(self, step: int, captures: bool) -> None:
+        """Called before each train call at ``step``; ``captures``: the
+        call captures a new K-step graph."""
+        if self.prof is not None and captures:
+            self.stop(step)
+        elif (self.prof is None and self.path is None and step >= self.at
+              and not captures):
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts)
+            self.prof.start()
+            self.started = step
+
+    def after(self, step: int) -> None:
+        """Called after each train call, at the step it reached."""
+        if self.prof is not None and step >= self.started + self.steps:
+            self.stop(step)
+
+    def stop(self, step: int) -> None:
+        """Close the trace (if one is open) and write it."""
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self.prof = self.prof, None
+        prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self.path = os.path.join(self.dir, "trace.json")
+        prof.export_chrome_trace(self.path)
+        sys.stdout.write("\n[profile: steps %d to %d traced into %s]\n"
+                         % (self.started + 1, step, self.path))
+        sys.stdout.flush()
 
 
 class Trainer:
@@ -567,6 +625,13 @@ class Trainer:
         out = g.out.clone()
         return {n: out[:, j] for j, n in enumerate(g.names)}
 
+    def _captures(self, state: dict, k: int, stack) -> bool:
+        """Whether ``train_steps`` on this [K, ...] device stack captures a
+        new CUDA graph."""
+        return (k > 1 and self.device.type == "cuda"
+                and (tuple(stack.shape), stack.dtype)
+                not in state.get("graphs", {}))
+
     def _warm_up(self, state: dict, batch: torch.Tensor,
                  scalars: torch.Tensor) -> None:
         """One step on copies of the parameters, moments and EMA, on a
@@ -722,8 +787,9 @@ class Trainer:
         if fn is None:
             raise ValueError(
                 "TRANSFER_DOMAIN='wave' needs a wave-capable dataset "
-                "(synth, synth-speech, wsj0 expose epoch_wave); %s stores "
-                "spectra only: use the default spectra wire"
+                "(synth, synth-speech, wsj0, wav-dir and timit expose "
+                "epoch_wave); %s stores spectra only: use the default "
+                "spectra wire"
                 % type(dataset).__name__)
         if self._wire_dtype == "int16" and not for_eval:
             want = float(getattr(dataset, "WAVE_SCALE", 1.0))
@@ -901,6 +967,23 @@ class Trainer:
             print("Set learning rate to %f" % lr)
         else:
             print("Learning rate: %f" % self.get_learn_rate(state))
+        n_profile = int(getattr(hp, "PROFILE_STEPS", 0) or 0)
+        window = ProfileWindow(n_profile, int(state["step"]), os.path.join(
+            writer.run_dir, "profile"), self.device) if n_profile > 0 \
+            else None
+        try:
+            return self._epochs(state, n_epoch, dataset, save_on_epoch,
+                                valid_on_epoch, seed, writer, save_best,
+                                window)
+        finally:
+            # a preemption, a rollback or an error inside the window still
+            # leaves a closed trace
+            if window is not None:
+                window.stop(int(state["step"]))
+
+    def _epochs(self, state, n_epoch, dataset, save_on_epoch,
+                valid_on_epoch, seed, writer, save_best, window) -> dict:
+        hp = self.hp
         base_lr = self.get_learn_rate(state)
         metrics_every = int(getattr(hp, "METRICS_EVERY", 1) or 1)
         crash_factor = float(getattr(hp, "VALID_CRASH_FACTOR", 0.0) or 0.0)
@@ -955,6 +1038,8 @@ class Trainer:
             try:
                 for k, src in batches:
                     step0 = state["step"]
+                    if window is not None:
+                        window.before(step0, self._captures(state, k, src))
                     timer.start()
                     if k > 1:
                         metrics = self.train_steps(state, src)
@@ -968,6 +1053,8 @@ class Trainer:
                     self._heartbeat = time.monotonic()
                     if pending_steps >= metrics_every:
                         flush()
+                    if window is not None:
+                        window.after(state["step"])
                     sys.stdout.write(":" * k)
                     sys.stdout.flush()
                     if self._preempt:

@@ -1,7 +1,7 @@
 """The port must import without jax: the machine that runs it on the GPU
 has none.  Importing the package, its command line, serving, training,
-checkpoint, optimizer, loss, attention and profiling modules and
-chip_smoke.py in a fresh interpreter
+checkpoint, optimizer, loss, attention and profiling modules, tasnet-v1,
+the wav-dir and timit datasets and chip_smoke.py in a fresh interpreter
 must load no jax, no optax and no danet_tpu module."""
 import os
 import subprocess
@@ -21,6 +21,8 @@ def test_torch_port_imports_no_jax():
             "danet_tpu_torch.train.checkpoint, "
             "danet_tpu_torch.optim, danet_tpu_torch.ops.loss, "
             "danet_tpu_torch.ops.cuda.attention, danet_tpu_torch.perf_probe, "
+            "danet_tpu_torch.models.tasnet, danet_tpu_torch.data.wavdir, "
+            "danet_tpu_torch.data.timit, "
             "chip_smoke, sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'optax', 'danet_tpu')]; assert not bad, bad")

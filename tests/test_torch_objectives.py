@@ -3,8 +3,9 @@
 EVAL_SI_SNR) and the other training options, against the JAX package on
 the CPU with the same weights and the same numpy inputs.
 
-Covered: ``ops/loss.py``'s ``si_snr``, ``pit_si_snr_loss``, ``dc_loss``,
-``bss_eval_sources`` and ``pit_mse_loss(method='dense')``; the ``truth``,
+Covered: ``ops/loss.py``'s ``combinations_gather``, ``batch_cross_snr``,
+``si_snr``, ``pit_si_snr_loss``, ``dc_loss``, ``bss_eval_sources`` and
+``pit_mse_loss(method='dense')``; the ``truth``,
 ``truth-threshold`` and ``kmeans`` estimators; ``DaNet.train_loss`` under
 each option (kmeans with ANCHOR_AUX_LOSS, DC_LOSS_WEIGHT with both weight
 types, 'pit-si-snr' alone and with the auxiliary, REG_APPLY with L1 and
@@ -102,6 +103,44 @@ def _models(hp_jax, **keys):
 
 
 # ------------------------------------------------------------- ops/loss.py
+@pytest.mark.parametrize("total,k", [(5, 2), (4, 3), (3, 1), (2, 3)])
+def test_torch_combinations_gather_matches_jax(total, k):
+    """(test_loss.py:135) Every k-subset of the rows, in
+    itertools.combinations order, equal to JAX's (none when k > total)."""
+    data = np.random.RandomState(total).randn(total, 2, 3).astype(np.float32)
+    got = tloss.combinations_gather(_t(data), k).numpy()
+    want = np.asarray(jloss.combinations_gather(jnp.asarray(data), k))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["real", "complex", "ri"])
+def test_torch_batch_cross_snr_matches_jax(kind):
+    """(test_loss.py:145) The pairwise SNR matrix [B, m, n] of real,
+    complex and ri stacks against JAX's, 1e-6; its diagonal is
+    ``batch_snr`` of each source."""
+    rs = np.random.RandomState(6)
+    shape = (3, 2, 8, 4, 2) if kind == "ri" else (3, 2, 8, 4)
+    clear = rs.randn(*shape)
+    noisy = clear + 0.2 * rs.randn(*shape)
+    if kind == "complex":
+        clear = clear + 1j * rs.randn(*shape)
+        noisy = noisy + 1j * rs.randn(*shape)
+    clear, noisy = (x.astype(np.complex64 if kind == "complex"
+                             else np.float32) for x in (clear, noisy))
+    ri = kind == "ri"
+    got = tloss.batch_cross_snr(torch.from_numpy(clear),
+                                torch.from_numpy(noisy), complex_ri=ri)
+    want = jloss.batch_cross_snr(jnp.asarray(clear), jnp.asarray(noisy),
+                                 complex_ri=ri)
+    assert tuple(got.shape) == want.shape == (3, 2, 2)
+    _close(got, want, **FWD)
+    for i in range(2):
+        diag = tloss.batch_snr(torch.from_numpy(clear[:, i]),
+                               torch.from_numpy(noisy[:, i]), complex_ri=ri)
+        _close(got[:, i, i], diag, **FWD)
+
+
 def test_torch_si_snr_matches_jax(fresh_hparams):
     rs = np.random.RandomState(0)
     x = rs.randn(3, 2, 500).astype(np.float32)

@@ -1,6 +1,7 @@
 """PyTorch port, the trainer's host path: prepare_batch_wave, the wire
 casts and ingest, the wire's refusals, TRAIN_STEPS_PER_CALL on the CPU,
-METRICS_EVERY and the metric files, the prefetch thread, the hang
+METRICS_EVERY and the metric files, PROFILE_STEPS' trace, the prefetch
+thread, the hang
 watchdog, and the CLI on configs/tpu.json over a wsj0 fixture; against
 the JAX package on the CPU where it has a counterpart.
 
@@ -277,6 +278,64 @@ def test_torch_metrics_rows_independent_of_metrics_every(tmp_path):
     assert "valid/loss" in ref[-1]
     for rows in runs[1:]:
         assert rows == ref
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_torch_profile_steps_writes_a_trace(tmp_path, capsys, k):
+    """PROFILE_STEPS=2: Trainer.train on the CPU writes a torch.profiler
+    trace (Chrome JSON, CPU op events) to <run dir>/profile/trace.json,
+    from the first call that starts 3 steps or more into the run: the
+    4th and 5th steps of the toy epoch's 10, or with 2-step calls the
+    call of the 5th and 6th (whole calls); metrics.jsonl's rows equal
+    those of a run without it."""
+    rows, traces = {}, {}
+    for n in (0, 2):
+        logs = tmp_path / ("logs%d" % (k + 2 * n))
+        hp = load_config(BATCH_SIZE=2, MAX_TRAIN_LEN=16, PROFILE_STEPS=n,
+                         TRAIN_STEPS_PER_CALL=k, SUMMARY_DIR=str(logs))
+        tr = Trainer(DaNet(hp), hp, "cpu")
+        ds = WhiteNoiseData(hp)
+        ds.install_and_load()
+        capsys.readouterr()
+        tr.train(1, ds, save_on_epoch=False, valid_on_epoch=False)
+        out = capsys.readouterr().out
+        rows[n] = _train_rows(tmp_path, k + 2 * n)
+        (run_dir,) = os.listdir(str(logs))
+        traces[n] = os.path.join(str(logs), run_dir, "profile",
+                                 "trace.json")
+    assert not os.path.exists(traces[0])
+    assert len(rows[0]) == 10 and rows[2] == rows[0]
+    assert "[profile: steps %s traced into %s]" % (
+        "4 to 5" if k == 1 else "5 to 6", traces[2]) in out
+    with open(traces[2]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+
+
+def test_torch_profile_window_keeps_captures_out(tmp_path):
+    """ProfileWindow: nothing before start + 3; a call that captures a new
+    CUDA graph neither opens the window nor runs inside it (the trace is
+    closed before it); one window per train call; a K-step call that
+    overshoots the count is traced whole."""
+    w = trainer_mod.ProfileWindow(2, 0, str(tmp_path / "a"), "cpu")
+    w.before(0, False)
+    w.before(3, True)
+    assert w.prof is None
+    w.before(4, False)
+    assert w.prof is not None and w.started == 4
+    w.after(5)
+    assert w.prof is not None
+    w.before(5, True)
+    assert w.prof is None and os.path.exists(w.path)
+    w.before(9, False)
+    assert w.prof is None
+    w = trainer_mod.ProfileWindow(2, 10, str(tmp_path / "b"), "cpu")
+    w.before(12, False)
+    assert w.prof is None
+    w.before(13, False)
+    w.after(21)
+    assert w.prof is None and w.path == str(tmp_path / "b" / "trace.json")
+    w.stop(21)
 
 
 # -------------------------------------------------- prefetch, watchdog
