@@ -333,11 +333,43 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    under a 1e-13 input change and recorded, and the same step at
    ANCHOR_AUX_LOSS 0, the leaky ReLUs as written, is held.
 
+24. causal streaming and long-form separation.  (a) kernel 1's state
+   entry (lstm_scan with return_state: c0 in float32, and the final cell
+   state c_T written in float32, the kernel's own carry) against its plain
+   version at lstm-orig's H=600, T in 1, 64 and 1251 at B=1 and 4 and
+   (T=128, B=32), and at dprnn-v1's inter shape H=128, (T=1, B=64) one
+   stream chunk, (T=3, B=4096) and (T=3, B=8192), which crosses the row
+   ceiling: its c_T comes from two launches; nonzero c0 and h0, tanh and
+   identity candidates (H=128: tanh), float32 at LSTM_ATOL on hs and c_T,
+   bfloat16 at phase 4's bound on hs and phase 6's on c_T; its hs bit for
+   bit the lean entry's; the state entry's time beside the lean one's,
+   the plain version's, nn.LSTM's and the bound; then kernel 4f's carry,
+   cs[-1] from a nonzero c0 at H=600, T=1251, B=1.  (b) through
+   serve.load_streamer at full width, float32, seeded random weights
+   (_init): lstm-orig (4 x 600), gru-v1 (4 x 600), causal attn-v1 and
+   causal moe-v1 (phase 23's keys, ATTN_LOOKBACK 128), tcn-v1
+   (configs/tcn.json's keys with TCN_CAUSAL) and dprnn-v1 (configs/
+   dprnn.json's with DPRNN_INTER_CAUSAL and DPRNN_HOP 64): a 16,384-sample
+   warm-up, then 16 feeds of 4096 samples (64 frames) to 10.24 s at B=1,
+   after one such stream as a warm-up; the stream against the CPU's at
+   SERVE_RTOL of the peak and against the card's own with 1024-sample
+   chunks (dprnn-v1: 8192) at JAX's chunk-invariance bound; each feed's
+   launches (kernel 1 per lstm-orig layer, 4f per gru-v1 layer, kernels B
+   and 1 per dprnn-v1 block; none for the others) and no plain scan; the
+   median and p90 ms per feed and the real-time factor beside the card's
+   name and power limit.  (c) separate_long with bilstm-orig at full
+   width on a 60 s mixture, chunks of 256 frames overlapping by 32 (34
+   chunks in one batch: kernel B once per layer) against the CPU at
+   SERVE_RTOL of the peak, and its time.  (d) the CLI: -m train -ds toy
+   -ne 1, then -m demo -if a 4 s int16 WAV with --stream (lstm-orig) and
+   with --set DEMO_CHUNK_FRAMES=64 (bilstm-orig), on the card and with
+   --device cpu from the same checkpoint: the WAVs within one int16 step.
+
 The kernel summary lists all fourteen kernels; its launches count the
 main paths of phases 5, 7, 10, 11, 14, 15, 17, 18, 19, 20 (20: (a),
 (c), (d)'s resume and (e)), 21 ((b) and (c)'s card-vs-CPU part), 22
-((a), (c) and (d)) and 23 (every serving and card-vs-CPU training part,
-the CLI).
+((a), (c) and (d)), 23 (every serving and card-vs-CPU training part,
+the CLI) and 24 ((b)'s timed streams, (c) and (d)'s demos on the card).
 bound_ms is the least time the card could take for the work of the timed
 call: the larger of its bytes (each input read once, each output written
 once) over 3.35 TB/s and
@@ -3732,6 +3764,410 @@ def phase_causal_moe() -> dict:
             "moe": moe, "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 24
+# (a) kernel 1's state entry (lstm_scan with return_state): (T, B) at
+# lstm-orig's H=600, then at dprnn-v1's inter shape H=128 (T=1: one stream
+# chunk of 64 frames is one segment, B = DPRNN_CHUNK rows; T=3 at 4096 and
+# 8192 rows, the second above the float32 row ceiling of 5968: its c_T
+# comes from two launches)
+CARRY_SHAPES = {600: ((1, 1), (64, 1), (1251, 1), (1, 4), (64, 4),
+                      (1251, 4), (128, 32)),
+                128: ((1, 64), (3, 4096), (3, 8192))}
+# (b) streaming: a 16,384-sample warm-up (256 frames, whole 64-frame
+# segments for dprnn-v1), then 16 chunks of 4096 samples (64 frames) to
+# 10.24 s at B=1; the chunk-size check against chunks of 1024 samples (16
+# frames; dprnn-v1: 8192, 128 frames)
+STREAM_WARMUP = 16384
+STREAM_CHUNK = 4096
+STREAM_FEEDS = 16
+STREAM_OTHER = {"dprnn-v1": 8192}
+# JAX's chunk-invariance bound (tests/test_modules.py:676)
+INVARIANCE_TOL = (2e-5, 1e-4)
+# (c) separate_long with bilstm-orig: a 60 s mixture, demo's chunking
+LONG_SECONDS = 60
+LONG_CHUNK, LONG_OVERLAP = 256, 32
+
+
+def _stream_keys() -> dict:
+    """(b): each causal encoder's keys, float32: lstm-orig and gru-v1 at
+    default.json's widths; attn-v1 and moe-v1 at phase 23's (CAUSAL,
+    configs/moe-ep.json on one card); tcn-v1 and dprnn-v1 at their config
+    files' keys with TCN_CAUSAL, and DPRNN_INTER_CAUSAL with DPRNN_HOP 64
+    (= DPRNN_CHUNK: the online variant)."""
+    keys = {"lstm-orig": {}, "gru-v1": {}, "attn-v1": dict(CAUSAL),
+            "moe-v1": _moe_keys(**CAUSAL),
+            "tcn-v1": dict(_v2_keys("tcn-v1"), TCN_CAUSAL=True),
+            "dprnn-v1": dict(_v2_keys("dprnn-v1"), DPRNN_INTER_CAUSAL=True,
+                             DPRNN_HOP=64)}
+    return {enc: dict(k, ENCODER_TYPE=enc, COMPUTE_DTYPE="float32")
+            for enc, k in keys.items()}
+
+
+def _carry_inputs(rs, t, b, h, dtype):
+    """Layer-shaped inputs of one one-direction layer (I = H, lstm-orig's
+    init scale and gate bias), a nonzero c0 in float32 (the state entry's
+    carry; values of the storage dtype, so that the lean entry takes the
+    same c0) and a nonzero h0."""
+    scale = 1.15 / np.sqrt(h)
+    x = rs.randn(t * b, h).astype(np.float32) * 0.5
+    wx = rs.uniform(-scale, scale, (h, 4 * h)).astype(np.float32)
+    bias = np.repeat(np.array([0.0, 1.5, -1.0, 1.0], np.float32), h)
+    xp, wh, h0 = _cuda(((x @ wx + bias).reshape(t, b, 4 * h),
+                        rs.uniform(-scale, scale, (h, 4 * h)),
+                        rs.uniform(-0.5, 0.5, (b, h))), dtype)
+    c0 = torch.from_numpy((rs.randn(b, h) * 0.5).astype(np.float32)).cuda()
+    return xp, wh, c0.to(dtype).float(), h0
+
+
+def _carry_kernels() -> dict:
+    """(a) kernel 1's state entry against its plain version: hs and the
+    float32 c_T (float32 at LSTM_ATOL, bfloat16 at phase 4's bounds on hs
+    and phase 6's forward bounds on c_T, an unbounded f32 carry), and its
+    hs bit for bit the lean entry's from the same inputs; the launches of
+    each call; in float32 the state entry's time beside the lean one's,
+    nn.LSTM's and the bound.  Then kernel 4f's last row from a nonzero c0
+    (gru-v1's carry) against its plain version."""
+    rs = np.random.RandomState(24)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    times = {}
+    for h, shapes in CARRY_SHAPES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            for tanh in (True, False):
+                for t, b in shapes:
+                    if h == 128 and not tanh:
+                        continue            # dprnn-v1's cell: tanh only
+                    xp, wh, c0, h0 = _carry_inputs(rs, t, b, h, dt)
+                    before = cuda_lstm.lstm_scan.launches
+                    hs, c_t = cuda_lstm.lstm_scan(xp, wh, c0, h0, tanh,
+                                                  return_state=True)
+                    n = cuda_lstm.lstm_scan.launches - before
+                    lean = cuda_lstm.lstm_scan(xp, wh, c0.to(dt), h0, tanh)
+                    ref_hs, ref_c = cuda_lstm.lstm_scan_plain(
+                        xp, wh, c0, h0, tanh, return_state=True)
+                    torch.cuda.synchronize()
+                    tag = "H=%d %s" % (h, _tag(dt, tanh, t, b))
+                    c_tol = (LSTM_ATOL[dt], 0.0) if dt == torch.float32 \
+                        else TRAIN_FWD_TOL[dt]
+                    parts = _check_kernels(24, tag, dt, (
+                        ("lstm_scan", ("hs",), (hs,), (ref_hs,),
+                         (LSTM_ATOL[dt], 0.0)),
+                        ("lstm_scan", ("c_T",), (c_t,), (ref_c,), c_tol)),
+                        {})
+                    worst[dt] = max(worst[dt], max_err(hs, ref_hs),
+                                    max_err(c_t, ref_c))
+                    same = torch.equal(hs, lean)
+                    line = ("phase 24 (a) lstm_scan state %s: max_abs_err %s "
+                            "(c_T float32 %s); %d launch%s; hs %s the lean "
+                            "entry's" % (tag, ", ".join(parts),
+                                         tuple(c_t.shape), n,
+                                         "es" if n > 1 else "",
+                                         "bit for bit" if same else "NOT"))
+                    if not same or c_t.dtype != torch.float32 or n != \
+                            -(-b // cuda_lstm.max_rows(xp.device, h, dt,
+                                                        "lean")):
+                        raise AssertionError(line)
+                    if dt == torch.float32 and tanh and (
+                            (t, b) in ((1251, 1), (64, 1), (1, 64))):
+                        state_ms = cuda_ms(lambda: cuda_lstm.lstm_scan(
+                            xp, wh, c0, h0, True, return_state=True), 20)
+                        lean_ms = cuda_ms(lambda: cuda_lstm.lstm_scan(
+                            xp, wh, c0.to(dt), h0, True), 20)
+                        plain_ms = cuda_ms(lambda: cuda_lstm.lstm_scan_plain(
+                            xp, wh, c0, h0, True, return_state=True), 2)
+                        lib_ms = _nn_lstm_ms(rs, t, b, h, h, 1)[0]
+                        bound = _bound(*_cost("lstm_scan", t, b, h))
+                        times[(h, t, b)] = (state_ms, lean_ms, plain_ms,
+                                            lib_ms, bound)
+                        line += ("; state %.4f ms, lean %.4f ms, plain %.4f "
+                                 "ms, nn.LSTM %.4f ms, bound %.5f ms (%s)"
+                                 % (state_ms, lean_ms, plain_ms, lib_ms,
+                                    *bound))
+                    print(line)
+    gx, cx, wgh, wch, c0, _ = _gru_inputs(rs, 1251, 1, torch.float32)
+    cs = cuda_gru.gru_scan(gx, cx, wgh, wch, c0)
+    ref = cuda_gru.gru_scan_plain(gx, cx, wgh, wch, c0)
+    err = max_err(cs[-1], ref[-1])
+    line = ("phase 24 (a) gru_scan H=600 float32 T=1251 B=1 from a nonzero "
+            "c0: the carry cs[-1] max_abs_err %.3g (atol %g)"
+            % (err, LSTM_ATOL[torch.float32]))
+    print(line)
+    if not err <= LSTM_ATOL[torch.float32]:
+        raise AssertionError(line)
+    return {"max_abs_err": worst, "times": times}
+
+
+class _PlainScans:
+    """Counts the plain LSTM and GRU scans run while it is entered (every
+    plain forward of ops/cuda/lstm.py and gru.py goes through their
+    ``_scan_plain``)."""
+
+    def __enter__(self):
+        self.calls = 0
+        self.saved = [(m, m._scan_plain) for m in (cuda_lstm, cuda_gru)]
+        for mod, fn in self.saved:
+            def counted(*a, _fn=fn, **kw):
+                self.calls += 1
+                return _fn(*a, **kw)
+            mod._scan_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn in self.saved:
+            mod._scan_plain = fn
+
+
+def _stream_feed_launches(model, frames: int) -> dict:
+    """The kernel launches of one feed of ``frames`` frames at B=1: kernel
+    1 per lstm-orig layer, 4f per gru-v1 layer, kernels B (the segments'
+    rows) and 1 (DPRNN_CHUNK rows) per dprnn-v1 block, each split where it
+    exceeds its row ceiling; none for attn-v1, moe-v1 and tcn-v1 (GEMMs
+    and convolutions: no TPU kernel on their paths)."""
+    enc = model.encoder
+    want = {name: 0 for name in KERNELS}
+    dt = getattr(torch, model.hp.COMPUTE_DTYPE)
+
+    def add(counts):
+        for name, v in counts.items():
+            want[name] += v
+    if isinstance(enc, encoders.LstmEncoder):
+        for _ in range(enc.N_LAYERS):
+            add(_lstm_launches(1, enc.HDIM, dt, False, 1))
+    elif isinstance(enc, encoders.GruEncoder):
+        want["gru_scan"] = enc.N_LAYERS
+    elif isinstance(enc, encoders.DprnnEncoder):
+        _, h, p, _, blocks, _ = enc._dims()
+        for _ in range(blocks):
+            add(_lstm_launches(frames // p, h, dt, False, 2))
+            add(_lstm_launches(p, h, dt, False, 1))
+    return want
+
+
+def _stream_run(streamer, wav, timed=False):
+    """start on the warm-up, then feed every chunk: -> (the samples
+    [N, L], ms per feed); with ``timed``, each feed's launches are checked
+    against ``_stream_feed_launches``."""
+    w, c = streamer.warmup_samples, streamer.chunk_samples
+    outs = [streamer.start(wav[:w])[0]]
+    want = _stream_feed_launches(streamer.model,
+                                 c // streamer.hp.FFT_STRIDE)
+    ms = []
+    for lo in range(w, len(wav), c):
+        before = _counts()
+        t0 = time.perf_counter()
+        outs.append(streamer.feed(wav[lo:lo + c])[0])   # numpy: synced
+        ms.append((time.perf_counter() - t0) * 1e3)
+        got = {k: v - before[k] for k, v in _counts().items()}
+        if timed and got != want:
+            raise AssertionError("phase 24 (b) a feed launched %s, want %s"
+                                 % (got, want))
+    return np.concatenate(outs, axis=-1), ms
+
+
+def _stream_cells(tmp: str) -> dict:
+    """(b) each causal encoder at full width through serve.load_streamer
+    (seeded random weights, as _init, saved with weights.save_npz): the
+    card's stream (after a warm-up stream) against the CPU's at SERVE_RTOL
+    of the peak, against the card's own at another chunk size at
+    INVARIANCE_TOL, each feed's launches counted and no plain scan run;
+    the median and p90 ms per feed and the real-time factor."""
+    from danet_tpu_torch import serve
+    out = {}
+    n = STREAM_WARMUP + STREAM_FEEDS * STREAM_CHUNK
+    for enc, keys in _stream_keys().items():
+        hp = load_config(**keys)
+        model = hp.get_model()(hp)
+        path = os.path.join(tmp, "stream-%s.npz" % enc)
+        weights.save_npz(path, _init(model))
+        cfg = os.path.join(tmp, "stream-%s.json" % enc)
+        with open(cfg, "w") as f:
+            json.dump(keys, f)
+        wav = _mixture(np.random.RandomState(240), 1, n)[0]
+
+        def load(device, chunk=STREAM_CHUNK):
+            return serve.load_streamer(path, [cfg], chunk, STREAM_WARMUP,
+                                       device)
+        gpu = load("cuda")
+        _stream_run(gpu, wav)                          # warm-up stream
+        _zero_counts()
+        with _PlainScans() as plain:
+            got, ms = _stream_run(gpu, wav, timed=True)
+        launches = _counts()
+        other_chunk = STREAM_OTHER.get(enc, 1024)
+        other, _ = _stream_run(load("cuda", other_chunk), wav)
+        ref, _ = _stream_run(load("cpu"), wav)
+        peak = float(np.abs(ref).max())
+        err = float(np.abs(got - ref).max())
+        inv = float(np.abs(other - got).max())
+        inv_ratio = float((np.abs(other - got) / (
+            INVARIANCE_TOL[0] + INVARIANCE_TOL[1] * np.abs(got))).max())
+        med, p90 = float(np.median(ms)), float(np.percentile(ms, 90))
+        rtf = (1e3 * STREAM_CHUNK / SMPRATE) / med
+        line = ("phase 24 (b) stream %s (%s, estimator %s): warm-up %d + "
+                "%d x %d "
+                "samples (%.2f s) at B=1, out %s; vs CPU max_abs_err %.3g "
+                "(peak %.3g, rtol %g); %d-sample chunks vs %d: max_abs_err "
+                "%.3g (atol %g + rtol %g: %.3g of the bound; %.3g of the "
+                "peak, bound %g); launches %s, "
+                "plain scans %d; per feed median %.3f ms, p90 %.3f ms, "
+                "real-time factor %.1f (chunk %.1f ms / feed) on %s"
+                % (enc, _describe(hp, model.encoder),
+                   hp.INFER_ESTIMATOR_METHOD, STREAM_WARMUP, STREAM_FEEDS,
+                   STREAM_CHUNK, n / SMPRATE, got.shape, err, peak,
+                   SERVE_RTOL, other_chunk, STREAM_CHUNK, inv,
+                   *INVARIANCE_TOL, inv_ratio, inv / peak, SERVE_RTOL,
+                   {k: v for k, v in launches.items() if v}, plain.calls,
+                   med, p90, rtf, 1e3 * STREAM_CHUNK / SMPRATE,
+                   nvidia_smi()))
+        print(line)
+        if got.shape != (hp.MAX_N_SIGNAL, n) or not np.all(np.isfinite(got)) \
+                or not err <= SERVE_RTOL * peak or not inv_ratio <= 1.0 \
+                or not inv <= SERVE_RTOL * peak or plain.calls:
+            raise AssertionError(line)
+        out[enc] = {"launches": launches, "max_rel_err": err / peak,
+                    "invariance": inv_ratio, "feed_ms": (med, p90),
+                    "rtf": rtf}
+    return out
+
+
+def _separate_long() -> dict:
+    """(c) bilstm-orig at full width, separate_long on a 60 s mixture
+    (DEMO_CHUNK_FRAMES 256, DEMO_OVERLAP_FRAMES 32: 34 chunks in one
+    batch, kernel B once per layer at B = 34) against the CPU at
+    SERVE_RTOL of the peak, and its time on the card."""
+    hp = load_config(ENCODER_TYPE="bilstm-orig")
+    model = hp.get_model()(hp)
+    params = _init(model)
+    gpu = weights.from_jax(params, "cuda")
+    wav = torch.from_numpy(_mixture(np.random.RandomState(241), 1,
+                                    LONG_SECONDS * SMPRATE))
+    mix_ri = dsp.stft_ri(wav, hp.FFT_SIZE, hp.FFT_STRIDE,
+                         hp.FFT_WND_ARRAY)[0]                 # CPU, plain
+    t = mix_ri.shape[0]
+    n_chunks = max(1, -(-(t - LONG_OVERLAP) // (LONG_CHUNK - LONG_OVERLAP)))
+    x = mix_ri.cuda()
+    with torch.inference_mode():
+        model.separate_long(gpu, x, LONG_CHUNK, LONG_OVERLAP)   # warm-up
+        torch.cuda.synchronize()
+        _zero_counts()
+        with _PlainScans() as plain:
+            t0 = time.perf_counter()
+            out = model.separate_long(gpu, x, LONG_CHUNK, LONG_OVERLAP)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = _counts()
+        ref = model.separate_long(params, mix_ri, LONG_CHUNK, LONG_OVERLAP)
+    out = out.cpu()
+    peak = float(ref.abs().max())
+    err = max_err(out, ref)
+    want = dict({k: 0 for k in KERNELS}, bilstm_scan=-(-n_chunks // max(
+        cuda_lstm.max_rows(x.device, 300, torch.float32, "lean"), 1))
+        * model.encoder.N_LAYERS)
+    line = ("phase 24 (c) separate_long bilstm-orig %s, %d s (T=%d): %d "
+            "chunks of %d frames overlapping by %d in one batch, out %s, "
+            "%.3f ms on %s; vs CPU max_abs_err %.3g (peak %.3g, rtol %g); "
+            "launches %s, plain scans %d"
+            % (_describe(hp, model.encoder), LONG_SECONDS, t, n_chunks,
+               LONG_CHUNK, LONG_OVERLAP, tuple(out.shape), ms, nvidia_smi(),
+               err, peak, SERVE_RTOL,
+               {k: v for k, v in launches.items() if v}, plain.calls))
+    print(line)
+    if tuple(out.shape) != (hp.MAX_N_SIGNAL, t, hp.FEATURE_SIZE, 2) \
+            or not torch.isfinite(out).all() or not err <= SERVE_RTOL * peak \
+            or launches != want or plain.calls:
+        raise AssertionError(line)
+    return {"launches": launches, "max_rel_err": err / peak, "ms": ms,
+            "chunks": n_chunks}
+
+
+def _stream_cli(tmp: str) -> dict:
+    """(d) the CLI: -m train -ds toy -ne 1 (lstm-orig, then bilstm-orig),
+    then -m demo -if a 4 s int16 WAV with --stream (lstm-orig) and with
+    --set DEMO_CHUNK_FRAMES=64 (bilstm-orig) on the card and on the CPU
+    (--device cpu) from the same checkpoint: the separated WAVs (in the
+    input's int16 scale) within one int16 step of each other."""
+    import scipy.io.wavfile
+    x = _mixture(np.random.RandomState(242), 1, 4 * SMPRATE)[0]
+    pcm = np.round(x * 16000).astype(np.int16)
+    total = {k: 0 for k in KERNELS}
+    steps = {}
+    for enc, extra in (("lstm-orig", ["--stream"]),
+                       ("bilstm-orig", ["--set", "DEMO_CHUNK_FRAMES=64"])):
+        cfg = os.path.join(tmp, "cli-%s.json" % enc)
+        with open(cfg, "w") as f:
+            json.dump({"ENCODER_TYPE": enc}, f)
+        ckpt = os.path.join(tmp, "cli-%s-ckpt" % enc)
+        _port_cli(["-m", "train", "-ds", "toy", "-ne", "1", "-c", cfg, "-o",
+                   ckpt, "--no-save-on-epoch", "--no-valid-on-epoch"], tmp)
+        wavs = {}
+        for dev in ("cuda", "cpu"):
+            name = os.path.join(tmp, "cli-%s-%s.wav" % (enc, dev))
+            scipy.io.wavfile.write(name, SMPRATE, pcm)
+            argv = ["-m", "demo", "-c", cfg, "-i", ckpt, "-if", name] \
+                + extra + ["--device", dev]
+            if dev == "cuda":
+                text, launches, _ = _main_path(
+                    lambda: _port_cli(argv, tmp), per_step={})
+            else:
+                text = _port_cli(argv, tmp)
+            base = os.path.splitext(name)[0]
+            wavs[dev] = [scipy.io.wavfile.read(
+                "%s_separated_%d.wav" % (base, i))[1] for i in (1, 2)]
+        steps[enc] = max(float(np.abs(a - b).max())
+                         for a, b in zip(wavs["cuda"], wavs["cpu"]))
+        peak = max(float(np.abs(b).max()) for b in wavs["cpu"])
+        line = ("phase 24 (d) CLI %s: -m demo -if <4 s int16 WAV> %s, card "
+                "vs --device cpu from one checkpoint: %s, max |card - CPU| "
+                "%.3g int16 steps (bound 1; peak %.1f); launches %s"
+                % (enc, " ".join(extra), [w.shape for w in wavs["cuda"]],
+                   steps[enc], peak,
+                   {k: v for k, v in launches.items() if v}))
+        print(line)
+        kernel = "lstm_scan" if enc == "lstm-orig" else "bilstm_scan"
+        if [w.shape for w in wavs["cuda"]] != [w.shape for w in wavs["cpu"]] \
+                or not steps[enc] <= 1.0 or not launches[kernel] \
+                or not np.all(np.isfinite(wavs["cuda"])):
+            raise AssertionError(line + "\n" + text[-2000:])
+        for k in KERNELS:
+            total[k] += launches[k]
+    return {"launches": total, "int16_steps": steps}
+
+
+def phase_streaming() -> dict:
+    """Phase 24: kernel 1's final carry, causal streaming and long-form
+    separation at full width, and the demo's two modes (module
+    docstring)."""
+    import shutil
+    import tempfile
+    t0 = clock = time.perf_counter()
+    times = {}
+    tmp = tempfile.mkdtemp(prefix="danet-phase24-")
+    try:
+        carry = _carry_kernels()
+        times["(a)"], clock = time.perf_counter() - clock, time.perf_counter()
+        print("phase 24 (b) keys: %s" % json.dumps(_stream_keys()))
+        cells = _stream_cells(tmp)
+        times["(b)"], clock = time.perf_counter() - clock, time.perf_counter()
+        long_form = _separate_long()
+        times["(c)"], clock = time.perf_counter() - clock, time.perf_counter()
+        cli = _stream_cli(tmp)
+        times["(d)"] = time.perf_counter() - clock
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs = [c["launches"] for c in cells.values()] + [
+        long_form["launches"], cli["launches"]]
+    launches = {n: sum(r[n] for r in runs) for n in KERNELS}
+    print("phase 24 took %.1f s (%s) on %s; main-path launches %s"
+          % (time.perf_counter() - t0, ", ".join(
+              "%s %.1f s" % kv for kv in times.items()), nvidia_smi(),
+             {k: v for k, v in launches.items() if v}))
+    for name in ("lstm_scan", "gru_scan", "bilstm_scan"):
+        if not launches[name]:
+            raise AssertionError("phase 24: %s must run on its main paths: "
+                                 "%s" % (name, launches))
+    return {"carry": carry, "cells": cells, "long": long_form, "cli": cli,
+            "launches": launches}
+
+
 def _bound(flops: float, nbytes: float):
     """(ms, "operations" or "bytes"): the least time of the work on the
     card, the larger of its FLOPs at the float32 peak and its bytes at the
@@ -3905,6 +4341,7 @@ def main():
     new_encoders = phase_new_encoders()
     tasnet = phase_tasnet()
     causal_moe = phase_causal_moe()
+    streaming = phase_streaming()
     print("summary: bilstm_scan bfloat16 max_abs_err %.3g (atol %g); "
           "serving worst error vs CPU %.3g of the peak (rtol %g), lstm-orig "
           "%.3g, gru-v1 %.3g, attn-v1 %.3g; train steps vs CPU: worst "
@@ -3957,6 +4394,15 @@ def main():
              causal_moe["moe"]["training"]["routed"]["grad_rel"],
              causal_moe["moe"]["training"]["flash"]["step_rel"],
              causal_moe["moe"]["training"]["flash"]["grad_rel"]))
+    print("summary, phase 24: kernel 1 with its final carry max_abs_err "
+          "float32 %.3g, bfloat16 %.3g; streams vs CPU (of the peak) %s; "
+          "separate_long %.3g; demo card vs CPU (int16 steps) %s"
+          % (streaming["carry"]["max_abs_err"][torch.float32],
+             streaming["carry"]["max_abs_err"][torch.bfloat16],
+             {k: "%.3g" % v["max_rel_err"]
+              for k, v in streaming["cells"].items()},
+             streaming["long"]["max_rel_err"],
+             streaming["cli"]["int16_steps"]))
     # launches: the counts of the main paths that run each kernel, each
     # zeroed just before its path and read just after it; kernel 6 has no
     # main path and counts its own phase's comparison launches
@@ -3965,7 +4411,7 @@ def main():
              serving_tpu["launches"], training_tpu["launches"],
              tpu_whole["launches"], checkpoints["launches"],
              new_encoders["launches"], tasnet["launches"],
-             causal_moe["launches"]] + [
+             causal_moe["launches"], streaming["launches"]] + [
         run["launches"] for run in list(serving_uni.values())
         + list(training_uni.values())]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}
@@ -4038,6 +4484,12 @@ def main():
                 "L" if name.startswith("stft") else "T", t, b,
                 "H=%d, D=%d, " % (ATTN_H, ATTN_D)
                 if name.startswith("flash") else "")}
+        if name == "lstm_scan":
+            state_ms, lean_ms = streaming["carry"]["times"][(600, t, b)][:2]
+            entry["state_ms"] = state_ms
+            entry["state"] = ("return_state's entry (the float32 c0 and "
+                              "final carry c_T), timed beside the lean "
+                              "entry's %.4f ms in phase 24 (a)" % lean_ms)
         if name == "flash_attn":
             entry["splits"] = cuda_attn.flash_splits(
                 b, t, ATTN_H,

@@ -24,10 +24,11 @@ builds everything and returns, for ``python -i -m danet_tpu_torch -m
 interactive``, with the module's ``g_args``, ``g_model``, ``g_trainer``,
 ``g_state`` and ``g_dataset`` set.  Demo and debug run at BATCH_SIZE 1.
 
-``--stream`` (and ``--stream-chunk``, ``--stream-warmup``) and demo with
-DEMO_CHUNK_FRAMES > 0 need ``DaNet.separate_stream`` / ``separate_long``,
-which are not ported (ROADMAP.md, queue 1 item 5): they raise
-NotImplementedError.
+``demo --stream`` separates causally, online (``DaNet.separate_stream``,
+``--stream-chunk`` frames a chunk after ``--stream-warmup`` frames; a
+causal encoder only), and demo with DEMO_CHUNK_FRAMES > 0 separates a
+mixture longer than that in overlapping chunks of that many frames
+(``DaNet.separate_long``, DEMO_OVERLAP_FRAMES), as ``main.py`` does.
 """
 from __future__ import annotations
 
@@ -44,10 +45,6 @@ from danet_tpu_torch.hparams import apply_overrides, load_config
 from danet_tpu_torch.models import DaNet
 from danet_tpu_torch.train.trainer import Trainer
 from danet_tpu_torch.weights import leaves
-
-STREAM_TODO = ("not ported: it needs DaNet.separate_stream / "
-               "separate_long, long-form and streaming inference "
-               "(ROADMAP.md, queue 1 item 5)")
 
 g_args = None
 g_hp = None
@@ -98,7 +95,8 @@ def build_argparser(prog: str = "python -m danet_tpu_torch"):
                         help="torch device (default: the card)")
     parser.add_argument("--stream", action="store_true",
                         help='"demo" mode: causal online separation '
-                             "(not ported)")
+                             "with carried encoder state (a causal "
+                             "encoder; DaNet.separate_stream)")
     parser.add_argument("--stream-chunk", type=int, default=64,
                         help="--stream: frames per streaming chunk")
     parser.add_argument("--stream-warmup", type=int, default=128,
@@ -139,13 +137,21 @@ def _draw_test_mixture(hp, dataset, shuffle=False):
         for x in sigs])
 
 
+@torch.no_grad()
+def _separate_one(method: str, mix_ri: np.ndarray, *args) -> np.ndarray:
+    """g_model.<method>(params, mix_ri[0], *args) on the trainer's device:
+    ri [1, T, F, 2] -> [1, N, T, F, 2] float32."""
+    fn = getattr(g_model, method, None)
+    if fn is None:
+        raise ValueError("MODEL_TYPE %r has no %s" % (
+            getattr(g_hp, "MODEL_TYPE", "danet"), method))
+    x = torch.from_numpy(np.ascontiguousarray(mix_ri[0], np.float32))
+    out = fn(g_trainer.eval_params(g_state), x.to(g_trainer.device), *args)
+    return out.float().cpu().numpy()[None]
+
+
 def run_demo(args):
     hp = g_hp
-    if args.stream:
-        raise NotImplementedError("--stream is " + STREAM_TODO)
-    if int(getattr(hp, "DEMO_CHUNK_FRAMES", 0) or 0) > 0:
-        raise NotImplementedError("demo with DEMO_CHUNK_FRAMES > 0 is "
-                                  + STREAM_TODO)
     window = hp.FFT_WND_ARRAY
     if args.input_file is None:
         filename = "demo.wav"
@@ -160,7 +166,19 @@ def run_demo(args):
         pad = (-len(raw_mixture)) % hp.LENGTH_ALIGN
         if pad:
             raw_mixture = np.pad(raw_mixture, [(0, pad), (0, 0)])
-    sep_ri = g_trainer.separate(g_state, audio.to_ri(raw_mixture[None]))
+    mix_ri = audio.to_ri(raw_mixture[None])           # [1, T, F, 2]
+    chunk = int(getattr(hp, "DEMO_CHUNK_FRAMES", 0) or 0)
+    if args.stream:
+        # causal online: the encoder's state carried across chunks, the
+        # attractors frozen from the warm-up window
+        sep_ri = _separate_one("separate_stream", mix_ri, args.stream_chunk,
+                               args.stream_warmup)
+    elif chunk and mix_ri.shape[1] > chunk:
+        # long-form: overlapping chunks in one batch, aligned, crossfaded
+        sep_ri = _separate_one("separate_long", mix_ri, chunk,
+                               int(hp.DEMO_OVERLAP_FRAMES))
+    else:
+        sep_ri = g_trainer.separate(g_state, mix_ri)
     signals = audio.from_ri(sep_ri[0])                # [N, T, F] complex
     base, ext = os.path.splitext(filename)
     for i, s in enumerate(signals):

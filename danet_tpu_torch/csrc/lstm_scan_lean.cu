@@ -20,6 +20,17 @@
 // Shapes, with D = n_dirs (1 or 2): xp [T, D, B, 4H], wh [D, H, 4H],
 // c0/h0 [D, B, H] -> hs [T, D, B, H] (SAVE: and cs [T, D, B, H], acts
 // [T, D, B, 4H]); with D = 1 that is exactly [T, B, 4H], [H, 4H], [B, H].
+// The state entry (danet_lstm_scan_state, one direction: streaming and
+// return_state; STATE) takes c0 as float32 [B, H] and also writes the
+// final cell state c_T [B, H] in float32 into the slot of cs, which the
+// lean forward does not use: the kernel's own carry after the last step,
+// stored once, after the step loop, by the thread that owns each (row,
+// unit), so that a stream cut into chunks continues the carry of one whole
+// launch.  STATE is a template parameter and rides on the lean forward's
+// own arguments, so the other entries compile to the code they had
+// without it (on an H100, drafts that tested a null c_T at run time, or
+// took c0 and c_T as two more arguments, ran the lean forward 20-25 %
+// slower in bfloat16 at B=32, or 7-15 % slower in float32 at B=4 and 32).
 // xch [2, D, B, H] of 8-byte words is
 // scratch for the exchange (below).  Storage f32 or bf16, gate math and
 // the cell carry f32.  With D = 2, direction 1 sees the time-reversed
@@ -224,6 +235,16 @@ __device__ __forceinline__ T cell(const float (&a)[4], float& c,
   return from_f32<T>(og * tanhf(c));
 }
 
+// The initial cell state of element i: c0 in the storage type, or with
+// STATE in float32 (c0 then points to float32 values).
+template <bool STATE, typename T>
+__device__ __forceinline__ float carry0(const T* c0, size_t i) {
+  if constexpr (STATE)
+    return reinterpret_cast<const float*>(c0)[i];
+  else
+    return to_f32(c0[i]);
+}
+
 // The gate inputs xp[.., g H] of one (row, unit) pair, g = cand, i, f, o.
 template <typename T>
 __device__ __forceinline__ void gate_inputs(float (&a)[4], const T* x,
@@ -347,7 +368,7 @@ __device__ __forceinline__ void row_product(const T* d_s, const float* w_s,
 // suffices: a warp still multiplying step t reads the other buffer than
 // the one step t+1 is staged into, and no thread stages step t+2 before
 // every warp has passed step t+1's barrier.
-template <typename T, bool TANH, int NDIRS, bool SAVE>
+template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE>
 __device__ void scan_words(const T* __restrict__ xp, const T* __restrict__ c0,
                            const T* __restrict__ h0, T* hs,
                            const Saved<T>& saved, unsigned long long* xch,
@@ -362,7 +383,7 @@ __device__ void scan_words(const T* __restrict__ xp, const T* __restrict__ c0,
   const int kg_n = 32 / rg_n, rg = lane / kg_n, kg = lane % kg_n;
   const bool live = rg < batch && unit < hdim;
   const bool owner = live && kg == 0;  // runs the cell of (rg, unit)
-  float c = owner ? to_f32(c0[dir * bh + rg * hdim + unit]) : 0.f;
+  float c = owner ? carry0<STATE>(c0, dir * bh + rg * hdim + unit) : 0.f;
   const float* w = w_s + static_cast<size_t>(warp) * plane_stride(hdim);
   const size_t buf = row_bytes<T>(batch, hdim) / sizeof(T);
   for (int t = 0; t < n_steps; ++t) {
@@ -405,6 +426,25 @@ __device__ void scan_words(const T* __restrict__ xp, const T* __restrict__ c0,
                    tagged(to_f32(h), t));
     }
   }
+  if (STATE && owner)  // the carry after step T-1, c_T in cs's slot
+    reinterpret_cast<float*>(saved.cs)[dir * bh + rg * hdim + unit] = c;
+}
+
+// The flags' carry after the last step, c_T, by the thread of each (row,
+// unit) pair: the one that ran its cell (the passes' mapping of
+// scan_flags).  Not inlined, so that nothing of it is held in registers
+// across the step loop.
+__device__ __noinline__ void store_carry(float* c_T, const float* c_s,
+                                         int batch, int hdim) {
+  const int tid = threadIdx.x, u0 = blockIdx.x * UNITS;
+  const size_t bh = static_cast<size_t>(batch) * hdim;
+  for (int p0 = 0; p0 < batch; p0 += PASS)
+    for (int e = tid; e < min(PASS, batch - p0) * UNITS; e += THREADS) {
+      const int b = p0 + e / UNITS, u = e % UNITS, unit = u0 + u;
+      if (unit < hdim)
+        c_T[blockIdx.y * bh + static_cast<size_t>(b) * hdim + unit] =
+            c_s[b * UNITS + u];
+    }
 }
 
 // The step loop of the flags (B > TAGGED_MAX_B): the row is hs[t-1]
@@ -412,7 +452,7 @@ __device__ void scan_words(const T* __restrict__ xp, const T* __restrict__ c0,
 // thread of each (row, unit) pair adds red_s over the warps (SAVE: over
 // the classes), in their order, to the gate inputs and runs the cell, its
 // c in c_s.
-template <typename T, bool TANH, int NDIRS, bool SAVE>
+template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE>
 __device__ void scan_flags(const T* __restrict__ xp, const T* __restrict__ h0,
                            T* hs, const Saved<T>& saved, int* flags,
                            const float* w_s, T* d_s, float* red_s, float* c_s,
@@ -464,9 +504,10 @@ __device__ void scan_flags(const T* __restrict__ xp, const T* __restrict__ h0,
     }
     publish(flags, t);
   }
+  if (STATE) store_carry(reinterpret_cast<float*>(saved.cs), c_s, batch, hdim);
 }
 
-template <typename T, bool TANH, int NDIRS, bool SAVE>
+template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE>
 __global__ void __launch_bounds__(THREADS)
 lstm_scan_lean_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
                       const T* __restrict__ c0, const T* __restrict__ h0,
@@ -515,23 +556,25 @@ lstm_scan_lean_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
   if (!words)
     for (int e = tid; e < batch * UNITS; e += THREADS) {
       const int b = e / UNITS, unit = u0 + e % UNITS;
-      c_s[e] = unit < hdim ? to_f32(c0[dir * bh + b * hdim + unit]) : 0.f;
+      c_s[e] = unit < hdim ? carry0<STATE>(c0, dir * bh + b * hdim + unit)
+                           : 0.f;
     }
   grid.sync();  // tags and flags cleared everywhere; the staging syncs
 
   if (words)
-    scan_words<T, TANH, NDIRS, SAVE>(xp, c0, h0, hs, saved, xch, w_s, d_s,
-                                     n_steps, batch, hdim);
+    scan_words<T, TANH, NDIRS, SAVE, STATE>(xp, c0, h0, hs, saved, xch, w_s,
+                                            d_s, n_steps, batch, hdim);
   else
-    scan_flags<T, TANH, NDIRS, SAVE>(xp, h0, hs, saved, flags, w_s, d_s,
-                                     red_s, c_s, n_steps, batch, hdim);
+    scan_flags<T, TANH, NDIRS, SAVE, STATE>(xp, h0, hs, saved, flags, w_s,
+                                            d_s, red_s, c_s, n_steps, batch,
+                                            hdim);
 }
 
-template <typename T, bool TANH, int NDIRS, bool SAVE>
+template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE>
 int launch(const void* xp, const void* wh, const void* c0, const void* h0,
            void* hs, void* cs, void* acts, void* xch, int n_steps,
            int batch, int hdim, cudaStream_t stream) {
-  auto kernel = lstm_scan_lean_kernel<T, TANH, NDIRS, SAVE>;
+  auto kernel = lstm_scan_lean_kernel<T, TANH, NDIRS, SAVE, STATE>;
   const size_t smem = smem_bytes<T, SAVE>(batch, hdim);
   const dim3 grid((hdim + UNITS - 1) / UNITS, NDIRS);
   const int fit = cooperative_fit(kernel, grid, THREADS, smem);
@@ -554,8 +597,9 @@ int launch(const void* xp, const void* wh, const void* c0, const void* h0,
   return static_cast<int>(cudaGetLastError());
 }
 
-// NDIRS directions, SAVE: also cs and acts (null in the lean forward)
-template <int NDIRS, bool SAVE>
+// NDIRS directions, SAVE: also cs and acts (null in the lean forward);
+// STATE: c0 float32, and c_T in cs's slot
+template <int NDIRS, bool SAVE, bool STATE = false>
 int dispatch(const void* xp, const void* wh, const void* c0, const void* h0,
              void* hs, void* cs, void* acts, void* xch, int n_steps,
              int batch, int hdim, int dtype, int tanh_cand, void* stream) {
@@ -564,16 +608,16 @@ int dispatch(const void* xp, const void* wh, const void* c0, const void* h0,
     return DANET_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return tanh_cand ? launch<float, true, NDIRS, SAVE>(
+    return tanh_cand ? launch<float, true, NDIRS, SAVE, STATE>(
                            xp, wh, c0, h0, hs, cs, acts, xch, n_steps, batch,
                            hdim, s)
-                     : launch<float, false, NDIRS, SAVE>(
+                     : launch<float, false, NDIRS, SAVE, STATE>(
                            xp, wh, c0, h0, hs, cs, acts, xch, n_steps, batch,
                            hdim, s);
-  return tanh_cand ? launch<__nv_bfloat16, true, NDIRS, SAVE>(
+  return tanh_cand ? launch<__nv_bfloat16, true, NDIRS, SAVE, STATE>(
                          xp, wh, c0, h0, hs, cs, acts, xch, n_steps, batch,
                          hdim, s)
-                   : launch<__nv_bfloat16, false, NDIRS, SAVE>(
+                   : launch<__nv_bfloat16, false, NDIRS, SAVE, STATE>(
                          xp, wh, c0, h0, hs, cs, acts, xch, n_steps, batch,
                          hdim, s);
 }
@@ -598,6 +642,20 @@ extern "C" int danet_lstm_scan(const void* xp, const void* wh,
                                int dtype, int tanh_cand, void* stream) {
   return dispatch<1, false>(xp, wh, c0, h0, hs, nullptr, nullptr, xch,
                             n_steps, batch, hdim, dtype, tanh_cand, stream);
+}
+
+// Kernel B with one direction and its state: as danet_lstm_scan, but c0
+// [B, H] is float32 whatever the storage type, and the final cell state
+// c_T [B, H] is written in float32 (lstm_apply's return_state, streaming).
+extern "C" int danet_lstm_scan_state(const void* xp, const void* wh,
+                                     const void* c0, const void* h0,
+                                     void* hs, void* c_T, void* xch,
+                                     int n_steps, int batch, int hdim,
+                                     int dtype, int tanh_cand, void* stream) {
+  if (c0 == nullptr || c_T == nullptr) return DANET_BAD_ARGUMENT;
+  return dispatch<1, false, true>(xp, wh, c0, h0, hs, c_T, nullptr, xch,
+                                  n_steps, batch, hdim, dtype, tanh_cand,
+                                  stream);
 }
 
 // Kernel 2, the saving forward with two directions (bilstm_scan_pallas

@@ -2,21 +2,24 @@
 the training loss and validation metrics, and inference (wave -> STFT ->
 ... -> iSTFT).
 
-Counterpart of ``danet_tpu/models/danet.py:30-333,720-775``:
+Counterpart of ``danet_tpu/models/danet.py:30-333,395-775``:
 ``mixture_features``, ``__init__``, ``init``, ``_embed``, ``train_loss``
 (the 'pit-mse' and 'pit-si-snr' losses, MIX_SNR_DB, the deep-clustering
 auxiliary DC_LOSS_WEIGHT, ANCHOR_AUX_LOSS and REG_APPLY),
 ``valid_metrics`` (with EVAL_SI_SNR and EVAL_SDR), ``_mix_features``,
-``_separate_tail``, ``separate``, ``separate_wav`` and ``reg_loss``.
-``separate_long``, ``separate_stream`` and ``separate_sp`` are not ported
-yet.  ``_check_parallel_support`` keeps JAX's refusals (``:73-105``) and
-refuses every other MESH_* > 1.
+``_separate_tail``, ``separate``, ``separate_wav``, ``reg_loss``, the
+long-form ``separate_long`` and the causal streaming surface
+(``separate_stream`` over spectra; ``stream_init`` / ``stream_step`` over
+waveforms, every carried value in one state dict).  ``separate_sp`` (a
+sequence-parallel mesh) is not ported.  ``_check_parallel_support`` keeps
+JAX's refusals (``:73-105``) and refuses every other MESH_* > 1.
 
 The unit phase vector is ``mix / (|mix| + eps)``, as in the JAX package
 (not atan2).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from danet_tpu_torch import weights
@@ -24,6 +27,7 @@ from danet_tpu_torch.hparams import hparams
 from danet_tpu_torch.ops import dsp
 from danet_tpu_torch.ops import loss as loss_ops
 from danet_tpu_torch.ops.cuda import stft as cuda_stft
+from danet_tpu_torch.ops.nn import device_constant
 
 STFT_BACKENDS = ("auto", "xla", "pallas")
 TRAIN_LOSS_TYPES = ("pit-mse", "pit-si-snr")
@@ -124,10 +128,12 @@ class DaNet:
                 generator, device)
         return params
 
+    def _cdt(self) -> torch.dtype:
+        return getattr(torch, getattr(self.hp, "COMPUTE_DTYPE", "float32"))
+
     def _embed(self, params, logmag, train=False, generator=None):
         """Encoder forward in COMPUTE_DTYPE; -> [B, T, F, E]."""
-        cdt = getattr(torch, getattr(self.hp, "COMPUTE_DTYPE", "float32"))
-        return self.encoder.apply(params["encoder"], logmag.to(cdt),
+        return self.encoder.apply(params["encoder"], logmag.to(self._cdt()),
                                   train=train, generator=generator)
 
     def check_train_config(self) -> None:
@@ -302,6 +308,257 @@ class DaNet:
         mix_pwr, logmag, phase_unit = self._mix_features(mix_ri)
         embed = self._embed(params, logmag)
         return self._separate_tail(params, embed, mix_pwr, phase_unit)
+
+    # ------------------------------------------------------------------
+    def separate_long(self, params, mix_ri: torch.Tensor,
+                      chunk_frames: int = 256,
+                      overlap_frames: int = 32) -> torch.Tensor:
+        """Long-form separation, [T, F, 2] -> [N, T, F, 2]: overlapping
+        chunks of ``chunk_frames`` as ONE ``separate`` batch (the chunk
+        axis is the batch axis: with bilstm-orig one kernel B launch per
+        layer for all chunks), each chunk's sources permuted to best match
+        the previous aligned chunk over the overlap (magnitude MSE; the
+        first minimum wins), then a crossfaded overlap-add (a linear ramp
+        over the overlap; the first chunk keeps its head, the last its
+        tail).  No state spans chunks."""
+        hp = self.hp
+        t, f = mix_ri.shape[0], mix_ri.shape[1]
+        n = hp.MAX_N_SIGNAL
+        hop = chunk_frames - overlap_frames
+        if hop <= 0 or overlap_frames <= 0:
+            raise ValueError(
+                "separate_long needs 1 <= overlap_frames < chunk_frames "
+                "(alignment + crossfade); got chunk %d, overlap %d"
+                % (chunk_frames, overlap_frames))
+        ov = overlap_frames
+        n_chunks = max(1, -(-(t - ov) // hop))
+        t_pad = ov + n_chunks * hop
+        mix_p = torch.nn.functional.pad(mix_ri, (0, 0, 0, 0, 0, t_pad - t))
+        chunks = mix_p.unfold(0, chunk_frames, hop).permute(0, 3, 1, 2)
+        sep = self.separate(params, chunks.contiguous())  # [C, N, W, F, 2]
+
+        # the permutation chain over the overlaps
+        perms = device_constant(
+            ("perms", n), lambda: loss_ops.permutations_array(n),
+            sep.device)                                   # [P, N]
+        rows = torch.arange(n, device=sep.device)[None, :]
+
+        def mag(x):
+            return torch.sqrt(torch.sum(torch.square(x), dim=-1))
+
+        aligned = [sep[0]]
+        tail = mag(sep[0][:, -ov:])                       # [N, V, F]
+        for c in range(1, n_chunks):
+            head = mag(sep[c][:, :ov])
+            cost = torch.mean(torch.square(tail[:, None] - head[None, :]),
+                              dim=(2, 3))                 # [N, N]
+            best = perms[torch.argmin(torch.sum(cost[rows, perms], dim=1))]
+            aligned.append(sep[c][best])
+            tail = mag(aligned[-1][:, -ov:])
+        aligned = torch.stack(aligned)                    # [C, N, W, F, 2]
+
+        # crossfaded overlap-add, summed in chunk order
+        ramp = np.linspace(0.0, 1.0, ov + 2)[1:-1]
+        w = np.ones((n_chunks, chunk_frames))
+        w[:, :ov] = ramp
+        w[:, -ov:] = ramp[::-1]
+        w[0, :ov] = 1.0
+        w[-1, -ov:] = 1.0
+        w = torch.from_numpy(w.astype(np.float32)).to(sep.device)
+        contrib = aligned * w.to(sep.dtype)[:, None, :, None, None]
+        # frames as the samples of dsp.overlap_add: [N, F 2, C, W]
+        contrib = contrib.permute(1, 3, 4, 0, 2).reshape(
+            n, f * 2, n_chunks, chunk_frames)
+        out = dsp.overlap_add(contrib, hop).reshape(n, f, 2, t_pad)
+        den = dsp.overlap_add(w.to(sep.dtype), hop)
+        out = out.permute(0, 3, 1, 2) / den[None, :, None, None]
+        return out[:, :t]
+
+    # ------------------------------------------------------------------
+    def _stream_capable(self) -> bool:
+        """True when the encoder streams exactly and causally (the gate of
+        separate_stream and stream_init)."""
+        from danet_tpu_torch.models import encoders as enc_mod
+        hp, enc = self.hp, self.encoder
+        if isinstance(enc, (enc_mod.LstmEncoder, enc_mod.GruEncoder)):
+            return True
+        if isinstance(enc, enc_mod.AttentionEncoder):
+            return bool(getattr(hp, "ATTN_CAUSAL", False))
+        if isinstance(enc, enc_mod.TcnEncoder):
+            return bool(getattr(hp, "TCN_CAUSAL", False))
+        if isinstance(enc, enc_mod.DprnnEncoder):
+            d = enc._dims()
+            return bool(getattr(hp, "DPRNN_INTER_CAUSAL", False)) and (
+                d[2] == d[3])
+        return False
+
+    def _stream_granularity(self) -> int:
+        """Frames per streaming advance (dprnn-v1: DPRNN_CHUNK; else 1)."""
+        fn = getattr(self.encoder, "stream_granularity", None)
+        return int(fn()) if fn is not None else 1
+
+    def _require_causal(self, method: str, hint: str = "") -> None:
+        """JAX's ValueError for an encoder that cannot stream exactly."""
+        if not self._stream_capable():
+            raise ValueError(
+                "%s requires a causal encoder (lstm-orig, gru-v1, "
+                "attn-v1/moe-v1 with ATTN_CAUSAL=true, tcn-v1 with "
+                "TCN_CAUSAL=true, or dprnn-v1 with DPRNN_INTER_CAUSAL=true "
+                "and DPRNN_HOP == DPRNN_CHUNK); got ENCODER_TYPE=%r%s"
+                % (method, self.hp.ENCODER_TYPE, hint))
+        self._check_truth_free()
+
+    def separate_stream(self, params, mix_ri: torch.Tensor,
+                        chunk_frames: int = 64,
+                        warmup_frames: int = 128) -> torch.Tensor:
+        """Causal online separation, [T, F, 2] -> [N, T, F, 2]: a warm-up
+        window, then chunks of ``chunk_frames`` with the encoder's state
+        carried across them (JAX's ``lax.scan`` is a loop here), so the
+        output does not depend on the chunk size.  The input's and the
+        head's centring means and the attractors (the inference estimator)
+        are frozen from the warm-up window.  A T that the chunks do not
+        divide is padded with zero frames and trimmed."""
+        self._require_causal(
+            "separate_stream", ". Bidirectional encoders need future "
+            "context — use separate_long.")
+        g = self._stream_granularity()
+        t = mix_ri.shape[0]
+        w = int(min(warmup_frames, t))
+        w = max(w - w % g, g)
+        if w > t:
+            raise ValueError(
+                "stream too short: the encoder advances in %d-frame "
+                "segments but the stream has only %d frames" % (g, t))
+        if chunk_frames < 1:
+            raise ValueError("chunk_frames must be at least 1, got %d"
+                             % chunk_frames)
+        if chunk_frames % g:
+            raise ValueError(
+                "chunk_frames=%d must be a multiple of the encoder's "
+                "stream granularity %d (DPRNN_CHUNK)" % (chunk_frames, g))
+        n_chunks = -(-(t - w) // chunk_frames) if t > w else 0
+        t_pad = w + n_chunks * chunk_frames
+        mix_p = torch.nn.functional.pad(
+            mix_ri, (0, 0, 0, 0, 0, t_pad - t))[None]
+        mix_pwr, logmag, phase_unit = self._mix_features(mix_p)
+        cdt, enc = self._cdt(), self.encoder
+
+        # warm-up: the state, the frozen statistics and attractors
+        mu_in = torch.mean(logmag[:, :w], dim=(1, 2), keepdim=True)
+        state = enc.stream_state_init(1, cdt, mix_ri.device)
+        h_w, state = enc.stream_hidden(
+            params["encoder"], (logmag[:, :w] - mu_in).to(cdt), state)
+        mu_head = torch.mean(h_w, dim=(1, 2), keepdim=True)
+        embed_w = enc.stream_head(params["encoder"], h_w, mu_head)
+        attractors = self.infer_estimator.apply(
+            self._infer_est_params(params), embed_w, mix_pwr=mix_pwr[:, :w])
+
+        def sep_chunk(embed, lo, hi):
+            ef = embed.reshape(1, -1, embed.shape[-1])
+            sep_pwr = self.separator.apply(params.get("separator", {}),
+                                           mix_pwr[:, lo:hi], attractors, ef)
+            return sep_pwr[..., None] * phase_unit[:, None, lo:hi]
+
+        outs = [sep_chunk(embed_w, 0, w)]
+        for lo in range(w, t_pad, chunk_frames):
+            hi = lo + chunk_frames
+            h, state = enc.stream_hidden(
+                params["encoder"], (logmag[:, lo:hi] - mu_in).to(cdt), state)
+            outs.append(sep_chunk(
+                enc.stream_head(params["encoder"], h, mu_head), lo, hi))
+        return torch.cat(outs, dim=2)[0, :, :t]
+
+    # ------------------------------------------------------------------
+    # Waveform streaming: chunks of samples in, separated chunks out, every
+    # carried value in the state dict, so that stream_step is a function
+    # of (state, chunk).
+    def _stream_sep_frames(self, params, mix_ri, logmag, mu_in, mu_head,
+                           attractors, enc_state):
+        """One chunk's spectral path: frames [B, K, F, 2] -> (separated ri
+        [B, N, K, F, 2], mix_pwr, the encoder's new state)."""
+        mix_pwr = torch.sqrt(torch.sum(torch.square(mix_ri), dim=-1))
+        phase_unit = mix_ri / (mix_pwr[..., None] + self.hp.EPS)
+        h, enc_state = self.encoder.stream_hidden(
+            params["encoder"], (logmag - mu_in).to(self._cdt()), enc_state)
+        embed = self.encoder.stream_head(params["encoder"], h, mu_head)
+        ef = embed.reshape(embed.shape[0], -1, embed.shape[-1])
+        sep_pwr = self.separator.apply(params.get("separator", {}), mix_pwr,
+                                       attractors, ef)
+        return sep_pwr[..., None] * phase_unit[:, None], mix_pwr, enc_state
+
+    def stream_init(self, params, wav_warmup: torch.Tensor):
+        """Start a causal waveform stream: [B, Lw] -> (separated [B, N, Lw],
+        state).  The warm-up window runs through the encoder, and the
+        centring means and attractors are frozen from it; Lw is a multiple
+        of FFT_STRIDE (and of FFT_STRIDE x DPRNN_CHUNK for dprnn-v1).  The
+        state dict holds ``enc`` (the encoder's state), ``stft_tail`` and
+        ``ola_tail`` (the streaming STFT's input tail and iSTFT's overlap-
+        add numerator), ``mu_in``, ``mu_head`` and ``attractors``.  Output
+        lags input by FFT_SIZE - FFT_STRIDE samples."""
+        self._require_causal("stream_init")
+        hp = self.hp
+        fft, stride = hp.FFT_SIZE, hp.FFT_STRIDE
+        p = fft - stride
+        b, lw = wav_warmup.shape[0], wav_warmup.shape[-1]
+        if lw < stride:
+            raise ValueError(
+                "warmup window must cover at least one frame "
+                "(>= FFT_STRIDE=%d samples, got %d)" % (stride, lw))
+        g = self._stream_granularity()
+        if g > 1 and (lw // stride) % g:
+            raise ValueError(
+                "the encoder advances in %d-frame segments: the warmup "
+                "window must be a multiple of %d samples "
+                "(FFT_STRIDE * granularity; got %d samples = %d frames)"
+                % (g, g * stride, lw, lw // stride))
+        window = hp.FFT_WND_ARRAY
+        dev = wav_warmup.device
+        frames, stft_tail = dsp.stream_frames(
+            torch.zeros((b, p), dtype=wav_warmup.dtype, device=dev),
+            wav_warmup, fft, stride)
+        mix_ri = dsp.stft_frames_ri(frames, window)       # [B, W, F, 2]
+        mix_pwr = torch.sqrt(torch.sum(torch.square(mix_ri), dim=-1))
+        logmag = torch.log1p(mix_pwr)
+        mu_in = torch.mean(logmag, dim=(1, 2), keepdim=True)
+        cdt = self._cdt()
+        h, enc_state = self.encoder.stream_hidden(
+            params["encoder"], (logmag - mu_in).to(cdt),
+            self.encoder.stream_state_init(b, cdt, dev))
+        mu_head = torch.mean(h, dim=(1, 2), keepdim=True)
+        embed = self.encoder.stream_head(params["encoder"], h, mu_head)
+        attractors = self.infer_estimator.apply(
+            self._infer_est_params(params), embed, mix_pwr=mix_pwr)
+        phase_unit = mix_ri / (mix_pwr[..., None] + hp.EPS)
+        sep_pwr = self.separator.apply(
+            params.get("separator", {}), mix_pwr, attractors,
+            embed.reshape(b, -1, embed.shape[-1]))
+        out, ola_tail = dsp.istft_stream_ri(
+            sep_pwr[..., None] * phase_unit[:, None], stride, window,
+            torch.zeros((b, hp.MAX_N_SIGNAL, p), dtype=torch.float32,
+                        device=dev))
+        return out, {"enc": enc_state, "stft_tail": stft_tail,
+                     "ola_tail": ola_tail, "mu_in": mu_in,
+                     "mu_head": mu_head, "attractors": attractors}
+
+    def stream_step(self, params, state: dict, wav_chunk: torch.Tensor):
+        """One causal streaming step: (state, [B, Lc]) -> ([B, N, Lc], the
+        new state); Lc a multiple of FFT_STRIDE.  The output does not
+        depend on the chunk size and lags the input by FFT_SIZE -
+        FFT_STRIDE samples."""
+        hp = self.hp
+        window = hp.FFT_WND_ARRAY
+        frames, stft_tail = dsp.stream_frames(
+            state["stft_tail"], wav_chunk, hp.FFT_SIZE, hp.FFT_STRIDE)
+        mix_ri = dsp.stft_frames_ri(frames, window)
+        logmag = torch.log1p(torch.sqrt(torch.sum(torch.square(mix_ri),
+                                                  dim=-1)))
+        sep_ri, _, enc_state = self._stream_sep_frames(
+            params, mix_ri, logmag, state["mu_in"], state["mu_head"],
+            state["attractors"], state["enc"])
+        out, ola_tail = dsp.istft_stream_ri(sep_ri, hp.FFT_STRIDE, window,
+                                            state["ola_tail"])
+        return out, dict(state, enc=enc_state, stft_tail=stft_tail,
+                         ola_tail=ola_tail)
 
     def separate_wav(self, params, wav: torch.Tensor) -> torch.Tensor:
         """Waveforms [B, L] -> separated waveforms [B, N, L'],

@@ -2,9 +2,17 @@
 ``attn-v1``, ``moe-v1``, ``tcn-v1``, ``dprnn-v1``, ``conv-bilstm-v1`` and
 the LSTM output head.
 
-Counterpart of ``danet_tpu/models/encoders.py:25-41,67-147,176-249,
-313-520,610-725,744-879,910-1091,1141-1251``: the single-device paths (no
-pipeline, sequence, tensor or expert parallelism, no streaming hooks).
+Counterpart of ``danet_tpu/models/encoders.py:25-41,67-1251``: the
+single-device paths (no pipeline, sequence, tensor or expert
+parallelism), with the causal streaming hooks of ``lstm-orig``,
+``gru-v1``, causal ``attn-v1`` and ``moe-v1``, causal ``tcn-v1`` and
+online ``dprnn-v1``: ``stream_state_init(batch, dtype, device)`` (the
+state at a fresh stream), ``stream_hidden(params, x, state)`` (a centred
+chunk [B, Tc, F] -> (hidden [B, Tc, .], new state); chunks fed back to
+back reproduce the offline forward) and ``stream_head(params, h, mu)``
+(the head with a frozen centring statistic).  On the card the hooks run
+the same hand kernels as the offline path (JAX pins its plain scan
+there): the LSTMs carry c in float32, the kernel's own carry.
 ``bilstm-orig`` drops out after every layer in training, ``attn-v1``
 after every block's MLP, ``tcn-v1`` after every block, ``dprnn-v1``
 after each path of a block and ``conv-bilstm-v1`` after each BiLSTM;
@@ -45,6 +53,12 @@ def _backend(hp) -> str:
 
 def _centered(log_spectra):
     return log_spectra - torch.mean(log_spectra, dim=(1, 2), keepdim=True)
+
+
+def _carry_dtype(dtype) -> torch.dtype:
+    """The dtype the LSTM streams carry c in: float32, or float64 for a
+    float64 run of the plain path."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def _maybe_remat(hp, fn):
@@ -109,11 +123,18 @@ class _LstmHead:
                               w_scale=1.85, bias=False, device=device)
 
     @staticmethod
-    def apply(params, hp, x):
-        x = x - torch.mean(x, dim=(1, 2), keepdim=True)
+    def apply_centered(params, hp, x, mu):
+        """The head with an explicit centring statistic ``mu`` (streaming
+        freezes it from the warm-up window)."""
+        x = x - mu
         out = nn.linear_apply(params, x)
         return out.reshape(x.shape[0], x.shape[1], hp.FEATURE_SIZE,
                            hp.EMBED_SIZE)
+
+    @staticmethod
+    def apply(params, hp, x):
+        return _LstmHead.apply_centered(
+            params, hp, x, torch.mean(x, dim=(1, 2), keepdim=True))
 
 
 @hparams.register_encoder("lstm-orig")
@@ -150,6 +171,29 @@ class LstmEncoder(Encoder):
             if tap:
                 tap("lstm%d_h" % i, x)
         return _LstmHead.apply(params["output"], hp, x)
+
+    def stream_state_init(self, batch: int, dtype=torch.float32,
+                          device=None):
+        """Per-layer (c, h) at a fresh stream: zeros, c in float32."""
+        h = torch.zeros((batch, self.HDIM), dtype=dtype, device=device)
+        c = h.to(_carry_dtype(dtype))
+        return [(c, h) for _ in range(self.N_LAYERS)]
+
+    def stream_hidden(self, params, x, state):
+        """Centred chunk [B, Tc, F] -> (hidden [B, Tc, H], new state): each
+        layer's scan (kernel B on the card) resumes from its carry."""
+        act = _candidate_activation(self.hp)
+        new_state = []
+        for i in range(self.N_LAYERS):
+            c0, h0 = state[i]
+            x, carry = rnn.lstm_apply(params[f"lstm{i}"], x, act, c0=c0,
+                                      h0=h0, backend=_backend(self.hp),
+                                      return_state=True)
+            new_state.append(carry)
+        return x, new_state
+
+    def stream_head(self, params, h, mu):
+        return _LstmHead.apply_centered(params["output"], self.hp, h, mu)
 
 
 @hparams.register_encoder("bilstm-orig")
@@ -227,6 +271,24 @@ class GruEncoder(Encoder):
                 tap("gru%d_h" % i, x)
         return _LstmHead.apply(params["output"], hp, x)
 
+    def stream_state_init(self, batch: int, dtype=torch.float32,
+                          device=None):
+        z = torch.zeros((batch, self.HDIM), dtype=dtype, device=device)
+        return [z for _ in range(self.N_LAYERS)]
+
+    def stream_hidden(self, params, x, state):
+        """Each layer's scan (kernel 4f on the card) resumes from its c."""
+        new_state = []
+        for i in range(self.N_LAYERS):
+            x, c = rnn.gru_apply(params[f"gru{i}"], x, c0=state[i],
+                                 backend=_backend(self.hp),
+                                 return_state=True)
+            new_state.append(c)
+        return x, new_state
+
+    def stream_head(self, params, h, mu):
+        return _LstmHead.apply_centered(params["output"], self.hp, h, mu)
+
 
 def _posenc_denominators(d: int) -> np.ndarray:
     """10000 ** (2 i / d) for i < d / 2, float64: the sinusoidal positions'
@@ -247,9 +309,10 @@ class AttentionEncoder(Encoder):
     chunked or dense by ATTN_LOCAL_CHUNK (``ops/local_attention.py``),
     never on the flash kernels, which have no band.  ``apply`` takes no
     external attention function, so JAX's guard against one that drops
-    the band has nothing to guard here.  The streaming hooks are not
-    ported; MESH_SEQ > 1 (sequence-parallel attention) is refused by
-    ``DaNet._check_parallel_support``."""
+    the band has nothing to guard here.  Under ATTN_CAUSAL the encoder
+    streams: each block keeps a rolling K/V cache of the last
+    ATTN_LOOKBACK - 1 frames.  MESH_SEQ > 1 (sequence-parallel attention)
+    is refused by ``DaNet._check_parallel_support``."""
 
     def _dims(self):
         hp = self.hp
@@ -296,15 +359,19 @@ class AttentionEncoder(Encoder):
             nn.linear_apply(blk["mlp_in"], y)))
 
     @staticmethod
-    def _posenc(t, d, dtype, device):
-        """Sinusoidal positions [t, d] in ``dtype``: angles and sines in
-        float64 on ``device``, rounded to float32 first, as the JAX
-        package's numpy table.  Built on each call (it depends on t); only
-        the wavelengths are cached."""
+    def _posenc(t, d, dtype, device, offset=0):
+        """Sinusoidal positions offset .. offset + t - 1, [t, d] in
+        ``dtype``: angles and sines in float64 on ``device``, rounded to
+        float32 first, as the JAX package's numpy table.  ``offset`` may be
+        a tensor on ``device`` (a stream's frame count: no host read).
+        Built on each call (it depends on t); only the wavelengths are
+        cached.  The JAX package's streaming positions (``_posenc_dyn``)
+        compute in float32; these are the offline table's at every
+        offset, so a stream reproduces the offline forward."""
         den = nn.device_constant(("posenc-denominators", d),
                                  lambda: _posenc_denominators(d), device)
-        ang = torch.arange(t, dtype=torch.float64, device=device)[:, None] \
-            / den[None, :]
+        pos = torch.arange(t, dtype=torch.float64, device=device) + offset
+        ang = pos[:, None] / den[None, :]
         pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
         return pe.float().to(dtype)
 
@@ -382,6 +449,73 @@ class AttentionEncoder(Encoder):
         out = nn.linear_apply(params["output"], h)
         return out.reshape(b, t, hp.FEATURE_SIZE, hp.EMBED_SIZE)
 
+    def stream_state_init(self, batch: int, dtype=torch.float32,
+                          device=None):
+        """Each block's K/V cache of the last ATTN_LOOKBACK - 1 frames
+        (zeros, marked invalid), the stream's frame count ``offset`` and the
+        cache's fill count ``filled`` (int64 tensors on ``device``)."""
+        w = self._causal_window()
+        if not w:
+            raise ValueError(
+                "attn-v1 streams only with ATTN_CAUSAL=true (full "
+                "bidirectional attention needs future context)")
+        d, heads, n_layers, _ = self._dims()
+        z = torch.zeros((batch, w - 1, heads, d // heads), dtype=dtype,
+                        device=device)
+        count = torch.zeros((), dtype=torch.int64, device=device)
+        return {"cache": {f"block{i}": {"k": z, "v": z}
+                          for i in range(n_layers)},
+                "offset": count, "filled": count}
+
+    def stream_hidden(self, params, x, state):
+        """Centred chunk [B, Tc, F] -> (hidden [B, Tc, D], new state): each
+        block's queries see its cached K/V and the chunk's own, under the
+        band of ``apply`` and the cache's validity; logits in float32,
+        masked entries at -1e9."""
+        w = self._causal_window()
+        d, heads, n_layers, _ = self._dims()
+        hd = d // heads
+        b, c = x.shape[0], x.shape[1]
+        dev = x.device
+        h = nn.linear_apply(params["embed"], x)
+        h = h + self._posenc(c, d, h.dtype, dev, state["offset"])
+        # the w - 1 cache slots are valid once `filled` frames have passed,
+        # from the right; then the chunk's own frames
+        filled = torch.clamp(state["filled"], max=w - 1)
+        jidx = torch.arange(w - 1 + c, device=dev)
+        key_valid = jidx >= (w - 1) - filled
+        qpos = torch.arange(c, device=dev)[:, None] + (w - 1)
+        mask = nn.causal_band(qpos, jidx[None, :], w) & key_valid[None, :]
+        neg = torch.full((), -1e9, dtype=torch.float32, device=dev)
+        new_cache = {}
+        for i in range(n_layers):
+            p = params[f"block{i}"]
+            cache = state["cache"][f"block{i}"]
+            y = nn.layer_norm(p["ln1"], h)
+            qkv = nn.linear_apply(p["qkv"], y).reshape(b, c, 3, heads, hd)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            kc = torch.cat([cache["k"].to(k.dtype), k], dim=1)
+            vc = torch.cat([cache["v"].to(v.dtype), v], dim=1)
+            logits = nn.ee("bqhd,bkhd->bhqk", q, kc) / torch.sqrt(
+                torch.full((), hd, dtype=q.dtype, device=dev))
+            logits = torch.where(mask[None, None], logits.float(), neg)
+            attn = torch.softmax(logits, dim=-1).to(q.dtype)
+            o = nn.ee("bhqk,bkhd->bqhd", attn, vc).reshape(b, c, d)
+            h = h + nn.linear_apply(p["proj"], o)
+            h = h + self._mlp(p, nn.layer_norm(p["ln2"], h))
+            new_cache[f"block{i}"] = {"k": kc[:, kc.shape[1] - (w - 1):],
+                                      "v": vc[:, vc.shape[1] - (w - 1):]}
+        return h, {"cache": new_cache, "offset": state["offset"] + c,
+                   "filled": torch.clamp(state["filled"] + c, max=w - 1)}
+
+    def stream_head(self, params, h, mu):
+        """The output head; the attention encoders centre no output, so
+        ``mu`` is unused, as in the JAX package."""
+        hp = self.hp
+        out = nn.linear_apply(params["output"], h)
+        return out.reshape(h.shape[0], h.shape[1], hp.FEATURE_SIZE,
+                           hp.EMBED_SIZE)
+
 
 @hparams.register_encoder("moe-v1")
 class MoEAttentionEncoder(AttentionEncoder):
@@ -427,9 +561,9 @@ class TcnEncoder(Encoder):
     TCN_REPEATS residual blocks of dilation 2 ** (i % TCN_BLOCKS), each
     layer norm -> linear D -> H -> leaky ReLU -> depthwise conv over T ->
     layer norm -> leaky ReLU -> linear H -> D, plus the residual; then the
-    LSTM head.  TCN_CAUSAL left-pads the convolutions (the offline path;
-    the streaming hooks are not ported).  Widths: TCN_DIM, TCN_HIDDEN,
-    TCN_KERNEL."""
+    LSTM head.  TCN_CAUSAL left-pads the convolutions, and then the
+    encoder streams, each block carrying the tail of its convolution's
+    input.  Widths: TCN_DIM, TCN_HIDDEN, TCN_KERNEL."""
 
     def _dims(self):
         hp = self.hp
@@ -468,11 +602,36 @@ class TcnEncoder(Encoder):
 
     @staticmethod
     def _block(blk, h_seq, dilation: int, causal: bool, alpha: float):
-        """One residual block over [B, T, D]."""
+        """One residual block over [B, T, D] (tasnet-v1 runs it too)."""
+        y = nn.conv1d_depthwise_apply(
+            blk["dconv"], TcnEncoder._block_in(blk, h_seq, alpha),
+            dilation=dilation, causal=causal)
+        return TcnEncoder._block_out(blk, h_seq, y, alpha)
+
+    @staticmethod
+    def _block_stream(blk, h_seq, dilation: int, alpha: float, tail):
+        """One causal block over a chunk [B, Tc, D] after the tail [B,
+        (K - 1) dilation, H] of its convolution's input: the convolution
+        runs VALID over [tail | chunk] in float32, which is the offline
+        causal convolution at these frames.  -> (out, the new tail)."""
+        ycat = torch.cat([tail, TcnEncoder._block_in(blk, h_seq, alpha)],
+                         dim=1)
+        y = nn.conv1d_depthwise_apply(blk["dconv"], ycat, dilation=dilation,
+                                      valid=True)
+        return (TcnEncoder._block_out(blk, h_seq, y, alpha),
+                ycat[:, ycat.shape[1] - tail.shape[1]:])
+
+    @staticmethod
+    def _block_in(blk, h_seq, alpha: float):
+        """layer norm -> linear D -> H -> leaky ReLU: the convolution's
+        input."""
         y = nn.layer_norm(blk["ln1"], h_seq)
-        y = nn.leaky_relu(nn.linear_apply(blk["in"], y), alpha)
-        y = nn.conv1d_depthwise_apply(blk["dconv"], y, dilation=dilation,
-                                      causal=causal)
+        return nn.leaky_relu(nn.linear_apply(blk["in"], y), alpha)
+
+    @staticmethod
+    def _block_out(blk, h_seq, y, alpha: float):
+        """The convolution's output -> layer norm -> leaky ReLU -> linear
+        H -> D, plus the residual."""
         y = nn.leaky_relu(nn.layer_norm(blk["ln2"], y), alpha)
         return h_seq + nn.linear_apply(blk["out"], y)
 
@@ -498,6 +657,33 @@ class TcnEncoder(Encoder):
                 tap("block%d_h" % i, h)
         return _LstmHead.apply(params["output"], hp, h)
 
+    def stream_state_init(self, batch: int, dtype=torch.float32,
+                          device=None):
+        """Each block's tail, zeros: the causal left padding of a fresh
+        stream."""
+        _, h, k, _, _, causal = self._dims()
+        if not causal:
+            raise ValueError(
+                "tcn-v1 streams only with TCN_CAUSAL=true (non-causal "
+                "depthwise convs need future frames)")
+        return [torch.zeros((batch, (k - 1) * self._dilation(i), h),
+                            dtype=dtype, device=device)
+                for i in range(self._n_blocks())]
+
+    def stream_hidden(self, params, x, state):
+        """Centred chunk [B, Tc, F] -> (hidden [B, Tc, D], new tails)."""
+        alpha = self.hp.RELU_LEAKAGE
+        h = nn.linear_apply(params["bottleneck"], x)
+        new_state = []
+        for i in range(self._n_blocks()):
+            h, tail = self._block_stream(params[f"block{i}"], h,
+                                         self._dilation(i), alpha, state[i])
+            new_state.append(tail)
+        return h, new_state
+
+    def stream_head(self, params, h, mu):
+        return _LstmHead.apply_centered(params["output"], self.hp, h, mu)
+
 
 @hparams.register_encoder("dprnn-v1")
 class DprnnEncoder(Encoder):
@@ -508,8 +694,10 @@ class DprnnEncoder(Encoder):
     inter-chunk (Bi)LSTM over S (batched over B P), each path followed by
     a linear back to D, a layer norm and the residual; the chunks merged
     by count-normalised overlap-add; the LSTM head.  DPRNN_INTER_CAUSAL
-    makes the inter-chunk LSTM one-directional.  Widths: DPRNN_DIM (D),
-    DPRNN_HIDDEN (H per direction)."""
+    makes the inter-chunk LSTM one-directional; with DPRNN_HOP ==
+    DPRNN_CHUNK besides (segments that do not overlap) the encoder streams
+    whole segments, carrying the inter path's (c, h) per position.
+    Widths: DPRNN_DIM (D), DPRNN_HIDDEN (H per direction)."""
 
     def _dims(self):
         hp = self.hp
@@ -602,9 +790,12 @@ class DprnnEncoder(Encoder):
 
     @staticmethod
     def _block(blk, chunks, inter_causal: bool, backend: str, masks=None,
-               keep: float = 1.0):
+               keep: float = 1.0, inter_state=None):
         """One dual-path block over chunks [B, S, P, D]; ``masks`` the
-        intra and inter paths' dropout masks, drawn before the block."""
+        intra and inter paths' dropout masks, drawn before the block.  With
+        ``inter_state`` (streaming), the causal inter path resumes from the
+        carried (c, h) [B P, H], and the block returns (chunks, the new
+        carry)."""
         b, s, p, d = chunks.shape
         y = rnn.bilstm_apply(blk["intra"], chunks.reshape(b * s, p, d),
                              "tanh", backend=backend)
@@ -614,7 +805,12 @@ class DprnnEncoder(Encoder):
             y = nn.dropout(None, y, keep, masks[0])
         chunks = chunks + y
         y = chunks.transpose(1, 2).reshape(b * p, s, d)
-        if inter_causal:
+        new_state = None
+        if inter_state is not None:
+            y, new_state = rnn.lstm_apply(
+                blk["inter"], y, "tanh", c0=inter_state[0],
+                h0=inter_state[1], backend=backend, return_state=True)
+        elif inter_causal:
             y = rnn.lstm_apply(blk["inter"], y, "tanh", backend=backend)
         else:
             y = rnn.bilstm_apply(blk["inter"], y, "tanh", backend=backend)
@@ -623,6 +819,8 @@ class DprnnEncoder(Encoder):
                           .transpose(1, 2))
         if masks is not None:
             y = nn.dropout(None, y, keep, masks[1])
+        if inter_state is not None:
+            return chunks + y, new_state
         return chunks + y
 
     def apply(self, params, log_spectra, train=False, generator=None,
@@ -652,6 +850,46 @@ class DprnnEncoder(Encoder):
                 tap("block%d_chunks" % i, chunks)
         return _LstmHead.apply(params["output"], hp,
                                self._merge(chunks, seg_info))
+
+    def stream_granularity(self) -> int:
+        """A stream advances in whole segments of DPRNN_CHUNK frames."""
+        return self._dims()[2]
+
+    def stream_state_init(self, batch: int, dtype=torch.float32,
+                          device=None):
+        """Each block's inter-path (c, h) per position [B P, H]: zeros, the
+        offline scan's initial state; c in float32."""
+        _, h, p, hop, n_blocks, inter_causal = self._dims()
+        if not inter_causal or hop != p:
+            raise ValueError(
+                "dprnn-v1 streams only with DPRNN_INTER_CAUSAL=true and "
+                "DPRNN_HOP == DPRNN_CHUNK (non-overlapping causal "
+                "segments; got hop=%d P=%d)" % (hop, p))
+        z = torch.zeros((batch * p, h), dtype=dtype, device=device)
+        return [(z.to(_carry_dtype(dtype)), z) for _ in range(n_blocks)]
+
+    def stream_hidden(self, params, x, state):
+        """Centred chunk [B, Tc, F], Tc a multiple of DPRNN_CHUNK ->
+        (hidden [B, Tc, D], new carries): per block kernel B on the
+        segments (intra path) and kernel 1 across them (inter path)."""
+        d, _, p, _, n_blocks, _ = self._dims()
+        b, tc = x.shape[0], x.shape[1]
+        if tc % p:
+            raise ValueError(
+                "dprnn-v1 stream chunks must be multiples of "
+                "DPRNN_CHUNK=%d (got %d frames)" % (p, tc))
+        chunks = nn.linear_apply(params["bottleneck"], x).reshape(
+            b, tc // p, p, d)
+        new_state = []
+        for i in range(n_blocks):
+            chunks, carry = self._block(params[f"block{i}"], chunks, True,
+                                        _backend(self.hp),
+                                        inter_state=state[i])
+            new_state.append(carry)
+        return chunks.reshape(b, tc, d), new_state
+
+    def stream_head(self, params, h, mu):
+        return _LstmHead.apply_centered(params["output"], self.hp, h, mu)
 
 
 @hparams.register_encoder("conv-bilstm-v1")

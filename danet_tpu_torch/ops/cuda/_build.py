@@ -41,6 +41,7 @@ _SIGNATURES = [
      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     ("danet_lstm_scan", _I,
      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    ("danet_lstm_scan_state", _I, [_P] * 7 + [_I] * 5 + [_P]),
     ("danet_lstm_scan_train", _I, [_P] * 8 + [_I] * 5 + [_P]),
     ("danet_lstm_scan_bwd", _I,
      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),

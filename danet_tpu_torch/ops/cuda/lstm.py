@@ -4,7 +4,10 @@ Replaces ``danet_tpu/ops/pallas/lstm.py::bilstm_scan_pallas`` (n_dirs=2)
 and ``lstm_scan_pallas`` (n_dirs=1) with their custom VJPs:
 
   * ``bilstm_scan`` / ``lstm_scan``: kernel B, the lean (inference)
-    forward (``_fwd_call`` with ``save=False``);
+    forward (``_fwd_call`` with ``save=False``); ``lstm_scan`` with
+    ``return_state`` also returns the final cell state in float32, the
+    kernel's own carry (its C entry ``danet_lstm_scan_state`` takes c0 in
+    float32 too), which streaming carries from chunk to chunk;
   * ``bilstm_scan_train``: kernel 2, the forward that also stores the
     residuals ``cs`` and ``acts`` (``save=True``), kernel B's design with
     ``SAVE``; ``lstm_scan_train``: the same on one direction;
@@ -48,7 +51,8 @@ from danet_tpu_torch.ops.nn import acc_dtype
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _scan_plain(xp, wh, c0, h0, tanh_cand: bool, save: bool):
+def _scan_plain(xp, wh, c0, h0, tanh_cand: bool, save: bool,
+                state: bool = False):
     hdim = wh.shape[1]
     dt = xp.dtype
     acc = acc_dtype(xp)                    # float32, or float64 for float64
@@ -70,6 +74,8 @@ def _scan_plain(xp, wh, c0, h0, tanh_cand: bool, save: bool):
         if save:
             cs.append(c.to(dt))
             acts.append(torch.cat([cand, i, f, o], dim=-1).to(dt))
+    if state:
+        return torch.stack(hs), c
     if not save:
         return torch.stack(hs)
     return torch.stack(hs), torch.stack(cs), torch.stack(acts)
@@ -91,11 +97,17 @@ def bilstm_scan_train_plain(xp, wh, c0, h0, tanh_cand: bool):
     return _scan_plain(xp, wh, c0, h0, tanh_cand, True)
 
 
-def lstm_scan_plain(xp, wh, c0, h0, tanh_cand: bool) -> torch.Tensor:
+def lstm_scan_plain(xp, wh, c0, h0, tanh_cand: bool,
+                    return_state: bool = False):
     """Plain version of the one-direction kernel B: xp [T, B, 4H], wh
-    [H, 4H], c0/h0 [B, H] -> hs [T, B, H]."""
-    return _scan_plain(xp[:, None], wh[None], c0[None], h0[None], tanh_cand,
-                       False)[:, 0]
+    [H, 4H], c0/h0 [B, H] -> hs [T, B, H]; with ``return_state``
+    (hs, c_T [B, H]), the final cell state in the carry's float32 (float64
+    for float64 inputs), c0 taken in any float dtype."""
+    out = _scan_plain(xp[:, None], wh[None], c0[None], h0[None], tanh_cand,
+                      False, return_state)
+    if return_state:
+        return out[0][:, 0], out[1][0]
+    return out[:, 0]
 
 
 def lstm_scan_train_plain(xp, wh, c0, h0, tanh_cand: bool):
@@ -264,11 +276,20 @@ def _by_rows(run, rows: int, *batched):
 
 
 def _fwd(wrapper, entry: str, n_dirs: int, save: bool, xp, wh, c0, h0,
-         tanh_cand, rows=None):
+         tanh_cand, rows=None, state: bool = False):
     """Launch a forward kernel, ``wrapper.launches`` counting each launch:
-    -> hs, or (hs, cs, acts) when ``save``.  A batch above ``rows``
-    (``max_rows`` by default) is split across launches."""
-    t, b, hdim = _fwd_shapes(xp, wh, c0, h0, n_dirs)
+    -> hs, or (hs, cs, acts) when ``save``, or (hs, c_T) when ``state``
+    (one direction; c0 and c_T float32).  A batch above ``rows``
+    (``max_rows`` by default) is split across launches, and so is c_T."""
+    if state:
+        t, b, hdim = _fwd_shapes(xp, wh, h0, h0, n_dirs)
+        if c0.dtype != torch.float32 or tuple(c0.shape) != (b, hdim) \
+                or c0.device != xp.device or not c0.is_contiguous():
+            raise ValueError("c0 must be a contiguous float32 %s on %s, got "
+                             "%s %s" % ((b, hdim), xp.device, c0.dtype,
+                                        tuple(c0.shape)))
+    else:
+        t, b, hdim = _fwd_shapes(xp, wh, c0, h0, n_dirs)
     if rows is None:
         rows = max_rows(xp.device, hdim, xp.dtype, "save" if save else "lean")
 
@@ -276,14 +297,19 @@ def _fwd(wrapper, entry: str, n_dirs: int, save: bool, xp, wh, c0, h0,
         b = xp.shape[-2]
         hs = torch.empty((t,) + _dirs(n_dirs, b, hdim), dtype=xp.dtype,
                          device=xp.device)
-        outs = (hs, torch.empty_like(hs), torch.empty_like(xp)) if save \
-            else (hs,)
+        if save:
+            outs = (hs, torch.empty_like(hs), torch.empty_like(xp))
+        elif state:
+            outs = (hs, torch.empty(c0.shape, dtype=torch.float32,
+                                    device=xp.device))
+        else:
+            outs = (hs,)
         xch = exchange_words(n_dirs, b, hdim, xp.device)
         _launch(entry, entry + " kernel", xp.device, (xp, wh, c0, h0) + outs
                 + (xch,), (t, b, hdim, _DTYPE_CODES[xp.dtype],
                            int(bool(tanh_cand))))
         wrapper.launches += 1
-        return outs if save else hs
+        return outs if save or state else hs
     return _by_rows(launch, rows, xp, c0, h0)
 
 
@@ -347,11 +373,15 @@ def bilstm_scan_bwd(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
 
 
 def lstm_scan(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
-              h0: torch.Tensor, tanh_cand: bool) -> torch.Tensor:
+              h0: torch.Tensor, tanh_cand: bool, return_state: bool = False):
     """Kernel B on one direction: xp [T, B, 4H], wh [H, 4H], c0/h0 [B, H]
-    -> hs [T, B, H]."""
+    -> hs [T, B, H]; with ``return_state`` -> (hs, c_T [B, H] float32), c0
+    then float32 (the carry of an earlier call)."""
     if not _on_cuda(xp, "lstm_scan"):
-        return lstm_scan_plain(xp, wh, c0, h0, tanh_cand)
+        return lstm_scan_plain(xp, wh, c0, h0, tanh_cand, return_state)
+    if return_state:
+        return _fwd(lstm_scan, "danet_lstm_scan_state", 1, False, xp, wh,
+                    c0, h0, tanh_cand, state=True)
     return _fwd(lstm_scan, "danet_lstm_scan", 1, False, xp, wh, c0, h0,
                 tanh_cand)
 

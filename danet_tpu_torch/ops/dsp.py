@@ -1,6 +1,6 @@
 """STFT / iSTFT as matrix products against precomputed DFT bases.
 
-Counterpart of ``danet_tpu/ops/dsp.py:34-172,292-296``.  Conventions
+Counterpart of ``danet_tpu/ops/dsp.py:34-273,292-296``.  Conventions
 match ``scipy.signal.stft`` with ``boundary='zeros'``, ``padded=True``,
 one-sided output and ``1/window.sum()`` scaling.  The inverse is the
 reference's overlap-add with a static window**2 denominator, including its
@@ -12,6 +12,14 @@ Spectra use the ri layout: a trailing (real, imag) axis, no complex dtype.
 ``stft_ri`` here is the plain path (STFT_BACKEND='xla'); the fused kernel
 and its own plain version live in ``ops/cuda/stft.py``.  The iSTFT has no
 kernel on the TPU either (XLA work), so it stays plain torch.
+
+The streaming STFT / iSTFT (``stream_frames``, ``stft_frames_ri``,
+``ola_periodic_denom``, ``istft_stream_ri``) keep the JAX package's
+left-padded convention: the stream is led by ``fft_size - stride`` zeros,
+every ``stride`` new samples give one frame that ends at the newest
+sample, and the output lags the input by ``fft_size - stride`` samples.
+Their DFT and inverse DFT are plain matrix products, as the JAX package
+computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -70,17 +78,82 @@ def frame_signal(x: torch.Tensor, fft_size: int,
 def stft_ri(x: torch.Tensor, fft_size: int, stride: int,
             window: np.ndarray) -> torch.Tensor:
     """STFT of real signal(s) [..., L] -> ri [..., T, F, 2]."""
+    tdt = getattr(torch, str(window.dtype))
+    return stft_frames_ri(frame_signal(x.to(tdt), fft_size, stride), window)
+
+
+def stft_frames_ri(frames: torch.Tensor, window: np.ndarray) -> torch.Tensor:
+    """Windowed DFT of framed samples [..., K, fft_size] -> ri [..., K, F, 2]
+    (``stft_ri``'s scaling)."""
+    fft_size = frames.shape[-1]
     dtype = str(window.dtype)
-    tdt = getattr(torch, dtype)
-    frames = frame_signal(x.to(tdt), fft_size, stride)
     cos_b, sin_b = _dft_basis(fft_size, dtype)
     scale = 1.0 / float(np.sum(window))
     key = ("stft-basis", fft_size, window.tobytes(), dtype)
+    dev = frames.device
     wcos = device_constant(key + ("cos",),
-                           lambda: window[:, None] * cos_b * scale, x.device)
+                           lambda: window[:, None] * cos_b * scale, dev)
     wsin = device_constant(key + ("sin",),
-                           lambda: window[:, None] * sin_b * scale, x.device)
+                           lambda: window[:, None] * sin_b * scale, dev)
+    frames = frames.to(getattr(torch, dtype))
     return torch.stack([frames @ wcos, frames @ wsin], dim=-1)
+
+
+def stream_frames(wav_tail: torch.Tensor, wav_chunk: torch.Tensor,
+                  fft_size: int, stride: int):
+    """Frame a chunk [..., K stride] after the carried input tail [...,
+    fft_size - stride] (zeros at the stream's start) -> (frames [..., K,
+    fft_size], the new tail)."""
+    p = fft_size - stride
+    if wav_tail.shape[-1] != p:
+        raise ValueError("the tail must hold fft_size - stride = %d samples, "
+                         "got %d" % (p, wav_tail.shape[-1]))
+    if wav_chunk.shape[-1] % stride:
+        raise ValueError("chunk length must be a multiple of the stride")
+    x = torch.cat([wav_tail, wav_chunk], dim=-1)
+    return x.unfold(-1, fft_size, stride), x[..., x.shape[-1] - p:]
+
+
+def ola_periodic_denom(window: np.ndarray, stride: int) -> np.ndarray:
+    """[stride] steady-state window**2 overlap-add normaliser: entry j sums
+    w^2[o] over the offsets o = j (mod stride), in float64, rounded to the
+    window's dtype."""
+    w2 = np.asarray(window, dtype=np.float64) ** 2
+    denom = np.zeros(stride, dtype=np.float64)
+    for o in range(w2.shape[0]):
+        denom[o % stride] += w2[o]
+    return denom.astype(window.dtype)
+
+
+def istft_stream_ri(spectra_ri: torch.Tensor, stride: int,
+                    window: np.ndarray, ola_tail: torch.Tensor):
+    """Streaming inverse STFT of K frames [..., K, F, 2] (``stream_frames``'
+    framing) with the carried overlap-add numerator [..., fft_size - stride]
+    (zeros at the stream's start) -> (normalised samples [..., K stride],
+    the new tail)."""
+    fft_size = (spectra_ri.shape[-2] - 1) * 2
+    p = fft_size - stride
+    dtype = str(window.dtype)
+    tdt = getattr(torch, dtype)
+    dev = spectra_ri.device
+    k = spectra_ri.shape[-3]
+    lead = tuple(spectra_ri.shape[:-3])
+    cos_b, sin_b = _idft_basis(fft_size, dtype)
+    key = ("istft", fft_size, stride, window.tobytes(), dtype)
+    frames = (spectra_ri[..., 0].to(tdt)
+              @ device_constant(key + ("cos",), lambda: cos_b, dev)
+              + spectra_ri[..., 1].to(tdt)
+              @ device_constant(key + ("sin",), lambda: sin_b, dev))
+    frames = frames * device_constant(key + ("window",),
+                                      lambda: np.asarray(window), dev)
+    buf = overlap_add(frames, stride)                      # [..., K s + p]
+    buf = torch.cat([buf[..., :p] + ola_tail.to(buf.dtype), buf[..., p:]],
+                    dim=-1)
+    denom = device_constant(key + ("periodic-denominator",),
+                            lambda: ola_periodic_denom(window, stride), dev)
+    out = (buf[..., :k * stride].reshape(lead + (k, stride)) / denom) \
+        .reshape(lead + (k * stride,))
+    return out, buf[..., k * stride:]
 
 
 def overlap_add(frames: torch.Tensor, stride: int) -> torch.Tensor:

@@ -243,15 +243,18 @@ def conv1d_depthwise_init(generator: torch.Generator, channels: int,
 
 
 def conv1d_depthwise_apply(params: dict, x: torch.Tensor, dilation: int = 1,
-                           causal: bool = False) -> torch.Tensor:
+                           causal: bool = False,
+                           valid: bool = False) -> torch.Tensor:
     """Depthwise dilated convolution over axis 1 of [B, T, C] -> [B, T, C],
     in float32 (float64 for float64 ``x``) and cast back to x's dtype.
     ``causal`` pads (K - 1) dilation zeros on the left; otherwise that
-    span splits as (span // 2, span - span // 2)."""
+    span splits as (span // 2, span - span // 2).  ``valid`` pads nothing
+    (-> [B, T - span, C]: a stream's chunk after its tail)."""
     w = params["w"]
     dt = acc_dtype(x)
     span = (w.shape[-1] - 1) * dilation
-    pad = (span, 0) if causal else (span // 2, span - span // 2)
+    pad = (0, 0) if valid else (span, 0) if causal else (
+        span // 2, span - span // 2)
     xt = torch.nn.functional.pad(x.transpose(1, 2).to(dt), pad)
     y = _Conv.apply(xt, w.to(dt), [0], [dilation], w.shape[0])
     y = (y + params["b"].to(dt)[None, :, None]).to(x.dtype)

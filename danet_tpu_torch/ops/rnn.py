@@ -15,8 +15,14 @@ backward) and ``ops/cuda/gru.py`` (``gru_scan``, else ``GruScan``).
 ``LSTM_BACKEND`` keeps its JAX values: 'auto' and 'pallas' mean the hand
 kernels for CUDA tensors (their plain versions for CPU tensors);
 'xla' and 'pallas-interpret' mean the plain versions everywhere.
-``return_state`` (the final carry, used only by streaming and sequence
-parallelism) is not ported and raises NotImplementedError.
+``return_state`` returns the final carry as well, as JAX's does (for a
+reversed scan, the state after consuming the input down to its first
+frame): the LSTM's ``(c, h)``, c in float32 whatever the compute dtype
+(the kernel's own carry, from kernel B's state entry; h is the last row
+of hs), and the GRU's ``c``, the last row of kernel 4f's ``cs``.  Under
+autograd its only user is sequence parallelism's halo warm-up, not
+ported: on the card it raises NotImplementedError there, and the plain
+path stays differentiable.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ import torch
 
 from danet_tpu_torch.ops.cuda import gru as cuda_gru
 from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
-from danet_tpu_torch.ops.nn import dropout, ee, uniform_init
+from danet_tpu_torch.ops.nn import acc_dtype, dropout, ee, uniform_init
 
 BACKENDS = ("auto", "xla", "pallas", "pallas-interpret")
 
@@ -64,16 +70,23 @@ def lstm_input_proj(params: dict, x_tm: torch.Tensor) -> torch.Tensor:
         + params["b"].to(dt)
 
 
-def _check_backend(backend: str, return_state: bool = False) -> bool:
+def _check_backend(backend: str) -> bool:
     """True when ``backend`` takes the hand kernels (for CUDA tensors)."""
     if backend not in BACKENDS:
         raise ValueError("Unknown RNN backend %r (expected one of %s)"
                          % (backend, ", ".join(BACKENDS)))
-    if return_state:
-        raise NotImplementedError(
-            "return_state (the final carry, for streaming and sequence "
-            "parallelism) is not ported")
     return backend in ("auto", "pallas")
+
+
+def _refuse_state_grad(x: torch.Tensor, use_kernel: bool) -> None:
+    """return_state under autograd on the hand kernels: the final carry
+    has no backward there (its only differentiable user, the sequence-
+    parallel halo warm-up, is not ported)."""
+    if use_kernel and x.device.type == "cuda":
+        raise NotImplementedError(
+            "return_state under autograd on the card (the final carry's "
+            "gradient, for sequence parallelism) is not ported (ROADMAP.md, "
+            "queue 1 item 6)")
 
 
 def _needs_grad(*tensors) -> bool:
@@ -84,13 +97,15 @@ def lstm_apply(params: dict, x: torch.Tensor,
                candidate_activation: str = "tanh", reverse: bool = False,
                c0: Optional[torch.Tensor] = None,
                h0: Optional[torch.Tensor] = None, backend: str = "auto",
-               return_state: bool = False) -> torch.Tensor:
+               return_state: bool = False):
     """One-direction LSTM over x [B, T, idim] -> [B, T, hdim].
 
     ``reverse`` runs over the time-reversed input and re-reverses the
     output.  The initial state is ``c0``/``h0`` [B, hdim], zeros by
-    default."""
-    use_kernel = _check_backend(backend, return_state)
+    default.  ``return_state`` -> (hs, (c, h)), the final carry: c in
+    float32 (float64 for float64 inputs), h in x's dtype; c0 is then kept
+    in that float32 too."""
+    use_kernel = _check_backend(backend)
     dt = x.dtype
     x_tm = x.transpose(0, 1)                                # [T, B, I]
     if reverse:
@@ -100,9 +115,24 @@ def lstm_apply(params: dict, x: torch.Tensor,
     xp = lstm_input_proj(params, x_tm).reshape(t, b, 4 * hdim).contiguous()
     wh = params["wh"].to(dt).reshape(hdim, 4 * hdim).contiguous()
     z = torch.zeros((b, hdim), dtype=dt, device=x.device)
-    c0 = z if c0 is None else c0.to(dt).contiguous()
+    cdt = acc_dtype(xp) if return_state else dt
+    c0 = z.to(cdt) if c0 is None else c0.to(cdt).contiguous()
     h0 = z if h0 is None else h0.to(dt).contiguous()
     tanh_cand = candidate_activation == "tanh"
+    if return_state:
+        if _needs_grad(xp, wh, c0, h0):
+            _refuse_state_grad(x, use_kernel)
+            hs, c_t = cuda_lstm.lstm_scan_plain(xp, wh, c0, h0, tanh_cand,
+                                                True)
+        elif use_kernel:
+            hs, c_t = cuda_lstm.lstm_scan(xp, wh, c0, h0, tanh_cand, True)
+        else:
+            hs, c_t = cuda_lstm.lstm_scan_plain(xp, wh, c0, h0, tanh_cand,
+                                                True)
+        state = (c_t, hs[-1])
+        if reverse:
+            hs = hs.flip(0)
+        return hs.transpose(0, 1), state
     if _needs_grad(xp, wh, c0, h0):
         hs = cuda_lstm.LstmScan.apply(xp, wh, c0, h0, tanh_cand, use_kernel)
     elif use_kernel:
@@ -168,11 +198,12 @@ def gru_init(generator: torch.Generator, idim: int, hdim: int,
 
 def gru_apply(params: dict, x: torch.Tensor,
               c0: Optional[torch.Tensor] = None, backend: str = "auto",
-              return_state: bool = False) -> torch.Tensor:
+              return_state: bool = False):
     """GRU over x [B, T, idim] -> [B, T, hdim]: gates (r, u) from x and c,
     candidate tanh from x and c * r, c' = c * u + cand * (1 - u).  The
-    initial state is ``c0`` [B, hdim], zeros by default."""
-    use_kernel = _check_backend(backend, return_state)
+    initial state is ``c0`` [B, hdim], zeros by default.
+    ``return_state`` -> (cs, c), c the last row of cs."""
+    use_kernel = _check_backend(backend)
     hdim = params["wch"].shape[0]
     dt = x.dtype
     x_tm = x.transpose(0, 1)                                # [T, B, I]
@@ -186,9 +217,13 @@ def gru_apply(params: dict, x: torch.Tensor,
     c0 = torch.zeros((b, hdim), dtype=dt, device=x.device) if c0 is None \
         else c0.to(dt).contiguous()
     if _needs_grad(gx, cx, wgh, wch, c0):
+        if return_state:
+            _refuse_state_grad(x, use_kernel)
         cs = cuda_gru.GruScan.apply(gx, cx, wgh, wch, c0, use_kernel)
     elif use_kernel:
         cs = cuda_gru.gru_scan(gx, cx, wgh, wch, c0)
     else:
         cs = cuda_gru.gru_scan_plain(gx, cx, wgh, wch, c0)
+    if return_state:
+        return cs.transpose(0, 1), cs[-1]
     return cs.transpose(0, 1)

@@ -76,7 +76,10 @@ H=600, tanh candidate, layer-shaped inputs with nonzero c0 and h0, at
 (T=1251, B=1) (a 10 s request), (T=1251, B=4) and (T=128, B=32) (the
 validation batch), float32 and bfloat16: max abs error against the plain
 version at ``chip_smoke.py`` phase 4's tolerances (float32 atol 1e-5,
-bfloat16 5e-2), ms and µs per step, and in float32 the time of
+bfloat16 5e-2), a digest of the output's bytes (equal digests from two
+builds: bit-identical outputs), ms and µs per step, ``lstm_scan``'s state
+entry (``return_state``: float32 c0 and final carry) timed beside its lean
+one where the library has it, and in float32 the time of
 ``torch.nn.LSTM`` (cuDNN, with the input projection) at the same (T, B)
 beside it; then both kernels' µs per step at T=501 (a 4 s request) for B
 = 1, 2, 4, 8, 16 and 32, float32, unchecked.  ``--cut``, ``--set`` and
@@ -613,6 +616,7 @@ def _lstm_arrays(rs, t: int, b: int, d: int, h: int) -> tuple:
 
 
 def lstm_fwd(reps: int, legacy: bool, checked: bool = True) -> None:
+    from danet_tpu_torch.ops.cuda import _build
     from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -640,11 +644,18 @@ def lstm_fwd(reps: int, legacy: bool, checked: bool = True) -> None:
                 if not ok:
                     failed.append((name, str(dt), t, b))
                 ms = cuda_ms(lambda: kernel(*args), reps)
+                state = ""
+                if name == "lstm_scan" and hasattr(_build.library(),
+                                                   "danet_lstm_scan_state"):
+                    # the state entry (return_state): float32 c0 and c_T
+                    sargs = args[:2] + [args[2].float()] + args[3:]
+                    state = "; state entry %.4f ms" % cuda_ms(
+                        lambda: kernel(*sargs, return_state=True), reps)
                 print("lstm-fwd %s %s T=%d B=%d H=%d: max abs err %.3g (atol "
-                      "%g)%s; kernel %.4f ms, %.3f us/step%s"
+                      "%g)%s, digest %s; kernel %.4f ms, %.3f us/step%s%s"
                       % (name, str(dt).replace("torch.", ""), t, b, h, err,
-                         LEAN_ATOL[dt], "" if ok else " FAIL", ms,
-                         1e3 * ms / t,
+                         LEAN_ATOL[dt], "" if ok else " FAIL",
+                         _digest([out]), ms, 1e3 * ms / t, state,
                          "; torch.nn.LSTM(600, %d%s) %.4f ms" % (
                              h, ", bidirectional" if d == 2 else "", lib)
                          if dt == torch.float32 else ""))

@@ -139,14 +139,94 @@ def test_torch_cli_demo_mode_writes_separated_wavs(workdir, capsys):
             os.environ["DISPLAY"] = env
 
 
-@pytest.mark.parametrize("args", [["--stream"],
-                                  ["--set", "DEMO_CHUNK_FRAMES=16"]])
-def test_torch_cli_demo_stream_mode(workdir, capsys, args):
-    """(test_cli.py:63) --stream and demo with DEMO_CHUNK_FRAMES > 0 need
-    the streaming paths, not ported: NotImplementedError naming them."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        _run(workdir, BASE + ["-m", "demo", "-c", "cfg.json"] + args,
-             capsys)
+def _write_mixture(path, seconds=1.5):
+    """A 16-bit WAV at 8 kHz: two gliding harmonic tones and noise, at
+    int16 scale (the demo keeps the file's sample scale)."""
+    rs = np.random.RandomState(5)
+    t = np.arange(int(8000 * seconds)) / 8000.0
+    x = sum(np.sin(2 * np.pi * f * (1 + 0.05 * t) * t * k) / k
+            for f in (140.0, 230.0) for k in (1, 2, 3))
+    x = 3000.0 * x + 200.0 * rs.randn(len(t))
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(8000)
+        w.writeframes(np.clip(x, -32768, 32767).astype(np.int16).tobytes())
+
+
+def _fill(template, tree):
+    """JAX's parameter tree ``template`` with the leaves of ``tree`` (a
+    checkpoint's numpy tree, which drops empty components)."""
+    return {k: _fill(v, tree.get(k, {})) if isinstance(v, dict)
+            else jnp.asarray(tree[k]) for k, v in template.items()}
+
+
+@pytest.mark.parametrize("args", [["--stream", "--stream-chunk", "16",
+                                   "--stream-warmup", "32"],
+                                  ["--set", "DEMO_CHUNK_FRAMES=48"]])
+def test_torch_cli_demo_stream_mode(workdir, capsys, fresh_hparams,
+                                    monkeypatch, tmp_path, args):
+    """(test_cli.py:64) -m demo --stream (lstm-orig, 2 layers of 8 units,
+    trained one toy epoch here: a causal encoder) and -m demo with
+    DEMO_CHUNK_FRAMES 48 (the shared toy run; DEMO_OVERLAP_FRAMES 32) on a
+    1.5 s WAV of our own (188 frames): the separated WAVs within one int16
+    step of JAX's main.py demo path (``separate_stream`` /
+    ``separate_long`` on the same checkpoint's weights and WAV, then
+    JAX's ``save_wavfile``)."""
+    from danet_tpu.data import audio as jaudio
+    stream = args[0] == "--stream"
+    keys = {"BATCH_SIZE": 4, "MAX_TRAIN_LEN": 32}
+    cwd = workdir
+    if stream:
+        for cls in (jenc.LstmEncoder, tenc.LstmEncoder):
+            monkeypatch.setattr(cls, "HDIM", 8)
+            monkeypatch.setattr(cls, "N_LAYERS", 2)
+        keys["ENCODER_TYPE"] = "lstm-orig"
+        cwd = str(tmp_path)
+        with open(os.path.join(cwd, "cfg.json"), "w") as f:
+            json.dump(dict(keys, SUMMARY_DIR=os.path.join(cwd, "logs")), f)
+        _run(cwd, BASE + ["-m", "train", "-ne", "1", "-c", "cfg.json", "-o",
+                          "ckpt", "--no-valid-on-epoch",
+                          "--no-save-on-epoch"], capsys)
+    name = "stream" if stream else "long"
+    _write_mixture(os.path.join(cwd, name + ".wav"))
+    env = os.environ.pop("DISPLAY", None)
+    try:
+        out = _run(cwd, BASE + ["-m", "demo", "-c", "cfg.json", "-i", "ckpt",
+                                "-if", name + ".wav"] + args, capsys)
+    finally:
+        if env is not None:
+            os.environ["DISPLAY"] = env
+    for i in (1, 2):
+        assert "Separated source written to %s_separated_%d.wav" % (
+            name, i) in out
+
+    # JAX's main.py demo on the same weights and WAV
+    hp = fresh_hparams
+    hp.load(dict(keys, DEMO_CHUNK_FRAMES=0 if stream else 48))
+    hp.digest()
+    jm = JaxDaNet()
+    tm = TorchDaNet(load_config(**keys))
+    tree = ckpt.load_eval_params(os.path.join(cwd, "ckpt"), tm.init(
+        torch.Generator()))
+    jp = _fill(jax.device_get(jm.init(jax.random.PRNGKey(0))), tree)
+    raw = jaudio.load_wavfile(os.path.join(cwd, name + ".wav"))
+    pad = (-len(raw)) % hp.LENGTH_ALIGN
+    if pad:
+        raw = np.pad(raw, [(0, pad), (0, 0)])
+    mix_ri = jnp.asarray(jaudio.to_ri(raw[None])[0])
+    assert mix_ri.shape[0] > 48
+    sep = (jm.separate_stream(jp, mix_ri, 16, 32) if stream
+           else jm.separate_long(jp, mix_ri, 48, hp.DEMO_OVERLAP_FRAMES))
+    for i, s in enumerate(jaudio.from_ri(np.asarray(sep))):
+        ref_path = str(tmp_path / ("jax_%d.wav" % (i + 1)))
+        jaudio.save_wavfile(ref_path, s)
+        rate, got = _read_wav(os.path.join(cwd, "%s_separated_%d.wav"
+                                           % (name, i + 1)))
+        _, want = _read_wav(ref_path)
+        assert rate == 8000 and got.shape == want.shape
+        assert np.abs(want).max() > 10.0
+        np.testing.assert_allclose(got, want, atol=1.0, rtol=0)
 
 
 def _jax_debug(model, params, src_ri):

@@ -6,6 +6,8 @@ Small widths (T <= 10, B <= 4, H <= 8), inputs from numpy seeds.
 Tolerances, float32: atol 1e-6 on forwards, atol 2e-5 + rtol 1e-4 on
 backwards and gradients (the JAX kernel tests' bars, tests/test_pallas.py).
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -168,15 +170,20 @@ def test_torch_gru_apply_grads_match_jax(fresh_hparams):
 
 
 def test_torch_gru_apply_refuses_unported(fresh_hparams):
-    """An unknown backend and return_state (the final carry, streaming
-    only) raise."""
+    """An unknown backend raises; return_state (the final carry) under
+    autograd raises on the card, where the kernels have no backward for
+    it, and runs the plain scan on the CPU."""
     tparams = weights.from_jax(jax.device_get(
         jrnn.gru_init(jax.random.PRNGKey(5), 3, 4)))
     x = torch.zeros(1, 5, 3)
     with pytest.raises(ValueError):
         trnn.gru_apply(tparams, x, backend="cudnn")
-    with pytest.raises(NotImplementedError):
-        trnn.gru_apply(tparams, x, return_state=True)
+    x.requires_grad_(True)
+    out, _ = trnn.gru_apply(tparams, x, return_state=True)
+    assert out.requires_grad
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        trnn._refuse_state_grad(
+            types.SimpleNamespace(device=torch.device("cuda")), True)
 
 
 def test_torch_gru_wrappers_refuse_other_devices(fresh_hparams):

@@ -6,6 +6,8 @@ mode.
 float32; atol 1e-6 on forwards, atol 2e-5 + rtol 1e-4 on backwards and
 gradients (the JAX kernel tests' bars).
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -380,15 +382,20 @@ def test_torch_lstm_apply_grads_match_jax(fresh_hparams, act):
 
 
 def test_torch_lstm_apply_refuses_unported(fresh_hparams):
-    """An unknown backend and return_state (the final carry, streaming
-    only) raise."""
+    """An unknown backend raises; return_state (the final carry) under
+    autograd raises on the card, where the kernels have no backward for
+    it, and runs the plain scan on the CPU."""
     tparams = {"wx": torch.zeros(2, 4, 3), "wh": torch.zeros(3, 4, 3),
                "b": torch.zeros(4, 3)}
     x = torch.zeros(1, 4, 2)
     with pytest.raises(ValueError):
         trnn.lstm_apply(tparams, x, backend="cudnn")
-    with pytest.raises(NotImplementedError):
-        trnn.lstm_apply(tparams, x, return_state=True)
+    x.requires_grad_(True)
+    out, _ = trnn.lstm_apply(tparams, x, return_state=True)
+    assert out.requires_grad
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        trnn._refuse_state_grad(
+            types.SimpleNamespace(device=torch.device("cuda")), True)
 
 
 def test_torch_lstm_wrappers_refuse_other_devices(fresh_hparams):
