@@ -149,9 +149,8 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    median step time beside the dense attention's.
 16. kernel 6 (kernel A's (|Z|, log1p|Z|) epilogue, stft_ri with
    logmag=True) vs its plain version, atol 2e-5, with each output's
-   digest, and its time.  No main
-   path of the port (or of the JAX package) calls it, so its summary
-   entry counts this phase's comparison launches and says so.
+   digest, and its time.  Its caller, dsp.stft_mag_logmag, runs in phase
+   25 (f), whose launches its summary entry counts.
 17. training with configs/tpu.json's model half (the JAX package's
    shipping config: attn-v1 on its flash path at phase 15's widths,
    INFER_ESTIMATOR_METHOD kmeans with KMEANS_ITER 5, ANCHOR_AUX_LOSS 0.5,
@@ -365,11 +364,44 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    with --set DEMO_CHUNK_FRAMES=64 (bilstm-orig), on the card and with
    --device cpu from the same checkpoint: the WAVs within one int16 step.
 
+25. the serving artifacts (torch.export bundles, the kernels as
+   torch.library ops, ops/cuda/library.py).  (a) each op (danet::stft_ri
+   with and without its logmag flag, bilstm_scan, lstm_scan,
+   lstm_scan_state, gru_scan, flash_attn) on the card against its plain
+   version on the same inputs at small shapes of its main paths (phase
+   3's, 4's, 8's and 13's tolerances), one launch of its kernel per call,
+   and torch.library.opcheck on the card.  (b) the paper model
+   (default.json's bilstm-orig, 4 x 2 x 300, seed 0, float32) exported
+   for the card at buckets 16000, 40000 and 80000: each bucket's graph
+   holds danet.stft_ri once and danet.bilstm_scan once per layer; a 10 s
+   and a 3 s request (padded to 40000) through the bundle, each raising
+   kernel A's counter by 1 and kernel B's by 4 and running no plain scan,
+   against the live Separator on the padded wave (1e-6 of the peak), the
+   CPU bundle (SERVE_RTOL) and a fresh process that loads the artifact
+   without model code (bit for bit); the export time, the artifact's size
+   and the median ms per request, bundle beside live.  (c) attn-v1 on
+   its flash path, one bucket of T = 1280: a 9.98 s request that the live
+   Separator refuses (T = 1249), through kernel 5f once per block,
+   against the live model on the padded wave.  (d) bfloat16 weights: the
+   artifact under 0.75 of the float32 one, the 3 s request within 5e-2 of
+   the float32 bundle's peak.  (e) stream bundles at default.json's
+   widths, lstm-orig (kernel 1's state entry per layer and feed), gru-v1
+   (4f) and causal tasnet-v1 (no kernel; depth cut to one repeat of its 8
+   blocks): a 16,384-sample warm-up and 16
+   feeds of 4096 against the live Streamer (1e-6 of the peak), median and
+   p90 ms per feed beside the live Streamer's.  (f) dsp.stft_mag_logmag on
+   the card (kernel 6) against its plain version, atol 2e-5.  (g) the
+   serve CLI: export -> run -d (paper model) and export-stream ->
+   run-stream (lstm-orig) from .npz weights, the WAVs within one int16
+   step of (b)'s and (e)'s bundles fed by hand.
+
 The kernel summary lists all fourteen kernels; its launches count the
 main paths of phases 5, 7, 10, 11, 14, 15, 17, 18, 19, 20 (20: (a),
 (c), (d)'s resume and (e)), 21 ((b) and (c)'s card-vs-CPU part), 22
 ((a), (c) and (d)), 23 (every serving and card-vs-CPU training part,
-the CLI) and 24 ((b)'s timed streams, (c) and (d)'s demos on the card).
+the CLI), 24 ((b)'s timed streams, (c) and (d)'s demos on the card)
+and 25 ((b)-(g): the bundles' checked requests and feeds, kernel 6's
+caller, the CLI).
 bound_ms is the least time the card could take for the work of the timed
 call: the larger of its bytes (each input read once, each output written
 once) over 3.35 TB/s and
@@ -1607,8 +1639,7 @@ def phase_training_attention() -> dict:
 
 def phase_stft_logmag(window) -> dict:
     """Phase 16: kernel 6 (kernel A's (|Z|, log1p|Z|) epilogue) vs its
-    plain version.  No main path of the port (or of the JAX package) calls
-    it, so its launch count is this phase's comparison launches."""
+    plain version, and its time (its caller runs in phase 25 (f))."""
     rs = np.random.RandomState(16)
     cuda_stft.stft_logmag.launches = 0
     worst = 0.0
@@ -4168,6 +4199,551 @@ def phase_streaming() -> dict:
             "launches": launches}
 
 
+# phase 25: the serving artifacts.  (b) the paper model's buckets and its
+# two requests (samples, the bucket that admits them): 10 s and 3 s
+BUNDLE_LENGTHS = (16000, 40000, 80000)
+BUNDLE_REQUESTS = ((10 * SMPRATE, 80000), (3 * SMPRATE, 40000))
+BUNDLE_REPS = 10
+# (c) attn-v1 on its flash path: the bucket of T = 1280 frames and a 9.98 s
+# request (T = 1249, which the flash kernel refuses unpadded)
+FLASH_BUCKET = 64 * (1280 - 1)
+FLASH_REQUEST = 79840
+# (d) bfloat16 weights: the output within this share of the float32
+# bundle's peak (tests/test_serve.py:322's 5e-2), an artifact under this
+# share of the float32 one
+BF16_RTOL = 5e-2
+BF16_SIZE = 0.75
+# bundle against the live model on the same padded wave: the same eager
+# ops, traced
+BUNDLE_RTOL = 1e-6
+
+
+def _op_cases(rs, window) -> list:
+    """(a): (name, op, arguments on the card, plain version, the wrapper
+    whose counter the op raises, [(output, atol, rtol)]) of every op at
+    small shapes of its main paths."""
+    from danet_tpu_torch.ops.cuda import library
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(
+            np.float32)).cuda()
+    t = 64
+    x = r(2, 16000, scale=0.3)
+    name, dt = library.window_key(window)
+    stft_tol = [("ri", STFT_ATOL, 0.0)]
+    scan_tol = [("hs", LSTM_ATOL[torch.float32], 0.0)]
+    lstm1 = (r(t, 1, 2400, scale=0.5), r(600, 2400, scale=600 ** -0.5),
+             r(1, 600, scale=0.5), r(1, 600, scale=0.5))
+    qkv = r(1, 256, 3, ATTN_H, ATTN_D)
+    seg = torch.zeros(1, 256, dtype=torch.int32)
+    seg[0, 219:] = 1
+    return [
+        ("stft_ri", library.stft_ri_op, (x, 256, 64, name, dt, False),
+         lambda *a: cuda_stft.stft_ri_plain(x, 256, 64, window), "stft_ri",
+         stft_tol),
+        ("stft_ri logmag", library.stft_ri_op, (x, 256, 64, name, dt, True),
+         lambda *a: cuda_stft.stft_ri_plain(x, 256, 64, window, True),
+         "stft_logmag", stft_tol),
+        ("bilstm_scan", library.bilstm_scan,
+         (r(t, 2, 1, 1200, scale=0.5), r(2, 300, 1200, scale=300 ** -0.5),
+          torch.zeros(2, 1, 300).cuda(), torch.zeros(2, 1, 300).cuda(),
+          True), cuda_lstm.bilstm_scan_plain, "bilstm_scan", scan_tol),
+        ("lstm_scan", library.lstm_scan, lstm1 + (True,),
+         cuda_lstm.lstm_scan_plain, "lstm_scan", scan_tol),
+        ("lstm_scan_state", library.lstm_scan_state, lstm1 + (True,),
+         lambda *a: cuda_lstm.lstm_scan_plain(*a, return_state=True),
+         "lstm_scan", scan_tol + [("c_T", LSTM_ATOL[torch.float32], 0.0)]),
+        ("gru_scan", library.gru_scan,
+         (r(t, 1, 1200, scale=0.5), r(t, 1, 600, scale=0.5),
+          r(600, 1200, scale=600 ** -0.5), r(600, 600, scale=600 ** -0.5),
+          r(1, 600, scale=0.5)), cuda_gru.gru_scan_plain, "gru_scan",
+         [("cs", LSTM_ATOL[torch.float32], 0.0)]),
+        ("flash_attn", library.flash_attn,
+         (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], seg.cuda(),
+          1.0 / ATTN_D ** 0.5), cuda_attn.flash_attn_plain, "flash_attn",
+         [("o",) + TRAIN_FWD_TOL[torch.float32], ("l",) + STATS_TOL,
+          ("m", 1e-5, 0.0)]),
+    ]
+
+
+def _ops_on_card(window) -> dict:
+    """(a) each op's CUDA implementation (the kernel's wrapper) against its
+    plain version on the same inputs, one launch of its kernel per call,
+    and ``torch.library.opcheck`` on the card."""
+    worst = {}
+    for name, op, args, plain, counter, tols in _op_cases(
+            np.random.RandomState(250), window):
+        before = _counts()
+        got = op(*args)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _counts().items()
+                    if v != before[k]}
+        want = plain(*args)
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        parts, ok = [], launched == {counter: 1}
+        for (what, atol, rtol), g, w in zip(tols, got, want):
+            err = max_err(g, w)
+            bound = atol + rtol * float(w.abs().max())
+            parts.append("%s %.3g (bound %.3g)" % (what, err, bound))
+            ok = ok and g.shape == w.shape and g.dtype == w.dtype \
+                and bool(torch.isfinite(g).all()) and err <= bound
+            worst[name] = max(worst.get(name, 0.0), err)
+        torch.library.opcheck(op, args)
+        line = ("phase 25 (a) danet::%s on the card: launched %s; vs plain "
+                "%s; opcheck passed" % (name, launched, ", ".join(parts)))
+        print(line)
+        if not ok:
+            raise AssertionError(line)
+    return worst
+
+
+def _graph_ops(path: str) -> dict:
+    """The danet.* nodes of an exported program file, by op."""
+    program = torch.export.load(path)
+    out: dict = {}
+    for n in program.graph.nodes:
+        target = str(n.target)
+        if n.op == "call_function" and target.startswith("danet."):
+            out[target] = out.get(target, 0) + 1
+    return out
+
+
+def _dir_mb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path)) / 2 ** 20
+
+
+def _launches_of(fn):
+    """fn() with the counts zeroed before it and no plain scan in it: ->
+    (result, launches)."""
+    _zero_counts()
+    with _PlainScans() as plain:
+        out = fn()
+    if plain.calls:
+        raise AssertionError("phase 25: %d plain scans on the card"
+                             % plain.calls)
+    return out, _counts()
+
+
+def _only(launches: dict, **want) -> bool:
+    return launches == dict({k: 0 for k in KERNELS}, **want)
+
+
+def _median_ms(fn, reps: int = BUNDLE_REPS) -> float:
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()                                       # numpy out: synced
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+_SUBPROCESS_SEPARATE = """
+import sys
+import numpy as np
+from danet_tpu_torch.serve import load_separator
+bundle = load_separator(sys.argv[1])
+wavs = np.load(sys.argv[2])
+np.savez(sys.argv[3], *[bundle.separate(wavs[k]) for k in wavs.files])
+bad = [m for m in sys.modules if m.startswith("danet_tpu_torch.models")
+       or m == "danet_tpu_torch.hparams"]
+assert not bad, bad
+"""
+
+
+def _paper_bundle(tmp: str) -> dict:
+    """(b) the paper model (default.json's bilstm-orig, 4 x 2 x 300) at
+    seed 0, exported for the card at BUNDLE_LENGTHS: its graph's kernel
+    ops, a 10 s and a 3 s request against the live Separator on the
+    padded wave, the CPU bundle and a fresh process; launches and times."""
+    from danet_tpu_torch import serve
+    hp = load_config(ENCODER_TYPE="bilstm-orig")
+    model = hp.get_model()(hp)
+    params = _init(model)
+    layers = model.encoder.N_LAYERS
+    path = os.path.join(tmp, "paper")
+    t0 = time.perf_counter()
+    serve.export_separator(model, params, path, BUNDLE_LENGTHS)
+    export_s = time.perf_counter() - t0
+    for length in BUNDLE_LENGTHS:
+        nodes = _graph_ops(os.path.join(path, "sep_%d.pt2" % length))
+        if nodes != {"danet.stft_ri.default": 1,
+                     "danet.bilstm_scan.default": layers}:
+            raise AssertionError("phase 25 (b) bucket %d holds %s"
+                                 % (length, nodes))
+    print("phase 25 (b) paper model %s: exported buckets %s for the card in "
+          "%.1f s (%.2f s per bucket), %.1f MiB; each bucket's graph holds "
+          "danet.stft_ri x1, danet.bilstm_scan x%d"
+          % (_describe(hp, model.encoder), list(BUNDLE_LENGTHS), export_s,
+             export_s / len(BUNDLE_LENGTHS), _dir_mb(path), layers))
+    bundle = serve.load_separator(path)
+    live = serve.Separator(model, params, "cuda")
+    rs = np.random.RandomState(251)
+    wavs = [_mixture(rs, 1, n)[0] for n, _ in BUNDLE_REQUESTS]
+    cpu_path = os.path.join(tmp, "paper-cpu")
+    serve.export_separator(model, params, cpu_path,
+                           sorted({b for _, b in BUNDLE_REQUESTS}),
+                           device="cpu")
+    cpu = serve.load_separator(cpu_path)
+    np.savez(os.path.join(tmp, "wavs.npz"), *wavs)
+    proc = subprocess.run(
+        [sys.executable, "-c", _SUBPROCESS_SEPARATE, path,
+         os.path.join(tmp, "wavs.npz"), os.path.join(tmp, "fresh.npz")],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode:
+        raise AssertionError("phase 25 (b) fresh process: " + proc.stderr)
+    with np.load(os.path.join(tmp, "fresh.npz")) as f:
+        fresh = [f[k] for k in f.files]
+    total = {k: 0 for k in KERNELS}
+    out = {"export_s": export_s, "mib": _dir_mb(path), "requests": {}}
+    for wav, (n, bucket), other in zip(wavs, BUNDLE_REQUESTS, fresh):
+        padded = np.zeros(bucket, np.float32)
+        padded[:n] = wav
+        bundle.separate(wav)                                   # warm-up
+        got, launches = _launches_of(lambda: bundle.separate(wav))
+        for k in KERNELS:
+            total[k] += launches[k]
+        ref = live.separate(padded)[:, :n]
+        on_cpu = cpu.separate(wav)
+        peak = float(np.abs(ref).max())
+        err, cpu_err = (float(np.abs(got - ref).max()),
+                        float(np.abs(got - on_cpu).max()))
+        ms = (_median_ms(lambda: bundle.separate(wav)),
+              _median_ms(lambda: live.separate(wav)))
+        line = ("phase 25 (b) %.2f s request (bucket %d) at B=1: out %s; vs "
+                "live Separator on the padded wave max_abs_err %.3g (%.3g "
+                "of the peak %.3g, bound %g); vs the CPU bundle %.3g of the "
+                "peak (bound %g); a fresh process bit for bit: %s (max "
+                "|diff| %.3g); launches "
+                "%s; median of %d: bundle %.3f ms, live %.3f ms per request "
+                "on %s" % (n / SMPRATE, bucket, got.shape, err, err / peak,
+                           peak, BUNDLE_RTOL, cpu_err / peak, SERVE_RTOL,
+                           np.array_equal(got, other),
+                           float(np.abs(got - other).max()),
+                           {k: v for k, v in launches.items() if v},
+                           BUNDLE_REPS, *ms, nvidia_smi()))
+        print(line)
+        if got.shape != (hp.MAX_N_SIGNAL, n) or not np.isfinite(got).all() \
+                or not err <= BUNDLE_RTOL * peak \
+                or not cpu_err <= SERVE_RTOL * peak \
+                or not np.array_equal(got, other) \
+                or not _only(launches, stft_ri=1, bilstm_scan=layers):
+            raise AssertionError(line)
+        out["requests"][n] = {"max_rel_err": err / peak,
+                              "cpu_rel_err": cpu_err / peak,
+                              "bundle_ms": ms[0], "live_ms": ms[1]}
+    out["launches"] = total
+    out["path"], out["model"], out["params"], out["wavs"] = \
+        path, model, params, wavs
+    return out
+
+
+def _flash_bundle(tmp: str) -> dict:
+    """(c) attn-v1 on its flash path at default.json's widths, one bucket
+    of T = 1280 frames: a 9.98 s request, which the live Separator refuses
+    (T = 1249), answered through kernel 5f once per block, against the
+    live model on the padded wave."""
+    from danet_tpu_torch import serve
+    hp = load_config(ENCODER_TYPE="attn-v1", **FLASH)
+    model = hp.get_model()(hp)
+    params = _init(model)
+    path = os.path.join(tmp, "flash")
+    serve.export_separator(model, params, path, [FLASH_BUCKET])
+    nodes = _graph_ops(os.path.join(path, "sep_%d.pt2" % FLASH_BUCKET))
+    blocks = _depth(model.encoder)
+    bundle = serve.load_separator(path)
+    live = serve.Separator(model, params, "cuda")
+    wav = _mixture(np.random.RandomState(252), 1, FLASH_REQUEST)[0]
+    try:
+        live.separate(wav)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    bundle.separate(wav)                                       # warm-up
+    got, launches = _launches_of(lambda: bundle.separate(wav))
+    padded = np.zeros(FLASH_BUCKET, np.float32)
+    padded[:FLASH_REQUEST] = wav
+    ref = live.separate(padded)[:, :FLASH_REQUEST]
+    peak = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    ms = _median_ms(lambda: bundle.separate(wav))
+    line = ("phase 25 (c) attn-v1 %s: bucket %d (T=%d), graph %s; a %.2f s "
+            "request (%d samples): live Separator refused (%s), bundle out "
+            "%s, vs live on the padded wave %.3g of the peak (bound %g); "
+            "launches %s; median %.3f ms on %s"
+            % (_describe(hp, model.encoder), FLASH_BUCKET,
+               stft_frame_count(FLASH_BUCKET, 256, 64), nodes,
+               FLASH_REQUEST / SMPRATE, FLASH_REQUEST, refused, got.shape,
+               err / peak, BUNDLE_RTOL, {k: v for k, v in launches.items()
+                                         if v}, ms, nvidia_smi()))
+    print(line)
+    if refused is None or got.shape != (hp.MAX_N_SIGNAL, FLASH_REQUEST) \
+            or not err <= BUNDLE_RTOL * peak \
+            or nodes != {"danet.stft_ri.default": 1,
+                         "danet.flash_attn.default": blocks} \
+            or not _only(launches, stft_ri=1, flash_attn=blocks):
+        raise AssertionError(line)
+    return {"launches": launches, "max_rel_err": err / peak, "ms": ms}
+
+
+def _bf16_bundle(tmp: str, paper: dict) -> dict:
+    """(d) the paper model with bfloat16 weights at the 3 s request's
+    bucket: the artifact's size against the float32 one, the output
+    against the float32 bundle's."""
+    from danet_tpu_torch import serve
+    n, bucket = BUNDLE_REQUESTS[1]
+    path = os.path.join(tmp, "paper-bf16")
+    serve.export_separator(paper["model"], paper["params"], path, [bucket],
+                           weights_dtype="bfloat16")
+    name = "sep_%d.pt2" % bucket
+    ratio = os.path.getsize(os.path.join(path, name)) / os.path.getsize(
+        os.path.join(paper["path"], name))
+    wav = paper["wavs"][1]
+    got, launches = _launches_of(
+        lambda: serve.load_separator(path).separate(wav))
+    ref = serve.load_separator(paper["path"]).separate(wav)
+    peak = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    line = ("phase 25 (d) bfloat16 weights, bucket %d: artifact %.3f of the "
+            "float32 one (bound %g); the %.2f s request vs the float32 "
+            "bundle %.3g of the peak (bound %g); launches %s"
+            % (bucket, ratio, BF16_SIZE, n / SMPRATE, err / peak, BF16_RTOL,
+               {k: v for k, v in launches.items() if v}))
+    print(line)
+    if not ratio < BF16_SIZE or not np.isfinite(got).all() \
+            or not err <= BF16_RTOL * peak \
+            or not _only(launches, stft_ri=1,
+                         bilstm_scan=paper["model"].encoder.N_LAYERS):
+        raise AssertionError(line)
+    return {"launches": launches, "ratio": ratio, "max_rel_err": err / peak}
+
+
+def _feed(streamer, wav):
+    """start on the warm-up, then every chunk: -> (samples [N, L], ms per
+    feed, each feed's launches)."""
+    w, c = streamer.warmup_samples, streamer.chunk_samples
+    outs = [streamer.start(wav[:w])[0]]
+    ms, per_feed = [], []
+    for lo in range(w, len(wav), c):
+        before = _counts()
+        t0 = time.perf_counter()
+        outs.append(streamer.feed(wav[lo:lo + c])[0])   # numpy: synced
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per_feed.append({k: v - before[k] for k, v in _counts().items()})
+    return np.concatenate(outs, axis=-1), ms, per_feed
+
+
+def _stream_bundles(tmp: str) -> dict:
+    """(e) stream bundles at default.json's widths: lstm-orig (kernel 1's
+    state entry), gru-v1 (4f) and causal tasnet-v1 (no kernel: GEMMs and
+    convolutions; one repeat of its 8 blocks, dilations 1 to 128: the
+    export's host time grows with the graph, 60 s for two programs of 24
+    blocks on an H100's host); STREAM_WARMUP then STREAM_FEEDS feeds of
+    STREAM_CHUNK
+    against the live Streamer, 1e-6 of the peak, each feed's launches,
+    ms per feed beside the live Streamer's."""
+    from danet_tpu_torch import serve
+    out, total = {}, {k: 0 for k in KERNELS}
+    n = STREAM_WARMUP + STREAM_FEEDS * STREAM_CHUNK
+    wav = _mixture(np.random.RandomState(253), 1, n)[0]
+    for name, keys in (("lstm-orig", dict(ENCODER_TYPE="lstm-orig")),
+                       ("gru-v1", dict(ENCODER_TYPE="gru-v1")),
+                       ("tasnet-v1", dict(MODEL_TYPE="tasnet-v1",
+                                          TASNET_CAUSAL=True,
+                                          TASNET_REPEATS=1))):
+        hp = load_config(**keys)
+        model = hp.get_model()(hp)
+        params = _init(model)
+        path = os.path.join(tmp, "stream-" + name)
+        t0 = time.perf_counter()
+        man = serve.export_streamer(model, params, path, STREAM_CHUNK,
+                                    STREAM_WARMUP)
+        export_s = time.perf_counter() - t0
+        nodes = _graph_ops(os.path.join(path, "stream_step.pt2"))
+        bundle = serve.load_streamer(path)
+        live = serve.Streamer(model, params, "cuda", STREAM_CHUNK,
+                              STREAM_WARMUP)
+        _feed(bundle, wav)                                     # warm-up
+        _feed(live, wav)
+        (got, ms, per_feed), launches = _launches_of(
+            lambda: _feed(bundle, wav))
+        ref, live_ms, _ = _feed(live, wav)
+        if name == "tasnet-v1":
+            want = {k: 0 for k in KERNELS}
+        else:
+            want = _stream_feed_launches(model, STREAM_CHUNK // hp.FFT_STRIDE)
+        peak = float(np.abs(ref).max())
+        err = float(np.abs(got - ref).max())
+        stats = (np.median(ms), np.percentile(ms, 90), np.median(live_ms),
+                 np.percentile(live_ms, 90))
+        line = ("phase 25 (e) stream bundle %s: exported in %.1f s, %.1f "
+                "MiB, step graph %s, lag %d samples; warm-up %d + %d x %d "
+                "samples at B=1, out %s; vs the live Streamer %.3g of the "
+                "peak (bound %g); launches %s; per feed median %.3f ms, p90 "
+                "%.3f ms (live Streamer %.3f, %.3f) on %s"
+                % (name, export_s, _dir_mb(path), nodes,
+                   man["latency_samples"], STREAM_WARMUP, STREAM_FEEDS,
+                   STREAM_CHUNK, got.shape, err / peak, BUNDLE_RTOL,
+                   {k: v for k, v in launches.items() if v}, *stats,
+                   nvidia_smi()))
+        print(line)
+        if got.shape != (hp.MAX_N_SIGNAL, n) or not np.isfinite(got).all() \
+                or not err <= BUNDLE_RTOL * peak \
+                or any(f != want for f in per_feed):
+            raise AssertionError(line + "; per feed %s, want %s"
+                                 % (per_feed[0], want))
+        for k in KERNELS:
+            total[k] += launches[k]
+        out[name] = {"feed_ms": stats, "max_rel_err": err / peak,
+                     "bundle": bundle, "params": params, "model": model}
+    for name, kernel in (("lstm-orig", "lstm_scan"), ("gru-v1", "gru_scan")):
+        if not total[kernel]:
+            raise AssertionError("phase 25 (e) %s ran no %s" % (name, kernel))
+    out["launches"] = total
+    return out
+
+
+def _mag_logmag(window) -> dict:
+    """(f) dsp.stft_mag_logmag on the card (kernel 6 through
+    danet::stft_ri) against its plain version, one launch per call."""
+    rs = np.random.RandomState(254)
+    total, worst = {k: 0 for k in KERNELS}, 0.0
+    for b, n in ((1, 80000), (4, 32000)):
+        x = torch.from_numpy(_mixture(rs, b, n)).cuda()
+        (mag, logmag), launches = _launches_of(
+            lambda: dsp.stft_mag_logmag(x, 256, 64, window))
+        ref = cuda_stft.stft_ri_plain(x, 256, 64, window, logmag=True)
+        err = max(max_err(mag, ref[..., 0]), max_err(logmag, ref[..., 1]))
+        worst = max(worst, err)
+        line = ("phase 25 (f) dsp.stft_mag_logmag B=%d L=%d on the card: "
+                "max_abs_err %.3g (atol %g); launches %s"
+                % (b, n, err, STFT_ATOL,
+                   {k: v for k, v in launches.items() if v}))
+        print(line)
+        if tuple(mag.shape) != tuple(ref.shape[:-1]) or not err <= STFT_ATOL \
+                or not _only(launches, stft_logmag=1):
+            raise AssertionError(line)
+        for k in KERNELS:
+            total[k] += launches[k]
+    return {"launches": total, "max_abs_err": worst}
+
+
+def _cli_quiet(argv: list) -> str:
+    import contextlib
+    import io
+    from danet_tpu_torch import serve
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        serve._main(argv)
+    return text.getvalue()
+
+
+def _cli_bundles(tmp: str, paper: dict, streams: dict) -> dict:
+    """(g) the serve CLI on the card: export -> run -d with the paper
+    model, export-stream -> run-stream with lstm-orig, from .npz weights;
+    the WAVs within one int16 step of (b)'s and (e)'s bundles fed by hand
+    (run-stream: padded to whole chunks, trimmed to len(wav) + lag, one
+    scale for all stems)."""
+    import scipy.io.wavfile
+    from danet_tpu_torch.data import audio
+    wav_path = os.path.join(tmp, "cli.wav")
+    x = _mixture(np.random.RandomState(255), 1, 3 * SMPRATE)[0]
+    scipy.io.wavfile.write(wav_path, SMPRATE,
+                           np.round(x * 16000).astype(np.int16))
+    x = audio.load_wav_raw(wav_path, SMPRATE)
+    total, steps = {k: 0 for k in KERNELS}, {}
+
+    def int16(out):
+        scale = max(float(np.max(np.abs(out))), 1.0)
+        return (np.clip(out / scale, -1.0, 1.0) * 32767.0).astype(np.int16)
+
+    stream = streams["lstm-orig"]["bundle"]
+    w, c = stream.warmup_samples, stream.chunk_samples
+    padded = np.zeros(w + max(0, -(-(len(x) - w) // c)) * c, np.float32)
+    padded[:len(x)] = x
+    parts = [stream.start(padded[:w])] + [
+        stream.feed(padded[lo:lo + c]) for lo in range(w, len(padded), c)]
+    from danet_tpu_torch import serve
+    cases = (
+        ("export", paper["params"], {"ENCODER_TYPE": "bilstm-orig"},
+         ["--lengths", str(BUNDLE_REQUESTS[1][1])], "run",
+         int16(serve.load_separator(paper["path"]).separate(x))),
+        ("export-stream", streams["lstm-orig"]["params"],
+         {"ENCODER_TYPE": "lstm-orig"},
+         ["--chunk", str(c), "--warmup", str(w)], "run-stream",
+         int16(np.concatenate(parts, -1)[0][:, :len(x)
+                                            + stream.latency_samples])))
+    for export, params, keys, extra, run, want in cases:
+        npz = os.path.join(tmp, "cli-%s.npz" % export)
+        weights.save_npz(npz, params)
+        cfg = os.path.join(tmp, "cli-%s.json" % export)
+        with open(cfg, "w") as f:
+            json.dump(keys, f)
+        out_dir = os.path.join(tmp, "cli-" + export)
+        _cli_quiet([export, "-c", cfg, "-i", npz, "-o", out_dir] + extra)
+        prefix = os.path.join(tmp, "cli-" + run)
+        _, launches = _launches_of(lambda: _cli_quiet(
+            [run, "-d", out_dir, "-if", wav_path, "-o", prefix]))
+        got = [scipy.io.wavfile.read("%s_%d.wav" % (prefix, i))[1]
+               for i in range(2)]
+        steps[run] = max(float(np.abs(g.astype(np.int32) - v).max())
+                         for g, v in zip(got, want))
+        line = ("phase 25 (g) CLI %s -> %s -d on the card: WAVs %s, max "
+                "|CLI - bundle fed by hand| %.3g int16 steps (bound 1); "
+                "launches %s" % (export, run, [g.shape for g in got],
+                                 steps[run],
+                                 {k: v for k, v in launches.items() if v}))
+        print(line)
+        if [g.shape for g in got] != [v.shape for v in want] \
+                or not steps[run] <= 1.0 \
+                or not (launches["bilstm_scan"] if run == "run"
+                        else launches["lstm_scan"]):
+            raise AssertionError(line)
+        for k in KERNELS:
+            total[k] += launches[k]
+    return {"launches": total, "int16_steps": steps}
+
+
+def phase_bundles(window) -> dict:
+    """Phase 25: the serving artifacts (module docstring)."""
+    import shutil
+    import tempfile
+    t0 = clock = time.perf_counter()
+    times = {}
+    tmp = tempfile.mkdtemp(prefix="danet-phase25-")
+    try:
+        ops = _ops_on_card(window)
+        times["(a)"], clock = time.perf_counter() - clock, time.perf_counter()
+        paper = _paper_bundle(tmp)
+        times["(b)"], clock = time.perf_counter() - clock, time.perf_counter()
+        flash = _flash_bundle(tmp)
+        times["(c)"], clock = time.perf_counter() - clock, time.perf_counter()
+        bf16 = _bf16_bundle(tmp, paper)
+        times["(d)"], clock = time.perf_counter() - clock, time.perf_counter()
+        streams = _stream_bundles(tmp)
+        times["(e)"], clock = time.perf_counter() - clock, time.perf_counter()
+        mag = _mag_logmag(window)
+        times["(f)"], clock = time.perf_counter() - clock, time.perf_counter()
+        cli = _cli_bundles(tmp, paper, streams)
+        times["(g)"] = time.perf_counter() - clock
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs = [paper["launches"], flash["launches"], bf16["launches"],
+            streams["launches"], mag["launches"], cli["launches"]]
+    launches = {n: sum(r[n] for r in runs) for n in KERNELS}
+    print("phase 25 took %.1f s (%s) on %s; main-path launches %s"
+          % (time.perf_counter() - t0, ", ".join(
+              "%s %.1f s" % kv for kv in times.items()), nvidia_smi(),
+             {k: v for k, v in launches.items() if v}))
+    return {"ops": ops, "paper": paper["requests"],
+            "paper_export_s": paper["export_s"], "flash": flash,
+            "bf16": bf16, "streams": {k: v["max_rel_err"] for k, v in
+                                      streams.items() if k != "launches"},
+            "mag": mag, "cli": cli["int16_steps"], "launches": launches}
+
+
 def _bound(flops: float, nbytes: float):
     """(ms, "operations" or "bytes"): the least time of the work on the
     card, the larger of its FLOPs at the float32 peak and its bytes at the
@@ -4342,6 +4918,7 @@ def main():
     tasnet = phase_tasnet()
     causal_moe = phase_causal_moe()
     streaming = phase_streaming()
+    bundles = phase_bundles(window)
     print("summary: bilstm_scan bfloat16 max_abs_err %.3g (atol %g); "
           "serving worst error vs CPU %.3g of the peak (rtol %g), lstm-orig "
           "%.3g, gru-v1 %.3g, attn-v1 %.3g; train steps vs CPU: worst "
@@ -4403,19 +4980,34 @@ def main():
               for k, v in streaming["cells"].items()},
              streaming["long"]["max_rel_err"],
              streaming["cli"]["int16_steps"]))
+    paper = bundles["paper"]
+    print("summary, phase 25: ops vs plain on the card %s; paper-model "
+          "bundle vs live (of the peak) %s, vs the CPU bundle %s, bundle / "
+          "live ms %s; attn-v1 flash bundle %.3g; bfloat16 weights %.3g "
+          "(artifact %.3f of float32); stream bundles vs live %s; "
+          "stft_mag_logmag %.3g; CLI int16 steps %s"
+          % ({k: "%.3g" % v for k, v in bundles["ops"].items()},
+             {n: "%.3g" % r["max_rel_err"] for n, r in paper.items()},
+             {n: "%.3g" % r["cpu_rel_err"] for n, r in paper.items()},
+             {n: "%.3f / %.3f" % (r["bundle_ms"], r["live_ms"])
+              for n, r in paper.items()},
+             bundles["flash"]["max_rel_err"],
+             bundles["bf16"]["max_rel_err"], bundles["bf16"]["ratio"],
+             {k: "%.3g" % v for k, v in bundles["streams"].items()},
+             bundles["mag"]["max_abs_err"], bundles["cli"]))
     # launches: the counts of the main paths that run each kernel, each
-    # zeroed just before its path and read just after it; kernel 6 has no
-    # main path and counts its own phase's comparison launches
+    # zeroed just before its path and read just after it (kernel 6's: phase
+    # 25 (f), dsp.stft_mag_logmag)
     paths = [serving["launches"], training["launches"],
              serving_attn["launches"], training_attn["launches"],
              serving_tpu["launches"], training_tpu["launches"],
              tpu_whole["launches"], checkpoints["launches"],
              new_encoders["launches"], tasnet["launches"],
-             causal_moe["launches"], streaming["launches"]] + [
+             causal_moe["launches"], streaming["launches"],
+             bundles["launches"]] + [
         run["launches"] for run in list(serving_uni.values())
         + list(training_uni.values())]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}
-    launches["stft_logmag"] = logmag["launches"]
     ft = flash_kernels["times"]
     times = dict(stft=stft["times"][(1, 80000)],
                  bilstm_scan=scan["times"][(1251, 1)],
@@ -4495,9 +5087,8 @@ def main():
                 b, t, ATTN_H,
                 torch.cuda.get_device_properties(0).multi_processor_count)
         if name == "stft_logmag":
-            entry["launches_of"] = ("its own comparison phase (16): no main "
-                                    "path of the port or of the JAX package "
-                                    "calls it")
+            entry["launches_of"] = ("phase 25 (f): dsp.stft_mag_logmag, "
+                                    "its one caller")
         kernels.append(entry)
         if not launches[name]:
             raise AssertionError("%s was not launched on its main path"

@@ -39,12 +39,10 @@ import sys
 import numpy as np
 import torch
 
-import danet_tpu_torch  # noqa: F401  (populates the registries)
 from danet_tpu_torch.data import audio
 from danet_tpu_torch.hparams import apply_overrides, load_config
 from danet_tpu_torch.models import DaNet
 from danet_tpu_torch.train.trainer import Trainer
-from danet_tpu_torch.weights import leaves
 
 g_args = None
 g_hp = None
@@ -286,7 +284,7 @@ def main(argv=None, prog: str = "python -m danet_tpu_torch"):
     g_state = g_trainer.init_state(
         torch.Generator().manual_seed(g_args.seed))
     print("done (%d parameters, 1 device(s): %s)" % (
-        sum(p.numel() for p in leaves(g_state["params"])),
+        g_model.parameter_count(g_state["params"]),
         g_trainer.device.type))
 
     if g_args.input_pfile is not None:

@@ -3,13 +3,15 @@ component registries.
 
 Counterpart of ``danet_tpu/hparams.py``.  It reads the same
 ``default.json`` and ``configs/*.json`` with the same keys.  The window
-registry is a copy, not an import: importing anything of ``danet_tpu``
-imports jax, which the port never does.
+registry (``windows.py``) is a copy, not an import: importing anything of
+``danet_tpu`` imports jax, which the port never does.
 
 The registries are class attributes of THIS class, separate from the JAX
 package's, so that registering ``bilstm-orig`` here cannot overwrite the
 reference's entry when both packages live in one process (the parity
-tests).
+tests).  The registering modules are imported at the first lookup
+(``_register_all``), not by ``import danet_tpu_torch``: a process that
+only loads an exported serving bundle imports no model code.
 """
 from __future__ import annotations
 
@@ -17,29 +19,29 @@ import json
 import os
 import re
 import sys
-from typing import Any, Callable, Dict
+from typing import Any, Dict
 
-import numpy as np
+from danet_tpu_torch.windows import WINDOW_REGISTRY
 
 DEFAULT_JSON = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "default.json")
 
 
-def _hann_symmetric(n: int) -> np.ndarray:
-    # scipy.signal.hann(n) is symmetric; the reference's default window is
-    # sqrt(hann(FFT_SIZE)) (default.json FFT_WND 'sqrt-hann')
-    k = np.arange(n, dtype=np.float64)
-    return 0.5 - 0.5 * np.cos(2.0 * np.pi * k / max(n - 1, 1))
+# the modules whose import fills the registries
+_REGISTERING = ("danet_tpu_torch.models", "danet_tpu_torch.optim",
+                "danet_tpu_torch.data.dataset", "danet_tpu_torch.data.synth",
+                "danet_tpu_torch.data.synth_speech",
+                "danet_tpu_torch.data.wsj0", "danet_tpu_torch.data.wavdir",
+                "danet_tpu_torch.data.timit")
 
 
-WINDOW_REGISTRY: Dict[str, Callable[[int], np.ndarray]] = {
-    "sqrt-hann": lambda n: np.sqrt(_hann_symmetric(n)),
-    "hann": _hann_symmetric,
-    "rect": lambda n: np.ones(n, dtype=np.float64),
-    "hamming": lambda n: 0.54 - 0.46 * np.cos(
-        2.0 * np.pi * np.arange(n) / max(n - 1, 1)),
-}
+def _register_all() -> None:
+    """Import every registering module (once; a no-op afterwards)."""
+    import importlib
+    for name in _REGISTERING:
+        if name not in sys.modules:
+            importlib.import_module(name)
 
 
 class Hyperparameter:
@@ -93,6 +95,7 @@ class Hyperparameter:
         return wrapper
 
     def get_encoder(self, name=None):
+        _register_all()
         return type(self).encoder_registry[
             self.ENCODER_TYPE if name is None else name]
 
@@ -104,6 +107,7 @@ class Hyperparameter:
         return wrapper
 
     def get_model(self, name=None):
+        _register_all()
         return type(self).model_registry[
             (getattr(self, "MODEL_TYPE", "danet") or "danet")
             if name is None else name]
@@ -116,6 +120,7 @@ class Hyperparameter:
         return wrapper
 
     def get_estimator(self, name):
+        _register_all()
         return type(self).estimator_registry[name]
 
     @classmethod
@@ -126,6 +131,7 @@ class Hyperparameter:
         return wrapper
 
     def get_separator(self, name):
+        _register_all()
         return type(self).separator_registry[name]
 
     @classmethod
@@ -136,6 +142,7 @@ class Hyperparameter:
         return wrapper
 
     def get_optimizer(self, name=None):
+        _register_all()
         return type(self).ozer_registry[
             self.OPTIMIZER_TYPE if name is None else name]
 
@@ -147,6 +154,7 @@ class Hyperparameter:
         return wrapper
 
     def get_dataset(self, name=None):
+        _register_all()
         return type(self).dataset_registry[
             self.DATASET_TYPE if name is None else name]
 

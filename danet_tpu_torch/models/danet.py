@@ -26,7 +26,7 @@ from danet_tpu_torch import weights
 from danet_tpu_torch.hparams import hparams
 from danet_tpu_torch.ops import dsp
 from danet_tpu_torch.ops import loss as loss_ops
-from danet_tpu_torch.ops.cuda import stft as cuda_stft
+from danet_tpu_torch.ops.cuda import library
 from danet_tpu_torch.ops.nn import device_constant
 
 STFT_BACKENDS = ("auto", "xla", "pallas")
@@ -566,7 +566,8 @@ class DaNet:
 
         STFT_BACKEND keeps its JAX values: 'auto' and 'pallas' take the
         fused STFT kernel for a CUDA tensor (its plain version on the
-        CPU), 'xla' the plain framing + matmul path."""
+        CPU) as the op ``danet::stft_ri``, 'xla' the plain framing +
+        matmul path."""
         hp = self.hp
         window = hp.FFT_WND_ARRAY
         be = getattr(hp, "STFT_BACKEND", "auto") or "auto"
@@ -575,10 +576,13 @@ class DaNet:
         if be == "xla":
             mix_ri = dsp.stft_ri(wav, hp.FFT_SIZE, hp.FFT_STRIDE, window)
         else:
-            mix_ri = cuda_stft.stft_ri(wav, hp.FFT_SIZE, hp.FFT_STRIDE,
-                                       window)
+            mix_ri = library.stft_ri(wav, hp.FFT_SIZE, hp.FFT_STRIDE,
+                                     window)
         sep_ri = self.separate(params, mix_ri)
         return dsp.istft_ri(sep_ri, hp.FFT_STRIDE, window)
+
+    def parameter_count(self, params) -> int:
+        return sum(p.numel() for p in weights.leaves(params))
 
 
 def _num(hp, key: str) -> float:

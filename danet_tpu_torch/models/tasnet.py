@@ -1,20 +1,22 @@
 """Conv-TasNet (Luo & Mesgarani, TASLP 2019): waveform-domain separation
 with a learned filterbank, ``MODEL_TYPE='tasnet-v1'``.
 
-Counterpart of ``danet_tpu/models/tasnet.py:51-405,498``: ``_frame``,
+Counterpart of ``danet_tpu/models/tasnet.py:51-499``: ``_frame``,
 ``_overlap_add`` (``ops/dsp.py::overlap_add``), ``TasNet`` with
 ``_check_parallel_support``, ``init``, the dense forward
 ``_separate_wav_padded`` (with its debug taps),
 ``train_loss`` (MIX_SNR_DB, REG_APPLY), ``valid_metrics`` (EVAL_SI_SNR,
-EVAL_SDR), ``separate_wav``, ``separate`` and ``parameter_count``.  The
-mixture is framed into TASNET_WIN-sample windows at hop TASNET_STRIDE,
-projected on a learned basis (ReLU), layer-normed and bottlenecked, run
-through TASNET_BLOCKS x TASNET_REPEATS residual TCN blocks
-(``TcnEncoder._block``, dilation 2 ** (i % TASNET_BLOCKS), RELU_LEAKAGE,
-TASNET_CAUSAL left padding); a linear head gives one mask per source and
-basis vector (TASNET_MASK: 'sigmoid', 'relu' or 'softmax' over the
-sources), and the masked features are decoded by a learned basis and
-overlap-added.  The basis features and the blocks run in COMPUTE_DTYPE,
+EVAL_SDR), ``separate_wav``, ``separate``, ``parameter_count`` and the
+streaming methods (``stream_granularity_samples``,
+``stream_latency_samples``, ``stream_state_init``, ``stream_init``,
+``stream_step``).  The mixture is framed into TASNET_WIN-sample windows
+at hop TASNET_STRIDE, projected on a learned basis (ReLU), layer-normed
+and bottlenecked, run through TASNET_BLOCKS x TASNET_REPEATS residual
+TCN blocks (``TcnEncoder._block``, dilation 2 ** (i % TASNET_BLOCKS),
+RELU_LEAKAGE, TASNET_CAUSAL left padding); a linear head gives one mask
+per source and basis vector (TASNET_MASK: 'sigmoid', 'relu' or 'softmax'
+over the sources), and the masked features are decoded by a learned
+basis and overlap-added.  The basis features and the blocks run in COMPUTE_DTYPE,
 the mask head's output, the masks and the decoder in float32.  The
 blocks are never rematerialised (the JAX model ignores REMAT too).
 
@@ -24,9 +26,13 @@ waveforms by ``dsp.istft_ri`` at the front of ``train_loss`` and
 ``valid_metrics``; on the wave wire the Trainer's ingest has run kernel A
 on the waveforms first.  ``separate`` (spectra in and out) runs the STFT
 of the separated waves by STFT_BACKEND as ``DaNet.separate_wav`` does:
-kernel A on the card under 'auto' and 'pallas'.  Not ported yet: the
-streaming methods (``stream_*``, ROADMAP.md queue 1 item 5) and the
-MESH_SEQ forward ``_forward_sp`` (item 6).
+kernel A on the card under 'auto' and 'pallas', as the op
+``danet::stft_ri``.  The exact causal stream (``stream_init`` /
+``stream_step`` with TASNET_CAUSAL, ``danet_tpu/models/tasnet.py:407-496``)
+carries the framing's input tail, each block's convolution tail
+(``TcnEncoder._block_stream``) and the decoder's overlap-add tail.  Not
+ported yet: the MESH_SEQ forward ``_forward_sp`` (ROADMAP.md queue 1 item
+6).
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ from danet_tpu_torch.models.danet import STFT_BACKENDS, DaNet, reg_loss
 from danet_tpu_torch.models.encoders import TcnEncoder
 from danet_tpu_torch.ops import dsp, nn
 from danet_tpu_torch.ops import loss as loss_ops
-from danet_tpu_torch.ops.cuda import stft as cuda_stft
+from danet_tpu_torch.ops.cuda import library
 
 MASKS = ("sigmoid", "relu", "softmax")
 
@@ -305,10 +311,93 @@ class TasNet:
                                                      window))
         b, n, length = sep.shape
         flat = sep.reshape(b * n, length).contiguous()
-        stft = dsp.stft_ri if be == "xla" else cuda_stft.stft_ri
+        stft = dsp.stft_ri if be == "xla" else library.stft_ri
         spec = stft(flat, hp.FFT_SIZE, hp.FFT_STRIDE, window)
         spec = spec.reshape((b, n) + tuple(spec.shape[1:]))
         return spec[:, :, :mix_ri.shape[1]]
+
+    # ------------------------------------------------------------------
+    # Exact causal streaming (TASNET_CAUSAL): waveform chunks in, separated
+    # chunks out, every carried value in the state dict, the surface of
+    # DaNet.stream_init / stream_step (serve.Streamer, export_streamer).
+    # The masks are per frame, with no utterance statistics, so the stream
+    # is exact: its output is the offline separation of the zero-prefixed
+    # stream, delayed by win - stride samples.
+    def stream_granularity_samples(self) -> int:
+        """Chunk sizes are multiples of the basis stride."""
+        return self._dims()["stride"]
+
+    def stream_latency_samples(self) -> int:
+        """The output lags the input by the frames' overlap."""
+        d = self._dims()
+        return d["win"] - d["stride"]
+
+    def _require_causal(self) -> None:
+        if not self._dims()["causal"]:
+            raise ValueError(
+                "TasNet streams only with TASNET_CAUSAL=true (non-causal "
+                "dilated convs need future frames)")
+
+    def stream_state_init(self, batch: int, device=None) -> dict:
+        """A fresh stream's state, zeros: the input tail of the framing
+        (float32), each block's convolution tail (the causal left padding,
+        in COMPUTE_DTYPE) and the decoder's overlap-add tail (float32)."""
+        self._require_causal()
+        d = self._dims()
+        cdt = getattr(torch, getattr(self.hp, "COMPUTE_DTYPE", "float32"))
+        overlap = d["win"] - d["stride"]
+        return {
+            "wav_tail": torch.zeros((batch, overlap), device=device),
+            "conv_tails": [
+                torch.zeros((batch, (d["kernel"] - 1) * self._dilation(i),
+                             d["hidden"]), dtype=cdt, device=device)
+                for i in range(self._n_blocks())],
+            "ola_tail": torch.zeros((batch, self.hp.MAX_N_SIGNAL, overlap),
+                                    device=device),
+        }
+
+    def stream_init(self, params, wav_warmup: torch.Tensor):
+        """Start a stream: [B, Lw] -> (separated [B, N, Lw], state), Lw a
+        multiple of TASNET_STRIDE; a step from the zero state (there are
+        no statistics to freeze)."""
+        self._require_causal()
+        return self.stream_step(
+            params, self.stream_state_init(wav_warmup.shape[0],
+                                           wav_warmup.device), wav_warmup)
+
+    def stream_step(self, params, state: dict, wav_chunk: torch.Tensor):
+        """One streaming step: (state, [B, Lc]) -> ([B, N, Lc], the new
+        state); Lc a multiple of TASNET_STRIDE.  The output does not depend
+        on the chunk size and lags the input by win - stride samples."""
+        hp = self.hp
+        d = self._dims()
+        cdt = getattr(torch, getattr(hp, "COMPUTE_DTYPE", "float32"))
+        win, stride = d["win"], d["stride"]
+        overlap = win - stride
+        lc = wav_chunk.shape[-1]
+        if lc % stride:
+            raise ValueError(
+                "chunk length %d must be a multiple of TASNET_STRIDE=%d"
+                % (lc, stride))
+        ext = torch.cat([state["wav_tail"], wav_chunk.float()], dim=-1)
+        frames = _frame(ext, win, stride)           # [B, Lc / stride, win]
+        feats = torch.relu(nn.mm(frames.to(cdt),
+                                 params["enc_basis"].to(cdt)))
+        y = nn.layer_norm(params["ln_in"], feats)
+        y = nn.linear_apply(params["bottleneck"], y)
+        tails = []
+        for i in range(self._n_blocks()):
+            y, tail = TcnEncoder._block_stream(
+                params[f"block{i}"], y, self._dilation(i), hp.RELU_LEAKAGE,
+                state["conv_tails"][i])
+            tails.append(tail)
+        _, sep_frames = self._mask_and_decode(params, feats, y)
+        buf = dsp.overlap_add(sep_frames, stride)     # [B, N, Lc + overlap]
+        buf = torch.cat([buf[..., :overlap] + state["ola_tail"],
+                         buf[..., overlap:]], dim=-1)
+        return buf[..., :lc], {"wav_tail": ext[..., ext.shape[-1] - overlap:],
+                               "conv_tails": tails,
+                               "ola_tail": buf[..., lc:]}
 
     def parameter_count(self, params) -> int:
         return sum(p.numel() for p in weights.leaves(params))

@@ -303,7 +303,8 @@ def flash_attention_masked(q, k, v, key_mask):
     Real frames are segment 0 and padded frames segment 1, so padded keys
     are excluded from real queries, and padded queries attend only to
     padded keys.  T must be a multiple of 128, as the stock kernel's
-    block size demands."""
+    block size demands.  Without a gradient the forward runs as the op
+    ``danet::flash_attn`` (``ops/cuda/library.py``)."""
     t = q.shape[1]
     if t < BLOCK or t % BLOCK:
         raise ValueError("flash attention needs T a multiple of %d (the "
@@ -314,7 +315,8 @@ def flash_attention_masked(q, k, v, key_mask):
     sm_scale = 1.0 / float(q.shape[-1]) ** 0.5
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttention.apply(q, k, v, seg, sm_scale)
-    return flash_attn(q, k, v, seg, sm_scale)[0]
+    from danet_tpu_torch.ops.cuda import library
+    return library.flash_attn(q, k, v, seg, sm_scale)[0]
 
 
 def attn_backend_default(t: int, hp=None) -> str:

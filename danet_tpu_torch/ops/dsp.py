@@ -1,17 +1,20 @@
 """STFT / iSTFT as matrix products against precomputed DFT bases.
 
-Counterpart of ``danet_tpu/ops/dsp.py:34-273,292-296``.  Conventions
-match ``scipy.signal.stft`` with ``boundary='zeros'``, ``padded=True``,
-one-sided output and ``1/window.sum()`` scaling.  The inverse is the
+Counterpart of ``danet_tpu/ops/dsp.py``.  Conventions match
+``scipy.signal.stft`` with ``boundary='zeros'``, ``padded=True``, one-sided
+output and ``1/window.sum()`` scaling.  The inverse is the
 reference's overlap-add with a static window**2 denominator, including its
 frame-count convention (trailing frames past ``T*stride - fft_size`` are
 dropped).
 
-Spectra use the ri layout: a trailing (real, imag) axis, no complex dtype.
+Spectra use the ri layout: a trailing (real, imag) axis; ``stft`` and
+``istft`` take the complex dtype on the host side, as JAX's do.
 
 ``stft_ri`` here is the plain path (STFT_BACKEND='xla'); the fused kernel
-and its own plain version live in ``ops/cuda/stft.py``.  The iSTFT has no
-kernel on the TPU either (XLA work), so it stays plain torch.
+and its own plain version live in ``ops/cuda/stft.py``, and
+``stft_mag_logmag`` runs that kernel's logmag epilogue (kernel 6).  The
+iSTFT has no kernel on the TPU either (XLA work), so it stays plain
+torch.
 
 The streaming STFT / iSTFT (``stream_frames``, ``stft_frames_ri``,
 ``ola_periodic_denom``, ``istft_stream_ri``) keep the JAX package's
@@ -80,6 +83,29 @@ def stft_ri(x: torch.Tensor, fft_size: int, stride: int,
     """STFT of real signal(s) [..., L] -> ri [..., T, F, 2]."""
     tdt = getattr(torch, str(window.dtype))
     return stft_frames_ri(frame_signal(x.to(tdt), fft_size, stride), window)
+
+
+def stft(x: torch.Tensor, fft_size: int, stride: int,
+         window: np.ndarray) -> torch.Tensor:
+    """STFT of real signal(s) [..., L] -> complex [..., T, F] (complex64
+    for a float32 window): ``stft_ri``'s values as one complex tensor."""
+    ri = stft_ri(x, fft_size, stride, window)
+    return torch.complex(ri[..., 0], ri[..., 1])
+
+
+def stft_mag_logmag(x: torch.Tensor, fft_size: int, stride: int,
+                    window: np.ndarray):
+    """(|Z|, log1p|Z|) [..., T, F] of the STFT of [..., L]: DaNet's feature
+    front end without the complex spectra.  Kernel A's ``LOGMAG`` epilogue
+    (kernel 6, the op ``danet::stft_ri`` with its logmag flag) on a CUDA
+    tensor, its plain version on a CPU tensor; float32."""
+    from danet_tpu_torch.ops.cuda import library
+
+    lead = tuple(x.shape[:-1])
+    out = library.stft_ri(x.reshape(-1, x.shape[-1]).float().contiguous(),
+                          fft_size, stride, window, logmag=True)
+    out = out.reshape(lead + tuple(out.shape[1:]))
+    return out[..., 0], out[..., 1]
 
 
 def stft_frames_ri(frames: torch.Tensor, window: np.ndarray) -> torch.Tensor:
@@ -191,6 +217,14 @@ def _ola_denominator(n_used: int, stride: int, window: np.ndarray,
     wsum = torch.nn.functional.pad(wsum, (0, out_len - wsum.shape[-1]))
     wsum = torch.where(wsum != 0, wsum, torch.ones_like(wsum))
     return wsum.to(getattr(torch, str(window.dtype)))
+
+
+def istft(spectra: torch.Tensor, stride: int, window: np.ndarray,
+          length: int | None = None) -> torch.Tensor:
+    """Inverse STFT of complex spectra [..., T, F] -> real [..., T*stride]
+    (or ``length``): ``istft_ri`` of their real and imaginary parts."""
+    return istft_ri(torch.stack([spectra.real, spectra.imag], dim=-1),
+                    stride, window, length)
 
 
 def istft_ri(spectra_ri: torch.Tensor, stride: int, window: np.ndarray,

@@ -40,11 +40,14 @@ def device_constant(key, make, device, dtype=None) -> torch.Tensor:
     input's length: the cache is never emptied, so a constant of every
     request length would grow it for the life of a server.  Built outside
     inference mode even under it (serving), so that training can save it
-    for backward."""
+    for backward, and outside a ``torch.export`` trace's fake-tensor mode,
+    so that the cache holds a real tensor (which the exported program
+    keeps as a constant)."""
     full = (key, str(torch.device(device)), dtype)
     hit = _CONSTANTS.get(full)
     if hit is None:
-        with torch.inference_mode(False):
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        with torch.inference_mode(False), unset_fake_temporarily():
             hit = torch.from_numpy(make()).to(device=device, dtype=dtype)
         _CONSTANTS[full] = hit
     return hit

@@ -10,7 +10,11 @@ projection of all timesteps is one matmul (JAX leaves it to XLA; here
 ``torch.matmul``); only the recurrent products stay inside the time loop,
 which is a hand kernel: ``ops/cuda/lstm.py`` (kernel B when no gradient is
 needed, else ``LstmScan``/``BiLstmScan``: kernel 2 forward, kernel 3
-backward) and ``ops/cuda/gru.py`` (``gru_scan``, else ``GruScan``).
+backward) and ``ops/cuda/gru.py`` (``gru_scan``, else ``GruScan``).  The
+no-gradient scans go through their ``torch.library`` ops
+(``ops/cuda/library.py``: ``danet::bilstm_scan``, ``lstm_scan``,
+``lstm_scan_state``, ``gru_scan``), so that an exported program records
+them.
 
 ``LSTM_BACKEND`` keeps its JAX values: 'auto' and 'pallas' mean the hand
 kernels for CUDA tensors (their plain versions for CPU tensors);
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from danet_tpu_torch.ops.cuda import gru as cuda_gru
+from danet_tpu_torch.ops.cuda import library
 from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
 from danet_tpu_torch.ops.nn import acc_dtype, dropout, ee, uniform_init
 
@@ -125,7 +130,7 @@ def lstm_apply(params: dict, x: torch.Tensor,
             hs, c_t = cuda_lstm.lstm_scan_plain(xp, wh, c0, h0, tanh_cand,
                                                 True)
         elif use_kernel:
-            hs, c_t = cuda_lstm.lstm_scan(xp, wh, c0, h0, tanh_cand, True)
+            hs, c_t = library.lstm_scan_state(xp, wh, c0, h0, tanh_cand)
         else:
             hs, c_t = cuda_lstm.lstm_scan_plain(xp, wh, c0, h0, tanh_cand,
                                                 True)
@@ -136,7 +141,7 @@ def lstm_apply(params: dict, x: torch.Tensor,
     if _needs_grad(xp, wh, c0, h0):
         hs = cuda_lstm.LstmScan.apply(xp, wh, c0, h0, tanh_cand, use_kernel)
     elif use_kernel:
-        hs = cuda_lstm.lstm_scan(xp, wh, c0, h0, tanh_cand)
+        hs = library.lstm_scan(xp, wh, c0, h0, tanh_cand)
     else:
         hs = cuda_lstm.lstm_scan_plain(xp, wh, c0, h0, tanh_cand)
     if reverse:
@@ -170,7 +175,7 @@ def bilstm_apply(params: dict, x: torch.Tensor,
         hs2 = cuda_lstm.BiLstmScan.apply(xp2, wh2, z, z, tanh_cand,
                                          use_kernel)
     elif use_kernel:
-        hs2 = cuda_lstm.bilstm_scan(xp2, wh2, z, z, tanh_cand)
+        hs2 = library.bilstm_scan(xp2, wh2, z, z, tanh_cand)
     else:
         hs2 = cuda_lstm.bilstm_scan_plain(xp2, wh2, z, z, tanh_cand)
     y = torch.cat([hs2[:, 0].transpose(0, 1),
@@ -221,7 +226,7 @@ def gru_apply(params: dict, x: torch.Tensor,
             _refuse_state_grad(x, use_kernel)
         cs = cuda_gru.GruScan.apply(gx, cx, wgh, wch, c0, use_kernel)
     elif use_kernel:
-        cs = cuda_gru.gru_scan(gx, cx, wgh, wch, c0)
+        cs = library.gru_scan(gx, cx, wgh, wch, c0)
     else:
         cs = cuda_gru.gru_scan_plain(gx, cx, wgh, wch, c0)
     if return_state:

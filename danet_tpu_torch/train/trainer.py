@@ -84,7 +84,7 @@ from danet_tpu_torch import weights
 from danet_tpu_torch.data import audio
 from danet_tpu_torch.models.danet import STFT_BACKENDS
 from danet_tpu_torch.ops import dsp
-from danet_tpu_torch.ops.cuda import stft as cuda_stft
+from danet_tpu_torch.ops.cuda import library
 from danet_tpu_torch.train import checkpoint as ckpt_lib
 from danet_tpu_torch.train.metrics import MetricsWriter, StepTimer
 from danet_tpu_torch.weights import leaf_names, leaves
@@ -485,8 +485,9 @@ class Trainer:
         first (``for_eval``: in float32); a tensor is one on the device
         that crossed it.  Then the upcast, int16's dequantisation and, on
         the wave wire, the STFT (STFT_BACKEND 'auto' and 'pallas': kernel
-        A on the card, its plain version on the CPU; 'xla': the plain
-        framing and matmul).  No gradient flows into the wire."""
+        A on the card as the op ``danet::stft_ri``, its plain version on
+        the CPU; 'xla': the plain framing and matmul).  No gradient flows
+        into the wire."""
         if not torch.is_tensor(batch):
             batch = self._put(self._host_batch(batch, for_eval))
         x = batch.float()
@@ -501,8 +502,8 @@ class Trainer:
             spec = dsp.stft_ri(flat, hp.FFT_SIZE, hp.FFT_STRIDE,
                                hp.FFT_WND_ARRAY)
         else:
-            spec = cuda_stft.stft_ri(flat, hp.FFT_SIZE, hp.FFT_STRIDE,
-                                     hp.FFT_WND_ARRAY)
+            spec = library.stft_ri(flat, hp.FFT_SIZE, hp.FFT_STRIDE,
+                                   hp.FFT_WND_ARRAY)
         return spec.reshape((b, n) + tuple(spec.shape[1:]))
 
     # ------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """PyTorch port, DSP: the STFT (kernel A's plain version and the plain
-framing path) and the iSTFT against the JAX package on the CPU.
+framing path), the iSTFT, the complex ``stft`` / ``istft`` and
+``stft_mag_logmag`` (2e-5) against the JAX package on the CPU.
 
 The JAX STFT kernel runs as tests/test_pallas.py runs it here: pallas_call
 patched to interpret mode.  Tolerances: 2e-5 on the STFT (as the JAX
@@ -188,3 +189,51 @@ def test_torch_istft_matches_jax(fresh_hparams, frames):
     ref_len = np.asarray(jdsp.istft_ri(jnp.asarray(spec), 64, w, 1000))
     out_len = tdsp.istft_ri(torch.from_numpy(spec), 64, w, 1000).numpy()
     np.testing.assert_allclose(out_len, ref_len, atol=1e-6)
+
+
+# ------------------------------------------- complex STFT, kernel 6's caller
+@pytest.mark.parametrize("shape", [(2, 5000), (3000,), (2, 2, 1234)])
+def test_torch_complex_stft_matches_jax(fresh_hparams, shape):
+    """``dsp.stft`` (complex64 out) against JAX's ``stft``, 2e-5, on
+    leading axes of any rank."""
+    w = fresh_hparams.FFT_WND_ARRAY
+    x = np.random.RandomState(2).randn(*shape).astype(np.float32)
+    ref = np.asarray(jdsp.stft(jnp.asarray(x), 256, 64, w))
+    out = tdsp.stft(torch.from_numpy(x), 256, 64, w)
+    assert out.dtype == torch.complex64 and tuple(out.shape) == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("length", [None, 1000])
+def test_torch_complex_istft_matches_jax(fresh_hparams, length):
+    """``dsp.istft`` of complex spectra against JAX's ``istft``, 2e-5, and
+    ``istft(stft(x))`` against JAX's (the reference's overlap-add keeps
+    the STFT's boundary offset, so it is not x)."""
+    w = fresh_hparams.FFT_WND_ARRAY
+    rs = np.random.RandomState(3)
+    spec = (rs.randn(2, 40, 129) + 1j * rs.randn(2, 40, 129)).astype(
+        np.complex64)
+    ref = np.asarray(jdsp.istft(jnp.asarray(spec), 64, w, length))
+    out = tdsp.istft(torch.from_numpy(spec), 64, w, length)
+    assert tuple(out.shape) == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5)
+    x = rs.randn(2, 4000).astype(np.float32)
+    back = tdsp.istft(tdsp.stft(torch.from_numpy(x), 256, 64, w), 64, w,
+                      4000)
+    back_j = jdsp.istft(jdsp.stft(jnp.asarray(x), 256, 64, w), 64, w, 4000)
+    np.testing.assert_allclose(back.numpy(), np.asarray(back_j), atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 5000), (3001,)])
+def test_torch_stft_mag_logmag_matches_jax(fresh_hparams, shape):
+    """``dsp.stft_mag_logmag`` (kernel 6's op on the CPU: its plain
+    version) against JAX's, 2e-5; no kernel launch is counted."""
+    w = fresh_hparams.FFT_WND_ARRAY
+    x = np.random.RandomState(4).randn(*shape).astype(np.float32)
+    mag_j, log_j = jdsp.stft_mag_logmag(jnp.asarray(x), 256, 64, w)
+    launches = cuda_stft.stft_logmag.launches
+    mag, logmag = tdsp.stft_mag_logmag(torch.from_numpy(x), 256, 64, w)
+    assert cuda_stft.stft_logmag.launches == launches
+    assert tuple(mag.shape) == tuple(logmag.shape) == mag_j.shape
+    np.testing.assert_allclose(mag.numpy(), np.asarray(mag_j), atol=2e-5)
+    np.testing.assert_allclose(logmag.numpy(), np.asarray(log_j), atol=2e-5)

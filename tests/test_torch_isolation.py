@@ -1,10 +1,10 @@
 """The port must import without jax: the machine that runs it on the GPU
 has none.  Importing the package, its command line, serving, training,
-checkpoint, optimizer, loss, attention and profiling modules, tasnet-v1,
-the wav-dir and timit datasets, the banded attention, the MoE forms, the
-SPHERE decoder's bindings, the TIMIT and WSJ0 preprocessors (imported,
-their ``main`` not run) and chip_smoke.py in a fresh interpreter must load
-no jax, no optax and no danet_tpu module."""
+checkpoint, optimizer, loss, attention, kernel-op and profiling modules,
+tasnet-v1, the wav-dir and timit datasets, the banded attention, the MoE
+forms, the SPHERE decoder's bindings, the TIMIT and WSJ0 preprocessors
+(imported, their ``main`` not run) and chip_smoke.py in a fresh
+interpreter must load no jax, no optax and no danet_tpu module."""
 import os
 import subprocess
 import sys
@@ -23,6 +23,7 @@ def test_torch_port_imports_no_jax():
             "danet_tpu_torch.train.checkpoint, "
             "danet_tpu_torch.optim, danet_tpu_torch.ops.loss, "
             "danet_tpu_torch.ops.cuda.attention, danet_tpu_torch.perf_probe, "
+            "danet_tpu_torch.ops.cuda.library, danet_tpu_torch.windows, "
             "danet_tpu_torch.models.tasnet, danet_tpu_torch.data.wavdir, "
             "danet_tpu_torch.data.timit, "
             "danet_tpu_torch.ops.local_attention, "
