@@ -395,13 +395,32 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    run-stream (lstm-orig) from .npz weights, the WAVs within one int16
    step of (b)'s and (e)'s bundles fed by hand.
 
+26. data and tensor parallelism (MESH_DATA, MESH_MODEL; danet_tpu_torch/
+   parallel/) on the paper model at full width (bilstm-orig, 4 x 300,
+   B=32, T=128, float32, seed 0, toy data).  (a) world 1 over NCCL: this
+   process joins a real process group of one rank (cpu:gloo,cuda:nccl on
+   a free localhost port), and a Trainer on its 1 x 1 mesh (the gather,
+   the gradients' and metrics' all-reduces) takes an eager step and one
+   8-step CUDA graph call (the NCCL collectives captured) bit for bit the
+   plain Trainer's (parameters, Adam moments, every loss); kernels 2 and 3
+   once per layer in the eager step, kernel B once per layer in a valid
+   step.  (b) two ranks sharing the one card (parallel/smoke.py: NCCL
+   refuses one device twice, so the group is gloo and the collectives
+   stage the card tensors through the host), MESH 1 x 2 then 2 x 1: each
+   rank runs kernels 2 and 3 (and B in a valid step) on its 16 rows, the
+   updated parameters within 2e-5 + 1e-4 x |p| of the one-process step at
+   B=32 and equal on both ranks bit for bit; in each rank kernels B, 2 and
+   3 at (T=128, B=16) against their plain versions at phase 4's and 6's
+   float32 tolerances.  The per-rank launches are printed.
+
 The kernel summary lists all fourteen kernels; its launches count the
 main paths of phases 5, 7, 10, 11, 14, 15, 17, 18, 19, 20 (20: (a),
 (c), (d)'s resume and (e)), 21 ((b) and (c)'s card-vs-CPU part), 22
 ((a), (c) and (d)), 23 (every serving and card-vs-CPU training part,
-the CLI), 24 ((b)'s timed streams, (c) and (d)'s demos on the card)
-and 25 ((b)-(g): the bundles' checked requests and feeds, kernel 6's
-caller, the CLI).
+the CLI), 24 ((b)'s timed streams, (c) and (d)'s demos on the card),
+25 ((b)-(g): the bundles' checked requests and feeds, kernel 6's
+caller, the CLI) and 26 (a) (the mesh trainer's steps; (b)'s ranks count
+in their own processes, printed per rank).
 bound_ms is the least time the card could take for the work of the timed
 call: the larger of its bytes (each input read once, each output written
 once) over 3.35 TB/s and
@@ -4744,6 +4763,187 @@ def phase_bundles(window) -> dict:
             "mag": mag, "cli": cli["int16_steps"], "launches": launches}
 
 
+MESH_STEP = {"ENCODER_TYPE": "bilstm-orig", "BATCH_SIZE": 32}
+MESH_RTOL = (2e-5, 1e-4)   # (atol, rtol) of (b)'s parameters after a step
+MESH_SHAPES = ((1, 2), (2, 1))
+
+
+def _mesh_state_diffs(a: dict, b: dict) -> list:
+    return [name for (name, x), (_, y) in zip(_state_tensors(a),
+                                              _state_tensors(b))
+            if not torch.equal(x.detach(), y.detach())]
+
+
+def _mesh_world_one(hp, batches) -> dict:
+    """(a): one rank of a real NCCL process group (cpu:gloo,cuda:nccl)
+    against the plain Trainer, eager and in a K=8 graph, bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from danet_tpu_torch.parallel import multihost, sharding
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    plain = Trainer(hp.get_model()(hp), hp, "cuda")
+    st0 = plain.init_state(torch.Generator().manual_seed(0))
+    multihost.initialize("cuda", coordinator_address="localhost:%d" % port,
+                         num_processes=1, process_id=0)
+    try:
+        mesh = sharding.mesh_from_hparams(hp).connect()
+        if not mesh.nccl or mesh.shape != {"data": 1, "model": 1}:
+            raise AssertionError("phase 26 (a): mesh %s, NCCL %s"
+                                 % (mesh.shape, mesh.nccl))
+        tr = Trainer(hp.get_model()(hp), hp, "cuda", mesh=mesh)
+        st1 = tr.init_state(torch.Generator().manual_seed(0))
+        m0 = plain.train_step(st0, batches[0])
+        _zero_counts()
+        m1 = tr.train_step(st1, batches[0])
+        eager = _counts()
+        stack = np.stack(batches[1:9])
+        g0 = plain.train_steps(st0, stack)
+        graph = _main_path(lambda: tr.train_steps(st1, stack),
+                           per_step=_bilstm_step_spectra())
+        g1 = graph[0]
+        _zero_counts()
+        tr.valid_step(st1, batches[0])
+        valid = _counts()
+        torch.cuda.synchronize()
+    finally:
+        sharding.set_active_mesh(None)
+        dist.destroy_process_group()
+    diffs = _mesh_state_diffs(st0, st1)
+    same = (float(m0["loss"]) == float(m1["loss"])
+            and all(torch.equal(g0[k], g1[k]) for k in g0))
+    if diffs or not same or not st0["step"] == st1["step"] == 9:
+        raise AssertionError("phase 26 (a): the mesh differs from the plain "
+                             "Trainer: %s, losses equal %s" % (diffs[:6],
+                                                               same))
+    n = _depth(tr.model.encoder)
+    want = {"bilstm_scan_train": n, "bilstm_scan_bwd": n}
+    if {k: v for k, v in eager.items() if v} != want or \
+            {k: v for k, v in valid.items() if v} != {"bilstm_scan": n}:
+        raise AssertionError("phase 26 (a): launches eager %s, valid %s"
+                             % (eager, valid))
+    launches = {k: eager[k] + graph[1][k] + valid[k] for k in KERNELS}
+    print("phase 26 (a) world 1 over NCCL (bilstm-orig, B=32, T=%d, "
+          "float32): an eager step and one 8-step CUDA graph call (%d "
+          "captured) bit for bit the plain Trainer's (parameters, Adam "
+          "moments, every loss); launches: eager step %s, valid step %s"
+          % (TRAIN_T, graph[2], {k: v for k, v in eager.items() if v},
+             {k: v for k, v in valid.items() if v}))
+    return launches
+
+
+def _bilstm_step_spectra() -> dict:
+    """One bilstm-orig train step's launches on the spectra wire."""
+    n = encoders.BiLstmEncoder.N_LAYERS
+    return {"bilstm_scan_train": n, "bilstm_scan_bwd": n}
+
+
+def _mesh_shared_card(hp, batch, tmp: str) -> dict:
+    """(b): two ranks on the one card over gloo, MESH 1 x 2 and 2 x 1,
+    against the one-process step at B=32."""
+    from danet_tpu_torch.parallel import smoke
+    model = hp.get_model()(hp)
+    params = model.init(torch.Generator().manual_seed(0))
+    weights.save_npz(os.path.join(tmp, "p.npz"), params)
+    np.savez(os.path.join(tmp, "b.npz"), src=batch)
+    rows = hp.BATCH_SIZE // 2
+    cases = [{"name": "%dx%d" % s, "kind": "step", "adam": True,
+              "valid": True, "params": "p.npz", "batch": "b.npz",
+              "keys": dict(MESH_STEP, MESH_DATA=s[0], MESH_MODEL=s[1])}
+             for s in MESH_SHAPES]
+    cases.append({"name": "kernels", "kind": "kernels", "T": TRAIN_T,
+                  "rows": rows, "tol": {
+                      "bilstm_scan": (LSTM_ATOL[torch.float32], 0.0),
+                      "bilstm_scan_train": TRAIN_FWD_TOL[torch.float32],
+                      "bilstm_scan_bwd": TRAIN_BWD_TOL[torch.float32]}})
+    spec = os.path.join(tmp, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"cases": cases}, f)
+    t0 = time.perf_counter()
+    smoke.launch(spec, os.path.join(tmp, "out"), 2, device="cuda",
+                 backend="gloo", shared_card=True, timeout=300)
+    ranks_s = time.perf_counter() - t0
+    res = smoke.load_results(os.path.join(tmp, "out"), 2)
+    one = Trainer(model, hp, "cuda")
+    st = one.init_state(torch.Generator().manual_seed(0), params=params)
+    one.train_step(st, batch)
+    want = {n: p.detach().cpu().numpy() for n, p in zip(
+        weights.leaf_names(st["params"]), weights.leaves(st["params"]))}
+    n = _depth(model.encoder)
+    per_rank = {}
+    worst = 0.0
+    for shape in MESH_SHAPES:
+        tag = "%dx%d" % shape
+        got = [{k.split("/", 2)[2]: v for k, v in r.items()
+                if k.startswith(tag + "/params/")} for r in res]
+        for name, ref in want.items():
+            for g in got:
+                err = np.abs(g[name] - ref)
+                bound = MESH_RTOL[0] + MESH_RTOL[1] * np.abs(ref)
+                if not np.all(err <= bound):
+                    raise AssertionError(
+                        "phase 26 (b) %s: %s differs from the one-process "
+                        "step by %.3g" % (tag, name, float(np.max(err))))
+                worst = max(worst, float(np.max(err)))
+            if not np.array_equal(got[0][name], got[1][name]):
+                raise AssertionError("phase 26 (b) %s: the ranks' %s differ"
+                                     % (tag, name))
+        for r, rank in enumerate(res):
+            counts = {k.split("/", 2)[2]: int(v) for k, v in rank.items()
+                      if k.startswith(tag + "/launches/") and int(v)}
+            if counts != {"bilstm_scan_train": n, "bilstm_scan_bwd": n,
+                          "bilstm_scan": n}:
+                raise AssertionError("phase 26 (b) %s rank %d launched %s"
+                                     % (tag, r, counts))
+            per_rank["%s rank %d" % (tag, r)] = counts
+            if list(rank[tag + "/rows"]) != (
+                    [0, rows] if r == 0 else [rows, 2 * rows]):
+                raise AssertionError("phase 26 (b) %s rank %d rows %s"
+                                     % (tag, r, rank[tag + "/rows"]))
+    errs = {}
+    for r, rank in enumerate(res):
+        for name in ("bilstm_scan", "bilstm_scan_train", "bilstm_scan_bwd"):
+            if not float(rank["kernels/ratio/" + name]) <= 1.0:
+                raise AssertionError(
+                    "phase 26 (b) rank %d: %s off its plain version by "
+                    "%.3g" % (r, name, float(rank["kernels/err/" + name])))
+            errs[name] = max(errs.get(name, 0.0),
+                             float(rank["kernels/err/" + name]))
+    print("phase 26 (b) two ranks on one card over gloo (card tensors "
+          "staged through the host), MESH 1x2 and 2x1, %d rows each: the "
+          "updated parameters within %g + %g x |p| of the one-process step "
+          "(worst %.3g), the ranks bit for bit; kernels B, 2 and 3 at "
+          "(T=%d, B=%d) against their plain versions, max abs err %s; "
+          "launches per rank (a step and a valid step) %s; the ranks took "
+          "%.1f s" % (rows, MESH_RTOL[0], MESH_RTOL[1], worst, TRAIN_T,
+                      rows, {k: "%.3g" % v for k, v in errs.items()},
+                      per_rank, ranks_s))
+    return {"params_err": worst, "kernel_err": errs, "per_rank": per_rank}
+
+
+def phase_mesh() -> dict:
+    """Phase 26: data and tensor parallelism on one card (module
+    docstring)."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    hp = load_config(**MESH_STEP)
+    batches = _toy_batches(hp, 9)
+    launches = _mesh_world_one(hp, batches)
+    tmp = tempfile.mkdtemp(prefix="danet-phase26-")
+    try:
+        shared = _mesh_shared_card(hp, batches[0], tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("phase 26 took %.1f s on %s; main-path launches %s"
+          % (time.perf_counter() - t0, nvidia_smi(),
+             {k: v for k, v in launches.items() if v}))
+    return dict(shared, launches=launches)
+
+
 def _bound(flops: float, nbytes: float):
     """(ms, "operations" or "bytes"): the least time of the work on the
     card, the larger of its FLOPs at the float32 peak and its bytes at the
@@ -4919,6 +5119,7 @@ def main():
     causal_moe = phase_causal_moe()
     streaming = phase_streaming()
     bundles = phase_bundles(window)
+    mesh = phase_mesh()
     print("summary: bilstm_scan bfloat16 max_abs_err %.3g (atol %g); "
           "serving worst error vs CPU %.3g of the peak (rtol %g), lstm-orig "
           "%.3g, gru-v1 %.3g, attn-v1 %.3g; train steps vs CPU: worst "
@@ -4995,6 +5196,13 @@ def main():
              bundles["bf16"]["max_rel_err"], bundles["bf16"]["ratio"],
              {k: "%.3g" % v for k, v in bundles["streams"].items()},
              bundles["mag"]["max_abs_err"], bundles["cli"]))
+    print("summary, phase 26: world 1 over NCCL bit for bit the plain "
+          "Trainer (eager and an 8-step graph); two ranks on one card: "
+          "parameters vs the one-process step %.3g, kernels vs plain %s; "
+          "launches per rank %s"
+          % (mesh["params_err"], {k: "%.3g" % v for k, v in
+                                  mesh["kernel_err"].items()},
+             mesh["per_rank"]))
     # launches: the counts of the main paths that run each kernel, each
     # zeroed just before its path and read just after it (kernel 6's: phase
     # 25 (f), dsp.stft_mag_logmag)
@@ -5004,7 +5212,7 @@ def main():
              tpu_whole["launches"], checkpoints["launches"],
              new_encoders["launches"], tasnet["launches"],
              causal_moe["launches"], streaming["launches"],
-             bundles["launches"]] + [
+             bundles["launches"], mesh["launches"]] + [
         run["launches"] for run in list(serving_uni.values())
         + list(training_uni.values())]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}

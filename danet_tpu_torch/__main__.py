@@ -24,6 +24,20 @@ builds everything and returns, for ``python -i -m danet_tpu_torch -m
 interactive``, with the module's ``g_args``, ``g_model``, ``g_trainer``,
 ``g_state`` and ``g_dataset`` set.  Demo and debug run at BATCH_SIZE 1.
 
+On a mesh (MESH_DATA, MESH_MODEL; ``parallel/``) the command runs once per
+card under ``torch.distributed.run``, which sets the process group's
+environment (``parallel/multihost.py::initialize`` joins it):
+
+    python -m torch.distributed.run --nproc-per-node 4 -m danet_tpu_torch \
+        -m train -c configs/multichip.json --set MESH_DATA=2 \
+        --set MESH_MODEL=2
+    (add --device cpu for four processes on the CPU over gloo)
+
+``-m train``, ``valid`` and ``test`` run on the mesh; a rank that the mesh
+leaves out (explicit factors, or the default's batch divisor) exits.
+``demo`` and ``debug`` run on one device, their config's MESH_* keys
+dropped (``serve.dense_config``).
+
 ``demo --stream`` separates causally, online (``DaNet.separate_stream``,
 ``--stream-chunk`` frames a chunk after ``--stream-warmup`` frames; a
 causal encoder only), and demo with DEMO_CHUNK_FRAMES > 0 separates a
@@ -38,10 +52,13 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from danet_tpu_torch.data import audio
 from danet_tpu_torch.hparams import apply_overrides, load_config
 from danet_tpu_torch.models import DaNet
+from danet_tpu_torch.parallel import multihost, sharding
+from danet_tpu_torch.serve import dense_config
 from danet_tpu_torch.train.trainer import Trainer
 
 g_args = None
@@ -271,6 +288,7 @@ def main(argv=None, prog: str = "python -m danet_tpu_torch"):
     print('Inference estimator type: "%s"' % hp.INFER_ESTIMATOR_METHOD)
 
     if g_args.mode in ("demo", "debug"):
+        hp = g_hp = dense_config(hp)
         hp.BATCH_SIZE = 1
         print('  Warning: setting hparams.BATCH_SIZE to 1 for "%s" mode'
               % g_args.mode)
@@ -279,13 +297,24 @@ def main(argv=None, prog: str = "python -m danet_tpu_torch"):
 
     sys.stdout.write("Building model ... ")
     sys.stdout.flush()
+    mesh = None
+    if g_args.mode not in ("demo", "debug") and multihost.initialize(
+            g_args.device):
+        print("multi-host: process %d/%d"
+              % (dist.get_rank(), dist.get_world_size()))
+        mesh = sharding.mesh_from_hparams(hp).connect()
+        if mesh.coords is None:
+            print("rank %d is outside the %s mesh: nothing to run"
+                  % (mesh.rank, dict(mesh.shape)))
+            return
     g_model = hp.get_model()(hp)
-    g_trainer = Trainer(g_model, hp, g_args.device, name=g_args.name)
+    g_trainer = Trainer(g_model, hp, g_args.device, name=g_args.name,
+                        mesh=mesh)
     g_state = g_trainer.init_state(
         torch.Generator().manual_seed(g_args.seed))
-    print("done (%d parameters, 1 device(s): %s)" % (
-        g_model.parameter_count(g_state["params"]),
-        g_trainer.device.type))
+    print("done (%d parameters, %d device(s): %s)" % (
+        g_model.parameter_count(g_trainer.eval_params(g_state)),
+        1 if mesh is None else mesh.size, g_trainer.device.type))
 
     if g_args.input_pfile is not None:
         sys.stdout.write(

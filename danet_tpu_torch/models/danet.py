@@ -73,13 +73,19 @@ class DaNet:
                     "INFER_ESTIMATOR_METHOD %r needs ground truth"
                     % (hp.INFER_ESTIMATOR_METHOD,))
         self.separator = hp.get_separator(hp.SEPARATOR_TYPE)(hp, "separator")
+        # a rank's batch mean -> the global batch's: set by a Trainer on a
+        # mesh (parallel/collectives.py::mean), for the one term of
+        # train_loss that is not a mean over rows (the DC share's scale)
+        self.batch_mean = None
         self._check_parallel_support()
 
     def _check_parallel_support(self):
         """JAX's refusals of a MESH_* axis that the configured encoder has
-        no route for (``ValueError``, word for word); then
-        NotImplementedError for every MESH_* > 1 that JAX accepts: the port
-        runs on one device, in serving and in training."""
+        no route for (``ValueError``, word for word).  MESH_DATA and
+        MESH_MODEL are ported (the Trainer's mesh, ``parallel/``); every
+        other MESH_* > 1 that JAX accepts raises NotImplementedError, and
+        so does moe-v1's routed training (MOE_TOP_K >= 1) on a mesh, whose
+        capacity counts the global batch's tokens."""
         from danet_tpu_torch.models import encoders as enc_mod
         hp, enc = self.hp, self.encoder
 
@@ -109,12 +115,20 @@ class DaNet:
             raise ValueError(
                 "MESH_PIPE and MESH_SEQ cannot combine (the encoder "
                 "routes through one strategy); pick one")
-        for key in ("MESH_DATA", "MESH_MODEL", "MESH_PIPE", "MESH_EXPERT",
-                    "MESH_SEQ"):
+        for key in ("MESH_PIPE", "MESH_EXPERT", "MESH_SEQ"):
             if n(key) > 1:
                 raise NotImplementedError(
-                    "%s > 1 is not ported: the port runs on one device"
-                    % key)
+                    "%s > 1 is not ported: pipeline, sequence and expert "
+                    "parallelism are the rest of ROADMAP.md queue 1 item 6 "
+                    "(MESH_DATA and MESH_MODEL are ported)" % key)
+        if (n("MESH_DATA") * n("MESH_MODEL") > 1
+                and isinstance(enc, enc_mod.MoEAttentionEncoder)
+                and int(getattr(hp, "MOE_TOP_K", 0) or 0) > 0):
+            raise NotImplementedError(
+                "moe-v1 with MOE_TOP_K > 0 on a MESH_DATA x MESH_MODEL mesh "
+                "is not ported: its capacity counts the global batch's "
+                "tokens, a dispatch across ranks (ROADMAP.md queue 1 item "
+                "6, expert parallelism)")
 
     def init(self, generator: torch.Generator, device=None) -> dict:
         """Random parameters with the JAX package's layout."""
@@ -209,9 +223,11 @@ class DaNet:
             dc = loss_ops.dc_loss(embed, src_pwr,
                                   weights=mix_pwr if wt == "mr" else None)
             # the auxiliary as a share of the primary loss: a scale with
-            # no gradient, capped at 1e3 (danet_tpu/models/danet.py:211-227)
-            scale = torch.clamp(torch.abs(loss) / (dc + 1e-20),
-                                max=1e3).detach()
+            # no gradient, capped at 1e3 (danet_tpu/models/danet.py:211-227),
+            # of the global batch's means on a mesh
+            gm = self.batch_mean or (lambda v: v)
+            scale = torch.clamp(torch.abs(gm(loss.detach()))
+                                / (gm(dc.detach()) + 1e-20), max=1e3)
             loss = loss + dc_w * scale * dc
             aux_out["dc"] = dc
 

@@ -2,9 +2,9 @@
 ``attn-v1``, ``moe-v1``, ``tcn-v1``, ``dprnn-v1``, ``conv-bilstm-v1`` and
 the LSTM output head.
 
-Counterpart of ``danet_tpu/models/encoders.py:25-41,67-1251``: the
-single-device paths (no pipeline, sequence, tensor or expert
-parallelism), with the causal streaming hooks of ``lstm-orig``,
+Counterpart of ``danet_tpu/models/encoders.py:25-63,67-1251``: the
+single-device paths and tensor parallelism (no pipeline, sequence or
+expert parallelism), with the causal streaming hooks of ``lstm-orig``,
 ``gru-v1``, causal ``attn-v1`` and ``moe-v1``, causal ``tcn-v1`` and
 online ``dprnn-v1``: ``stream_state_init(batch, dtype, device)`` (the
 state at a fresh stream), ``stream_hidden(params, x, state)`` (a centred
@@ -24,6 +24,14 @@ backward (``_maybe_remat``), where JAX's dense paths call
 recurrent encoders, as in the JAX package, so tests can narrow both
 packages the same way; ``attn-v1``, ``tcn-v1`` and ``dprnn-v1`` read
 their widths from their keys.
+
+Under data and tensor parallelism (MESH_DATA, MESH_MODEL) every encoder
+runs its single-device code on the rank's rows with the full weights,
+which the trainer gathers once per step (``parallel/sharding.py``):
+``bilstm-orig`` through ``rnn.bilstm_apply_tp`` (its TP kernel route),
+the others as they are, each with its hand kernels on a card.  ATTN_BACKEND
+'auto' stays the dense attention under MESH_MODEL, as in JAX
+(``danet_tpu/ops/pallas/attention.py:55-70``).
 """
 from __future__ import annotations
 
@@ -79,6 +87,24 @@ def _maybe_remat(hp, fn):
         return torch.utils.checkpoint.checkpoint(
             fn, *args, use_reentrant=False, preserve_rng_state=False)
     return run
+
+
+def _route_mesh(hp, axis: str, n: int):
+    """The active mesh (``parallel/sharding.py``) when it carries ``axis``
+    at size ``n``, else None.  The Trainer registers its mesh, which
+    carries the configured axes, so training routes as configured; on a
+    host whose processes cannot hold the configured mesh (a MESH_* training
+    config serving on one card) the model runs densely.  Only
+    ``MeshUnavailableError`` routes dense: any other error of the mesh's
+    construction is a bug and propagates."""
+    from danet_tpu_torch.parallel import sharding
+    try:
+        mesh = sharding.active_mesh(hp)
+    except sharding.MeshUnavailableError:
+        return None
+    if mesh.shape.get(axis) == n:
+        return mesh
+    return None
 
 
 def _int_key(hp, key: str, default: int) -> int:
@@ -224,9 +250,15 @@ class BiLstmEncoder(Encoder):
         hp = self.hp
         act = _candidate_activation(hp)
         keep = hp.DROPOUT_KEEP_PROB if train else 1.0
-        # the dropout that ends each layer stays outside the region
-        layer = _maybe_remat(hp, lambda p, v: rnn.bilstm_apply(
-            p, v, act, backend=_backend(hp)))
+        tp_mesh = self._tp_kernel_mesh()
+        # the dropout that ends each layer stays outside the region, and
+        # outside the rank's share under tensor parallelism
+        if tp_mesh is not None:
+            layer = _maybe_remat(hp, lambda p, v: rnn.bilstm_apply_tp(
+                p, v, tp_mesh, act))
+        else:
+            layer = _maybe_remat(hp, lambda p, v: rnn.bilstm_apply(
+                p, v, act, backend=_backend(hp)))
         x = _centered(log_spectra)
         for i in range(self.N_LAYERS):
             x = layer(params[f"lstm{i}"], x)
@@ -235,6 +267,18 @@ class BiLstmEncoder(Encoder):
             if tap:
                 tap("lstm%d_h" % i, x)
         return _LstmHead.apply(params["output"], hp, x)
+
+    def _tp_kernel_mesh(self):
+        """The mesh of the tensor-parallel kernel route
+        (``rnn.bilstm_apply_tp``: this rank's rows, the full weights, the
+        hand kernels), or None where the plain per-backend path applies:
+        no MESH_MODEL > 1, an explicit LSTM_BACKEND other than 'auto' or
+        'pallas', or no mesh with that 'model' axis (``_route_mesh``)."""
+        hp = self.hp
+        n = int(getattr(hp, "MESH_MODEL", 1) or 1)
+        if n <= 1 or _backend(hp) not in ("auto", "pallas"):
+            return None
+        return _route_mesh(hp, "model", n)
 
 
 @hparams.register_encoder("gru-v1")

@@ -75,9 +75,9 @@ class TasNet:
 
     def _check_parallel_support(self):
         """JAX's refusal of the mesh axes this model has no route for
-        (``ValueError``, word for word); then NotImplementedError for the
-        two it has, data parallelism and MESH_SEQ: the port runs on one
-        device."""
+        (``ValueError``, word for word); MESH_DATA is ported (the
+        Trainer's mesh); MESH_SEQ, which JAX routes, raises
+        NotImplementedError."""
         def n(key):
             return int(getattr(self.hp, key, 1) or 1)
 
@@ -86,11 +86,10 @@ class TasNet:
                 raise ValueError(
                     "MODEL_TYPE='tasnet-v1' supports data parallelism "
                     "and MESH_SEQ only; %s>1 is not routed" % key)
-        for key in ("MESH_DATA", "MESH_SEQ"):
-            if n(key) > 1:
-                raise NotImplementedError(
-                    "%s > 1 is not ported for tasnet-v1: the port runs on "
-                    "one device (ROADMAP.md, queue 1 item 6)" % key)
+        if n("MESH_SEQ") > 1:
+            raise NotImplementedError(
+                "MESH_SEQ > 1 is not ported for tasnet-v1: sequence "
+                "parallelism is the rest of ROADMAP.md, queue 1 item 6")
 
     def _dims(self) -> dict:
         hp = self.hp

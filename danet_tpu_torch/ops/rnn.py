@@ -1,8 +1,9 @@
 """Recurrent layers: hoisted input projections + fused scans.
 
-Counterpart of ``danet_tpu/ops/rnn.py:35-177,180-237,289-354``: the
-one-direction LSTM (``lstm_apply``), the bidirectional LSTM
-(``bilstm_apply``) and the GRU (``gru_init``/``gru_apply``).  LSTM
+Counterpart of ``danet_tpu/ops/rnn.py:35-354``: the one-direction LSTM
+(``lstm_apply``), the bidirectional LSTM (``bilstm_apply``, and
+``bilstm_apply_tp``, one rank's share under tensor parallelism) and the
+GRU (``gru_init``/``gru_apply``).  LSTM
 parameters are ``wx [I, 4, H]``, ``wh [H, 4, H]``, ``b [4, H]`` with gate
 order cand|i|f|o; GRU parameters ``wgx [I, 2, H]``, ``wgh [H, 2, H]``,
 ``bg [2, H]``, ``wcx [I, H]``, ``wch [H, H]``, ``bc [H]``.  The input
@@ -18,7 +19,12 @@ them.
 
 ``LSTM_BACKEND`` keeps its JAX values: 'auto' and 'pallas' mean the hand
 kernels for CUDA tensors (their plain versions for CPU tensors);
-'xla' and 'pallas-interpret' mean the plain versions everywhere.
+'xla' and 'pallas-interpret' mean the plain versions everywhere.  JAX's
+``lstm_backend_default`` also resolves 'auto' to its XLA scan under
+MESH_MODEL > 1, only because a ``pallas_call`` has no GSPMD partitioning
+rule; here every rank runs its own rows with the full weights
+(``bilstm_apply_tp``), so 'auto' keeps the kernels under tensor
+parallelism too.
 ``return_state`` returns the final carry as well, as JAX's does (for a
 reversed scan, the state after consuming the input down to its first
 frame): the LSTM's ``(c, h)``, c in float32 whatever the compute dtype
@@ -183,6 +189,34 @@ def bilstm_apply(params: dict, x: torch.Tensor,
     if dropout_rng is not None and keep_prob < 1.0:
         y = dropout(dropout_rng, y, keep_prob)
     return y
+
+
+def bilstm_apply_tp(params: dict, x: torch.Tensor, mesh,
+                    candidate_activation: str = "tanh",
+                    backend: str = "pallas") -> torch.Tensor:
+    """The BiLSTM of one rank under tensor parallelism: the body of JAX's
+    ``bilstm_apply_tp`` shard_map (``danet_tpu/ops/rnn.py:249-287``).
+
+    ``x`` is this rank's rows of the global batch and ``params`` the
+    layer's FULL weights: the trainer splits the batch over ('data',
+    'model') and gathers the 'model'-sharded leaves over the 'model' group
+    once per step (``parallel/sharding.py``), where JAX's ``in_specs`` do
+    both per layer.  Every rank then runs the fused scan on its rows with
+    the full recurrent weights (kernels 2 and 3 under autograd, B without,
+    on a card): the exact TP-over-hidden recurrence would need a gather of
+    h at every step, which no single kernel launch can hold.  No dropout:
+    the caller draws it from the rank's own generator.  A rank's slice of
+    the weights (wh [H, 4, H / n_model]) raises ValueError."""
+    if "model" not in mesh.shape:
+        raise ValueError("bilstm_apply_tp needs a mesh with a 'model' axis")
+    for d in ("fwd", "bwd"):
+        wh = params[d]["wh"]
+        if wh.shape[0] != wh.shape[-1]:
+            raise ValueError(
+                "bilstm_apply_tp needs the full weights (wh %s is one "
+                "rank's slice): gather them over the 'model' group first"
+                % (tuple(wh.shape),))
+    return bilstm_apply(params, x, candidate_activation, backend=backend)
 
 
 def gru_init(generator: torch.Generator, idim: int, hdim: int,

@@ -8,7 +8,10 @@ hyperparameters (b1 0.9, b2 0.999, eps 1e-8, no eps_root), and applied in
 place (the parameters are leaves of the autograd graph, so the update runs
 under ``torch.no_grad``).  The clip step first scales the whole gradient
 to a global norm of at most GRAD_CLIP_NORM (when set, > 0), then clips
-every element to +/- GRAD_CLIP_THRES (when not None).
+every element to +/- GRAD_CLIP_THRES (when not None).  On a mesh the
+parameters, their moments and gradients are the rank's slices
+(``parallel/sharding.py``): the update is elementwise, and only the global
+norm needs the other slices (``Optimizer.norm_reduce``).
 
 The step's scalars, Adam's reciprocal bias corrections and the negated
 learning rate, are a float32 tensor on the parameters' device
@@ -54,6 +57,10 @@ class Optimizer:
         self.clip_norm = clip_norm
         self.weight_decay = float(weight_decay)
         self.count = 0
+        # on a mesh the parameters are the rank's slices: a Trainer sets
+        # this to sum their squares over the 'model' group (the clip's
+        # global norm), given the per-leaf sums of squares
+        self.norm_reduce = None
         self.mu = self.nu = None
         if rule != "sgd":
             self.mu = [torch.zeros_like(p) for p in self.params]
@@ -64,8 +71,10 @@ class Optimizer:
         (GRAD_CLIP_THRES)."""
         if self.clip_norm:
             max_norm = float(self.clip_norm)
-            norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                  for g in grads))
+            sq = [torch.sum(torch.square(g.float())) for g in grads]
+            if self.norm_reduce is not None:
+                sq = self.norm_reduce(sq)
+            norm = torch.sqrt(sum(sq))
             scale = torch.where(norm < max_norm, torch.ones_like(norm),
                                 max_norm / torch.clamp(norm, min=1e-38))
             grads = [g * scale.to(g.dtype) for g in grads]

@@ -1,0 +1,630 @@
+"""The mesh's multi-process driver: start N ranks, run cases on the mesh,
+write each rank's results for the caller to compare.
+
+    python -m danet_tpu_torch.parallel.smoke run --spec SPEC.json \\
+        --out DIR --nproc N [--device cpu|cuda] [--backend gloo] \\
+        [--shared-card] [--timeout SECONDS]
+    python -m danet_tpu_torch.parallel.smoke multichip --out DIR \\
+        [--mesh 2x2 --mesh 4x1] [--steps 8]
+
+``run`` starts N processes of this module on ``localhost`` (a free port;
+RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT as
+``torch.distributed.run`` sets them) in the spec's directory (its
+relative paths), each of which joins the group
+(``multihost.initialize``: gloo on the CPU, ``cpu:gloo,cuda:nccl`` on
+cards, or ``--backend gloo`` with ``--shared-card``: every rank on cuda:0,
+the card tensors staged through the host) and runs the spec's cases in
+order.  Rank r writes ``DIR/rank<r>.npz`` (keys ``<case>/<item>``) and its
+output to ``DIR/rank<r>.log``; a rank that fails, or a run past
+``--timeout``, fails the command (every rank is stopped).
+
+A spec is JSON: ``{"threads": 1, "cases": [{"name": ..., "kind": ...,
+...}, ...]}``; each case builds its config from default.json, its
+``configs`` files and its ``keys`` (``dims`` [HDIM, N_LAYERS] narrows a
+recurrent encoder), its mesh from MESH_DATA / MESH_MODEL
+(``mesh_from_hparams``; a rank outside it skips the case), and a Trainer on
+that mesh.  Kinds:
+
+  * ``step``: ``params`` (an .npz tree, ``weights.save_npz``; seeded
+    otherwise) and ``batch`` (an .npz with ``src``, the global batch):
+    the mesh's ``loss_and_grads`` -> ``loss``, ``SNR``, ``grads/<leaf>``
+    (whole), ``rows`` (this rank's), ``bytes`` (params and moments at
+    rest); with ``adam`` one ``train_step`` after it -> ``params/<leaf>``
+    and ``mu/<leaf>`` (whole), ``step_loss``, and the LSTM kernels'
+    ``launches/<kernel>`` of that step (and of a ``valid_step`` after it,
+    with ``valid``);
+  * ``bilstm_tp``: ``params`` (one BiLSTM layer) and ``x`` (an .npz with
+    ``x`` [B, T, I]): the layer's slices gathered, ``rnn.bilstm_apply_tp``
+    on the rank's rows, the gradients of sum(sin(y)) reduced -> ``y``,
+    ``rows``, ``grads/<leaf>`` (whole, summed over the ranks),
+    ``gathered_exact``;
+  * ``train``: ``epochs`` of ``Trainer.train`` on the config's dataset
+    (``init``: a checkpoint to resume first, its load -> ``loaded/<leaf>``;
+    ``signal_at`` [rank, step]: that rank sends itself SIGTERM after that
+    step) with checkpoints in ``DIR/saves`` -> ``train_loss`` (every
+    step's row), ``valid_loss``, ``lr``, ``step``, ``epoch``,
+    ``checksum``, ``params/<leaf>`` (whole);
+  * ``dropout``: the rank's dropout generator -> ``seed`` and ``mask`` (64
+    draws at keep 0.5);
+  * ``kernels`` (a card): kernels B, 2 and 3 on a rank's rows, ``T``,
+    ``rows``, H=300, float32, against their plain versions at ``tol``
+    ({kernel: [atol, rtol]}) -> ``err/<kernel>`` (the max abs error) and
+    ``ratio/<kernel>`` (the max of |error| / (atol + rtol |plain|): at
+    most 1 within the tolerance).
+
+``multichip`` (``--device cpu --set KEY=VALUE --dims H,L``: a narrow
+rehearsal over gloo on the CPU) runs configs/multichip.json as written (B=128, bfloat16,
+kmeans, ANCHOR_AUX_LOSS, the adaptive LR; the synth-speech corpus in
+place of WSJ0, which the repository does not hold) on a 4-card mesh per
+``--mesh`` (``kind: multichip``: each rank's bytes of params and moments at
+rest, the ms per step of eager steps and of a K=8 CUDA graph, NCCL's share
+of the device time of one traced graph replay, the first ``--steps``
+losses, a digest of its parameter slices, a checkpoint of the mesh), then
+in this process the same steps on one card from the same weights and
+batches and the mesh's checkpoint loaded on one card, and prints one JSON
+line per mesh.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import random
+import signal
+import socket
+import subprocess
+import sys
+import time
+import zlib
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from danet_tpu_torch import weights
+from danet_tpu_torch.hparams import load_config
+from danet_tpu_torch.ops import rnn
+from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
+from danet_tpu_torch.parallel import collectives, multihost, sharding
+from danet_tpu_torch.weights import leaf_names, leaves
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+LSTM_KERNELS = {"bilstm_scan": cuda_lstm.bilstm_scan,
+                "bilstm_scan_train": cuda_lstm.bilstm_scan_train,
+                "bilstm_scan_bwd": cuda_lstm.bilstm_scan_bwd,
+                "lstm_scan": cuda_lstm.lstm_scan,
+                "lstm_scan_train": cuda_lstm.lstm_scan_train,
+                "lstm_scan_bwd": cuda_lstm.lstm_scan_bwd}
+
+
+# ---------------------------------------------------------------------------
+# the launcher
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch(spec_path: str, out: str, nproc: int, device: str = "cpu",
+           backend=None, shared_card: bool = False,
+           timeout: float = 600.0) -> None:
+    """Run the spec on ``nproc`` ranks (see the module's docstring);
+    raises RuntimeError with the failing ranks' last lines."""
+    os.makedirs(out, exist_ok=True)
+    port = str(_free_port())
+    procs = []
+    for r in range(nproc):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(nproc),
+                   LOCAL_RANK=str(0 if shared_card else r),
+                   LOCAL_WORLD_SIZE=str(nproc), MASTER_ADDR="localhost",
+                   MASTER_PORT=port)
+        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        cmd = [sys.executable, "-m", "danet_tpu_torch.parallel.smoke",
+               "worker", "--spec", os.path.abspath(spec_path),
+               "--out", os.path.abspath(out), "--device", device]
+        if backend:
+            cmd += ["--backend", backend]
+        log = open(os.path.join(out, "rank%d.log" % r), "w")
+        procs.append((subprocess.Popen(
+            cmd, env=env, cwd=os.path.dirname(os.path.abspath(spec_path)),
+            stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + timeout
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = []
+        for r in bad:
+            with open(os.path.join(out, "rank%d.log" % r)) as f:
+                tails.append("rank %d (exit %s):\n%s" % (
+                    r, procs[r][0].returncode, f.read()[-3000:]))
+        raise RuntimeError("smoke ranks failed:\n" + "\n".join(tails))
+
+
+def load_results(out: str, nproc: int) -> list:
+    """Each rank's results: a list of {key: array}."""
+    res = []
+    for r in range(nproc):
+        with np.load(os.path.join(out, "rank%d.npz" % r)) as d:
+            res.append({k: d[k] for k in d.files})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the cases
+# ---------------------------------------------------------------------------
+
+def build(case: dict):
+    """(hp, model) of a case: default.json, its ``configs`` and ``keys``;
+    ``dims`` narrows the recurrent encoder's HDIM and N_LAYERS."""
+    hp = load_config(*[os.path.join(REPO, c) for c in case.get("configs",
+                                                               ())],
+                     **case.get("keys", {}))
+    if case.get("dims"):
+        enc = hp.get_encoder()
+        enc.HDIM, enc.N_LAYERS = case["dims"]
+    return hp, hp.get_model()(hp)
+
+
+def _trainer(case: dict, device: str, out: str):
+    """(hp, trainer) on the case's connected mesh; None for a rank outside
+    it (which still takes part in the groups' construction)."""
+    from danet_tpu_torch.train.trainer import Trainer
+    hp, model = build(case)
+    mesh = sharding.mesh_from_hparams(hp).connect()
+    if mesh.coords is None:
+        return hp, None
+    return hp, Trainer(model, hp, device, name=case["name"],
+                       save_dir=os.path.join(out, "saves"), mesh=mesh)
+
+
+def _init(tr, case: dict):
+    params = weights.load_npz(case["params"]) if case.get("params") \
+        else None
+    return tr.init_state(torch.Generator().manual_seed(case.get("seed", 0)),
+                         params=params)
+
+
+def _whole(tr, tensors) -> dict:
+    """{leaf name: whole array} of a list aligned with the params."""
+    full = tr.full_params(sharding.nest(tr.leaf_names, list(tensors)))
+    return {n: t.detach().float().cpu().numpy().copy()
+            for n, t in zip(tr.leaf_names, leaves(full))}
+
+
+def _bytes(state: dict) -> int:
+    opt = state["opt"]
+    ts = leaves(state["params"]) + list(opt.mu or []) + list(opt.nu or [])
+    if state.get("ema") is not None:
+        ts += leaves(state["ema"])
+    return int(sum(t.numel() * t.element_size() for t in ts))
+
+
+def _zero_launches() -> None:
+    for fn in LSTM_KERNELS.values():
+        fn.launches = 0
+
+
+def _launches() -> dict:
+    return {n: fn.launches for n, fn in LSTM_KERNELS.items()}
+
+
+def case_step(case: dict, device: str, out: str) -> dict:
+    _, tr = _trainer(case, device, out)
+    if tr is None:
+        return {}
+    state = _init(tr, case)
+    with np.load(case["batch"]) as d:
+        src = d["src"]
+    rows = sharding.batch_rows(tr.mesh, src.shape[0])
+    m, g = tr.loss_and_grads(state["params"], tr.ingest(src), None)
+    res = {"loss": float(m["loss"]), "SNR": float(m["SNR"]),
+           "rows": [rows.start, rows.stop], "bytes": _bytes(state)}
+    res.update({"grads/" + k: v for k, v in _whole(tr, g).items()})
+    if case.get("adam"):
+        _zero_launches()
+        step = tr.train_step(state, src)
+        if case.get("valid"):
+            tr.valid_step(state, src)
+        res["step_loss"] = float(step["loss"])
+        res.update({"launches/" + k: v for k, v in _launches().items()})
+        res.update({"params/" + k: v for k, v in _whole(
+            tr, leaves(state["params"])).items()})
+        if state["opt"].mu is not None:
+            res.update({"mu/" + k: v for k, v in _whole(
+                tr, state["opt"].mu).items()})
+    return res
+
+
+def case_bilstm_tp(case: dict, device: str, out: str) -> dict:
+    hp, _ = build(case)
+    mesh = sharding.mesh_from_hparams(hp).connect()
+    if mesh.coords is None:
+        return {}
+    layer = weights.load_npz(case["params"], device)
+    axes = sharding.model_axes(layer, mesh)
+    shards = sharding.shard_params(mesh, layer)
+    full = sharding.gather_params(mesh, shards, axes)
+    exact = all(torch.equal(a, b) for a, b in zip(leaves(full),
+                                                  leaves(layer)))
+    ps = [p.detach().clone().requires_grad_(True) for p in leaves(full)]
+    full = sharding.nest(leaf_names(layer), ps)
+    with np.load(case["x"]) as d:
+        x_all = d["x"]
+    rows = sharding.batch_rows(mesh, x_all.shape[0])
+    x = torch.from_numpy(x_all[rows]).to(device)
+    y = rnn.bilstm_apply_tp(full, x, mesh, "tanh",
+                            backend=case.get("backend", "pallas"))
+    grads = torch.autograd.grad(torch.sum(torch.sin(y)), ps)
+    grads = collectives.reduce_grads(mesh, list(grads), axes)
+    grads = [g * mesh.size for g in grads]       # the sum over the ranks
+    whole = collectives.gather_leaves(mesh, grads, axes)
+    res = {"y": y.detach().cpu().numpy(), "rows": [rows.start, rows.stop],
+           "gathered_exact": exact}
+    res.update({"grads/" + n: g.cpu().numpy()
+                for n, g in zip(leaf_names(layer), whole)})
+    return res
+
+
+class _Recorder:
+    """A metrics writer that keeps the rows in memory."""
+
+    run_dir = None
+
+    def __init__(self):
+        self.rows = {"train": [], "valid": []}
+
+    def scalars(self, prefix: str, values: dict, step: int) -> None:
+        self.rows[prefix].append(float(values["loss"]))
+
+    def close(self) -> None:
+        pass
+
+
+def case_train(case: dict, device: str, out: str) -> dict:
+    hp, tr = _trainer(case, device, out)
+    if tr is None:
+        return {}
+    state = _init(tr, case)
+    res = {}
+    if case.get("init"):
+        state = tr.load_params(state, case["init"])
+        res.update({"loaded/" + k: v for k, v in _whole(
+            tr, leaves(state["params"])).items()})
+    ds = hp.get_dataset()(hp, seed=0)
+    ds.install_and_load()
+    rec = _Recorder()
+    if case.get("signal_at"):
+        # SIGTERM to this process after the given step on the given rank
+        rank, at = case["signal_at"]
+        step = tr.train_step
+
+        def train_step(state, batch):
+            out = step(state, batch)
+            if dist.get_rank() == rank and state["step"] == at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+        tr.train_step = train_step
+    state = tr.train(case.get("epochs", 2), ds, save_on_epoch=True,
+                     valid_on_epoch=True, state=state, seed=0, writer=rec)
+    whole = _whole(tr, leaves(state["params"]))
+    res.update({"train_loss": rec.rows["train"],
+                "valid_loss": rec.rows["valid"],
+                "lr": tr.get_learn_rate(state), "step": state["step"],
+                "epoch": state["epoch"],
+                "checksum": float(sum(np.sum(np.abs(v.astype(np.float64)))
+                                      for v in whole.values()))})
+    res.update({"params/" + k: v for k, v in whole.items()})
+    return res
+
+
+def case_dropout(case: dict, device: str, out: str) -> dict:
+    from danet_tpu_torch.ops.nn import dropout_mask
+    _, tr = _trainer(case, device, out)
+    if tr is None:
+        return {}
+    gen = _init(tr, case)["generator"]
+    seed = gen.initial_seed()
+    mask = dropout_mask(gen, (64,), 0.5, device)
+    return {"seed": np.uint64(seed), "mask": mask.cpu().numpy()}
+
+
+def case_kernels(case: dict, device: str, out: str) -> dict:
+    """Kernels B, 2 and 3 at a rank's layer shapes against their plain
+    versions (float32, tanh candidate, layer-shaped inputs)."""
+    t, b, h = case.get("T", 128), case.get("rows", 16), 300
+    rs = np.random.RandomState(1000 + dist.get_rank())
+    scale = 0.75 / np.sqrt(h)
+    x = rs.randn(t, 2, b, 2 * h).astype(np.float32) * 0.5
+    wx = rs.uniform(-scale, scale, (2, 2 * h, 4 * h)).astype(np.float32)
+    bias = np.repeat(np.array([0.0, 1.5, -1.0, 1.0], np.float32), h)
+    xp = np.einsum("tdbi,dig->tdbg", x, wx) + bias
+    wh = rs.uniform(-scale, scale, (2, h, 4 * h)).astype(np.float32)
+    z = np.zeros((2, b, h), np.float32)
+    d_hs = rs.randn(t, 2, b, h).astype(np.float32) * 0.1
+    xp, wh, z, d_hs = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                       for a in (xp, wh, z, d_hs))
+
+    res = {}
+
+    def check(name, got, want):
+        atol, rtol = case["tol"][name]
+        diff = [torch.abs(u.float() - v.float()) for u, v in zip(got, want)]
+        res["err/" + name] = max(float(torch.max(d)) for d in diff)
+        res["ratio/" + name] = max(float(torch.max(
+            d / (atol + rtol * torch.abs(v.float()))))
+            for d, v in zip(diff, want))
+
+    check("bilstm_scan", [cuda_lstm.bilstm_scan(xp, wh, z, z, True)],
+          [cuda_lstm.bilstm_scan_plain(xp, wh, z, z, True)])
+    ref = cuda_lstm.bilstm_scan_train_plain(xp, wh, z, z, True)
+    check("bilstm_scan_train", cuda_lstm.bilstm_scan_train(
+        xp, wh, z, z, True), ref)
+    hs, cs, acts = ref
+    c_prev = torch.cat([z[None], cs[:-1]])
+    check("bilstm_scan_bwd", cuda_lstm.bilstm_scan_bwd(
+        d_hs, acts, cs, c_prev, wh, True), cuda_lstm.bilstm_scan_bwd_plain(
+        d_hs, acts, cs, c_prev, wh, True))
+    return res
+
+
+def _epoch_batches(tr, hp, ds, n: int) -> list:
+    """The first ``n`` train batches of epoch 0 (seed 0) as the loop
+    draws them, whole."""
+    key = zlib.crc32(b"danet-epoch-%d-retry-%d-seed-%d" % (0, 0, 0))
+    rng, rand = np.random.RandomState(key), random.Random(key)
+    out = []
+    for data_pt in tr._epoch_fn(ds)("train", hp.BATCH_SIZE * hp.MAX_N_SIGNAL,
+                                    shuffle=True, rng=rng, rand=rand):
+        out.append(tr._prepare(data_pt[0], hp.MAX_TRAIN_LEN, rng))
+        if len(out) == n:
+            return out
+    raise ValueError("the dataset has fewer than %d batches" % n)
+
+
+def _digest(arrays) -> str:
+    h = hashlib.sha1()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:12]
+
+
+def _device_ms_by_kind(prof) -> tuple:
+    """(all, NCCL's) device ms of a profile's CUDA kernels."""
+    total = nccl = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) is None or \
+                "CUDA" not in str(e.device_type):
+            continue
+        ms = e.self_device_time_total / 1e3
+        total += ms
+        if "nccl" in e.key.lower():
+            nccl += ms
+    return total, nccl
+
+
+def _sync(device: str) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(fn, reps: int, device: str) -> float:
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync(device)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def case_multichip(case: dict, device: str, out: str) -> dict:
+    hp, tr = _trainer(case, device, out)
+    if tr is None:
+        return {}
+    n = case.get("steps", 8)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    ds = hp.get_dataset()(hp, seed=0)
+    ds.install_and_load()
+    batches = _epoch_batches(tr, hp, ds, n + 8)
+    losses = [tr.train_step(state, b)["loss"] for b in batches[:n]]
+    losses = torch.stack(losses).float().cpu().numpy()
+    k1 = _timed(lambda: tr.train_step(state, batches[n]), 4, device)
+    stack = tr._put(tr._host_batch(np.stack(batches[n:n + 8]),
+                                   stacked=True))
+    tr.train_steps(state, stack)                       # the capture
+    k8 = _timed(lambda: tr.train_steps(state, stack), 3, device) / 8
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        tr.train_steps(state, stack)
+        _sync(device)
+    total, nccl = _device_ms_by_kind(prof)
+    tr.save_params(state, os.path.join(out, "mesh_ckpt"))
+    whole = _whole(tr, leaves(state["params"]))
+    shards = [t.detach().cpu().numpy() for t in leaves(state["params"])]
+    return {"losses": losses, "ms_k1": k1, "ms_k8": k8,
+            "device_ms": total, "nccl_ms": nccl, "bytes": _bytes(state),
+            "coords": [tr.mesh.coords["data"], tr.mesh.coords["model"]],
+            "digest": _digest(shards),
+            "whole_digest": _digest(whole[k] for k in sorted(whole)),
+            "step": state["step"]}
+
+
+CASES = {"step": case_step, "bilstm_tp": case_bilstm_tp,
+         "train": case_train, "dropout": case_dropout,
+         "kernels": case_kernels, "multichip": case_multichip}
+
+
+def worker(spec_path: str, out: str, device: str, backend=None) -> None:
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if device == "cpu":
+        torch.set_num_threads(int(spec.get("threads", 1)))
+    if not multihost.initialize(device, backend):
+        raise RuntimeError("smoke worker: no process group in the "
+                           "environment (start it with 'run')")
+    rank = dist.get_rank()
+    results = {}
+    try:
+        for case in spec["cases"]:
+            for k, v in CASES[case["kind"]](case, device, out).items():
+                results["%s/%s" % (case["name"], k)] = np.asarray(v)
+            print("rank %d: %s done" % (rank, case["name"]), flush=True)
+        np.savez(os.path.join(out, "rank%d.npz" % rank), **results)
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# configs/multichip.json on four cards
+# ---------------------------------------------------------------------------
+
+MULTICHIP_KEYS = {"DATASET_TYPE": "synth-speech", "WAVE_PCM_SCALE": 4.0}
+
+
+def _one_card(case: dict, out: str, n: int, device: str) -> dict:
+    """The mesh case's steps on one card (no mesh) from the same weights
+    and batches, and the mesh's checkpoint loaded on one card."""
+    from danet_tpu_torch.train.trainer import Trainer
+    keys = dict(case["keys"], MESH_DATA=1, MESH_MODEL=1)
+    hp, model = build(dict(case, keys=keys))
+    tr = Trainer(model, hp, device, name="one-card",
+                 save_dir=os.path.join(out, "saves"))
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    ds = hp.get_dataset()(hp, seed=0)
+    ds.install_and_load()
+    batches = _epoch_batches(tr, hp, ds, n)
+    losses = torch.stack([tr.train_step(state, b)["loss"]
+                          for b in batches]).float().cpu().numpy()
+    fresh = tr.init_state(torch.Generator().manual_seed(1))
+    fresh = tr.load_params(fresh, os.path.join(out, "mesh_ckpt"))
+    loaded = {k: v.detach().float().cpu().numpy() for k, v in zip(
+        leaf_names(fresh["params"]), leaves(fresh["params"]))}
+    return {"losses": losses,
+            "loaded_digest": _digest(loaded[k] for k in sorted(loaded)),
+            "loaded_step": fresh["step"]}
+
+
+def multichip(out: str, meshes: list, steps: int, timeout: float,
+              device: str = "cuda", keys=None, dims=None) -> None:
+    """configs/multichip.json per mesh (the module's docstring); ``keys``
+    and ``dims`` narrow it, and ``device`` 'cpu' runs it over gloo, for a
+    rehearsal of the four-card run on the CPU."""
+    smi = "the CPU" if device == "cpu" else subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    for mesh in meshes:
+        n_data, n_model = (int(v) for v in mesh.split("x"))
+        nproc = n_data * n_model
+        sub = os.path.join(out, "mesh_%s" % mesh)
+        os.makedirs(sub, exist_ok=True)
+        case = {"name": "multichip", "kind": "multichip", "steps": steps,
+                "configs": ["configs/multichip.json"], "dims": dims,
+                "keys": dict(MULTICHIP_KEYS, **dict(
+                    keys or {}, MESH_DATA=n_data, MESH_MODEL=n_model))}
+        spec = os.path.join(sub, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"cases": [case]}, f)
+        t0 = time.perf_counter()
+        launch(spec, sub, nproc, device=device, timeout=timeout)
+        mesh_s = time.perf_counter() - t0
+        ranks = [{k.split("/", 1)[1]: v for k, v in r.items()}
+                 for r in load_results(sub, nproc)]
+        ref = _one_card(case, sub, steps, device)
+        replicas = {}
+        for r in ranks:
+            replicas.setdefault(int(r["coords"][1]), set()).add(
+                str(r["digest"]))
+        if any(len(d) != 1 for d in replicas.values()):
+            raise AssertionError("%s: the data replicas' parameters differ: "
+                                 "%s" % (mesh, replicas))
+        if any(str(r["whole_digest"]) != str(ranks[0]["whole_digest"])
+               for r in ranks):
+            raise AssertionError("%s: the ranks gather different weights"
+                                 % mesh)
+        if str(ref["loaded_digest"]) != str(ranks[0]["whole_digest"]):
+            raise AssertionError("%s: the mesh's checkpoint loads on one "
+                                 "card as other weights" % mesh)
+        rel = np.abs(ranks[0]["losses"] - ref["losses"]) / np.abs(
+            ref["losses"])
+        if not np.all(np.isfinite(ranks[0]["losses"])) or rel[0] > 1e-2:
+            raise AssertionError("%s: step-1 loss %r vs one card %r"
+                                 % (mesh, ranks[0]["losses"][0],
+                                    ref["losses"][0]))
+        print(json.dumps({
+            "mesh": mesh, "card": smi, "world": nproc,
+            "bytes_at_rest": [int(r["bytes"]) for r in ranks],
+            "ms_per_step_k1": [float(r["ms_k1"]) for r in ranks],
+            "ms_per_step_k8_graph": [float(r["ms_k8"]) for r in ranks],
+            "nccl_share": [float(r["nccl_ms"]) / max(float(r["device_ms"]),
+                                                     1e-9) for r in ranks],
+            "losses_mesh": [float(v) for v in ranks[0]["losses"]],
+            "losses_one_card": [float(v) for v in ref["losses"]],
+            "loss_rel_diff": [float(v) for v in rel],
+            "replica_digests": {str(k): sorted(v)
+                                for k, v in replicas.items()},
+            "checkpoint": "written on the mesh at step %d, loaded on one "
+                          "card: digest %s" % (int(ref["loaded_step"]),
+                                               ref["loaded_digest"]),
+            "mesh_seconds": mesh_s}), flush=True)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="python -m danet_tpu_torch.parallel."
+                                      "smoke")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    for name in ("run", "worker"):
+        p = sub.add_parser(name)
+        p.add_argument("--spec", required=True)
+        p.add_argument("--out", required=True)
+        p.add_argument("--device", default="cpu")
+        p.add_argument("--backend", default=None)
+        if name == "run":
+            p.add_argument("--nproc", type=int, required=True)
+            p.add_argument("--shared-card", action="store_true")
+            p.add_argument("--timeout", type=float, default=600.0)
+    mc = sub.add_parser("multichip")
+    mc.add_argument("--out", required=True)
+    mc.add_argument("--mesh", action="append", default=[])
+    mc.add_argument("--steps", type=int, default=8)
+    mc.add_argument("--timeout", type=float, default=900.0)
+    mc.add_argument("--device", default="cuda")
+    mc.add_argument("--set", action="append", default=[],
+                    metavar="KEY=VALUE", help="a config key (JSON value)")
+    mc.add_argument("--dims", default=None,
+                    help="HDIM,N_LAYERS of the recurrent encoder")
+    args = ap.parse_args(argv)
+    if args.cmd == "worker":
+        worker(args.spec, args.out, args.device, args.backend)
+    elif args.cmd == "run":
+        launch(args.spec, args.out, args.nproc, args.device, args.backend,
+               args.shared_card, args.timeout)
+    else:
+        keys = {}
+        for pair in args.set:
+            k, v = pair.split("=", 1)
+            keys[k] = json.loads(v)
+        multichip(args.out, args.mesh or ["2x2", "4x1"], args.steps,
+                  args.timeout, args.device, keys,
+                  [int(v) for v in args.dims.split(",")] if args.dims
+                  else None)
+
+
+if __name__ == "__main__":
+    main()

@@ -37,6 +37,11 @@ The live forms run the model eagerly on the card: ``Separator`` runs each
 request as it comes (``DaNet.separate_wav``), ``Streamer`` runs
 ``stream_init`` / ``stream_step``.
 
+Serving runs on one device: every entry here (``load_model``, both live
+forms, both exports) drops a training config's MESH_* keys first
+(``dense_config``, as ``danet_tpu/serve.py:135-146`` does), so that a
+model trained on a mesh serves densely on one card.
+
 CLI (``--device cpu`` for the CPU; the card by default):
 
     python -m danet_tpu_torch.serve export -c cfg.json -i weights.npz \\
@@ -72,6 +77,7 @@ for DaNet, TASNET_WIN - TASNET_STRIDE for tasnet-v1 (the model's
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 from typing import Optional, Sequence
@@ -176,6 +182,28 @@ def _read_manifest(directory: str, fmt: str, what: str) -> dict:
     return manifest
 
 
+MESH_KEYS = ("MESH_DATA", "MESH_MODEL", "MESH_PIPE", "MESH_EXPERT",
+             "MESH_SEQ")
+
+
+def dense_config(hp):
+    """``hp`` for one device: a copy with every MESH_* key 1 when any is
+    above 1, else ``hp`` itself."""
+    if all(int(getattr(hp, k, 1) or 1) <= 1 for k in MESH_KEYS):
+        return hp
+    hp = copy.copy(hp)
+    for k in MESH_KEYS:
+        setattr(hp, k, 1)
+    return hp
+
+
+def dense_model(model):
+    """``model``, rebuilt on ``dense_config`` of its hparams when they
+    configure a mesh."""
+    hp = dense_config(model.hp)
+    return model if hp is model.hp else type(model)(hp, name=model.name)
+
+
 def export_separator(model, params, out_dir: str, lengths: Sequence[int],
                      batch: int = 1, device="cuda",
                      weights_dtype: Optional[str] = None) -> dict:
@@ -190,6 +218,7 @@ def export_separator(model, params, out_dir: str, lengths: Sequence[int],
     the baked parameters (``_cast_weights``).  -> the manifest, also
     written to ``out_dir/manifest.json``."""
     lengths = sorted(int(v) for v in lengths)
+    model = dense_model(model)
     os.makedirs(out_dir, exist_ok=True)
     params = _baked_params(params, device, weights_dtype)
     for length in lengths:
@@ -287,6 +316,7 @@ def export_streamer(model, params, out_dir: str, chunk_samples: int,
     sizes are multiples of the stream's granularity (``stream_timing``);
     the step's input size is fixed (constant latency).  -> the
     manifest."""
+    model = dense_model(model)
     stride, latency = _check_stream_sizes(model, chunk_samples,
                                           warmup_samples)
     os.makedirs(out_dir, exist_ok=True)
@@ -368,8 +398,8 @@ class Separator:
     request runs ``separate_wav`` eagerly, as it comes."""
 
     def __init__(self, model, params: dict, device):
-        self.model = model
-        self.hp = model.hp
+        self.model = dense_model(model)
+        self.hp = self.model.hp
         self.device = torch.device(device)
         self.params = weights_lib.from_jax(params, self.device)
 
@@ -401,6 +431,7 @@ class Streamer:
 
     def __init__(self, model, params: dict, device, chunk_samples: int,
                  warmup_samples: int):
+        model = dense_model(model)
         _, self.latency_samples = _check_stream_sizes(
             model, chunk_samples, warmup_samples)
         self.model = model
@@ -436,7 +467,7 @@ def load_model(weights: str, config_files: Sequence[str] = ()):
     parameters, checked against the model's)."""
     from danet_tpu_torch.hparams import load_config
 
-    hp = load_config(*config_files)
+    hp = dense_config(load_config(*config_files))
     model = hp.get_model()(hp)
     if os.path.isdir(weights):
         from danet_tpu_torch.train.checkpoint import load_eval_params

@@ -48,6 +48,19 @@ class MetricsWriter:
         self._jsonl.close()
 
 
+class NullWriter:
+    """A ``MetricsWriter`` that writes nothing (the ranks of a mesh other
+    than rank 0)."""
+
+    run_dir = None
+
+    def scalars(self, prefix: str, values: dict, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class StepTimer:
     """Mean wall time of the timed calls."""
 

@@ -41,8 +41,24 @@ exponential average of the parameters (``state["ema"]``), which the valid
 sweep, ``test`` and ``separate`` run on; both run in the eager step and in
 the K-step graph.  NAN_CHECKS raises FloatingPointError at the first step
 whose loss or gradient is not finite (and runs single steps).  REMAT
-recomputes the encoder's layers in the backward (``models/encoders.py``);
-``DaNet`` itself refuses MESH_* > 1.
+recomputes the encoder's layers in the backward (``models/encoders.py``).
+
+The mesh (MESH_DATA, MESH_MODEL; ``parallel/``): one process per card, in
+a ``torch.distributed`` group (``python -m torch.distributed.run``; a mesh
+of more than one process without a group raises).  Each rank stages only
+its rows of every batch (``sharding.batch_rows``), holds only its slice of
+each 'model'-sharded leaf with that leaf's moments and EMA, gathers the
+full weights once per step, runs the model's single-device code (its
+kernels) on its rows, and reduces the gradients to the global batch's mean
+at its slices (``parallel/collectives.py``).  Every metric is the global
+batch's, so that every rank prints the same numbers and takes the same
+decisions (the LR policy, the rollbacks, NAN_CHECKS); a signal on any rank
+stops every rank at the same step boundary.  Only rank 0 writes metric
+files, traces and checkpoints, which hold every leaf whole: a checkpoint
+of one mesh resumes on any other, or on one process.  The K-step CUDA
+graph captures the NCCL collectives; ranks on several hosts run single
+steps, as the JAX trainer does, and a group that carries card tensors over
+gloo runs the K steps eagerly.
 
 Checkpoints (``train/checkpoint.py``): ``save_on_epoch`` writes
 ``saves/<name>_e<k>`` after epoch k, ``save_best`` keeps
@@ -63,6 +79,7 @@ the JAX trainer seeds numpy's global generator with.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import os
 import queue
@@ -78,6 +95,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from danet_tpu_torch import optim as optim_lib
 from danet_tpu_torch import weights
@@ -85,8 +103,9 @@ from danet_tpu_torch.data import audio
 from danet_tpu_torch.models.danet import STFT_BACKENDS
 from danet_tpu_torch.ops import dsp
 from danet_tpu_torch.ops.cuda import library
+from danet_tpu_torch.parallel import collectives, multihost, sharding
 from danet_tpu_torch.train import checkpoint as ckpt_lib
-from danet_tpu_torch.train.metrics import MetricsWriter, StepTimer
+from danet_tpu_torch.train.metrics import MetricsWriter, NullWriter, StepTimer
 from danet_tpu_torch.weights import leaf_names, leaves
 
 # exit code of the hang watchdog (WATCHDOG_SECS), as the JAX trainer's: a
@@ -343,16 +362,25 @@ class Trainer:
     optimizer's moments and learning rate, ``generator`` draws dropout,
     ``graphs`` the captured K-step graphs, which update the state's
     tensors in place.  Checkpoints go to ``save_dir``, named after
-    ``name``."""
+    ``name``.
+
+    ``mesh``: a connected ``sharding.Mesh``; by default, in a process of a
+    ``torch.distributed`` group, ``mesh_from_hparams`` connected here
+    (collective), and without a group no mesh (one process).  On a mesh
+    the state's params, moments and EMA are this rank's slices, and the
+    dropout generator is the rank's own: its row slice's (ranks that share
+    their rows share their masks)."""
 
     def __init__(self, model, hp=None, device="cuda",
-                 name: str = "UnnamedExperiment", save_dir: str = "saves"):
+                 name: str = "UnnamedExperiment", save_dir: str = "saves",
+                 mesh: Optional[sharding.Mesh] = None):
         self.hp = hp if hp is not None else model.hp
         self.model = model
         self.device = torch.device(device)
         self.name = name
         self.save_dir = save_dir
         self._check_config()
+        self._setup_mesh(mesh)
         model.check_train_config()
         hp = self.hp
         domain = str(getattr(hp, "TRANSFER_DOMAIN", "spectra"))
@@ -410,6 +438,69 @@ class Trainer:
             k = 1
         self._steps_per_call = k
 
+    def _setup_mesh(self, mesh) -> None:
+        """The mesh, with the JAX trainer's check that every configured
+        strategy has its axis; its collectives on the model (the DC
+        share's global means) and the optimizer (the clip's global norm);
+        its K-step rule."""
+        hp = self.hp
+        self.mesh = mesh
+        if mesh is None and dist.is_initialized():
+            mesh = self.mesh = sharding.mesh_from_hparams(hp).connect()
+        if mesh is None:
+            n = sharding.mesh_factors(hp)
+            if n > 1:
+                raise RuntimeError(
+                    "MESH_* asks for a mesh of %d processes, but this "
+                    "process is in no torch.distributed group: launch one "
+                    "process per card, e.g. python -m torch.distributed.run "
+                    "--nproc-per-node %d -m danet_tpu_torch -m train ... "
+                    "(the port never runs a mesh on one device)" % (n, n))
+            self._chief = True
+            self._graphs = True
+            return
+        for key, axis in (("MESH_MODEL", "model"), ("MESH_PIPE", "pipe"),
+                          ("MESH_EXPERT", "expert"), ("MESH_SEQ", "seq")):
+            n = int(getattr(hp, key, 1) or 1)
+            if n > 1 and mesh.shape.get(axis, 1) != n:
+                raise ValueError(
+                    "%s=%d but the trainer mesh has no matching %r axis "
+                    "(%r) — build it via mesh_from_hparams or pass a "
+                    "mesh carrying the configured axes"
+                    % (key, n, axis, dict(mesh.shape)))
+        if mesh.coords is None:
+            raise RuntimeError(
+                "rank %d is outside the %s mesh: it holds no part of it"
+                % (mesh.rank, dict(mesh.shape)))
+        rows = hp.BATCH_SIZE // sharding.batch_slices(mesh, hp.BATCH_SIZE)
+        if rows % self._accum:
+            raise ValueError(
+                "GRAD_ACCUM=%d must divide the %d rows of a rank (BATCH_SIZE"
+                " %d over the mesh %s)" % (self._accum, rows, hp.BATCH_SIZE,
+                                           dict(mesh.shape)))
+        sharding.set_active_mesh(mesh)
+        self.model.batch_mean = functools.partial(collectives.mean, mesh)
+        self._chief = mesh.rank == 0
+        # a graph captures NCCL's collectives, not gloo's staged copies
+        self._graphs = self.device.type != "cuda" or mesh.nccl
+        if self._steps_per_call > 1 and multihost.spans_hosts():
+            print("[TRAIN_STEPS_PER_CALL disabled on multi-host — "
+                  "per-host batch slicing is per-step]")
+            self._steps_per_call = 1
+        elif self._steps_per_call > 1 and not self._graphs:
+            print("[TRAIN_STEPS_PER_CALL: K eager steps, no CUDA graph — the "
+                  "group carries card tensors over gloo, staged through the "
+                  "host]")
+
+    def _rank_seed(self, seed: int) -> int:
+        """The dropout seed of this rank: ``seed`` for the first row slice
+        (and off a mesh), one of (seed, row slice) for the others."""
+        if self.mesh is None:
+            return seed
+        g = sharding.row_index(self.mesh, self.hp.BATCH_SIZE)
+        return seed if g == 0 else zlib.crc32(
+            b"danet-dropout-%d-rows-%d" % (seed, g))
+
     # ------------------------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None,
                    params: Optional[dict] = None) -> dict:
@@ -424,15 +515,43 @@ class Trainer:
             params = self.model.init(generator, self.device)
         else:
             params = weights.from_jax(weights.to_jax(params), self.device)
+        self.leaf_names = leaf_names(params)
+        self._full = [(tuple(p.shape), p.dtype) for p in leaves(params)]
+        self._axes = [None] * len(self._full)
+        if self.mesh is not None:
+            self._axes = sharding.model_axes(params, self.mesh)
+            params = sharding.shard_params(self.mesh, params)
         for p in leaves(params):
             p.requires_grad_(True)
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
-        state = {"params": params,
-                 "opt": optim_lib.make_optimizer(self.hp, params),
-                 "step": 0, "epoch": 0,
-                 "generator": torch.Generator(self.device).manual_seed(seed)}
+        opt = optim_lib.make_optimizer(self.hp, params)
+        if any(a is not None for a in self._axes):
+            opt.norm_reduce = self._norm_reduce
+        state = {"params": params, "opt": opt, "step": 0, "epoch": 0,
+                 "generator": torch.Generator(self.device).manual_seed(
+                     self._rank_seed(seed))}
         self._ensure_ema(state)
         return state
+
+    def _norm_reduce(self, sq: list) -> list:
+        """The clip's per-leaf sums of squares with each 'model'-sharded
+        leaf's summed over the 'model' group (its whole leaf's)."""
+        idx = [i for i, a in enumerate(self._axes) if a is not None]
+        v = collectives.all_reduce(self.mesh, torch.stack(
+            [sq[i] for i in idx]), "model")
+        out = list(sq)
+        for j, i in enumerate(idx):
+            out[i] = v[j]
+        return out
+
+    def full_params(self, params: dict) -> dict:
+        """The full weights of a tree of this rank's slices (``params`` or
+        the EMA): on a mesh its 'model'-sharded leaves gathered over the
+        'model' group (collective: every rank calls it); else
+        ``params``."""
+        if self.mesh is None or not any(a is not None for a in self._axes):
+            return params
+        return sharding.gather_params(self.mesh, params, self._axes)
 
     def _ensure_ema(self, state: dict) -> None:
         """Under EMA_DECAY > 0, a state without an EMA gets a copy of its
@@ -442,9 +561,12 @@ class Trainer:
 
     def eval_params(self, state: dict) -> dict:
         """The weights that evaluation and inference run on: the EMA when
-        the state has one, else the parameters."""
+        the state has one, else the parameters; whole (``full_params``:
+        collective on a mesh)."""
         ema = state.get("ema")
-        return ema if ema is not None else state["params"]
+        with torch.no_grad():
+            return self.full_params(ema if ema is not None
+                                    else state["params"])
 
     # ------------------------------------------------------------------
     # the wire
@@ -464,9 +586,15 @@ class Trainer:
             out = out.to(torch.bfloat16)
         return out
 
-    def _host_batch(self, batch_np: np.ndarray,
-                    for_eval: bool = False) -> torch.Tensor:
-        """``wire_cast``, into a pinned buffer when the device is a card."""
+    def _host_batch(self, batch_np: np.ndarray, for_eval: bool = False,
+                    stacked: bool = False) -> torch.Tensor:
+        """This rank's rows of a batch (of each batch of a [K, ...]
+        ``stacked`` stack) through ``wire_cast``, into a pinned buffer when
+        the device is a card."""
+        if self.mesh is not None:
+            axis = 1 if stacked else 0
+            rows = sharding.batch_rows(self.mesh, batch_np.shape[axis])
+            batch_np = batch_np[:, rows] if stacked else batch_np[rows]
         out = self.wire_cast(batch_np, for_eval)
         if self.device.type != "cuda":
             return out
@@ -482,8 +610,9 @@ class Trainer:
     def ingest(self, batch, for_eval: bool = False) -> torch.Tensor:
         """A batch as the model's input, ri spectra [B, N, T, F, 2]
         float32 on the device: a prepared numpy batch crosses the wire
-        first (``for_eval``: in float32); a tensor is one on the device
-        that crossed it.  Then the upcast, int16's dequantisation and, on
+        first (``for_eval``: in float32; on a mesh only this rank's rows);
+        a tensor is one on the device that crossed it (this rank's
+        rows).  Then the upcast, int16's dequantisation and, on
         the wave wire, the STFT (STFT_BACKEND 'auto' and 'pallas': kernel
         A on the card as the op ``danet::stft_ri``, its plain version on
         the CPU; 'xla': the plain framing and matmul).  No gradient flows
@@ -508,8 +637,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     # the steps
-    def _loss_and_grads(self, params: dict, src_ri: torch.Tensor,
-                        generator: Optional[torch.Generator]):
+    def _rows_loss_and_grads(self, params: dict, src_ri: torch.Tensor,
+                             generator: Optional[torch.Generator]):
         loss, aux = self.model.train_loss(params, src_ri, generator)
         ps = leaves(params)
         grads = torch.autograd.grad(loss, ps, allow_unused=True)
@@ -527,18 +656,41 @@ class Trainer:
         tensors, and the train loss's gradient aligned with
         ``leaves(params)`` (zeros where the loss does not reach).
 
+        On a mesh (collective): ``params`` are this rank's slices and
+        ``src_ri`` its rows; the full weights are gathered, the rows' loss
+        differentiated, and the results reduced (``parallel/
+        collectives.py``): the global batch's metrics and, per leaf, this
+        rank's slice of the global batch's gradient."""
+        if self.mesh is None:
+            return self._local_loss_and_grads(params, src_ri, generator)
+        full = self.full_params(params)
+        if full is not params:
+            for p, a in zip(leaves(full), self._axes):
+                if a is not None:
+                    p.requires_grad_(True)
+        metrics, grads = self._local_loss_and_grads(full, src_ri, generator)
+        grads = collectives.reduce_grads(self.mesh, grads, self._axes)
+        names = list(metrics)
+        v = collectives.mean(self.mesh, torch.stack(
+            [metrics[n] for n in names]))
+        return {n: v[j] for j, n in enumerate(names)}, grads
+
+    def _local_loss_and_grads(self, params: dict, src_ri: torch.Tensor,
+                              generator: Optional[torch.Generator]):
+        """``loss_and_grads`` of these rows and these (full) weights.
+
         GRAD_ACCUM = A > 1: the batch's rows split into A microbatches in
         order, each a forward and backward (dropout drawn from
         ``generator`` in that order); the gradients and the loss and SNR
         summed, then times 1/A, as the JAX trainer's scan; no DC column."""
         a = self._accum
         if a == 1:
-            return self._loss_and_grads(params, src_ri, generator)
+            return self._rows_loss_and_grads(params, src_ri, generator)
         micro = src_ri.reshape((a, src_ri.shape[0] // a)
                                + tuple(src_ri.shape[1:]))
         grads = loss = snr = None
         for mb in micro:
-            m, g = self._loss_and_grads(params, mb, generator)
+            m, g = self._rows_loss_and_grads(params, mb, generator)
             if grads is None:
                 grads, loss, snr = g, m["loss"], m["SNR"]
             else:
@@ -559,10 +711,14 @@ class Trainer:
     def _check_finite(self, state: dict, metrics: dict, grads) -> None:
         """NAN_CHECKS: FloatingPointError when the loss or a gradient is
         not finite, naming the first parameter whose gradient is not (one
-        fetch of the flags per step)."""
+        fetch of the flags per step; on a mesh the flags of every rank's
+        slices)."""
         flags = torch.stack([torch.isfinite(metrics["loss"])]
                             + [torch.isfinite(g).all() for g in grads])
-        flags = flags.cpu().tolist()
+        if self.mesh is not None:
+            flags = collectives.all_reduce(
+                self.mesh, flags.to(torch.int32), op=dist.ReduceOp.MIN)
+        flags = [bool(f) for f in flags.cpu().tolist()]
         if all(flags):
             return
         bad = [n for n, ok in zip(leaf_names(state["params"]), flags[1:])
@@ -595,7 +751,8 @@ class Trainer:
         stack, or its wire tensor on the device), as K ``train_step``s.
         -> the metrics as [K] tensors on the device.
 
-        On the card the K steps are one CUDA graph, captured at the first
+        On the card (a mesh's collectives over NCCL) the K steps are one
+        CUDA graph, captured at the first
         call per (shape, dtype) of the stack and replayed: it holds K
         forward, backward, clip, update and EMA steps, reads the stack and
         the optimizer's scalars from static buffers filled before each
@@ -603,9 +760,9 @@ class Trainer:
         with the graph).  A capture or replay that fails raises.  On the
         CPU the K steps run eagerly."""
         if not torch.is_tensor(stack):
-            stack = self._put(self._host_batch(stack))
+            stack = self._put(self._host_batch(stack, stacked=True))
         k = stack.shape[0]
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self._graphs:
             rows = [self.train_step(state, stack[i]) for i in range(k)]
             return {n: torch.stack([r[n] for r in rows]) for n in rows[0]}
         self._ensure_ema(state)
@@ -629,7 +786,7 @@ class Trainer:
     def _captures(self, state: dict, k: int, stack) -> bool:
         """Whether ``train_steps`` on this [K, ...] device stack captures a
         new CUDA graph."""
-        return (k > 1 and self.device.type == "cuda"
+        return (k > 1 and self.device.type == "cuda" and self._graphs
                 and (tuple(stack.shape), stack.dtype)
                 not in state.get("graphs", {}))
 
@@ -697,10 +854,19 @@ class Trainer:
     def valid_step(self, state: dict, batch) -> dict:
         """Validation metrics of one batch, shipped in float32 (see
         ``ingest``), on ``eval_params``: every metric of ``valid_metrics``
-        but the separated spectra, as 0-d tensors on the device."""
-        m = self.model.valid_metrics(self.eval_params(state),
-                                     self.ingest(batch, for_eval=True))
-        return {k: v for k, v in m.items() if k != "separated_ri"}
+        but the separated spectra, as 0-d tensors on the device (on a mesh
+        the global batch's: collective)."""
+        return self._valid(self.eval_params(state), batch)
+
+    @torch.no_grad()
+    def _valid(self, params: dict, batch) -> dict:
+        m = self.model.valid_metrics(params, self.ingest(batch, for_eval=True))
+        m = {k: v for k, v in m.items() if k != "separated_ri"}
+        if self.mesh is None:
+            return m
+        names = sorted(m)
+        v = collectives.mean(self.mesh, torch.stack([m[n] for n in names]))
+        return {n: v[j] for j, n in enumerate(names)}
 
     def set_learn_rate(self, state: dict, lr: float) -> None:
         optim_lib.set_learn_rate(state["opt"], lr)
@@ -714,12 +880,63 @@ class Trainer:
         return os.path.join(self.save_dir, "%s_e%d" % (self.name, epoch))
 
     def save_params(self, state: dict, path: str) -> None:
-        ckpt_lib.save_checkpoint(path, state)
+        """Save ``state`` to the checkpoint directory ``path``; on a mesh
+        (collective) rank 0 writes every leaf whole while the others wait
+        at a barrier."""
+        if self.mesh is None:
+            ckpt_lib.save_checkpoint(path, state)
+            return
+        tree = self.host_state(state)
+        if self._chief:
+            ckpt_lib.save_checkpoint(path, tree)
+        collectives.barrier(self.mesh)
+
+    def _nest(self, values: list) -> dict:
+        return sharding.nest(self.leaf_names, values)
+
+    @torch.no_grad()
+    def host_state(self, state: dict) -> dict:
+        """The host tree of ``state`` (``train/checkpoint.py``'s layout),
+        every leaf whole: on a mesh the parameters, moments and EMA are
+        gathered (collective), and the generator is this rank's."""
+        opt = state["opt"]
+
+        def whole(ts):
+            full = collectives.gather_leaves(self.mesh, list(ts), self._axes)
+            return self._nest([t.detach().cpu().numpy() for t in full])
+
+        tree = {"params": whole(leaves(state["params"])),
+                "opt": {"mu": None if opt.mu is None else whole(opt.mu),
+                        "nu": None if opt.nu is None else whole(opt.nu),
+                        "count": opt.count, "lr": opt.lr},
+                "step": state["step"], "epoch": state["epoch"],
+                "generator": state["generator"]}
+        if state.get("ema") is not None:
+            tree["ema"] = whole(leaves(state["ema"]))
+        return tree
+
+    def _template(self, state: dict) -> dict:
+        """What a checkpoint of ``state`` holds, in full shapes (meta
+        tensors on a mesh, where the state holds slices)."""
+        if self.mesh is None:
+            return state
+        meta = self._nest([torch.empty(s, dtype=d, device="meta")
+                           for s, d in self._full])
+        opt = state["opt"]
+        tree = {"params": meta,
+                "opt": {"mu": None if opt.mu is None else meta,
+                        "nu": None if opt.nu is None else meta,
+                        "count": 0, "lr": 0.0},
+                "step": 0, "epoch": 0, "generator": state["generator"]}
+        if state.get("ema") is not None or self.ema_decay:
+            tree["ema"] = meta
+        return tree
 
     def load_params(self, state: dict, path: str) -> dict:
         """The checkpoint at ``path`` restored into ``state`` in place
         (``restore``); -> ``state``."""
-        return self.restore(state, ckpt_lib.load_checkpoint(path, state))
+        return self.restore(state, ckpt_lib.load_checkpoint(
+            path, self._template(state)))
 
     @torch.no_grad()
     def restore(self, state: dict, tree: dict) -> dict:
@@ -730,13 +947,22 @@ class Trainer:
         hold their addresses (a rebound tensor would leave a graph
         updating the old one); then the step count, learning rate,
         counters and, when the tree has one, the dropout generator (from a
-        generator of another device type only its seed).  -> ``state``."""
+        generator of another device type only its seed).  On a mesh each
+        leaf of the tree is whole and the rank copies its slice; a
+        generator state goes to the first row slice's rank, and the others
+        reseed from its seed (``_rank_seed``).  -> ``state``."""
         flat = dict(zip(leaf_names(tree), leaves(tree)))
         names = leaf_names(state["params"])
 
+        axes = self._axes if self.mesh is not None else [None] * len(names)
+
         def copy(prefix, dsts):
-            for name, dst in zip(names, dsts):
-                src = np.require(flat[prefix + name], requirements="W")
+            for name, dst, axis in zip(names, dsts, axes):
+                src = flat[prefix + name]
+                if self.mesh is not None:
+                    src = sharding.shard_leaf(np.asarray(src), axis,
+                                              self.mesh)
+                src = np.require(src, requirements="W")
                 dst.copy_(torch.from_numpy(src))
 
         copy("params/", leaves(state["params"]))
@@ -756,10 +982,13 @@ class Trainer:
         gen = tree.get("generator")
         if gen is not None:
             mine = state["generator"]
-            if str(gen["device"]) == mine.device.type:
+            seed = int(gen["seed"])
+            if self._rank_seed(seed) != seed:
+                mine.manual_seed(self._rank_seed(seed))
+            elif str(gen["device"]) == mine.device.type:
                 mine.set_state(torch.from_numpy(np.array(gen["state"])))
             else:
-                mine.manual_seed(int(gen["seed"]))
+                mine.manual_seed(seed)
         return state
 
     def _reseed_dropout(self, state: dict, seed: int) -> None:
@@ -833,7 +1062,7 @@ class Trainer:
                 buf = []
             buf.append(b)
             if len(buf) == k:
-                yield k, self._host_batch(np.stack(buf))
+                yield k, self._host_batch(np.stack(buf), stacked=True)
                 buf = []
         for x in buf:
             yield 1, self._host_batch(x)
@@ -887,10 +1116,11 @@ class Trainer:
         are summed on the device and fetched once."""
         hp = self.hp
         acc, n = None, 0
+        params = self.eval_params(state)
         for data_pt in self._epoch_fn(dataset, for_eval=True)(
                 subset, hp.BATCH_SIZE * hp.MAX_N_SIGNAL, shuffle=False,
                 rng=rng, rand=rand):
-            m = self.valid_step(state, self._prepare(data_pt[0], None, rng))
+            m = self._valid(params, self._prepare(data_pt[0], None, rng))
             acc = m if acc is None else {k: acc[k] + v for k, v in m.items()}
             n += 1
             self._heartbeat = time.monotonic()
@@ -921,7 +1151,9 @@ class Trainer:
         restores the default handlers, so that a third ends the process."""
         own = writer is None
         if own:
-            writer = MetricsWriter(self.hp.SUMMARY_DIR, self.hp.SUMMARY_TITLE)
+            writer = (MetricsWriter(self.hp.SUMMARY_DIR,
+                                    self.hp.SUMMARY_TITLE)
+                      if self._chief else NullWriter())
         try:
             with self._preempt_signals(), self._hang_watchdog():
                 return self._train_impl(n_epoch, dataset, save_on_epoch,
@@ -970,8 +1202,8 @@ class Trainer:
             print("Learning rate: %f" % self.get_learn_rate(state))
         n_profile = int(getattr(hp, "PROFILE_STEPS", 0) or 0)
         window = ProfileWindow(n_profile, int(state["step"]), os.path.join(
-            writer.run_dir, "profile"), self.device) if n_profile > 0 \
-            else None
+            writer.run_dir, "profile"), self.device) \
+            if n_profile > 0 and self._chief else None
         try:
             return self._epochs(state, n_epoch, dataset, save_on_epoch,
                                 valid_on_epoch, seed, writer, save_best,
@@ -1058,12 +1290,12 @@ class Trainer:
                         window.after(state["step"])
                     sys.stdout.write(":" * k)
                     sys.stdout.flush()
-                    if self._preempt:
+                    if self._preempted():
                         break
             finally:
                 batches.close()
             flush()
-            if self._preempt:
+            if self._preempted():
                 path = os.path.join(self.save_dir, "%s_preempt" % self.name)
                 self.save_params(state, path)
                 sys.stdout.write(
@@ -1165,7 +1397,8 @@ class Trainer:
                     # sweep saw the spike: a preemption during the replay
                     # must not resume from it
                     spiked = self.save_path(epoch)
-                    if (save_on_epoch and os.path.exists(spiked)
+                    if (self._chief and save_on_epoch
+                            and os.path.exists(spiked)
                             and os.path.abspath(spiked)
                             != os.path.abspath(target)):
                         shutil.rmtree(spiked, ignore_errors=True)
@@ -1189,6 +1422,13 @@ class Trainer:
                     sys.stdout.write("B")
                     sys.stdout.flush()
         return state
+
+    def _preempted(self) -> bool:
+        """The preemption flag, on a mesh set when any rank's is (a host
+        all-reduce at every step boundary)."""
+        if self.mesh is not None:
+            self._preempt = collectives.host_any(self.mesh, self._preempt)
+        return self._preempt
 
     def _perturb_dropout(self, state: dict, retry: int) -> int:
         """After a rollback: the dropout generator reseeded from its

@@ -2,7 +2,8 @@
 has none.  Importing the package, its command line, serving, training,
 checkpoint, optimizer, loss, attention, kernel-op and profiling modules,
 tasnet-v1, the wav-dir and timit datasets, the banded attention, the MoE
-forms, the SPHERE decoder's bindings, the TIMIT and WSJ0 preprocessors
+forms, the mesh (``parallel``: sharding, collectives, multihost and the
+multi-process smoke driver), the SPHERE decoder's bindings, the TIMIT and WSJ0 preprocessors
 (imported, their ``main`` not run) and chip_smoke.py in a fresh
 interpreter must load no jax, no optax and no danet_tpu module."""
 import os
@@ -28,6 +29,10 @@ def test_torch_port_imports_no_jax():
             "danet_tpu_torch.data.timit, "
             "danet_tpu_torch.ops.local_attention, "
             "danet_tpu_torch.parallel.expert, "
+            "danet_tpu_torch.parallel.sharding, "
+            "danet_tpu_torch.parallel.collectives, "
+            "danet_tpu_torch.parallel.multihost, "
+            "danet_tpu_torch.parallel.smoke, "
             "danet_tpu_torch.native.sphere, "
             "danet_tpu_torch.native.sphere_convert, "
             "danet_tpu_torch.data.TIMIT.process, "

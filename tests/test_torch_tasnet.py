@@ -289,13 +289,17 @@ def test_torch_tasnet_debug_taps_match_jax(fresh_hparams):
 
 @pytest.mark.parametrize("key,value,err", [
     ("MESH_MODEL", 2, ValueError), ("MESH_PIPE", 2, ValueError),
-    ("MESH_EXPERT", 2, ValueError), ("MESH_DATA", 2, NotImplementedError),
+    ("MESH_EXPERT", 2, ValueError), ("MESH_DATA", 2, None),
     ("MESH_SEQ", 2, NotImplementedError)])
 def test_torch_tasnet_refuses_mesh_axes(fresh_hparams, key, value, err):
     """MESH_MODEL, MESH_PIPE and MESH_EXPERT > 1 raise JAX's ValueError
-    word for word; MESH_DATA and MESH_SEQ, which JAX routes, are not
-    ported (NotImplementedError)."""
+    word for word; MESH_DATA, data parallelism, builds (the Trainer's
+    mesh); MESH_SEQ, which JAX routes, is not ported
+    (NotImplementedError)."""
     hp = load_config(**dict(TINY, **{key: value}))
+    if err is None:
+        assert TasNet(hp).hp is hp
+        return
     with pytest.raises(err) as got:
         TasNet(hp)
     if err is ValueError:

@@ -354,15 +354,16 @@ def test_torch_train_loss_dropout(fresh_hparams, monkeypatch):
     ("GRAD_ACCUM", 2), ("EMA_DECAY", 0.99), ("NAN_CHECKS", True),
     ("MESH_DATA", 2), ("REMAT", True), ("VALID_CRASH_FACTOR", 1.5)])
 def test_torch_trainer_refuses_unported(fresh_hparams, key, value):
-    """The options still to port raise NotImplementedError when the
-    Trainer is built; the ported ones (GRAD_ACCUM, EMA_DECAY, NAN_CHECKS,
-    REMAT, VALID_CRASH_FACTOR) build."""
+    """The ported options (GRAD_ACCUM, EMA_DECAY, NAN_CHECKS, REMAT,
+    VALID_CRASH_FACTOR) build; MESH_DATA 2, a mesh of two processes, raises
+    in a process without a torch.distributed group, naming the launch
+    command (the Trainer never runs a mesh on one device)."""
     hp = load_config(ENCODER_TYPE="bilstm-orig", **{key: value})
     if key in ("GRAD_ACCUM", "EMA_DECAY", "NAN_CHECKS", "REMAT",
                "VALID_CRASH_FACTOR"):
         assert Trainer(TorchDaNet(hp), hp, "cpu").hp is hp
         return
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         Trainer(TorchDaNet(hp), hp, "cpu")
 
 
