@@ -412,6 +412,27 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    B=32 and equal on both ranks bit for bit; in each rank kernels B, 2 and
    3 at (T=128, B=16) against their plain versions at phase 4's and 6's
    float32 tolerances.  The per-rank launches are printed.
+27. pipeline and expert parallelism (MESH_PIPE, MESH_EXPERT;
+   parallel/pipeline.py, parallel/expert.py) on one card, ranks sharing it
+   over gloo as in 26 (b), seed 0, toy data.  (a) configs/pipeline.json's
+   keys at 1 x 4 (bilstm-orig 4 x 300, B=16, T=128, PIPE_MICROBATCHES 8:
+   four stages of one layer, microbatches of 2 rows): four ranks each take
+   a train step and a valid step, in bfloat16 as written (the loss within
+   1e-2 and each gradient within 2e-2 of its tensor's peak of the
+   one-process step: the weight gradients are bfloat16 products summed
+   per microbatch) and in float32 (the parameters after the step within
+   26 (b)'s 2e-5 + 1e-4 x |p|); the ranks' parameters, all replicated
+   over 'pipe', bit for bit; each stage rank launches kernels 2 and 3 once
+   per (layer of its stage, microbatch) in the step and kernel B as often
+   in the valid step (8 each: no bubble tick computes); kernels B, 2 and
+   3 at a stage's (T=128, B=2) against their plain versions at phase 4's
+   and 6's tolerances, float32 and bfloat16.  (b) configs/moe-ep.json's
+   keys at 1 x 2 (moe-v1, 8 experts, ATTN_DIM 256, 4 blocks, B=16): two
+   ranks, 4 experts each, a train and a valid step of the soft mixture and
+   of MOE_TOP_K 2, bfloat16 as written and float32, held as in (a)
+   against the one-process step (for MOE_TOP_K 2 one process routing each
+   of the two T-shards with its own capacity, the semantics of JAX's
+   moe_mlp_ep_routed); the ranks' gathered parameters bit for bit.
 
 The kernel summary lists all fourteen kernels; its launches count the
 main paths of phases 5, 7, 10, 11, 14, 15, 17, 18, 19, 20 (20: (a),
@@ -419,8 +440,9 @@ main paths of phases 5, 7, 10, 11, 14, 15, 17, 18, 19, 20 (20: (a),
 ((a), (c) and (d)), 23 (every serving and card-vs-CPU training part,
 the CLI), 24 ((b)'s timed streams, (c) and (d)'s demos on the card),
 25 ((b)-(g): the bundles' checked requests and feeds, kernel 6's
-caller, the CLI) and 26 (a) (the mesh trainer's steps; (b)'s ranks count
-in their own processes, printed per rank).
+caller, the CLI), 26 (a) (the mesh trainer's steps; (b)'s ranks count
+in their own processes, printed per rank) and 27 (a) (the four stage
+ranks' steps and valid steps, counted in their processes and summed).
 bound_ms is the least time the card could take for the work of the timed
 call: the larger of its bytes (each input read once, each output written
 once) over 3.35 TB/s and
@@ -4944,6 +4966,274 @@ def phase_mesh() -> dict:
     return dict(shared, launches=launches)
 
 
+PIPE_JSON = os.path.join(REPO_ROOT, "configs", "pipeline.json")
+PIPE_MESH = {"MESH_DATA": 1, "MESH_PIPE": 4}
+EP_MESH = {"MESH_DATA": 1, "MESH_EXPERT": 2}
+ONE_PROCESS = {"MESH_DATA": 1, "MESH_PIPE": 1, "MESH_EXPERT": 1}
+# bfloat16 steps: the weight gradients are bfloat16 products summed per
+# microbatch (or per expert group) where one process rounds one product
+# over the batch: each gradient within 2e-2 of its tensor's peak, the loss
+# within 1e-2
+BF16_GRAD_REL = 2e-2
+BF16_LOSS_REL = 1e-2
+
+
+def _one_process_step(hp, params, batch, patch=None) -> dict:
+    """The one-process reference of a smoke ``step`` case on the card:
+    the loss, the gradients and the parameters after one Adam step.
+    ``patch``: a context manager around both (phase 27 (b)'s shard-wise
+    routing)."""
+    import contextlib
+    tr = Trainer(hp.get_model()(hp), hp, "cuda")
+    st = tr.init_state(torch.Generator().manual_seed(0), params=params)
+    with patch() if patch else contextlib.nullcontext():
+        m, g = tr.loss_and_grads(st["params"], tr.ingest(batch), None)
+        tr.train_step(st, batch)
+    names = weights.leaf_names(st["params"])
+    return {"loss": float(m["loss"]),
+            "grads": {n: t.float().cpu().numpy() for n, t in zip(names, g)},
+            "params": {n: p.detach().float().cpu().numpy() for n, p in zip(
+                names, weights.leaves(st["params"]))}}
+
+
+def _held(tag: str, rank: dict, want: dict, bf16: bool) -> float:
+    """A rank's step against the one-process one: float32 at phase 26
+    (b)'s bound on the parameters after the step, bfloat16 the loss and
+    each gradient relative to its peak (BF16_*).  -> the worst ratio of
+    an error to its bound."""
+    worst = 0.0
+    loss_rel = abs(float(rank["loss"]) - want["loss"]) / abs(want["loss"])
+    if bf16:
+        worst = loss_rel / BF16_LOSS_REL
+        for name, ref in want["grads"].items():
+            got = rank["grads/" + name]
+            peak = max(float(np.max(np.abs(ref))), 1e-30)
+            worst = max(worst, float(np.max(np.abs(got - ref))) / peak
+                        / BF16_GRAD_REL)
+    else:
+        for name, ref in want["params"].items():
+            err = np.abs(rank["params/" + name] - ref)
+            bound = MESH_RTOL[0] + MESH_RTOL[1] * np.abs(ref)
+            worst = max(worst, float(np.max(err / bound)))
+    if not worst <= 1.0:
+        raise AssertionError("phase 27 %s: off the one-process step (%.3g "
+                             "of its bound; loss %.6g vs %.6g)"
+                             % (tag, worst, float(rank["loss"]),
+                                want["loss"]))
+    return worst
+
+
+def _rank_results(res: list, case: str) -> list:
+    pre = case + "/"
+    return [{k[len(pre):]: v for k, v in r.items() if k.startswith(pre)}
+            for r in res]
+
+
+def _same_replicas(tag: str, ranks: list, names) -> None:
+    """The ranks' copies of the leaves ``names`` bit for bit equal."""
+    for name in names:
+        for r in ranks[1:]:
+            if not np.array_equal(r["params/" + name],
+                                  ranks[0]["params/" + name]):
+                raise AssertionError("phase 27 %s: the ranks' %s differ"
+                                     % (tag, name))
+
+
+def _pipe_cases(tmp: str) -> tuple:
+    """(a)'s spec: configs/pipeline.json's keys at 1 x 4, a bfloat16 step
+    as written and a float32 one, each with a valid step, and the kernels
+    at a stage's shapes."""
+    hp = load_config(PIPE_JSON, **ONE_PROCESS)
+    batch = _toy_batches(hp, 1)[0]
+    params = hp.get_model()(hp).init(torch.Generator().manual_seed(0))
+    weights.save_npz(os.path.join(tmp, "pp.npz"), params)
+    np.savez(os.path.join(tmp, "pb.npz"), src=batch)
+    rows = hp.BATCH_SIZE // hp.PIPE_MICROBATCHES
+    cases = [{"name": "pipe-%s" % dt, "kind": "step", "adam": True,
+              "valid": True, "params": "pp.npz", "batch": "pb.npz",
+              "configs": ["configs/pipeline.json"],
+              "keys": dict(PIPE_MESH, COMPUTE_DTYPE=dt)}
+             for dt in ("bfloat16", "float32")]
+    for dt in ("float32", "bfloat16"):
+        cases.append({"name": "kernels-%s" % dt, "kind": "kernels",
+                      "T": TRAIN_T, "rows": rows, "dtype": dt, "tol": {
+                          "bilstm_scan": (LSTM_ATOL[getattr(torch, dt)],
+                                          0.0),
+                          "bilstm_scan_train": TRAIN_FWD_TOL[
+                              getattr(torch, dt)],
+                          "bilstm_scan_bwd": TRAIN_BWD_TOL[
+                              getattr(torch, dt)]}})
+    return hp, batch, params, cases
+
+
+def _pipeline_phase(tmp: str) -> dict:
+    """(a): the pipeline on 4 ranks sharing the card."""
+    from danet_tpu_torch.parallel import smoke
+    hp, batch, params, cases = _pipe_cases(tmp)
+    spec = os.path.join(tmp, "pipe.json")
+    with open(spec, "w") as f:
+        json.dump({"cases": cases}, f)
+    t0 = time.perf_counter()
+    smoke.launch(spec, os.path.join(tmp, "pipe"), 4, device="cuda",
+                 backend="gloo", shared_card=True, timeout=420)
+    ranks_s = time.perf_counter() - t0
+    res = smoke.load_results(os.path.join(tmp, "pipe"), 4)
+    layers = encoders.BiLstmEncoder.N_LAYERS // PIPE_MESH["MESH_PIPE"]
+    per = layers * hp.PIPE_MICROBATCHES
+    want_counts = {"bilstm_scan_train": per, "bilstm_scan_bwd": per,
+                   "bilstm_scan": per}
+    worst, per_rank = {}, {}
+    launches = {n: 0 for n in KERNELS}
+    for dt in ("bfloat16", "float32"):
+        tag = "pipe-" + dt
+        ref = _one_process_step(load_config(
+            PIPE_JSON, **dict(ONE_PROCESS, COMPUTE_DTYPE=dt)), params, batch)
+        ranks = _rank_results(res, tag)
+        worst[dt] = max(_held("(a) %s rank %d" % (dt, r), rank, ref,
+                              dt == "bfloat16")
+                        for r, rank in enumerate(ranks))
+        _same_replicas("(a) " + dt, ranks, ref["params"])
+        for r, rank in enumerate(ranks):
+            counts = {k.split("/", 1)[1]: int(v) for k, v in rank.items()
+                      if k.startswith("launches/") and int(v)}
+            if counts != want_counts:
+                raise AssertionError("phase 27 (a) %s rank %d launched %s, "
+                                     "not %s" % (dt, r, counts, want_counts))
+            per_rank["%s rank %d" % (dt, r)] = counts
+            for k, v in counts.items():
+                launches[k] += v
+    errs = {}
+    for dt in ("float32", "bfloat16"):
+        for r, rank in enumerate(_rank_results(res, "kernels-" + dt)):
+            for name in want_counts:
+                if not float(rank["ratio/" + name]) <= 1.0:
+                    raise AssertionError(
+                        "phase 27 (a) rank %d: %s %s off its plain version "
+                        "by %.3g" % (r, name, dt, float(rank["err/" + name])))
+                key = "%s %s" % (name, dt)
+                errs[key] = max(errs.get(key, 0.0),
+                                float(rank["err/" + name]))
+    print("phase 27 (a) configs/pipeline.json at 1 x 4 (bilstm-orig 4 x "
+          "300, B=16, T=%d, PIPE_MICROBATCHES %d: four stages of one layer, "
+          "microbatches of %d rows), four ranks on one card over gloo: a "
+          "train and a valid step, bfloat16 as written (loss and gradients "
+          "vs the one-process step, worst %.3g of the bound: %g of each "
+          "gradient's peak, %g of the loss) and float32 (parameters after "
+          "the step, worst %.3g of %g + %g x |p|); the ranks' replicated "
+          "leaves bit for bit; launches per stage rank (a step and a valid "
+          "step, L x M = %d x %d, no bubble ticks) %s; kernels B, 2 and 3 "
+          "at a stage's (T=%d, B=%d) vs their plain versions, max abs err "
+          "%s; the ranks took %.1f s"
+          % (TRAIN_T, hp.PIPE_MICROBATCHES,
+             hp.BATCH_SIZE // hp.PIPE_MICROBATCHES, worst["bfloat16"],
+             BF16_GRAD_REL, BF16_LOSS_REL, worst["float32"], MESH_RTOL[0],
+             MESH_RTOL[1], layers, hp.PIPE_MICROBATCHES, want_counts,
+             TRAIN_T, hp.BATCH_SIZE // hp.PIPE_MICROBATCHES,
+             {k: "%.3g" % v for k, v in errs.items()}, ranks_s))
+    return {"worst": worst, "kernel_err": errs, "per_rank": per_rank,
+            "launches": launches}
+
+
+class _ShardwiseRouting:
+    """One process's routed MoE as the expert mesh routes it: each of the
+    n T-shards with its own capacity (``moe_mlp_topk`` per shard, the
+    oracle of JAX's test of ``moe_mlp_ep_routed``)."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __call__(self):
+        return self
+
+    def __enter__(self):
+        from danet_tpu_torch.parallel import expert
+        self.orig = expert.moe_mlp_topk
+        orig, n = self.orig, self.n
+
+        def shardwise(params, x, k=2, capacity_factor=1.25, mesh=None):
+            t = x.shape[1] // n
+            return torch.cat([orig(params, x[:, i * t:(i + 1) * t], k=k,
+                                   capacity_factor=capacity_factor)
+                              for i in range(n)], dim=1)
+        expert.moe_mlp_topk = shardwise
+        return self
+
+    def __exit__(self, *exc):
+        from danet_tpu_torch.parallel import expert
+        expert.moe_mlp_topk = self.orig
+
+
+def _expert_phase(tmp: str) -> dict:
+    """(b): configs/moe-ep.json's keys at 1 x 2 on 2 ranks sharing the
+    card, the soft mixture and MOE_TOP_K 2, bfloat16 as written and
+    float32."""
+    from danet_tpu_torch.parallel import smoke
+    hp = load_config(MOE_JSON, **ONE_PROCESS)
+    batch = _toy_batches(hp, 1)[0]
+    params = hp.get_model()(hp).init(torch.Generator().manual_seed(0))
+    weights.save_npz(os.path.join(tmp, "mp.npz"), params)
+    np.savez(os.path.join(tmp, "mb.npz"), src=batch)
+    forms = {"soft": {}, "top2": dict(ROUTED)}
+    cases = [{"name": "%s-%s" % (form, dt), "kind": "step", "adam": True,
+              "valid": True, "params": "mp.npz", "batch": "mb.npz",
+              "configs": ["configs/moe-ep.json"],
+              "keys": dict(EP_MESH, COMPUTE_DTYPE=dt, **extra)}
+             for form, extra in forms.items()
+             for dt in ("bfloat16", "float32")]
+    spec = os.path.join(tmp, "ep.json")
+    with open(spec, "w") as f:
+        json.dump({"cases": cases}, f)
+    t0 = time.perf_counter()
+    smoke.launch(spec, os.path.join(tmp, "ep"), 2, device="cuda",
+                 backend="gloo", shared_card=True, timeout=420)
+    ranks_s = time.perf_counter() - t0
+    res = smoke.load_results(os.path.join(tmp, "ep"), 2)
+    n = EP_MESH["MESH_EXPERT"]
+    worst, rest = {}, {}
+    for form, extra in forms.items():
+        for dt in ("bfloat16", "float32"):
+            tag = "%s-%s" % (form, dt)
+            ref = _one_process_step(
+                load_config(MOE_JSON, **dict(ONE_PROCESS, COMPUTE_DTYPE=dt,
+                                             **extra)), params, batch,
+                _ShardwiseRouting(n) if extra else None)
+            ranks = _rank_results(res, tag)
+            worst[tag] = max(_held("(b) %s rank %d" % (tag, r), rank, ref,
+                                   dt == "bfloat16")
+                             for r, rank in enumerate(ranks))
+            _same_replicas("(b) " + tag, ranks, ref["params"])
+            rest[tag] = [int(r["bytes"]) for r in ranks]
+    print("phase 27 (b) configs/moe-ep.json at 1 x 2 (moe-v1, 8 experts, "
+          "ATTN_DIM 256, 4 blocks, B=16, T=%d), two ranks on one card over "
+          "gloo, each holding 4 experts (bytes at rest per rank %s): a "
+          "train and a valid step of the soft mixture and of MOE_TOP_K 2 "
+          "(held against one process routing each T-shard with its own "
+          "capacity, as JAX's moe_mlp_ep_routed does), bfloat16 as written "
+          "and float32, vs the one-process step (worst ratio to the bound "
+          "%s); the ranks' whole parameters bit for bit; the ranks took "
+          "%.1f s" % (TRAIN_T, rest, {k: "%.3g" % v for k, v in
+                                      worst.items()}, ranks_s))
+    return {"worst": worst, "bytes": rest}
+
+
+def phase_pipe_expert() -> dict:
+    """Phase 27: pipeline and expert parallelism on one card (module
+    docstring)."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="danet-phase27-")
+    try:
+        pipe = _pipeline_phase(tmp)
+        ep = _expert_phase(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("phase 27 took %.1f s on %s; stage-rank launches %s"
+          % (time.perf_counter() - t0, nvidia_smi(),
+             {k: v for k, v in pipe["launches"].items() if v}))
+    return {"pipe": pipe, "expert": ep, "launches": pipe["launches"]}
+
+
 def _bound(flops: float, nbytes: float):
     """(ms, "operations" or "bytes"): the least time of the work on the
     card, the larger of its FLOPs at the float32 peak and its bytes at the
@@ -5120,6 +5410,7 @@ def main():
     streaming = phase_streaming()
     bundles = phase_bundles(window)
     mesh = phase_mesh()
+    pipe_expert = phase_pipe_expert()
     print("summary: bilstm_scan bfloat16 max_abs_err %.3g (atol %g); "
           "serving worst error vs CPU %.3g of the peak (rtol %g), lstm-orig "
           "%.3g, gru-v1 %.3g, attn-v1 %.3g; train steps vs CPU: worst "
@@ -5203,6 +5494,15 @@ def main():
           % (mesh["params_err"], {k: "%.3g" % v for k, v in
                                   mesh["kernel_err"].items()},
              mesh["per_rank"]))
+    print("summary, phase 27: the pipeline at 1 x 4 vs the one-process "
+          "step (of the bound) %s, kernels vs plain at a stage's shapes %s, "
+          "launches per stage rank %s; expert parallelism at 1 x 2 %s"
+          % ({k: "%.3g" % v for k, v in pipe_expert["pipe"]["worst"].items()},
+             {k: "%.3g" % v for k, v in
+              pipe_expert["pipe"]["kernel_err"].items()},
+             pipe_expert["pipe"]["per_rank"],
+             {k: "%.3g" % v for k, v in
+              pipe_expert["expert"]["worst"].items()}))
     # launches: the counts of the main paths that run each kernel, each
     # zeroed just before its path and read just after it (kernel 6's: phase
     # 25 (f), dsp.stft_mag_logmag)
@@ -5212,7 +5512,8 @@ def main():
              tpu_whole["launches"], checkpoints["launches"],
              new_encoders["launches"], tasnet["launches"],
              causal_moe["launches"], streaming["launches"],
-             bundles["launches"], mesh["launches"]] + [
+             bundles["launches"], mesh["launches"],
+             pipe_expert["launches"]] + [
         run["launches"] for run in list(serving_uni.values())
         + list(training_uni.values())]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}

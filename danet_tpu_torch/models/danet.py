@@ -81,11 +81,10 @@ class DaNet:
 
     def _check_parallel_support(self):
         """JAX's refusals of a MESH_* axis that the configured encoder has
-        no route for (``ValueError``, word for word).  MESH_DATA and
-        MESH_MODEL are ported (the Trainer's mesh, ``parallel/``); every
-        other MESH_* > 1 that JAX accepts raises NotImplementedError, and
-        so does moe-v1's routed training (MOE_TOP_K >= 1) on a mesh, whose
-        capacity counts the global batch's tokens."""
+        no route for (``ValueError``, word for word).  MESH_DATA,
+        MESH_MODEL, MESH_PIPE and MESH_EXPERT are ported (the Trainer's
+        mesh, ``parallel/``); MESH_SEQ > 1, which JAX accepts, raises
+        NotImplementedError."""
         from danet_tpu_torch.models import encoders as enc_mod
         hp, enc = self.hp, self.encoder
 
@@ -115,20 +114,11 @@ class DaNet:
             raise ValueError(
                 "MESH_PIPE and MESH_SEQ cannot combine (the encoder "
                 "routes through one strategy); pick one")
-        for key in ("MESH_PIPE", "MESH_EXPERT", "MESH_SEQ"):
-            if n(key) > 1:
-                raise NotImplementedError(
-                    "%s > 1 is not ported: pipeline, sequence and expert "
-                    "parallelism are the rest of ROADMAP.md queue 1 item 6 "
-                    "(MESH_DATA and MESH_MODEL are ported)" % key)
-        if (n("MESH_DATA") * n("MESH_MODEL") > 1
-                and isinstance(enc, enc_mod.MoEAttentionEncoder)
-                and int(getattr(hp, "MOE_TOP_K", 0) or 0) > 0):
+        if n("MESH_SEQ") > 1:
             raise NotImplementedError(
-                "moe-v1 with MOE_TOP_K > 0 on a MESH_DATA x MESH_MODEL mesh "
-                "is not ported: its capacity counts the global batch's "
-                "tokens, a dispatch across ranks (ROADMAP.md queue 1 item "
-                "6, expert parallelism)")
+                "MESH_SEQ > 1 is not ported: sequence parallelism is "
+                "ROADMAP.md queue 1 item 6b-6d (MESH_DATA, MESH_MODEL, "
+                "MESH_PIPE and MESH_EXPERT are ported)")
 
     def init(self, generator: torch.Generator, device=None) -> dict:
         """Random parameters with the JAX package's layout."""

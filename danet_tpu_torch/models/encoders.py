@@ -3,8 +3,8 @@
 the LSTM output head.
 
 Counterpart of ``danet_tpu/models/encoders.py:25-63,67-1251``: the
-single-device paths and tensor parallelism (no pipeline, sequence or
-expert parallelism), with the causal streaming hooks of ``lstm-orig``,
+single-device paths and tensor, pipeline and expert parallelism (no
+sequence parallelism), with the causal streaming hooks of ``lstm-orig``,
 ``gru-v1``, causal ``attn-v1`` and ``moe-v1``, causal ``tcn-v1`` and
 online ``dprnn-v1``: ``stream_state_init(batch, dtype, device)`` (the
 state at a fresh stream), ``stream_hidden(params, x, state)`` (a centred
@@ -31,7 +31,11 @@ which the trainer gathers once per step (``parallel/sharding.py``):
 ``bilstm-orig`` through ``rnn.bilstm_apply_tp`` (its TP kernel route),
 the others as they are, each with its hand kernels on a card.  ATTN_BACKEND
 'auto' stays the dense attention under MESH_MODEL, as in JAX
-(``danet_tpu/ops/pallas/attention.py:55-70``).
+(``danet_tpu/ops/pallas/attention.py:55-70``).  Under MESH_PIPE
+``bilstm-orig``'s stack runs GPipe microbatches over the 'pipe' axis
+(``parallel/pipeline.py``, each stage's layers on the hand kernels), and
+under MESH_EXPERT ``moe-v1``'s MLPs run expert-parallel
+(``parallel/expert.py``), each where ``_route_mesh`` finds the axis.
 """
 from __future__ import annotations
 
@@ -105,6 +109,18 @@ def _route_mesh(hp, axis: str, n: int):
     if mesh.shape.get(axis) == n:
         return mesh
     return None
+
+
+def _rows_mesh():
+    """The trainer's registered mesh when its batches split into more
+    than one row slice (a routed MoE's capacity then counts the global
+    batch), else None."""
+    from danet_tpu_torch.parallel import sharding
+    mesh = sharding.registered_mesh()
+    if mesh is None or mesh.coords is None or \
+            sharding.row_slices(mesh) <= 1:
+        return None
+    return mesh
 
 
 def _int_key(hp, key: str, default: int) -> int:
@@ -246,10 +262,19 @@ class BiLstmEncoder(Encoder):
               tap=None):
         """[B, T, F] -> [B, T, F, E]; with ``train``, inverted dropout at
         DROPOUT_KEEP_PROB after every layer, drawn from ``generator``;
-        taps ``lstm<i>_h``."""
+        taps ``lstm<i>_h``.  Under MESH_PIPE > 1 with a mesh that has the
+        'pipe' axis, the stack runs pipelined (``_apply_pipelined``: no
+        taps, as in JAX)."""
         hp = self.hp
         act = _candidate_activation(hp)
         keep = hp.DROPOUT_KEEP_PROB if train else 1.0
+        x = _centered(log_spectra)
+        n_pipe = int(getattr(hp, "MESH_PIPE", 1) or 1)
+        pipe_mesh = _route_mesh(hp, "pipe", n_pipe) if n_pipe > 1 else None
+        if pipe_mesh is not None:
+            x = self._apply_pipelined(params, x, pipe_mesh, n_pipe, act, keep,
+                                      generator)
+            return _LstmHead.apply(params["output"], hp, x)
         tp_mesh = self._tp_kernel_mesh()
         # the dropout that ends each layer stays outside the region, and
         # outside the rank's share under tensor parallelism
@@ -259,7 +284,6 @@ class BiLstmEncoder(Encoder):
         else:
             layer = _maybe_remat(hp, lambda p, v: rnn.bilstm_apply(
                 p, v, act, backend=_backend(hp)))
-        x = _centered(log_spectra)
         for i in range(self.N_LAYERS):
             x = layer(params[f"lstm{i}"], x)
             if generator is not None:
@@ -267,6 +291,29 @@ class BiLstmEncoder(Encoder):
             if tap:
                 tap("lstm%d_h" % i, x)
         return _LstmHead.apply(params["output"], hp, x)
+
+    def _apply_pipelined(self, params, x, mesh, n_pipe, act, keep,
+                         generator):
+        """The stack through ``parallel/pipeline.py`` on the mesh's 'pipe'
+        axis: PIPE_MICROBATCHES microbatches, or (0) JAX's default, as
+        many as keep the bubble small, 2 S, clipped to a divisor of the
+        global batch (this rank's rows times the mesh's row slices)."""
+        from danet_tpu_torch.parallel import pipeline, sharding
+        hp = self.hp
+        layers = [params[f"lstm{i}"] for i in range(self.N_LAYERS)]
+        b = x.shape[0] * sharding.row_slices(mesh)
+        n_micro = int(getattr(hp, "PIPE_MICROBATCHES", 0) or 0)
+        if not n_micro:
+            n_micro = min(b, 2 * n_pipe)
+            while b % n_micro:
+                n_micro -= 1
+        if b % n_micro:
+            raise AssertionError("the batch %d must divide into %d "
+                                 "microbatches" % (b, n_micro))
+        return pipeline.bilstm_stack_pipelined(
+            layers, x, mesh, n_micro=n_micro, candidate_activation=act,
+            backend=_backend(hp), dropout_rng=generator, keep_prob=keep,
+            remat=bool(getattr(hp, "REMAT", False)))
 
     def _tp_kernel_mesh(self):
         """The mesh of the tensor-parallel kernel route
@@ -568,8 +615,12 @@ class MoEAttentionEncoder(AttentionEncoder):
     MLP width under ``block<i>["moe"]``.  MOE_TOP_K 0 mixes every expert
     (``moe_mlp``); MOE_TOP_K >= 1 routes each token to its top k, with
     MOE_CAPACITY_FACTOR's capacity in training (``moe_mlp_topk``) and
-    without it otherwise (``moe_mlp_topk_dropless``).  MESH_EXPERT > 1 is
-    refused by ``DaNet._check_parallel_support``."""
+    without it otherwise (``moe_mlp_topk_dropless``).  Under MESH_EXPERT
+    > 1, with a mesh that has the 'expert' axis, the mixture runs expert-
+    parallel (``moe_mlp_ep``; routed training ``moe_mlp_ep_routed``), as
+    ``danet_tpu/models/encoders.py:636-669`` routes it; routed training on
+    a mesh without that axis counts the capacity over the global batch
+    (``moe_mlp_topk``'s ``mesh``)."""
 
     def _n_experts(self):
         return _int_key(self.hp, "MOE_EXPERTS", 4)
@@ -587,15 +638,23 @@ class MoEAttentionEncoder(AttentionEncoder):
 
     def _mlp(self, blk, y, train=False):
         hp = self.hp
+        n_ep = int(getattr(hp, "MESH_EXPERT", 1) or 1)
+        mesh = _route_mesh(hp, "expert", n_ep) if n_ep > 1 else None
         k = int(getattr(hp, "MOE_TOP_K", 0) or 0)
         if k <= 0:
+            if mesh is not None:
+                return expert.moe_mlp_ep(blk["moe"], y, mesh)
             return expert.moe_mlp(blk["moe"], y)
         if not train:
             # capacity drops depend on the other tokens of the batch:
             # inference is dropless, as in the JAX package
             return expert.moe_mlp_topk_dropless(blk["moe"], y, k=k)
         cf = float(getattr(hp, "MOE_CAPACITY_FACTOR", 1.25) or 1.25)
-        return expert.moe_mlp_topk(blk["moe"], y, k=k, capacity_factor=cf)
+        if mesh is not None:
+            return expert.moe_mlp_ep_routed(blk["moe"], y, mesh, k=k,
+                                            capacity_factor=cf)
+        return expert.moe_mlp_topk(blk["moe"], y, k=k, capacity_factor=cf,
+                                   mesh=_rows_mesh())
 
 
 @hparams.register_encoder("tcn-v1")

@@ -1,32 +1,42 @@
-"""The process mesh and the sharding rules of data and tensor parallelism.
+"""The process mesh and the sharding rules of data, tensor, pipeline and
+expert parallelism.
 
 Counterpart of ``danet_tpu/parallel/sharding.py``.  In JAX one process
-drives a ``('data', 'model')`` mesh of devices and GSPMD inserts the
+drives a mesh of devices and GSPMD (or ``shard_map``) inserts the
 collectives.  Here every card is a process of one ``torch.distributed``
-group, the mesh is a grid of those processes' ranks, and the trainer calls
-the collectives itself (``parallel/collectives.py``).  Rank r sits at
-``np.arange(world).reshape(n_data, n_model)[d, m]``, the order of JAX's
-``make_mesh``, so that the ranks of one 'model' group are neighbours.
+group, the mesh is a grid of those processes' ranks, and the trainer and
+the model call the collectives themselves (``parallel/collectives.py``).
+Rank r sits at ``np.arange(world).reshape(shape)[coords]``, the order of
+JAX's ``make_mesh`` over ('data', 'model'[, 'pipe'][, 'expert'][,
+'seq']), so that the ranks of the last axis are neighbours.
 
 The layout is JAX's:
 
   * the batch axis of every input -> split over the mesh
     (``batch_rows``): over ('data', 'model') when the batch divides by
     n_data * n_model, else over 'data' alone, the ranks of one 'model'
-    group then sharing their data shard's rows;
+    group then sharing their data shard's rows; the ranks of one 'pipe'
+    or 'expert' group always share their rows;
   * LSTM / GRU gate weights [in, G, h] -> h on 'model';
   * gate biases [G, h] -> h on 'model';
   * output-head / MLP weights [in, out] -> out on 'model';
-  * convolutions, anchors, small biases, and every dimension that the
-    'model' axis does not divide -> replicated.
+  * the MoE router [d, E] -> E on 'expert', its experts' ``w_in`` [E, d,
+    ff] and ``w_out`` [E, ff, d] -> E on 'expert';
+  * convolutions, anchors, small biases, every dimension that its axis
+    does not divide, and a pipeline's layers (JAX has no 'pipe' rule: its
+    ``shard_map`` hands each stage its layers inside the step) ->
+    replicated.
 
-A rank holds only its slice of each 'model'-sharded leaf
-(``shard_params``), and so do that leaf's Adam moments and EMA; the
-trainer gathers the full weights once per step for the rank's rows
-(``gather_params``) and reduces the gradients back to the slices.
+A rank holds only its slice of each sharded leaf (``shard_params``), and so
+do that leaf's Adam moments and EMA; the trainer gathers the full weights
+once per step (``gather_params``), the model runs on them (a pipeline stage
+on its own layers, an expert group on its own experts), and the gradients
+are reduced back to the slices, each leaf by the axis that owns it
+(``leaf_owners``).
 """
 from __future__ import annotations
 
+import re
 from typing import Optional
 
 import numpy as np
@@ -54,7 +64,11 @@ class Mesh:
     the ``torch.distributed`` groups: ``groups[axis]`` holds the ranks that
     differ only in that axis' coordinate, ``groups["mesh"]`` every rank of
     the grid.  ``nccl``: the groups carry card tensors over NCCL (else
-    over gloo, staged through the host by ``collectives``)."""
+    over gloo, staged through the host by ``collectives``).  ``row_axes``:
+    the axes a batch's rows split over (the Trainer sets it from
+    BATCH_SIZE: ('data',), or ('data', 'model') when the rows split over
+    both), which the routed MoE's global capacity and the pipeline's
+    global batch read."""
 
     def __init__(self, devices: np.ndarray, axis_names: tuple, rank: int = 0):
         self.devices = np.asarray(devices)
@@ -66,6 +80,14 @@ class Mesh:
                        if len(where) else None)
         self.groups: dict = {}
         self.nccl = False
+        self.row_axes = ("data",)
+
+    def rank_at(self, **coords) -> int:
+        """The rank at this rank's coordinates with ``coords`` replacing
+        some of them (``rank_at(pipe=0)``: the first stage of this rank's
+        pipeline)."""
+        c = dict(self.coords, **coords)
+        return int(self.devices[tuple(c[a] for a in self.axis_names)])
 
     @property
     def size(self) -> int:
@@ -188,6 +210,11 @@ def set_active_mesh(mesh: Optional[Mesh]) -> None:
     _ACTIVE_MESH = mesh
 
 
+def registered_mesh() -> Optional[Mesh]:
+    """The mesh the Trainer registered, or None."""
+    return _ACTIVE_MESH
+
+
 def active_mesh(hp=None) -> Mesh:
     """The registered mesh, or one derived from ``hp`` (the port's
     hparams by default), not connected."""
@@ -267,40 +294,77 @@ def model_axes(params, mesh: Mesh) -> list:
     """Per leaf of ``leaves(params)`` (full shapes): the dimension sharded
     on 'model', or None (replicated; always None on a 1-wide 'model'
     axis)."""
-    if mesh.shape.get("model", 1) <= 1:
-        return [None] * len(leaves(params))
-    return [spec.index("model") if "model" in spec else None
+    return [a.get("model") for a in shard_axes(params, mesh)]
+
+
+def shard_axes(params, mesh: Mesh) -> list:
+    """Per leaf of ``leaves(params)`` (full shapes): {axis: dimension} of
+    the mesh axes wider than 1 that shard it ('model' and / or 'expert';
+    {} for a replicated leaf)."""
+    return [{a: d for d, a in enumerate(spec)
+             if a is not None and mesh.shape.get(a, 1) > 1}
             for spec in leaves(param_pspecs(params, mesh))]
 
 
-def shard_leaf(x, axis: Optional[int], mesh: Mesh):
-    """This rank's slice of a full leaf (a tensor or an array) along
-    ``axis`` (None: the leaf itself)."""
-    if axis is None:
-        return x
-    n = mesh.shape["model"]
-    size = x.shape[axis] // n
-    m = mesh.coords["model"]
-    if isinstance(x, torch.Tensor):
-        return x.narrow(axis, m * size, size).contiguous()
-    return np.ascontiguousarray(np.take(
-        x, np.arange(m * size, (m + 1) * size), axis=axis))
+# the leaves of a pipeline's stages: bilstm-orig's layers, which JAX hands
+# to the pipelined stack (danet_tpu/models/encoders.py::_apply_pipelined)
+_PIPE_LEAF = re.compile(r"^encoder/lstm\d+/")
+
+
+def leaf_owners(params, mesh: Mesh) -> list:
+    """Per leaf of ``leaves(params)``: the axis whose ranks each compute a
+    disjoint part of its gradient ('expert' for a leaf sharded on it,
+    whose expert group only its owner runs; 'pipe' for a pipeline stage's
+    layers, replicated at rest, which only their stage runs), or None
+    (every rank that shares the rows computes it alike).
+    ``collectives.reduce_grads`` scales by it."""
+    pipe = mesh.shape.get("pipe", 1) > 1
+    return ["expert" if "expert" in spec
+            else "pipe" if pipe and _PIPE_LEAF.match(name) else None
+            for name, spec in zip(leaf_names(params),
+                                  shard_axes(params, mesh))]
+
+
+def axes_of(axes) -> dict:
+    """{axis: dimension} of a leaf's sharding given as None (replicated),
+    an int (a 'model' dimension: ``model_axes``) or such a dict
+    (``shard_axes``)."""
+    if axes is None:
+        return {}
+    if isinstance(axes, int):
+        return {"model": axes}
+    return dict(axes)
+
+
+def shard_leaf(x, axes, mesh: Mesh):
+    """This rank's slice of a full leaf (a tensor or an array): ``axes``
+    None (the leaf itself), a 'model' dimension, or {axis: dimension}."""
+    for axis, dim in axes_of(axes).items():
+        n = mesh.shape[axis]
+        size = x.shape[dim] // n
+        m = mesh.coords[axis]
+        if isinstance(x, torch.Tensor):
+            x = x.narrow(dim, m * size, size).contiguous()
+        else:
+            x = np.ascontiguousarray(np.take(
+                x, np.arange(m * size, (m + 1) * size), axis=dim))
+    return x
 
 
 def shard_params(mesh: Mesh, params: dict) -> dict:
-    """This rank's slices of a full parameter tree (clones of the
-    'model'-sharded leaves, the replicated leaves as they are)."""
-    axes = model_axes(params, mesh)
+    """This rank's slices of a full parameter tree (clones of the sharded
+    leaves, the replicated leaves as they are)."""
+    axes = shard_axes(params, mesh)
     return nest(leaf_names(params),
-                 [shard_leaf(x, a, mesh) for x, a in zip(leaves(params),
-                                                         axes)])
+                [shard_leaf(x, a, mesh) for x, a in zip(leaves(params),
+                                                        axes)])
 
 
 def gather_params(mesh: Mesh, shards: dict, axes: list) -> dict:
-    """The inverse of ``shard_params``: the full tree, its 'model'-sharded
-    leaves all-gathered over the rank's 'model' group in one collective
-    (``axes`` from ``model_axes`` of the full tree).  Collective: every
-    rank of the mesh calls it."""
+    """The inverse of ``shard_params``: the full tree, its sharded leaves
+    all-gathered over their axes' groups (``axes`` from ``shard_axes``
+    or ``model_axes`` of the full tree).  Collective: every rank of the
+    mesh calls it."""
     from danet_tpu_torch.parallel import collectives
     full = collectives.gather_leaves(mesh, leaves(shards), axes)
     return nest(leaf_names(shards), full)
@@ -331,6 +395,26 @@ def row_index(mesh: Mesh, batch: int) -> int:
     if batch_slices(mesh, batch) == mesh.shape.get("data", 1):
         return c["data"]
     return c["data"] * mesh.shape.get("model", 1) + c["model"]
+
+
+def row_slices(mesh: Mesh) -> int:
+    """How many row slices the trainer's batches split into
+    (``Mesh.row_axes``, which the Trainer sets from BATCH_SIZE)."""
+    n = 1
+    for a in mesh.row_axes:
+        n *= mesh.shape.get(a, 1)
+    return n
+
+
+def row_slice_of(mesh: Mesh, rank: int) -> int:
+    """The row slice of ``rank`` of the mesh (over ``Mesh.row_axes``, in
+    ``row_index``'s order)."""
+    where = np.argwhere(mesh.devices == rank)[0]
+    c = dict(zip(mesh.axis_names, (int(i) for i in where)))
+    g = 0
+    for a in mesh.row_axes:
+        g = g * mesh.shape.get(a, 1) + c.get(a, 0)
+    return g
 
 
 def batch_rows(mesh: Mesh, batch: int) -> slice:

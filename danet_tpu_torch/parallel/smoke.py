@@ -5,7 +5,8 @@ write each rank's results for the caller to compare.
         --out DIR --nproc N [--device cpu|cuda] [--backend gloo] \\
         [--shared-card] [--timeout SECONDS]
     python -m danet_tpu_torch.parallel.smoke multichip --out DIR \\
-        [--mesh 2x2 --mesh 4x1] [--steps 8]
+        [--config configs/pipeline.json] [--mesh 2x2 --mesh 4x1] \\
+        [--steps 8]
 
 ``run`` starts N processes of this module on ``localhost`` (a free port;
 RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT as
@@ -27,12 +28,25 @@ that mesh.  Kinds:
 
   * ``step``: ``params`` (an .npz tree, ``weights.save_npz``; seeded
     otherwise) and ``batch`` (an .npz with ``src``, the global batch):
-    the mesh's ``loss_and_grads`` -> ``loss``, ``SNR``, ``grads/<leaf>``
-    (whole), ``rows`` (this rank's), ``bytes`` (params and moments at
-    rest); with ``adam`` one ``train_step`` after it -> ``params/<leaf>``
-    and ``mu/<leaf>`` (whole), ``step_loss``, and the LSTM kernels'
-    ``launches/<kernel>`` of that step (and of a ``valid_step`` after it,
-    with ``valid``);
+    with ``init`` a checkpoint loaded first (-> ``loaded/<leaf>``,
+    whole), then the mesh's ``loss_and_grads`` -> ``loss``, ``SNR``,
+    ``grads/<leaf>`` (whole), ``rows`` (this rank's), ``bytes`` (params
+    and moments at rest); with ``adam`` one ``train_step`` after it ->
+    ``params/<leaf>`` and ``mu/<leaf>`` (whole), ``step_loss``, and the
+    LSTM kernels' ``launches/<kernel>`` of that step (and of a
+    ``valid_step`` after it, with ``valid``); with ``save`` the state
+    saved to ``DIR/saves/<name>``;
+  * ``pipeline``: ``params`` (an .npz tree of ``lstm<i>`` BiLSTM layers)
+    and ``x`` (an .npz with ``x`` [B, T, F]): ``pipeline.
+    bilstm_stack_pipelined`` on the rank's rows with ``n_micro``
+    microbatches (``stacked``: on ``stack_pipeline_params``' stage) ->
+    ``y``, ``y_nograd``, ``rows``, ``loss`` (sum(sin(y)) over the
+    batch), ``grads/<leaf>`` (whole, the batch's), ``launches/<kernel>``;
+  * ``moe``: ``params`` (router, w_in, w_out) and ``x`` [B, T, d]:
+    ``expert.moe_mlp_ep`` (``k`` 0), ``moe_mlp_ep_routed`` (``k``,
+    ``cf``), or without an 'expert' axis ``moe_mlp_topk`` with the global
+    count, on the rank's rows -> ``y``, ``rows``, ``grads/<leaf>`` of
+    sum(y^2) (whole, the batch's);
   * ``bilstm_tp``: ``params`` (one BiLSTM layer) and ``x`` (an .npz with
     ``x`` [B, T, I]): the layer's slices gathered, ``rnn.bilstm_apply_tp``
     on the rank's rows, the gradients of sum(sin(y)) reduced -> ``y``,
@@ -47,22 +61,27 @@ that mesh.  Kinds:
   * ``dropout``: the rank's dropout generator -> ``seed`` and ``mask`` (64
     draws at keep 0.5);
   * ``kernels`` (a card): kernels B, 2 and 3 on a rank's rows, ``T``,
-    ``rows``, H=300, float32, against their plain versions at ``tol``
+    ``rows``, H=300, ``dtype`` (float32 by default), against their plain
+    versions at ``tol``
     ({kernel: [atol, rtol]}) -> ``err/<kernel>`` (the max abs error) and
     ``ratio/<kernel>`` (the max of |error| / (atol + rtol |plain|): at
     most 1 within the tolerance).
 
 ``multichip`` (``--device cpu --set KEY=VALUE --dims H,L``: a narrow
-rehearsal over gloo on the CPU) runs configs/multichip.json as written (B=128, bfloat16,
-kmeans, ANCHOR_AUX_LOSS, the adaptive LR; the synth-speech corpus in
-place of WSJ0, which the repository does not hold) on a 4-card mesh per
-``--mesh`` (``kind: multichip``: each rank's bytes of params and moments at
-rest, the ms per step of eager steps and of a K=8 CUDA graph, NCCL's share
-of the device time of one traced graph replay, the first ``--steps``
-losses, a digest of its parameter slices, a checkpoint of the mesh), then
-in this process the same steps on one card from the same weights and
-batches and the mesh's checkpoint loaded on one card, and prints one JSON
-line per mesh.
+rehearsal over gloo on the CPU) runs ``--config`` (configs/multichip.json
+by default) as written on a 4-card mesh per ``--mesh`` AxB: MESH_DATA A
+times B on the config's other axis (MESH_MODEL, MESH_PIPE or MESH_EXPERT,
+``strategy_key``); a config on WSJ0, which the repository does not hold,
+takes the synth-speech corpus.  Each rank (``kind: multichip``) reports
+its bytes of params and moments at rest, its LSTM kernels' launches in
+one eager step, the ms per step of eager steps and of a K=8 CUDA graph
+(a capture that fails is recorded, and the eager numbers stand), NCCL's
+share of the device time of one traced graph replay, the first
+``--steps`` losses, a digest of its parameter slices and a checkpoint of
+the mesh; then this process takes the same steps on one card from the
+same weights and batches, times that card's eager and K=8 steps at the
+same global batch, loads the mesh's checkpoint, and prints one JSON line
+per mesh (a mesh that fails prints its error, and the next runs).
 """
 from __future__ import annotations
 
@@ -227,12 +246,17 @@ def case_step(case: dict, device: str, out: str) -> dict:
     if tr is None:
         return {}
     state = _init(tr, case)
+    res = {}
+    if case.get("init"):
+        state = tr.load_params(state, case["init"])
+        res.update({"loaded/" + k: v for k, v in _whole(
+            tr, leaves(state["params"])).items()})
     with np.load(case["batch"]) as d:
         src = d["src"]
     rows = sharding.batch_rows(tr.mesh, src.shape[0])
     m, g = tr.loss_and_grads(state["params"], tr.ingest(src), None)
-    res = {"loss": float(m["loss"]), "SNR": float(m["SNR"]),
-           "rows": [rows.start, rows.stop], "bytes": _bytes(state)}
+    res.update({"loss": float(m["loss"]), "SNR": float(m["SNR"]),
+                "rows": [rows.start, rows.stop], "bytes": _bytes(state)})
     res.update({"grads/" + k: v for k, v in _whole(tr, g).items()})
     if case.get("adam"):
         _zero_launches()
@@ -246,6 +270,8 @@ def case_step(case: dict, device: str, out: str) -> dict:
         if state["opt"].mu is not None:
             res.update({"mu/" + k: v for k, v in _whole(
                 tr, state["opt"].mu).items()})
+    if case.get("save"):
+        tr.save_params(state, os.path.join(out, "saves", case["name"]))
     return res
 
 
@@ -344,8 +370,10 @@ def case_dropout(case: dict, device: str, out: str) -> dict:
 
 def case_kernels(case: dict, device: str, out: str) -> dict:
     """Kernels B, 2 and 3 at a rank's layer shapes against their plain
-    versions (float32, tanh candidate, layer-shaped inputs)."""
+    versions (``dtype``, float32 by default; tanh candidate, layer-shaped
+    inputs)."""
     t, b, h = case.get("T", 128), case.get("rows", 16), 300
+    dt = getattr(torch, case.get("dtype", "float32"))
     rs = np.random.RandomState(1000 + dist.get_rank())
     scale = 0.75 / np.sqrt(h)
     x = rs.randn(t, 2, b, 2 * h).astype(np.float32) * 0.5
@@ -355,8 +383,8 @@ def case_kernels(case: dict, device: str, out: str) -> dict:
     wh = rs.uniform(-scale, scale, (2, h, 4 * h)).astype(np.float32)
     z = np.zeros((2, b, h), np.float32)
     d_hs = rs.randn(t, 2, b, h).astype(np.float32) * 0.1
-    xp, wh, z, d_hs = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                       for a in (xp, wh, z, d_hs))
+    xp, wh, z, d_hs = (torch.from_numpy(np.ascontiguousarray(a)).to(
+        device=device, dtype=dt) for a in (xp, wh, z, d_hs))
 
     res = {}
 
@@ -382,16 +410,18 @@ def case_kernels(case: dict, device: str, out: str) -> dict:
 
 
 def _epoch_batches(tr, hp, ds, n: int) -> list:
-    """The first ``n`` train batches of epoch 0 (seed 0) as the loop
-    draws them, whole."""
-    key = zlib.crc32(b"danet-epoch-%d-retry-%d-seed-%d" % (0, 0, 0))
-    rng, rand = np.random.RandomState(key), random.Random(key)
+    """The first ``n`` train batches of epochs 0, 1, ... (seed 0) as the
+    loop draws them, whole."""
     out = []
-    for data_pt in tr._epoch_fn(ds)("train", hp.BATCH_SIZE * hp.MAX_N_SIGNAL,
-                                    shuffle=True, rng=rng, rand=rand):
-        out.append(tr._prepare(data_pt[0], hp.MAX_TRAIN_LEN, rng))
-        if len(out) == n:
-            return out
+    for epoch in range(n):
+        key = zlib.crc32(b"danet-epoch-%d-retry-%d-seed-%d" % (epoch, 0, 0))
+        rng, rand = np.random.RandomState(key), random.Random(key)
+        for data_pt in tr._epoch_fn(ds)(
+                "train", hp.BATCH_SIZE * hp.MAX_N_SIGNAL, shuffle=True,
+                rng=rng, rand=rand):
+            out.append(tr._prepare(data_pt[0], hp.MAX_TRAIN_LEN, rng))
+            if len(out) == n:
+                return out
     raise ValueError("the dataset has fewer than %d batches" % n)
 
 
@@ -441,33 +471,163 @@ def case_multichip(case: dict, device: str, out: str) -> dict:
     batches = _epoch_batches(tr, hp, ds, n + 8)
     losses = [tr.train_step(state, b)["loss"] for b in batches[:n]]
     losses = torch.stack(losses).float().cpu().numpy()
+    _zero_launches()
+    tr.train_step(state, batches[n])
+    _sync(device)
+    counts = _launches()
     k1 = _timed(lambda: tr.train_step(state, batches[n]), 4, device)
     stack = tr._put(tr._host_batch(np.stack(batches[n:n + 8]),
                                    stacked=True))
-    tr.train_steps(state, stack)                       # the capture
-    k8 = _timed(lambda: tr.train_steps(state, stack), 3, device) / 8
+    graph_error = None
+    try:
+        tr.train_steps(state, stack)                   # the capture
+        k8 = _timed(lambda: tr.train_steps(state, stack), 3, device) / 8
+    except RuntimeError as e:      # recorded: the eager numbers still count
+        graph_error, k8 = str(e)[-1500:], float("nan")
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
-        tr.train_steps(state, stack)
+        if graph_error is None:
+            tr.train_steps(state, stack)
+        else:
+            tr.train_step(state, batches[n])
         _sync(device)
     total, nccl = _device_ms_by_kind(prof)
     tr.save_params(state, os.path.join(out, "mesh_ckpt"))
     whole = _whole(tr, leaves(state["params"]))
     shards = [t.detach().cpu().numpy() for t in leaves(state["params"])]
-    return {"losses": losses, "ms_k1": k1, "ms_k8": k8,
-            "device_ms": total, "nccl_ms": nccl, "bytes": _bytes(state),
-            "coords": [tr.mesh.coords["data"], tr.mesh.coords["model"]],
-            "digest": _digest(shards),
-            "whole_digest": _digest(whole[k] for k in sorted(whole)),
-            "step": state["step"]}
+    res = {"losses": losses, "ms_k1": k1, "ms_k8": k8,
+           "device_ms": total, "nccl_ms": nccl, "bytes": _bytes(state),
+           "coords": [tr.mesh.coords[a] for a in tr.mesh.axis_names],
+           "digest": _digest(shards),
+           "whole_digest": _digest(whole[k] for k in sorted(whole)),
+           "step": state["step"], "graph_error": graph_error or ""}
+    res.update({"launches/" + k: v for k, v in counts.items()})
+    return res
+
+
+def _mesh(case: dict):
+    """(hp, the connected mesh) of the case's keys (no model built)."""
+    hp = load_config(**case.get("keys", {}))
+    return hp, sharding.mesh_from_hparams(hp).connect()
+
+
+def _rows(mesh, batch: int) -> slice:
+    """This rank's rows of a batch of ``batch`` rows, with the mesh's row
+    axes set as a Trainer sets them."""
+    slices = sharding.batch_slices(mesh, batch)
+    mesh.row_axes = (("data",) if slices == mesh.shape.get("data", 1)
+                     else ("data", "model"))
+    return sharding.batch_rows(mesh, batch)
+
+
+def _summed(mesh, grads: list, owner: str) -> list:
+    """Full-shape gradients of a loss summed over the rows, each rank's
+    its rows' part of ``owner``'s share -> the whole batch's, on every
+    rank."""
+    n = len(grads)
+    got = collectives.reduce_grads(mesh, list(grads), [None] * n,
+                                   [owner] * n)
+    return [g * sharding.row_slices(mesh) for g in got]
+
+
+def case_pipeline(case: dict, device: str, out: str) -> dict:
+    """``pipeline.bilstm_stack_pipelined`` on the rank's rows of ``x``
+    (the npz's ``x`` [B, T, F]) with the layers of ``params`` (an npz
+    tree of ``lstm<i>`` layers), ``n_micro`` microbatches (``stacked``:
+    through ``stack_pipeline_params``), and the gradients of sum(sin(y))
+    -> ``y``, ``y_nograd`` (the forward without autograd), ``rows``,
+    ``loss`` (over the whole batch), ``grads/<leaf>`` (whole), ``dx``
+    (the rows' gradient), the LSTM kernels' ``launches/<kernel>`` of the
+    forward and backward."""
+    from danet_tpu_torch.parallel import pipeline
+    _, mesh = _mesh(case)
+    if mesh.coords is None:
+        return {}
+    tree = weights.load_npz(case["params"], device)
+    names = leaf_names(tree)
+    ps = [p.detach().clone().requires_grad_(True) for p in leaves(tree)]
+    tree = sharding.nest(names, ps)
+    layers = [tree["lstm%d" % i] for i in range(len(tree))]
+    with np.load(case["x"]) as d:
+        x_all = d["x"]
+    rows = _rows(mesh, x_all.shape[0])
+    x = torch.from_numpy(x_all[rows]).to(device)
+    dt = getattr(torch, case.get("dtype", "float32"))
+    x = x.to(dt)
+    run = dict(n_micro=case.get("n_micro", 4),
+               backend=case.get("backend", "auto"))
+    stacked = (pipeline.stack_pipeline_params(layers, mesh)
+               if case.get("stacked") else None)
+    with torch.no_grad():
+        y0 = pipeline.bilstm_stack_pipelined(layers, x, mesh,
+                                             stacked=stacked, **run)
+    _zero_launches()
+    x.requires_grad_(True)
+    y = pipeline.bilstm_stack_pipelined(layers, x, mesh, stacked=stacked,
+                                        **run)
+    loss = torch.sum(torch.sin(y.float()))
+    dx, *grads = torch.autograd.grad(loss, [x] + ps, allow_unused=True)
+    counts = _launches()
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(ps, grads)]
+    grads = _summed(mesh, grads, "pipe")
+    total = collectives.all_reduce(mesh, loss.detach().reshape(1), "data")
+    res = {"y": y.detach().float().cpu().numpy(),
+           "y_nograd": y0.float().cpu().numpy(),
+           "dx": dx.float().cpu().numpy(),
+           "rows": [rows.start, rows.stop], "loss": float(total[0])}
+    res.update({"grads/" + n: g.float().cpu().numpy()
+                for n, g in zip(names, grads)})
+    res.update({"launches/" + k: v for k, v in counts.items()})
+    return res
+
+
+def case_moe(case: dict, device: str, out: str) -> dict:
+    """``expert.moe_mlp_ep`` (``k`` 0) or ``moe_mlp_ep_routed`` (``k`` >=
+    1, ``cf``), or on a mesh without an 'expert' axis ``moe_mlp_topk``
+    with the global count, on the rank's rows of ``x`` (npz ``x`` [B, T,
+    d]) with ``params`` (router, w_in, w_out), and the gradients of
+    sum(y^2) -> ``y``, ``rows``, ``grads/<leaf>`` (whole)."""
+    from danet_tpu_torch.parallel import expert
+    _, mesh = _mesh(case)
+    if mesh.coords is None:
+        return {}
+    tree = weights.load_npz(case["params"], device)
+    names = leaf_names(tree)
+    ps = [p.detach().clone().requires_grad_(True) for p in leaves(tree)]
+    params = sharding.nest(names, ps)
+    with np.load(case["x"]) as d:
+        x_all = d["x"]
+    rows = _rows(mesh, x_all.shape[0])
+    x = torch.from_numpy(x_all[rows]).to(device)
+    k, cf = case.get("k", 0), case.get("cf", 1.25)
+    if "expert" not in mesh.shape:
+        y = expert.moe_mlp_topk(params, x, k=k, capacity_factor=cf,
+                                mesh=mesh)
+        owner = None
+    elif k:
+        y = expert.moe_mlp_ep_routed(params, x, mesh, k=k,
+                                     capacity_factor=cf)
+        owner = "expert"
+    else:
+        y = expert.moe_mlp_ep(params, x, mesh)
+        owner = "expert"
+    grads = torch.autograd.grad(torch.sum(y.float() ** 2), ps)
+    grads = _summed(mesh, grads, owner)
+    res = {"y": y.detach().float().cpu().numpy(),
+           "rows": [rows.start, rows.stop]}
+    res.update({"grads/" + n: g.float().cpu().numpy()
+                for n, g in zip(names, grads)})
+    return res
 
 
 CASES = {"step": case_step, "bilstm_tp": case_bilstm_tp,
          "train": case_train, "dropout": case_dropout,
-         "kernels": case_kernels, "multichip": case_multichip}
+         "kernels": case_kernels, "multichip": case_multichip,
+         "pipeline": case_pipeline, "moe": case_moe}
 
 
 def worker(spec_path: str, out: str, device: str, backend=None) -> None:
@@ -501,88 +661,140 @@ def _one_card(case: dict, out: str, n: int, device: str) -> dict:
     """The mesh case's steps on one card (no mesh) from the same weights
     and batches, and the mesh's checkpoint loaded on one card."""
     from danet_tpu_torch.train.trainer import Trainer
-    keys = dict(case["keys"], MESH_DATA=1, MESH_MODEL=1)
+    keys = dict(case["keys"], MESH_DATA=1, MESH_MODEL=1, MESH_PIPE=1,
+                MESH_EXPERT=1)
     hp, model = build(dict(case, keys=keys))
     tr = Trainer(model, hp, device, name="one-card",
                  save_dir=os.path.join(out, "saves"))
     state = tr.init_state(torch.Generator().manual_seed(0))
     ds = hp.get_dataset()(hp, seed=0)
     ds.install_and_load()
-    batches = _epoch_batches(tr, hp, ds, n)
+    batches = _epoch_batches(tr, hp, ds, n + 8)
     losses = torch.stack([tr.train_step(state, b)["loss"]
-                          for b in batches]).float().cpu().numpy()
+                          for b in batches[:n]]).float().cpu().numpy()
+    k1 = _timed(lambda: tr.train_step(state, batches[n]), 4, device)
+    stack = tr._put(tr._host_batch(np.stack(batches[n:n + 8]),
+                                   stacked=True))
+    tr.train_steps(state, stack)                       # the capture
+    k8 = _timed(lambda: tr.train_steps(state, stack), 3, device) / 8
     fresh = tr.init_state(torch.Generator().manual_seed(1))
     fresh = tr.load_params(fresh, os.path.join(out, "mesh_ckpt"))
     loaded = {k: v.detach().float().cpu().numpy() for k, v in zip(
         leaf_names(fresh["params"]), leaves(fresh["params"]))}
-    return {"losses": losses,
+    return {"losses": losses, "ms_k1": k1, "ms_k8": k8,
             "loaded_digest": _digest(loaded[k] for k in sorted(loaded)),
             "loaded_step": fresh["step"]}
 
 
+def strategy_key(config: str) -> str:
+    """The MESH_* key besides MESH_DATA that a config sets above 1
+    (MESH_MODEL when none): the second factor of ``--mesh``."""
+    with open(os.path.join(REPO, config)) as f:
+        cfg = json.load(f)
+    for key in ("MESH_MODEL", "MESH_PIPE", "MESH_EXPERT"):
+        if int(cfg.get(key, 1) or 1) > 1:
+            return key
+    return "MESH_MODEL"
+
+
 def multichip(out: str, meshes: list, steps: int, timeout: float,
-              device: str = "cuda", keys=None, dims=None) -> None:
-    """configs/multichip.json per mesh (the module's docstring); ``keys``
-    and ``dims`` narrow it, and ``device`` 'cpu' runs it over gloo, for a
-    rehearsal of the four-card run on the CPU."""
+              device: str = "cuda", keys=None, dims=None,
+              config: str = "configs/multichip.json") -> None:
+    """``config`` per mesh (the module's docstring): a mesh AxB is
+    MESH_DATA A times B on the config's other axis (``strategy_key``);
+    ``keys`` and ``dims`` narrow it, and ``device`` 'cpu' runs it over
+    gloo, for a rehearsal of the four-card run on the CPU."""
     smi = "the CPU" if device == "cpu" else subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
+    axis_key = strategy_key(config)
+    with open(os.path.join(REPO, config)) as f:
+        wsj0 = json.load(f).get("DATASET_TYPE") == "wsj0"
+    failed = []
     for mesh in meshes:
-        n_data, n_model = (int(v) for v in mesh.split("x"))
-        nproc = n_data * n_model
-        sub = os.path.join(out, "mesh_%s" % mesh)
-        os.makedirs(sub, exist_ok=True)
-        case = {"name": "multichip", "kind": "multichip", "steps": steps,
-                "configs": ["configs/multichip.json"], "dims": dims,
-                "keys": dict(MULTICHIP_KEYS, **dict(
-                    keys or {}, MESH_DATA=n_data, MESH_MODEL=n_model))}
-        spec = os.path.join(sub, "spec.json")
-        with open(spec, "w") as f:
-            json.dump({"cases": [case]}, f)
-        t0 = time.perf_counter()
-        launch(spec, sub, nproc, device=device, timeout=timeout)
-        mesh_s = time.perf_counter() - t0
-        ranks = [{k.split("/", 1)[1]: v for k, v in r.items()}
-                 for r in load_results(sub, nproc)]
-        ref = _one_card(case, sub, steps, device)
-        replicas = {}
-        for r in ranks:
-            replicas.setdefault(int(r["coords"][1]), set()).add(
-                str(r["digest"]))
-        if any(len(d) != 1 for d in replicas.values()):
-            raise AssertionError("%s: the data replicas' parameters differ: "
-                                 "%s" % (mesh, replicas))
-        if any(str(r["whole_digest"]) != str(ranks[0]["whole_digest"])
-               for r in ranks):
-            raise AssertionError("%s: the ranks gather different weights"
-                                 % mesh)
-        if str(ref["loaded_digest"]) != str(ranks[0]["whole_digest"]):
-            raise AssertionError("%s: the mesh's checkpoint loads on one "
-                                 "card as other weights" % mesh)
-        rel = np.abs(ranks[0]["losses"] - ref["losses"]) / np.abs(
-            ref["losses"])
-        if not np.all(np.isfinite(ranks[0]["losses"])) or rel[0] > 1e-2:
-            raise AssertionError("%s: step-1 loss %r vs one card %r"
-                                 % (mesh, ranks[0]["losses"][0],
-                                    ref["losses"][0]))
-        print(json.dumps({
-            "mesh": mesh, "card": smi, "world": nproc,
-            "bytes_at_rest": [int(r["bytes"]) for r in ranks],
-            "ms_per_step_k1": [float(r["ms_k1"]) for r in ranks],
-            "ms_per_step_k8_graph": [float(r["ms_k8"]) for r in ranks],
-            "nccl_share": [float(r["nccl_ms"]) / max(float(r["device_ms"]),
-                                                     1e-9) for r in ranks],
-            "losses_mesh": [float(v) for v in ranks[0]["losses"]],
-            "losses_one_card": [float(v) for v in ref["losses"]],
-            "loss_rel_diff": [float(v) for v in rel],
-            "replica_digests": {str(k): sorted(v)
-                                for k, v in replicas.items()},
-            "checkpoint": "written on the mesh at step %d, loaded on one "
-                          "card: digest %s" % (int(ref["loaded_step"]),
-                                               ref["loaded_digest"]),
-            "mesh_seconds": mesh_s}), flush=True)
+        try:
+            _multichip_mesh(out, mesh, steps, timeout, device, keys, dims,
+                            config, axis_key, wsj0, smi)
+        except (RuntimeError, AssertionError) as e:
+            # the next meshes still run; the command fails at the end
+            failed.append(mesh)
+            print(json.dumps({"config": config, "mesh": mesh,
+                              "error": str(e)[-4000:]}), flush=True)
+    if failed:
+        raise SystemExit("multichip: meshes %s failed" % failed)
+
+
+def _multichip_mesh(out, mesh, steps, timeout, device, keys, dims, config,
+                    axis_key, wsj0, smi) -> None:
+    """One mesh of ``multichip``: its ranks, the one-card reference, the
+    checks, one JSON line."""
+    n_data, n_axis = (int(v) for v in mesh.split("x"))
+    nproc = n_data * n_axis
+    sub = os.path.join(out, "mesh_%s" % mesh)
+    os.makedirs(sub, exist_ok=True)
+    case = {"name": "multichip", "kind": "multichip", "steps": steps,
+            "configs": [config], "dims": dims,
+            "keys": dict(MULTICHIP_KEYS if wsj0 else {}, **dict(
+                keys or {}, MESH_DATA=n_data, **{axis_key: n_axis}))}
+    spec = os.path.join(sub, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"cases": [case]}, f)
+    t0 = time.perf_counter()
+    launch(spec, sub, nproc, device=device, timeout=timeout)
+    mesh_s = time.perf_counter() - t0
+    ranks = [{k.split("/", 1)[1]: v for k, v in r.items()}
+             for r in load_results(sub, nproc)]
+    ref = _one_card(case, sub, steps, device)
+    replicas = {}
+    for r in ranks:
+        replicas.setdefault(tuple(int(c) for c in r["coords"][1:]),
+                            set()).add(str(r["digest"]))
+    if any(len(d) != 1 for d in replicas.values()):
+        raise AssertionError("%s: the data replicas' parameters differ: "
+                             "%s" % (mesh, replicas))
+    if any(str(r["whole_digest"]) != str(ranks[0]["whole_digest"])
+           for r in ranks):
+        raise AssertionError("%s: the ranks gather different weights"
+                             % mesh)
+    if str(ref["loaded_digest"]) != str(ranks[0]["whole_digest"]):
+        raise AssertionError("%s: the mesh's checkpoint loads on one "
+                             "card as other weights" % mesh)
+    rel = np.abs(ranks[0]["losses"] - ref["losses"]) / np.abs(
+        ref["losses"])
+    # a routed MoE's expert mesh routes each T-shard with its own capacity
+    # (JAX's moe_mlp_ep_routed), one card the whole batch: other values
+    routed = "MESH_EXPERT" == axis_key and int(
+        case["keys"].get("MOE_TOP_K", 0) or 0) > 0
+    if not np.all(np.isfinite(ranks[0]["losses"])) or (
+            rel[0] > 1e-2 and not routed):
+        raise AssertionError("%s: step-1 loss %r vs one card %r"
+                             % (mesh, ranks[0]["losses"][0],
+                                ref["losses"][0]))
+    print(json.dumps({
+        "config": config, "mesh": mesh, "axes": "MESH_DATA x %s"
+        % axis_key, "card": smi, "world": nproc,
+        "bytes_at_rest": [int(r["bytes"]) for r in ranks],
+        "ms_per_step_k1": [float(r["ms_k1"]) for r in ranks],
+        "ms_per_step_k8_graph": [float(r["ms_k8"]) for r in ranks],
+        "nccl_share": [float(r["nccl_ms"]) / max(float(r["device_ms"]),
+                                                 1e-9) for r in ranks],
+        "launches_per_step": [
+            {k.split("/", 1)[1]: int(v) for k, v in r.items()
+             if k.startswith("launches/") and int(v)} for r in ranks],
+        "graph_errors": sorted({str(r["graph_error"]) for r in ranks
+                                if str(r["graph_error"])}),
+        "one_card_ms_per_step_k1": float(ref["ms_k1"]),
+        "one_card_ms_per_step_k8_graph": float(ref["ms_k8"]),
+        "losses_mesh": [float(v) for v in ranks[0]["losses"]],
+        "losses_one_card": [float(v) for v in ref["losses"]],
+        "loss_rel_diff": [float(v) for v in rel],
+        "replica_digests": {"x".join(map(str, k)): sorted(v)
+                            for k, v in replicas.items()},
+        "checkpoint": "written on the mesh at step %d, loaded on one "
+                      "card: digest %s" % (int(ref["loaded_step"]),
+                                           ref["loaded_digest"]),
+        "mesh_seconds": mesh_s}), flush=True)
 
 
 def main(argv=None) -> None:
@@ -601,6 +813,8 @@ def main(argv=None) -> None:
             p.add_argument("--timeout", type=float, default=600.0)
     mc = sub.add_parser("multichip")
     mc.add_argument("--out", required=True)
+    mc.add_argument("--config", default="configs/multichip.json",
+                    help="the config file, relative to the repository")
     mc.add_argument("--mesh", action="append", default=[])
     mc.add_argument("--steps", type=int, default=8)
     mc.add_argument("--timeout", type=float, default=900.0)
@@ -623,7 +837,7 @@ def main(argv=None) -> None:
         multichip(args.out, args.mesh or ["2x2", "4x1"], args.steps,
                   args.timeout, args.device, keys,
                   [int(v) for v in args.dims.split(",")] if args.dims
-                  else None)
+                  else None, args.config)
 
 
 if __name__ == "__main__":

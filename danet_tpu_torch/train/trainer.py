@@ -43,17 +43,22 @@ the K-step graph.  NAN_CHECKS raises FloatingPointError at the first step
 whose loss or gradient is not finite (and runs single steps).  REMAT
 recomputes the encoder's layers in the backward (``models/encoders.py``).
 
-The mesh (MESH_DATA, MESH_MODEL; ``parallel/``): one process per card, in
-a ``torch.distributed`` group (``python -m torch.distributed.run``; a mesh
-of more than one process without a group raises).  Each rank stages only
-its rows of every batch (``sharding.batch_rows``), holds only its slice of
-each 'model'-sharded leaf with that leaf's moments and EMA, gathers the
-full weights once per step, runs the model's single-device code (its
-kernels) on its rows, and reduces the gradients to the global batch's mean
-at its slices (``parallel/collectives.py``).  Every metric is the global
-batch's, so that every rank prints the same numbers and takes the same
-decisions (the LR policy, the rollbacks, NAN_CHECKS); a signal on any rank
-stops every rank at the same step boundary.  Only rank 0 writes metric
+The mesh (MESH_DATA, MESH_MODEL, MESH_PIPE, MESH_EXPERT; ``parallel/``):
+one process per card, in a ``torch.distributed`` group (``python -m
+torch.distributed.run``; a mesh of more than one process without a group
+raises).  Each rank stages only its rows of every batch
+(``sharding.batch_rows``: the ranks of one 'pipe' or 'expert' group share
+theirs), holds only its slice of each sharded leaf ('model', and the MoE
+experts on 'expert') with that leaf's moments and EMA, gathers the full
+weights once per step, runs the model on its rows (a pipeline stage its
+layers, an expert group its experts, ``parallel/pipeline.py`` and
+``expert.py``; the kernels as on one card), and reduces the gradients to
+the global batch's mean at its slices, each leaf by the axis that owns
+its gradient (``parallel/collectives.py``, ``sharding.leaf_owners``).
+Every metric is the global batch's, so that every rank prints the same
+numbers and takes the same decisions (the LR policy, the rollbacks,
+NAN_CHECKS); a signal on any rank stops every rank at the same step
+boundary.  Only rank 0 writes metric
 files, traces and checkpoints, which hold every leaf whole: a checkpoint
 of one mesh resumes on any other, or on one process.  The K-step CUDA
 graph captures the NCCL collectives; ranks on several hosts run single
@@ -448,6 +453,7 @@ class Trainer:
         if mesh is None and dist.is_initialized():
             mesh = self.mesh = sharding.mesh_from_hparams(hp).connect()
         if mesh is None:
+            sharding.set_active_mesh(None)
             n = sharding.mesh_factors(hp)
             if n > 1:
                 raise RuntimeError(
@@ -472,7 +478,12 @@ class Trainer:
             raise RuntimeError(
                 "rank %d is outside the %s mesh: it holds no part of it"
                 % (mesh.rank, dict(mesh.shape)))
-        rows = hp.BATCH_SIZE // sharding.batch_slices(mesh, hp.BATCH_SIZE)
+        slices = sharding.batch_slices(mesh, hp.BATCH_SIZE)
+        rows = hp.BATCH_SIZE // slices
+        # the axes the batch's rows split over (the routed MoE's global
+        # capacity, the pipeline's global batch)
+        mesh.row_axes = (("data",) if slices == mesh.shape.get("data", 1)
+                         else ("data", "model"))
         if rows % self._accum:
             raise ValueError(
                 "GRAD_ACCUM=%d must divide the %d rows of a rank (BATCH_SIZE"
@@ -518,14 +529,16 @@ class Trainer:
         self.leaf_names = leaf_names(params)
         self._full = [(tuple(p.shape), p.dtype) for p in leaves(params)]
         self._axes = [None] * len(self._full)
+        self._owners = None
         if self.mesh is not None:
-            self._axes = sharding.model_axes(params, self.mesh)
+            self._axes = sharding.shard_axes(params, self.mesh)
+            self._owners = sharding.leaf_owners(params, self.mesh)
             params = sharding.shard_params(self.mesh, params)
         for p in leaves(params):
             p.requires_grad_(True)
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
         opt = optim_lib.make_optimizer(self.hp, params)
-        if any(a is not None for a in self._axes):
+        if any(self._axes):
             opt.norm_reduce = self._norm_reduce
         state = {"params": params, "opt": opt, "step": 0, "epoch": 0,
                  "generator": torch.Generator(self.device).manual_seed(
@@ -534,22 +547,26 @@ class Trainer:
         return state
 
     def _norm_reduce(self, sq: list) -> list:
-        """The clip's per-leaf sums of squares with each 'model'-sharded
-        leaf's summed over the 'model' group (its whole leaf's)."""
-        idx = [i for i, a in enumerate(self._axes) if a is not None]
-        v = collectives.all_reduce(self.mesh, torch.stack(
-            [sq[i] for i in idx]), "model")
+        """The clip's per-leaf sums of squares with each sharded leaf's
+        summed over its axes' groups (its whole leaf's)."""
+        by_axes: dict = {}
+        for i, a in enumerate(self._axes):
+            if a:
+                by_axes.setdefault(tuple(sorted(a)), []).append(i)
         out = list(sq)
-        for j, i in enumerate(idx):
-            out[i] = v[j]
+        for axes, idx in by_axes.items():
+            v = torch.stack([sq[i] for i in idx])
+            for axis in axes:
+                v = collectives.all_reduce(self.mesh, v, axis)
+            for j, i in enumerate(idx):
+                out[i] = v[j]
         return out
 
     def full_params(self, params: dict) -> dict:
         """The full weights of a tree of this rank's slices (``params`` or
-        the EMA): on a mesh its 'model'-sharded leaves gathered over the
-        'model' group (collective: every rank calls it); else
-        ``params``."""
-        if self.mesh is None or not any(a is not None for a in self._axes):
+        the EMA): on a mesh its sharded leaves gathered over their axes'
+        groups (collective: every rank calls it); else ``params``."""
+        if self.mesh is None or not any(self._axes):
             return params
         return sharding.gather_params(self.mesh, params, self._axes)
 
@@ -666,10 +683,11 @@ class Trainer:
         full = self.full_params(params)
         if full is not params:
             for p, a in zip(leaves(full), self._axes):
-                if a is not None:
+                if a:
                     p.requires_grad_(True)
         metrics, grads = self._local_loss_and_grads(full, src_ri, generator)
-        grads = collectives.reduce_grads(self.mesh, grads, self._axes)
+        grads = collectives.reduce_grads(self.mesh, grads, self._axes,
+                                         self._owners)
         names = list(metrics)
         v = collectives.mean(self.mesh, torch.stack(
             [metrics[n] for n in names]))

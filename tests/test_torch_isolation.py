@@ -2,8 +2,9 @@
 has none.  Importing the package, its command line, serving, training,
 checkpoint, optimizer, loss, attention, kernel-op and profiling modules,
 tasnet-v1, the wav-dir and timit datasets, the banded attention, the MoE
-forms, the mesh (``parallel``: sharding, collectives, multihost and the
-multi-process smoke driver), the SPHERE decoder's bindings, the TIMIT and WSJ0 preprocessors
+forms, the mesh (``parallel``: sharding, collectives, multihost, the
+pipeline and the multi-process smoke driver), the console prompts, the
+SPHERE decoder's bindings, the TIMIT and WSJ0 preprocessors
 (imported, their ``main`` not run) and chip_smoke.py in a fresh
 interpreter must load no jax, no optax and no danet_tpu module."""
 import os
@@ -33,6 +34,7 @@ def test_torch_port_imports_no_jax():
             "danet_tpu_torch.parallel.collectives, "
             "danet_tpu_torch.parallel.multihost, "
             "danet_tpu_torch.parallel.smoke, "
+            "danet_tpu_torch.parallel.pipeline, danet_tpu_torch.utils, "
             "danet_tpu_torch.native.sphere, "
             "danet_tpu_torch.native.sphere_convert, "
             "danet_tpu_torch.data.TIMIT.process, "

@@ -237,10 +237,10 @@ def test_torch_danet_refuses_mesh_keys(fresh_hparams, encoder, keys,
                                        jax_refuses):
     """DaNet raises JAX's _check_parallel_support ValueError, with JAX's
     message, where JAX refuses the MESH_* combination; where JAX builds
-    the model, the port builds it under MESH_DATA and MESH_MODEL (the
-    Trainer's mesh) and raises NotImplementedError naming ROADMAP item 6
-    under the other keys, so that neither serving nor training runs the
-    dense path under them."""
+    the model, the port builds it under MESH_DATA, MESH_MODEL, MESH_PIPE
+    and MESH_EXPERT (the Trainer's mesh) and raises NotImplementedError
+    naming ROADMAP item 6b under MESH_SEQ, so that neither serving nor
+    training runs the dense path under it."""
     fresh_hparams.load(dict(ENCODER_TYPE=encoder, **keys))
     fresh_hparams.digest()
     hp = load_config(ENCODER_TYPE=encoder, **keys)
@@ -250,10 +250,11 @@ def test_torch_danet_refuses_mesh_keys(fresh_hparams, encoder, keys,
         with pytest.raises(ValueError) as got:
             TorchDaNet(hp)
         assert str(got.value) == str(want.value)
-    elif set(keys) <= {"MESH_DATA", "MESH_MODEL"}:
+    elif set(keys) <= {"MESH_DATA", "MESH_MODEL", "MESH_PIPE",
+                       "MESH_EXPERT"}:
         JaxDaNet()
         assert TorchDaNet(hp).hp is hp
     else:
         JaxDaNet()
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(NotImplementedError, match="item 6b"):
             TorchDaNet(hp)

@@ -465,8 +465,7 @@ def test_torch_moe_warm_step_reads_nothing_on_host(fresh_hparams, keys):
                                                  ("moe-v1", False)])
 def test_torch_moe_mesh_expert_check(fresh_hparams, encoder, jax_refuses):
     """MESH_EXPERT 2: attn-v1 gets JAX's ValueError word for word; moe-v1,
-    which JAX builds, gets NotImplementedError (expert parallelism waits
-    for the port's parallel slice)."""
+    which JAX builds, builds (expert parallelism, parallel/expert.py)."""
     keys = dict(NARROW, ENCODER_TYPE=encoder, MESH_EXPERT=2)
     fresh_hparams.load(keys)
     fresh_hparams.digest()
@@ -478,5 +477,5 @@ def test_torch_moe_mesh_expert_check(fresh_hparams, encoder, jax_refuses):
         assert str(got.value) == str(want.value)
     else:
         JaxDaNet()
-        with pytest.raises(NotImplementedError, match="MESH_EXPERT"):
-            TorchDaNet(load_config(**keys))
+        hp = load_config(**keys)
+        assert TorchDaNet(hp).hp is hp

@@ -515,14 +515,16 @@ def test_torch_route_mesh_only_unavailable_routes_dense(monkeypatch):
 
 def test_torch_mesh_refusals(fresh_hparams):
     """moe-v1's routed training (MOE_TOP_K > 0) on a data x model mesh
-    raises NotImplementedError (its capacity counts the global batch's
-    tokens); its soft mixture builds; a mesh without the configured
-    'model' axis is refused by the Trainer."""
+    builds (its capacity counts the global batch's tokens,
+    ``expert.moe_mlp_topk``'s mesh), and so does its soft mixture;
+    MESH_SEQ raises NotImplementedError naming item 6b; a mesh without
+    the configured 'model' axis is refused by the Trainer."""
     moe = {"ENCODER_TYPE": "moe-v1", "MESH_DATA": 2, "ATTN_DIM": 32,
            "ATTN_HEADS": 2, "ATTN_LAYERS": 1}
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TorchDaNet(load_config(**dict(moe, MOE_TOP_K=2)))
+    TorchDaNet(load_config(**dict(moe, MOE_TOP_K=2, MESH_MODEL=2)))
     TorchDaNet(load_config(**moe))
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        TorchDaNet(load_config(**dict(moe, MESH_SEQ=2)))
     hp = load_config(ENCODER_TYPE="bilstm-orig", MESH_MODEL=2)
     with pytest.raises(ValueError, match="no matching 'model' axis"):
         Trainer(TorchDaNet(hp), hp, "cpu",
