@@ -433,8 +433,39 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    against the one-process step (for MOE_TOP_K 2 one process routing each
    of the two T-shards with its own capacity, the semantics of JAX's
    moe_mlp_ep_routed); the ranks' gathered parameters bit for bit.
+28. sequence parallelism (MESH_SEQ; parallel/seq_parallel.py,
+   ring_attention.py, ulysses.py) on one card, ranks sharing it over gloo
+   as in 26 (b), seed 0, toy data.  (a) the saving LSTM forward's state
+   entry (lstm_scan_train_state: float32 c0 and final carry c_T) and
+   kernel 3 seeded with the carry's cotangent (lstm_scan_bwd_seeded)
+   against their plain versions at the relay's chunk shape (H=300, T=32,
+   B=4) and at (H=600, T=128, B=32), float32 (forward within 2e-6, the
+   backward within 2e-6 + 1e-4 x |plain|) and bfloat16 (phase 6's
+   bounds), layer-shaped inputs with nonzero c0, h0, d_hs and dc_T; each
+   timed beside the lean state entry, the saving forward and kernel 3
+   without the state.  (b) configs/seq-parallel.json's keys (bilstm-orig 4
+   x 300, B=8, T=128, SP_HALO 16) at 1 x 4: four ranks each scan their
+   32-frame chunk of every row, a train and a valid step, the relay in
+   bfloat16 as written (held as in 27 (a) against the one-process step)
+   and in float32 (the loss within 1e-4 and each gradient within 1e-4 of
+   its tensor's peak, phase 7's bounds: the relay's one-direction chunk
+   scans sum in another order than the dense step's kernel 2, and Adam
+   turns that into up to 2 LR on a gradient element near zero, which 27
+   (a)'s bound on the parameters would not hold), and SP_RNN_SCHEME halo
+   in bfloat16 (its loss within
+   5e-2 of the one-process loss: the halo warm-up approximates the state
+   at each chunk's start, JAX's halo-decay bound); the launches per rank
+   printed (the relay: one state-entry saving forward and one seeded
+   backward per direction and layer, 8 and 8, each rank scanning only the
+   round whose incoming state is true).  (c) attn-v1 and moe-v1 (default
+   widths, B=8, T=128, float32) at 1 x 4 with SP_ATTN ring and ulysses:
+   the loss and gradients of a step within (b)'s float32 bounds of the
+   dense one-process step.  (d) DaNet.separate_sp on a 10 s request (T=1252
+   frames, float32) for bilstm-orig (the relay) and attn-v1 (ring) on the
+   four ranks against separate on one process, within 1e-4 of the
+   answer's peak.
 
-The kernel summary lists all fourteen kernels; its launches count the
+The kernel summary lists all sixteen kernels; its launches count the
 main paths of phases 5, 7, 10, 11, 14, 15, 17, 18, 19, 20 (20: (a),
 (c), (d)'s resume and (e)), 21 ((b) and (c)'s card-vs-CPU part), 22
 ((a), (c) and (d)), 23 (every serving and card-vs-CPU training part,
@@ -442,7 +473,9 @@ the CLI), 24 ((b)'s timed streams, (c) and (d)'s demos on the card),
 25 ((b)-(g): the bundles' checked requests and feeds, kernel 6's
 caller, the CLI), 26 (a) (the mesh trainer's steps; (b)'s ranks count
 in their own processes, printed per rank) and 27 (a) (the four stage
-ranks' steps and valid steps, counted in their processes and summed).
+ranks' steps and valid steps, counted in their processes and summed) and
+28 (b) (the four sequence-parallel ranks' steps and valid steps, counted
+in their processes and summed).
 bound_ms is the least time the card could take for the work of the timed
 call: the larger of its bytes (each input read once, each output written
 once) over 3.35 TB/s and
@@ -523,6 +556,8 @@ KERNELS = {
     "lstm_scan": cuda_lstm.lstm_scan,
     "lstm_scan_train": cuda_lstm.lstm_scan_train,
     "lstm_scan_bwd": cuda_lstm.lstm_scan_bwd,
+    "lstm_scan_train_state": cuda_lstm.lstm_scan_train_state,
+    "lstm_scan_bwd_seeded": cuda_lstm.lstm_scan_bwd_seeded,
     "gru_scan": cuda_gru.gru_scan,
     "gru_scan_train": cuda_gru.gru_scan_train,
     "gru_scan_bwd": cuda_gru.gru_scan_bwd,
@@ -5234,6 +5269,248 @@ def phase_pipe_expert() -> dict:
     return {"pipe": pipe, "expert": ep, "launches": pipe["launches"]}
 
 
+SEQ_JSON = os.path.join(REPO_ROOT, "configs", "seq-parallel.json")
+SEQ_MESH = {"MESH_DATA": 1, "MESH_SEQ": 4}
+SEQ_ONE = {"MESH_DATA": 1, "MESH_SEQ": 1}
+# (a): (H, T, B) of the relay's chunk scans (configs/seq-parallel.json's
+# rows per data shard and 32-frame chunks) and of a training layer
+SEQ_KERNEL_SHAPES = ((300, 32, 4), (600, 128, 32))
+# (a): float32 (atol, rtol) of the state forms against their plain
+# versions; bfloat16 keeps phase 6's
+SEQ_FWD_TOL = (2e-6, 0.0)
+SEQ_BWD_TOL = (2e-6, 1e-4)
+# (b): the halo scheme's loss against the exact one-process loss: the
+# warm-up approximates each chunk's incoming state (JAX's halo-decay
+# bound, 5 % of the scale)
+HALO_LOSS_REL = 5e-2
+# (d): a 10 s request whose frame count splits over four ranks
+SP_REQUEST_FRAMES = 1252
+
+
+def _seq_kernels() -> dict:
+    """(a): the state forms of the saving forward and of kernel 3 against
+    their plain versions, timed beside the lean state entry and the
+    saving forward and kernel 3 without the state."""
+    rs = np.random.RandomState(28)
+    worst, times = {}, {}
+    for h, t, b in SEQ_KERNEL_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            xp, wh, c0, h0 = _carry_inputs(rs, t, b, h, dt)
+            d_hs = torch.from_numpy((rs.randn(t, b, h) * 0.1).astype(
+                np.float32)).cuda().to(dt)
+            dc_t = torch.from_numpy((rs.randn(b, h) * 0.1).astype(
+                np.float32)).cuda()
+            outs = cuda_lstm.lstm_scan_train_state(xp, wh, c0, h0, True)
+            refs = cuda_lstm.lstm_scan_train_state_plain(xp, wh, c0, h0,
+                                                         True)
+            hs, cs, acts, _ = refs
+            c_prev = torch.cat([c0[None].to(dt), cs[:-1]])
+            bouts = cuda_lstm.lstm_scan_bwd_seeded(d_hs, acts, cs, c_prev,
+                                                   wh, True, dc_t)
+            brefs = cuda_lstm.lstm_scan_bwd_plain(d_hs, acts, cs, c_prev,
+                                                  wh, True, dc_t)
+            torch.cuda.synchronize()
+            f32 = dt == torch.float32
+            tag = "H=%d %s" % (h, _tag(dt, True, t, b))
+            parts = _check_kernels(28, tag, dt, (
+                ("lstm_scan_train_state", ("hs", "cs", "acts", "c_T"), outs,
+                 refs, SEQ_FWD_TOL if f32 else TRAIN_FWD_TOL[dt]),
+                ("lstm_scan_bwd_seeded", ("dxp", "dc0", "dh0"), bouts, brefs,
+                 SEQ_BWD_TOL if f32 else TRAIN_BWD_TOL[dt])), worst)
+            ms = {
+                "state save": cuda_ms(lambda: cuda_lstm.lstm_scan_train_state(
+                    xp, wh, c0, h0, True), 10),
+                "lean state": cuda_ms(lambda: cuda_lstm.lstm_scan(
+                    xp, wh, c0, h0, True, return_state=True), 10),
+                "save": cuda_ms(lambda: cuda_lstm.lstm_scan_train(
+                    xp, wh, c0.to(dt), h0, True), 10),
+                "seeded bwd": cuda_ms(lambda: cuda_lstm.lstm_scan_bwd_seeded(
+                    d_hs, acts, cs, c_prev, wh, True, dc_t), 10),
+                "bwd": cuda_ms(lambda: cuda_lstm.lstm_scan_bwd(
+                    d_hs, acts, cs, c_prev, wh, True), 10)}
+            plain = {
+                "lstm_scan_train_state": cuda_ms(
+                    lambda: cuda_lstm.lstm_scan_train_state_plain(
+                        xp, wh, c0, h0, True), 2),
+                "lstm_scan_bwd_seeded": cuda_ms(
+                    lambda: cuda_lstm.lstm_scan_bwd_plain(
+                        d_hs, acts, cs, c_prev, wh, True, dc_t), 2)}
+            times[(h, t, b, dt)] = (ms, plain)
+            print("phase 28 (a) %s: max_abs_err %s; ms %s; plain ms %s"
+                  % (tag, ", ".join(parts),
+                     {k: "%.4f" % v for k, v in ms.items()},
+                     {k: "%.4f" % v for k, v in plain.items()}))
+    return {"max_abs_err": worst, "times": times}
+
+
+def _seq_cases(tmp: str) -> tuple:
+    """The spec of (b)-(d) and what the one-process references need."""
+    hp = load_config(SEQ_JSON, **SEQ_ONE)
+    batch = _toy_batches(hp, 1)[0]
+    np.savez(os.path.join(tmp, "sb.npz"), src=batch)
+    params = {}
+    for enc in ("bilstm-orig", "attn-v1", "moe-v1"):
+        ehp = load_config(SEQ_JSON, **dict(SEQ_ONE, ENCODER_TYPE=enc))
+        params[enc] = ehp.get_model()(ehp).init(
+            torch.Generator().manual_seed(0))
+        weights.save_npz(os.path.join(tmp, "%s.npz" % enc), params[enc])
+    steps = {"relay-bfloat16": {},
+             "relay-float32": {"COMPUTE_DTYPE": "float32"},
+             "halo-bfloat16": {"SP_RNN_SCHEME": "halo"}}
+    for enc in ("attn-v1", "moe-v1"):
+        for pat in ("ring", "ulysses"):
+            steps["%s-%s" % (enc, pat)] = {"ENCODER_TYPE": enc,
+                                           "SP_ATTN": pat,
+                                           "COMPUTE_DTYPE": "float32"}
+    cases = [{"name": name, "kind": "step", "adam": True, "valid": True,
+              "params": "%s.npz" % keys.get("ENCODER_TYPE", "bilstm-orig"),
+              "batch": "sb.npz", "configs": ["configs/seq-parallel.json"],
+              "keys": dict(SEQ_MESH, **keys)} for name, keys in steps.items()]
+    wave = np.random.RandomState(28).randn(
+        64 * (SP_REQUEST_FRAMES - 1)).astype(np.float32) * 0.3
+    mix = dsp.stft_ri(torch.from_numpy(wave)[None], hp.FFT_SIZE,
+                      hp.FFT_STRIDE, hp.FFT_WND_ARRAY).numpy()
+    np.savez(os.path.join(tmp, "mix.npz"), mix=mix)
+    for enc in ("bilstm-orig", "attn-v1"):
+        cases.append({"name": "separate-" + enc, "kind": "separate_sp",
+                      "params": "%s.npz" % enc, "mix": "mix.npz",
+                      "configs": ["configs/seq-parallel.json"],
+                      "keys": dict(SEQ_MESH, ENCODER_TYPE=enc,
+                                   COMPUTE_DTYPE="float32")})
+    return batch, params, steps, mix, cases
+
+
+def _held_grads(tag: str, rank: dict, want: dict) -> float:
+    """A float32 rank's step against the one-process one: the loss within
+    1e-4 relative and each gradient within 1e-4 of its tensor's peak
+    (phase 7's card-vs-CPU bounds: the sequence-parallel step sums in
+    another order than the dense one, and Adam turns that into up to 2 LR
+    on a gradient element near zero).  -> the worst ratio to a bound."""
+    worst = abs(float(rank["loss"]) - want["loss"]) / abs(want["loss"]) \
+        / STEP_RTOL["float32"]
+    for name, ref in want["grads"].items():
+        peak = max(float(np.max(np.abs(ref))), 1e-30)
+        worst = max(worst, float(np.max(np.abs(rank["grads/" + name] - ref)))
+                    / peak / STEP_RTOL["float32"])
+    if not worst <= 1.0:
+        raise AssertionError("phase 28 %s: off the one-process step (%.3g "
+                             "of its bound; loss %.6g vs %.6g)"
+                             % (tag, worst, float(rank["loss"]),
+                                want["loss"]))
+    return worst
+
+
+def phase_seq_parallel() -> dict:
+    """Phase 28: sequence parallelism on one card (module docstring)."""
+    import shutil
+    import tempfile
+    from danet_tpu_torch.parallel import smoke
+    from danet_tpu_torch.parallel.sharding import nest
+    t0 = time.perf_counter()
+    kern = _seq_kernels()
+    tmp = tempfile.mkdtemp(prefix="danet-phase28-")
+    try:
+        batch, params, steps, mix, cases = _seq_cases(tmp)
+        spec = os.path.join(tmp, "seq.json")
+        with open(spec, "w") as f:
+            json.dump({"cases": cases}, f)
+        t1 = time.perf_counter()
+        smoke.launch(spec, os.path.join(tmp, "seq"), 4, device="cuda",
+                     backend="gloo", shared_card=True, timeout=420)
+        ranks_s = time.perf_counter() - t1
+        res = smoke.load_results(os.path.join(tmp, "seq"), 4)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    worst, per_rank = {}, {}
+    launches = {n: 0 for n in KERNELS}
+    layers = encoders.BiLstmEncoder.N_LAYERS
+    want = {"relay": {"lstm_scan_train_state": 2 * layers,
+                      "lstm_scan_bwd_seeded": 2 * layers,
+                      "lstm_scan": 2 * layers},
+            "halo": {"lstm_scan_train_state": 2 * layers,
+                     "lstm_scan_bwd_seeded": 2 * layers,
+                     "lstm_scan_train": 2 * layers,
+                     "lstm_scan_bwd": 2 * layers,
+                     "lstm_scan": 4 * layers}}
+    for name, keys in steps.items():
+        enc = keys.get("ENCODER_TYPE", "bilstm-orig")
+        bf16 = keys.get("COMPUTE_DTYPE", "bfloat16") == "bfloat16"
+        one = load_config(SEQ_JSON, **dict(SEQ_ONE, **dict(
+            keys, SP_RNN_SCHEME="relay")))
+        ref = _one_process_step(one, params[enc], batch)
+        ranks = _rank_results(res, name)
+        if name.startswith("halo"):
+            worst[name] = max(
+                abs(float(r["loss"]) - ref["loss"]) / abs(ref["loss"])
+                for r in ranks) / HALO_LOSS_REL
+            if not worst[name] <= 1.0:
+                raise AssertionError("phase 28 (b) %s: loss off the exact "
+                                     "one-process loss by %.3g of the halo "
+                                     "bound" % (name, worst[name]))
+        elif bf16:
+            worst[name] = max(_held("(b) %s rank %d" % (name, i), rank, ref,
+                                    True) for i, rank in enumerate(ranks))
+        else:
+            worst[name] = max(_held_grads("(b) %s rank %d" % (name, i), rank,
+                                          ref) for i, rank in
+                              enumerate(ranks))
+        _same_replicas("(b) " + name, ranks, ref["params"])
+        counts = [{k.split("/", 1)[1]: int(v) for k, v in rank.items()
+                   if k.startswith("launches/") and int(v)} for rank in ranks]
+        if enc == "bilstm-orig":
+            scheme = name.split("-")[0]
+            for i, c in enumerate(counts):
+                if c != want[scheme]:
+                    raise AssertionError("phase 28 (b) %s rank %d launched "
+                                         "%s, not %s" % (name, i, c,
+                                                         want[scheme]))
+                for k, v in c.items():
+                    launches[k] += v
+        per_rank[name] = counts[0]
+    sep = {}
+    for enc in ("bilstm-orig", "attn-v1"):
+        hp = load_config(SEQ_JSON, **dict(SEQ_ONE, ENCODER_TYPE=enc,
+                                          COMPUTE_DTYPE="float32"))
+        model = hp.get_model()(hp)
+        tree = nest(weights.leaf_names(params[enc]),
+                    [t.cuda() for t in weights.leaves(params[enc])])
+        with torch.no_grad():
+            ref = model.separate(tree, torch.from_numpy(mix).cuda()
+                                 ).cpu().numpy()
+        peak = float(np.abs(ref).max())
+        sep[enc] = max(float(np.abs(r["y"] - ref).max()) for r in
+                       _rank_results(res, "separate-" + enc)) / peak
+        if not sep[enc] <= SERVE_RTOL:
+            raise AssertionError("phase 28 (d) separate_sp %s: %.3g of the "
+                                 "peak off separate" % (enc, sep[enc]))
+    print("phase 28 (b)-(c) configs/seq-parallel.json's keys at 1 x 4 "
+          "(bilstm-orig 4 x 300, B=8, T=%d: chunks of %d frames; SP_HALO "
+          "16), four ranks on one card over gloo, a train and a valid step "
+          "each: the relay in bfloat16 and float32 and the halo scheme in "
+          "bfloat16 (worst ratio to the bound %s: phase 27's bounds, the "
+          "halo's loss within %g of the exact loss); attn-v1 and moe-v1 "
+          "with ring and Ulysses attention, float32 (%s); the ranks' "
+          "parameters bit "
+          "for bit; launches per rank (a step and a valid step) %s; the "
+          "ranks took %.1f s"
+          % (TRAIN_T, TRAIN_T // SEQ_MESH["MESH_SEQ"],
+             {k: "%.3g" % v for k, v in worst.items()
+              if not k.startswith(("attn", "moe"))}, HALO_LOSS_REL,
+             {k: "%.3g" % v for k, v in worst.items()
+              if k.startswith(("attn", "moe"))}, per_rank, ranks_s))
+    print("phase 28 (d) separate_sp on a %.2f s request (T=%d, float32) on "
+          "the four ranks vs separate on one process, of the peak: %s "
+          "(bound %g)" % (64 * (SP_REQUEST_FRAMES - 1) / SMPRATE,
+                          SP_REQUEST_FRAMES,
+                          {k: "%.3g" % v for k, v in sep.items()},
+                          SERVE_RTOL))
+    print("phase 28 took %.1f s on %s; main-path launches %s"
+          % (time.perf_counter() - t0, nvidia_smi(),
+             {k: v for k, v in launches.items() if v}))
+    return {"kernels": kern, "worst": worst, "separate": sep,
+            "per_rank": per_rank, "launches": launches}
+
+
 def _bound(flops: float, nbytes: float):
     """(ms, "operations" or "bytes"): the least time of the work on the
     card, the larger of its FLOPs at the float32 peak and its bytes at the
@@ -5278,13 +5555,21 @@ def _cost(name: str, t: int, b: int, h=None) -> tuple:
     d = 2 if name.startswith("bilstm") else 1
     h = h or (300 if d == 2 else 600)
     flops = 2.0 * t * b * h * 4 * h * d
-    if name.endswith("_bwd"):          # d_hs, cs, c_prev, acts, wh; outs
+    # the state forms: c_T out, or the seed dc_T in
+    carry = b * h if name in ("lstm_scan_train_state",
+                              "lstm_scan_bwd_seeded") else 0
+    if "_bwd" in name:                 # d_hs, cs, c_prev, acts, wh; outs
         return flops, 4.0 * d * (3 * t * b * h + 4 * t * b * h + 4 * h * h
-                                 + 4 * t * b * h + 2 * b * h)
-    out = t * b * h * (6 if name.endswith("_train") else 1)
-    return flops, 4.0 * d * (4 * t * b * h + 4 * h * h + 2 * b * h + out)
+                                 + 4 * t * b * h + 2 * b * h + carry)
+    out = t * b * h * (6 if "_train" in name else 1)
+    return flops, 4.0 * d * (4 * t * b * h + 4 * h * h + 2 * b * h + out
+                             + carry)
 
 
+# the state forms' library yardsticks: nn.LSTM's, which takes (h0, c0) and
+# returns the final carry too
+STATE_LIBRARY = {"lstm_scan_train_state": "lstm_scan_train",
+                 "lstm_scan_bwd_seeded": "lstm_scan_bwd"}
 # the shape each kernel is timed at: its main path's (T or samples, B)
 TIMED_AT = {"stft_ri": (80000, 1), "bilstm_scan": (1251, 1),
             "lstm_scan": (1251, 1), "gru_scan": (1251, 1),
@@ -5411,6 +5696,7 @@ def main():
     bundles = phase_bundles(window)
     mesh = phase_mesh()
     pipe_expert = phase_pipe_expert()
+    seq = phase_seq_parallel()
     print("summary: bilstm_scan bfloat16 max_abs_err %.3g (atol %g); "
           "serving worst error vs CPU %.3g of the peak (rtol %g), lstm-orig "
           "%.3g, gru-v1 %.3g, attn-v1 %.3g; train steps vs CPU: worst "
@@ -5503,6 +5789,15 @@ def main():
              pipe_expert["pipe"]["per_rank"],
              {k: "%.3g" % v for k, v in
               pipe_expert["expert"]["worst"].items()}))
+    print("summary, phase 28: the state forms vs plain (float32, bfloat16) "
+          "%s; sequence parallelism at 1 x 4 vs the one-process step (of "
+          "the bound) %s; separate_sp vs separate (of the peak) %s; "
+          "launches per rank %s"
+          % ({k: "%.3g, %.3g" % (v[torch.float32], v[torch.bfloat16])
+              for k, v in seq["kernels"]["max_abs_err"].items()},
+             {k: "%.3g" % v for k, v in seq["worst"].items()},
+             {k: "%.3g" % v for k, v in seq["separate"].items()},
+             seq["per_rank"]))
     # launches: the counts of the main paths that run each kernel, each
     # zeroed just before its path and read just after it (kernel 6's: phase
     # 25 (f), dsp.stft_mag_logmag)
@@ -5513,7 +5808,7 @@ def main():
              new_encoders["launches"], tasnet["launches"],
              causal_moe["launches"], streaming["launches"],
              bundles["launches"], mesh["launches"],
-             pipe_expert["launches"]] + [
+             pipe_expert["launches"], seq["launches"]] + [
         run["launches"] for run in list(serving_uni.values())
         + list(training_uni.values())]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}
@@ -5526,11 +5821,17 @@ def main():
                  flash_attn_bwd_dkv=ft[("flash_attn_bwd_dkv", TRAIN_T, 32)],
                  flash_attn_bwd_dq=ft[("flash_attn_bwd_dq", TRAIN_T, 32)],
                  stft_logmag=logmag["times"])
+    ms28, plain28 = seq["kernels"]["times"][(600, TRAIN_T, 32, torch.float32)]
+    times["lstm_scan_train_state"] = (ms28["state save"],
+                                      plain28["lstm_scan_train_state"])
+    times["lstm_scan_bwd_seeded"] = (ms28["seeded bwd"],
+                                     plain28["lstm_scan_bwd_seeded"])
     times["stft_ri"] = times.pop("stft")
     errs = {"stft_ri": stft["max_abs_err"],
             "bilstm_scan": scan["max_abs_err"][torch.float32],
             "stft_logmag": logmag["max_abs_err"]}
-    for phase in (train_kernels, uni_kernels, gru_kernels, flash_kernels):
+    for phase in (train_kernels, uni_kernels, gru_kernels, flash_kernels,
+                  seq["kernels"]):
         errs.update({k: v[torch.float32]
                      for k, v in phase["max_abs_err"].items()})
     flash_src = ("danet_tpu/ops/pallas/attention.py:28 (flash_attention_"
@@ -5553,6 +5854,15 @@ def main():
                             "save=True)"),
         "lstm_scan_bwd": ("danet_tpu_torch/csrc/bilstm_scan_bwd.cu",
                           "danet_tpu/ops/pallas/lstm.py:275 (n_dirs=1)"),
+        "lstm_scan_train_state": (
+            "danet_tpu_torch/csrc/lstm_scan_lean.cu",
+            "danet_tpu/ops/pallas/lstm.py:242 (n_dirs=1, save=True; "
+            "JAX runs return_state under autograd on its XLA scan, "
+            "danet_tpu/ops/rnn.py:125-126)"),
+        "lstm_scan_bwd_seeded": (
+            "danet_tpu_torch/csrc/bilstm_scan_bwd.cu",
+            "danet_tpu/ops/pallas/lstm.py:275 (n_dirs=1; the final carry's "
+            "cotangent, which JAX's XLA scan differentiates)"),
         "gru_scan": ("danet_tpu_torch/csrc/gru_scan.cu",
                      "danet_tpu/ops/pallas/gru.py:145"),
         "gru_scan_train": ("danet_tpu_torch/csrc/gru_scan.cu",
@@ -5574,7 +5884,9 @@ def main():
         t, b = TIMED_AT.get(name, (TRAIN_T, 32))
         bound_ms, bound_by = _bound(*_cost(name, t, b))
         ms, plain_ms = times[name]
-        lib_ms, lib_note = library[name]
+        lib_ms, lib_note = library[STATE_LIBRARY.get(name, name)]
+        if name in STATE_LIBRARY:
+            lib_note += "; with (h0, c0) in and (h_n, c_n) out"
         entry = {
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],

@@ -16,7 +16,14 @@
 //   dc     = dc * f
 //   dh_carry = dxp[t] @ Wh^T         (from the ROUNDED dxp[t], as JAX does)
 //
-// and after step 0: dc0 = dc, dh0 = dh_carry, rounded.  cand, i, f, o come
+// and after step 0: dc0 = dc, dh0 = dh_carry, rounded.  The dc carry
+// starts at zero, or, in the seeded entry (danet_lstm_scan_bwd_seeded, one
+// direction: the backward of the saving forward's state entry), at dc_T,
+// the cotangent of the final cell state c_T, float32 [B, H]; the final h
+// is hs[T-1], whose cotangent arrives in d_hs.  The seeded form is a
+// kernel of its own (lstm_scan_bwd_seeded_kernel, one more argument) over
+// the same body (bwd_body), so that the other kernels keep their
+// arguments.  cand, i, f, o come
 // from the residuals acts[t] and c_t from cs[t] that kernel 2 stored;
 // c_{t-1} is c_prev[t] (c0, then cs[:-1]).  Shapes, with D = n_dirs (1
 // or 2; grid.y, and a template parameter as in the forward): d_hs, cs,
@@ -199,13 +206,14 @@ __device__ __forceinline__ void fma_cols(float* acc, const T* d,
   }
 }
 
-template <typename T, bool TANH, int NDIRS>
-__global__ void __launch_bounds__(THREADS)
-bilstm_scan_bwd_kernel(const T* __restrict__ d_hs, const T* __restrict__ acts,
-                       const T* __restrict__ cs, const T* __restrict__ c_prev,
-                       const T* __restrict__ wh, T* dxp, T* __restrict__ dc0,
-                       T* __restrict__ dh0, int n_steps, int batch,
-                       int hdim) {
+// The body of both kernels below; SEED: the dc carry starts at dc_T.
+template <typename T, bool TANH, int NDIRS, bool SEED>
+__device__ __forceinline__ void bwd_body(
+    const T* __restrict__ d_hs, const T* __restrict__ acts,
+    const T* __restrict__ cs, const T* __restrict__ c_prev,
+    const T* __restrict__ wh, T* dxp, T* __restrict__ dc0,
+    T* __restrict__ dh0, const float* __restrict__ dc_T, int n_steps,
+    int batch, int hdim) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte copy
   // chunk buffers in a warp's ring: 2 in f32, 4 in bf16
   constexpr int NBUF = RING_BYTES / (BT * KC * static_cast<int>(sizeof(T)));
@@ -239,7 +247,17 @@ bilstm_scan_bwd_kernel(const T* __restrict__ d_hs, const T* __restrict__ acts,
         (u0 + u < hdim) ? to_f32(whd[static_cast<size_t>(u0 + u) * g4 + g])
                         : 0.f;
   }
-  for (int e = tid; e < n_el; e += THREADS) dc_s[e] = 0.f;
+  for (int e = tid; e < n_el; e += THREADS) {
+    if constexpr (SEED) {
+      const int unit = u0 + e % UNITS;
+      dc_s[e] = unit < hdim ? dc_T[static_cast<size_t>(dir) * bh +
+                                   static_cast<size_t>(e / UNITS) * hdim +
+                                   unit]
+                            : 0.f;
+    } else {
+      dc_s[e] = 0.f;
+    }
+  }
   for (int e = tid; e < KW * n_el; e += THREADS) red_s[e] = 0.f;
 
   // this warp's chunks of a step: in each pass with live rows in its tile
@@ -387,6 +405,61 @@ bilstm_scan_bwd_kernel(const T* __restrict__ d_hs, const T* __restrict__ acts,
 }
 
 template <typename T, bool TANH, int NDIRS>
+__global__ void __launch_bounds__(THREADS)
+bilstm_scan_bwd_kernel(const T* __restrict__ d_hs, const T* __restrict__ acts,
+                       const T* __restrict__ cs, const T* __restrict__ c_prev,
+                       const T* __restrict__ wh, T* dxp, T* __restrict__ dc0,
+                       T* __restrict__ dh0, int n_steps, int batch,
+                       int hdim) {
+  bwd_body<T, TANH, NDIRS, false>(d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0,
+                                  nullptr, n_steps, batch, hdim);
+}
+
+// One direction, the dc carry seeded with dc_T [B, H] float32.
+template <typename T, bool TANH>
+__global__ void __launch_bounds__(THREADS)
+lstm_scan_bwd_seeded_kernel(const T* __restrict__ d_hs,
+                            const T* __restrict__ acts,
+                            const T* __restrict__ cs,
+                            const T* __restrict__ c_prev,
+                            const T* __restrict__ wh, T* dxp,
+                            T* __restrict__ dc0, T* __restrict__ dh0,
+                            const float* __restrict__ dc_T, int n_steps,
+                            int batch, int hdim) {
+  bwd_body<T, TANH, 1, true>(d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0, dc_T,
+                             n_steps, batch, hdim);
+}
+
+template <typename T, bool TANH>
+int launch_seeded(const void* d_hs, const void* acts, const void* cs,
+                  const void* c_prev, const void* wh, void* dxp, void* dc0,
+                  void* dh0, const void* dc_T, int n_steps, int batch,
+                  int hdim, cudaStream_t stream) {
+  auto kernel = lstm_scan_bwd_seeded_kernel<T, TANH>;
+  const size_t smem = smem_bytes(batch, hdim);
+  const dim3 grid((hdim + UNITS - 1) / UNITS, 1);
+  const int fit = cooperative_fit(kernel, grid, THREADS, smem);
+  if (fit != 0) return fit;  // never degrade: the barrier would hang
+
+  const T* d_hs_ = static_cast<const T*>(d_hs);
+  const T* acts_ = static_cast<const T*>(acts);
+  const T* cs_ = static_cast<const T*>(cs);
+  const T* c_prev_ = static_cast<const T*>(c_prev);
+  const T* wh_ = static_cast<const T*>(wh);
+  T* dxp_ = static_cast<T*>(dxp);
+  T* dc0_ = static_cast<T*>(dc0);
+  T* dh0_ = static_cast<T*>(dh0);
+  const float* dc_T_ = static_cast<const float*>(dc_T);
+  void* args[] = {&d_hs_, &acts_, &cs_,     &c_prev_, &wh_,  &dxp_,
+                  &dc0_,  &dh0_,  &dc_T_,   &n_steps, &batch, &hdim};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), grid, dim3(THREADS), args, smem,
+      stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool TANH, int NDIRS>
 int launch(const void* d_hs, const void* acts, const void* cs,
            const void* c_prev, const void* wh, void* dxp, void* dc0,
            void* dh0, int n_steps, int batch, int hdim,
@@ -474,6 +547,36 @@ extern "C" int danet_lstm_scan_bwd(const void* d_hs, const void* acts,
                                    void* stream) {
   return dispatch(d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0, n_steps, batch,
                   hdim, 1, dtype, tanh_cand, stream);
+}
+
+// Kernel 3 with one direction, its dc carry seeded with dc_T [B, H]
+// (float32): the backward of danet_lstm_scan_train_state, whose final
+// cell state c_T has the cotangent dc_T.
+extern "C" int danet_lstm_scan_bwd_seeded(const void* d_hs, const void* acts,
+                                          const void* cs, const void* c_prev,
+                                          const void* wh, void* dxp,
+                                          void* dc0, void* dh0,
+                                          const void* dc_T, int n_steps,
+                                          int batch, int hdim, int dtype,
+                                          int tanh_cand, void* stream) {
+  if (n_steps <= 0 || batch <= 0 || hdim <= 0 || (dtype != 0 && dtype != 1)
+      || dc_T == nullptr)
+    return DANET_BAD_ARGUMENT;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return tanh_cand
+               ? launch_seeded<float, true>(d_hs, acts, cs, c_prev, wh, dxp,
+                                            dc0, dh0, dc_T, n_steps, batch,
+                                            hdim, s)
+               : launch_seeded<float, false>(d_hs, acts, cs, c_prev, wh, dxp,
+                                             dc0, dh0, dc_T, n_steps, batch,
+                                             hdim, s);
+  return tanh_cand ? launch_seeded<__nv_bfloat16, true>(
+                         d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0, dc_T,
+                         n_steps, batch, hdim, s)
+                   : launch_seeded<__nv_bfloat16, false>(
+                         d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0, dc_T,
+                         n_steps, batch, hdim, s);
 }
 
 // The row ceiling of one backward launch at H = hdim (either dtype and

@@ -31,6 +31,13 @@
 // without it (on an H100, drafts that tested a null c_T at run time, or
 // took c0 and c_T as two more arguments, ran the lean forward 20-25 %
 // slower in bfloat16 at B=32, or 7-15 % slower in float32 at B=4 and 32).
+// The saving forward's state entry (danet_lstm_scan_train_state, one
+// direction: return_state under autograd, sequence parallelism's relay
+// and halo warm-up) is SAVE and STATE together: c0 float32, hs, cs and
+// acts as the saving forward writes them, and c_T in float32 through a
+// kernel of its own (lstm_scan_save_state_kernel) whose one more argument
+// is the c_T pointer, so that the other kernels keep their arguments; both
+// kernels run one body (scan_body), where c_T rides in Saved.
 // xch [2, D, B, H] of 8-byte words is
 // scratch for the exchange (below).  Storage f32 or bf16, gate math and
 // the cell carry f32.  With D = 2, direction 1 sees the time-reversed
@@ -207,11 +214,13 @@ size_t smem_bytes(int batch, int hdim) {
 }
 
 // Where the saving forward stores its residuals: cs [.., B, H] and acts
-// [.., B, 4H] (row r of hs is row r of both); null in the lean one.
+// [.., B, 4H] (row r of hs is row r of both); null in the lean one.  c_T:
+// where STATE stores the final carry (cs's slot in the lean state entry).
 template <typename T>
 struct Saved {
   T* cs;
   T* acts;
+  float* c_T;
 };
 
 // The cell of one (row, unit) pair from its gate pre-activations a =
@@ -426,8 +435,8 @@ __device__ void scan_words(const T* __restrict__ xp, const T* __restrict__ c0,
                    tagged(to_f32(h), t));
     }
   }
-  if (STATE && owner)  // the carry after step T-1, c_T in cs's slot
-    reinterpret_cast<float*>(saved.cs)[dir * bh + rg * hdim + unit] = c;
+  if (STATE && owner)  // the carry after step T-1
+    saved.c_T[dir * bh + rg * hdim + unit] = c;
 }
 
 // The flags' carry after the last step, c_T, by the thread of each (row,
@@ -504,16 +513,16 @@ __device__ void scan_flags(const T* __restrict__ xp, const T* __restrict__ h0,
     }
     publish(flags, t);
   }
-  if (STATE) store_carry(reinterpret_cast<float*>(saved.cs), c_s, batch, hdim);
+  if (STATE) store_carry(saved.c_T, c_s, batch, hdim);
 }
 
+// The body of both kernels below: the whole launch of one layer.
 template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE>
-__global__ void __launch_bounds__(THREADS)
-lstm_scan_lean_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
-                      const T* __restrict__ c0, const T* __restrict__ h0,
-                      T* hs, T* __restrict__ cs, T* __restrict__ acts,
-                      unsigned long long* xch, int n_steps, int batch,
-                      int hdim) {
+__device__ __forceinline__ void scan_body(
+    const T* __restrict__ xp, const T* __restrict__ wh,
+    const T* __restrict__ c0, const T* __restrict__ h0, T* hs,
+    const Saved<T>& saved, unsigned long long* xch, int n_steps, int batch,
+    int hdim) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const bool words = batch <= TAGGED_MAX_B;
@@ -524,7 +533,6 @@ lstm_scan_lean_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
       reinterpret_cast<char*>(d_s) + (words ? 2 : 1) *
                                          row_bytes<T>(batch, hdim));
   float* c_s = red_s + red_floats<SAVE>();  // [B][UNITS]
-  const Saved<T> saved{cs, acts};
 
   const int dir = blockIdx.y;
   const int u0 = blockIdx.x * UNITS;
@@ -570,6 +578,36 @@ lstm_scan_lean_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
                                             hdim);
 }
 
+// Kernel B and the saving forwards; STATE without SAVE writes c_T into
+// cs's slot.
+template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE>
+__global__ void __launch_bounds__(THREADS)
+lstm_scan_lean_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
+                      const T* __restrict__ c0, const T* __restrict__ h0,
+                      T* hs, T* __restrict__ cs, T* __restrict__ acts,
+                      unsigned long long* xch, int n_steps, int batch,
+                      int hdim) {
+  scan_body<T, TANH, NDIRS, SAVE, STATE>(
+      xp, wh, c0, h0, hs, Saved<T>{cs, acts, reinterpret_cast<float*>(cs)},
+      xch, n_steps, batch, hdim);
+}
+
+// The saving forward's state entry, one direction: SAVE and STATE, c_T in
+// its own argument.
+template <typename T, bool TANH>
+__global__ void __launch_bounds__(THREADS)
+lstm_scan_save_state_kernel(const T* __restrict__ xp,
+                            const T* __restrict__ wh,
+                            const T* __restrict__ c0,
+                            const T* __restrict__ h0, T* hs,
+                            T* __restrict__ cs, T* __restrict__ acts,
+                            float* __restrict__ c_T, unsigned long long* xch,
+                            int n_steps, int batch, int hdim) {
+  scan_body<T, TANH, 1, true, true>(xp, wh, c0, h0, hs,
+                                    Saved<T>{cs, acts, c_T}, xch, n_steps,
+                                    batch, hdim);
+}
+
 template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE>
 int launch(const void* xp, const void* wh, const void* c0, const void* h0,
            void* hs, void* cs, void* acts, void* xch, int n_steps,
@@ -590,6 +628,35 @@ int launch(const void* xp, const void* wh, const void* c0, const void* h0,
   unsigned long long* xch_ = static_cast<unsigned long long*>(xch);
   void* args[] = {&xp_,  &wh_,     &c0_,   &h0_,  &hs_, &cs_,
                   &acts_, &xch_, &n_steps, &batch, &hdim};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), grid, dim3(THREADS), args, smem,
+      stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool TANH>
+int launch_save_state(const void* xp, const void* wh, const void* c0,
+                      const void* h0, void* hs, void* cs, void* acts,
+                      void* c_T, void* xch, int n_steps, int batch, int hdim,
+                      cudaStream_t stream) {
+  auto kernel = lstm_scan_save_state_kernel<T, TANH>;
+  const size_t smem = smem_bytes<T, true>(batch, hdim);
+  const dim3 grid((hdim + UNITS - 1) / UNITS, 1);
+  const int fit = cooperative_fit(kernel, grid, THREADS, smem);
+  if (fit != 0) return fit;  // never degrade: the polls would hang
+
+  const T* xp_ = static_cast<const T*>(xp);
+  const T* wh_ = static_cast<const T*>(wh);
+  const T* c0_ = static_cast<const T*>(c0);
+  const T* h0_ = static_cast<const T*>(h0);
+  T* hs_ = static_cast<T*>(hs);
+  T* cs_ = static_cast<T*>(cs);
+  T* acts_ = static_cast<T*>(acts);
+  float* c_T_ = static_cast<float*>(c_T);
+  unsigned long long* xch_ = static_cast<unsigned long long*>(xch);
+  void* args[] = {&xp_,  &wh_,  &c0_,     &h0_,   &hs_, &cs_,
+                  &acts_, &c_T_, &xch_, &n_steps, &batch, &hdim};
   cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(kernel), grid, dim3(THREADS), args, smem,
       stream);
@@ -682,6 +749,36 @@ extern "C" int danet_lstm_scan_train(const void* xp, const void* wh,
                                      void* stream) {
   return dispatch<1, true>(xp, wh, c0, h0, hs, cs, acts, xch, n_steps,
                            batch, hdim, dtype, tanh_cand, stream);
+}
+
+// The saving forward with one direction and its state (lstm_apply's
+// return_state under autograd): as danet_lstm_scan_train, but c0 [B, H]
+// is float32 whatever the storage type, and the final cell state c_T
+// [B, H] is also written, in float32.
+extern "C" int danet_lstm_scan_train_state(const void* xp, const void* wh,
+                                           const void* c0, const void* h0,
+                                           void* hs, void* cs, void* acts,
+                                           void* c_T, void* xch, int n_steps,
+                                           int batch, int hdim, int dtype,
+                                           int tanh_cand, void* stream) {
+  if (n_steps <= 0 || batch <= 0 || hdim <= 0 || (dtype != 0 && dtype != 1)
+      || c0 == nullptr || c_T == nullptr
+      || reinterpret_cast<size_t>(xch) % 8 != 0)
+    return DANET_BAD_ARGUMENT;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return tanh_cand ? launch_save_state<float, true>(
+                           xp, wh, c0, h0, hs, cs, acts, c_T, xch, n_steps,
+                           batch, hdim, s)
+                     : launch_save_state<float, false>(
+                           xp, wh, c0, h0, hs, cs, acts, c_T, xch, n_steps,
+                           batch, hdim, s);
+  return tanh_cand ? launch_save_state<__nv_bfloat16, true>(
+                         xp, wh, c0, h0, hs, cs, acts, c_T, xch, n_steps,
+                         batch, hdim, s)
+                   : launch_save_state<__nv_bfloat16, false>(
+                         xp, wh, c0, h0, hs, cs, acts, c_T, xch, n_steps,
+                         batch, hdim, s);
 }
 
 // The row ceiling of one forward launch at H = hdim (the same for one and

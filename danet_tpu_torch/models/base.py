@@ -35,6 +35,14 @@ class Encoder(ModelModule):
               tap=None):
         raise NotImplementedError()
 
+    def sp_granularity(self) -> int:
+        """The frame multiple each rank's T-chunk must be under sequence
+        parallelism (MESH_SEQ > 1): 1, or a segment-granular encoder's
+        unit (dprnn-v1: DPRNN_CHUNK; conv-bilstm-v1: 4), which the
+        trainer's time bucket honours (``train/trainer.py::
+        effective_bucket``)."""
+        return 1
+
     def apply_debug(self, params, log_spectra):
         """(embed, fetches): the forward pass and a dict of the internal
         activations that ``apply`` taps, for the debug mode's .mat dump.

@@ -10,9 +10,11 @@ auxiliary DC_LOSS_WEIGHT, ANCHOR_AUX_LOSS and REG_APPLY),
 ``_separate_tail``, ``separate``, ``separate_wav``, ``reg_loss``, the
 long-form ``separate_long`` and the causal streaming surface
 (``separate_stream`` over spectra; ``stream_init`` / ``stream_step`` over
-waveforms, every carried value in one state dict).  ``separate_sp`` (a
-sequence-parallel mesh) is not ported.  ``_check_parallel_support`` keeps
-JAX's refusals (``:73-105``) and refuses every other MESH_* > 1.
+waveforms, every carried value in one state dict) and ``separate_sp``
+(sequence-parallel inference over a mesh's 'seq' axis, ``:336-392``).
+``_check_parallel_support`` keeps JAX's refusals (``:73-105``) and
+refuses MESH_SEQ > 1 for the encoders whose sequence-parallel route is
+not ported yet.
 
 The unit phase vector is ``mix / (|mix| + eps)``, as in the JAX package
 (not atan2).
@@ -81,10 +83,11 @@ class DaNet:
 
     def _check_parallel_support(self):
         """JAX's refusals of a MESH_* axis that the configured encoder has
-        no route for (``ValueError``, word for word).  MESH_DATA,
-        MESH_MODEL, MESH_PIPE and MESH_EXPERT are ported (the Trainer's
-        mesh, ``parallel/``); MESH_SEQ > 1, which JAX accepts, raises
-        NotImplementedError."""
+        no route for (``ValueError``, word for word).  Every MESH_* axis is
+        ported (the Trainer's mesh, ``parallel/``); MESH_SEQ > 1 with
+        tcn-v1, dprnn-v1 or conv-bilstm-v1, which JAX routes, raises
+        NotImplementedError (ROADMAP item 6d; tasnet-v1 refuses it in
+        ``models/tasnet.py``)."""
         from danet_tpu_torch.models import encoders as enc_mod
         hp, enc = self.hp, self.encoder
 
@@ -114,11 +117,14 @@ class DaNet:
             raise ValueError(
                 "MESH_PIPE and MESH_SEQ cannot combine (the encoder "
                 "routes through one strategy); pick one")
-        if n("MESH_SEQ") > 1:
+        if n("MESH_SEQ") > 1 and isinstance(
+                enc, (enc_mod.TcnEncoder, enc_mod.DprnnEncoder,
+                      enc_mod.ConvBiLstmEncoder)):
             raise NotImplementedError(
-                "MESH_SEQ > 1 is not ported: sequence parallelism is "
-                "ROADMAP.md queue 1 item 6b-6d (MESH_DATA, MESH_MODEL, "
-                "MESH_PIPE and MESH_EXPERT are ported)")
+                "MESH_SEQ > 1 with ENCODER_TYPE=%r is not ported: its "
+                "sequence-parallel route is ROADMAP.md queue 1 item 6d "
+                "(bilstm-orig, gru-v1, attn-v1 and moe-v1 are ported)"
+                % hp.ENCODER_TYPE)
 
     def init(self, generator: torch.Generator, device=None) -> dict:
         """Random parameters with the JAX package's layout."""
@@ -313,6 +319,62 @@ class DaNet:
         self._check_truth_free()
         mix_pwr, logmag, phase_unit = self._mix_features(mix_ri)
         embed = self._embed(params, logmag)
+        return self._separate_tail(params, embed, mix_pwr, phase_unit)
+
+    def separate_sp(self, params, mix_ri: torch.Tensor, mesh, halo: int = 32,
+                    seq_axis: str = "seq", sp_attn: str = "ring"
+                    ) -> torch.Tensor:
+        """Sequence-parallel inference over ``mesh``'s ``seq_axis``: [B, T,
+        F, 2] -> [B, N, T, F, 2] (JAX ``separate_sp``).
+
+        The encoder runs T-split per its family: bilstm-orig's stack by
+        SP_RNN_SCHEME ('relay', exact, or 'halo' with ``halo`` frames;
+        ``parallel/seq_parallel.bilstm_stack_sp``), its output gathered
+        over the axis before the head; attn-v1 and moe-v1 with the
+        sequence-parallel attention ``sp_attn`` ('ring' or 'ulysses',
+        which needs ATTN_HEADS divisible by the axis size), the band of
+        ATTN_CAUSAL in global positions.  Every rank of the group passes
+        the same request and returns the whole answer; the front end, the
+        head, the estimator and the masks run alike on each, where JAX's
+        GSPMD splits them over T.  Other encoders raise
+        NotImplementedError, as in JAX.  Collective over the group."""
+        from danet_tpu_torch.models.encoders import (AttentionEncoder,
+                                                      BiLstmEncoder,
+                                                      _LstmHead, _backend,
+                                                      _candidate_activation,
+                                                      _centered)
+        from danet_tpu_torch.parallel import collectives, seq_parallel
+        hp = self.hp
+        self._check_truth_free()
+        mix_pwr, logmag, phase_unit = self._mix_features(mix_ri)
+        enc = params["encoder"]
+        if isinstance(self.encoder, AttentionEncoder):
+            if sp_attn == "ulysses":
+                from danet_tpu_torch.parallel.ulysses import (
+                    ulysses_attention as sp_attention)
+            else:
+                from danet_tpu_torch.parallel.ring_attention import (
+                    ring_attention as sp_attention)
+            causal_w = self.encoder._causal_window()
+            embed = self.encoder.apply(
+                enc, logmag.to(self._cdt()),
+                attn_fn=lambda q, k, v, km: sp_attention(
+                    q, k, v, mesh, seq_axis=seq_axis, key_mask=km,
+                    data_axis=None, causal_window=causal_w),
+                attn_fn_is_causal=True)
+        elif isinstance(self.encoder, BiLstmEncoder):
+            x = _centered(logmag.to(self._cdt()))
+            layers = [enc[f"lstm{i}"] for i in range(self.encoder.N_LAYERS)]
+            h = seq_parallel.bilstm_stack_sp(
+                layers, x, mesh, halo=halo, seq_axis=seq_axis,
+                candidate_activation=_candidate_activation(hp),
+                backend=_backend(hp), data_axis=None,
+                scheme=getattr(hp, "SP_RNN_SCHEME", "relay") or "relay")
+            h = collectives.leave_gather(mesh, h, seq_axis, 1)
+            embed = _LstmHead.apply(enc["output"], hp, h)
+        else:
+            raise NotImplementedError(
+                "separate_sp supports bilstm-orig and attention encoders")
         return self._separate_tail(params, embed, mix_pwr, phase_unit)
 
     # ------------------------------------------------------------------

@@ -3,8 +3,10 @@
 the LSTM output head.
 
 Counterpart of ``danet_tpu/models/encoders.py:25-63,67-1251``: the
-single-device paths and tensor, pipeline and expert parallelism (no
-sequence parallelism), with the causal streaming hooks of ``lstm-orig``,
+single-device paths and tensor, pipeline, expert and sequence parallelism
+(the last for ``bilstm-orig``, ``gru-v1``, ``attn-v1`` and ``moe-v1``;
+JAX's routes of ``tcn-v1``, ``dprnn-v1`` and ``conv-bilstm-v1`` are
+ROADMAP item 6d), with the causal streaming hooks of ``lstm-orig``,
 ``gru-v1``, causal ``attn-v1`` and ``moe-v1``, causal ``tcn-v1`` and
 online ``dprnn-v1``: ``stream_state_init(batch, dtype, device)`` (the
 state at a fresh stream), ``stream_hidden(params, x, state)`` (a centred
@@ -36,6 +38,14 @@ the others as they are, each with its hand kernels on a card.  ATTN_BACKEND
 (``parallel/pipeline.py``, each stage's layers on the hand kernels), and
 under MESH_EXPERT ``moe-v1``'s MLPs run expert-parallel
 (``parallel/expert.py``), each where ``_route_mesh`` finds the axis.
+Under MESH_SEQ the recurrent stacks of ``bilstm-orig`` and ``gru-v1`` run
+on this rank's T-chunk of its rows (``parallel/seq_parallel.py``:
+SP_RNN_SCHEME 'relay' or 'halo', SP_HALO) and their output is gathered
+over 'seq' before the head, and the attention of ``attn-v1`` and
+``moe-v1`` runs T-split (SP_ATTN 'ring' or 'ulysses',
+``parallel/ring_attention.py``, ``parallel/ulysses.py``), the rest of the
+encoder alike on every rank of the 'seq' group, as JAX's GSPMD runs it
+around its ``shard_map``s.
 """
 from __future__ import annotations
 
@@ -264,16 +274,24 @@ class BiLstmEncoder(Encoder):
         DROPOUT_KEEP_PROB after every layer, drawn from ``generator``;
         taps ``lstm<i>_h``.  Under MESH_PIPE > 1 with a mesh that has the
         'pipe' axis, the stack runs pipelined (``_apply_pipelined``: no
-        taps, as in JAX)."""
+        taps, as in JAX); under MESH_SEQ > 1 with a 'seq' axis,
+        sequence-parallel (``_apply_sp``: no taps)."""
         hp = self.hp
         act = _candidate_activation(hp)
         keep = hp.DROPOUT_KEEP_PROB if train else 1.0
         x = _centered(log_spectra)
         n_pipe = int(getattr(hp, "MESH_PIPE", 1) or 1)
+        n_seq = int(getattr(hp, "MESH_SEQ", 1) or 1)
         pipe_mesh = _route_mesh(hp, "pipe", n_pipe) if n_pipe > 1 else None
+        seq_mesh = (_route_mesh(hp, "seq", n_seq)
+                    if n_seq > 1 and pipe_mesh is None else None)
         if pipe_mesh is not None:
             x = self._apply_pipelined(params, x, pipe_mesh, n_pipe, act, keep,
                                       generator)
+            return _LstmHead.apply(params["output"], hp, x)
+        if seq_mesh is not None:
+            x = self._apply_sp(params, x, seq_mesh, n_seq, act, keep,
+                               generator)
             return _LstmHead.apply(params["output"], hp, x)
         tp_mesh = self._tp_kernel_mesh()
         # the dropout that ends each layer stays outside the region, and
@@ -291,6 +309,27 @@ class BiLstmEncoder(Encoder):
             if tap:
                 tap("lstm%d_h" % i, x)
         return _LstmHead.apply(params["output"], hp, x)
+
+    def _apply_sp(self, params, x, mesh, n_seq, act, keep, generator):
+        """The stack through ``parallel/seq_parallel.py`` on this rank's
+        T-chunk (SP_RNN_SCHEME, the halo min(SP_HALO or 32, T / S)), its
+        output gathered over 'seq' (JAX ``_apply_sp``,
+        ``danet_tpu/models/encoders.py:277-293``)."""
+        from danet_tpu_torch.parallel import collectives, seq_parallel
+        hp = self.hp
+        t = x.shape[1]
+        if t % n_seq:
+            raise ValueError(
+                "MESH_SEQ=%d must divide the frame count T=%d (pick "
+                "MAX_TRAIN_LEN / TIME_BUCKET accordingly)" % (n_seq, t))
+        halo = min(int(getattr(hp, "SP_HALO", 0) or 32), t // n_seq)
+        layers = [params[f"lstm{i}"] for i in range(self.N_LAYERS)]
+        h = seq_parallel.bilstm_stack_sp(
+            layers, x, mesh, halo=halo, candidate_activation=act,
+            backend=_backend(hp), data_axis=None, dropout_rng=generator,
+            keep_prob=keep, remat=bool(getattr(hp, "REMAT", False)),
+            scheme=getattr(hp, "SP_RNN_SCHEME", "relay") or "relay")
+        return collectives.leave_gather(mesh, h, "seq", 1)
 
     def _apply_pipelined(self, params, x, mesh, n_pipe, act, keep,
                          generator):
@@ -331,9 +370,9 @@ class BiLstmEncoder(Encoder):
 @hparams.register_encoder("gru-v1")
 class GruEncoder(Encoder):
     """4x unidirectional GRU, 600 units; the same centering and head as
-    the LSTM encoders.  The dense path only: MESH_SEQ's sequence-parallel
-    GRU stack is not ported (``DaNet._check_parallel_support`` refuses
-    it)."""
+    the LSTM encoders.  Under MESH_SEQ > 1 with a 'seq' axis the stack runs
+    sequence-parallel (``parallel/seq_parallel.gru_stack_sp``), its output
+    gathered over 'seq' before the head."""
 
     HDIM = 600
     N_LAYERS = 4
@@ -353,9 +392,27 @@ class GruEncoder(Encoder):
     def apply(self, params, log_spectra, train=False, generator=None,
               tap=None):
         """[B, T, F] -> [B, T, F, E]; no dropout (``train`` is ignored);
-        taps ``gru<i>_h``."""
+        taps ``gru<i>_h`` (none under MESH_SEQ; JAX
+        ``danet_tpu/models/encoders.py:700-718``)."""
         hp = self.hp
         x = _centered(log_spectra)
+        n_seq = int(getattr(hp, "MESH_SEQ", 1) or 1)
+        mesh = _route_mesh(hp, "seq", n_seq) if n_seq > 1 else None
+        if mesh is not None:
+            from danet_tpu_torch.parallel import collectives, seq_parallel
+            t = x.shape[1]
+            if t % n_seq:
+                raise ValueError(
+                    "MESH_SEQ=%d must divide the frame count T=%d"
+                    % (n_seq, t))
+            halo = min(int(getattr(hp, "SP_HALO", 0) or 32), t // n_seq)
+            layers = [params[f"gru{i}"] for i in range(self.N_LAYERS)]
+            h = seq_parallel.gru_stack_sp(
+                layers, x, mesh, halo=halo, backend=_backend(hp),
+                data_axis=None, remat=bool(getattr(hp, "REMAT", False)),
+                scheme=getattr(hp, "SP_RNN_SCHEME", "relay") or "relay")
+            x = collectives.leave_gather(mesh, h, "seq", 1)
+            return _LstmHead.apply(params["output"], hp, x)
         for i in range(self.N_LAYERS):
             x = rnn.gru_apply(params[f"gru{i}"], x, backend=_backend(hp))
             if tap:
@@ -398,12 +455,13 @@ class AttentionEncoder(Encoder):
     attention to itself and the ATTN_LOOKBACK - 1 frames before it, and
     is read before ATTN_BACKEND, as in the JAX package: the band runs
     chunked or dense by ATTN_LOCAL_CHUNK (``ops/local_attention.py``),
-    never on the flash kernels, which have no band.  ``apply`` takes no
-    external attention function, so JAX's guard against one that drops
-    the band has nothing to guard here.  Under ATTN_CAUSAL the encoder
-    streams: each block keeps a rolling K/V cache of the last
-    ATTN_LOOKBACK - 1 frames.  MESH_SEQ > 1 (sequence-parallel attention)
-    is refused by ``DaNet._check_parallel_support``."""
+    never on the flash kernels, which have no band.  Under ATTN_CAUSAL
+    the encoder streams: each block keeps a rolling K/V cache of the last
+    ATTN_LOOKBACK - 1 frames.  Under MESH_SEQ > 1 with a 'seq' axis the
+    attention runs T-split over it (``_sp_attn_fn``: SP_ATTN 'ring' or
+    'ulysses', the band in global positions), and ``apply`` takes an
+    external ``attn_fn`` (``DaNet.separate_sp``) with JAX's guard against
+    one that would drop the band."""
 
     def _dims(self):
         hp = self.hp
@@ -495,22 +553,56 @@ class AttentionEncoder(Encoder):
             raise ValueError("ATTN_LOOKBACK must be >= 1 (got %d)" % w)
         return w
 
+    def _sp_attn_fn(self, mesh, causal_window: int = 0):
+        """The sequence-parallel attention of SP_ATTN ('ring' by default,
+        or 'ulysses') over ``mesh``'s 'seq' axis, as attn_fn(q, k, v,
+        key_mask), on the rows as they are (the trainer split them; JAX
+        ``_sp_attn_fn``)."""
+        kind = str(getattr(self.hp, "SP_ATTN", None) or "ring")
+        if kind == "ulysses":
+            from danet_tpu_torch.parallel.ulysses import (
+                ulysses_attention as sp_attention)
+        elif kind == "ring":
+            from danet_tpu_torch.parallel.ring_attention import (
+                ring_attention as sp_attention)
+        else:
+            raise ValueError("SP_ATTN must be 'ring' or 'ulysses', got %r"
+                             % (kind,))
+        return lambda q, k, v, km: sp_attention(
+            q, k, v, mesh, key_mask=km, data_axis=None,
+            causal_window=causal_window)
+
     def apply(self, params, log_spectra, train=False, generator=None,
-              tap=None):
+              tap=None, attn_fn=None, attn_fn_is_causal=False):
         """[B, T, F] -> [B, T, F, E]; with ``train``, inverted dropout at
         DROPOUT_KEEP_PROB on every block's MLP output, drawn from
-        ``generator``; taps ``block<i>_h``."""
+        ``generator``; taps ``block<i>_h``.  ``attn_fn(q, k, v, key_mask)
+        -> [B, T, H, D]`` replaces the attention (``DaNet.separate_sp``'s
+        sequence-parallel one); ``attn_fn_is_causal``: it applies the
+        ATTN_CAUSAL band itself, else ATTN_CAUSAL with an ``attn_fn``
+        raises ValueError (JAX's guard)."""
         hp = self.hp
         d, heads, n_layers, _ = self._dims()
         b, t = log_spectra.shape[0], log_spectra.shape[1]
         keep = hp.DROPOUT_KEEP_PROB if train else 1.0
         drop = generator is not None and keep < 1.0
         causal_w = self._causal_window()
-        if causal_w:
+        n_seq = int(getattr(hp, "MESH_SEQ", 1) or 1)
+        if causal_w and attn_fn is not None and not attn_fn_is_causal:
+            raise ValueError(
+                "ATTN_CAUSAL with an external attn_fn would silently "
+                "drop the causal band; pass causal_window to the SP "
+                "attention and set attn_fn_is_causal=True "
+                "(DaNet.separate_sp does)")
+        seq_mesh = (_route_mesh(hp, "seq", n_seq)
+                    if attn_fn is None and n_seq > 1 else None)
+        if seq_mesh is not None:
+            attn_fn = self._sp_attn_fn(seq_mesh, causal_window=causal_w)
+        elif attn_fn is None and causal_w:
             # the band, chunked or dense, whatever ATTN_BACKEND says
             attn_fn = local_attention.resolve_banded_attn_fn(
                 hp, t, causal_w, self._dense_attention, log_spectra.device)
-        else:
+        elif attn_fn is None:
             attn_fn = attention.resolve_attn_fn(hp, t, self._dense_attention)
 
         # zero-padded frames have exactly zero spectra: they are no keys,
@@ -958,6 +1050,10 @@ class DprnnEncoder(Encoder):
         """A stream advances in whole segments of DPRNN_CHUNK frames."""
         return self._dims()[2]
 
+    def sp_granularity(self) -> int:
+        """Sequence parallelism shards whole DPRNN_CHUNK segments."""
+        return self._dims()[2]
+
     def stream_state_init(self, batch: int, dtype=torch.float32,
                           device=None):
         """Each block's inter-path (c, h) per position [B P, H]: zeros, the
@@ -1005,6 +1101,11 @@ class ConvBiLstmEncoder(Encoder):
     and FEATURE_SIZE // 4 == FFT_SIZE // 8."""
 
     ALIGN = 4   # two 2x2 pools, then a x2 shuffle and the fold of 4
+
+    def sp_granularity(self) -> int:
+        """Each sequence-parallel chunk lands on the double-pooled grid (T
+        a multiple of 4 S)."""
+        return 4
 
     def init(self, generator, device=None):
         hp = self.hp

@@ -88,8 +88,8 @@ class TasNet:
                     "and MESH_SEQ only; %s>1 is not routed" % key)
         if n("MESH_SEQ") > 1:
             raise NotImplementedError(
-                "MESH_SEQ > 1 is not ported for tasnet-v1: sequence "
-                "parallelism is the rest of ROADMAP.md, queue 1 item 6")
+                "MESH_SEQ > 1 is not ported for tasnet-v1: its "
+                "sequence-parallel route is ROADMAP.md queue 1 item 6d")
 
     def _dims(self) -> dict:
         hp = self.hp

@@ -45,6 +45,8 @@ _SIGNATURES = [
     ("danet_lstm_scan_train", _I, [_P] * 8 + [_I] * 5 + [_P]),
     ("danet_lstm_scan_bwd", _I,
      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    ("danet_lstm_scan_train_state", _I, [_P] * 9 + [_I] * 5 + [_P]),
+    ("danet_lstm_scan_bwd_seeded", _I, [_P] * 9 + [_I] * 5 + [_P]),
     ("danet_gru_scan", _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     ("danet_gru_scan_train", _I,
      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),

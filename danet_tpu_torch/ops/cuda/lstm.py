@@ -13,8 +13,15 @@ and ``lstm_scan_pallas`` (n_dirs=1) with their custom VJPs:
     ``SAVE``; ``lstm_scan_train``: the same on one direction;
   * ``bilstm_scan_bwd`` / ``lstm_scan_bwd``: kernel 3, the reverse-time
     backward (``_bwd_call``);
-  * ``BiLstmScan`` / ``LstmScan``: the autograd Functions that tie
-    them together as ``_make_scan`` does with ``jax.custom_vjp``.
+  * ``lstm_scan_train_state`` / ``lstm_scan_bwd_seeded``: the saving
+    forward with the final carry (c0 and c_T float32) and kernel 3 with
+    its dc carry seeded by c_T's cotangent, one direction: the final
+    carry under autograd (``lstm_apply``'s ``return_state``, which
+    sequence parallelism's relay and halo warm-up differentiate; JAX runs
+    its XLA scan there, the Pallas kernel having no carry output);
+  * ``BiLstmScan`` / ``LstmScan`` / ``LstmScanState``: the autograd
+    Functions that tie them together as ``_make_scan`` does with
+    ``jax.custom_vjp``.
 
 The one-direction wrappers launch the same kernels with the direction
 count as a parameter (``[T, 1, B, .]`` is ``[T, B, .]``), each under its
@@ -74,11 +81,10 @@ def _scan_plain(xp, wh, c0, h0, tanh_cand: bool, save: bool,
         if save:
             cs.append(c.to(dt))
             acts.append(torch.cat([cand, i, f, o], dim=-1).to(dt))
-    if state:
-        return torch.stack(hs), c
     if not save:
-        return torch.stack(hs)
-    return torch.stack(hs), torch.stack(cs), torch.stack(acts)
+        return (torch.stack(hs), c) if state else torch.stack(hs)
+    out = (torch.stack(hs), torch.stack(cs), torch.stack(acts))
+    return out + (c,) if state else out
 
 
 def bilstm_scan_plain(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
@@ -118,18 +124,31 @@ def lstm_scan_train_plain(xp, wh, c0, h0, tanh_cand: bool):
     return tuple(v[:, 0] for v in out)
 
 
-def bilstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
+def lstm_scan_train_state_plain(xp, wh, c0, h0, tanh_cand: bool):
+    """Plain version of the saving forward's state entry: -> (hs, cs,
+    acts, c_T [B, H]), c_T in the carry's float32 (float64 for float64
+    inputs), c0 taken in any float dtype."""
+    hs, cs, acts, c_t = _scan_plain(xp[:, None], wh[None], c0[None],
+                                    h0[None], tanh_cand, True, True)
+    return hs[:, 0], cs[:, 0], acts[:, 0], c_t[0]
+
+
+def bilstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand: bool,
+                          dc_T=None):
     """Plain version of kernel 3: ``_bwd_kernel`` / ``_cell_bwd_step``
     (lstm.py:80-96,144-197) in reverse time.
 
     d_hs, cs, c_prev [T, 2, B, H], acts [T, 2, B, 4H], wh [2, H, 4H] ->
     (dxp [T, 2, B, 4H], dc0, dh0 [2, B, H]) in d_hs's dtype.  dxp is
-    rounded to that dtype before it feeds dh_{t-1} = dxp[t] @ Wh^T."""
+    rounded to that dtype before it feeds dh_{t-1} = dxp[t] @ Wh^T.  The dc
+    carry starts at ``dc_T`` [2, B, H] (the final cell state's cotangent)
+    when given, else at zero."""
     hdim = wh.shape[1]
     dt = d_hs.dtype
     acc = acc_dtype(d_hs)                  # float32, or float64 for float64
     wht = wh.to(acc).transpose(1, 2)                       # [2, 4H, H]
-    dc = torch.zeros(cs.shape[1:], dtype=acc, device=cs.device)
+    dc = torch.zeros(cs.shape[1:], dtype=acc, device=cs.device) \
+        if dc_T is None else dc_T.to(acc)
     dh = torch.zeros_like(dc)
     dxp = [None] * acts.shape[0]
     for t in range(acts.shape[0] - 1, -1, -1):
@@ -151,13 +170,14 @@ def bilstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
     return torch.stack(dxp), dc.to(dt), dh.to(dt)
 
 
-def lstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
+def lstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand: bool,
+                        dc_T=None):
     """Plain version of the one-direction kernel 3: d_hs, cs, c_prev
     [T, B, H], acts [T, B, 4H], wh [H, 4H] -> (dxp [T, B, 4H], dc0, dh0
-    [B, H])."""
+    [B, H]); with ``dc_T`` [B, H] the seeded form's."""
     dxp, dc0, dh0 = bilstm_scan_bwd_plain(
         d_hs[:, None], acts[:, None], cs[:, None], c_prev[:, None], wh[None],
-        tanh_cand)
+        tanh_cand, None if dc_T is None else dc_T[None])
     return dxp[:, 0], dc0[0], dh0[0]
 
 
@@ -279,8 +299,9 @@ def _fwd(wrapper, entry: str, n_dirs: int, save: bool, xp, wh, c0, h0,
          tanh_cand, rows=None, state: bool = False):
     """Launch a forward kernel, ``wrapper.launches`` counting each launch:
     -> hs, or (hs, cs, acts) when ``save``, or (hs, c_T) when ``state``
-    (one direction; c0 and c_T float32).  A batch above ``rows``
-    (``max_rows`` by default) is split across launches, and so is c_T."""
+    (one direction; c0 and c_T float32), or (hs, cs, acts, c_T) with both.
+    A batch above ``rows`` (``max_rows`` by default) is split across
+    launches, and so is c_T."""
     if state:
         t, b, hdim = _fwd_shapes(xp, wh, h0, h0, n_dirs)
         if c0.dtype != torch.float32 or tuple(c0.shape) != (b, hdim) \
@@ -297,13 +318,12 @@ def _fwd(wrapper, entry: str, n_dirs: int, save: bool, xp, wh, c0, h0,
         b = xp.shape[-2]
         hs = torch.empty((t,) + _dirs(n_dirs, b, hdim), dtype=xp.dtype,
                          device=xp.device)
+        outs = (hs,)
         if save:
-            outs = (hs, torch.empty_like(hs), torch.empty_like(xp))
-        elif state:
-            outs = (hs, torch.empty(c0.shape, dtype=torch.float32,
-                                    device=xp.device))
-        else:
-            outs = (hs,)
+            outs += (torch.empty_like(hs), torch.empty_like(xp))
+        if state:
+            outs += (torch.empty(c0.shape, dtype=torch.float32,
+                                 device=xp.device),)
         xch = exchange_words(n_dirs, b, hdim, xp.device)
         _launch(entry, entry + " kernel", xp.device, (xp, wh, c0, h0) + outs
                 + (xch,), (t, b, hdim, _DTYPE_CODES[xp.dtype],
@@ -314,10 +334,11 @@ def _fwd(wrapper, entry: str, n_dirs: int, save: bool, xp, wh, c0, h0,
 
 
 def _bwd(wrapper, entry: str, n_dirs: int, d_hs, acts, cs, c_prev, wh,
-         tanh_cand, rows=None):
+         tanh_cand, rows=None, dc_T=None):
     """Launch a backward kernel, ``wrapper.launches`` counting each launch:
-    -> (dxp, dc0, dh0).  A batch above ``rows`` (``max_rows`` by default)
-    is split across launches."""
+    -> (dxp, dc0, dh0); ``dc_T`` (one direction, float32 [B, H]): the
+    seeded entry's seed.  A batch above ``rows`` (``max_rows`` by default)
+    is split across launches, and so is dc_T."""
     if acts.dim() != 2 + len(_dirs(n_dirs, 0)) or acts.shape[-1] % 4 \
             or (n_dirs == 2 and acts.shape[1] != 2):
         raise ValueError("acts must be [T, %sB, 4H], got %s"
@@ -329,21 +350,30 @@ def _bwd(wrapper, entry: str, n_dirs: int, d_hs, acts, cs, c_prev, wh,
     _check([("d_hs", d_hs), ("acts", acts), ("cs", cs), ("c_prev", c_prev),
             ("wh", wh)],
            [hshape, acts.shape, hshape, hshape, _dirs(n_dirs, hdim, g4)])
+    seeds = ()
+    if dc_T is not None:
+        if n_dirs != 1 or dc_T.dtype != torch.float32 \
+                or tuple(dc_T.shape) != (b, hdim) \
+                or dc_T.device != acts.device or not dc_T.is_contiguous():
+            raise ValueError("dc_T must be a contiguous float32 %s on %s, "
+                             "got %s %s" % ((b, hdim), acts.device,
+                                            dc_T.dtype, tuple(dc_T.shape)))
+        seeds = (dc_T,)
     if rows is None:
         rows = max_rows(acts.device, hdim, acts.dtype, "bwd")
 
-    def launch(d_hs, acts, cs, c_prev):
+    def launch(d_hs, acts, cs, c_prev, *seed):
         b = acts.shape[-2]
         dxp = torch.empty_like(acts)
         dc0 = torch.empty(_dirs(n_dirs, b, hdim), dtype=acts.dtype,
                           device=acts.device)
         dh0 = torch.empty_like(dc0)
         _launch(entry, entry + " kernel", acts.device,
-                (d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0),
+                (d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0) + seed,
                 (t, b, hdim, _DTYPE_CODES[acts.dtype], int(bool(tanh_cand))))
         wrapper.launches += 1
         return dxp, dc0, dh0
-    return _by_rows(launch, rows, d_hs, acts, cs, c_prev)
+    return _by_rows(launch, rows, d_hs, acts, cs, c_prev, *seeds)
 
 
 def bilstm_scan(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
@@ -403,8 +433,32 @@ def lstm_scan_bwd(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
                 c_prev, wh, tanh_cand)
 
 
+def lstm_scan_train_state(xp, wh, c0, h0, tanh_cand: bool):
+    """The saving forward's state entry on one direction: c0 [B, H]
+    float32 -> (hs, cs [T, B, H], acts [T, B, 4H], c_T [B, H] float32)."""
+    if not _on_cuda(xp, "lstm_scan_train_state"):
+        return lstm_scan_train_state_plain(xp, wh, c0, h0, tanh_cand)
+    return _fwd(lstm_scan_train_state, "danet_lstm_scan_train_state", 1,
+                True, xp, wh, c0, h0, tanh_cand, state=True)
+
+
+def lstm_scan_bwd_seeded(d_hs, acts, cs, c_prev, wh, tanh_cand: bool,
+                         dc_T=None):
+    """Kernel 3 on one direction with its dc carry seeded by ``dc_T``
+    [B, H] float32 (zeros when None): -> (dxp, dc0, dh0)."""
+    if dc_T is None:
+        dc_T = torch.zeros(cs.shape[1:], dtype=acc_dtype(cs),
+                           device=cs.device)
+    if not _on_cuda(d_hs, "lstm_scan_bwd_seeded"):
+        return lstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand,
+                                   dc_T)
+    return _bwd(lstm_scan_bwd_seeded, "danet_lstm_scan_bwd_seeded", 1, d_hs,
+                acts, cs, c_prev, wh, tanh_cand, dc_T=dc_T)
+
+
 for _fn in (bilstm_scan, bilstm_scan_train, bilstm_scan_bwd, lstm_scan,
-            lstm_scan_train, lstm_scan_bwd):
+            lstm_scan_train, lstm_scan_bwd, lstm_scan_train_state,
+            lstm_scan_bwd_seeded):
     _fn.launches = 0
 
 
@@ -418,25 +472,46 @@ _TRAIN_KERNELS = {
 }
 
 
-def _scan_forward(ctx, n_dirs, xp, wh, c0, h0, tanh_cand, use_kernel):
-    fwd, fwd_plain, _, _ = _TRAIN_KERNELS[n_dirs]
-    hs, cs, acts = (fwd if use_kernel else fwd_plain)(xp, wh, c0, h0,
-                                                      tanh_cand)
+def _scan_forward(ctx, n_dirs, xp, wh, c0, h0, tanh_cand, use_kernel,
+                  state: bool = False):
+    """``state``: the one-direction state entry, -> (hs, c_T)."""
+    if state:
+        out = (lstm_scan_train_state if use_kernel
+               else lstm_scan_train_state_plain)(xp, wh, c0, h0, tanh_cand)
+    else:
+        fwd, fwd_plain, _, _ = _TRAIN_KERNELS[n_dirs]
+        out = (fwd if use_kernel else fwd_plain)(xp, wh, c0, h0, tanh_cand)
+    hs, cs, acts = out[:3]
     ctx.save_for_backward(wh, c0, h0, hs, cs, acts)
     ctx.n_dirs = n_dirs
     ctx.tanh_cand = tanh_cand
     ctx.use_kernel = use_kernel
-    return hs
+    ctx.state = state
+    return (hs, out[3]) if state else hs
 
 
-def _scan_backward(ctx, d_hs):
+def _scan_backward(ctx, d_hs, dc_T=None):
+    """The backward of ``_scan_forward``; with its ``state``, ``dc_T`` (or
+    None, unused c_T) seeds kernel 3's dc carry."""
     wh, c0, h0, hs, cs, acts = ctx.saved_tensors
     _, _, bwd, bwd_plain = _TRAIN_KERNELS[ctx.n_dirs]
-    c_prev = torch.cat([c0[None], cs[:-1]])
+    c_prev = torch.cat([c0[None].to(cs.dtype), cs[:-1]])
     h_prev = torch.cat([h0[None], hs[:-1]])
-    # d_hs may arrive through a transpose and a flip of hs
-    dxp, dc0, dh0 = (bwd if ctx.use_kernel else bwd_plain)(
-        d_hs.contiguous(), acts, cs, c_prev, wh, ctx.tanh_cand)
+    if d_hs is None:                       # only c_T was used
+        d_hs = torch.zeros_like(hs)
+    if ctx.state:
+        if dc_T is not None:
+            dc_T = dc_T.to(acc_dtype(cs)).contiguous()
+        dxp, dc0, dh0 = lstm_scan_bwd_seeded(
+            d_hs.contiguous(), acts, cs, c_prev, wh, ctx.tanh_cand, dc_T) \
+            if ctx.use_kernel else lstm_scan_bwd_plain(
+                d_hs.contiguous(), acts, cs, c_prev, wh, ctx.tanh_cand,
+                dc_T)
+        dc0 = dc0.to(c0.dtype)
+    else:
+        # d_hs may arrive through a transpose and a flip of hs
+        dxp, dc0, dh0 = (bwd if ctx.use_kernel else bwd_plain)(
+            d_hs.contiguous(), acts, cs, c_prev, wh, ctx.tanh_cand)
     hdim = hs.shape[-1]
     acc = acc_dtype(dxp)
     if ctx.n_dirs == 1:                    # 'tbh,tbg->hg'
@@ -483,3 +558,24 @@ class LstmScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_hs):
         return _scan_backward(ctx, d_hs)
+
+
+class LstmScanState(torch.autograd.Function):
+    """``LstmScan`` with the final carry: c0 [B, H] in float32 (float64
+    for float64 inputs) -> (hs [T, B, H], c_T [B, H] float32), the
+    forward's state entry (``lstm_scan_train_state``) and kernel 3 seeded
+    with c_T's cotangent (``lstm_scan_bwd_seeded``), or their plain
+    versions when ``use_kernel`` is false.  h_T is hs[-1]: its cotangent
+    arrives in d_hs.  dc0 is returned in c0's dtype (the kernel rounds it
+    to the storage type first).  Callers that need no gradient call
+    ``lstm_scan(..., return_state=True)``."""
+
+    @staticmethod
+    def forward(ctx, xp, wh, c0, h0, tanh_cand: bool, use_kernel: bool):
+        ctx.set_materialize_grads(False)
+        return _scan_forward(ctx, 1, xp, wh, c0, h0, tanh_cand, use_kernel,
+                             state=True)
+
+    @staticmethod
+    def backward(ctx, d_hs, dc_T):
+        return _scan_backward(ctx, d_hs, dc_T)

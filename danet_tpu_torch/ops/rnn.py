@@ -30,9 +30,13 @@ reversed scan, the state after consuming the input down to its first
 frame): the LSTM's ``(c, h)``, c in float32 whatever the compute dtype
 (the kernel's own carry, from kernel B's state entry; h is the last row
 of hs), and the GRU's ``c``, the last row of kernel 4f's ``cs``.  Under
-autograd its only user is sequence parallelism's halo warm-up, not
-ported: on the card it raises NotImplementedError there, and the plain
-path stays differentiable.
+autograd (sequence parallelism's relay and halo warm-up,
+``parallel/seq_parallel.py``) the LSTM's carry runs through
+``LstmScanState``: the saving forward's state entry and kernel 3 seeded
+with the cotangent of c (h's arrives in hs's); the GRU's carry is a row
+of cs, whose cotangent ``GruScan`` already takes.  JAX routes
+``return_state`` to its XLA scan instead (its Pallas kernels have no
+carry output); here it stays on the hand kernels.
 """
 from __future__ import annotations
 
@@ -89,17 +93,6 @@ def _check_backend(backend: str) -> bool:
     return backend in ("auto", "pallas")
 
 
-def _refuse_state_grad(x: torch.Tensor, use_kernel: bool) -> None:
-    """return_state under autograd on the hand kernels: the final carry
-    has no backward there (its only differentiable user, the sequence-
-    parallel halo warm-up, is not ported)."""
-    if use_kernel and x.device.type == "cuda":
-        raise NotImplementedError(
-            "return_state under autograd on the card (the final carry's "
-            "gradient, for sequence parallelism) is not ported (ROADMAP.md, "
-            "queue 1 item 6)")
-
-
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(v.requires_grad for v in tensors)
 
@@ -132,9 +125,8 @@ def lstm_apply(params: dict, x: torch.Tensor,
     tanh_cand = candidate_activation == "tanh"
     if return_state:
         if _needs_grad(xp, wh, c0, h0):
-            _refuse_state_grad(x, use_kernel)
-            hs, c_t = cuda_lstm.lstm_scan_plain(xp, wh, c0, h0, tanh_cand,
-                                                True)
+            hs, c_t = cuda_lstm.LstmScanState.apply(xp, wh, c0, h0,
+                                                    tanh_cand, use_kernel)
         elif use_kernel:
             hs, c_t = library.lstm_scan_state(xp, wh, c0, h0, tanh_cand)
         else:
@@ -256,8 +248,6 @@ def gru_apply(params: dict, x: torch.Tensor,
     c0 = torch.zeros((b, hdim), dtype=dt, device=x.device) if c0 is None \
         else c0.to(dt).contiguous()
     if _needs_grad(gx, cx, wgh, wch, c0):
-        if return_state:
-            _refuse_state_grad(x, use_kernel)
         cs = cuda_gru.GruScan.apply(gx, cx, wgh, wch, c0, use_kernel)
     elif use_kernel:
         cs = library.gru_scan(gx, cx, wgh, wch, c0)

@@ -37,7 +37,18 @@ the parts' cotangents), ``leave_sum`` (parts summed out, replicated) and
 two, ``all_gather_parts`` and ``all_to_all`` move parts, and ``send`` /
 ``recv`` / ``broadcast`` carry a pipeline's activations between its
 stages; each of the first five is an autograd Function with its adjoint
-as the backward.
+as the backward.  Sequence parallelism (``parallel/seq_parallel.py``,
+``ring_attention.py``, ``ulysses.py``) adds ``enter_sharded`` (a
+replicated tensor in, this rank's slice of it out: ``leave_gather``'s
+adjoint), the neighbour shifts ``shift_from_left`` / ``shift_from_right``
+(JAX's ``ppermute`` over 'seq' without wrap: the edge rank receives
+zeros; each the other's adjoint) and the ring ``rotate`` (i -> i + 1 mod
+S; the reverse rotation its adjoint), and ``exchange``, the point-to-
+point-to-point batch under all three and the relay: every rank of the
+group exchanges with its neighbours at the same points of the program,
+each rank's sends and receives as one batch, so that two ranks that send
+to each other do not wait on each other's receive, in an order fixed by
+the program, so that a K-step CUDA graph captures it.
 """
 from __future__ import annotations
 
@@ -277,6 +288,130 @@ class _AllToAll(torch.autograd.Function):
     def backward(ctx, g):
         return (_a2a(ctx.mesh, g, ctx.axis, ctx.concat, ctx.split),
                 None, None, None, None)
+
+
+class _EnterSharded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _own_slice(mesh, x, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_tiled_gather(ctx.mesh, g.contiguous(), ctx.axis, ctx.dim),
+                None, None, None)
+
+
+def exchange(mesh, axis: str, sends: list, recvs: list) -> list:
+    """Point-to-point along ``axis`` as one batch (``batch_isend_irecv``:
+    NCCL's group, in which two ranks that send to each other do not wait
+    on each other's receive): ``sends`` [(tensor, coordinate)], ``recvs``
+    [(like, coordinate)], each receive a tensor of its ``like``'s shape,
+    dtype and device.  -> the received tensors, in ``recvs``' order.  The
+    group's first exchange is preceded by ``_prime``; every rank of the
+    group reaches its first exchange without waiting on another's."""
+    group = _group(mesh, axis)
+    like = [t for t, _ in sends] + [t for t, _ in recvs]
+    if not like:
+        return []
+    device = like[0].device
+    staged = device.type == "cuda" and not mesh.nccl
+    if axis not in mesh.primed:
+        _prime(mesh, axis, device)
+    ops, got = [], []
+    for t, to in sends:
+        buf = t.detach().contiguous()
+        ops.append(dist.P2POp(dist.isend, buf.cpu() if staged else buf,
+                              peer=mesh.rank_at(**{axis: to}), group=group))
+    for t, frm in recvs:
+        got.append(torch.empty(t.shape, dtype=t.dtype,
+                               device="cpu" if staged else device))
+        ops.append(dist.P2POp(dist.irecv, got[-1],
+                              peer=mesh.rank_at(**{axis: frm}), group=group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return [g.to(device) for g in got] if staged else got
+
+
+def _prime(mesh, axis: str, device) -> None:
+    """Set up the ``axis`` group's point-to-point before its first
+    exchange: an all-reduce over it (NCCL's batched point-to-point wants
+    the group's communicator made by a collective of all its ranks), then
+    one batch on every rank that sends to and receives from each ring
+    neighbour, so that NCCL, which connects a pair when an operation first
+    needs it, makes every neighbour connection while all the ranks take
+    part."""
+    all_reduce(mesh, torch.zeros(1, device=device), axis)
+    n, c = mesh.shape[axis], mesh.coords[axis]
+    peers = sorted({mesh.rank_at(**{axis: (c + d) % n}) for d in (-1, 1)}
+                   - {mesh.rank})
+    staged = torch.device(device).type == "cuda" and not mesh.nccl
+    dev = "cpu" if staged else device
+    ops = []
+    for peer in peers:
+        ops.append(dist.P2POp(dist.isend, torch.zeros(1, device=dev),
+                              peer=peer, group=_group(mesh, axis)))
+        ops.append(dist.P2POp(dist.irecv, torch.empty(1, device=dev),
+                              peer=peer, group=_group(mesh, axis)))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    mesh.primed.add(axis)
+
+
+def _hop(mesh, t: torch.Tensor, axis: str, step: int, wrap: bool):
+    """``t`` moved ``step`` (+1 or -1) coordinates along ``axis``: each
+    rank receives that of coordinate c - step; with ``wrap`` around the
+    ring, else the edge receives zeros."""
+    n, c = mesh.shape[axis], mesh.coords[axis]
+    to, frm = c + step, c - step
+    if wrap:
+        to, frm = to % n, frm % n
+    got = exchange(mesh, axis, [(t, to)] if 0 <= to < n else [],
+                   [(t, frm)] if 0 <= frm < n else [])
+    return got[0] if got else torch.zeros_like(t)
+
+
+class _Hop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, step, wrap):
+        ctx.mesh, ctx.axis, ctx.step, ctx.wrap = mesh, axis, step, wrap
+        return _hop(mesh, x.contiguous(), axis, step, wrap)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_hop(ctx.mesh, g.contiguous(), ctx.axis, -ctx.step,
+                     ctx.wrap), None, None, None, None)
+
+
+def enter_sharded(mesh, x: torch.Tensor, axis: str, dim: int
+                  ) -> torch.Tensor:
+    """This rank's slice along ``dim`` (its coordinate's of the ``axis``
+    group's equal parts) of ``x``, the same on every rank of the group (a
+    ``shard_map`` input sharded on ``dim``); its backward gathers the
+    slices' cotangents, so that every rank holds the whole one."""
+    return _EnterSharded.apply(x, mesh, axis, dim)
+
+
+def shift_from_left(mesh, x: torch.Tensor, axis: str = "seq"
+                    ) -> torch.Tensor:
+    """Every rank receives its left neighbour's ``x`` along ``axis``
+    (coordinate 0 receives zeros): JAX's ``_shift_from_left``."""
+    return _Hop.apply(x, mesh, axis, 1, False)
+
+
+def shift_from_right(mesh, x: torch.Tensor, axis: str = "seq"
+                     ) -> torch.Tensor:
+    """Every rank receives its right neighbour's ``x`` along ``axis``
+    (the last coordinate receives zeros): JAX's ``_shift_from_right``."""
+    return _Hop.apply(x, mesh, axis, -1, False)
+
+
+def rotate(mesh, x: torch.Tensor, axis: str = "seq") -> torch.Tensor:
+    """The ring rotation along ``axis``: every rank receives the ``x`` of
+    coordinate c - 1 mod S (JAX's ``ppermute`` with perm i -> i + 1 mod
+    S)."""
+    return _Hop.apply(x, mesh, axis, 1, True)
 
 
 def enter(mesh, x: torch.Tensor, axis: str) -> torch.Tensor:

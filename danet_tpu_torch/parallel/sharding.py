@@ -15,8 +15,8 @@ The layout is JAX's:
   * the batch axis of every input -> split over the mesh
     (``batch_rows``): over ('data', 'model') when the batch divides by
     n_data * n_model, else over 'data' alone, the ranks of one 'model'
-    group then sharing their data shard's rows; the ranks of one 'pipe'
-    or 'expert' group always share their rows;
+    group then sharing their data shard's rows; the ranks of one 'pipe',
+    'expert' or 'seq' group always share their rows;
   * LSTM / GRU gate weights [in, G, h] -> h on 'model';
   * gate biases [G, h] -> h on 'model';
   * output-head / MLP weights [in, out] -> out on 'model';
@@ -81,6 +81,7 @@ class Mesh:
         self.groups: dict = {}
         self.nccl = False
         self.row_axes = ("data",)
+        self.primed: set = set()   # axes whose point-to-point is set up
 
     def rank_at(self, **coords) -> int:
         """The rank at this rank's coordinates with ``coords`` replacing
@@ -309,18 +310,25 @@ def shard_axes(params, mesh: Mesh) -> list:
 # the leaves of a pipeline's stages: bilstm-orig's layers, which JAX hands
 # to the pipelined stack (danet_tpu/models/encoders.py::_apply_pipelined)
 _PIPE_LEAF = re.compile(r"^encoder/lstm\d+/")
+# the leaves of a sequence-parallel stack: bilstm-orig's and gru-v1's
+# layers, each rank scanning its T-chunk (parallel/seq_parallel.py)
+_SEQ_LEAF = re.compile(r"^encoder/(lstm|gru)\d+/")
 
 
 def leaf_owners(params, mesh: Mesh) -> list:
     """Per leaf of ``leaves(params)``: the axis whose ranks each compute a
     disjoint part of its gradient ('expert' for a leaf sharded on it,
     whose expert group only its owner runs; 'pipe' for a pipeline stage's
-    layers, replicated at rest, which only their stage runs), or None
-    (every rank that shares the rows computes it alike).
-    ``collectives.reduce_grads`` scales by it."""
+    layers, replicated at rest, which only their stage runs; 'seq' for the
+    layers of a sequence-parallel recurrent stack, whose ranks each scan
+    their T-chunk), or None (every rank that shares the rows computes it
+    alike: the rest of a sequence-parallel model runs whole on every rank
+    of its 'seq' group).  ``collectives.reduce_grads`` scales by it."""
     pipe = mesh.shape.get("pipe", 1) > 1
+    seq = mesh.shape.get("seq", 1) > 1
     return ["expert" if "expert" in spec
-            else "pipe" if pipe and _PIPE_LEAF.match(name) else None
+            else "pipe" if pipe and _PIPE_LEAF.match(name)
+            else "seq" if seq and _SEQ_LEAF.match(name) else None
             for name, spec in zip(leaf_names(params),
                                   shard_axes(params, mesh))]
 

@@ -17,7 +17,8 @@ cards, or ``--backend gloo`` with ``--shared-card``: every rank on cuda:0,
 the card tensors staged through the host) and runs the spec's cases in
 order.  Rank r writes ``DIR/rank<r>.npz`` (keys ``<case>/<item>``) and its
 output to ``DIR/rank<r>.log``; a rank that fails, or a run past
-``--timeout``, fails the command (every rank is stopped).
+``--timeout``, fails the command (every rank is stopped; 20 s before the
+timeout a rank still running writes its threads' stacks to its log).
 
 A spec is JSON: ``{"threads": 1, "cases": [{"name": ..., "kind": ...,
 ...}, ...]}``; each case builds its config from default.json, its
@@ -60,6 +61,22 @@ that mesh.  Kinds:
     ``checksum``, ``params/<leaf>`` (whole);
   * ``dropout``: the rank's dropout generator -> ``seed`` and ``mask`` (64
     draws at keep 0.5);
+  * ``sp_stack``: ``params`` (an .npz tree of ``lstm<i>`` BiLSTM or
+    ``gru<i>`` GRU layers, by ``rnn`` 'bilstm' or 'gru') and ``x`` (an
+    .npz with ``x`` [B, T, F], the global batch):
+    ``seq_parallel.bilstm_stack_sp`` / ``gru_stack_sp`` with ``scheme``,
+    ``halo``, ``remat``, the batch co-sharded over 'data' when it divides
+    (``dtype``, ``keep`` with a generator of ``seed``) -> ``y`` (this
+    rank's block), ``rows``, ``cols`` (its T range), ``y_nograd``,
+    ``grads/<leaf>`` of sum(y^2) over the mesh (the global batch's),
+    ``dx`` (whole), the kernels' ``launches/<kernel>`` of the forward and
+    backward;
+  * ``sp_attention``: ``x`` (an .npz with q, k, v [B, T, H, D] and
+    ``mask`` [B, T]): ``ring_attention`` or ``ulysses_attention``
+    (``pattern``) with ``window`` -> ``y`` (whole), ``grads/{q,k,v}`` of
+    sum(sin(y)) (whole);
+  * ``separate_sp``: ``params`` and ``mix`` (an .npz with ``mix`` [B, T,
+    F, 2]): ``DaNet.separate_sp`` with ``sp_attn`` and ``halo`` -> ``y``;
   * ``kernels`` (a card): kernels B, 2 and 3 on a rank's rows, ``T``,
     ``rows``, H=300, ``dtype`` (float32 by default), against their plain
     versions at ``tol``
@@ -70,11 +87,12 @@ that mesh.  Kinds:
 ``multichip`` (``--device cpu --set KEY=VALUE --dims H,L``: a narrow
 rehearsal over gloo on the CPU) runs ``--config`` (configs/multichip.json
 by default) as written on a 4-card mesh per ``--mesh`` AxB: MESH_DATA A
-times B on the config's other axis (MESH_MODEL, MESH_PIPE or MESH_EXPERT,
+times B on the config's other axis (MESH_MODEL, MESH_PIPE, MESH_EXPERT or MESH_SEQ,
 ``strategy_key``); a config on WSJ0, which the repository does not hold,
 takes the synth-speech corpus.  Each rank (``kind: multichip``) reports
 its bytes of params and moments at rest, its LSTM kernels' launches in
-one eager step, the ms per step of eager steps and of a K=8 CUDA graph
+one eager step and that step's peak device memory above the state (on a
+card), the ms per step of eager steps and of a K=8 CUDA graph
 (a capture that fails is recorded, and the eager numbers stand), NCCL's
 share of the device time of one traced graph replay, the first
 ``--steps`` losses, a digest of its parameter slices and a checkpoint of
@@ -86,6 +104,7 @@ per mesh (a mesh that fails prints its error, and the next runs).
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import hashlib
 import json
 import os
@@ -104,6 +123,7 @@ import torch.distributed as dist
 from danet_tpu_torch import weights
 from danet_tpu_torch.hparams import load_config
 from danet_tpu_torch.ops import rnn
+from danet_tpu_torch.ops.cuda import gru as cuda_gru
 from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
 from danet_tpu_torch.parallel import collectives, multihost, sharding
 from danet_tpu_torch.weights import leaf_names, leaves
@@ -115,7 +135,12 @@ LSTM_KERNELS = {"bilstm_scan": cuda_lstm.bilstm_scan,
                 "bilstm_scan_bwd": cuda_lstm.bilstm_scan_bwd,
                 "lstm_scan": cuda_lstm.lstm_scan,
                 "lstm_scan_train": cuda_lstm.lstm_scan_train,
-                "lstm_scan_bwd": cuda_lstm.lstm_scan_bwd}
+                "lstm_scan_bwd": cuda_lstm.lstm_scan_bwd,
+                "lstm_scan_train_state": cuda_lstm.lstm_scan_train_state,
+                "lstm_scan_bwd_seeded": cuda_lstm.lstm_scan_bwd_seeded,
+                "gru_scan": cuda_gru.gru_scan,
+                "gru_scan_train": cuda_gru.gru_scan_train,
+                "gru_scan_bwd": cuda_gru.gru_scan_bwd}
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +165,8 @@ def launch(spec_path: str, out: str, nproc: int, device: str = "cpu",
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(nproc),
                    LOCAL_RANK=str(0 if shared_card else r),
                    LOCAL_WORLD_SIZE=str(nproc), MASTER_ADDR="localhost",
-                   MASTER_PORT=port)
+                   MASTER_PORT=port,
+                   DANET_SMOKE_STACKS_AFTER=str(max(timeout - 20.0, 1.0)))
         env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
         cmd = [sys.executable, "-m", "danet_tpu_torch.parallel.smoke",
                "worker", "--spec", os.path.abspath(spec_path),
@@ -460,6 +486,28 @@ def _timed(fn, reps: int, device: str) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+class _PeakStep:
+    """The peak device memory of what runs inside it above what was
+    allocated when it began (the step's activations and transients), on a
+    card; -1 on the CPU."""
+
+    def __init__(self, device: str):
+        self.card = torch.device(device).type == "cuda"
+        self.bytes = -1
+
+    def __enter__(self):
+        if self.card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.base = torch.cuda.memory_allocated()
+        return self
+
+    def __exit__(self, *exc):
+        if self.card:
+            torch.cuda.synchronize()
+            self.bytes = torch.cuda.max_memory_allocated() - self.base
+
+
 def case_multichip(case: dict, device: str, out: str) -> dict:
     hp, tr = _trainer(case, device, out)
     if tr is None:
@@ -472,8 +520,8 @@ def case_multichip(case: dict, device: str, out: str) -> dict:
     losses = [tr.train_step(state, b)["loss"] for b in batches[:n]]
     losses = torch.stack(losses).float().cpu().numpy()
     _zero_launches()
-    tr.train_step(state, batches[n])
-    _sync(device)
+    with _PeakStep(device) as peak:
+        tr.train_step(state, batches[n])
     counts = _launches()
     k1 = _timed(lambda: tr.train_step(state, batches[n]), 4, device)
     stack = tr._put(tr._host_batch(np.stack(batches[n:n + 8]),
@@ -500,6 +548,7 @@ def case_multichip(case: dict, device: str, out: str) -> dict:
     shards = [t.detach().cpu().numpy() for t in leaves(state["params"])]
     res = {"losses": losses, "ms_k1": k1, "ms_k8": k8,
            "device_ms": total, "nccl_ms": nccl, "bytes": _bytes(state),
+           "peak_step_bytes": peak.bytes,
            "coords": [tr.mesh.coords[a] for a in tr.mesh.axis_names],
            "digest": _digest(shards),
            "whole_digest": _digest(whole[k] for k in sorted(whole)),
@@ -624,15 +673,114 @@ def case_moe(case: dict, device: str, out: str) -> dict:
     return res
 
 
+def case_sp_stack(case: dict, device: str, out: str) -> dict:
+    """The sequence-parallel recurrent stack on the mesh of the case's
+    keys (the module's docstring)."""
+    from danet_tpu_torch.parallel import seq_parallel
+    _, mesh = _mesh(case)
+    if mesh.coords is None:
+        return {}
+    dt = getattr(torch, case.get("dtype", "float32"))
+    tree = weights.load_npz(case["params"], device)
+    names = leaf_names(tree)
+    ps = [p.detach().to(dt).requires_grad_(True) for p in leaves(tree)]
+    tree = sharding.nest(names, ps)
+    kind = case.get("rnn", "bilstm")
+    pre = "lstm" if kind == "bilstm" else "gru"
+    layers = [tree["%s%d" % (pre, i)] for i in range(len(tree))]
+    with np.load(case["x"]) as d:
+        x = torch.from_numpy(d["x"]).to(device=device, dtype=dt)
+    gen = None
+    if case.get("keep", 1.0) < 1.0:
+        gen = torch.Generator(device).manual_seed(case.get("seed", 0))
+    run = dict(halo=case.get("halo", 32), scheme=case.get("scheme", "relay"),
+               remat=case.get("remat", False),
+               backend=case.get("backend", "auto"), dropout_rng=gen,
+               keep_prob=case.get("keep", 1.0))
+    fn = (seq_parallel.bilstm_stack_sp if kind == "bilstm"
+          else seq_parallel.gru_stack_sp)
+    with torch.no_grad():
+        y0 = fn(layers, x, mesh, **dict(run, dropout_rng=None,
+                                         keep_prob=1.0))
+    _zero_launches()
+    x.requires_grad_(True)
+    y = fn(layers, x, mesh, **run)
+    dx, *grads = torch.autograd.grad(torch.sum(y.float() ** 2), [x] + ps,
+                                     allow_unused=True)
+    counts = _launches()
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(ps, grads)]
+    flat = torch.cat([g.float().reshape(-1) for g in grads])
+    flat = collectives.all_reduce(mesh, flat)
+    at, whole = 0, []
+    for p in ps:
+        whole.append(flat[at:at + p.numel()].reshape(p.shape))
+        at += p.numel()
+    d_axis = seq_parallel._mesh_data_axis(mesh, x.shape[0], "data")
+    per = x.shape[0] // (mesh.shape["data"] if d_axis else 1)
+    r0 = mesh.coords["data"] * per if d_axis else 0
+    c = x.shape[1] // mesh.shape["seq"]
+    t0 = mesh.coords["seq"] * c
+    res = {"y": y.detach().float().cpu().numpy(),
+           "y_nograd": y0.float().cpu().numpy(),
+           "dx": dx.float().cpu().numpy(), "rows": [r0, r0 + per],
+           "cols": [t0, t0 + c]}
+    res.update({"grads/" + n: g.cpu().numpy() for n, g in zip(names, whole)})
+    res.update({"launches/" + k: v for k, v in counts.items()})
+    return res
+
+
+def case_sp_attention(case: dict, device: str, out: str) -> dict:
+    """Ring or Ulysses attention on the case's mesh (the module's
+    docstring)."""
+    from danet_tpu_torch.parallel import ring_attention, ulysses
+    _, mesh = _mesh(case)
+    if mesh.coords is None:
+        return {}
+    with np.load(case["x"]) as d:
+        qkv = [torch.from_numpy(d[n]).to(device).requires_grad_(True)
+               for n in ("q", "k", "v")]
+        mask = torch.from_numpy(d["mask"]).to(device)
+    fn = (ring_attention.ring_attention if case["pattern"] == "ring"
+          else ulysses.ulysses_attention)
+    y = fn(*qkv, mesh, key_mask=mask, causal_window=case.get("window", 0))
+    grads = torch.autograd.grad(torch.sum(torch.sin(y)), qkv)
+    res = {"y": y.detach().cpu().numpy()}
+    res.update({"grads/" + n: g.cpu().numpy()
+                for n, g in zip("qkv", grads)})
+    return res
+
+
+def case_separate_sp(case: dict, device: str, out: str) -> dict:
+    """``DaNet.separate_sp`` of the case's model on its mesh."""
+    hp, model = build(case)
+    mesh = sharding.mesh_from_hparams(hp).connect()
+    if mesh.coords is None:
+        return {}
+    params = weights.load_npz(case["params"], device)
+    with np.load(case["mix"]) as d:
+        mix = torch.from_numpy(d["mix"]).to(device)
+    with torch.no_grad():
+        y = model.separate_sp(params, mix, mesh, halo=case.get("halo", 32),
+                              sp_attn=case.get("sp_attn", "ring"))
+    return {"y": y.cpu().numpy()}
+
+
 CASES = {"step": case_step, "bilstm_tp": case_bilstm_tp,
          "train": case_train, "dropout": case_dropout,
          "kernels": case_kernels, "multichip": case_multichip,
-         "pipeline": case_pipeline, "moe": case_moe}
+         "pipeline": case_pipeline, "moe": case_moe,
+         "sp_stack": case_sp_stack, "sp_attention": case_sp_attention,
+         "separate_sp": case_separate_sp}
 
 
 def worker(spec_path: str, out: str, device: str, backend=None) -> None:
     with open(spec_path) as f:
         spec = json.load(f)
+    # a rank still running near the launcher's timeout writes every
+    # thread's stack to its log, so that a hang shows where it waits
+    faulthandler.dump_traceback_later(
+        float(os.environ.get("DANET_SMOKE_STACKS_AFTER", 600.0)))
     if device == "cpu":
         torch.set_num_threads(int(spec.get("threads", 1)))
     if not multihost.initialize(device, backend):
@@ -662,7 +810,7 @@ def _one_card(case: dict, out: str, n: int, device: str) -> dict:
     and batches, and the mesh's checkpoint loaded on one card."""
     from danet_tpu_torch.train.trainer import Trainer
     keys = dict(case["keys"], MESH_DATA=1, MESH_MODEL=1, MESH_PIPE=1,
-                MESH_EXPERT=1)
+                MESH_EXPERT=1, MESH_SEQ=1)
     hp, model = build(dict(case, keys=keys))
     tr = Trainer(model, hp, device, name="one-card",
                  save_dir=os.path.join(out, "saves"))
@@ -672,6 +820,8 @@ def _one_card(case: dict, out: str, n: int, device: str) -> dict:
     batches = _epoch_batches(tr, hp, ds, n + 8)
     losses = torch.stack([tr.train_step(state, b)["loss"]
                           for b in batches[:n]]).float().cpu().numpy()
+    with _PeakStep(device) as peak:
+        tr.train_step(state, batches[n])
     k1 = _timed(lambda: tr.train_step(state, batches[n]), 4, device)
     stack = tr._put(tr._host_batch(np.stack(batches[n:n + 8]),
                                    stacked=True))
@@ -682,6 +832,7 @@ def _one_card(case: dict, out: str, n: int, device: str) -> dict:
     loaded = {k: v.detach().float().cpu().numpy() for k, v in zip(
         leaf_names(fresh["params"]), leaves(fresh["params"]))}
     return {"losses": losses, "ms_k1": k1, "ms_k8": k8,
+            "peak_step_bytes": peak.bytes,
             "loaded_digest": _digest(loaded[k] for k in sorted(loaded)),
             "loaded_step": fresh["step"]}
 
@@ -691,7 +842,7 @@ def strategy_key(config: str) -> str:
     (MESH_MODEL when none): the second factor of ``--mesh``."""
     with open(os.path.join(REPO, config)) as f:
         cfg = json.load(f)
-    for key in ("MESH_MODEL", "MESH_PIPE", "MESH_EXPERT"):
+    for key in ("MESH_MODEL", "MESH_PIPE", "MESH_EXPERT", "MESH_SEQ"):
         if int(cfg.get(key, 1) or 1) > 1:
             return key
     return "MESH_MODEL"
@@ -784,6 +935,8 @@ def _multichip_mesh(out, mesh, steps, timeout, device, keys, dims, config,
              if k.startswith("launches/") and int(v)} for r in ranks],
         "graph_errors": sorted({str(r["graph_error"]) for r in ranks
                                 if str(r["graph_error"])}),
+        "peak_step_bytes": [int(r["peak_step_bytes"]) for r in ranks],
+        "one_card_peak_step_bytes": int(ref["peak_step_bytes"]),
         "one_card_ms_per_step_k1": float(ref["ms_k1"]),
         "one_card_ms_per_step_k8_graph": float(ref["ms_k8"]),
         "losses_mesh": [float(v) for v in ranks[0]["losses"]],

@@ -43,16 +43,18 @@ the K-step graph.  NAN_CHECKS raises FloatingPointError at the first step
 whose loss or gradient is not finite (and runs single steps).  REMAT
 recomputes the encoder's layers in the backward (``models/encoders.py``).
 
-The mesh (MESH_DATA, MESH_MODEL, MESH_PIPE, MESH_EXPERT; ``parallel/``):
-one process per card, in a ``torch.distributed`` group (``python -m
-torch.distributed.run``; a mesh of more than one process without a group
-raises).  Each rank stages only its rows of every batch
-(``sharding.batch_rows``: the ranks of one 'pipe' or 'expert' group share
-theirs), holds only its slice of each sharded leaf ('model', and the MoE
-experts on 'expert') with that leaf's moments and EMA, gathers the full
-weights once per step, runs the model on its rows (a pipeline stage its
-layers, an expert group its experts, ``parallel/pipeline.py`` and
-``expert.py``; the kernels as on one card), and reduces the gradients to
+The mesh (MESH_DATA, MESH_MODEL, MESH_PIPE, MESH_EXPERT, MESH_SEQ;
+``parallel/``): one process per card, in a ``torch.distributed`` group
+(``python -m torch.distributed.run``; a mesh of more than one process
+without a group raises).  Each rank stages only its rows of every batch
+(``sharding.batch_rows``: the ranks of one 'pipe', 'expert' or 'seq'
+group share theirs), holds only its slice of each sharded leaf ('model',
+and the MoE experts on 'expert') with that leaf's moments and EMA,
+gathers the full weights once per step, runs the model on its rows (a
+pipeline stage its layers, an expert group its experts, a 'seq' rank its
+T-chunk of the encoder's stack or attention, ``parallel/pipeline.py``,
+``expert.py``, ``seq_parallel.py``; the kernels as on one card), and
+reduces the gradients to
 the global batch's mean at its slices, each leaf by the axis that owns
 its gradient (``parallel/collectives.py``, ``sharding.leaf_owners``).
 Every metric is the global batch's, so that every rank prints the same
@@ -204,6 +206,29 @@ class PinnedStaging:
         with self._lock:
             self._lent.append((event, buf))
         return out
+
+
+def effective_bucket(hp):
+    """TIME_BUCKET under sequence parallelism (JAX ``effective_bucket``,
+    ``danet_tpu/train/trainer.py:121-141``): with MESH_SEQ > 1 every
+    padded T must split into MESH_SEQ chunks of the encoder's
+    ``sp_granularity`` frames, so the bucket rounds up to lcm(TIME_BUCKET,
+    granularity x MESH_SEQ), or to that unit when unbucketed.  Both wires
+    count it in frames (the wave wire's ``prepare_batch_wave`` pads the
+    frame count), and the STFT of the wave wire runs before any T split.
+    An encoder the registry cannot build counts granularity 1 here and
+    fails where the model is built."""
+    bucket = getattr(hp, "TIME_BUCKET", None)
+    n_seq = int(getattr(hp, "MESH_SEQ", 1) or 1)
+    if n_seq > 1:
+        try:
+            g = int(hp.get_encoder()(hp, "bucket_probe").sp_granularity())
+        except (KeyError, ValueError):
+            g = 1
+        unit = max(g, 1) * n_seq
+        b = int(bucket or 1)
+        bucket = b * unit // math.gcd(b, unit)
+    return bucket
 
 
 def prepare_batch(flat_spectra: np.ndarray, batch_size: int, n_signal: int,
@@ -1051,7 +1076,7 @@ class Trainer:
 
     def _prepare(self, flat: np.ndarray, max_len, rng) -> np.ndarray:
         hp = self.hp
-        bucket = getattr(hp, "TIME_BUCKET", None)
+        bucket = effective_bucket(hp)
         if self._wave_mode:
             return prepare_batch_wave(
                 flat, hp.BATCH_SIZE, hp.MAX_N_SIGNAL, hp.FFT_SIZE,

@@ -520,13 +520,23 @@ def test_torch_attention_weights_round_trip(fresh_hparams, model_ref,
 
 
 def test_torch_attention_encoder_refuses_unported(fresh_hparams):
-    """MESH_SEQ > 1 (when the model is built) raises
-    NotImplementedError; ATTN_CAUSAL is ported and runs, and its
-    ATTN_LOOKBACK < 1 raises JAX's ValueError at apply; _dims keeps JAX's
-    two ValueErrors."""
-    x = torch.zeros(1, 128, 129)
-    with pytest.raises(NotImplementedError):
-        _port(MESH_SEQ=2)
+    """MESH_SEQ > 1 builds (sequence-parallel attention is ported) and,
+    with no mesh carrying a 'seq' axis (a serving host), runs the dense
+    attention, as JAX's _route_mesh does; ATTN_CAUSAL is ported and runs,
+    and its ATTN_LOOKBACK < 1 raises JAX's ValueError at apply; an
+    external attention function under ATTN_CAUSAL raises JAX's guard;
+    _dims keeps JAX's two ValueErrors."""
+    x = torch.from_numpy(np.random.RandomState(4).randn(
+        1, 128, 129).astype(np.float32))
+    sp, dense = _port(MESH_SEQ=2), _port()
+    p = dense.encoder.init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        np.testing.assert_array_equal(sp.encoder.apply(p, x).numpy(),
+                                      dense.encoder.apply(p, x).numpy())
+    tm = _port(ATTN_CAUSAL=True)
+    with pytest.raises(ValueError, match="silently drop the causal band"):
+        tm.encoder.apply(tm.encoder.init(torch.Generator()), x,
+                         attn_fn=tm.encoder._dense_attention)
     tm = _port(ATTN_CAUSAL=True)
     assert tm.encoder.apply(tm.encoder.init(torch.Generator()), x).shape \
         == (1, 128, 129, 20)

@@ -6,7 +6,6 @@ Small widths (T <= 10, B <= 4, H <= 8), inputs from numpy seeds.
 Tolerances, float32: atol 1e-6 on forwards, atol 2e-5 + rtol 1e-4 on
 backwards and gradients (the JAX kernel tests' bars, tests/test_pallas.py).
 """
-import types
 
 import numpy as np
 import pytest
@@ -170,20 +169,18 @@ def test_torch_gru_apply_grads_match_jax(fresh_hparams):
 
 
 def test_torch_gru_apply_refuses_unported(fresh_hparams):
-    """An unknown backend raises; return_state (the final carry) under
-    autograd raises on the card, where the kernels have no backward for
-    it, and runs the plain scan on the CPU."""
+    """An unknown backend raises; return_state (the final carry, the last
+    row of cs) under autograd runs GruScan, whose cs cotangent carries the
+    carry's."""
     tparams = weights.from_jax(jax.device_get(
         jrnn.gru_init(jax.random.PRNGKey(5), 3, 4)))
     x = torch.zeros(1, 5, 3)
     with pytest.raises(ValueError):
         trnn.gru_apply(tparams, x, backend="cudnn")
     x.requires_grad_(True)
-    out, _ = trnn.gru_apply(tparams, x, return_state=True)
-    assert out.requires_grad
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        trnn._refuse_state_grad(
-            types.SimpleNamespace(device=torch.device("cuda")), True)
+    out, c = trnn.gru_apply(tparams, x, return_state=True)
+    assert out.requires_grad and c.requires_grad
+    assert type(c.grad_fn).__name__ != "NoneType"
 
 
 def test_torch_gru_wrappers_refuse_other_devices(fresh_hparams):
@@ -313,7 +310,9 @@ def test_torch_c_entries_all_have_signatures(fresh_hparams):
 @pytest.mark.parametrize("entry", [
     "danet_stft_ri", "danet_bilstm_scan", "danet_bilstm_scan_train",
     "danet_bilstm_scan_bwd", "danet_lstm_scan", "danet_lstm_scan_train",
-    "danet_lstm_scan_bwd", "danet_gru_scan", "danet_gru_scan_train",
+    "danet_lstm_scan_bwd", "danet_lstm_scan_state",
+    "danet_lstm_scan_train_state", "danet_lstm_scan_bwd_seeded",
+    "danet_gru_scan", "danet_gru_scan_train",
     "danet_gru_scan_bwd", "danet_flash_attn", "danet_flash_attn_bwd_dkv",
     "danet_flash_attn_bwd_dq", "danet_error_string"])
 def test_torch_c_entry_signature_matches_source(fresh_hparams, entry):
@@ -324,3 +323,34 @@ def test_torch_c_entry_signature_matches_source(fresh_hparams, entry):
 
     argtypes = {n: a for n, _, a in _build._SIGNATURES}[entry]
     assert argtypes == _c_entries()[entry]
+
+
+def test_torch_gru_state_grad_matches_jax(fresh_hparams):
+    """The GRU's final carry is the last row of cs, so its cotangent
+    reaches GruScan's backward through cs's: a loss on cs and on the carry
+    of ``gru_apply(..., return_state=True)`` from a nonzero c0, against
+    ``jax.grad`` of JAX's (2e-5 atol, 1e-4 rtol), to the parameters, the
+    input and c0."""
+    rs = np.random.RandomState(13)
+    jp = jrnn.gru_init(jax.random.PRNGKey(13), 5, 6, w_scale=0.5)
+    x, c0 = (rs.randn(*s).astype(np.float32) * 0.7
+             for s in ((3, 9, 5), (3, 6)))
+
+    def jloss(p, xv, c):
+        cs, cT = jrnn.gru_apply(p, xv, c, backend="xla", return_state=True)
+        return jnp.sum(jnp.sin(cs)) + 0.7 * jnp.sum(cT ** 2)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jp, jnp.asarray(x),
+                                              jnp.asarray(c0))
+    tp = weights.from_jax(jax.device_get(jp))
+    for v in tp.values():
+        v.requires_grad_(True)
+    tx, tc = (torch.from_numpy(a).requires_grad_(True) for a in (x, c0))
+    cs, cT = trnn.gru_apply(tp, tx, tc, return_state=True)
+    (torch.sum(torch.sin(cs)) + 0.7 * torch.sum(cT ** 2)).backward()
+    for k in ("wgx", "wgh", "bg", "wcx", "wch", "bc"):
+        np.testing.assert_allclose(tp[k].grad.numpy(), np.asarray(
+            want[0][k]), atol=2e-5, rtol=1e-4, err_msg=k)
+    for got, w in zip((tx, tc), want[1:]):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(w),
+                                   atol=2e-5, rtol=1e-4)

@@ -3,7 +3,8 @@ has none.  Importing the package, its command line, serving, training,
 checkpoint, optimizer, loss, attention, kernel-op and profiling modules,
 tasnet-v1, the wav-dir and timit datasets, the banded attention, the MoE
 forms, the mesh (``parallel``: sharding, collectives, multihost, the
-pipeline and the multi-process smoke driver), the console prompts, the
+pipeline, sequence parallelism, ring and Ulysses attention and the
+multi-process smoke runner), the console prompts, the
 SPHERE decoder's bindings, the TIMIT and WSJ0 preprocessors
 (imported, their ``main`` not run) and chip_smoke.py in a fresh
 interpreter must load no jax, no optax and no danet_tpu module."""
@@ -35,6 +36,9 @@ def test_torch_port_imports_no_jax():
             "danet_tpu_torch.parallel.multihost, "
             "danet_tpu_torch.parallel.smoke, "
             "danet_tpu_torch.parallel.pipeline, danet_tpu_torch.utils, "
+            "danet_tpu_torch.parallel.seq_parallel, "
+            "danet_tpu_torch.parallel.ring_attention, "
+            "danet_tpu_torch.parallel.ulysses, "
             "danet_tpu_torch.native.sphere, "
             "danet_tpu_torch.native.sphere_convert, "
             "danet_tpu_torch.data.TIMIT.process, "

@@ -226,6 +226,8 @@ def test_torch_unidirectional_separate_wav_matches_jax(
     ("bilstm-orig", {"MESH_PIPE": 2, "MESH_SEQ": 2}, True),
     ("bilstm-orig", {"MESH_SEQ": 2}, False),
     ("gru-v1", {"MESH_SEQ": 2}, False),
+    ("attn-v1", {"MESH_SEQ": 2}, False),
+    ("moe-v1", {"MESH_SEQ": 2}, False),
     ("bilstm-orig", {"MESH_PIPE": 2}, False),
     ("bilstm-orig", {"MESH_DATA": 2}, False),
     ("lstm-orig", {"MESH_MODEL": 2}, False),
@@ -238,9 +240,11 @@ def test_torch_danet_refuses_mesh_keys(fresh_hparams, encoder, keys,
     """DaNet raises JAX's _check_parallel_support ValueError, with JAX's
     message, where JAX refuses the MESH_* combination; where JAX builds
     the model, the port builds it under MESH_DATA, MESH_MODEL, MESH_PIPE
-    and MESH_EXPERT (the Trainer's mesh) and raises NotImplementedError
-    naming ROADMAP item 6b under MESH_SEQ, so that neither serving nor
-    training runs the dense path under it."""
+    and MESH_EXPERT (the Trainer's mesh) and under MESH_SEQ for the
+    encoders whose sequence-parallel route is ported (bilstm-orig, gru-v1,
+    attn-v1, moe-v1), and raises NotImplementedError naming ROADMAP item
+    6d for tcn-v1, dprnn-v1 and conv-bilstm-v1 under MESH_SEQ, so that
+    neither serving nor training runs the dense path under it."""
     fresh_hparams.load(dict(ENCODER_TYPE=encoder, **keys))
     fresh_hparams.digest()
     hp = load_config(ENCODER_TYPE=encoder, **keys)
@@ -251,10 +255,11 @@ def test_torch_danet_refuses_mesh_keys(fresh_hparams, encoder, keys,
             TorchDaNet(hp)
         assert str(got.value) == str(want.value)
     elif set(keys) <= {"MESH_DATA", "MESH_MODEL", "MESH_PIPE",
-                       "MESH_EXPERT"}:
+                       "MESH_EXPERT"} or encoder in (
+                           "bilstm-orig", "gru-v1", "attn-v1", "moe-v1"):
         JaxDaNet()
         assert TorchDaNet(hp).hp is hp
     else:
         JaxDaNet()
-        with pytest.raises(NotImplementedError, match="item 6b"):
+        with pytest.raises(NotImplementedError, match="item 6d"):
             TorchDaNet(hp)

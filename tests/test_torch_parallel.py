@@ -516,19 +516,22 @@ def test_torch_route_mesh_only_unavailable_routes_dense(monkeypatch):
 def test_torch_mesh_refusals(fresh_hparams):
     """moe-v1's routed training (MOE_TOP_K > 0) on a data x model mesh
     builds (its capacity counts the global batch's tokens,
-    ``expert.moe_mlp_topk``'s mesh), and so does its soft mixture;
-    MESH_SEQ raises NotImplementedError naming item 6b; a mesh without
-    the configured 'model' axis is refused by the Trainer."""
+    ``expert.moe_mlp_topk``'s mesh), and so does its soft mixture, and
+    under MESH_SEQ (sequence-parallel attention); MESH_SEQ with tcn-v1
+    raises NotImplementedError naming item 6d; a mesh without the
+    configured 'model' or 'seq' axis is refused by the Trainer."""
     moe = {"ENCODER_TYPE": "moe-v1", "MESH_DATA": 2, "ATTN_DIM": 32,
            "ATTN_HEADS": 2, "ATTN_LAYERS": 1}
     TorchDaNet(load_config(**dict(moe, MOE_TOP_K=2, MESH_MODEL=2)))
     TorchDaNet(load_config(**moe))
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        TorchDaNet(load_config(**dict(moe, MESH_SEQ=2)))
-    hp = load_config(ENCODER_TYPE="bilstm-orig", MESH_MODEL=2)
-    with pytest.raises(ValueError, match="no matching 'model' axis"):
-        Trainer(TorchDaNet(hp), hp, "cpu",
-                mesh=sharding.make_mesh(2, 1, devices=range(2)))
+    TorchDaNet(load_config(**dict(moe, MESH_SEQ=2)))
+    with pytest.raises(NotImplementedError, match="item 6d"):
+        TorchDaNet(load_config(ENCODER_TYPE="tcn-v1", MESH_SEQ=2))
+    for key, axis in (("MESH_MODEL", "model"), ("MESH_SEQ", "seq")):
+        hp = load_config(ENCODER_TYPE="bilstm-orig", **{key: 2})
+        with pytest.raises(ValueError, match="no matching '%s' axis" % axis):
+            Trainer(TorchDaNet(hp), hp, "cpu",
+                    mesh=sharding.make_mesh(2, 1, devices=range(2)))
 
 
 def test_torch_serve_drops_mesh_keys(tmp_path, monkeypatch):

@@ -6,7 +6,6 @@ mode.
 float32; atol 1e-6 on forwards, atol 2e-5 + rtol 1e-4 on backwards and
 gradients (the JAX kernel tests' bars).
 """
-import types
 
 import numpy as np
 import pytest
@@ -383,19 +382,18 @@ def test_torch_lstm_apply_grads_match_jax(fresh_hparams, act):
 
 def test_torch_lstm_apply_refuses_unported(fresh_hparams):
     """An unknown backend raises; return_state (the final carry) under
-    autograd raises on the card, where the kernels have no backward for
-    it, and runs the plain scan on the CPU."""
+    autograd runs the state form of the saving forward (its plain version
+    on the CPU), whose carry carries a gradient."""
     tparams = {"wx": torch.zeros(2, 4, 3), "wh": torch.zeros(3, 4, 3),
                "b": torch.zeros(4, 3)}
     x = torch.zeros(1, 4, 2)
     with pytest.raises(ValueError):
         trnn.lstm_apply(tparams, x, backend="cudnn")
     x.requires_grad_(True)
-    out, _ = trnn.lstm_apply(tparams, x, return_state=True)
-    assert out.requires_grad
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        trnn._refuse_state_grad(
-            types.SimpleNamespace(device=torch.device("cuda")), True)
+    out, (c, h) = trnn.lstm_apply(tparams, x, return_state=True)
+    assert out.requires_grad and c.requires_grad and h.requires_grad
+    assert c.dtype == torch.float32
+    assert type(c.grad_fn).__name__.startswith("LstmScanState")
 
 
 def test_torch_lstm_wrappers_refuse_other_devices(fresh_hparams):
@@ -587,3 +585,92 @@ def test_torch_lstm_plain_scans_keep_float64(fresh_hparams, n_dirs):
     assert scan.apply(xp, wh, c0, h0, True, False).dtype == torch.float64
     assert torch.autograd.gradcheck(
         lambda *a: scan.apply(*a, True, False), (xp, wh, c0, h0))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("act", ["tanh", "linear"])
+def test_torch_lstm_state_grad_matches_jax(fresh_hparams, reverse, act):
+    """The final carry's gradient: a loss on hs and on both carries (c, h)
+    of ``lstm_apply(..., return_state=True)`` from a nonzero c0 / h0,
+    differentiated to the parameters, the input and c0 / h0 through the
+    saving forward's state entry and kernel 3's seeded form (their plain
+    versions here), against ``jax.grad`` of JAX's (2e-5 atol, 1e-4 rtol)."""
+    rs = np.random.RandomState(12)
+    jp = jrnn.lstm_init(jax.random.PRNGKey(12), 5, 6,
+                        gate_bias=(0.0, 1.5, -1.0, 1.0))
+    x, c0, h0 = (rs.randn(*s).astype(np.float32) * 0.7
+                 for s in ((3, 9, 5), (3, 6), (3, 6)))
+
+    def jloss(p, xv, c, h):
+        hs, (cT, hT) = jrnn.lstm_apply(p, xv, act, reverse, c, h,
+                                       backend="xla", return_state=True)
+        return jnp.sum(jnp.sin(hs)) + 0.7 * jnp.sum(cT ** 2) \
+            + 1.3 * jnp.sum(hT)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        jp, jnp.asarray(x), jnp.asarray(c0), jnp.asarray(h0))
+    tp = weights.from_jax(jax.device_get(jp))
+    for v in tp.values():
+        v.requires_grad_(True)
+    tx, tc, th = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (x, c0, h0))
+    hs, (cT, hT) = trnn.lstm_apply(tp, tx, act, reverse, tc, th,
+                                   return_state=True)
+    (torch.sum(torch.sin(hs)) + 0.7 * torch.sum(cT ** 2)
+     + 1.3 * torch.sum(hT)).backward()
+    for k in ("wx", "wh", "b"):
+        np.testing.assert_allclose(tp[k].grad.numpy(), np.asarray(
+            want[0][k]), atol=2e-5, rtol=1e-4, err_msg=k)
+    for got, w in zip((tx, tc, th), want[1:]):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(w),
+                                   atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("rows", [2, 5])
+def test_torch_lstm_state_wrappers_split_batch(monkeypatch, rows):
+    """The state form of the saving forward and the seeded backward on a
+    (faked) card: a batch of 5 above the row ceiling ``rows`` runs as
+    ceil(5 / rows) launches, c_T and dc_T split with it, each launch
+    counted, the joined outputs the plain versions' (1e-6)."""
+    rs = np.random.RandomState(rows)
+    t, b, h = 4, 5, 3
+
+    def r(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    xp, wh, c0, h0 = r(t, b, 4 * h), r(h, 4 * h) * 0.3, r(b, h), r(b, h)
+    d_hs, dc_t = r(t, b, h), r(b, h)
+
+    def fake_launch(entry, what, device, tensors, ints):
+        tanh = bool(ints[4])
+        if entry == "danet_lstm_scan_train_state":
+            outs = cuda_lstm.lstm_scan_train_state_plain(*tensors[:4], tanh)
+            dst = tensors[4:8]
+        else:
+            assert entry == "danet_lstm_scan_bwd_seeded", entry
+            outs = cuda_lstm.lstm_scan_bwd_plain(*tensors[:5], tanh,
+                                                 tensors[8])
+            dst = tensors[5:8]
+        assert tensors[0].shape[-2] == ints[1] <= rows
+        for dd, o in zip(dst, outs):
+            dd.copy_(o)
+    monkeypatch.setattr(cuda_lstm, "_launch", fake_launch)
+    fwd, bwd = cuda_lstm.lstm_scan_train_state, cuda_lstm.lstm_scan_bwd_seeded
+    fwd.launches = bwd.launches = 0
+    got = cuda_lstm._fwd(fwd, "danet_lstm_scan_train_state", 1, True, xp, wh,
+                         c0, h0, True, rows=rows, state=True)
+    want = cuda_lstm.lstm_scan_train_state_plain(xp, wh, c0, h0, True)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-6)
+    hs, cs, acts, _ = want
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    got = cuda_lstm._bwd(bwd, "danet_lstm_scan_bwd_seeded", 1, d_hs, acts, cs,
+                         c_prev, wh, True, rows=rows, dc_T=dc_t)
+    want = cuda_lstm.lstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, True,
+                                         dc_t)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-6)
+    assert fwd.launches == bwd.launches == -(-b // rows)
+    fwd.launches = bwd.launches = 0
+    with pytest.raises(ValueError, match="dc_T"):
+        cuda_lstm._bwd(bwd, "danet_lstm_scan_bwd_seeded", 1, d_hs, acts, cs,
+                       c_prev, wh, True, rows=rows, dc_T=dc_t.double())

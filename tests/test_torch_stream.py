@@ -17,7 +17,6 @@ other orders, amplified by the layer norms as in
 ``separate_wav`` bar), and chunk invariance at JAX's own bound
 (``tests/test_modules.py:676``: 2e-5 + 1e-4 relative).
 """
-import types
 
 import numpy as np
 import pytest
@@ -473,10 +472,50 @@ def test_torch_streamer_equals_stream_init_and_step(fresh_hparams, narrow,
         serve.Streamer(model, params, "cpu", 100, 8 * STRIDE)
 
 
-def test_torch_state_refusal_names_its_item():
-    """return_state under autograd on the card raises, naming its item."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        trnn._refuse_state_grad(
-            types.SimpleNamespace(device=torch.device("cuda")), True)
-    trnn._refuse_state_grad(
-        types.SimpleNamespace(device=torch.device("cpu")), True)
+def test_torch_state_refusal_names_its_item(monkeypatch):
+    """return_state under autograd no longer refuses the card: on a (faked)
+    card it launches the saving forward's state entry and kernel 3 seeded
+    with the final carry's cotangent, once each, and its gradients equal
+    the CPU's plain ones."""
+    from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
+    rs = np.random.RandomState(11)
+    p = {k: torch.from_numpy(rs.uniform(-0.4, 0.4, shape).astype(
+        np.float32)) for k, shape in (("wx", (3, 4, 5)), ("wh", (5, 4, 5)),
+                                      ("b", (4, 5)))}
+    x = torch.from_numpy(rs.randn(2, 6, 3).astype(np.float32))
+
+    def grads():
+        ps = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        y, (c, h) = trnn.lstm_apply(ps, x, return_state=True)
+        (torch.sum(torch.sin(y)) + torch.sum(c * c) + torch.sum(h)).backward()
+        return [ps[k].grad for k in sorted(ps)]
+
+    want = grads()
+    plain = {n: getattr(cuda_lstm, n) for n in (
+        "lstm_scan_train_state_plain", "lstm_scan_bwd_plain")}
+
+    def fake_launch(entry, what, device, tensors, ints):
+        tanh = bool(ints[4])
+        if entry == "danet_lstm_scan_train_state":
+            outs = plain["lstm_scan_train_state_plain"](*tensors[:4], tanh)
+            dst = tensors[4:8]
+        else:
+            assert entry == "danet_lstm_scan_bwd_seeded", entry
+            outs = plain["lstm_scan_bwd_plain"](*tensors[:5], tanh,
+                                                tensors[8])
+            dst = tensors[5:8]
+        for d, o in zip(dst, outs):
+            d.copy_(o)
+    monkeypatch.setattr(cuda_lstm, "_on_cuda", lambda t, what: True)
+    monkeypatch.setattr(cuda_lstm, "_launch", fake_launch)
+    monkeypatch.setattr(cuda_lstm, "max_rows", lambda *a: 0)
+    kernels = (cuda_lstm.lstm_scan_train_state,
+               cuda_lstm.lstm_scan_bwd_seeded)
+    for fn in kernels:
+        fn.launches = 0
+    got = grads()
+    assert [fn.launches for fn in kernels] == [1, 1]
+    for fn in kernels:
+        fn.launches = 0
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-6)

@@ -295,7 +295,7 @@ def test_torch_tasnet_refuses_mesh_axes(fresh_hparams, key, value, err):
     """MESH_MODEL, MESH_PIPE and MESH_EXPERT > 1 raise JAX's ValueError
     word for word; MESH_DATA, data parallelism, builds (the Trainer's
     mesh); MESH_SEQ, which JAX routes, is not ported
-    (NotImplementedError)."""
+    (NotImplementedError naming ROADMAP item 6d)."""
     hp = load_config(**dict(TINY, **{key: value}))
     if err is None:
         assert TasNet(hp).hp is hp
@@ -308,7 +308,7 @@ def test_torch_tasnet_refuses_mesh_axes(fresh_hparams, key, value, err):
             JaxTasNet()
         assert str(got.value) == str(want.value)
     else:
-        assert "queue 1 item 6" in str(got.value)
+        assert "queue 1 item 6d" in str(got.value)
 
 
 def test_torch_tasnet_refuses_unknown_mask():
