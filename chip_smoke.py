@@ -438,7 +438,8 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    as in 26 (b), seed 0, toy data.  (a) the saving LSTM forward's state
    entry (lstm_scan_train_state: float32 c0 and final carry c_T) and
    kernel 3 seeded with the carry's cotangent (lstm_scan_bwd_seeded)
-   against their plain versions at the relay's chunk shape (H=300, T=32,
+   and the lean state entry (phase 24's bounds) against their plain
+   versions at the relay's chunk shape (H=300, T=32,
    B=4) and at (H=600, T=128, B=32), float32 (forward within 2e-6, the
    backward within 2e-6 + 1e-4 x |plain|) and bfloat16 (phase 6's
    bounds), layer-shaped inputs with nonzero c0, h0, d_hs and dc_T; each
@@ -464,6 +465,38 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    frames, float32) for bilstm-orig (the relay) and attn-v1 (ring) on the
    four ranks against separate on one process, within 1e-4 of the
    answer's peak.
+29. sequence parallelism of tcn-v1, dprnn-v1, conv-bilstm-v1 and tasnet-v1
+   (parallel/seq_parallel.py's tcn_stack_sp, dprnn_stack_sp and
+   conv_bilstm_sp, TasNet._forward_sp) on one card, four ranks sharing it
+   over gloo as in 28, toy data.  (a) configs/tcn.json (12 blocks, 256 /
+   512; T=128: 32-frame chunks at 1 x 4 against a largest span of 16),
+   configs/dprnn.json with DPRNN_HOP 64 (4 blocks, 2 x 128; T=256, the
+   mesh's effective_bucket), conv-bilstm-v1 at FFT_SIZE 256 (T=128) and
+   tasnet-v1 at its default widths (T=128), B=8, each a train and a valid
+   step at 1 x 4 and 2 x 2 (data x seq) against the same step on one
+   process: float32 (phase 28's bounds) and each file's bfloat16 (phase
+   27's), from phase 21 (b)'s well-conditioned start (ANCHOR_AUX_LOSS 0,
+   whose term jumps even in float64 at the files' 0.5, RELU_LEAKAGE
+   COMPARE_LEAKAGE, HEAD_SCALE's head); the ranks' parameters bit for bit;
+   each rank's launches asserted: dprnn-v1 8 of kernels 2, 3 and B
+   (intra and inter scans of 4 blocks), conv-bilstm-v1 4 state-entry
+   saving forwards, 4 seeded backwards and 4 state-entry lean forwards
+   (the relay), none for tcn-v1 and tasnet-v1.  tcn-v1 and dprnn-v1 at
+   their files' own keys (bfloat16, ANCHOR_AUX_LOSS 0.5, kmeans, the head
+   as initialised) at 1 x 4 are printed as a reading, not held, beside the
+   one-process step's own move under a 1e-6 relative change of the input.  (b)
+   tasnet-v1's separate_wav on a 10 s request on the four ranks at 1 x 4
+   and 2 x 2 against one process, within 1e-4 of the answer's peak.  (c)
+   the scan kernels at the shapes (a) gives them, against their plain
+   versions: dprnn-v1's kernels B, 2 and 3 (H=128) at the intra scan's
+   (T=64, 8 rows) and the inter scan's (T=4, 128 rows) on each of the
+   four ranks (phase 4's and phase 6's bounds), and conv-bilstm-v1's
+   relay (H=256) at a rank's chunk, (T=8, B=8) at 1 x 4 and (T=16, B=4)
+   at 2 x 2: the state-form saving forward, the seeded kernel 3 and the
+   lean state entry as in 28 (a), float32 and bfloat16 each.
+
+Before the kernels line the script prints each phase function's wall
+seconds.
 
 The kernel summary lists all sixteen kernels; its launches count the
 main paths of phases 5, 7, 10, 11, 14, 15, 17, 18, 19, 20 (20: (a),
@@ -475,7 +508,8 @@ caller, the CLI), 26 (a) (the mesh trainer's steps; (b)'s ranks count
 in their own processes, printed per rank) and 27 (a) (the four stage
 ranks' steps and valid steps, counted in their processes and summed) and
 28 (b) (the four sequence-parallel ranks' steps and valid steps, counted
-in their processes and summed).
+in their processes and summed) and 29 (a) (dprnn-v1's and conv-bilstm-v1's
+held steps and valid steps on the four ranks, likewise).
 bound_ms is the least time the card could take for the work of the timed
 call: the larger of its bytes (each input read once, each output written
 once) over 3.35 TB/s and
@@ -5031,7 +5065,8 @@ def _one_process_step(hp, params, batch, patch=None) -> dict:
                 names, weights.leaves(st["params"]))}}
 
 
-def _held(tag: str, rank: dict, want: dict, bf16: bool) -> float:
+def _held(tag: str, rank: dict, want: dict, bf16: bool,
+          phase: int = 27) -> float:
     """A rank's step against the one-process one: float32 at phase 26
     (b)'s bound on the parameters after the step, bfloat16 the loss and
     each gradient relative to its peak (BF16_*).  -> the worst ratio of
@@ -5051,9 +5086,9 @@ def _held(tag: str, rank: dict, want: dict, bf16: bool) -> float:
             bound = MESH_RTOL[0] + MESH_RTOL[1] * np.abs(ref)
             worst = max(worst, float(np.max(err / bound)))
     if not worst <= 1.0:
-        raise AssertionError("phase 27 %s: off the one-process step (%.3g "
+        raise AssertionError("phase %d %s: off the one-process step (%.3g "
                              "of its bound; loss %.6g vs %.6g)"
-                             % (tag, worst, float(rank["loss"]),
+                             % (phase, tag, worst, float(rank["loss"]),
                                 want["loss"]))
     return worst
 
@@ -5064,14 +5099,41 @@ def _rank_results(res: list, case: str) -> list:
             for r in res]
 
 
-def _same_replicas(tag: str, ranks: list, names) -> None:
+def _same_replicas(tag: str, ranks: list, names, phase: int = 27) -> None:
     """The ranks' copies of the leaves ``names`` bit for bit equal."""
     for name in names:
         for r in ranks[1:]:
             if not np.array_equal(r["params/" + name],
                                   ranks[0]["params/" + name]):
-                raise AssertionError("phase 27 %s: the ranks' %s differ"
-                                     % (tag, name))
+                raise AssertionError("phase %d %s: the ranks' %s differ"
+                                     % (phase, tag, name))
+
+
+def _scan_tols(dt: str) -> dict:
+    """A ``kernels`` case's tolerances of kernels B, 2 and 3 in ``dt``:
+    phase 4's on the lean forward, phase 6's on the saving forward and
+    kernel 3."""
+    dtype = getattr(torch, dt)
+    return {"bilstm_scan": (LSTM_ATOL[dtype], 0.0),
+            "bilstm_scan_train": TRAIN_FWD_TOL[dtype],
+            "bilstm_scan_bwd": TRAIN_BWD_TOL[dtype]}
+
+
+def _held_kernels(tag: str, ranks: list, errs: dict,
+                  phase: int = 27) -> None:
+    """Each rank's ``kernels`` case within its tolerances; keeps each
+    kernel's worst error under "<kernel> <tag>"."""
+    if not ranks or not all(ranks):
+        raise AssertionError("phase %d %s: a rank returned no kernel check"
+                             % (phase, tag))
+    for r, rank in enumerate(ranks):
+        for name in ("bilstm_scan", "bilstm_scan_train", "bilstm_scan_bwd"):
+            if not float(rank["ratio/" + name]) <= 1.0:
+                raise AssertionError(
+                    "phase %d rank %d: %s %s off its plain version by %.3g"
+                    % (phase, r, name, tag, float(rank["err/" + name])))
+            key = "%s %s" % (name, tag)
+            errs[key] = max(errs.get(key, 0.0), float(rank["err/" + name]))
 
 
 def _pipe_cases(tmp: str) -> tuple:
@@ -5091,13 +5153,8 @@ def _pipe_cases(tmp: str) -> tuple:
              for dt in ("bfloat16", "float32")]
     for dt in ("float32", "bfloat16"):
         cases.append({"name": "kernels-%s" % dt, "kind": "kernels",
-                      "T": TRAIN_T, "rows": rows, "dtype": dt, "tol": {
-                          "bilstm_scan": (LSTM_ATOL[getattr(torch, dt)],
-                                          0.0),
-                          "bilstm_scan_train": TRAIN_FWD_TOL[
-                              getattr(torch, dt)],
-                          "bilstm_scan_bwd": TRAIN_BWD_TOL[
-                              getattr(torch, dt)]}})
+                      "T": TRAIN_T, "rows": rows, "dtype": dt,
+                      "tol": _scan_tols(dt)})
     return hp, batch, params, cases
 
 
@@ -5139,15 +5196,7 @@ def _pipeline_phase(tmp: str) -> dict:
                 launches[k] += v
     errs = {}
     for dt in ("float32", "bfloat16"):
-        for r, rank in enumerate(_rank_results(res, "kernels-" + dt)):
-            for name in want_counts:
-                if not float(rank["ratio/" + name]) <= 1.0:
-                    raise AssertionError(
-                        "phase 27 (a) rank %d: %s %s off its plain version "
-                        "by %.3g" % (r, name, dt, float(rank["err/" + name])))
-                key = "%s %s" % (name, dt)
-                errs[key] = max(errs.get(key, 0.0),
-                                float(rank["err/" + name]))
+        _held_kernels(dt, _rank_results(res, "kernels-" + dt), errs)
     print("phase 27 (a) configs/pipeline.json at 1 x 4 (bilstm-orig 4 x "
           "300, B=16, T=%d, PIPE_MICROBATCHES %d: four stages of one layer, "
           "microbatches of %d rows), four ranks on one card over gloo: a "
@@ -5287,13 +5336,16 @@ HALO_LOSS_REL = 5e-2
 SP_REQUEST_FRAMES = 1252
 
 
-def _seq_kernels() -> dict:
-    """(a): the state forms of the saving forward and of kernel 3 against
-    their plain versions, timed beside the lean state entry and the
-    saving forward and kernel 3 without the state."""
-    rs = np.random.RandomState(28)
+def _seq_kernels(shapes=SEQ_KERNEL_SHAPES, phase: int = 28,
+                 part: str = "(a)") -> dict:
+    """(a): the state forms of the saving forward and of kernel 3 and the
+    lean state entry against their plain versions at each (H, T, B) of
+    ``shapes``, timed beside the saving forward and kernel 3 without the
+    state.  The state entry's worst errors are kept as "lstm_scan
+    (state)", apart from the kernels line's lstm_scan."""
+    rs = np.random.RandomState(phase)
     worst, times = {}, {}
-    for h, t, b in SEQ_KERNEL_SHAPES:
+    for h, t, b in shapes:
         for dt in (torch.float32, torch.bfloat16):
             xp, wh, c0, h0 = _carry_inputs(rs, t, b, h, dt)
             d_hs = torch.from_numpy((rs.randn(t, b, h) * 0.1).astype(
@@ -5309,14 +5361,25 @@ def _seq_kernels() -> dict:
                                                    wh, True, dc_t)
             brefs = cuda_lstm.lstm_scan_bwd_plain(d_hs, acts, cs, c_prev,
                                                   wh, True, dc_t)
+            entry = cuda_lstm.lstm_scan(xp, wh, c0, h0, True,
+                                        return_state=True)
+            erefs = cuda_lstm.lstm_scan_plain(xp, wh, c0, h0, True,
+                                              return_state=True)
             torch.cuda.synchronize()
             f32 = dt == torch.float32
             tag = "H=%d %s" % (h, _tag(dt, True, t, b))
-            parts = _check_kernels(28, tag, dt, (
+            parts = _check_kernels(phase, tag, dt, (
                 ("lstm_scan_train_state", ("hs", "cs", "acts", "c_T"), outs,
                  refs, SEQ_FWD_TOL if f32 else TRAIN_FWD_TOL[dt]),
                 ("lstm_scan_bwd_seeded", ("dxp", "dc0", "dh0"), bouts, brefs,
-                 SEQ_BWD_TOL if f32 else TRAIN_BWD_TOL[dt])), worst)
+                 SEQ_BWD_TOL if f32 else TRAIN_BWD_TOL[dt]),
+                # phase 24's bounds: hs at phase 4's, c_T at LSTM_ATOL or
+                # phase 6's forward bounds
+                ("lstm_scan (state)", ("state hs",), entry[:1], erefs[:1],
+                 (LSTM_ATOL[dt], 0.0)),
+                ("lstm_scan (state)", ("state c_T",), entry[1:], erefs[1:],
+                 (LSTM_ATOL[dt], 0.0) if f32 else TRAIN_FWD_TOL[dt])),
+                worst)
             ms = {
                 "state save": cuda_ms(lambda: cuda_lstm.lstm_scan_train_state(
                     xp, wh, c0, h0, True), 10),
@@ -5336,8 +5399,8 @@ def _seq_kernels() -> dict:
                     lambda: cuda_lstm.lstm_scan_bwd_plain(
                         d_hs, acts, cs, c_prev, wh, True, dc_t), 2)}
             times[(h, t, b, dt)] = (ms, plain)
-            print("phase 28 (a) %s: max_abs_err %s; ms %s; plain ms %s"
-                  % (tag, ", ".join(parts),
+            print("phase %d %s %s: max_abs_err %s; ms %s; plain ms %s"
+                  % (phase, part, tag, ", ".join(parts),
                      {k: "%.4f" % v for k, v in ms.items()},
                      {k: "%.4f" % v for k, v in plain.items()}))
     return {"max_abs_err": worst, "times": times}
@@ -5380,7 +5443,7 @@ def _seq_cases(tmp: str) -> tuple:
     return batch, params, steps, mix, cases
 
 
-def _held_grads(tag: str, rank: dict, want: dict) -> float:
+def _held_grads(tag: str, rank: dict, want: dict, phase: int = 28) -> float:
     """A float32 rank's step against the one-process one: the loss within
     1e-4 relative and each gradient within 1e-4 of its tensor's peak
     (phase 7's card-vs-CPU bounds: the sequence-parallel step sums in
@@ -5393,9 +5456,9 @@ def _held_grads(tag: str, rank: dict, want: dict) -> float:
         worst = max(worst, float(np.max(np.abs(rank["grads/" + name] - ref)))
                     / peak / STEP_RTOL["float32"])
     if not worst <= 1.0:
-        raise AssertionError("phase 28 %s: off the one-process step (%.3g "
+        raise AssertionError("phase %d %s: off the one-process step (%.3g "
                              "of its bound; loss %.6g vs %.6g)"
-                             % (tag, worst, float(rank["loss"]),
+                             % (phase, tag, worst, float(rank["loss"]),
                                 want["loss"]))
     return worst
 
@@ -5509,6 +5572,246 @@ def phase_seq_parallel() -> dict:
              {k: v for k, v in launches.items() if v}))
     return {"kernels": kern, "worst": worst, "separate": sep,
             "per_rank": per_rank, "launches": launches}
+
+
+SEQ_CONV_MESHES = {"1x4": {"MESH_DATA": 1, "MESH_SEQ": 4},
+                   "2x2": {"MESH_DATA": 2, "MESH_SEQ": 2}}
+SEQ_CONV_ONE = {"MESH_DATA": 1, "MESH_SEQ": 1}
+# the models at full width: (config file under configs/ or None for
+# default.json's widths, keys); dtypes: float32, and the file's bfloat16
+SEQ_CONV_MODELS = {
+    "tcn-v1": ("tcn.json", {}),
+    "dprnn-v1": ("dprnn.json", {"DPRNN_HOP": 64}),
+    "conv-bilstm-v1": (None, {"ENCODER_TYPE": "conv-bilstm-v1"}),
+    "tasnet-v1": (None, {"MODEL_TYPE": "tasnet-v1"})}
+SEQ_CONV_B = 8
+# the held steps: ANCHOR_AUX_LOSS 0 (its term jumps even in float64 at the
+# files' 0.5: phase 21 (c)), no leaky ReLU kink (COMPARE_LEAKAGE) and
+# HEAD_SCALE's head (_init), phase 21 (b)'s well-conditioned start
+SEQ_CONV_HELD = {"ANCHOR_AUX_LOSS": 0.0, "RELU_LEAKAGE": COMPARE_LEAKAGE,
+                 "BATCH_SIZE": SEQ_CONV_B}
+# (b): tasnet-v1's separate_wav request
+SEQ_CONV_REQUEST = 10 * SMPRATE
+# (c): the shapes the held steps give the scan kernels, at 1 x 4 and at 2
+# x 2 alike.  dprnn-v1 (H=128, B=8, T=256, 64-frame segments): the intra
+# scan (T=64) on the rank's rows x segments (8 x 1, or 4 x 2), the inter
+# scan (T=4, every segment) on its rows x positions (8 x 16, or 4 x 32),
+# kernels B, 2 and 3 on ranks' processes; conv-bilstm-v1's relay (H=256,
+# T=128 pooled twice to 32): the state forms and the lean state entry on
+# a rank's chunk of 8 frames x 8 rows, or 16 x 4
+SEQ_CONV_DPRNN_SCANS = {"intra": (64, 8), "inter": (4, 128)}
+SEQ_CONV_RELAY_SHAPES = ((256, 8, 8), (256, 16, 4))
+# (a)'s reading: the relative change of the input under which the
+# one-process step's own move is printed beside the ranks'
+SEQ_CONV_NUDGE = 1e-6
+
+
+def _seq_conv_load(model: str, **keys):
+    """The config of a phase 29 model: its file (if any), its keys, then
+    ``keys``."""
+    name, extra = SEQ_CONV_MODELS[model]
+    files = [os.path.join(REPO_ROOT, "configs", name)] if name else []
+    return load_config(*files, **dict(extra, **keys)), (
+        ["configs/" + name] if name else [])
+
+
+def _seq_conv_launches(model: str) -> dict:
+    """The LSTM kernels one rank launches in a train step and a valid step
+    of ``model`` under MESH_SEQ: dprnn-v1's dual path kernels 2 and 3 in
+    the step and kernel B in the valid step, once per path and block (the
+    intra scan over the rank's segments, the inter scan over every segment
+    of its positions); conv-bilstm-v1's relay one state-entry saving
+    forward, one seeded backward and one state-entry lean forward per
+    direction and layer; none for tcn-v1 and tasnet-v1."""
+    if model == "dprnn-v1":
+        n = 2 * _seq_conv_load(model)[0].DPRNN_BLOCKS
+        return {"bilstm_scan_train": n, "bilstm_scan_bwd": n,
+                "bilstm_scan": n}
+    if model == "conv-bilstm-v1":
+        return {"lstm_scan_train_state": 4, "lstm_scan_bwd_seeded": 4,
+                "lstm_scan": 4}
+    return {}
+
+
+def _seq_conv_cases(tmp: str) -> tuple:
+    """The spec of phase 29 and what its one-process references need:
+    per model and dtype the held keys, the seeded weights and the batch
+    (its T the mesh's effective bucket); tcn-v1's and dprnn-v1's files'
+    own keys as a reading; tasnet-v1's 10 s request."""
+    from danet_tpu_torch.train.trainer import effective_bucket
+    refs, cases = {}, []
+    for model, (name, _) in SEQ_CONV_MODELS.items():
+        tag = model.split("-v1")[0]
+        dts = ["float32"] + (["bfloat16"] if name else [])
+        runs = [(dt, dict(SEQ_CONV_HELD, COMPUTE_DTYPE=dt)) for dt in dts]
+        if name:
+            runs.append(("file", {"BATCH_SIZE": SEQ_CONV_B}))
+        hp, files = _seq_conv_load(model, **SEQ_CONV_MESHES["1x4"])
+        bucket = effective_bucket(hp)
+        batch = _toy_batches(_seq_conv_load(
+            model, BATCH_SIZE=SEQ_CONV_B, TIME_BUCKET=bucket)[0], 1)[0]
+        np.savez(os.path.join(tmp, "%s-b.npz" % tag), src=batch)
+        for run, keys in runs:
+            one = _seq_conv_load(model, **dict(keys, **SEQ_CONV_ONE))[0]
+            m = one.get_model()(one)
+            params = (m.init(torch.Generator().manual_seed(0))
+                      if run == "file" else _init(m))
+            weights.save_npz(os.path.join(tmp, "%s-%s.npz" % (tag, run)),
+                             params)
+            refs[(model, run)] = (one, params, batch)
+            for mesh, mkeys in SEQ_CONV_MESHES.items():
+                if run == "file" and mesh != "1x4":
+                    continue
+                cases.append({"name": "%s-%s-%s" % (tag, run, mesh),
+                              "kind": "step", "adam": True, "valid": True,
+                              "params": "%s-%s.npz" % (tag, run),
+                              "batch": "%s-b.npz" % tag, "configs": files,
+                              "keys": dict(SEQ_CONV_MODELS[model][1],
+                                           **dict(keys, **mkeys))})
+    wav = (np.random.RandomState(29).randn(1, SEQ_CONV_REQUEST) * 0.3) \
+        .astype(np.float32)
+    np.savez(os.path.join(tmp, "wav.npz"), x=wav)
+    for dt in ("float32", "bfloat16"):
+        for path, (t, rows) in SEQ_CONV_DPRNN_SCANS.items():
+            cases.append({"name": "kernels-%s-%s" % (path, dt),
+                          "kind": "kernels", "T": t, "rows": rows, "H": 128,
+                          "dtype": dt, "tol": _scan_tols(dt)})
+    for mesh, mkeys in SEQ_CONV_MESHES.items():
+        cases.append({"name": "tasnet-separate-" + mesh, "kind": "sp_conv",
+                      "stack": "tasnet", "separate_wav": True,
+                      "params": "tasnet-float32.npz", "x": "wav.npz",
+                      "keys": dict(SEQ_CONV_MODELS["tasnet-v1"][1],
+                                   **mkeys)})
+    return refs, cases, wav
+
+
+def phase_seq_conv() -> dict:
+    """Phase 29: sequence parallelism of tcn-v1, dprnn-v1, conv-bilstm-v1
+    and tasnet-v1 on one card (module docstring)."""
+    import shutil
+    import tempfile
+    from danet_tpu_torch.parallel import smoke
+    from danet_tpu_torch.parallel.sharding import nest
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="danet-phase29-")
+    try:
+        refs, cases, wav = _seq_conv_cases(tmp)
+        spec = os.path.join(tmp, "seqconv.json")
+        with open(spec, "w") as f:
+            json.dump({"cases": cases}, f)
+        t1 = time.perf_counter()
+        smoke.launch(spec, os.path.join(tmp, "ranks"), 4, device="cuda",
+                     backend="gloo", shared_card=True, timeout=420)
+        ranks_s = time.perf_counter() - t1
+        res = smoke.load_results(os.path.join(tmp, "ranks"), 4)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    worst, reading, per_rank = {}, {}, {}
+    launches = {n: 0 for n in KERNELS}
+    for (model, run), (one, params, batch) in refs.items():
+        tag = model.split("-v1")[0]
+        ref = _one_process_step(one, params, batch)
+        for mesh in SEQ_CONV_MESHES:
+            if run == "file" and mesh != "1x4":
+                continue
+            name = "%s-%s-%s" % (tag, run, mesh)
+            ranks = _rank_results(res, name)
+            if not ranks or not all(ranks):
+                raise AssertionError("phase 29 (a) %s: a rank returned no "
+                                     "results" % name)
+            if run == "file":
+                moved = _one_process_step(one, params, batch * (
+                    1.0 + SEQ_CONV_NUDGE))
+                reading[name] = tuple(
+                    (max(abs(float(r["loss"]) - ref["loss"])
+                         / abs(ref["loss"]) for r in rs),
+                     max(float(np.max(np.abs(r["grads/" + k] - v)))
+                         / max(float(np.max(np.abs(v))), 1e-30)
+                         for r in rs for k, v in ref["grads"].items()))
+                    for rs in (ranks, [{"loss": moved["loss"], **{
+                        "grads/" + k: v for k, v in moved["grads"].items()}}]))
+            elif run == "bfloat16":
+                worst[name] = max(_held("(a) %s rank %d" % (name, i), r, ref,
+                                        True, phase=29)
+                                  for i, r in enumerate(ranks))
+            else:
+                worst[name] = max(_held_grads("(a) %s rank %d" % (name, i), r,
+                                              ref, phase=29)
+                                  for i, r in enumerate(ranks))
+            _same_replicas("(a) " + name, ranks, ref["params"], phase=29)
+            counts = [{k.split("/", 1)[1]: int(v) for k, v in r.items()
+                       if k.startswith("launches/") and int(v)}
+                      for r in ranks]
+            want = _seq_conv_launches(model)
+            for i, c in enumerate(counts):
+                if c != want:
+                    raise AssertionError("phase 29 (a) %s rank %d launched "
+                                         "%s, not %s" % (name, i, c, want))
+                if run != "file":
+                    for k, v in c.items():
+                        launches[k] += v
+            per_rank[name] = counts[0]
+    hp = _seq_conv_load("tasnet-v1", **SEQ_CONV_ONE)[0]
+    model = hp.get_model()(hp)
+    _, params, _ = refs[("tasnet-v1", "float32")]
+    tree = nest(weights.leaf_names(params),
+                [t.cuda() for t in weights.leaves(params)])
+    with torch.no_grad():
+        ref = model.separate_wav(tree, torch.from_numpy(wav).cuda()) \
+            .cpu().numpy()
+    peak = float(np.abs(ref).max())
+    sep = {}
+    for mesh in SEQ_CONV_MESHES:
+        sep[mesh] = max(float(np.abs(r["y"] - ref).max()) for r in
+                        _rank_results(res, "tasnet-separate-" + mesh)) / peak
+        if not sep[mesh] <= SERVE_RTOL:
+            raise AssertionError("phase 29 (b) tasnet-v1 separate_wav at %s:"
+                                 " %.3g of the peak off one process"
+                                 % (mesh, sep[mesh]))
+    print("phase 29 (a) tcn-v1 (configs/tcn.json, 12 blocks 256 / 512, T=128"
+          ": chunks of 32 frames at 1 x 4, largest span 16), dprnn-v1 "
+          "(configs/dprnn.json, DPRNN_HOP 64, T=256 through effective_bucket"
+          "), conv-bilstm-v1 (FFT_SIZE 256, T=128) and tasnet-v1 (default "
+          "widths, T=128), B=%d, at 1 x 4 and 2 x 2 (data x seq), four ranks "
+          "on one card over gloo, a train and a valid step each, held "
+          "against one process (ANCHOR_AUX_LOSS 0, RELU_LEAKAGE %g, "
+          "HEAD_SCALE): worst ratio to the bound %s (bfloat16: phase 27's "
+          "bounds; float32: phase 28's); the ranks' parameters bit for bit; "
+          "launches per rank %s; the ranks took %.1f s"
+          % (SEQ_CONV_B, COMPARE_LEAKAGE,
+             {k: "%.3g" % v for k, v in worst.items()},
+             {k: v for k, v in per_rank.items() if v}, ranks_s))
+    print("phase 29 (a) reading, not held: the files' own keys (bfloat16, "
+          "ANCHOR_AUX_LOSS 0.5, kmeans, the head as initialised) at 1 x 4, "
+          "(loss relative error, worst gradient error of its peak) of the "
+          "ranks against one process, and beside it the one-process step's "
+          "own move under a %g relative change of the input: %s"
+          % (SEQ_CONV_NUDGE, {k: "%.3g, %.3g; own %.3g, %.3g" % (a + b)
+                              for k, (a, b) in reading.items()}))
+    print("phase 29 (b) tasnet-v1 separate_wav on a %d s request on the "
+          "four ranks vs one process, of the peak: %s (bound %g)"
+          % (SEQ_CONV_REQUEST // SMPRATE,
+             {k: "%.3g" % v for k, v in sep.items()}, SERVE_RTOL))
+    kernel_err = {}
+    for dt in ("float32", "bfloat16"):
+        for path in SEQ_CONV_DPRNN_SCANS:
+            _held_kernels("%s %s" % (path, dt), _rank_results(
+                res, "kernels-%s-%s" % (path, dt)), kernel_err, phase=29)
+    relay = _seq_kernels(SEQ_CONV_RELAY_SHAPES, phase=29, part="(c)")
+    print("phase 29 (c) dprnn-v1's scans on the ranks, kernels B, 2 and 3 "
+          "against their plain versions (H=128; intra T=%d, %d rows; inter "
+          "T=%d, %d rows; phase 4's and phase 6's bounds), max abs err %s; "
+          "conv-bilstm-v1's relay, the state forms and the lean state entry "
+          "at (H, T, B) %s: the lines above"
+          % (*SEQ_CONV_DPRNN_SCANS["intra"], *SEQ_CONV_DPRNN_SCANS["inter"],
+             {k: "%.3g" % v for k, v in kernel_err.items()},
+             SEQ_CONV_RELAY_SHAPES))
+    print("phase 29 took %.1f s on %s; main-path launches %s"
+          % (time.perf_counter() - t0, nvidia_smi(),
+             {k: v for k, v in launches.items() if v}))
+    return {"worst": worst, "reading": reading, "separate": sep,
+            "per_rank": per_rank, "launches": launches,
+            "kernel_err": kernel_err, "relay": relay["max_abs_err"]}
 
 
 def _bound(flops: float, nbytes: float):
@@ -5661,42 +5964,56 @@ def phase_library(window) -> dict:
     return out
 
 
+# each phase function's wall seconds in this run, printed before the
+# kernels line (the script's time against its limit, phase by phase)
+SECONDS = {}
+
+
+def _timed(fn, *args):
+    """``fn(*args)``, its wall seconds kept in SECONDS under its name."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    SECONDS[fn.__name__] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 def main():
-    phase_environment()
-    phase_build()
+    _timed(phase_environment)
+    _timed(phase_build)
     window = load_config().FFT_WND_ARRAY
-    stft = phase_stft(window)
-    scan = phase_bilstm()
-    serving = phase_serving()
-    train_kernels = phase_train_kernels()
-    training = phase_training()
-    uni_kernels = phase_lstm_unidirectional()
-    gru_kernels = phase_gru()
-    serving_uni = phase_serving_unidirectional()
-    training_uni = phase_training_unidirectional()
-    library = phase_library(window)
+    stft = _timed(phase_stft, window)
+    scan = _timed(phase_bilstm)
+    serving = _timed(phase_serving)
+    train_kernels = _timed(phase_train_kernels)
+    training = _timed(phase_training)
+    uni_kernels = _timed(phase_lstm_unidirectional)
+    gru_kernels = _timed(phase_gru)
+    serving_uni = _timed(phase_serving_unidirectional)
+    training_uni = _timed(phase_training_unidirectional)
+    library = _timed(phase_library, window)
     for name, run in (("bilstm_scan_bwd", train_kernels),
                       ("lstm_scan_bwd", uni_kernels)):
         ms = run["times"][name][0]
         print("kernel 3 %s T=%d B=32 float32: %.4f ms, %.3f us/step; library "
               "%.4f ms (%s)" % (name, TRAIN_T, ms, 1e3 * ms / TRAIN_T,
                                 *library[name]))
-    flash_kernels = phase_flash_kernels()
-    serving_attn = phase_serving_attention()
-    training_attn = phase_training_attention()
-    logmag = phase_stft_logmag(window)
-    training_tpu = phase_training_tpu()
-    serving_tpu = phase_serving_tpu()
-    tpu_whole = phase_tpu_whole()
-    checkpoints = phase_checkpoints()
-    new_encoders = phase_new_encoders()
-    tasnet = phase_tasnet()
-    causal_moe = phase_causal_moe()
-    streaming = phase_streaming()
-    bundles = phase_bundles(window)
-    mesh = phase_mesh()
-    pipe_expert = phase_pipe_expert()
-    seq = phase_seq_parallel()
+    flash_kernels = _timed(phase_flash_kernels)
+    serving_attn = _timed(phase_serving_attention)
+    training_attn = _timed(phase_training_attention)
+    logmag = _timed(phase_stft_logmag, window)
+    training_tpu = _timed(phase_training_tpu)
+    serving_tpu = _timed(phase_serving_tpu)
+    tpu_whole = _timed(phase_tpu_whole)
+    checkpoints = _timed(phase_checkpoints)
+    new_encoders = _timed(phase_new_encoders)
+    tasnet = _timed(phase_tasnet)
+    causal_moe = _timed(phase_causal_moe)
+    streaming = _timed(phase_streaming)
+    bundles = _timed(phase_bundles, window)
+    mesh = _timed(phase_mesh)
+    pipe_expert = _timed(phase_pipe_expert)
+    seq = _timed(phase_seq_parallel)
+    seq_conv = _timed(phase_seq_conv)
     print("summary: bilstm_scan bfloat16 max_abs_err %.3g (atol %g); "
           "serving worst error vs CPU %.3g of the peak (rtol %g), lstm-orig "
           "%.3g, gru-v1 %.3g, attn-v1 %.3g; train steps vs CPU: worst "
@@ -5798,6 +6115,17 @@ def main():
              {k: "%.3g" % v for k, v in seq["worst"].items()},
              {k: "%.3g" % v for k, v in seq["separate"].items()},
              seq["per_rank"]))
+    print("summary, phase 29: tcn-v1, dprnn-v1, conv-bilstm-v1 and "
+          "tasnet-v1 under MESH_SEQ at 1 x 4 and 2 x 2 vs the one-process "
+          "step (of the bound) %s; tasnet-v1 separate_wav (of the peak) %s; "
+          "launches per rank %s; dprnn-v1's scans vs plain %s; the relay's "
+          "vs plain (float32, bfloat16) %s"
+          % ({k: "%.3g" % v for k, v in seq_conv["worst"].items()},
+             {k: "%.3g" % v for k, v in seq_conv["separate"].items()},
+             {k: v for k, v in seq_conv["per_rank"].items() if v},
+             {k: "%.3g" % v for k, v in seq_conv["kernel_err"].items()},
+             {k: "%.3g, %.3g" % (v[torch.float32], v[torch.bfloat16])
+              for k, v in seq_conv["relay"].items()}))
     # launches: the counts of the main paths that run each kernel, each
     # zeroed just before its path and read just after it (kernel 6's: phase
     # 25 (f), dsp.stft_mag_logmag)
@@ -5808,7 +6136,8 @@ def main():
              new_encoders["launches"], tasnet["launches"],
              causal_moe["launches"], streaming["launches"],
              bundles["launches"], mesh["launches"],
-             pipe_expert["launches"], seq["launches"]] + [
+             pipe_expert["launches"], seq["launches"],
+             seq_conv["launches"]] + [
         run["launches"] for run in list(serving_uni.values())
         + list(training_uni.values())]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}
@@ -5914,6 +6243,8 @@ def main():
         if not launches[name]:
             raise AssertionError("%s was not launched on its main path"
                                  % name)
+    print("seconds per phase function: %s (%.1f s in all)"
+          % (json.dumps(SECONDS), sum(SECONDS.values())))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

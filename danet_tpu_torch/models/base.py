@@ -43,6 +43,12 @@ class Encoder(ModelModule):
         effective_bucket``)."""
         return 1
 
+    # the leaves (a pattern of their names under the encoder) whose
+    # gradient each rank of a 'seq' group computes from its T-chunk alone
+    # under sequence parallelism (``parallel/sharding.py::leaf_owners``);
+    # None: every rank computes each leaf's whole gradient
+    SEQ_LEAVES = None
+
     def apply_debug(self, params, log_spectra):
         """(embed, fetches): the forward pass and a dict of the internal
         activations that ``apply`` taps, for the debug mode's .mat dump.

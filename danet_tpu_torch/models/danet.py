@@ -12,9 +12,9 @@ long-form ``separate_long`` and the causal streaming surface
 (``separate_stream`` over spectra; ``stream_init`` / ``stream_step`` over
 waveforms, every carried value in one state dict) and ``separate_sp``
 (sequence-parallel inference over a mesh's 'seq' axis, ``:336-392``).
-``_check_parallel_support`` keeps JAX's refusals (``:73-105``) and
-refuses MESH_SEQ > 1 for the encoders whose sequence-parallel route is
-not ported yet.
+``_check_parallel_support`` keeps JAX's refusals (``:73-105``);
+``seq_leaves`` names the leaves each rank of a 'seq' group differentiates
+from its chunk alone (``parallel/sharding.py::leaf_owners``).
 
 The unit phase vector is ``mix / (|mix| + eps)``, as in the JAX package
 (not atan2).
@@ -79,15 +79,16 @@ class DaNet:
         # mesh (parallel/collectives.py::mean), for the one term of
         # train_loss that is not a mean over rows (the DC share's scale)
         self.batch_mean = None
+        # per leaf, the share of REG_APPLY's gradient this rank keeps: set
+        # by a Trainer whose mesh has leaves owned by an axis (reg_loss)
+        self.reg_shares = None
         self._check_parallel_support()
 
     def _check_parallel_support(self):
         """JAX's refusals of a MESH_* axis that the configured encoder has
         no route for (``ValueError``, word for word).  Every MESH_* axis is
-        ported (the Trainer's mesh, ``parallel/``); MESH_SEQ > 1 with
-        tcn-v1, dprnn-v1 or conv-bilstm-v1, which JAX routes, raises
-        NotImplementedError (ROADMAP item 6d; tasnet-v1 refuses it in
-        ``models/tasnet.py``)."""
+        ported (the Trainer's mesh, ``parallel/``), with each encoder JAX
+        routes it for."""
         from danet_tpu_torch.models import encoders as enc_mod
         hp, enc = self.hp, self.encoder
 
@@ -117,14 +118,14 @@ class DaNet:
             raise ValueError(
                 "MESH_PIPE and MESH_SEQ cannot combine (the encoder "
                 "routes through one strategy); pick one")
-        if n("MESH_SEQ") > 1 and isinstance(
-                enc, (enc_mod.TcnEncoder, enc_mod.DprnnEncoder,
-                      enc_mod.ConvBiLstmEncoder)):
-            raise NotImplementedError(
-                "MESH_SEQ > 1 with ENCODER_TYPE=%r is not ported: its "
-                "sequence-parallel route is ROADMAP.md queue 1 item 6d "
-                "(bilstm-orig, gru-v1, attn-v1 and moe-v1 are ported)"
-                % hp.ENCODER_TYPE)
+
+    def seq_leaves(self):
+        """The pattern of the leaf names whose gradient each rank of a
+        'seq' group computes from its T-chunk alone (the encoder's
+        ``SEQ_LEAVES``), or None."""
+        if self.encoder.SEQ_LEAVES is None:
+            return None
+        return "encoder/" + self.encoder.SEQ_LEAVES
 
     def init(self, generator: torch.Generator, device=None) -> dict:
         """Random parameters with the JAX package's layout."""
@@ -244,7 +245,8 @@ class DaNet:
             loss = loss + aux_w * aux
 
         if getattr(hp, "REG_APPLY", False) and hp.REG_TYPE is not None:
-            loss = loss + reg_loss(params, hp.REG_TYPE, hp.REG_SCALE)
+            loss = loss + reg_loss(params, hp.REG_TYPE, hp.REG_SCALE,
+                                   self.reg_shares)
         return loss, aux_out
 
     def valid_metrics(self, params, src_ri: torch.Tensor) -> dict:
@@ -657,13 +659,26 @@ def _num(hp, key: str) -> float:
     return float(getattr(hp, key, 0.0) or 0.0)
 
 
-def reg_loss(params, reg_type: str, scale: float) -> torch.Tensor:
+def reg_loss(params, reg_type: str, scale: float,
+             shares=None) -> torch.Tensor:
     """L1 or L2 regularization over every parameter (REG_APPLY; the
-    reference defines it but never adds it, so it is off by default)."""
+    reference defines it but never adds it, so it is off by default).
+
+    ``shares`` (a Trainer on a mesh sets the model's ``reg_shares``): per
+    leaf, the share of its term's gradient this rank keeps, 1 / the size
+    of the axis that owns the leaf (``sharding.leaf_owners``), whose
+    ranks' gradients are summed where every rank computes this term
+    whole; the value stays whole."""
     ps = weights.leaves(params)
     if reg_type == "L2":
-        return scale * sum(torch.sum(torch.square(p)) for p in ps)
-    if reg_type == "L1":
+        terms = [torch.sum(torch.square(p)) for p in ps]
+    elif reg_type == "L1":
         # |p| with JAX's derivative at 0 (+1, where torch.abs gives 0)
-        return scale * sum(torch.sum(torch.where(p >= 0, p, -p)) for p in ps)
-    raise ValueError("Unknown REG_TYPE %r" % (reg_type,))
+        terms = [torch.sum(torch.where(p >= 0, p, -p)) for p in ps]
+    else:
+        raise ValueError("Unknown REG_TYPE %r" % (reg_type,))
+    total = scale * sum(terms)
+    if shares is None:
+        return total
+    kept = scale * sum(t * w for t, w in zip(terms, shares))
+    return total.detach() + (kept - kept.detach())

@@ -3,10 +3,8 @@
 the LSTM output head.
 
 Counterpart of ``danet_tpu/models/encoders.py:25-63,67-1251``: the
-single-device paths and tensor, pipeline, expert and sequence parallelism
-(the last for ``bilstm-orig``, ``gru-v1``, ``attn-v1`` and ``moe-v1``;
-JAX's routes of ``tcn-v1``, ``dprnn-v1`` and ``conv-bilstm-v1`` are
-ROADMAP item 6d), with the causal streaming hooks of ``lstm-orig``,
+single-device paths and tensor, pipeline, expert and sequence parallelism,
+with the causal streaming hooks of ``lstm-orig``,
 ``gru-v1``, causal ``attn-v1`` and ``moe-v1``, causal ``tcn-v1`` and
 online ``dprnn-v1``: ``stream_state_init(batch, dtype, device)`` (the
 state at a fresh stream), ``stream_hidden(params, x, state)`` (a centred
@@ -45,7 +43,12 @@ over 'seq' before the head, and the attention of ``attn-v1`` and
 ``moe-v1`` runs T-split (SP_ATTN 'ring' or 'ulysses',
 ``parallel/ring_attention.py``, ``parallel/ulysses.py``), the rest of the
 encoder alike on every rank of the 'seq' group, as JAX's GSPMD runs it
-around its ``shard_map``s.
+around its ``shard_map``s.  ``tcn-v1``'s blocks and ``dprnn-v1``'s
+bottleneck and blocks run on the rank's chunk too (``tcn_stack_sp``: the
+convolutions' halos; ``dprnn_stack_sp``: whole segments, two all-to-alls
+per block), gathered before the head, and ``conv-bilstm-v1`` runs whole on
+the chunk (``conv_bilstm_sp``), gathered after its head.  ``SEQ_LEAVES``
+names the leaves each rank differentiates from its chunk alone.
 """
 from __future__ import annotations
 
@@ -254,6 +257,7 @@ class BiLstmEncoder(Encoder):
 
     HDIM = 300
     N_LAYERS = 4
+    SEQ_LEAVES = r"lstm\d+/"
 
     def init(self, generator, device=None):
         hp = self.hp
@@ -376,6 +380,7 @@ class GruEncoder(Encoder):
 
     HDIM = 600
     N_LAYERS = 4
+    SEQ_LEAVES = r"gru\d+/"
 
     def init(self, generator, device=None):
         hp = self.hp
@@ -758,7 +763,12 @@ class TcnEncoder(Encoder):
     layer norm -> leaky ReLU -> linear H -> D, plus the residual; then the
     LSTM head.  TCN_CAUSAL left-pads the convolutions, and then the
     encoder streams, each block carrying the tail of its convolution's
-    input.  Widths: TCN_DIM, TCN_HIDDEN, TCN_KERNEL."""
+    input.  Widths: TCN_DIM, TCN_HIDDEN, TCN_KERNEL.  Under MESH_SEQ > 1
+    with a 'seq' axis the bottleneck and the blocks run on this rank's
+    T-chunk (``parallel/seq_parallel.tcn_stack_sp``), gathered over 'seq'
+    before the head."""
+
+    SEQ_LEAVES = r"(bottleneck|block\d+)/"
 
     def _dims(self):
         hp = self.hp
@@ -799,9 +809,9 @@ class TcnEncoder(Encoder):
     def _block(blk, h_seq, dilation: int, causal: bool, alpha: float):
         """One residual block over [B, T, D] (tasnet-v1 runs it too)."""
         y = nn.conv1d_depthwise_apply(
-            blk["dconv"], TcnEncoder._block_in(blk, h_seq, alpha),
+            blk["dconv"], nn.tcn_block_in(blk, h_seq, alpha),
             dilation=dilation, causal=causal)
-        return TcnEncoder._block_out(blk, h_seq, y, alpha)
+        return nn.tcn_block_out(blk, h_seq, y, alpha)
 
     @staticmethod
     def _block_stream(blk, h_seq, dilation: int, alpha: float, tail):
@@ -809,37 +819,29 @@ class TcnEncoder(Encoder):
         (K - 1) dilation, H] of its convolution's input: the convolution
         runs VALID over [tail | chunk] in float32, which is the offline
         causal convolution at these frames.  -> (out, the new tail)."""
-        ycat = torch.cat([tail, TcnEncoder._block_in(blk, h_seq, alpha)],
+        ycat = torch.cat([tail, nn.tcn_block_in(blk, h_seq, alpha)],
                          dim=1)
         y = nn.conv1d_depthwise_apply(blk["dconv"], ycat, dilation=dilation,
                                       valid=True)
-        return (TcnEncoder._block_out(blk, h_seq, y, alpha),
+        return (nn.tcn_block_out(blk, h_seq, y, alpha),
                 ycat[:, ycat.shape[1] - tail.shape[1]:])
-
-    @staticmethod
-    def _block_in(blk, h_seq, alpha: float):
-        """layer norm -> linear D -> H -> leaky ReLU: the convolution's
-        input."""
-        y = nn.layer_norm(blk["ln1"], h_seq)
-        return nn.leaky_relu(nn.linear_apply(blk["in"], y), alpha)
-
-    @staticmethod
-    def _block_out(blk, h_seq, y, alpha: float):
-        """The convolution's output -> layer norm -> leaky ReLU -> linear
-        H -> D, plus the residual."""
-        y = nn.leaky_relu(nn.layer_norm(blk["ln2"], y), alpha)
-        return h_seq + nn.linear_apply(blk["out"], y)
 
     def apply(self, params, log_spectra, train=False, generator=None,
               tap=None):
         """[B, T, F] -> [B, T, F, E]; with ``train``, inverted dropout at
         DROPOUT_KEEP_PROB after every block, drawn from ``generator`` in
-        block order; taps ``block<i>_h``."""
+        block order; taps ``block<i>_h`` (none under MESH_SEQ, as in JAX:
+        ``_apply_sp``)."""
         hp = self.hp
         causal = self._dims()[5]
         alpha = hp.RELU_LEAKAGE
         keep = hp.DROPOUT_KEEP_PROB if train else 1.0
-        h = nn.linear_apply(params["bottleneck"], _centered(log_spectra))
+        x = _centered(log_spectra)
+        n_seq = int(getattr(hp, "MESH_SEQ", 1) or 1)
+        mesh = _route_mesh(hp, "seq", n_seq) if n_seq > 1 else None
+        if mesh is not None:
+            return self._apply_sp(params, x, mesh, n_seq, keep, generator)
+        h = nn.linear_apply(params["bottleneck"], x)
         # the recompute runs in the backward, after this loop: each
         # block's dilation is bound now
         layer = _maybe_remat(hp, lambda p, v, dilation: self._block(
@@ -850,6 +852,24 @@ class TcnEncoder(Encoder):
                 h = nn.dropout(generator, h, keep)
             if tap:
                 tap("block%d_h" % i, h)
+        return _LstmHead.apply(params["output"], hp, h)
+
+    def _apply_sp(self, params, x, mesh, n_seq, keep, generator):
+        """The bottleneck and the blocks on this rank's T-chunk of the
+        centred input (``seq_parallel.tcn_stack_sp``), gathered over 'seq'
+        before the head (JAX ``danet_tpu/models/encoders.py:848-868``)."""
+        from danet_tpu_torch.parallel import collectives, seq_parallel
+        hp = self.hp
+        if x.shape[1] % n_seq:
+            raise ValueError("MESH_SEQ=%d must divide the frame count T=%d"
+                             % (n_seq, x.shape[1]))
+        _, _, k, _, _, causal = self._dims()
+        h = seq_parallel.tcn_stack_sp(
+            params, x, mesh,
+            [self._dilation(i) for i in range(self._n_blocks())], k, causal,
+            hp.RELU_LEAKAGE, data_axis=None, dropout_rng=generator,
+            keep_prob=keep, remat=bool(getattr(hp, "REMAT", False)))
+        h = collectives.leave_gather(mesh, h, "seq", 1)
         return _LstmHead.apply(params["output"], hp, h)
 
     def stream_state_init(self, batch: int, dtype=torch.float32,
@@ -892,7 +912,13 @@ class DprnnEncoder(Encoder):
     makes the inter-chunk LSTM one-directional; with DPRNN_HOP ==
     DPRNN_CHUNK besides (segments that do not overlap) the encoder streams
     whole segments, carrying the inter path's (c, h) per position.
-    Widths: DPRNN_DIM (D), DPRNN_HIDDEN (H per direction)."""
+    Widths: DPRNN_DIM (D), DPRNN_HIDDEN (H per direction).  Under MESH_SEQ
+    > 1 with a 'seq' axis (DPRNN_HOP == DPRNN_CHUNK) the bottleneck and
+    the blocks run on this rank's whole segments
+    (``parallel/seq_parallel.dprnn_stack_sp``), gathered over 'seq' before
+    the head."""
+
+    SEQ_LEAVES = r"(bottleneck|block\d+)/"
 
     def _dims(self):
         hp = self.hp
@@ -1023,14 +1049,31 @@ class DprnnEncoder(Encoder):
         """[B, T, F] -> [B, T, F, E]; with ``train``, inverted dropout at
         DROPOUT_KEEP_PROB on each path's output, the masks drawn from
         ``generator`` before each block, intra then inter; taps
-        ``block<i>_chunks``.  With T < DPRNN_CHUNK, one chunk of T frames
-        at the default hop."""
+        ``block<i>_chunks`` (none under MESH_SEQ, as in JAX).  With T <
+        DPRNN_CHUNK, one chunk of T frames at the default hop."""
         hp = self.hp
         _, _, p, hop, n_blocks, inter_causal = self._dims()
         backend = _backend(hp)
         keep = hp.DROPOUT_KEEP_PROB if train else 1.0
         drop = generator is not None and keep < 1.0
-        h = nn.linear_apply(params["bottleneck"], _centered(log_spectra))
+        x = _centered(log_spectra)
+        n_seq = int(getattr(hp, "MESH_SEQ", 1) or 1)
+        mesh = _route_mesh(hp, "seq", n_seq) if n_seq > 1 else None
+        if mesh is not None:
+            # JAX danet_tpu/models/encoders.py:1052-1073
+            if hop != p:
+                raise ValueError(
+                    "MESH_SEQ>1 with dprnn-v1 requires DPRNN_HOP == "
+                    "DPRNN_CHUNK (non-overlapping segments; exact SP); "
+                    "got hop=%d P=%d" % (hop, p))
+            from danet_tpu_torch.parallel import collectives, seq_parallel
+            h = seq_parallel.dprnn_stack_sp(
+                params, x, mesh, p, n_blocks, inter_causal, backend=backend,
+                data_axis=None, dropout_rng=generator if drop else None,
+                keep_prob=keep, remat=bool(getattr(hp, "REMAT", False)))
+            h = collectives.leave_gather(mesh, h, "seq", 1)
+            return _LstmHead.apply(params["output"], hp, h)
+        h = nn.linear_apply(params["bottleneck"], x)
         p_eff = min(p, h.shape[1])
         chunks, seg_info = self._segment(h, p_eff,
                                          hop if p_eff == p else None)
@@ -1098,9 +1141,13 @@ class ConvBiLstmEncoder(Encoder):
     FFT_SIZE units over 2 FFT_SIZE inputs, the residual and re-centering;
     up conv32-conv64, a pixel shuffle x2 in T and F, conv16-conv8; a
     bias-free linear to F E.  T must be a multiple of LENGTH_ALIGN (4),
-    and FEATURE_SIZE // 4 == FFT_SIZE // 8."""
+    and FEATURE_SIZE // 4 == FFT_SIZE // 8.  Under MESH_SEQ > 1 with a
+    'seq' axis the whole encoder runs on this rank's T-chunk
+    (``parallel/seq_parallel.conv_bilstm_sp``), its embeddings gathered
+    over 'seq'; every leaf is then the chunk's alone."""
 
     ALIGN = 4   # two 2x2 pools, then a x2 shuffle and the fold of 4
+    SEQ_LEAVES = r""
 
     def sp_granularity(self) -> int:
         """Each sequence-parallel chunk lands on the double-pooled grid (T
@@ -1136,14 +1183,32 @@ class ConvBiLstmEncoder(Encoder):
               tap=None):
         """[B, T, F] -> [B, T, F, E]; with ``train``, inverted dropout at
         DROPOUT_KEEP_PROB after each BiLSTM, drawn from ``generator``;
-        taps ``conv_act``, ``lstm_act`` and ``mid4``.  Raises ValueError
-        when T is not a multiple of LENGTH_ALIGN (4)."""
+        taps ``conv_act``, ``lstm_act`` and ``mid4`` (on the dense path:
+        taps run it under MESH_SEQ too, as in JAX).  Raises ValueError
+        when T is not a multiple of LENGTH_ALIGN (4), or, on the
+        sequence-parallel route, of 4 MESH_SEQ."""
         hp = self.hp
         nfft = hp.FFT_SIZE
         alpha = hp.RELU_LEAKAGE
         act = _candidate_activation(hp)
         keep = hp.DROPOUT_KEEP_PROB if train else 1.0
         b, t = log_spectra.shape[0], log_spectra.shape[1]
+        n_seq = int(getattr(hp, "MESH_SEQ", 1) or 1)
+        mesh = _route_mesh(hp, "seq", n_seq) if n_seq > 1 else None
+        if mesh is not None and tap is None:
+            # JAX danet_tpu/models/encoders.py:1184-1204
+            if t % (4 * n_seq):
+                raise ValueError(
+                    "MESH_SEQ=%d needs T %% (4*MESH_SEQ) == 0 for the "
+                    "conv-bilstm pooled grid; got T=%d — pick "
+                    "MAX_TRAIN_LEN / TIME_BUCKET accordingly" % (n_seq, t))
+            from danet_tpu_torch.parallel import collectives, seq_parallel
+            out = seq_parallel.conv_bilstm_sp(
+                params, log_spectra, mesh, nfft, hp.FEATURE_SIZE,
+                hp.EMBED_SIZE, alpha, act, data_axis=None,
+                dropout_rng=generator, keep_prob=keep,
+                remat=bool(getattr(hp, "REMAT", False)))
+            return collectives.leave_gather(mesh, out, "seq", 1)
         if t % self.ALIGN:
             raise ValueError(
                 "conv-bilstm-v1 takes T a multiple of LENGTH_ALIGN (%d); got "

@@ -4,7 +4,8 @@ with a learned filterbank, ``MODEL_TYPE='tasnet-v1'``.
 Counterpart of ``danet_tpu/models/tasnet.py:51-499``: ``_frame``,
 ``_overlap_add`` (``ops/dsp.py::overlap_add``), ``TasNet`` with
 ``_check_parallel_support``, ``init``, the dense forward
-``_separate_wav_padded`` (with its debug taps),
+``_separate_wav_padded`` (with its debug taps), the sequence-parallel
+forward ``_forward_sp``,
 ``train_loss`` (MIX_SNR_DB, REG_APPLY), ``valid_metrics`` (EVAL_SI_SNR,
 EVAL_SDR), ``separate_wav``, ``separate``, ``parameter_count`` and the
 streaming methods (``stream_granularity_samples``,
@@ -30,9 +31,16 @@ kernel A on the card under 'auto' and 'pallas', as the op
 ``danet::stft_ri``.  The exact causal stream (``stream_init`` /
 ``stream_step`` with TASNET_CAUSAL, ``danet_tpu/models/tasnet.py:407-496``)
 carries the framing's input tail, each block's convolution tail
-(``TcnEncoder._block_stream``) and the decoder's overlap-add tail.  Not
-ported yet: the MESH_SEQ forward ``_forward_sp`` (ROADMAP.md queue 1 item
-6).
+(``TcnEncoder._block_stream``) and the decoder's overlap-add tail.
+
+Under MESH_SEQ > 1 with a mesh that has the 'seq' axis, the forward runs
+sample-sharded (``_forward_sp``, ``danet_tpu/models/tasnet.py:184-282``):
+each rank frames its chunk of samples with its right neighbour's (win -
+stride)-sample head, runs the TCN through ``seq_parallel.tcn_chunk_sp``
+(the convolutions' halos), masks and decodes its frames, and ships its
+overlap-add tail to the right neighbour; the waveforms are gathered over
+'seq', and the loss, the PIT and the metrics run whole on every rank.
+Every leaf's gradient is then the chunk's alone (``seq_leaves``).
 """
 from __future__ import annotations
 
@@ -71,25 +79,24 @@ class TasNet:
         hp = hp if hp is not None else hparams
         self.hp = hp
         self.name = name
+        self.reg_shares = None              # as DaNet's (reg_loss)
         self._check_parallel_support()
 
     def _check_parallel_support(self):
         """JAX's refusal of the mesh axes this model has no route for
-        (``ValueError``, word for word); MESH_DATA is ported (the
-        Trainer's mesh); MESH_SEQ, which JAX routes, raises
-        NotImplementedError."""
-        def n(key):
-            return int(getattr(self.hp, key, 1) or 1)
-
+        (``ValueError``, word for word); MESH_DATA (the Trainer's mesh)
+        and MESH_SEQ (``_forward_sp``) are routed."""
         for key in ("MESH_MODEL", "MESH_PIPE", "MESH_EXPERT"):
-            if n(key) > 1:
+            if int(getattr(self.hp, key, 1) or 1) > 1:
                 raise ValueError(
                     "MODEL_TYPE='tasnet-v1' supports data parallelism "
                     "and MESH_SEQ only; %s>1 is not routed" % key)
-        if n("MESH_SEQ") > 1:
-            raise NotImplementedError(
-                "MESH_SEQ > 1 is not ported for tasnet-v1: its "
-                "sequence-parallel route is ROADMAP.md queue 1 item 6d")
+
+    @staticmethod
+    def seq_leaves() -> str:
+        """Under MESH_SEQ every leaf's gradient is the rank's chunk's
+        alone: the forward is sharded up to the waveforms' gather."""
+        return ""
 
     def _dims(self) -> dict:
         hp = self.hp
@@ -186,17 +193,77 @@ class TasNet:
         sep_feats = feats.to(dt)[:, None] * masks
         return masks, nn.mm(sep_feats, params["dec_basis"].to(dt))
 
+    def _forward_sp(self, params, mix_wav, mesh, train: bool = False,
+                    generator=None, seq_axis: str = "seq"):
+        """The exact sequence-parallel forward (JAX ``_forward_sp``): [B,
+        L] (the rows' whole padded mixture, the same on every rank of the
+        'seq' group; L a multiple of stride x S) -> [B, N, L], gathered over
+        'seq'.  Each rank takes its L / S samples, frames them with the
+        (win - stride)-sample head of its right neighbour's chunk (zeros
+        at the last rank: the dense forward's zero suffix), runs the TCN
+        on its frames (``seq_parallel.tcn_chunk_sp``: each block's
+        convolution halos; dropout masks drawn whole, this rank's frames
+        kept), masks and decodes them, and adds its left neighbour's (win
+        - stride)-sample overlap-add tail to its head.  Collective over the
+        'seq' group."""
+        from danet_tpu_torch.parallel import collectives, seq_parallel
+        hp = self.hp
+        d = self._dims()
+        win, stride = d["win"], d["stride"]
+        overlap = win - stride
+        s = mesh.shape[seq_axis]
+        length = mix_wav.shape[-1]
+        if length % (stride * s):
+            raise ValueError(
+                "MESH_SEQ=%d needs the padded waveform length %d to "
+                "divide by stride*seq = %d" % (s, length, stride * s))
+        cdt = getattr(torch, getattr(hp, "COMPUTE_DTYPE", "float32"))
+        keep = hp.DROPOUT_KEEP_PROB if train else 1.0
+        last = mix_wav.dim() - 1
+        wav = collectives.enter_sharded(mesh, mix_wav, seq_axis, last)
+        ext = seq_parallel.with_halos(mesh, wav, seq_axis, last, 0, overlap)
+        frames = _frame(ext, win, stride)           # [B, L / S / stride, win]
+        feats = torch.relu(nn.mm(frames.to(cdt),
+                                 params["enc_basis"].to(cdt)))
+        y = nn.layer_norm(params["ln_in"], feats)
+        y = seq_parallel.tcn_chunk_sp(
+            params, y, mesh,
+            [self._dilation(i) for i in range(self._n_blocks())],
+            d["kernel"], d["causal"], hp.RELU_LEAKAGE, seq_axis,
+            dropout_rng=generator, keep_prob=keep,
+            remat=bool(getattr(hp, "REMAT", False)))
+        _, sep_frames = self._mask_and_decode(params, feats, y)
+        buf = dsp.overlap_add(sep_frames, stride)   # [B, N, L / S + overlap]
+        out = buf[..., :buf.shape[-1] - overlap]
+        if overlap:
+            from_left = collectives.shift_from_left(
+                mesh, buf[..., buf.shape[-1] - overlap:], seq_axis)
+            out = torch.cat([out[..., :overlap] + from_left,
+                             out[..., overlap:]], dim=-1)
+        return collectives.leave_gather(mesh, out, seq_axis, out.dim() - 1)
+
     def _separate_wav_padded(self, params, mix_wav, train: bool = False,
                              generator=None, tap=None):
         """The forward: [B, L] (L a multiple of the stride) -> [B, N, L +
-        win - stride]; callers trim to the request length.
+        win - stride] ([B, N, L] on the sequence-parallel route); callers
+        trim to the request length.
 
         Zero-suffix framing: K = L / stride frames of the signal extended
         by win - stride zeros, so that every sample is covered.  With
         ``train``, inverted dropout at DROPOUT_KEEP_PROB after every block,
         drawn from ``generator`` in block order.  ``tap(name, value)``
-        receives ``basis_feats``, ``block<i>_h`` and ``masks``."""
+        receives ``basis_feats``, ``block<i>_h`` and ``masks`` (and runs
+        the dense path).  With MESH_SEQ > 1 and a mesh that has the 'seq'
+        axis (``encoders._route_mesh``), the sequence-parallel route
+        ``_forward_sp``."""
         hp = self.hp
+        n_seq = int(getattr(hp, "MESH_SEQ", 1) or 1)
+        if n_seq > 1 and tap is None:
+            from danet_tpu_torch.models.encoders import _route_mesh
+            mesh = _route_mesh(hp, "seq", n_seq)
+            if mesh is not None:
+                return self._forward_sp(params, mix_wav, mesh, train=train,
+                                        generator=generator)
         d = self._dims()
         cdt = getattr(torch, getattr(hp, "COMPUTE_DTYPE", "float32"))
         keep = hp.DROPOUT_KEEP_PROB if train else 1.0
@@ -262,7 +329,8 @@ class TasNet:
         loss, sep_pit, perm_idx = self._pit(wav_src, sep)
         snr = torch.mean(loss_ops.batch_snr(wav_src, sep_pit, eps=hp.EPS))
         if getattr(hp, "REG_APPLY", False) and hp.REG_TYPE is not None:
-            loss = loss + reg_loss(params, hp.REG_TYPE, hp.REG_SCALE)
+            loss = loss + reg_loss(params, hp.REG_TYPE, hp.REG_SCALE,
+                                   self.reg_shares)
         return loss, {"snr": snr, "perm_idx": perm_idx}
 
     def valid_metrics(self, params, src_ri: torch.Tensor) -> dict:

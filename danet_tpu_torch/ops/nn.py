@@ -1,7 +1,9 @@
 """Small functional layer library: the mixed-precision matmul contract, the
 linear layer, layer norm, GELU, leaky ReLU, the causal attention band,
-dropout, the convolutions and the max pool, and the cache of host
-constants on the device.
+dropout, the convolutions and the max pool, the position-wise halves of a
+TCN block around its depthwise convolution (tcn-v1's and tasnet-v1's,
+dense or on a sequence-parallel chunk), and the cache of host constants
+on the device.
 
 Counterpart of ``danet_tpu/ops/nn.py:17-187`` (GELU: ``jax.nn.gelu``).
 The convolutions are ATen's (``_Conv``): JAX computes them with
@@ -129,6 +131,22 @@ def leaky_relu(x: torch.Tensor, alpha: float = 0.0) -> torch.Tensor:
     return torch.maximum(x * alpha, x)
 
 
+def tcn_block_in(blk: dict, h_seq: torch.Tensor,
+                 alpha: float) -> torch.Tensor:
+    """A TCN block's layer norm -> linear D -> H -> leaky ReLU: its
+    depthwise convolution's input."""
+    y = layer_norm(blk["ln1"], h_seq)
+    return leaky_relu(linear_apply(blk["in"], y), alpha)
+
+
+def tcn_block_out(blk: dict, h_seq: torch.Tensor, y: torch.Tensor,
+                  alpha: float) -> torch.Tensor:
+    """A TCN block's convolution output -> layer norm -> leaky ReLU ->
+    linear H -> D, plus the residual ``h_seq``."""
+    y = leaky_relu(layer_norm(blk["ln2"], y), alpha)
+    return h_seq + linear_apply(blk["out"], y)
+
+
 def causal_band(qpos: torch.Tensor, kpos: torch.Tensor,
                 window: int) -> torch.Tensor:
     """The ATTN_CAUSAL band, defined once: True where key position
@@ -218,13 +236,18 @@ class _Conv(torch.autograd.Function):
         return dx, dw, None, None, None
 
 
-def conv2d_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+def conv2d_apply(params: dict, x: torch.Tensor,
+                 valid_h: bool = False) -> torch.Tensor:
     """NCHW 'SAME' convolution ((k - 1) // 2 zeros before, the rest after).
     The kernel takes the activation's dtype and so does the output, as in
     the JAX package (whose docstring says why); the bias is added after,
-    in that dtype."""
+    in that dtype.  ``valid_h``: VALID over H, the padding left out there
+    (a sequence-parallel chunk that carries its neighbours' halos), SAME
+    over W."""
     w = params["w"].to(x.dtype)
     pads = [((k - 1) // 2, k - 1 - (k - 1) // 2) for k in w.shape[2:]]
+    if valid_h:
+        pads[0] = (0, 0)
     if any(lo != hi for lo, hi in pads):
         x = torch.nn.functional.pad(x, [p for lo_hi in pads[::-1]
                                         for p in lo_hi])

@@ -40,7 +40,11 @@ stages; each of the first five is an autograd Function with its adjoint
 as the backward.  Sequence parallelism (``parallel/seq_parallel.py``,
 ``ring_attention.py``, ``ulysses.py``) adds ``enter_sharded`` (a
 replicated tensor in, this rank's slice of it out: ``leave_gather``'s
-adjoint), the neighbour shifts ``shift_from_left`` / ``shift_from_right``
+adjoint), ``sum_parts`` (the parts summed, the total used by each rank in
+its own part: a statistic over the whole sequence, such as a centring
+mean, whose backward sums the ranks' cotangents of the total, because each
+rank's differs, where ``leave_sum``'s hands each part its own), the
+neighbour shifts ``shift_from_left`` / ``shift_from_right``
 (JAX's ``ppermute`` over 'seq' without wrap: the edge rank receives
 zeros; each the other's adjoint) and the ring ``rotate`` (i -> i + 1 mod
 S; the reverse rotation its adjoint), and ``exchange``, the point-to-
@@ -249,6 +253,18 @@ class _LeaveSum(torch.autograd.Function):
         return g, None, None
 
 
+class _SumParts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_reduce(mesh, x.contiguous().clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(ctx.mesh, g.contiguous().clone(), ctx.axis), \
+            None, None
+
+
 class _LeaveGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
@@ -427,6 +443,14 @@ def leave_sum(mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
     every rank (``psum`` to a replicated output); its backward hands each
     part the whole cotangent."""
     return _LeaveSum.apply(x, mesh, axis)
+
+
+def sum_parts(mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The sum of the parts ``x`` over the ``axis`` group, which each rank
+    then uses in its own part (JAX's ``psum`` inside a ``shard_map`` whose
+    output stays sharded): each rank's cotangent of the sum differs, so
+    the backward sums them over the group too."""
+    return _SumParts.apply(x, mesh, axis)
 
 
 def leave_gather(mesh, x: torch.Tensor, axis: str, dim: int

@@ -1,8 +1,10 @@
-"""Sequence parallelism of the recurrent stacks: the exact boundary-state
-relay and the halo warm-up, over the mesh's 'seq' axis.
+"""Sequence parallelism over the mesh's 'seq' axis: the recurrent stacks'
+exact boundary-state relay and halo warm-up, the convolutional stacks'
+exact halos and the dual-path stack's all-to-all.
 
-Counterpart of ``danet_tpu/parallel/seq_parallel.py:48-245,352-441``
-(``bilstm_stack_sp``, ``gru_stack_sp`` and their layers).  The T axis of
+Counterpart of ``danet_tpu/parallel/seq_parallel.py`` (``bilstm_stack_sp``,
+``gru_stack_sp`` and their layers; ``tcn_stack_sp``, ``conv_bilstm_sp``
+and ``dprnn_stack_sp``, the last section here).  The T axis of
 a rank's rows splits into S chunks, one per rank of its 'seq' group (the
 ranks share the rows); a stack takes the rows' whole input, enters this
 rank's chunk (``collectives.enter_sharded``: the backward gathers the
@@ -51,12 +53,26 @@ well (JAX's batch co-sharding); the encoders pass None, because the
 trainer has already split the batch.  Dropout (``dropout_rng``,
 ``keep_prob``): after every layer, its mask drawn whole, [B, T, .], from
 the generator the ranks of a 'seq' group share, and this rank's chunk
-kept: the dense stack's masks, where JAX folds the device's coordinates
-into its keys.  ``remat``: the relay keeps only each direction's input and
-incoming state and recomputes the chunk scan in the backward (the lean
-state entry forward, then the saving one); the halo scheme runs each
-layer under ``torch.utils.checkpoint``, whose recompute replays its
-shifts on every rank in the same order.
+kept (``_chunk_mask``): the dense stack's masks, where JAX folds the
+device's coordinates into its keys.  ``remat``: the relay keeps only
+each direction's input and incoming state and recomputes the chunk scan
+in the backward (the lean state entry forward, then the saving one); the
+halo scheme runs each layer under ``torch.utils.checkpoint``, whose
+recompute replays its shifts on every rank in the same order.
+
+The convolutional and dual-path stacks are exact with no relay.
+``tcn_stack_sp`` (tcn-v1, and tasnet-v1 through ``tcn_chunk_sp``): each
+block's dilated depthwise convolution needs (K - 1) dilation frames of
+context, which ``with_halos`` fetches from the neighbours (the edge ranks
+receive zeros, the dense convolution's zero padding), and then runs VALID.
+``conv_bilstm_sp`` (conv-bilstm-v1): every 2-D convolution takes k // 2
+halo frames in T, the pools stay on the rank, the two centrings sum their
+partial sums over 'seq' (``collectives.sum_parts``) and the BiLSTMs are
+the relay.  ``dprnn_stack_sp`` (dprnn-v1 with DPRNN_HOP == DPRNN_CHUNK):
+whole segments shard over 'seq' for the intra path, and two all-to-alls
+per block move the inter path to a split of the positions and back.  Each
+raises JAX's ValueErrors, in its words, where JAX asserts or raises, and
+runs every scan on the hand kernels on a card.
 """
 from __future__ import annotations
 
@@ -408,22 +424,34 @@ def _gru_layer_local(p: dict, x_loc, halo: int, mesh, seq_axis: str,
 # the stacks
 # ---------------------------------------------------------------------------
 
+def _chunk_mask(mesh, generator, shape, keep_prob: float, seq_axis: str,
+                d_axis, device, seq_dim: int = 1) -> torch.Tensor:
+    """The dropout mask of this rank's block of ``shape``: drawn whole
+    from ``generator`` (the dense path's draw, rows times the 'data' axis
+    under ``d_axis``, ``seq_dim`` times the 'seq' axis), this rank's block
+    kept."""
+    whole = list(shape)
+    whole[seq_dim] *= mesh.shape[seq_axis]
+    if d_axis is not None:
+        whole[0] *= mesh.shape[d_axis]
+    mask = nn.dropout_mask(generator, tuple(whole), keep_prob, device)
+    if d_axis is not None:
+        mask = collectives._own_slice(mesh, mask, d_axis, 0)
+    return collectives._own_slice(mesh, mask, seq_axis, seq_dim)
+
+
 def _stack(layer_fn, params_list, x, mesh, seq_axis, data_axis,
            dropout_rng, keep_prob):
     """The layers over this rank's block of ``x``, dropout after each
     (its mask drawn whole from ``dropout_rng``, this rank's block kept)."""
-    b, t = x.shape[0], x.shape[1]
-    d_axis = _mesh_data_axis(mesh, b, data_axis)
+    d_axis = _mesh_data_axis(mesh, x.shape[0], data_axis)
     y = _enter(mesh, x, seq_axis, d_axis)
     drop = dropout_rng is not None and keep_prob < 1.0
     for p in params_list:
         y = layer_fn(p, y)
         if drop:
-            mask = nn.dropout_mask(dropout_rng, (b, t, y.shape[-1]),
-                                   keep_prob, y.device)
-            if d_axis is not None:
-                mask = collectives._own_slice(mesh, mask, d_axis, 0)
-            mask = collectives._own_slice(mesh, mask, seq_axis, 1)
+            mask = _chunk_mask(mesh, dropout_rng, y.shape, keep_prob,
+                               seq_axis, d_axis, y.device)
             y = nn.dropout(None, y, keep_prob, mask=mask)
     return y
 
@@ -472,3 +500,248 @@ def gru_stack_sp(params_list: list, x: torch.Tensor, mesh, halo: int = 32,
             p, v, halo, mesh, seq_axis, backend), remat)
     return _stack(layer, params_list, x, mesh, seq_axis, data_axis,
                   dropout_rng, keep_prob)
+
+
+# ---------------------------------------------------------------------------
+# the convolutional and dual-path stacks
+# ---------------------------------------------------------------------------
+
+def with_halos(mesh, v: torch.Tensor, seq_axis: str, dim: int, left: int,
+          right: int) -> torch.Tensor:
+    """``v`` extended along ``dim`` by the last ``left`` frames of the
+    left neighbour's ``v`` and the first ``right`` of the right
+    neighbour's; the ring's edge ranks receive zeros, the zero padding of
+    the whole sequence.  Both shifts run on every rank."""
+    n = v.shape[dim]
+    parts = []
+    if left:
+        parts.append(collectives.shift_from_left(
+            mesh, v.narrow(dim, n - left, left), seq_axis))
+    parts.append(v)
+    if right:
+        parts.append(collectives.shift_from_right(
+            mesh, v.narrow(dim, 0, right), seq_axis))
+    return torch.cat(parts, dim) if len(parts) > 1 else v
+
+
+def _tcn_block(blk: dict, h, mesh, seq_axis: str, dilation: int,
+               kernel: int, causal: bool, alpha: float):
+    """One TCN block on this rank's chunk [B, C, D]: its depthwise
+    convolution VALID (float32) over the convolution's input extended by
+    the neighbours' halos, (K - 1) dilation frames from the left (causal)
+    or span // 2 from the left and the rest from the right."""
+    y = nn.tcn_block_in(blk, h, alpha)
+    span = (kernel - 1) * dilation
+    left, right = (span, 0) if causal else (span // 2, span - span // 2)
+    y = nn.conv1d_depthwise_apply(
+        blk["dconv"], with_halos(mesh, y, seq_axis, 1, left, right),
+        dilation=dilation, valid=True)
+    return nn.tcn_block_out(blk, h, y, alpha)
+
+
+def tcn_chunk_sp(params: dict, x_loc: torch.Tensor, mesh, dilations,
+                 kernel: int, causal: bool, alpha: float,
+                 seq_axis: str = "seq", d_axis=None, dropout_rng=None,
+                 keep_prob: float = 1.0, remat: bool = False
+                 ) -> torch.Tensor:
+    """``tcn_stack_sp`` on this rank's chunk ``x_loc`` [B', C, F] (the
+    rank's rows under ``d_axis``), already entered: the bottleneck and
+    the blocks, dropout after each block (its mask drawn whole, this
+    rank's block kept) -> [B', C, D].  The chunk must cover the largest
+    (K - 1) dilation span (JAX's words in a ValueError)."""
+    chunk = x_loc.shape[1]
+    max_span = max((kernel - 1) * d for d in dilations)
+    if chunk < max_span:
+        raise ValueError(
+            "chunk %d < largest conv span %d — lower MESH_SEQ or the "
+            "TCN_BLOCKS dilation ceiling" % (chunk, max_span))
+    h = nn.linear_apply(params["bottleneck"], x_loc)
+    drop = dropout_rng is not None and keep_prob < 1.0
+    for i, dil in enumerate(dilations):
+        block = _maybe_ckpt(
+            lambda blk, v, d=dil: _tcn_block(blk, v, mesh, seq_axis, d,
+                                             kernel, causal, alpha), remat)
+        h = block(params["block%d" % i], h)
+        if drop:
+            h = nn.dropout(None, h, keep_prob, mask=_chunk_mask(
+                mesh, dropout_rng, h.shape, keep_prob, seq_axis, d_axis,
+                h.device))
+    return h
+
+
+def tcn_stack_sp(params: dict, x: torch.Tensor, mesh, dilations,
+                 kernel: int, causal: bool, alpha: float,
+                 seq_axis: str = "seq", data_axis: str = "data",
+                 dropout_rng=None, keep_prob: float = 1.0,
+                 remat: bool = False) -> torch.Tensor:
+    """The exact sequence-parallel TCN stack (JAX ``tcn_stack_sp``): a
+    dilated convolution needs only (K - 1) dilation frames of context, so
+    each block exchanges exactly that halo of its convolution's input with
+    the neighbours, and the edge ranks' zeros are the dense convolution's
+    zero padding.
+
+    ``params``: the bottleneck and the ``block<i>`` trees (TcnEncoder's
+    without its head); ``x``: the rows' whole centred input [B, T, F], the
+    same on every rank of the 'seq' group, T a multiple of the axis size
+    and each chunk at least the largest span; ``dilations`` per block.
+    -> this rank's block [B', T / S, D].  Collective over the 'seq'
+    group."""
+    s = mesh.shape[seq_axis]
+    t = x.shape[1]
+    if t % s:
+        raise ValueError("T must divide across the seq axis")
+    d_axis = _mesh_data_axis(mesh, x.shape[0], data_axis)
+    return tcn_chunk_sp(params, _enter(mesh, x, seq_axis, d_axis), mesh,
+                        dilations, kernel, causal, alpha, seq_axis, d_axis,
+                        dropout_rng, keep_prob, remat)
+
+
+def _dprnn_block(blk: dict, chunks, mesh, seq_axis: str, inter_causal: bool,
+                 backend: str, masks, keep: float):
+    """One dual-path block on this rank's segments [B', S / n, P, D]: the
+    intra path on its own segments; the inter path after an all-to-all
+    to a split of the positions with every segment ([B', S, P / n, D]),
+    and back."""
+    b, s_loc, p, d = chunks.shape
+    y = rnn.bilstm_apply(blk["intra"], chunks.reshape(b * s_loc, p, d),
+                         "tanh", backend=backend)
+    y = nn.linear_apply(blk["intra_proj"], y).reshape(b, s_loc, p, d)
+    y = nn.layer_norm(blk["intra_ln"], y)
+    if masks is not None:
+        y = nn.dropout(None, y, keep, masks[0])
+    chunks = chunks + y
+    yp = collectives.all_to_all(mesh, chunks, seq_axis, 2, 1)
+    s_glob, p_loc = yp.shape[1], yp.shape[2]
+    yq = yp.transpose(1, 2).reshape(b * p_loc, s_glob, d)
+    if inter_causal:
+        yq = rnn.lstm_apply(blk["inter"], yq, "tanh", backend=backend)
+    else:
+        yq = rnn.bilstm_apply(blk["inter"], yq, "tanh", backend=backend)
+    yq = nn.linear_apply(blk["inter_proj"], yq)
+    yq = yq.reshape(b, p_loc, s_glob, d).transpose(1, 2)
+    yq = collectives.all_to_all(mesh, yq, seq_axis, 1, 2)
+    y = nn.layer_norm(blk["inter_ln"], yq)
+    if masks is not None:
+        y = nn.dropout(None, y, keep, masks[1])
+    return chunks + y
+
+
+def dprnn_stack_sp(params: dict, x: torch.Tensor, mesh, p: int,
+                   n_blocks: int, inter_causal: bool, backend: str = "auto",
+                   seq_axis: str = "seq", data_axis: str = "data",
+                   dropout_rng=None, keep_prob: float = 1.0,
+                   remat: bool = False) -> torch.Tensor:
+    """The exact sequence-parallel dual-path stack (JAX
+    ``dprnn_stack_sp``; DPRNN_HOP == DPRNN_CHUNK = ``p``): the intra path
+    touches only the frames of one segment, so whole segments shard over
+    'seq'; the inter path is independent across positions, so an
+    all-to-all re-shards the segments into a split of the positions, the
+    inter scan runs over every segment on 1 / S of the positions, and a
+    second all-to-all restores the segment split.  Each scan is one
+    ``ops/rnn.py`` call, on the hand kernels on a card.
+
+    ``params``: the bottleneck and the ``block<i>`` trees (DprnnEncoder's
+    without its head); ``x``: the rows' whole centred input [B, T, F].
+    Dropout (``dropout_rng``, ``keep_prob``): each block's two masks
+    drawn whole before it, intra then inter, this rank's segments kept.
+    -> this rank's block [B', T / S, D].  Collective over the 'seq'
+    group."""
+    s = mesh.shape[seq_axis]
+    b, t = x.shape[0], x.shape[1]
+    if t % (p * s):
+        raise ValueError(
+            "T=%d must split into whole %d-frame segments per seq-axis "
+            "device (s=%d): pick MAX_TRAIN_LEN / TIME_BUCKET so that "
+            "T %% (DPRNN_CHUNK * MESH_SEQ) == 0" % (t, p, s))
+    if p % s:
+        raise ValueError(
+            "DPRNN_CHUNK=%d must divide by MESH_SEQ=%d (the inter-chunk "
+            "all_to_all splits the position axis)" % (p, s))
+    d_axis = _mesh_data_axis(mesh, b, data_axis)
+    h = nn.linear_apply(params["bottleneck"], _enter(mesh, x, seq_axis,
+                                                     d_axis))
+    bl, d = h.shape[0], h.shape[-1]
+    s_loc = h.shape[1] // p
+    chunks = h.reshape(bl, s_loc, p, d)
+    drop = dropout_rng is not None and keep_prob < 1.0
+    block = _maybe_ckpt(lambda blk, c, masks: _dprnn_block(
+        blk, c, mesh, seq_axis, inter_causal, backend, masks, keep_prob),
+        remat)
+    for i in range(n_blocks):
+        masks = tuple(_chunk_mask(mesh, dropout_rng, chunks.shape,
+                                  keep_prob, seq_axis, d_axis,
+                                  chunks.device) for _ in range(2)) \
+            if drop else None
+        chunks = block(params["block%d" % i], chunks, masks)
+    return chunks.reshape(bl, s_loc * p, d)
+
+
+def conv_bilstm_sp(params: dict, x: torch.Tensor, mesh, nfft: int,
+                   feature_size: int, embed_size: int, alpha: float,
+                   act: str, seq_axis: str = "seq", data_axis: str = "data",
+                   dropout_rng=None, keep_prob: float = 1.0,
+                   remat: bool = False) -> torch.Tensor:
+    """The exact sequence-parallel conv-bilstm-v1 encoder (JAX
+    ``conv_bilstm_sp``): every 2-D convolution exchanges its k // 2
+    frames of halo in T with the neighbours and runs VALID in T and SAME
+    in F (the edge ranks' zeros are the dense convolution's padding); the
+    2x2 pools stay on the rank, each chunk's frame count even; both
+    centrings sum their per-example partial sums over 'seq'
+    (``collectives.sum_parts``); the two BiLSTMs are the exact relay
+    (``_bilstm_layer_relay``, kernel 1's state forms on a card), dropout
+    after each (its mask drawn whole, this rank's block kept); the pixel
+    shuffle and the head are local.
+
+    ``x``: the rows' whole log spectra [B, T, F], T a multiple of 4 S and
+    at least 8 S.  -> this rank's block of the embeddings [B', T / S, F,
+    E].  Collective over the 'seq' group."""
+    s = mesh.shape[seq_axis]
+    t = x.shape[1]
+    if t % (4 * s):
+        raise ValueError(
+            "T=%d must divide by 4*MESH_SEQ=%d (the conv-bilstm pools twice "
+            "and every chunk boundary must land on the pooled grid)"
+            % (t, 4 * s))
+    if t // (4 * s) < 2:
+        raise ValueError(
+            "chunk too short for the k=3 conv halos after double pooling — "
+            "raise MAX_TRAIN_LEN/TIME_BUCKET or lower MESH_SEQ")
+    d_axis = _mesh_data_axis(mesh, x.shape[0], data_axis)
+    x_loc = _enter(mesh, x, seq_axis, d_axis)
+    b = x_loc.shape[0]
+
+    def conv(name, v):
+        k = params[name]["w"].shape[2]
+        v = with_halos(mesh, v, seq_axis, 2, k // 2, k // 2)
+        return nn.leaky_relu(nn.conv2d_apply(params[name], v, valid_h=True),
+                             alpha)
+
+    def centred(v):
+        part = torch.sum(v.to(acc_dtype(v)), dim=(1, 2, 3), keepdim=True)
+        total = collectives.sum_parts(mesh, part, seq_axis)
+        count = v.shape[1] * v.shape[2] * v.shape[3] * s
+        return v - (total / count).to(v.dtype)
+
+    v = conv("down0b", conv("down0a", x_loc[:, None]))
+    v = nn.max_pool_2x2(v)
+    v = nn.max_pool_2x2(conv("down1b", conv("down1a", v)))
+    v = centred(v)                                 # [B', 16, C / 4, F / 8]
+    skip = v
+    seq = v.transpose(1, 2).reshape(b, v.shape[2], nfft * 2)
+    drop = dropout_rng is not None and keep_prob < 1.0
+    for name in ("lstm0", "lstm1"):
+        seq = _bilstm_layer_relay(params[name], seq, mesh, seq_axis, act,
+                                  remat)
+        if drop:
+            seq = nn.dropout(None, seq, keep_prob, mask=_chunk_mask(
+                mesh, dropout_rng, seq.shape, keep_prob, seq_axis, d_axis,
+                seq.device))
+    v = centred(seq.reshape(b, -1, 16, nfft // 8).transpose(1, 2) + skip)
+    v = conv("up0b", conv("up0a", v))
+    t4 = v.shape[2]
+    v = v.reshape(b, 16, 2, 2, t4, nfft // 8).permute(0, 1, 4, 2, 5, 3) \
+        .reshape(b, 16, t4 * 2, nfft // 4)         # pixel shuffle x2
+    v = conv("up1b", conv("up1a", v))
+    v = v.transpose(1, 2).reshape(b, -1, nfft)
+    out = nn.linear_apply(params["output"], v)
+    return out.reshape(b, -1, feature_size, embed_size)

@@ -310,25 +310,28 @@ def shard_axes(params, mesh: Mesh) -> list:
 # the leaves of a pipeline's stages: bilstm-orig's layers, which JAX hands
 # to the pipelined stack (danet_tpu/models/encoders.py::_apply_pipelined)
 _PIPE_LEAF = re.compile(r"^encoder/lstm\d+/")
-# the leaves of a sequence-parallel stack: bilstm-orig's and gru-v1's
-# layers, each rank scanning its T-chunk (parallel/seq_parallel.py)
-_SEQ_LEAF = re.compile(r"^encoder/(lstm|gru)\d+/")
 
 
-def leaf_owners(params, mesh: Mesh) -> list:
+def leaf_owners(params, mesh: Mesh, model) -> list:
     """Per leaf of ``leaves(params)``: the axis whose ranks each compute a
     disjoint part of its gradient ('expert' for a leaf sharded on it,
     whose expert group only its owner runs; 'pipe' for a pipeline stage's
-    layers, replicated at rest, which only their stage runs; 'seq' for the
-    layers of a sequence-parallel recurrent stack, whose ranks each scan
-    their T-chunk), or None (every rank that shares the rows computes it
-    alike: the rest of a sequence-parallel model runs whole on every rank
-    of its 'seq' group).  ``collectives.reduce_grads`` scales by it."""
+    layers, replicated at rest, which only their stage runs; 'seq' for a
+    leaf that a sequence-parallel ``model`` differentiates from each
+    rank's T-chunk alone, ``model.seq_leaves()``: a pattern of the names,
+    the recurrent stacks' layers, tcn-v1's and dprnn-v1's bottleneck and
+    blocks, all of conv-bilstm-v1's encoder, all of tasnet-v1), or None
+    (every rank that shares the rows computes it alike: the rest of a
+    sequence-parallel model runs whole on every rank of its 'seq' group).
+    A wrong owner scales the leaf's gradient by the axis' size.
+    ``collectives.reduce_grads`` scales by it."""
     pipe = mesh.shape.get("pipe", 1) > 1
-    seq = mesh.shape.get("seq", 1) > 1
+    pattern = model.seq_leaves() if mesh.shape.get("seq", 1) > 1 else None
+    seq_leaf = None if pattern is None else re.compile(pattern)
     return ["expert" if "expert" in spec
             else "pipe" if pipe and _PIPE_LEAF.match(name)
-            else "seq" if seq and _SEQ_LEAF.match(name) else None
+            else "seq" if seq_leaf is not None and seq_leaf.match(name)
+            else None
             for name, spec in zip(leaf_names(params),
                                   shard_axes(params, mesh))]
 

@@ -77,29 +77,48 @@ that mesh.  Kinds:
     sum(sin(y)) (whole);
   * ``separate_sp``: ``params`` and ``mix`` (an .npz with ``mix`` [B, T,
     F, 2]): ``DaNet.separate_sp`` with ``sp_attn`` and ``halo`` -> ``y``;
+  * ``sp_conv``: the case's model (its ``keys``: ENCODER_TYPE or
+    MODEL_TYPE and the widths), ``params`` (an .npz of the model's tree;
+    a DaNet's encoder subtree is taken) and ``x`` (an .npz with ``x``, the
+    global batch: [B, T, F], or [B, L] padded waveforms for tasnet-v1):
+    ``stack`` 'tcn', 'dprnn' or 'conv_bilstm' runs ``seq_parallel.
+    tcn_stack_sp`` / ``dprnn_stack_sp`` / ``conv_bilstm_sp`` with the
+    encoder's dims (``remat``, ``keep`` with a generator of ``seed``, the
+    batch co-sharded over 'data' when it divides), 'tasnet' ``TasNet.
+    _forward_sp`` -> ``y`` (this rank's block; tasnet-v1's whole output),
+    ``y_nograd``, ``rows``, ``cols``, ``grads/<leaf>`` of sum(y^2) summed
+    over the ranks that split it (whole), ``dx`` (whole), the kernels'
+    ``launches/<kernel>`` of the forward and backward ('sum_parts' and
+    'leave_sum', no ``params``: x's chunk times that collective of its
+    rows' partial sums, ``collectives.sum_parts``' check); with
+    ``separate_wav`` (a model case), ``model.separate_wav`` of ``x`` under
+    the mesh instead -> ``y`` (whole) and the launches;
   * ``kernels`` (a card): kernels B, 2 and 3 on a rank's rows, ``T``,
-    ``rows``, H=300, ``dtype`` (float32 by default), against their plain
-    versions at ``tol``
+    ``rows``, ``H`` (300 by default), ``dtype`` (float32 by default),
+    against their plain versions at ``tol``
     ({kernel: [atol, rtol]}) -> ``err/<kernel>`` (the max abs error) and
     ``ratio/<kernel>`` (the max of |error| / (atol + rtol |plain|): at
     most 1 within the tolerance).
 
 ``multichip`` (``--device cpu --set KEY=VALUE --dims H,L``: a narrow
 rehearsal over gloo on the CPU) runs ``--config`` (configs/multichip.json
-by default) as written on a 4-card mesh per ``--mesh`` AxB: MESH_DATA A
-times B on the config's other axis (MESH_MODEL, MESH_PIPE, MESH_EXPERT or MESH_SEQ,
-``strategy_key``); a config on WSJ0, which the repository does not hold,
-takes the synth-speech corpus.  Each rank (``kind: multichip``) reports
-its bytes of params and moments at rest, its LSTM kernels' launches in
-one eager step and that step's peak device memory above the state (on a
-card), the ms per step of eager steps and of a K=8 CUDA graph
-(a capture that fails is recorded, and the eager numbers stand), NCCL's
-share of the device time of one traced graph replay, the first
-``--steps`` losses, a digest of its parameter slices and a checkpoint of
-the mesh; then this process takes the same steps on one card from the
-same weights and batches, times that card's eager and K=8 steps at the
-same global batch, loads the mesh's checkpoint, and prints one JSON line
-per mesh (a mesh that fails prints its error, and the next runs).
+by default) as written, with the ``--set`` keys over it, on a 4-card mesh
+per ``--mesh`` AxB: MESH_DATA A times B on the other axis the config or
+its ``--set`` keys set above 1 (MESH_MODEL, MESH_PIPE, MESH_EXPERT or
+MESH_SEQ, ``strategy_key``; e.g. ``--config configs/dprnn.json --set
+DPRNN_HOP=64 --set MESH_SEQ=4`` meshes over 'seq'); a config on WSJ0,
+which the repository does not hold, takes the synth-speech corpus. Each
+rank (``kind: multichip``) reports its bytes of params and moments at
+rest, its LSTM kernels' launches in one eager step and that step's peak
+device memory above the state (on a card), the ms per step of eager
+steps and of a K=8 CUDA graph (a capture that fails is recorded, and the
+eager numbers stand), NCCL's share of the device time of one traced
+graph replay, the first ``--steps`` losses, a digest of its parameter
+slices and a checkpoint of the mesh; then this process takes the same
+steps on one card from the same weights and batches, times that card's
+eager and K=8 steps at the same global batch, loads the mesh's
+checkpoint, and prints one JSON line per mesh (a mesh that fails prints
+its error, and the next runs).
 """
 from __future__ import annotations
 
@@ -395,10 +414,11 @@ def case_dropout(case: dict, device: str, out: str) -> dict:
 
 
 def case_kernels(case: dict, device: str, out: str) -> dict:
-    """Kernels B, 2 and 3 at a rank's layer shapes against their plain
-    versions (``dtype``, float32 by default; tanh candidate, layer-shaped
+    """Kernels B, 2 and 3 at a rank's layer shapes (``T``, ``rows`` and
+    ``H``, bilstm-orig's 300 by default) against their plain versions
+    (``dtype``, float32 by default; tanh candidate, layer-shaped
     inputs)."""
-    t, b, h = case.get("T", 128), case.get("rows", 16), 300
+    t, b, h = case.get("T", 128), case.get("rows", 16), case.get("H", 300)
     dt = getattr(torch, case.get("dtype", "float32"))
     rs = np.random.RandomState(1000 + dist.get_rank())
     scale = 0.75 / np.sqrt(h)
@@ -730,6 +750,102 @@ def case_sp_stack(case: dict, device: str, out: str) -> dict:
     return res
 
 
+def _sp_conv_run(case: dict, hp, model, mesh, tree: dict, x):
+    """The ``sp_conv`` case's function of ``tree`` and ``x`` (the module's
+    docstring) -> (y, the axes its gradients sum over)."""
+    from danet_tpu_torch.parallel import seq_parallel
+    stack = case["stack"]
+    if stack == "tasnet":
+        y = model._forward_sp(tree, x, mesh)
+        return y, ["seq"]
+    if stack in ("sum_parts", "leave_sum"):
+        x_loc = collectives.enter_sharded(mesh, x, "seq", 1)
+        total = getattr(collectives, stack)(
+            mesh, torch.sum(x_loc, dim=(1, 2), keepdim=True), "seq")
+        return x_loc * total, ["seq"]
+    enc = model.encoder
+    gen = None
+    if case.get("keep", 1.0) < 1.0:
+        gen = torch.Generator(x.device).manual_seed(case.get("seed", 0))
+    run = dict(dropout_rng=gen, keep_prob=case.get("keep", 1.0),
+               remat=case.get("remat", False))
+    if stack == "tcn":
+        _, _, k, _, _, causal = enc._dims()
+        y = seq_parallel.tcn_stack_sp(
+            tree, x, mesh, [enc._dilation(i) for i in range(enc._n_blocks())],
+            k, causal, hp.RELU_LEAKAGE, **run)
+    elif stack == "dprnn":
+        _, _, p, _, n_blocks, inter_causal = enc._dims()
+        y = seq_parallel.dprnn_stack_sp(
+            tree, x, mesh, p, n_blocks, inter_causal,
+            backend=case.get("backend", "auto"), **run)
+    else:
+        y = seq_parallel.conv_bilstm_sp(
+            tree, x, mesh, hp.FFT_SIZE, hp.FEATURE_SIZE, hp.EMBED_SIZE,
+            hp.RELU_LEAKAGE, "tanh", **run)
+    d_axis = seq_parallel._mesh_data_axis(mesh, x.shape[0], "data")
+    return y, ["seq"] + ([d_axis] if d_axis else [])
+
+
+def case_sp_conv(case: dict, device: str, out: str) -> dict:
+    """The convolutional and dual-path sequence-parallel stacks and
+    tasnet-v1's forward on the case's mesh (the module's docstring)."""
+    hp, model = build(case)
+    mesh = sharding.mesh_from_hparams(hp).connect()
+    if mesh.coords is None:
+        return {}
+    dt = getattr(torch, case.get("dtype", "float32"))
+    tree = weights.load_npz(case["params"], device) \
+        if case.get("params") else {}
+    if case["stack"] != "tasnet":
+        tree = tree.get("encoder", tree)
+    names = leaf_names(tree)
+    ps = [p.detach().to(dt).requires_grad_(True) for p in leaves(tree)]
+    tree = sharding.nest(names, ps)
+    with np.load(case["x"]) as d:
+        x = torch.from_numpy(d["x"]).to(device=device, dtype=dt)
+    if case.get("separate_wav"):
+        sharding.set_active_mesh(mesh)
+        _zero_launches()
+        try:
+            with torch.no_grad():
+                y = model.separate_wav(tree, x)
+        finally:
+            sharding.set_active_mesh(None)
+        return {"y": y.float().cpu().numpy(),
+                **{"launches/" + k: v for k, v in _launches().items()}}
+    with torch.no_grad():
+        y0, _ = _sp_conv_run(dict(case, keep=1.0), hp, model, mesh, tree, x)
+    _zero_launches()
+    x.requires_grad_(True)
+    y, axes = _sp_conv_run(case, hp, model, mesh, tree, x)
+    dx, *grads = torch.autograd.grad(torch.sum(y.float() ** 2), [x] + ps,
+                                     allow_unused=True)
+    counts = _launches()
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(ps, grads)]
+    flat = torch.cat([g.float().reshape(-1) for g in grads] + [
+        torch.zeros(0, device=x.device)])
+    for axis in axes:
+        flat = collectives.all_reduce(mesh, flat, axis)
+    at, whole = 0, []
+    for p in ps:
+        whole.append(flat[at:at + p.numel()].reshape(p.shape))
+        at += p.numel()
+    whole_out = case["stack"] == "tasnet"
+    per = x.shape[0] // (mesh.shape["data"] if "data" in axes else 1)
+    r0 = mesh.coords["data"] * per if "data" in axes else 0
+    c = x.shape[1] // (1 if whole_out else mesh.shape["seq"])
+    t0 = 0 if whole_out else mesh.coords["seq"] * c
+    res = {"y": y.detach().float().cpu().numpy(),
+           "y_nograd": y0.float().cpu().numpy(),
+           "dx": dx.float().cpu().numpy(), "rows": [r0, r0 + per],
+           "cols": [t0, t0 + c]}
+    res.update({"grads/" + n: g.cpu().numpy() for n, g in zip(names, whole)})
+    res.update({"launches/" + k: v for k, v in counts.items()})
+    return res
+
+
 def case_sp_attention(case: dict, device: str, out: str) -> dict:
     """Ring or Ulysses attention on the case's mesh (the module's
     docstring)."""
@@ -771,7 +887,7 @@ CASES = {"step": case_step, "bilstm_tp": case_bilstm_tp,
          "kernels": case_kernels, "multichip": case_multichip,
          "pipeline": case_pipeline, "moe": case_moe,
          "sp_stack": case_sp_stack, "sp_attention": case_sp_attention,
-         "separate_sp": case_separate_sp}
+         "separate_sp": case_separate_sp, "sp_conv": case_sp_conv}
 
 
 def worker(spec_path: str, out: str, device: str, backend=None) -> None:
@@ -807,10 +923,15 @@ MULTICHIP_KEYS = {"DATASET_TYPE": "synth-speech", "WAVE_PCM_SCALE": 4.0}
 
 def _one_card(case: dict, out: str, n: int, device: str) -> dict:
     """The mesh case's steps on one card (no mesh) from the same weights
-    and batches, and the mesh's checkpoint loaded on one card."""
-    from danet_tpu_torch.train.trainer import Trainer
+    and batches (padded to the mesh's time bucket: a sequence-parallel
+    mesh's ``effective_bucket`` rounds T up to whole chunks), and the
+    mesh's checkpoint loaded on one card."""
+    from danet_tpu_torch.train.trainer import Trainer, effective_bucket
+    mesh_hp = load_config(*[os.path.join(REPO, c) for c in case.get(
+        "configs", ())], **case["keys"])
     keys = dict(case["keys"], MESH_DATA=1, MESH_MODEL=1, MESH_PIPE=1,
-                MESH_EXPERT=1, MESH_SEQ=1)
+                MESH_EXPERT=1, MESH_SEQ=1,
+                TIME_BUCKET=effective_bucket(mesh_hp))
     hp, model = build(dict(case, keys=keys))
     tr = Trainer(model, hp, device, name="one-card",
                  save_dir=os.path.join(out, "saves"))
@@ -837,11 +958,12 @@ def _one_card(case: dict, out: str, n: int, device: str) -> dict:
             "loaded_step": fresh["step"]}
 
 
-def strategy_key(config: str) -> str:
-    """The MESH_* key besides MESH_DATA that a config sets above 1
-    (MESH_MODEL when none): the second factor of ``--mesh``."""
+def strategy_key(config: str, keys=None) -> str:
+    """The MESH_* key besides MESH_DATA that a config, with ``keys`` (the
+    ``--set`` pairs) laid over it, sets above 1 (MESH_MODEL when none):
+    the second factor of ``--mesh``."""
     with open(os.path.join(REPO, config)) as f:
-        cfg = json.load(f)
+        cfg = dict(json.load(f), **(keys or {}))
     for key in ("MESH_MODEL", "MESH_PIPE", "MESH_EXPERT", "MESH_SEQ"):
         if int(cfg.get(key, 1) or 1) > 1:
             return key
@@ -859,7 +981,7 @@ def multichip(out: str, meshes: list, steps: int, timeout: float,
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    axis_key = strategy_key(config)
+    axis_key = strategy_key(config, keys)
     with open(os.path.join(REPO, config)) as f:
         wsj0 = json.load(f).get("DATASET_TYPE") == "wsj0"
     failed = []
@@ -973,7 +1095,8 @@ def main(argv=None) -> None:
     mc.add_argument("--timeout", type=float, default=900.0)
     mc.add_argument("--device", default="cuda")
     mc.add_argument("--set", action="append", default=[],
-                    metavar="KEY=VALUE", help="a config key (JSON value)")
+                    metavar="KEY=VALUE",
+                    help="a config key (a JSON value, else a string)")
     mc.add_argument("--dims", default=None,
                     help="HDIM,N_LAYERS of the recurrent encoder")
     args = ap.parse_args(argv)
@@ -986,7 +1109,10 @@ def main(argv=None) -> None:
         keys = {}
         for pair in args.set:
             k, v = pair.split("=", 1)
-            keys[k] = json.loads(v)
+            try:
+                keys[k] = json.loads(v)
+            except ValueError:
+                keys[k] = v           # a bare string, as the CLI's --set
         multichip(args.out, args.mesh or ["2x2", "4x1"], args.steps,
                   args.timeout, args.device, keys,
                   [int(v) for v in args.dims.split(",")] if args.dims

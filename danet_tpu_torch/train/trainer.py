@@ -555,9 +555,18 @@ class Trainer:
         self._full = [(tuple(p.shape), p.dtype) for p in leaves(params)]
         self._axes = [None] * len(self._full)
         self._owners = None
+        # REG_APPLY's term is whole on every rank: an owned leaf's
+        # gradient sums over its owning axis, so each keeps 1 / n (none
+        # without a mesh, also for a model an earlier Trainer had on one)
+        self.model.reg_shares = None
         if self.mesh is not None:
             self._axes = sharding.shard_axes(params, self.mesh)
-            self._owners = sharding.leaf_owners(params, self.mesh)
+            self._owners = sharding.leaf_owners(params, self.mesh,
+                                                 self.model)
+            if any(self._owners):
+                self.model.reg_shares = [
+                    1.0 / self.mesh.shape[o] if o else 1.0
+                    for o in self._owners]
             params = sharding.shard_params(self.mesh, params)
         for p in leaves(params):
             p.requires_grad_(True)

@@ -239,12 +239,10 @@ def test_torch_danet_refuses_mesh_keys(fresh_hparams, encoder, keys,
                                        jax_refuses):
     """DaNet raises JAX's _check_parallel_support ValueError, with JAX's
     message, where JAX refuses the MESH_* combination; where JAX builds
-    the model, the port builds it under MESH_DATA, MESH_MODEL, MESH_PIPE
-    and MESH_EXPERT (the Trainer's mesh) and under MESH_SEQ for the
-    encoders whose sequence-parallel route is ported (bilstm-orig, gru-v1,
-    attn-v1, moe-v1), and raises NotImplementedError naming ROADMAP item
-    6d for tcn-v1, dprnn-v1 and conv-bilstm-v1 under MESH_SEQ, so that
-    neither serving nor training runs the dense path under it."""
+    the model, the port builds it: under MESH_DATA, MESH_MODEL, MESH_PIPE
+    and MESH_EXPERT (the Trainer's mesh) and under MESH_SEQ for every
+    encoder JAX routes (bilstm-orig, gru-v1, attn-v1, moe-v1, tcn-v1,
+    dprnn-v1, conv-bilstm-v1: ``parallel/seq_parallel.py``)."""
     fresh_hparams.load(dict(ENCODER_TYPE=encoder, **keys))
     fresh_hparams.digest()
     hp = load_config(ENCODER_TYPE=encoder, **keys)
@@ -254,12 +252,6 @@ def test_torch_danet_refuses_mesh_keys(fresh_hparams, encoder, keys,
         with pytest.raises(ValueError) as got:
             TorchDaNet(hp)
         assert str(got.value) == str(want.value)
-    elif set(keys) <= {"MESH_DATA", "MESH_MODEL", "MESH_PIPE",
-                       "MESH_EXPERT"} or encoder in (
-                           "bilstm-orig", "gru-v1", "attn-v1", "moe-v1"):
-        JaxDaNet()
-        assert TorchDaNet(hp).hp is hp
     else:
         JaxDaNet()
-        with pytest.raises(NotImplementedError, match="item 6d"):
-            TorchDaNet(hp)
+        assert TorchDaNet(hp).hp is hp

@@ -517,16 +517,17 @@ def test_torch_mesh_refusals(fresh_hparams):
     """moe-v1's routed training (MOE_TOP_K > 0) on a data x model mesh
     builds (its capacity counts the global batch's tokens,
     ``expert.moe_mlp_topk``'s mesh), and so does its soft mixture, and
-    under MESH_SEQ (sequence-parallel attention); MESH_SEQ with tcn-v1
-    raises NotImplementedError naming item 6d; a mesh without the
-    configured 'model' or 'seq' axis is refused by the Trainer."""
+    under MESH_SEQ (sequence-parallel attention); tcn-v1 builds under
+    MESH_SEQ (its halo-exchanging TCN stack), its blocks owned by 'seq';
+    a mesh without the configured 'model' or 'seq' axis is refused by the
+    Trainer."""
     moe = {"ENCODER_TYPE": "moe-v1", "MESH_DATA": 2, "ATTN_DIM": 32,
            "ATTN_HEADS": 2, "ATTN_LAYERS": 1}
     TorchDaNet(load_config(**dict(moe, MOE_TOP_K=2, MESH_MODEL=2)))
     TorchDaNet(load_config(**moe))
     TorchDaNet(load_config(**dict(moe, MESH_SEQ=2)))
-    with pytest.raises(NotImplementedError, match="item 6d"):
-        TorchDaNet(load_config(ENCODER_TYPE="tcn-v1", MESH_SEQ=2))
+    tcn = TorchDaNet(load_config(ENCODER_TYPE="tcn-v1", MESH_SEQ=2))
+    assert tcn.seq_leaves() == r"encoder/(bottleneck|block\d+)/"
     for key, axis in (("MESH_MODEL", "model"), ("MESH_SEQ", "seq")):
         hp = load_config(ENCODER_TYPE="bilstm-orig", **{key: 2})
         with pytest.raises(ValueError, match="no matching '%s' axis" % axis):

@@ -61,6 +61,7 @@ STACK_GRAD = dict(atol=5e-5, rtol=1e-4)
 GRAD = dict(atol=1e-5, rtol=1e-4)
 STEP = dict(atol=2e-5, rtol=1e-4)
 PIPE_DIMS = [72, 4]
+REG = {"REG_APPLY": True, "REG_TYPE": "L2", "REG_SCALE": 0.01}
 BILSTM = {"ENCODER_TYPE": "bilstm-orig", "BATCH_SIZE": 8,
           "PIPE_MICROBATCHES": 4, "DROPOUT_KEEP_PROB": 1.0}
 MOE = {"ENCODER_TYPE": "moe-v1", "ATTN_DIM": 32, "ATTN_LAYERS": 2,
@@ -281,6 +282,16 @@ def pe4(tmp_path_factory):
         jv["pp22"] = _jax_step_values(
             dict(BILSTM, MESH_DATA=2, MESH_PIPE=2), pb_np, src8,
             jax_make_mesh(2, 1, n_pipe=2))
+    # REG_APPLY's term, whole on every rank, on leaves owned by 'expert'
+    # and by 'pipe'
+    with _Narrow(None):
+        jv["ep22reg"] = _jax_step_values(
+            dict(MOE, MESH_DATA=2, MESH_EXPERT=2, **REG), pm_np, src4,
+            jax_make_mesh(2, 1, n_expert=2))
+    with _Narrow(PIPE_DIMS):
+        jv["pp22reg"] = _jax_step_values(
+            dict(BILSTM, MESH_DATA=2, MESH_PIPE=2, **REG), pb_np, src8,
+            jax_make_mesh(2, 1, n_pipe=2))
     # one-process checkpoints for the meshes to load
     with _Narrow(PIPE_DIMS):
         for name, keys, params in (("ckm", MOE, pm), ("ckb", BILSTM, pb)):
@@ -326,6 +337,12 @@ def pe4(tmp_path_factory):
          "params": "pb.npz", "batch": "b8.npz", "dims": PIPE_DIMS,
          "init": str(d / "ckb"), "save": True,
          "keys": dict(BILSTM, MESH_DATA=2, MESH_PIPE=2)},
+        {"name": "ep22reg", "kind": "step", "params": "pm.npz",
+         "batch": "b4.npz",
+         "keys": dict(MOE, MESH_DATA=2, MESH_EXPERT=2, **REG)},
+        {"name": "pp22reg", "kind": "step", "params": "pb.npz",
+         "batch": "b8.npz", "dims": PIPE_DIMS,
+         "keys": dict(BILSTM, MESH_DATA=2, MESH_PIPE=2, **REG)},
     ]
     with open(d / "spec.json", "w") as f:
         json.dump({"cases": cases}, f)
@@ -426,13 +443,16 @@ def test_torch_routed_capacity_is_global(pe4, k, cf):
     assert np.abs(shard - pe4["jax"]["rd%d" % k][0]).max() > 1e-3
 
 
-@pytest.mark.parametrize("case", ["ep22", "rt22", "rtdm", "pp22"])
+@pytest.mark.parametrize("case", ["ep22", "rt22", "rtdm", "pp22",
+                                  "ep22reg", "pp22reg"])
 def test_torch_pipe_expert_steps_match_jax(pe4, case):
     """Trainer steps at data 2 x expert 2 (soft and MOE_TOP_K 2), routed
     moe-v1 on a data 2 x model 2 mesh (the global capacity), and data 2
-    x pipe 2 (PIPE_MICROBATCHES 4): every rank's loss and gradients equal
-    JAX's train_loss on the same mesh shape (rtol 1e-4; atol 1e-5, rtol
-    1e-4)."""
+    x pipe 2 (PIPE_MICROBATCHES 4), the soft expert and pipe steps also
+    with REG_APPLY (L2 at 0.01: the term is whole on every rank, and a
+    leaf owned by 'expert' or 'pipe' keeps 1 / n of its gradient): every
+    rank's loss and gradients equal JAX's train_loss on the same mesh
+    shape (rtol 1e-4; atol 1e-5, rtol 1e-4)."""
     jl, jg = pe4["jax"][case]
     for r in range(4):
         d = _rank(pe4["res"], r, case)

@@ -734,9 +734,10 @@ def test_torch_seq_leaves_owned_by_seq():
     for enc in ("bilstm-orig", "gru-v1", "attn-v1"):
         hp = load_config(ENCODER_TYPE=enc, ATTN_DIM=32, ATTN_LAYERS=1)
         with _Narrow([8, 2]):
-            params = TorchDaNet(hp).init(torch.Generator())
+            model = TorchDaNet(hp)
+            params = model.init(torch.Generator())
         owners = dict(zip(leaf_names(params),
-                          sharding.leaf_owners(params, mesh)))
+                          sharding.leaf_owners(params, mesh, model)))
         for name, owner in owners.items():
             rnn_leaf = name.startswith(("encoder/lstm", "encoder/gru"))
             assert owner == ("seq" if rnn_leaf else None), (enc, name)

@@ -290,25 +290,22 @@ def test_torch_tasnet_debug_taps_match_jax(fresh_hparams):
 @pytest.mark.parametrize("key,value,err", [
     ("MESH_MODEL", 2, ValueError), ("MESH_PIPE", 2, ValueError),
     ("MESH_EXPERT", 2, ValueError), ("MESH_DATA", 2, None),
-    ("MESH_SEQ", 2, NotImplementedError)])
+    ("MESH_SEQ", 2, None)])
 def test_torch_tasnet_refuses_mesh_axes(fresh_hparams, key, value, err):
     """MESH_MODEL, MESH_PIPE and MESH_EXPERT > 1 raise JAX's ValueError
-    word for word; MESH_DATA, data parallelism, builds (the Trainer's
-    mesh); MESH_SEQ, which JAX routes, is not ported
-    (NotImplementedError naming ROADMAP item 6d)."""
+    word for word; MESH_DATA, data parallelism, and MESH_SEQ, the
+    sample-sharded forward (``TasNet._forward_sp``), build, as in JAX."""
     hp = load_config(**dict(TINY, **{key: value}))
+    fresh_hparams.load({key: value})
     if err is None:
+        JaxTasNet()
         assert TasNet(hp).hp is hp
         return
     with pytest.raises(err) as got:
         TasNet(hp)
-    if err is ValueError:
-        fresh_hparams.load({key: value})
-        with pytest.raises(ValueError) as want:
-            JaxTasNet()
-        assert str(got.value) == str(want.value)
-    else:
-        assert "queue 1 item 6d" in str(got.value)
+    with pytest.raises(ValueError) as want:
+        JaxTasNet()
+    assert str(got.value) == str(want.value)
 
 
 def test_torch_tasnet_refuses_unknown_mask():
