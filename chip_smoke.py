@@ -198,8 +198,9 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    card's name and power limit, the loop's ms per step (one epoch) and the
    device busy share (torch.profiler over 8 steps) of tpu.json's step with
    the f32 spectra wire at K=1 and METRICS_EVERY=1 (as phase 17), with the
-   int16 wave wire and the prefetch only, and with every key, on the flash
-   and the dense attention.
+   int16 wave wire and the prefetch only, and with every key, on
+   tpu.json's flash attention (the dense attention's loop is not timed:
+   the script's time limit).
 20. checkpoints, rollbacks, the preemption save, the step options and the
    CLI's modes on the paper model: bilstm-orig at full width, B=32,
    float32, the int16 wave wire, K=8, DROPOUT_KEEP_PROB 0.9, synth-speech
@@ -233,9 +234,13 @@ Phases, each printed as it runs; any failure raises (non-zero exit):
    B=96, H=128), the one-direction forms (DPRNN_INTER_CAUSAL) at the
    inter-chunk shapes, and conv-bilstm-v1's (T=32, B=32 and T=312, B=1,
    H=256 over 512 inputs); each line prints the launches a call made (a
-   batch above a kernel's row ceiling is split across launches), and in
-   float32 each kernel's time beside its plain version's, torch.nn.LSTM's
-   and its bound.  Then, with cuDNN at PyTorch's defaults from here to
+   batch whose row groups would pass a kernel's row ceiling is split
+   across launches) and each kernel's launches as (rows, row groups G),
+   holds every output of a launch with G > 1 bit for bit to the G = 1
+   launch of the same inputs (the wrappers' ``groups=1``), and prints in
+   both dtypes each kernel's time beside torch.nn.LSTM's in the same dtype
+   and its bound (float32 also beside its plain version's).  Then, with
+   cuDNN at PyTorch's defaults from here to
    the phase's end (TF32 allowed: the port's convolutions turn it off,
    and on deterministic algorithms, themselves), the port's conv2d and
    depthwise conv1d forward and backward against float64 to CONV_RTOL
@@ -579,6 +584,7 @@ TRAIN_T = 128  # frames of every training batch (toy data, MAX_TRAIN_LEN)
 PARAM_RTOL = 1e-3  # of each tensor's peak change; why: phase 7 docstring
 # H100 SXM published peaks: float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12   # dense, on the tensor cores
 PEAK_BYTES = 3.35e12
 
 # every kernel wrapper, by the name it has in the summary
@@ -820,11 +826,12 @@ def _describe(hp, enc) -> str:
 def _lstm_launches(rows: int, hdim: int, dt, train: bool,
                    n_dirs: int) -> dict:
     """The launches of one (Bi)LSTM layer over ``rows`` batch rows: a
-    batch above a kernel's row ceiling is split across launches."""
+    batch whose row groups would pass a kernel's row ceiling is split
+    across launches (``launch_plan``)."""
     pre, dev = "bi" if n_dirs == 2 else "", torch.device("cuda")
 
     def n(kind):
-        return -(-rows // max(cuda_lstm.max_rows(dev, hdim, dt, kind), 1))
+        return len(cuda_lstm.launch_plan(dev, rows, hdim, n_dirs, dt, kind))
     if not train:
         return {pre + "lstm_scan": n("lean")}
     return {pre + "lstm_scan_train": n("save"),
@@ -2143,9 +2150,8 @@ class _FirstBatches:
 
 def _loop_times(keys: dict) -> dict:
     """The loop's ms per step and device busy share of tpu.json's step
-    (B=64, bfloat16, DROPOUT_KEEP_PROB 0.9) in three setups, on the flash
-    and the dense attention, printed beside the card's name and power
-    limit.  The synthetic batches of both wires are made first (set-up:
+    (B=64, bfloat16, DROPOUT_KEEP_PROB 0.9) in three setups, on tpu.json's
+    flash attention, printed beside the card's name and power limit.  The synthetic batches of both wires are made first (set-up:
     the dataset caches them).  Per setup: a short epoch of warm-up (and
     capture: the first 8 batches, one 8-step call), one timed epoch, then
     the short epoch under torch.profiler (CUDA activity only), whose device
@@ -2176,7 +2182,7 @@ def _loop_times(keys: dict) -> dict:
     card = nvidia_smi()
     runs = []
     t0 = time.perf_counter()
-    for attn in ("flash", "xla"):
+    for attn in ("flash",):
         for label, over in setups:
             hp = load_config(**dict(keys, ATTN_BACKEND=attn, **over))
             tr = Trainer(hp.get_model()(hp), hp, "cuda")
@@ -2789,12 +2795,15 @@ def _layer_inputs(rs, t, b, h, i_dim, n_dirs, bias, scale, dtype):
     return _cuda(out, dtype)
 
 
-def _nn_lstm_ms(rs, t: int, b: int, h: int, i_dim: int, n_dirs: int):
-    """torch.nn.LSTM (cuDNN, tanh candidate) at this shape, float32, ms:
+def _nn_lstm_ms(rs, t: int, b: int, h: int, i_dim: int, n_dirs: int,
+                dt=torch.float32):
+    """torch.nn.LSTM (cuDNN, tanh candidate) at this shape in ``dt``, ms:
     the inference forward, the training forward and the backward to the
     input (each also computes the input projection)."""
-    lstm = torch.nn.LSTM(i_dim, h, bidirectional=n_dirs == 2).cuda()
-    x = torch.from_numpy(rs.randn(t, b, i_dim).astype(np.float32)).cuda()
+    lstm = torch.nn.LSTM(i_dim, h, bidirectional=n_dirs == 2).cuda().to(dt)
+    lstm.flatten_parameters()   # one weight buffer, as cuDNN wants it
+    x = torch.from_numpy(rs.randn(t, b, i_dim).astype(np.float32)).cuda() \
+        .to(dt)
     with torch.no_grad():
         lean = cuda_ms(lambda: lstm(x), 10)
     xt = x.clone().requires_grad_(True)
@@ -2806,13 +2815,20 @@ def _nn_lstm_ms(rs, t: int, b: int, h: int, i_dim: int, n_dirs: int):
     return lean, fwd, bwd
 
 
+def _as_tuple(v) -> tuple:
+    return v if isinstance(v, tuple) else (v,)
+
+
 def _new_shape_kernels() -> dict:
     """Phase 21 (a): the lean, saving and backward LSTM kernels at the new
     encoders' shapes against their plain versions, phase 4's and 6's
-    tolerances, both dtypes; float32 timed beside the plain versions,
-    nn.LSTM and each call's bound."""
+    tolerances, both dtypes; each launch's row groups G, and every output
+    of a launch with G > 1 bit for bit against the G = 1 launch (the
+    wrappers' ``groups=1``); both dtypes timed beside nn.LSTM in the same
+    dtype and each call's bound, float32 also beside the plain versions."""
     rs = np.random.RandomState(21)
     worst, times = {}, {}
+    kinds = ("lean", "save", "bwd")
     for what, t, b, h, i_dim, nd, bias, scale in NEW_SHAPES:
         pre = "bi" if nd == 2 else ""
         names = [pre + n for n in ("lstm_scan", "lstm_scan_train",
@@ -2841,26 +2857,49 @@ def _new_shape_kernels() -> dict:
                  TRAIN_FWD_TOL[dt]),
                 (names[2], ("dxp", "dc0", "dh0"), bwd, bwd_ref,
                  TRAIN_BWD_TOL[dt])), worst)
-            line = "phase 21 (a) %s max_abs_err: %s; launches %s" % (
-                tag, ", ".join(parts), calls)
-            if dt == torch.float32:
-                lib = _nn_lstm_ms(rs, t, b, h, i_dim, nd)
-                for name, k, p, a, lib_ms in zip(
-                        names, kern, plain, (args, args, bargs), lib):
-                    ms, plain_ms = cuda_ms(lambda: k(*a), 10), \
-                        cuda_ms(lambda: p(*a), 2)
-                    bound_ms, by = _bound(*_cost(name, t, b, h))
-                    times[(what, t, b, name)] = (ms, plain_ms, lib_ms,
+            plans = [cuda_lstm.launch_plan(xp.device, b, h, nd, dt, kind)
+                     for kind in kinds]
+            groups = []
+            for name, k, a, out, plan in zip(names, kern,
+                                             (args, args, bargs),
+                                             (lean, fwd, bwd), plans):
+                same = ""
+                if any(g > 1 for _, g in plan):
+                    one = _as_tuple(k(*a, groups=1))
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(x, y) for x, y in
+                               zip(_as_tuple(out), one)):
+                        raise AssertionError(
+                            "phase 21 %s %s: the launch with row groups %s "
+                            "differs from the G = 1 launch" % (name, tag,
+                                                               plan))
+                    same = ", bit for bit the G = 1 launch's"
+                groups.append("%s (rows, G) %s%s" % (name, plan, same))
+            line = "phase 21 (a) %s max_abs_err: %s; launches %s; %s" % (
+                tag, ", ".join(parts), calls, "; ".join(groups))
+            lib = _nn_lstm_ms(rs, t, b, h, i_dim, nd, dt)
+            f32 = dt == torch.float32
+            for name, k, p, a, lib_ms in zip(
+                    names, kern, plain, (args, args, bargs), lib):
+                ms = cuda_ms(lambda: k(*a), 10)
+                plain_ms = cuda_ms(lambda: p(*a), 2) if f32 else None
+                flops, nbytes = _cost(name, t, b, h)
+                bound_ms, by = _bound(flops, nbytes) if f32 else _bound(
+                    flops, nbytes / 2, PEAK_BF16_FLOPS)
+                times[(what, t, b, name, dt)] = (ms, plain_ms, lib_ms,
                                                  bound_ms)
-                    line += ("; %s %.4f ms (%.3f us/step), plain %.4f ms, "
-                             "nn.LSTM %.4f ms, bound %.4f ms (%s)"
-                             % (name, ms, 1e3 * ms / t, plain_ms, lib_ms,
-                                bound_ms, by))
+                line += ("; %s %.4f ms (%.3f us/step)%s, nn.LSTM %.4f ms, "
+                         "bound %.4f ms (%s)"
+                         % (name, ms, 1e3 * ms / t, ", plain %.4f ms"
+                            % plain_ms if f32 else "", lib_ms, bound_ms,
+                            by))
             print(line)
-    print("phase 21 (a) nn.LSTM(%s): torch.nn.LSTM (cuDNN), float32, the "
-          "inference forward beside the lean kernel, the training forward "
-          "beside the saving one, the backward to the input beside kernel "
-          "3; each also computes the input projection" % ", ".join(
+    print("phase 21 (a) nn.LSTM(%s): torch.nn.LSTM (cuDNN) in the line's "
+          "dtype, the inference forward beside the lean kernel, the "
+          "training forward beside the saving one, the backward to the "
+          "input beside kernel 3; each also computes the input projection; "
+          "bfloat16 bounds at the bfloat16 tensor-core peak and 2-byte "
+          "elements" % ", ".join(
               sorted({"%d, %d" % (s[4], s[3]) for s in NEW_SHAPES})))
     return {"max_abs_err": worst, "times": times}
 
@@ -4004,8 +4043,8 @@ def _carry_kernels() -> dict:
                                          "es" if n > 1 else "",
                                          "bit for bit" if same else "NOT"))
                     if not same or c_t.dtype != torch.float32 or n != \
-                            -(-b // cuda_lstm.max_rows(xp.device, h, dt,
-                                                        "lean")):
+                            len(cuda_lstm.launch_plan(xp.device, b, h, 1, dt,
+                                                      "lean")):
                         raise AssertionError(line)
                     if dt == torch.float32 and tanh and (
                             (t, b) in ((1251, 1), (64, 1), (1, 64))):
@@ -4200,9 +4239,9 @@ def _separate_long() -> dict:
     out = out.cpu()
     peak = float(ref.abs().max())
     err = max_err(out, ref)
-    want = dict({k: 0 for k in KERNELS}, bilstm_scan=-(-n_chunks // max(
-        cuda_lstm.max_rows(x.device, 300, torch.float32, "lean"), 1))
-        * model.encoder.N_LAYERS)
+    want = dict({k: 0 for k in KERNELS}, bilstm_scan=len(
+        cuda_lstm.launch_plan(x.device, n_chunks, 300, 2, torch.float32,
+                              "lean")) * model.encoder.N_LAYERS)
     line = ("phase 24 (c) separate_long bilstm-orig %s, %d s (T=%d): %d "
             "chunks of %d frames overlapping by %d in one batch, out %s, "
             "%.3f ms on %s; vs CPU max_abs_err %.3g (peak %.3g, rtol %g); "
@@ -5814,11 +5853,11 @@ def phase_seq_conv() -> dict:
             "kernel_err": kernel_err, "relay": relay["max_abs_err"]}
 
 
-def _bound(flops: float, nbytes: float):
+def _bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     """(ms, "operations" or "bytes"): the least time of the work on the
-    card, the larger of its FLOPs at the float32 peak and its bytes at the
-    memory rate."""
-    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    card, the larger of its FLOPs at the ``peak`` rate (float32's by
+    default) and its bytes at the memory rate."""
+    by_ops = flops / peak * 1e3
     by_bytes = nbytes / PEAK_BYTES * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else \
         (by_bytes, "bytes")

@@ -26,7 +26,8 @@
 // arguments.  cand, i, f, o come
 // from the residuals acts[t] and c_t from cs[t] that kernel 2 stored;
 // c_{t-1} is c_prev[t] (c0, then cs[:-1]).  Shapes, with D = n_dirs (1
-// or 2; grid.y, and a template parameter as in the forward): d_hs, cs,
+// or 2; grid.y, and a template parameter as in the forward; grid.z the
+// row groups, below): d_hs, cs,
 // c_prev [T, D, B, H], acts and dxp [T, D, B, 4H], wh [D, H, 4H], dc0/dh0
 // [D, B, H]; storage f32 or bf16.  dWh = sum_t h_{t-1}^T dxp[t] has no
 // sequential dependency and is one bulk matmul outside the kernel, as in
@@ -58,7 +59,17 @@
 // are reduced in registers by a 5-step shuffle reduce-scatter (31 + 31
 // shuffles); the KW shares meet in red_s, added where the next step reads
 // them.  (UNITS = 16, 38 blocks with D=2, was slower in an earlier,
-// block-wide staging design.)
+// block-wide staging design.)  grid.z = G row groups: block (x, dir, g)
+// takes the rows of group g (row_group in common.cuh: whole passes of
+// PASS rows, as evenly as they go) with its own copy of its Wh rows (16 KB
+// at H=128), so that dprnn-v1's 16 blocks per direction at H=128 fill the
+// card (G = 4 with two directions, 8 with one: one block per SM, at 203-217
+// registers); each warp keeps its 8-row tiles of each pass and every sum
+// its order, so the outputs are bit for bit the G = 1 launch's.  One
+// grid.sync() per step still spans every group: a barrier per (direction,
+// group) over flags timed the same at dprnn-v1's intra shape (T=64, B=96,
+// G=3: 0.2505 against 0.2493 ms in f32, 0.2593 against 0.2634 in bf16)
+// and 3-5 % slower at the main path's G = 1 (PERF.md).
 //
 // Staging.  Each warp stages its own rows and columns of the row, in
 // chunks of BT rows x KC = 256 columns, through its own ring of
@@ -75,20 +86,23 @@
 // barrier, so that they arrive while step t contracts (pairs past
 // MAXE x 256, B > 64, load in place).
 //
-// Shared memory: w_s [2][4H][4] f32, 8 rings of 16 KB, dc_s [B][UNITS] and
-// red_s [KW][B][UNITS] f32: 96 bytes per batch row, so only the carries
-// grow with B.  At H=600, D=1: 207.9 KB + 96 B per row, within the 227 KB
-// opt-in up to B=256; at H=300, D=2: 169.5 KB + 96 B, up to B=656; at
-// H=128, 144 KB + 96 B, up to B=885, and at H=256, 160 KB + 96 B, up to
-// B=714; either dtype and direction count (danet_lstm_scan_bwd_max_rows;
-// the wrapper splits a larger batch into launches of at most that many
-// rows).  A
-// launch that does not fit returns DANET_SMEM_TOO_LARGE or
-// DANET_NOT_RESIDENT through cooperative_fit and never degrades.
+// Shared memory, per block: w_s [2][4H][4] f32, 8 rings of 16 KB, dc_s
+// [rows][UNITS] and red_s [KW][rows][UNITS] f32 over the rows of its group
+// (group_rows): 96 bytes per row, so only the carries grow with the group.
+// At H=600, D=1: 207.9 KB + 96 B per row, within the 227 KB opt-in up to
+// 256 rows a group; at H=300, D=2: 169.5 KB + 96 B, up to 656; at H=128,
+// 144 KB + 96 B, up to 885, and at H=256, 160 KB + 96 B, up to 714; either
+// dtype and direction count (danet_lstm_scan_bwd_max_rows).  So dprnn-v1's
+// 2,048 inter rows at H=128 run in one launch of 4 groups of 512 rows
+// (three launches before row groups), 4,096 in two; the wrapper splits a
+// batch whose groups would hold more.  A launch that does not fit returns
+// DANET_SMEM_TOO_LARGE or DANET_NOT_RESIDENT through cooperative_fit and
+// never degrades.
 //
 // Memory ordering.  Every block writes its gate columns of dxp[t] with
 // plain stores before grid.sync(), whose fence orders them (device scope)
-// before any block passes the barrier.  A copy of the row is issued only
+// before any block passes the barrier; a block reads only its own group's
+// rows.  A copy of the row is issued only
 // after the barrier, in program order, and cp.async.cg reads through L2,
 // the point of coherence, never through the SM's L1, where a line could be
 // stale (a line of dxp[t+1] read in the previous step may hold the edge of
@@ -207,7 +221,11 @@ __device__ __forceinline__ void fma_cols(float* acc, const T* d,
 }
 
 // The body of both kernels below; SEED: the dc carry starts at dc_T.
-template <typename T, bool TANH, int NDIRS, bool SEED>
+// Block (x, dir, g) runs the units of x over the rows of row group g
+// (row_group: grid.z groups of whole passes).  GROUPS: grid.z > 1; the
+// instances without it, one group of every row, keep the index arithmetic
+// of a grid without row groups.
+template <typename T, bool TANH, int NDIRS, bool SEED, bool GROUPS>
 __device__ __forceinline__ void bwd_body(
     const T* __restrict__ d_hs, const T* __restrict__ acts,
     const T* __restrict__ cs, const T* __restrict__ c_prev,
@@ -222,7 +240,13 @@ __device__ __forceinline__ void bwd_body(
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int g4 = 4 * hdim;
-  const int n_el = batch * UNITS;
+  int b0 = 0, nb = batch;  // this block's rows: b0 .. b0 + nb - 1
+  if constexpr (GROUPS) {
+    int b1;
+    row_group(batch, PASS, gridDim.z, blockIdx.z, &b0, &b1);
+    nb = b1 - b0;
+  }
+  const int n_el = nb * UNITS;
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   float* w_s = smem;
@@ -230,7 +254,7 @@ __device__ __forceinline__ void bwd_body(
       reinterpret_cast<char*>(w_s + static_cast<size_t>(g4) * UNITS);
   T* ring = reinterpret_cast<T*>(rings + warp * RING_BYTES);  // this warp's
   float* dc_s = reinterpret_cast<float*>(rings + WARPS * RING_BYTES);
-  float* red_s = dc_s + n_el;  // dh_carry in KW parts, [KW][B][UNITS]
+  float* red_s = dc_s + n_el;  // dh_carry in KW parts, [KW][nb][UNITS]
 
   const int dir = blockIdx.y;
   const int u0 = blockIdx.x * UNITS;
@@ -251,7 +275,8 @@ __device__ __forceinline__ void bwd_body(
     if constexpr (SEED) {
       const int unit = u0 + e % UNITS;
       dc_s[e] = unit < hdim ? dc_T[static_cast<size_t>(dir) * bh +
-                                   static_cast<size_t>(e / UNITS) * hdim +
+                                   static_cast<size_t>(b0 + e / UNITS) *
+                                       hdim +
                                    unit]
                             : 0.f;
     } else {
@@ -267,7 +292,7 @@ __device__ __forceinline__ void bwd_body(
   const int share = ((g4 + KW - 1) / KW + VEC - 1) / VEC * VEC;
   const int c_beg = min(g4, kw * share), c_end = min(g4, c_beg + share);
   const int per_pass = (c_end - c_beg + KC - 1) / KC;
-  const int n_w = max(0, (batch - bg * BT + PASS - 1) / PASS) * per_pass;
+  const int n_w = max(0, (nb - bg * BT + PASS - 1) / PASS) * per_pass;
 
   // the residuals of this thread's first MAXE (row, unit) pairs at step t
   float res[MAXE][7];
@@ -275,7 +300,8 @@ __device__ __forceinline__ void bwd_body(
     const size_t td = static_cast<size_t>(t) * NDIRS + dir;
 #pragma unroll
     for (int r = 0; r < MAXE; ++r) {
-      const int e = tid + r * THREADS, b = e / UNITS, unit = u0 + e % UNITS;
+      const int e = tid + r * THREADS, b = b0 + e / UNITS;
+      const int unit = u0 + e % UNITS;
       if (e < n_el && unit < hdim)
         load_residuals(res[r], d_hs, acts, cs, c_prev,
                        td * bh + static_cast<size_t>(b) * hdim + unit,
@@ -291,7 +317,8 @@ __device__ __forceinline__ void bwd_body(
     // 1. cell backward of this block's (row, unit) pairs
 #pragma unroll
     for (int r = 0; r < MAXE; ++r) {
-      const int e = tid + r * THREADS, b = e / UNITS, unit = u0 + e % UNITS;
+      const int e = tid + r * THREADS, b = b0 + e / UNITS;
+      const int unit = u0 + e % UNITS;
       if (e < n_el && unit < hdim) {
         float dh = 0.f;
 #pragma unroll
@@ -302,7 +329,7 @@ __device__ __forceinline__ void bwd_body(
       }
     }
     for (int e = tid + MAXE * THREADS; e < n_el; e += THREADS) {
-      const int b = e / UNITS, unit = u0 + e % UNITS;
+      const int b = b0 + e / UNITS, unit = u0 + e % UNITS;
       if (unit >= hdim) continue;
       const size_t hix = td * bh + static_cast<size_t>(b) * hdim + unit;
       const size_t gix = td * bg4 + static_cast<size_t>(b) * g4 + unit;
@@ -321,12 +348,12 @@ __device__ __forceinline__ void bwd_body(
     // 3. dh_carry[b, u] = sum_g dxp[t][b, g] * Wh[u0 + u, g]: each warp
     // stages and contracts its own rows and columns, chunk j = (pass
     // j / per_pass, columns c_beg + j % per_pass * KC ..)
-    const T* dx_t = dxp + td * bg4;
+    const T* dx_t = dxp + td * bg4 + static_cast<size_t>(b0) * g4;
     auto issue = [&](int j) {
       if (j >= n_w) return;
       const int r0 = j / per_pass * PASS + bg * BT;
       const int k0 = c_beg + j % per_pass * KC;
-      const int rows = min(BT, batch - r0), kn = min(KC, c_end - k0);
+      const int rows = min(BT, nb - r0), kn = min(KC, c_end - k0);
       T* dst = ring + (j % NBUF) * BT * KC;
       const T* src = dx_t + static_cast<size_t>(r0) * g4 + k0;
       if (vec_ok) {
@@ -381,8 +408,8 @@ __device__ __forceinline__ void bwd_body(
         reduce_half<8, 2>(acc, lane);
         reduce_half<4, 1>(acc, lane);
         const int i = lane / 4, u = lane % 4 * 2;
-        if (r0 + i < batch) {
-          float* out = red_s + (static_cast<size_t>(kw) * batch + r0 + i) *
+        if (r0 + i < nb) {
+          float* out = red_s + (static_cast<size_t>(kw) * nb + r0 + i) *
                                    UNITS + u;
           out[0] = acc[0];
           out[1] = acc[1];
@@ -398,25 +425,26 @@ __device__ __forceinline__ void bwd_body(
     float dh = 0.f;
 #pragma unroll
     for (int p = 0; p < KW; ++p) dh += red_s[p * n_el + e];
-    const size_t ix = dir * bh + static_cast<size_t>(b) * hdim + unit;
+    const size_t ix = dir * bh + static_cast<size_t>(b0 + b) * hdim + unit;
     dc0[ix] = from_f32<T>(dc_s[e]);
     dh0[ix] = from_f32<T>(dh);
   }
 }
 
-template <typename T, bool TANH, int NDIRS>
+template <typename T, bool TANH, int NDIRS, bool GROUPS>
 __global__ void __launch_bounds__(THREADS)
 bilstm_scan_bwd_kernel(const T* __restrict__ d_hs, const T* __restrict__ acts,
                        const T* __restrict__ cs, const T* __restrict__ c_prev,
                        const T* __restrict__ wh, T* dxp, T* __restrict__ dc0,
                        T* __restrict__ dh0, int n_steps, int batch,
                        int hdim) {
-  bwd_body<T, TANH, NDIRS, false>(d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0,
-                                  nullptr, n_steps, batch, hdim);
+  bwd_body<T, TANH, NDIRS, false, GROUPS>(d_hs, acts, cs, c_prev, wh, dxp,
+                                          dc0, dh0, nullptr, n_steps, batch,
+                                          hdim);
 }
 
 // One direction, the dc carry seeded with dc_T [B, H] float32.
-template <typename T, bool TANH>
+template <typename T, bool TANH, bool GROUPS>
 __global__ void __launch_bounds__(THREADS)
 lstm_scan_bwd_seeded_kernel(const T* __restrict__ d_hs,
                             const T* __restrict__ acts,
@@ -426,114 +454,131 @@ lstm_scan_bwd_seeded_kernel(const T* __restrict__ d_hs,
                             T* __restrict__ dc0, T* __restrict__ dh0,
                             const float* __restrict__ dc_T, int n_steps,
                             int batch, int hdim) {
-  bwd_body<T, TANH, 1, true>(d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0, dc_T,
-                             n_steps, batch, hdim);
+  bwd_body<T, TANH, 1, true, GROUPS>(d_hs, acts, cs, c_prev, wh, dxp, dc0,
+                                     dh0, dc_T, n_steps, batch, hdim);
 }
 
-template <typename T, bool TANH>
-int launch_seeded(const void* d_hs, const void* acts, const void* cs,
-                  const void* c_prev, const void* wh, void* dxp, void* dc0,
-                  void* dh0, const void* dc_T, int n_steps, int batch,
-                  int hdim, cudaStream_t stream) {
-  auto kernel = lstm_scan_bwd_seeded_kernel<T, TANH>;
-  const size_t smem = smem_bytes(batch, hdim);
-  const dim3 grid((hdim + UNITS - 1) / UNITS, 1);
-  const int fit = cooperative_fit(kernel, grid, THREADS, smem);
-  if (fit != 0) return fit;  // never degrade: the barrier would hang
+// The arguments of one launch, as the entry points take them; dc_T is
+// null but in the seeded entry.
+struct Args {
+  const void *d_hs, *acts, *cs, *c_prev, *wh;
+  void *dxp, *dc0, *dh0;
+  const void* dc_T;
+  int n_steps, batch, hdim, groups;
+  cudaStream_t stream;
+};
 
-  const T* d_hs_ = static_cast<const T*>(d_hs);
-  const T* acts_ = static_cast<const T*>(acts);
-  const T* cs_ = static_cast<const T*>(cs);
-  const T* c_prev_ = static_cast<const T*>(c_prev);
-  const T* wh_ = static_cast<const T*>(wh);
-  T* dxp_ = static_cast<T*>(dxp);
-  T* dc0_ = static_cast<T*>(dc0);
-  T* dh0_ = static_cast<T*>(dh0);
-  const float* dc_T_ = static_cast<const float*>(dc_T);
-  void* args[] = {&d_hs_, &acts_, &cs_,     &c_prev_, &wh_,  &dxp_,
-                  &dc0_,  &dh0_,  &dc_T_,   &n_steps, &batch, &hdim};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(kernel), grid, dim3(THREADS), args, smem,
-      stream);
+template <typename T, bool TANH, int NDIRS, bool SEED, bool GROUPS>
+int launch_groups(const Args& a) {
+  const size_t smem = smem_bytes(group_rows(a.batch, PASS, a.groups), a.hdim);
+  const dim3 grid((a.hdim + UNITS - 1) / UNITS, NDIRS, a.groups);
+  const T* d_hs = static_cast<const T*>(a.d_hs);
+  const T* acts = static_cast<const T*>(a.acts);
+  const T* cs = static_cast<const T*>(a.cs);
+  const T* c_prev = static_cast<const T*>(a.c_prev);
+  const T* wh = static_cast<const T*>(a.wh);
+  T* dxp = static_cast<T*>(a.dxp);
+  T* dc0 = static_cast<T*>(a.dc0);
+  T* dh0 = static_cast<T*>(a.dh0);
+  const float* dc_T = static_cast<const float*>(a.dc_T);
+  int n_steps = a.n_steps, batch = a.batch, hdim = a.hdim;
+  const void* kernel;
+  int fit;
+  cudaError_t err;
+  if constexpr (SEED) {
+    auto k = lstm_scan_bwd_seeded_kernel<T, TANH, GROUPS>;
+    kernel = reinterpret_cast<const void*>(k);
+    fit = cooperative_fit(k, grid, THREADS, smem);
+  } else {
+    auto k = bilstm_scan_bwd_kernel<T, TANH, NDIRS, GROUPS>;
+    kernel = reinterpret_cast<const void*>(k);
+    fit = cooperative_fit(k, grid, THREADS, smem);
+  }
+  if (fit != 0) return fit;  // never degrade: the barrier would hang
+  if constexpr (SEED) {
+    void* args[] = {&d_hs, &acts, &cs,      &c_prev, &wh,  &dxp,
+                    &dc0,  &dh0,  &dc_T,    &n_steps, &batch, &hdim};
+    err = cudaLaunchCooperativeKernel(kernel, grid, dim3(THREADS), args, smem,
+                                      a.stream);
+  } else {
+    void* args[] = {&d_hs, &acts, &cs,      &c_prev, &wh,  &dxp,
+                    &dc0,  &dh0,  &n_steps, &batch,  &hdim};
+    err = cudaLaunchCooperativeKernel(kernel, grid, dim3(THREADS), args, smem,
+                                      a.stream);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool TANH, int NDIRS>
-int launch(const void* d_hs, const void* acts, const void* cs,
-           const void* c_prev, const void* wh, void* dxp, void* dc0,
-           void* dh0, int n_steps, int batch, int hdim,
-           cudaStream_t stream) {
-  auto kernel = bilstm_scan_bwd_kernel<T, TANH, NDIRS>;
-  const size_t smem = smem_bytes(batch, hdim);
-  const dim3 grid((hdim + UNITS - 1) / UNITS, NDIRS);
-  const int fit = cooperative_fit(kernel, grid, THREADS, smem);
-  if (fit != 0) return fit;  // never degrade: the barrier would hang
-
-  const T* d_hs_ = static_cast<const T*>(d_hs);
-  const T* acts_ = static_cast<const T*>(acts);
-  const T* cs_ = static_cast<const T*>(cs);
-  const T* c_prev_ = static_cast<const T*>(c_prev);
-  const T* wh_ = static_cast<const T*>(wh);
-  T* dxp_ = static_cast<T*>(dxp);
-  T* dc0_ = static_cast<T*>(dc0);
-  T* dh0_ = static_cast<T*>(dh0);
-  void* args[] = {&d_hs_, &acts_, &cs_,     &c_prev_, &wh_,  &dxp_,
-                  &dc0_,  &dh0_,  &n_steps, &batch,   &hdim};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(kernel), grid, dim3(THREADS), args, smem,
-      stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+// The instance by the row groups: GROUPS for more than one.
+template <typename T, bool TANH, int NDIRS, bool SEED>
+int launch(const Args& a) {
+  return a.groups > 1 ? launch_groups<T, TANH, NDIRS, SEED, true>(a)
+                      : launch_groups<T, TANH, NDIRS, SEED, false>(a);
 }
 
-template <typename T, bool TANH>
-int launch_dirs(const void* d_hs, const void* acts, const void* cs,
-                const void* c_prev, const void* wh, void* dxp, void* dc0,
-                void* dh0, int n_steps, int batch, int hdim, int n_dirs,
-                cudaStream_t stream) {
-  return n_dirs == 1
-             ? launch<T, TANH, 1>(d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0,
-                                  n_steps, batch, hdim, stream)
-             : launch<T, TANH, 2>(d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0,
-                                  n_steps, batch, hdim, stream);
-}
-
-int dispatch(const void* d_hs, const void* acts, const void* cs,
-             const void* c_prev, const void* wh, void* dxp, void* dc0,
-             void* dh0, int n_steps, int batch, int hdim, int n_dirs,
-             int dtype, int tanh_cand, void* stream) {
-  if (n_steps <= 0 || batch <= 0 || hdim <= 0 || (dtype != 0 && dtype != 1)
-      || (n_dirs != 1 && n_dirs != 2))
+template <int NDIRS, bool SEED>
+int dispatch(const Args& a, int dtype, int tanh_cand) {
+  if (a.n_steps <= 0 || a.batch <= 0 || a.hdim <= 0 ||
+      (dtype != 0 && dtype != 1) || (SEED && a.dc_T == nullptr) ||
+      a.groups < 1 || a.groups > (a.batch + PASS - 1) / PASS)
     return DANET_BAD_ARGUMENT;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return tanh_cand ? launch_dirs<float, true>(d_hs, acts, cs, c_prev, wh,
-                                                dxp, dc0, dh0, n_steps, batch,
-                                                hdim, n_dirs, s)
-                     : launch_dirs<float, false>(d_hs, acts, cs, c_prev, wh,
-                                                 dxp, dc0, dh0, n_steps,
-                                                 batch, hdim, n_dirs, s);
-  return tanh_cand
-             ? launch_dirs<__nv_bfloat16, true>(d_hs, acts, cs, c_prev, wh,
-                                                dxp, dc0, dh0, n_steps, batch,
-                                                hdim, n_dirs, s)
-             : launch_dirs<__nv_bfloat16, false>(d_hs, acts, cs, c_prev, wh,
-                                                 dxp, dc0, dh0, n_steps,
-                                                 batch, hdim, n_dirs, s);
+    return tanh_cand ? launch<float, true, NDIRS, SEED>(a)
+                     : launch<float, false, NDIRS, SEED>(a);
+  return tanh_cand ? launch<__nv_bfloat16, true, NDIRS, SEED>(a)
+                   : launch<__nv_bfloat16, false, NDIRS, SEED>(a);
+}
+
+// The fewest blocks per SM of kernel 3's instances of NDIRS directions
+// (with one, the seeded ones too) whose groups hold `rows` rows, written to
+// *blocks; the GROUPS instances, which run more than one group.
+template <typename T, int NDIRS>
+int residency(int rows, int hdim, int* blocks) {
+  const size_t smem = smem_bytes(rows, hdim);
+  if constexpr (NDIRS == 1)
+    return fewest_blocks_per_sm(THREADS, smem, blocks,
+                                bilstm_scan_bwd_kernel<T, true, 1, true>,
+                                bilstm_scan_bwd_kernel<T, false, 1, true>,
+                                lstm_scan_bwd_seeded_kernel<T, true, true>,
+                                lstm_scan_bwd_seeded_kernel<T, false, true>);
+  else
+    return fewest_blocks_per_sm(THREADS, smem, blocks,
+                                bilstm_scan_bwd_kernel<T, true, 2, true>,
+                                bilstm_scan_bwd_kernel<T, false, 2, true>);
 }
 
 }  // namespace
 
+// The blocks per SM the card holds at once of a kernel 3 launch of n_dirs
+// directions at H = hdim whose row groups hold `rows` rows each (the
+// fewest over its instances), written to *blocks.
+extern "C" int danet_lstm_scan_bwd_blocks_per_sm(int n_dirs, int hdim,
+                                                 int rows, int dtype,
+                                                 int* blocks) {
+  if (hdim <= 0 || rows <= 0 || (n_dirs != 1 && n_dirs != 2) ||
+      (dtype != 0 && dtype != 1) || blocks == nullptr)
+    return DANET_BAD_ARGUMENT;
+  if (dtype == 0)
+    return n_dirs == 1 ? residency<float, 1>(rows, hdim, blocks)
+                       : residency<float, 2>(rows, hdim, blocks);
+  return n_dirs == 1 ? residency<__nv_bfloat16, 1>(rows, hdim, blocks)
+                     : residency<__nv_bfloat16, 2>(rows, hdim, blocks);
+}
+
 // Kernel 3.  dtype: 0 = float32, 1 = bfloat16 (every tensor of the call).
+// groups: the row groups (grid.z), 1 to ceil(B / 32); every entry below
+// takes it.
 extern "C" int danet_bilstm_scan_bwd(const void* d_hs, const void* acts,
                                      const void* cs, const void* c_prev,
                                      const void* wh, void* dxp, void* dc0,
                                      void* dh0, int n_steps, int batch,
                                      int hdim, int dtype, int tanh_cand,
-                                     void* stream) {
-  return dispatch(d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0, n_steps, batch,
-                  hdim, 2, dtype, tanh_cand, stream);
+                                     int groups, void* stream) {
+  return dispatch<2, false>(
+      Args{d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0, nullptr, n_steps,
+           batch, hdim, groups, static_cast<cudaStream_t>(stream)},
+      dtype, tanh_cand);
 }
 
 // Kernel 3 with one direction (the backward of lstm_scan_pallas): d_hs,
@@ -544,9 +589,11 @@ extern "C" int danet_lstm_scan_bwd(const void* d_hs, const void* acts,
                                    const void* wh, void* dxp, void* dc0,
                                    void* dh0, int n_steps, int batch,
                                    int hdim, int dtype, int tanh_cand,
-                                   void* stream) {
-  return dispatch(d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0, n_steps, batch,
-                  hdim, 1, dtype, tanh_cand, stream);
+                                   int groups, void* stream) {
+  return dispatch<1, false>(
+      Args{d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0, nullptr, n_steps,
+           batch, hdim, groups, static_cast<cudaStream_t>(stream)},
+      dtype, tanh_cand);
 }
 
 // Kernel 3 with one direction, its dc carry seeded with dc_T [B, H]
@@ -558,30 +605,17 @@ extern "C" int danet_lstm_scan_bwd_seeded(const void* d_hs, const void* acts,
                                           void* dc0, void* dh0,
                                           const void* dc_T, int n_steps,
                                           int batch, int hdim, int dtype,
-                                          int tanh_cand, void* stream) {
-  if (n_steps <= 0 || batch <= 0 || hdim <= 0 || (dtype != 0 && dtype != 1)
-      || dc_T == nullptr)
-    return DANET_BAD_ARGUMENT;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return tanh_cand
-               ? launch_seeded<float, true>(d_hs, acts, cs, c_prev, wh, dxp,
-                                            dc0, dh0, dc_T, n_steps, batch,
-                                            hdim, s)
-               : launch_seeded<float, false>(d_hs, acts, cs, c_prev, wh, dxp,
-                                             dc0, dh0, dc_T, n_steps, batch,
-                                             hdim, s);
-  return tanh_cand ? launch_seeded<__nv_bfloat16, true>(
-                         d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0, dc_T,
-                         n_steps, batch, hdim, s)
-                   : launch_seeded<__nv_bfloat16, false>(
-                         d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0, dc_T,
-                         n_steps, batch, hdim, s);
+                                          int tanh_cand, int groups,
+                                          void* stream) {
+  return dispatch<1, true>(
+      Args{d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0, dc_T, n_steps, batch,
+           hdim, groups, static_cast<cudaStream_t>(stream)},
+      dtype, tanh_cand);
 }
 
-// The row ceiling of one backward launch at H = hdim (either dtype and
-// direction count): the largest batch whose shared memory fits the
-// device's opt-in, written to *rows.
+// The row ceiling of one row group of a backward launch at H = hdim
+// (either dtype and direction count): the most rows whose shared memory
+// fits the device's opt-in, written to *rows.
 extern "C" int danet_lstm_scan_bwd_max_rows(int hdim, int* rows) {
   if (hdim <= 0 || rows == nullptr) return DANET_BAD_ARGUMENT;
   return max_rows_fitting([=](int b) { return smem_bytes(b, hdim); }, rows);

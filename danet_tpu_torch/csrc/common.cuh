@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <initializer_list>
 #include <cuda_runtime.h>
 
 enum DanetStatus : int {
@@ -74,6 +75,30 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The rows [*b0, *b1) of row group g of `groups` (grid.z of the LSTM
+// scans): the batch's passes of `pass` rows, ceil(batch / pass) of them,
+// split as evenly as whole passes allow (group g takes passes g P / G up
+// to (g + 1) P / G), so that every group but the last is a whole number
+// of passes and every pass holds the rows it holds in one group.  Every
+// group is non-empty for groups <= P.
+__host__ __device__ __forceinline__ void row_group(int batch, int pass,
+                                                   int groups, int g,
+                                                   int* b0, int* b1) {
+  const long passes = (batch + pass - 1) / pass;
+  *b0 = static_cast<int>(g * passes / groups) * pass;
+  const int end = static_cast<int>((g + 1) * passes / groups) * pass;
+  *b1 = end < batch ? end : batch;
+}
+
+// The rows each block's shared memory holds: ceil(P / G) passes, at most
+// the batch (at least the rows of every group of row_group).
+__host__ __device__ __forceinline__ int group_rows(int batch, int pass,
+                                                  int groups) {
+  const int passes = (batch + pass - 1) / pass;
+  const int most = (passes + groups - 1) / groups * pass;
+  return most < batch ? most : batch;
+}
+
 // The shared memory one block of the current device may opt in to.
 inline int smem_optin(int* bytes) {
   int device = 0;
@@ -104,6 +129,40 @@ inline int max_rows_fitting(Bytes bytes, int* rows) {
   return 0;
 }
 
+// The blocks of `kernel` (of `threads` threads and `smem` bytes of dynamic
+// shared memory, its opt-in set to that) one SM holds at once, written to
+// *blocks.  Returns 0 or a cudaError_t.
+template <typename Kernel>
+inline int blocks_per_sm(Kernel kernel, int threads, size_t smem,
+                         int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                        threads, smem);
+  return static_cast<int>(err);
+}
+
+// The fewest blocks per SM of `kernels` (each of `threads` threads and
+// `smem` bytes of dynamic shared memory), written to *blocks; a smem above
+// the device's opt-in returns DANET_SMEM_TOO_LARGE.
+template <typename... Kernels>
+inline int fewest_blocks_per_sm(int threads, size_t smem, int* blocks,
+                                Kernels... kernels) {
+  int optin = 0, fewest = 1 << 30, status = smem_optin(&optin);
+  if (status != 0) return status;
+  if (smem > static_cast<size_t>(optin)) return DANET_SMEM_TOO_LARGE;
+  for (auto kernel : {reinterpret_cast<const void*>(kernels)...}) {
+    int n = 0;
+    status = blocks_per_sm(kernel, threads, smem, &n);
+    if (status != 0) return status;
+    fewest = n < fewest ? n : fewest;
+  }
+  *blocks = fewest;
+  return 0;
+}
+
 // Launch checks of a cooperative kernel: the device's opt-in shared memory
 // and whether every block of `grid` can be resident at once.  Returns 0,
 // a cudaError_t, or DANET_SMEM_TOO_LARGE / DANET_NOT_RESIDENT (never
@@ -120,13 +179,8 @@ inline int cooperative_fit(Kernel kernel, dim3 grid, int threads,
                                  device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem > static_cast<size_t>(optin)) return DANET_SMEM_TOO_LARGE;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int fit = blocks_per_sm(kernel, threads, smem, &per_sm);
+  if (fit != 0) return fit;
   if (static_cast<long>(per_sm) * n_sm <
       static_cast<long>(grid.x) * grid.y * grid.z)
     return DANET_NOT_RESIDENT;

@@ -139,15 +139,18 @@ __device__ __forceinline__ void copy_rows(T* d_s, int sld, const T* src,
   cp_async_commit();
 }
 
-// Every flag of `flags` (one per block) at step t or later; the caller's
-// block barrier then orders the row's reads after the flags' acquire.
+// Every flag of `flags` (one per block of grid.x: the caller points it at
+// its direction's, and in the LSTM forward its row group's, flags) at step
+// t or later; the caller's block barrier then orders the row's reads after
+// the flags' acquire.
 __device__ __forceinline__ void wait_flags(const int* flags, int t) {
   for (int j = threadIdx.x; j < static_cast<int>(gridDim.x); j += THREADS)
     for (unsigned k = 0; load_flag(flags + j) < t; ++k)
       if (k == SPIN_LIMIT) __trap();
 }
 
-// This block's values of a row are stored: publish step t in its flag.
+// This block's values of a row are stored: publish step t in its flag
+// (flags as wait_flags's, indexed by blockIdx.x).
 __device__ __forceinline__ void publish(int* flags, int t) {
   __syncthreads();
   if (threadIdx.x == 0) {

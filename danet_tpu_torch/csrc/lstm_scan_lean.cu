@@ -39,7 +39,7 @@
 // is the c_T pointer, so that the other kernels keep their arguments; both
 // kernels run one body (scan_body), where c_T rides in Saved.
 // xch [2, D, B, H] of 8-byte words is
-// scratch for the exchange (below).  Storage f32 or bf16, gate math and
+// scratch for the exchange (below); its flags are [D][G][grid.x] ints.  Storage f32 or bf16, gate math and
 // the cell carry f32.  With D = 2, direction 1 sees the time-reversed
 // input; the caller reverses in and out.  c0 and h0 are taken as given.
 //
@@ -57,23 +57,37 @@
 //
 // Tiling.  The hidden units of a direction are split over blocks, UNITS =
 // 8 per block, one per warp (grid.x = 38 at H=300, whose last block has 4
-// live units, 75 at H=600; grid.y = D, also a template parameter, so that
-// the direction stride is a constant in the index arithmetic).  A block
-// keeps the 4 gate columns of each of its units (cand, i, f, o) resident
-// in shared memory as one plane per unit ([unit][H][4] f32, the plane
-// stride padded so that the two planes a quarter-warp reads fall on
-// different banks).
+// live units, 75 at H=600, 16 at H=128; grid.y = D, also a template
+// parameter, so that the direction stride is a constant in the index
+// arithmetic).  A block keeps the 4 gate columns of each of its units
+// (cand, i, f, o) resident in shared memory as one plane per unit
+// ([unit][H][4] f32, the plane stride padded so that the two planes a
+// quarter-warp reads fall on different banks).  grid.z = G row groups:
+// block (x, dir, g) takes the rows of group g (row_group in common.cuh:
+// whole passes of PASS rows, as evenly as they go; the last group's last
+// pass may be short), with its own copy of its units' planes (16 KB at
+// H=128 in f32) and its own flags; the groups of a direction never wait
+// on each other.  Each pass holds the rows it holds with G = 1, so every
+// sum below runs in the same order and the outputs are bit for bit the G
+// = 1 launch's.  The wrapper picks G (ops/cuda/lstm.py: 1 up to one pass,
+// and where one copy of the blocks fills the card; else as many copies as
+// the card holds at once, danet_lstm_scan_blocks_per_sm: on an H100 two
+// blocks per SM in f32 and three in bf16 at H=128).  Why: at H=128 a
+// direction has 16 blocks, so dprnn-v1's 32 blocks used 32 of 132 SMs and
+// took B=2048 in 64 serial passes per step; 8 groups take 8 passes each
+// (perf_probe.py row-groups; PERF.md).
 //
 // Exchange (exchange.cuh), two protocols chosen by the batch (the same in
-// every block):
+// every block; the words take one row group):
 //   * B <= TAGGED_MAX_B (1: a single request): tagged words.  Each block
 //     publishes its units' h_t as one word per (batch row, unit), dt(h_t)
 //     and the step t, into xch[t % 2][dir]; a reader polls each word it
 //     needs, LOADS words in flight per thread, until it carries tag t-1.
 //   * B > TAGGED_MAX_B: the row is hs[t-1] itself, plain values that are
-//     never overwritten.  Each block publishes one flag per direction
-//     (xch as int: [D][blocks]) after its values; a reader's threads poll
-//     the flags of their own direction and copy the row with cp.async.cg
+//     never overwritten.  Each block publishes one flag (xch as int:
+//     [D][G][blocks]) after its values; a reader's threads poll the flags
+//     of their own direction and row group and copy the group's rows with
+//     cp.async.cg
 //     (element loads where the row is not 16-byte aligned: bf16 with odd
 //     H, and h0).
 // The block clears the tags (or flags) and passes one grid.sync() before
@@ -127,16 +141,18 @@
 // the step, before the poll, so they arrive during the wait.
 // Batches beyond PASS = 32 rows take more passes of the same.
 //
-// Shared memory: 8 planes of 4 H floats (38.4 KB at H=300, 77.3 KB at
-// H=600), the staged row in the storage type (two buffers of B H values
-// for the words, one of min(B, 32) H for the flags), 8 KB of partial sums
-// (SAVE: 33 KB) and 32 bytes per batch row: 88 KB at H=600, B=1 in f32,
-// 163 KB at B=32 (SAVE: 188 KB), within the 227 KB opt-in up to B=1392
-// (SAVE) at H=600 in f32; kernel 2 (H=300) 112 KB at B=32 in f32.  Row
-// ceilings of the 227 KB, by danet_lstm_scan_max_rows: at H=128, 5968 rows
-// (SAVE 5168) in f32 and 6224 (5424) in bf16; at H=256, 4944 (4144) in f32
-// and 5456 (4656) in bf16.  The wrapper splits a larger batch into
-// launches of at most that many rows (the rows are independent).
+// Shared memory, per block: 8 planes of 4 H floats (38.4 KB at H=300,
+// 77.3 KB at H=600, 16.5 KB at H=128), the staged row in the storage type
+// (two buffers of B H values for the words, one of min(rows, 32) H for the
+// flags), 8 KB of partial sums (SAVE: 33 KB) and 32 bytes per row of its
+// group (group_rows: ceil(passes / G) passes): 88 KB at H=600, B=1 in f32,
+// 163 KB at B=32 (SAVE: 188 KB), within the 227 KB opt-in up to 1392 rows
+// a group (SAVE) at H=600 in f32; kernel 2 (H=300) 112 KB at B=32 in f32;
+// at H=128 with 8 groups of B=2048, 256 rows each, 49 KB (SAVE 74 KB).
+// Row ceilings of one group in the 227 KB, by danet_lstm_scan_max_rows: at
+// H=128, 5968 rows (SAVE 5168) in f32 and 6224 (5424) in bf16; at H=256,
+// 4944 (4144) in f32 and 5456 (4656) in bf16.  The wrapper splits a batch
+// whose groups would hold more into launches (the rows are independent).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -444,48 +460,54 @@ __device__ void scan_words(const T* __restrict__ xp, const T* __restrict__ c0,
 // scan_flags).  Not inlined, so that nothing of it is held in registers
 // across the step loop.
 __device__ __noinline__ void store_carry(float* c_T, const float* c_s,
-                                         int batch, int hdim) {
+                                         int batch, int b0, int nb,
+                                         int hdim) {
   const int tid = threadIdx.x, u0 = blockIdx.x * UNITS;
   const size_t bh = static_cast<size_t>(batch) * hdim;
-  for (int p0 = 0; p0 < batch; p0 += PASS)
-    for (int e = tid; e < min(PASS, batch - p0) * UNITS; e += THREADS) {
+  for (int p0 = 0; p0 < nb; p0 += PASS)
+    for (int e = tid; e < min(PASS, nb - p0) * UNITS; e += THREADS) {
       const int b = p0 + e / UNITS, u = e % UNITS, unit = u0 + u;
       if (unit < hdim)
-        c_T[blockIdx.y * bh + static_cast<size_t>(b) * hdim + unit] =
+        c_T[blockIdx.y * bh + static_cast<size_t>(b0 + b) * hdim + unit] =
             c_s[b * UNITS + u];
     }
 }
 
-// The step loop of the flags (B > TAGGED_MAX_B): the row is hs[t-1]
-// itself, staged PASS rows at a time and multiplied by row_product; the
-// thread of each (row, unit) pair adds red_s over the warps (SAVE: over
-// the classes), in their order, to the gate inputs and runs the cell, its
-// c in c_s.
-template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE>
+// The step loop of the flags (B > TAGGED_MAX_B) over the rows [b0, b0 +
+// nb) of this block's row group: the row is hs[t-1] itself, staged PASS
+// rows at a time and multiplied by row_product; the thread of each (row,
+// unit) pair adds red_s over the warps (SAVE: over the classes), in their
+// order, to the gate inputs and runs the cell, its c in c_s (by the row's
+// place in the group).  `flags`: the group's, one per block of it.
+// Without GROUPS (one group) b0 is 0 and nb the batch, as constants.
+template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE,
+          bool GROUPS>
 __device__ void scan_flags(const T* __restrict__ xp, const T* __restrict__ h0,
                            T* hs, const Saved<T>& saved, int* flags,
                            const float* w_s, T* d_s, float* red_s, float* c_s,
-                           int n_steps, int batch, int hdim) {
+                           int n_steps, int batch, int group0, int rows,
+                           int hdim) {
   constexpr int RT = row_tile<T, NDIRS, SAVE>();
+  const int b0 = GROUPS ? group0 : 0, nb = GROUPS ? rows : batch;
   const int dir = blockIdx.y, tid = threadIdx.x, u0 = blockIdx.x * UNITS;
   const int g4 = 4 * hdim;
   const size_t bh = static_cast<size_t>(batch) * hdim;
   // this thread's first (row, unit) pair: e = tid of the first pass
   const int r0 = tid / UNITS, unit0 = u0 + tid % UNITS;
-  const bool own0 = tid < min(batch, PASS) * UNITS && unit0 < hdim;
+  const bool own0 = tid < min(nb, PASS) * UNITS && unit0 < hdim;
   for (int t = 0; t < n_steps; ++t) {
-    const size_t row_t = (static_cast<size_t>(t) * NDIRS + dir) * batch;
+    const size_t row_t = (static_cast<size_t>(t) * NDIRS + dir) * batch + b0;
     // gate inputs of the first pair, in flight during the first poll
     float x0[4] = {0.f, 0.f, 0.f, 0.f};
     if (own0) gate_inputs(x0, xp + (row_t + r0) * g4 + unit0, hdim);
-    const T* h_in = t == 0 ? h0 + dir * bh : hs + (row_t - NDIRS * batch) *
-                                                      hdim;
+    const T* h_in = t == 0 ? h0 + dir * bh + static_cast<size_t>(b0) * hdim
+                           : hs + (row_t - NDIRS * batch) * hdim;
     if (t > 0) {
       wait_flags(flags, t - 1);
       __syncthreads();
     }
-    for (int p0 = 0; p0 < batch; p0 += PASS) {
-      const int rows = min(PASS, batch - p0);
+    for (int p0 = 0; p0 < nb; p0 += PASS) {
+      const int rows = min(PASS, nb - p0);
       stage_values(d_s, h_in + static_cast<size_t>(p0) * hdim, rows * hdim);
       __syncthreads();
       row_product<SAVE, RT>(d_s, w_s, red_s, rows, hdim);
@@ -513,11 +535,16 @@ __device__ void scan_flags(const T* __restrict__ xp, const T* __restrict__ h0,
     }
     publish(flags, t);
   }
-  if (STATE) store_carry(saved.c_T, c_s, batch, hdim);
+  if (STATE) store_carry(saved.c_T, c_s, batch, b0, nb, hdim);
 }
 
-// The body of both kernels below: the whole launch of one layer.
-template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE>
+// The body of both kernels below: the whole launch of one layer.  Block
+// (x, dir, g) runs the units of x over the rows of row group g
+// (row_group: grid.z groups of whole passes).  GROUPS: grid.z > 1 (the
+// flags only); the instances without it, one group of every row, keep
+// the index arithmetic of a grid without row groups.
+template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE,
+          bool GROUPS>
 __device__ __forceinline__ void scan_body(
     const T* __restrict__ xp, const T* __restrict__ wh,
     const T* __restrict__ c0, const T* __restrict__ h0, T* hs,
@@ -530,16 +557,26 @@ __device__ __forceinline__ void scan_body(
   float* w_s = smem;  // [UNITS][plane_stride]
   T* d_s = reinterpret_cast<T*>(w_s + UNITS * ps);
   float* red_s = reinterpret_cast<float*>(
-      reinterpret_cast<char*>(d_s) + (words ? 2 : 1) *
-                                         row_bytes<T>(batch, hdim));
-  float* c_s = red_s + red_floats<SAVE>();  // [B][UNITS]
+      reinterpret_cast<char*>(d_s) +
+      (words ? 2 : 1) *
+          row_bytes<T>(GROUPS ? group_rows(batch, PASS, gridDim.z) : batch,
+                       hdim));
+  float* c_s = red_s + red_floats<SAVE>();  // [group rows][UNITS]
 
   const int dir = blockIdx.y;
   const int u0 = blockIdx.x * UNITS;
   const int tid = threadIdx.x;
   const int g4 = 4 * hdim;
   const size_t bh = static_cast<size_t>(batch) * hdim;
-  int* flags = reinterpret_cast<int*>(xch) + dir * gridDim.x;  // values
+  int b0 = 0, nb = batch;
+  if constexpr (GROUPS) {
+    int b1;
+    row_group(batch, PASS, gridDim.z, blockIdx.z, &b0, &b1);
+    nb = b1 - b0;
+  }
+  // the flags of this block's (direction, group): [D][G][grid.x] values
+  int* flags = reinterpret_cast<int*>(xch) +
+               (GROUPS ? dir * gridDim.z + blockIdx.z : dir) * gridDim.x;
 
   if (words) {
     const size_t n = 2 * NDIRS * bh;
@@ -562,8 +599,8 @@ __device__ __forceinline__ void scan_body(
                     : 0.f;
   }
   if (!words)
-    for (int e = tid; e < batch * UNITS; e += THREADS) {
-      const int b = e / UNITS, unit = u0 + e % UNITS;
+    for (int e = tid; e < nb * UNITS; e += THREADS) {
+      const int b = b0 + e / UNITS, unit = u0 + e % UNITS;
       c_s[e] = unit < hdim ? carry0<STATE>(c0, dir * bh + b * hdim + unit)
                            : 0.f;
     }
@@ -573,28 +610,29 @@ __device__ __forceinline__ void scan_body(
     scan_words<T, TANH, NDIRS, SAVE, STATE>(xp, c0, h0, hs, saved, xch, w_s,
                                             d_s, n_steps, batch, hdim);
   else
-    scan_flags<T, TANH, NDIRS, SAVE, STATE>(xp, h0, hs, saved, flags, w_s,
-                                            d_s, red_s, c_s, n_steps, batch,
-                                            hdim);
+    scan_flags<T, TANH, NDIRS, SAVE, STATE, GROUPS>(
+        xp, h0, hs, saved, flags, w_s, d_s, red_s, c_s, n_steps, batch, b0,
+        nb, hdim);
 }
 
 // Kernel B and the saving forwards; STATE without SAVE writes c_T into
 // cs's slot.
-template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE>
+template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE,
+          bool GROUPS>
 __global__ void __launch_bounds__(THREADS)
 lstm_scan_lean_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
                       const T* __restrict__ c0, const T* __restrict__ h0,
                       T* hs, T* __restrict__ cs, T* __restrict__ acts,
                       unsigned long long* xch, int n_steps, int batch,
                       int hdim) {
-  scan_body<T, TANH, NDIRS, SAVE, STATE>(
+  scan_body<T, TANH, NDIRS, SAVE, STATE, GROUPS>(
       xp, wh, c0, h0, hs, Saved<T>{cs, acts, reinterpret_cast<float*>(cs)},
       xch, n_steps, batch, hdim);
 }
 
 // The saving forward's state entry, one direction: SAVE and STATE, c_T in
 // its own argument.
-template <typename T, bool TANH>
+template <typename T, bool TANH, bool GROUPS>
 __global__ void __launch_bounds__(THREADS)
 lstm_scan_save_state_kernel(const T* __restrict__ xp,
                             const T* __restrict__ wh,
@@ -603,18 +641,29 @@ lstm_scan_save_state_kernel(const T* __restrict__ xp,
                             T* __restrict__ cs, T* __restrict__ acts,
                             float* __restrict__ c_T, unsigned long long* xch,
                             int n_steps, int batch, int hdim) {
-  scan_body<T, TANH, 1, true, true>(xp, wh, c0, h0, hs,
-                                    Saved<T>{cs, acts, c_T}, xch, n_steps,
-                                    batch, hdim);
+  scan_body<T, TANH, 1, true, true, GROUPS>(xp, wh, c0, h0, hs,
+                                            Saved<T>{cs, acts, c_T}, xch,
+                                            n_steps, batch, hdim);
 }
 
-template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE>
-int launch(const void* xp, const void* wh, const void* c0, const void* h0,
-           void* hs, void* cs, void* acts, void* xch, int n_steps,
-           int batch, int hdim, cudaStream_t stream) {
-  auto kernel = lstm_scan_lean_kernel<T, TANH, NDIRS, SAVE, STATE>;
-  const size_t smem = smem_bytes<T, SAVE>(batch, hdim);
-  const dim3 grid((hdim + UNITS - 1) / UNITS, NDIRS);
+// A launch's grid: grid.x blocks of UNITS units per direction, grid.y the
+// directions, grid.z the row groups.  Several groups need the flags (more
+// than TAGGED_MAX_B rows) and at most one pass of rows per group.
+inline bool groups_ok(int batch, int groups) {
+  return groups == 1 || (groups > 1 && batch > TAGGED_MAX_B &&
+                         groups <= (batch + PASS - 1) / PASS);
+}
+
+template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE,
+          bool GROUPS>
+int launch_groups(const void* xp, const void* wh, const void* c0,
+                  const void* h0, void* hs, void* cs, void* acts, void* xch,
+                  int n_steps, int batch, int hdim, int groups,
+                  cudaStream_t stream) {
+  auto kernel = lstm_scan_lean_kernel<T, TANH, NDIRS, SAVE, STATE, GROUPS>;
+  const size_t smem =
+      smem_bytes<T, SAVE>(group_rows(batch, PASS, groups), hdim);
+  const dim3 grid((hdim + UNITS - 1) / UNITS, NDIRS, groups);
   const int fit = cooperative_fit(kernel, grid, THREADS, smem);
   if (fit != 0) return fit;  // never degrade: the polls would hang
 
@@ -635,14 +684,29 @@ int launch(const void* xp, const void* wh, const void* c0, const void* h0,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool TANH>
-int launch_save_state(const void* xp, const void* wh, const void* c0,
-                      const void* h0, void* hs, void* cs, void* acts,
-                      void* c_T, void* xch, int n_steps, int batch, int hdim,
-                      cudaStream_t stream) {
-  auto kernel = lstm_scan_save_state_kernel<T, TANH>;
-  const size_t smem = smem_bytes<T, true>(batch, hdim);
-  const dim3 grid((hdim + UNITS - 1) / UNITS, 1);
+// The instance by the row groups: GROUPS for more than one.
+template <typename T, bool TANH, int NDIRS, bool SAVE, bool STATE>
+int launch(const void* xp, const void* wh, const void* c0, const void* h0,
+           void* hs, void* cs, void* acts, void* xch, int n_steps,
+           int batch, int hdim, int groups, cudaStream_t stream) {
+  return groups > 1
+             ? launch_groups<T, TANH, NDIRS, SAVE, STATE, true>(
+                   xp, wh, c0, h0, hs, cs, acts, xch, n_steps, batch, hdim,
+                   groups, stream)
+             : launch_groups<T, TANH, NDIRS, SAVE, STATE, false>(
+                   xp, wh, c0, h0, hs, cs, acts, xch, n_steps, batch, hdim,
+                   groups, stream);
+}
+
+template <typename T, bool TANH, bool GROUPS>
+int launch_save_state_groups(const void* xp, const void* wh, const void* c0,
+                             const void* h0, void* hs, void* cs, void* acts,
+                             void* c_T, void* xch, int n_steps, int batch,
+                             int hdim, int groups, cudaStream_t stream) {
+  auto kernel = lstm_scan_save_state_kernel<T, TANH, GROUPS>;
+  const size_t smem = smem_bytes<T, true>(group_rows(batch, PASS, groups),
+                                          hdim);
+  const dim3 grid((hdim + UNITS - 1) / UNITS, 1, groups);
   const int fit = cooperative_fit(kernel, grid, THREADS, smem);
   if (fit != 0) return fit;  // never degrade: the polls would hang
 
@@ -664,41 +728,59 @@ int launch_save_state(const void* xp, const void* wh, const void* c0,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool TANH>
+int launch_save_state(const void* xp, const void* wh, const void* c0,
+                      const void* h0, void* hs, void* cs, void* acts,
+                      void* c_T, void* xch, int n_steps, int batch, int hdim,
+                      int groups, cudaStream_t stream) {
+  return groups > 1 ? launch_save_state_groups<T, TANH, true>(
+                          xp, wh, c0, h0, hs, cs, acts, c_T, xch, n_steps,
+                          batch, hdim, groups, stream)
+                    : launch_save_state_groups<T, TANH, false>(
+                          xp, wh, c0, h0, hs, cs, acts, c_T, xch, n_steps,
+                          batch, hdim, groups, stream);
+}
+
 // NDIRS directions, SAVE: also cs and acts (null in the lean forward);
 // STATE: c0 float32, and c_T in cs's slot
 template <int NDIRS, bool SAVE, bool STATE = false>
 int dispatch(const void* xp, const void* wh, const void* c0, const void* h0,
              void* hs, void* cs, void* acts, void* xch, int n_steps,
-             int batch, int hdim, int dtype, int tanh_cand, void* stream) {
+             int batch, int hdim, int dtype, int tanh_cand, int groups,
+             void* stream) {
   if (n_steps <= 0 || batch <= 0 || hdim <= 0 || (dtype != 0 && dtype != 1)
-      || reinterpret_cast<size_t>(xch) % 8 != 0)
+      || !groups_ok(batch, groups) || reinterpret_cast<size_t>(xch) % 8 != 0)
     return DANET_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return tanh_cand ? launch<float, true, NDIRS, SAVE, STATE>(
                            xp, wh, c0, h0, hs, cs, acts, xch, n_steps, batch,
-                           hdim, s)
+                           hdim, groups, s)
                      : launch<float, false, NDIRS, SAVE, STATE>(
                            xp, wh, c0, h0, hs, cs, acts, xch, n_steps, batch,
-                           hdim, s);
+                           hdim, groups, s);
   return tanh_cand ? launch<__nv_bfloat16, true, NDIRS, SAVE, STATE>(
                          xp, wh, c0, h0, hs, cs, acts, xch, n_steps, batch,
-                         hdim, s)
+                         hdim, groups, s)
                    : launch<__nv_bfloat16, false, NDIRS, SAVE, STATE>(
                          xp, wh, c0, h0, hs, cs, acts, xch, n_steps, batch,
-                         hdim, s);
+                         hdim, groups, s);
 }
 
 }  // namespace
 
 // Kernel B.  dtype: 0 = float32, 1 = bfloat16 (every tensor of the call).
-// xch [2, 2, B, H] of 8-byte words is scratch.
+// xch [2, 2, B, H] of 8-byte words is scratch.  groups: the row groups
+// (grid.z), 1 to ceil(B / 32), and 1 at B <= TAGGED_MAX_B; every entry
+// below takes it.
 extern "C" int danet_bilstm_scan(const void* xp, const void* wh,
                                  const void* c0, const void* h0, void* hs,
                                  void* xch, int n_steps, int batch, int hdim,
-                                 int dtype, int tanh_cand, void* stream) {
+                                 int dtype, int tanh_cand, int groups,
+                                 void* stream) {
   return dispatch<2, false>(xp, wh, c0, h0, hs, nullptr, nullptr, xch,
-                            n_steps, batch, hdim, dtype, tanh_cand, stream);
+                            n_steps, batch, hdim, dtype, tanh_cand, groups,
+                            stream);
 }
 
 // Kernel B with one direction (lstm_scan_pallas): xp [T, B, 4H],
@@ -706,9 +788,11 @@ extern "C" int danet_bilstm_scan(const void* xp, const void* wh,
 extern "C" int danet_lstm_scan(const void* xp, const void* wh,
                                const void* c0, const void* h0, void* hs,
                                void* xch, int n_steps, int batch, int hdim,
-                               int dtype, int tanh_cand, void* stream) {
+                               int dtype, int tanh_cand, int groups,
+                               void* stream) {
   return dispatch<1, false>(xp, wh, c0, h0, hs, nullptr, nullptr, xch,
-                            n_steps, batch, hdim, dtype, tanh_cand, stream);
+                            n_steps, batch, hdim, dtype, tanh_cand, groups,
+                            stream);
 }
 
 // Kernel B with one direction and its state: as danet_lstm_scan, but c0
@@ -718,11 +802,12 @@ extern "C" int danet_lstm_scan_state(const void* xp, const void* wh,
                                      const void* c0, const void* h0,
                                      void* hs, void* c_T, void* xch,
                                      int n_steps, int batch, int hdim,
-                                     int dtype, int tanh_cand, void* stream) {
+                                     int dtype, int tanh_cand, int groups,
+                                     void* stream) {
   if (c0 == nullptr || c_T == nullptr) return DANET_BAD_ARGUMENT;
   return dispatch<1, false, true>(xp, wh, c0, h0, hs, c_T, nullptr, xch,
                                   n_steps, batch, hdim, dtype, tanh_cand,
-                                  stream);
+                                  groups, stream);
 }
 
 // Kernel 2, the saving forward with two directions (bilstm_scan_pallas
@@ -733,9 +818,9 @@ extern "C" int danet_bilstm_scan_train(const void* xp, const void* wh,
                                        void* hs, void* cs, void* acts,
                                        void* xch, int n_steps, int batch,
                                        int hdim, int dtype, int tanh_cand,
-                                       void* stream) {
+                                       int groups, void* stream) {
   return dispatch<2, true>(xp, wh, c0, h0, hs, cs, acts, xch, n_steps,
-                           batch, hdim, dtype, tanh_cand, stream);
+                           batch, hdim, dtype, tanh_cand, groups, stream);
 }
 
 // The saving forward with one direction (lstm_scan_pallas under its custom
@@ -746,9 +831,9 @@ extern "C" int danet_lstm_scan_train(const void* xp, const void* wh,
                                      void* hs, void* cs, void* acts,
                                      void* xch, int n_steps, int batch,
                                      int hdim, int dtype, int tanh_cand,
-                                     void* stream) {
+                                     int groups, void* stream) {
   return dispatch<1, true>(xp, wh, c0, h0, hs, cs, acts, xch, n_steps,
-                           batch, hdim, dtype, tanh_cand, stream);
+                           batch, hdim, dtype, tanh_cand, groups, stream);
 }
 
 // The saving forward with one direction and its state (lstm_apply's
@@ -760,31 +845,91 @@ extern "C" int danet_lstm_scan_train_state(const void* xp, const void* wh,
                                            void* hs, void* cs, void* acts,
                                            void* c_T, void* xch, int n_steps,
                                            int batch, int hdim, int dtype,
-                                           int tanh_cand, void* stream) {
+                                           int tanh_cand, int groups,
+                                           void* stream) {
   if (n_steps <= 0 || batch <= 0 || hdim <= 0 || (dtype != 0 && dtype != 1)
-      || c0 == nullptr || c_T == nullptr
+      || c0 == nullptr || c_T == nullptr || !groups_ok(batch, groups)
       || reinterpret_cast<size_t>(xch) % 8 != 0)
     return DANET_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return tanh_cand ? launch_save_state<float, true>(
                            xp, wh, c0, h0, hs, cs, acts, c_T, xch, n_steps,
-                           batch, hdim, s)
+                           batch, hdim, groups, s)
                      : launch_save_state<float, false>(
                            xp, wh, c0, h0, hs, cs, acts, c_T, xch, n_steps,
-                           batch, hdim, s);
+                           batch, hdim, groups, s);
   return tanh_cand ? launch_save_state<__nv_bfloat16, true>(
                          xp, wh, c0, h0, hs, cs, acts, c_T, xch, n_steps,
-                         batch, hdim, s)
+                         batch, hdim, groups, s)
                    : launch_save_state<__nv_bfloat16, false>(
                          xp, wh, c0, h0, hs, cs, acts, c_T, xch, n_steps,
-                         batch, hdim, s);
+                         batch, hdim, groups, s);
 }
 
-// The row ceiling of one forward launch at H = hdim (the same for one and
-// two directions): the largest batch whose shared memory fits the device's
-// opt-in, written to *rows.  save: the saving forward.  The wrapper splits a
-// larger batch into launches of at most that many rows.
+namespace {
+
+// The fewest blocks per SM of the forward instances of NDIRS directions
+// (SAVE: the saving ones) whose groups hold `rows` rows: both candidates,
+// and with one direction the state entries too, written to *blocks; the
+// GROUPS instances, which run more than one group.
+template <typename T, int NDIRS, bool SAVE>
+int forward_residency(int rows, int hdim, int* blocks) {
+  const size_t smem = smem_bytes<T, SAVE>(rows, hdim);
+  if constexpr (NDIRS == 1 && SAVE)
+    return fewest_blocks_per_sm(
+        THREADS, smem, blocks,
+        lstm_scan_lean_kernel<T, true, 1, true, false, true>,
+        lstm_scan_lean_kernel<T, false, 1, true, false, true>,
+        lstm_scan_save_state_kernel<T, true, true>,
+        lstm_scan_save_state_kernel<T, false, true>);
+  else if constexpr (NDIRS == 1)
+    return fewest_blocks_per_sm(
+        THREADS, smem, blocks,
+        lstm_scan_lean_kernel<T, true, 1, false, false, true>,
+        lstm_scan_lean_kernel<T, false, 1, false, false, true>,
+        lstm_scan_lean_kernel<T, true, 1, false, true, true>,
+        lstm_scan_lean_kernel<T, false, 1, false, true, true>);
+  else
+    return fewest_blocks_per_sm(
+        THREADS, smem, blocks,
+        lstm_scan_lean_kernel<T, true, NDIRS, SAVE, false, true>,
+        lstm_scan_lean_kernel<T, false, NDIRS, SAVE, false, true>);
+}
+
+template <typename T>
+int forward_residency(int save, int n_dirs, int rows, int hdim,
+                      int* blocks) {
+  if (n_dirs == 1)
+    return save ? forward_residency<T, 1, true>(rows, hdim, blocks)
+                : forward_residency<T, 1, false>(rows, hdim, blocks);
+  return save ? forward_residency<T, 2, true>(rows, hdim, blocks)
+              : forward_residency<T, 2, false>(rows, hdim, blocks);
+}
+
+}  // namespace
+
+// The blocks per SM the card holds at once of a forward launch (save: the
+// saving forward) of n_dirs directions at H = hdim whose row groups hold
+// `rows` rows each (the fewest over its instances), written to *blocks:
+// what the wrapper's plan of row groups reads.
+extern "C" int danet_lstm_scan_blocks_per_sm(int save, int n_dirs, int hdim,
+                                             int rows, int dtype,
+                                             int* blocks) {
+  if (hdim <= 0 || rows <= 0 || (n_dirs != 1 && n_dirs != 2) ||
+      (dtype != 0 && dtype != 1) || blocks == nullptr)
+    return DANET_BAD_ARGUMENT;
+  return dtype == 0
+             ? forward_residency<float>(save, n_dirs, rows, hdim, blocks)
+             : forward_residency<__nv_bfloat16>(save, n_dirs, rows, hdim,
+                                                blocks);
+}
+
+// The row ceiling of one row group of a forward launch at H = hdim (the
+// same for one and two directions): the most rows whose shared memory fits
+// the device's opt-in, written to *rows.  save: the saving forward.  The
+// wrapper splits a larger batch into launches whose groups hold at most
+// that many rows.
 extern "C" int danet_lstm_scan_max_rows(int save, int hdim, int dtype,
                                         int* rows) {
   if (hdim <= 0 || (dtype != 0 && dtype != 1) || rows == nullptr)

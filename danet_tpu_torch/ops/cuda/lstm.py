@@ -40,11 +40,26 @@ and the same roundings to the storage dtype; float64 for float64 inputs,
 which the kernels do not take) for CPU tensors; on any other device it
 raises.  ``<wrapper>.launches`` counts the kernel launches.
 
-A kernel's shared memory grows with the batch, so one launch takes at most
-a ceiling of rows (``max_rows``: from the kernel library, by H, dtype and
+Row groups.  A direction's hidden units are split over ceil(H / 8)
+blocks, each holding its units' slice of Wh, and a block takes its rows in
+passes of 32.  A launch has G row groups (grid.z): G copies of those
+blocks, each over its own rows, whole passes of them (``group_spans``),
+each copy with its own Wh slices and its own exchange.  ``launch_plan``
+picks G on the host: 1 for one pass (B <= 32, B=1's tagged words
+included) and where one copy of the blocks already fills the card at one
+block per SM (bilstm-orig's 76, lstm-orig's 75), else up to one pass per
+group, as many copies as the card holds at once (``stacked_cap``: the
+SMs times the kernel's blocks per SM, ``blocks_per_sm``, over a
+direction's blocks; on an H100 at H=128 with two directions 8 for the
+forwards in float32, 4 for kernel 3).  Every row keeps the pass it has
+with G = 1, so the outputs are bit for bit those of the G = 1 launch;
+``groups=1`` (an internal argument of the wrappers) forces that launch.
+
+A group's shared memory grows with its rows, so a group takes at most a
+ceiling of rows (``max_rows``: from the kernel library, by H, dtype and
 kind; at H=128 about 5,000 rows for the forwards and 885 for the
-backward).  A larger batch is split into launches of at most that many
-rows each; the rows are independent, so the split is exact.
+backward).  A larger batch is split into launches whose groups stay
+within it; the rows are independent, so the split is exact.
 """
 from __future__ import annotations
 
@@ -56,6 +71,8 @@ import torch
 from danet_tpu_torch.ops.nn import acc_dtype
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+PASS = 32     # batch rows per pass of a block (csrc: PASS)
+UNITS = 8     # hidden units per block (csrc: UNITS)
 
 
 def _scan_plain(xp, wh, c0, h0, tanh_cand: bool, save: bool,
@@ -243,10 +260,97 @@ def _launch(entry: str, what: str, device, tensors, ints) -> None:
 def exchange_words(n_dirs: int, b: int, hdim: int, device) -> torch.Tensor:
     """Scratch of the forwards, [2, D, B, H] words of 8 bytes: the rows h_t its
     blocks exchange each step, as value-and-step-tag words by the parity
-    of t at B=1; at B > 1 the blocks' flags.  The kernel clears what it
-    uses before its first step."""
+    of t at B=1; at B > 1 the blocks' flags, [D, G, ceil(H / 8)] ints (G <=
+    ceil(B / 32), so they fit).  The kernel clears what it uses before its
+    first step."""
     return torch.empty((2, n_dirs, b, hdim), dtype=torch.int64,
                        device=device)
+
+
+def group_cap(hdim: int, n_dirs: int, n_sm: int, per_sm: int = 1) -> int:
+    """The most row groups of one launch: copies of a direction's blocks
+    (ceil(H / 8) x D of them) that the card's ``n_sm`` SMs hold at once,
+    ``per_sm`` blocks on each; 1 where one copy already fills the card at
+    one block per SM."""
+    blocks = -(-hdim // UNITS) * n_dirs
+    return 1 if n_sm < 2 * blocks else max(1, n_sm * per_sm // blocks)
+
+
+def stacked_cap(b: int, hdim: int, n_dirs: int, n_sm: int, rows: int,
+                residency) -> int:
+    """``group_cap`` for a batch of ``b`` rows, with the blocks per SM
+    that ``residency(rows)`` gives at the rows of a group with one block
+    per SM (at most the row ceiling ``rows``, when it is at least 1): more
+    groups hold fewer rows, so they fit as well."""
+    one = group_cap(hdim, n_dirs, n_sm)
+    if one == 1 or b <= PASS:
+        return 1
+    most = group_spans(b, row_groups(b, one))
+    g_rows = max(hi - lo for lo, hi in most)
+    g_rows = min(g_rows, rows) if rows >= 1 else g_rows
+    return group_cap(hdim, n_dirs, n_sm, residency(g_rows))
+
+
+def row_groups(b: int, cap: int) -> int:
+    """G of a launch of ``b`` rows: one pass of 32 rows per group at most,
+    ``cap`` groups at most; 1 for a batch of one pass."""
+    return max(1, min(-(-b // PASS), cap))
+
+
+def group_spans(b: int, groups: int) -> list:
+    """The rows [lo, hi) of each row group of a launch of ``b`` rows: the
+    passes split as evenly as whole passes allow, every group but the last
+    a whole number of passes (csrc/common.cuh::row_group)."""
+    passes = -(-b // PASS)
+    return [(g * passes // groups * PASS,
+             min(b, (g + 1) * passes // groups * PASS))
+            for g in range(groups)]
+
+
+_SMS: dict = {}
+_RESIDENCY: dict = {}
+
+
+def blocks_per_sm(device, hdim: int, n_dirs: int, dtype, kind: str,
+                  rows: int) -> int:
+    """The blocks of a ``kind`` ('lean', 'save' or 'bwd') kernel of
+    ``n_dirs`` directions at H = ``hdim`` in ``dtype`` that one SM of
+    ``device`` holds at once when its groups hold ``rows`` rows (the
+    fewest over the kind's instances), from the kernel library; cached."""
+    from danet_tpu_torch.ops.cuda import _build
+
+    lib = _build.library()
+    key = (id(lib), str(device), hdim, n_dirs, dtype, kind, rows)
+    blocks = _RESIDENCY.get(key)
+    if blocks is None:
+        bwd = kind == "bwd"
+        entry = "danet_lstm_scan_%sblocks_per_sm" % ("bwd_" if bwd else "")
+        args = (n_dirs, hdim, rows, _DTYPE_CODES[dtype])
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            status = getattr(lib, entry)(
+                *(args if bwd else (int(kind == "save"),) + args),
+                ctypes.byref(out))
+        _build.check(status, entry)
+        blocks = _RESIDENCY[key] = out.value
+    return blocks
+
+
+def _group_cap(device, b: int, hdim: int, n_dirs: int, dtype, kind: str,
+               rows: int, groups) -> int:
+    """``groups`` when given, else ``stacked_cap`` on ``device``'s SMs and
+    the kernel's residency; 1 off the card."""
+    if groups is not None:
+        return groups
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 1
+    n_sm = _SMS.get(device.index)
+    if n_sm is None:
+        n_sm = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return stacked_cap(b, hdim, n_dirs, n_sm, rows, lambda r: blocks_per_sm(
+        device, hdim, n_dirs, dtype, kind, r))
 
 
 _MAX_ROWS: dict = {}
@@ -278,30 +382,64 @@ def max_rows(device, hdim: int, dtype, kind: str) -> int:
     return rows
 
 
+def _launch_rows(rows: int, cap: int) -> int:
+    """The most rows of one launch whose groups (up to ``cap``) hold at
+    most ``rows`` each: whole passes per group."""
+    return rows if cap == 1 or rows < PASS else cap * (rows // PASS * PASS)
+
+
+def _spans(b: int, rows: int) -> list:
+    """The rows [lo, hi) of each launch of a batch of ``b``: launches of at
+    most ``rows`` rows, as even as can be (one launch when ``rows`` < 1)."""
+    if rows < 1 or b <= rows:
+        return [(0, b)]
+    step = -(-b // math.ceil(b / rows))
+    return [(lo, min(b, lo + step)) for lo in range(0, b, step)]
+
+
+def plan_launches(b: int, rows: int, cap: int) -> list:
+    """The launches of a scan of ``b`` rows whose groups hold at most
+    ``rows`` rows each (0: no ceiling), at most ``cap`` groups per launch:
+    [(lo, hi, G)], the batch's rows [lo, hi) in G row groups, in order."""
+    return [(lo, hi, row_groups(hi - lo, cap))
+            for lo, hi in _spans(b, _launch_rows(rows, cap))]
+
+
+def launch_plan(device, b: int, hdim: int, n_dirs: int, dtype, kind: str,
+                groups=None) -> list:
+    """The launches of a ``kind`` ('lean', 'save' or 'bwd') scan of ``b``
+    rows on ``device``: [(rows, G)] in order.  ``groups``: at most that
+    many row groups (1: the G = 1 launches), else ``stacked_cap``'s."""
+    rows = max_rows(device, hdim, dtype, kind)
+    return [(hi - lo, g) for lo, hi, g in plan_launches(
+        b, rows, _group_cap(device, b, hdim, n_dirs, dtype, kind, rows,
+                            groups))]
+
+
 def _by_rows(run, rows: int, *batched):
     """``run(*batched)`` over the batch axis (-2) of every tensor in
     ``batched``, in launches of at most ``rows`` rows (as even as can be)
     when the batch exceeds it, the outputs joined on that axis; run once
     as it is otherwise (a ceiling below one row included: the launch then
     reports the kernel's refusal)."""
-    b = batched[0].shape[-2]
-    if rows < 1 or b <= rows:
+    spans = _spans(batched[0].shape[-2], rows)
+    if len(spans) == 1:
         return run(*batched)
-    step = -(-b // math.ceil(b / rows))
-    parts = [run(*[v[..., lo:lo + step, :].contiguous() for v in batched])
-             for lo in range(0, b, step)]
+    parts = [run(*[v[..., lo:hi, :].contiguous() for v in batched])
+             for lo, hi in spans]
     if isinstance(parts[0], tuple):
         return tuple(torch.cat(p, dim=-2) for p in zip(*parts))
     return torch.cat(parts, dim=-2)
 
 
 def _fwd(wrapper, entry: str, n_dirs: int, save: bool, xp, wh, c0, h0,
-         tanh_cand, rows=None, state: bool = False):
+         tanh_cand, rows=None, state: bool = False, groups=None):
     """Launch a forward kernel, ``wrapper.launches`` counting each launch:
     -> hs, or (hs, cs, acts) when ``save``, or (hs, c_T) when ``state``
     (one direction; c0 and c_T float32), or (hs, cs, acts, c_T) with both.
-    A batch above ``rows`` (``max_rows`` by default) is split across
-    launches, and so is c_T."""
+    Each launch runs in row groups (at most ``groups``, else
+    ``stacked_cap``'s); a batch whose groups would hold more than ``rows``
+    (``max_rows`` by default) is split across launches, and so is c_T."""
     if state:
         t, b, hdim = _fwd_shapes(xp, wh, h0, h0, n_dirs)
         if c0.dtype != torch.float32 or tuple(c0.shape) != (b, hdim) \
@@ -313,6 +451,8 @@ def _fwd(wrapper, entry: str, n_dirs: int, save: bool, xp, wh, c0, h0,
         t, b, hdim = _fwd_shapes(xp, wh, c0, h0, n_dirs)
     if rows is None:
         rows = max_rows(xp.device, hdim, xp.dtype, "save" if save else "lean")
+    cap = _group_cap(xp.device, b, hdim, n_dirs, xp.dtype,
+                     "save" if save else "lean", rows, groups)
 
     def launch(xp, c0, h0):
         b = xp.shape[-2]
@@ -327,18 +467,18 @@ def _fwd(wrapper, entry: str, n_dirs: int, save: bool, xp, wh, c0, h0,
         xch = exchange_words(n_dirs, b, hdim, xp.device)
         _launch(entry, entry + " kernel", xp.device, (xp, wh, c0, h0) + outs
                 + (xch,), (t, b, hdim, _DTYPE_CODES[xp.dtype],
-                           int(bool(tanh_cand))))
+                           int(bool(tanh_cand)), row_groups(b, cap)))
         wrapper.launches += 1
         return outs if save or state else hs
-    return _by_rows(launch, rows, xp, c0, h0)
+    return _by_rows(launch, _launch_rows(rows, cap), xp, c0, h0)
 
 
 def _bwd(wrapper, entry: str, n_dirs: int, d_hs, acts, cs, c_prev, wh,
-         tanh_cand, rows=None, dc_T=None):
+         tanh_cand, rows=None, dc_T=None, groups=None):
     """Launch a backward kernel, ``wrapper.launches`` counting each launch:
     -> (dxp, dc0, dh0); ``dc_T`` (one direction, float32 [B, H]): the
-    seeded entry's seed.  A batch above ``rows`` (``max_rows`` by default)
-    is split across launches, and so is dc_T."""
+    seeded entry's seed.  Row groups and the split as ``_fwd``'s; dc_T is
+    split with the batch."""
     if acts.dim() != 2 + len(_dirs(n_dirs, 0)) or acts.shape[-1] % 4 \
             or (n_dirs == 2 and acts.shape[1] != 2):
         raise ValueError("acts must be [T, %sB, 4H], got %s"
@@ -361,6 +501,8 @@ def _bwd(wrapper, entry: str, n_dirs: int, d_hs, acts, cs, c_prev, wh,
         seeds = (dc_T,)
     if rows is None:
         rows = max_rows(acts.device, hdim, acts.dtype, "bwd")
+    cap = _group_cap(acts.device, b, hdim, n_dirs, acts.dtype, "bwd", rows,
+                     groups)
 
     def launch(d_hs, acts, cs, c_prev, *seed):
         b = acts.shape[-2]
@@ -370,40 +512,47 @@ def _bwd(wrapper, entry: str, n_dirs: int, d_hs, acts, cs, c_prev, wh,
         dh0 = torch.empty_like(dc0)
         _launch(entry, entry + " kernel", acts.device,
                 (d_hs, acts, cs, c_prev, wh, dxp, dc0, dh0) + seed,
-                (t, b, hdim, _DTYPE_CODES[acts.dtype], int(bool(tanh_cand))))
+                (t, b, hdim, _DTYPE_CODES[acts.dtype], int(bool(tanh_cand)),
+                 row_groups(b, cap)))
         wrapper.launches += 1
         return dxp, dc0, dh0
-    return _by_rows(launch, rows, d_hs, acts, cs, c_prev, *seeds)
+    return _by_rows(launch, _launch_rows(rows, cap), d_hs, acts, cs, c_prev,
+                    *seeds)
 
 
 def bilstm_scan(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
-                h0: torch.Tensor, tanh_cand: bool) -> torch.Tensor:
-    """Kernel B, the lean forward (signature of the plain version)."""
+                h0: torch.Tensor, tanh_cand: bool, *,
+                groups=None) -> torch.Tensor:
+    """Kernel B, the lean forward (signature of the plain version).
+    ``groups``, here and in every wrapper below: at most that many row
+    groups per launch (1: the G = 1 launch), else ``stacked_cap``'s."""
     if not _on_cuda(xp, "bilstm_scan"):
         return bilstm_scan_plain(xp, wh, c0, h0, tanh_cand)
     return _fwd(bilstm_scan, "danet_bilstm_scan", 2, False, xp, wh, c0, h0,
-                tanh_cand)
+                tanh_cand, groups=groups)
 
 
-def bilstm_scan_train(xp, wh, c0, h0, tanh_cand: bool):
+def bilstm_scan_train(xp, wh, c0, h0, tanh_cand: bool, *, groups=None):
     """Kernel 2, the forward that stores residuals: -> (hs, cs, acts)."""
     if not _on_cuda(xp, "bilstm_scan_train"):
         return bilstm_scan_train_plain(xp, wh, c0, h0, tanh_cand)
     return _fwd(bilstm_scan_train, "danet_bilstm_scan_train", 2, True, xp,
-                wh, c0, h0, tanh_cand)
+                wh, c0, h0, tanh_cand, groups=groups)
 
 
-def bilstm_scan_bwd(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
+def bilstm_scan_bwd(d_hs, acts, cs, c_prev, wh, tanh_cand: bool, *,
+                    groups=None):
     """Kernel 3, the backward: -> (dxp, dc0, dh0) (signature of the plain
     version)."""
     if not _on_cuda(d_hs, "bilstm_scan_bwd"):
         return bilstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand)
     return _bwd(bilstm_scan_bwd, "danet_bilstm_scan_bwd", 2, d_hs, acts, cs,
-                c_prev, wh, tanh_cand)
+                c_prev, wh, tanh_cand, groups=groups)
 
 
 def lstm_scan(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
-              h0: torch.Tensor, tanh_cand: bool, return_state: bool = False):
+              h0: torch.Tensor, tanh_cand: bool, return_state: bool = False,
+              *, groups=None):
     """Kernel B on one direction: xp [T, B, 4H], wh [H, 4H], c0/h0 [B, H]
     -> hs [T, B, H]; with ``return_state`` -> (hs, c_T [B, H] float32), c0
     then float32 (the carry of an earlier call)."""
@@ -411,39 +560,40 @@ def lstm_scan(xp: torch.Tensor, wh: torch.Tensor, c0: torch.Tensor,
         return lstm_scan_plain(xp, wh, c0, h0, tanh_cand, return_state)
     if return_state:
         return _fwd(lstm_scan, "danet_lstm_scan_state", 1, False, xp, wh,
-                    c0, h0, tanh_cand, state=True)
+                    c0, h0, tanh_cand, state=True, groups=groups)
     return _fwd(lstm_scan, "danet_lstm_scan", 1, False, xp, wh, c0, h0,
-                tanh_cand)
+                tanh_cand, groups=groups)
 
 
-def lstm_scan_train(xp, wh, c0, h0, tanh_cand: bool):
+def lstm_scan_train(xp, wh, c0, h0, tanh_cand: bool, *, groups=None):
     """The saving forward on one direction: -> (hs, cs [T, B, H], acts
     [T, B, 4H])."""
     if not _on_cuda(xp, "lstm_scan_train"):
         return lstm_scan_train_plain(xp, wh, c0, h0, tanh_cand)
     return _fwd(lstm_scan_train, "danet_lstm_scan_train", 1, True, xp, wh,
-                c0, h0, tanh_cand)
+                c0, h0, tanh_cand, groups=groups)
 
 
-def lstm_scan_bwd(d_hs, acts, cs, c_prev, wh, tanh_cand: bool):
+def lstm_scan_bwd(d_hs, acts, cs, c_prev, wh, tanh_cand: bool, *,
+                  groups=None):
     """Kernel 3 on one direction: -> (dxp [T, B, 4H], dc0, dh0 [B, H])."""
     if not _on_cuda(d_hs, "lstm_scan_bwd"):
         return lstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand)
     return _bwd(lstm_scan_bwd, "danet_lstm_scan_bwd", 1, d_hs, acts, cs,
-                c_prev, wh, tanh_cand)
+                c_prev, wh, tanh_cand, groups=groups)
 
 
-def lstm_scan_train_state(xp, wh, c0, h0, tanh_cand: bool):
+def lstm_scan_train_state(xp, wh, c0, h0, tanh_cand: bool, *, groups=None):
     """The saving forward's state entry on one direction: c0 [B, H]
     float32 -> (hs, cs [T, B, H], acts [T, B, 4H], c_T [B, H] float32)."""
     if not _on_cuda(xp, "lstm_scan_train_state"):
         return lstm_scan_train_state_plain(xp, wh, c0, h0, tanh_cand)
     return _fwd(lstm_scan_train_state, "danet_lstm_scan_train_state", 1,
-                True, xp, wh, c0, h0, tanh_cand, state=True)
+                True, xp, wh, c0, h0, tanh_cand, state=True, groups=groups)
 
 
 def lstm_scan_bwd_seeded(d_hs, acts, cs, c_prev, wh, tanh_cand: bool,
-                         dc_T=None):
+                         dc_T=None, *, groups=None):
     """Kernel 3 on one direction with its dc carry seeded by ``dc_T``
     [B, H] float32 (zeros when None): -> (dxp, dc0, dh0)."""
     if dc_T is None:
@@ -453,7 +603,7 @@ def lstm_scan_bwd_seeded(d_hs, acts, cs, c_prev, wh, tanh_cand: bool,
         return lstm_scan_bwd_plain(d_hs, acts, cs, c_prev, wh, tanh_cand,
                                    dc_T)
     return _bwd(lstm_scan_bwd_seeded, "danet_lstm_scan_bwd_seeded", 1, d_hs,
-                acts, cs, c_prev, wh, tanh_cand, dc_T=dc_T)
+                acts, cs, c_prev, wh, tanh_cand, dc_T=dc_T, groups=groups)
 
 
 for _fn in (bilstm_scan, bilstm_scan_train, bilstm_scan_bwd, lstm_scan,

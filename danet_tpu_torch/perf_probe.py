@@ -21,6 +21,8 @@
     python -m danet_tpu_torch.perf_probe flash-bwd [--reps 20]
         [--cut products|staging ...] [--source CSRC_DIR]
     python -m danet_tpu_torch.perf_probe device-ms [--reps 20]
+    python -m danet_tpu_torch.perf_probe row-groups [--reps 20]
+        [--only lean|save|bwd ...]
 
 ``profile``: for one encoder at full width with random weights from seed
 0, in COMPUTE_DTYPE ``--dtype``, ``torch.profiler`` over 5 train steps
@@ -169,6 +171,21 @@ kernel A (``stft_ri``, L=80000, B=1), kernel 6 (``stft_logmag``, the
 same), 5f (``flash_attn``, T=1280, B=1), 5dkv and 5dq (T=128, B=32; H=4,
 D=64): the event-timed ``ms`` and the profiler's ``device ms`` as for
 ``flash-bwd``.
+
+``row-groups``: kernels B, 2 and 3 (lean, saving and backward LSTM scans)
+at ``ROW_GROUP_SHAPES``: dprnn-v1's (H=128; intra T=64, B=96; inter T=3,
+B=2048 and 4096, with two directions and, causal, one), conv-bilstm-v1's
+(H=256, T=32, B=32) and the main path's training shapes (bilstm-orig,
+H=300; lstm-orig, H=600; T=128, B=32), float32 and bfloat16, tanh
+candidate, layer-shaped inputs from zero states.  Each planned launch
+(``launch_plan``: its rows and row groups G printed) is checked bit for
+bit against the G = 1 launch (``groups=1``) and against the plain version
+at ``chip_smoke.py`` phase 6's tolerances; then each kernel is timed
+(``--reps`` calls) as planned and at each G of ``ROW_GROUP_SWEEP`` up to
+one pass per group (a G the card cannot hold at once prints the kernel's
+refusal), beside ``torch.nn.LSTM`` in the same dtype (cuDNN's inference
+forward, training forward and backward to the input, each with the input
+projection).  ``--only`` checks and times only those kernels.
 
 It prints the card's name and power limit first.  There is no CPU
 fallback: without a GPU it exits non-zero.
@@ -679,6 +696,124 @@ TRAIN_FWD_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (5e-2, 2e-2)}
 # ragged one, a 10 s request's length at B=1; then the batches they time
 TRAIN_SHAPES = ((128, 32), (64, 33), (1251, 1))
 TRAIN_SWEEP = (32, 64, 128)
+
+
+# (what, T, B, H, input width, directions) of row-groups
+ROW_GROUP_SHAPES = (
+    ("dprnn-v1 intra", 64, 96, 128, 128, 2),
+    ("dprnn-v1 inter", 3, 2048, 128, 128, 2),
+    ("dprnn-v1 inter", 3, 4096, 128, 128, 2),
+    ("dprnn-v1 inter causal", 3, 2048, 128, 128, 1),
+    ("dprnn-v1 inter causal", 3, 4096, 128, 128, 1),
+    ("conv-bilstm-v1", 32, 32, 256, 512, 2),
+    ("bilstm-orig", 128, 32, 300, 600, 2),
+    ("lstm-orig", 128, 32, 600, 600, 1),
+)
+ROW_GROUP_SWEEP = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
+
+
+def _layer(rs, t: int, b: int, h: int, i_dim: int, d: int, dt) -> tuple:
+    """Layer-shaped inputs on the card in ``dt``: xp = x @ Wx + gate bias,
+    Wx and Wh ~ U(-1/sqrt(H), 1/sqrt(H)), zero c0 and h0, a cotangent d_hs;
+    without the direction axis for one direction."""
+    scale = 1.0 / np.sqrt(h)
+    x = rs.randn(d, t * b, i_dim).astype(np.float32) * 0.5
+    wx = rs.uniform(-scale, scale, (d, i_dim, 4 * h)).astype(np.float32)
+    xp = (np.matmul(x, wx) + np.repeat(np.float32([0.0, 1.0, -1.0, 1.0]), h)
+          ).reshape(d, t, b, 4 * h).transpose(1, 0, 2, 3)
+    wh = rs.uniform(-scale, scale, (d, h, 4 * h))
+    z = np.zeros((d, b, h))
+    d_hs = rs.randn(t, d, b, h)
+    out = (xp, wh, z, z, d_hs) if d == 2 else (xp[:, 0], wh[0], z[0], z[0],
+                                               d_hs[:, 0])
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                 .cuda().to(dt) for a in out)
+
+
+def _nn_lstm(rs, t: int, b: int, h: int, i_dim: int, d: int, dt,
+             reps: int) -> tuple:
+    """torch.nn.LSTM (cuDNN) in ``dt`` at this shape, ms: the inference
+    forward, the training forward and the backward to the input."""
+    lstm = torch.nn.LSTM(i_dim, h, bidirectional=d == 2).cuda().to(dt)
+    lstm.flatten_parameters()   # one weight buffer, as cuDNN wants it
+    x = torch.from_numpy(rs.randn(t, b, i_dim).astype(np.float32)).cuda() \
+        .to(dt)
+    with torch.no_grad():
+        lean = cuda_ms(lambda: lstm(x), reps)
+    xt = x.clone().requires_grad_(True)
+    fwd = cuda_ms(lambda: lstm(xt), reps)
+    y, _ = lstm(xt)
+    g = torch.randn_like(y)
+    bwd = cuda_ms(lambda: torch.autograd.grad(y, xt, g, retain_graph=True),
+                  reps)
+    return lean, fwd, bwd
+
+
+def row_groups(reps: int, only) -> None:
+    from danet_tpu_torch.ops.cuda import lstm as cuda_lstm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rs = np.random.RandomState(24)
+    kinds = ("lean", "save", "bwd")
+    failed = []
+    for what, t, b, h, i_dim, d in ROW_GROUP_SHAPES:
+        pre = "bi" if d == 2 else ""
+        names = [pre + n for n in ("lstm_scan", "lstm_scan_train",
+                                   "lstm_scan_bwd")]
+        kern = [getattr(cuda_lstm, n) for n in names]
+        plain = [getattr(cuda_lstm, n + "_plain") for n in names]
+        for dt in (torch.float32, torch.bfloat16):
+            xp, wh, c0, h0, d_hs = _layer(rs, t, b, h, i_dim, d, dt)
+            args = (xp, wh, c0, h0, True)
+            _, cs, acts = plain[1](*args)
+            bargs = (d_hs, acts, cs, torch.cat([c0[None], cs[:-1]]), wh,
+                     True)
+            tag = "%s %s T=%d B=%d H=%d" % (
+                what, str(dt).replace("torch.", ""), t, b, h)
+            lib = _nn_lstm(rs, t, b, h, i_dim, d, dt, reps)
+            for kind, name, k, p, a, tol, lib_ms in zip(
+                    kinds, names, kern, plain, (args, args, bargs),
+                    (TRAIN_FWD_TOL[dt], TRAIN_FWD_TOL[dt], SCAN_BWD_TOL[dt]),
+                    lib):
+                if only and kind not in only:
+                    continue
+                plan = cuda_lstm.launch_plan(xp.device, b, h, d, dt, kind)
+                got, one, ref = k(*a), k(*a, groups=1), p(*a)
+                got = got if isinstance(got, tuple) else (got,)
+                one = one if isinstance(one, tuple) else (one,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                torch.cuda.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip(got, one))
+                errs = [float((x.float() - y.float()).abs().max())
+                        for x, y in zip(got, ref)]
+                ok = same and all(
+                    bool(torch.isfinite(x.float()).all()) and bool(
+                        ((x.float() - y.float()).abs()
+                         <= tol[0] + tol[1] * y.float().abs()).all())
+                    for x, y in zip(got, ref))
+                if not ok:
+                    failed.append((tag, name))
+                times = []
+                for g in ROW_GROUP_SWEEP:
+                    if g > -(-b // cuda_lstm.PASS):
+                        continue
+                    try:
+                        times.append("G=%d %.4f" % (g, cuda_ms(
+                            lambda: k(*a, groups=g), reps)))
+                    except RuntimeError as e:
+                        times.append("G=%d refused (%s)" % (
+                            g, str(e).split(":")[-1].strip()))
+                print("row-groups %s %s: launches (rows, G) %s; bit for bit "
+                      "with G=1 %s; max abs err %s (atol %g rtol %g)%s; "
+                      "digest %s; planned %.4f ms; ms %s; nn.LSTM %.4f ms"
+                      % (tag, name, plan, same,
+                         ", ".join("%.3g" % e for e in errs), *tol,
+                         "" if ok else " FAIL", _digest(got),
+                         cuda_ms(lambda: k(*a), reps), ", ".join(times),
+                         lib_ms))
+    if failed:
+        sys.exit("row-groups: failed: %s" % failed)
 
 
 def _digest(outs) -> str:
@@ -1261,6 +1396,11 @@ def main(argv=None) -> None:
     p = sub.add_parser("device-ms", help="device time of the kernels under "
                        "0.1 ms")
     p.add_argument("--reps", type=int, default=20)
+    p = sub.add_parser("row-groups", help="kernels B, 2 and 3 by row "
+                       "groups: check and time")
+    p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--only", action="append", default=[],
+                   choices=("lean", "save", "bwd"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("perf_probe: no GPU (torch.cuda.is_available() is false)")
@@ -1339,6 +1479,8 @@ def main(argv=None) -> None:
                                                        "frames24"})
     elif args.cmd == "device-ms":
         device_rows(args.reps)
+    elif args.cmd == "row-groups":
+        row_groups(args.reps, args.only)
     else:
         profile(args.encoder, args.dtype, args.attn_backend, args.config,
                 dict(_key_value(a) for a in args.key))

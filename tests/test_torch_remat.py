@@ -179,7 +179,7 @@ def test_torch_trainer_remat_step_bit_for_bit(monkeypatch, encoder):
 def _fake_launch(entry, what, device, tensors, ints):
     """A kernel launch on the CPU: the entry point's plain version, copied
     into the launch's output tensors."""
-    t, b, hdim, _, tanh = ints
+    t, b, hdim, _, tanh, _ = ints
     two = entry.startswith("danet_bilstm")
     if entry.endswith("_bwd"):
         plain = (cuda_lstm.bilstm_scan_bwd_plain if two

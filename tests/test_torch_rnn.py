@@ -532,8 +532,9 @@ def test_torch_forward_launch_passes_exchange_scratch(fresh_hparams,
     """Every LSTM forward, kernel 2 included, hands its C entry point the
     inputs, the outputs and an exchange scratch of [2, D, B, H] int64
     words, contiguous and 8-byte aligned on the device of the call, then
-    (T, B, H, dtype code, tanh_cand), in the order of its extern "C"
-    declaration.  Recorded on the CPU with the launch replaced."""
+    (T, B, H, dtype code, tanh_cand, row groups), in the order of its
+    extern "C" declaration; one row group off the card.  Recorded on the
+    CPU with the launch replaced."""
     calls = []
     monkeypatch.setattr(cuda_lstm, "_on_cuda", lambda x, what: True)
     monkeypatch.setattr(cuda_lstm, "_launch",
@@ -549,7 +550,7 @@ def test_torch_forward_launch_passes_exchange_scratch(fresh_hparams,
     assert entry == "danet_" + wrapper and device == targs[0].device
     names = _c_arg_names(entry)
     assert names[len(tensors):] == ["n_steps", "batch", "hdim", "dtype",
-                                    "tanh_cand", "stream"]
+                                    "tanh_cand", "groups", "stream"]
     by_name = dict(zip(names, tensors))
     assert list(by_name) == ["xp", "wh", "c0", "h0", "hs"] + (
         ["cs", "acts"] if save else []) + ["xch"]
@@ -564,7 +565,7 @@ def test_torch_forward_launch_passes_exchange_scratch(fresh_hparams,
     assert xch.dtype == torch.int64 and tuple(xch.shape) == (2, n_dirs, b, h)
     assert xch.is_contiguous() and xch.data_ptr() % 8 == 0
     assert xch.device == targs[0].device
-    assert tuple(ints) == (t, b, h, 0, 1)
+    assert tuple(ints) == (t, b, h, 0, 1, 1)
 
 
 @pytest.mark.parametrize("n_dirs", [1, 2])
