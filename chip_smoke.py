@@ -2357,7 +2357,7 @@ def _resume_vs_straight(tmp: str, cfg: str) -> tuple:
     first, later = b[10][2] * 1e3, a[10][2] * 1e3
     print("phase 20 (a) 2 epochs vs 1 epoch + -i saves/resumed_e1 + 1: %d "
           "state tensors, the generator (seed, offset) and 20 per-step "
-          "losses bit for bit; the loop's step_time (host, not synchronized) "
+          "losses bit for bit; the loop's step_time (wall between fetches) "
           "of the resumed process's first 8-step call %.2f ms per step (it "
           "captured %d graph), of the straight run's second (a replay) %.2f"
           % (len(_state_tensors(straight)), first, recaptures, later))

@@ -17,7 +17,11 @@ waveforms, every carried value in one state dict) and ``separate_sp``
 from its chunk alone (``parallel/sharding.py::leaf_owners``).
 
 The unit phase vector is ``mix / (|mix| + eps)``, as in the JAX package
-(not atan2).
+(not atan2).  Under a profiler the stages are spans
+(``danet_tpu_torch/spans.py``): ``danet.stft``, ``danet.features``,
+``danet.encoder``, ``danet.estimator``, ``danet.masks`` and
+``danet.istft`` on the inference path, and in ``train_loss`` the
+encoder, estimator and masks spans and ``danet.loss``.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from danet_tpu_torch.ops import dsp
 from danet_tpu_torch.ops import loss as loss_ops
 from danet_tpu_torch.ops.cuda import library
 from danet_tpu_torch.ops.nn import device_constant
+from danet_tpu_torch.spans import span
 
 STFT_BACKENDS = ("auto", "xla", "pallas")
 TRAIN_LOSS_TYPES = ("pit-mse", "pit-si-snr")
@@ -144,8 +149,10 @@ class DaNet:
 
     def _embed(self, params, logmag, train=False, generator=None):
         """Encoder forward in COMPUTE_DTYPE; -> [B, T, F, E]."""
-        return self.encoder.apply(params["encoder"], logmag.to(self._cdt()),
-                                  train=train, generator=generator)
+        with span("danet.encoder"):
+            return self.encoder.apply(params["encoder"],
+                                      logmag.to(self._cdt()), train=train,
+                                      generator=generator)
 
     def check_train_config(self) -> None:
         """Raise ValueError for a TRAIN_LOSS_TYPE, or a DC_WEIGHT_TYPE with
@@ -191,63 +198,67 @@ class DaNet:
             src_ri, eps)
         embed = self._embed(params, logmag, train=True, generator=generator)
         embed_flat = embed.reshape(embed.shape[0], -1, embed.shape[-1])
-        attractors = self.train_estimator.apply(
-            params.get("train_estimator", {}), embed, src_pwr=src_pwr,
-            mix_pwr=mix_pwr)
-        sep_pwr = self.separator.apply(
-            params.get("separator", {}), mix_pwr, attractors, embed_flat)
-
-        wave_loss = (getattr(hp, "TRAIN_LOSS_TYPE", "pit-mse")
-                     or "pit-mse") == "pit-si-snr"
-        if wave_loss:
-            # waveform-domain uPIT through the iSTFT
-            sep_ri = sep_pwr[..., None] * phase_unit[:, None]
-            wav_src = self._wav(src_ri)
-            loss, perms, perm_idx = loss_ops.pit_si_snr_loss(
-                wav_src, self._wav(sep_ri))
-            snr = torch.mean(loss_ops.batch_snr(
-                src_ri, loss_ops.unpermute(sep_ri, perms, perm_idx),
-                eps=eps, complex_ri=True))
-        else:
-            loss, _, perm_idx, snr_vec = loss_ops.pit_mse_masked_ri(
-                src_ri, sep_pwr, phase_unit, eps=eps)
-            snr = torch.mean(snr_vec)
-        aux_out = {"snr": snr, "perm_idx": perm_idx}
-
-        dc_w = _num(hp, "DC_LOSS_WEIGHT")
-        if dc_w > 0.0:
-            wt = getattr(hp, "DC_WEIGHT_TYPE", "mr") or "mr"
-            dc = loss_ops.dc_loss(embed, src_pwr,
-                                  weights=mix_pwr if wt == "mr" else None)
-            # the auxiliary as a share of the primary loss: a scale with
-            # no gradient, capped at 1e3 (danet_tpu/models/danet.py:211-227),
-            # of the global batch's means on a mesh
-            gm = self.batch_mean or (lambda v: v)
-            scale = torch.clamp(torch.abs(gm(loss.detach()))
-                                / (gm(dc.detach()) + 1e-20), max=1e3)
-            loss = loss + dc_w * scale * dc
-            aux_out["dc"] = dc
-
-        aux_w = _num(hp, "ANCHOR_AUX_LOSS")
-        if aux_w > 0.0 and not self.same_method:
-            # trains the inference path (anchors, kmeans) jointly, with
-            # mix_pwr so that kmeans runs the refinement it runs at
-            # inference; in the main loss's family
-            attr_inf = self.infer_estimator.apply(
-                self._infer_est_params(params), embed, mix_pwr=mix_pwr)
-            sep_pwr_inf = self.separator.apply(
-                params.get("separator", {}), mix_pwr, attr_inf, embed_flat)
+        with span("danet.estimator"):
+            attractors = self.train_estimator.apply(
+                params.get("train_estimator", {}), embed, src_pwr=src_pwr,
+                mix_pwr=mix_pwr)
+        with span("danet.masks"):
+            sep_pwr = self.separator.apply(
+                params.get("separator", {}), mix_pwr, attractors, embed_flat)
+        with span("danet.loss"):
+            wave_loss = (getattr(hp, "TRAIN_LOSS_TYPE", "pit-mse")
+                         or "pit-mse") == "pit-si-snr"
             if wave_loss:
-                aux, _, _ = loss_ops.pit_si_snr_loss(wav_src, self._wav(
-                    sep_pwr_inf[..., None] * phase_unit[:, None]))
+                # waveform-domain uPIT through the iSTFT
+                sep_ri = sep_pwr[..., None] * phase_unit[:, None]
+                wav_src = self._wav(src_ri)
+                loss, perms, perm_idx = loss_ops.pit_si_snr_loss(
+                    wav_src, self._wav(sep_ri))
+                snr = torch.mean(loss_ops.batch_snr(
+                    src_ri, loss_ops.unpermute(sep_ri, perms, perm_idx),
+                    eps=eps, complex_ri=True))
             else:
-                aux, _, _ = loss_ops.pit_mse_loss(src_pwr, sep_pwr_inf)
-            loss = loss + aux_w * aux
+                loss, _, perm_idx, snr_vec = loss_ops.pit_mse_masked_ri(
+                    src_ri, sep_pwr, phase_unit, eps=eps)
+                snr = torch.mean(snr_vec)
+            aux_out = {"snr": snr, "perm_idx": perm_idx}
 
-        if getattr(hp, "REG_APPLY", False) and hp.REG_TYPE is not None:
-            loss = loss + reg_loss(params, hp.REG_TYPE, hp.REG_SCALE,
-                                   self.reg_shares)
-        return loss, aux_out
+            dc_w = _num(hp, "DC_LOSS_WEIGHT")
+            if dc_w > 0.0:
+                wt = getattr(hp, "DC_WEIGHT_TYPE", "mr") or "mr"
+                dc = loss_ops.dc_loss(embed, src_pwr,
+                                      weights=mix_pwr if wt == "mr" else None)
+                # the auxiliary as a share of the primary loss: a scale
+                # with no gradient, capped at 1e3
+                # (danet_tpu/models/danet.py:211-227), of the global
+                # batch's means on a mesh
+                gm = self.batch_mean or (lambda v: v)
+                scale = torch.clamp(torch.abs(gm(loss.detach()))
+                                    / (gm(dc.detach()) + 1e-20), max=1e3)
+                loss = loss + dc_w * scale * dc
+                aux_out["dc"] = dc
+
+            aux_w = _num(hp, "ANCHOR_AUX_LOSS")
+            if aux_w > 0.0 and not self.same_method:
+                # trains the inference path (anchors, kmeans) jointly, with
+                # mix_pwr so that kmeans runs the refinement it runs at
+                # inference; in the main loss's family
+                attr_inf = self.infer_estimator.apply(
+                    self._infer_est_params(params), embed, mix_pwr=mix_pwr)
+                sep_pwr_inf = self.separator.apply(
+                    params.get("separator", {}), mix_pwr, attr_inf,
+                    embed_flat)
+                if wave_loss:
+                    aux, _, _ = loss_ops.pit_si_snr_loss(wav_src, self._wav(
+                        sep_pwr_inf[..., None] * phase_unit[:, None]))
+                else:
+                    aux, _, _ = loss_ops.pit_mse_loss(src_pwr, sep_pwr_inf)
+                loss = loss + aux_w * aux
+
+            if getattr(hp, "REG_APPLY", False) and hp.REG_TYPE is not None:
+                loss = loss + reg_loss(params, hp.REG_TYPE, hp.REG_SCALE,
+                                       self.reg_shares)
+            return loss, aux_out
 
     def valid_metrics(self, params, src_ri: torch.Tensor) -> dict:
         """Validation loss and SNR through the inference estimator: PIT
@@ -309,17 +320,20 @@ class DaNet:
         """Attractors -> masks -> reconstruction: [B, N, T, F, 2]."""
         b = embed.shape[0]
         embed_flat = embed.reshape(b, -1, embed.shape[-1])
-        attractors = self.infer_estimator.apply(
-            self._infer_est_params(params), embed, mix_pwr=mix_pwr)
-        sep_pwr = self.separator.apply(
-            params.get("separator", {}), mix_pwr, attractors, embed_flat)
-        return sep_pwr[..., None] * phase_unit[:, None]
+        with span("danet.estimator"):
+            attractors = self.infer_estimator.apply(
+                self._infer_est_params(params), embed, mix_pwr=mix_pwr)
+        with span("danet.masks"):
+            sep_pwr = self.separator.apply(
+                params.get("separator", {}), mix_pwr, attractors, embed_flat)
+            return sep_pwr[..., None] * phase_unit[:, None]
 
     def separate(self, params, mix_ri: torch.Tensor) -> torch.Tensor:
         """Mixture ri spectra [B, T, F, 2] -> separated ri [B, N, T, F, 2]
         (source order arbitrary, as in the reference)."""
         self._check_truth_free()
-        mix_pwr, logmag, phase_unit = self._mix_features(mix_ri)
+        with span("danet.features"):
+            mix_pwr, logmag, phase_unit = self._mix_features(mix_ri)
         embed = self._embed(params, logmag)
         return self._separate_tail(params, embed, mix_pwr, phase_unit)
 
@@ -643,13 +657,15 @@ class DaNet:
         be = getattr(hp, "STFT_BACKEND", "auto") or "auto"
         if be not in STFT_BACKENDS:
             raise ValueError("Unknown STFT_BACKEND %r" % (be,))
-        if be == "xla":
-            mix_ri = dsp.stft_ri(wav, hp.FFT_SIZE, hp.FFT_STRIDE, window)
-        else:
-            mix_ri = library.stft_ri(wav, hp.FFT_SIZE, hp.FFT_STRIDE,
-                                     window)
+        with span("danet.stft"):
+            if be == "xla":
+                mix_ri = dsp.stft_ri(wav, hp.FFT_SIZE, hp.FFT_STRIDE, window)
+            else:
+                mix_ri = library.stft_ri(wav, hp.FFT_SIZE, hp.FFT_STRIDE,
+                                         window)
         sep_ri = self.separate(params, mix_ri)
-        return dsp.istft_ri(sep_ri, hp.FFT_STRIDE, window)
+        with span("danet.istft"):
+            return dsp.istft_ri(sep_ri, hp.FFT_STRIDE, window)
 
     def parameter_count(self, params) -> int:
         return sum(p.numel() for p in weights.leaves(params))

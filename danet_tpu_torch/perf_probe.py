@@ -38,10 +38,14 @@ step, and a 10 s request through ``separate_wav``); configs/tpu.json's
 model half is ``--encoder attn-v1 -c
 configs/tpu.json --key TRAIN_STEPS_PER_CALL=1 --key WATCHDOG_SECS=0 --key
 TRANSFER_DOMAIN=spectra --key TRANSFER_DTYPE=float32`` (the trainer keys
-the port refuses, at default.json's values).  Prints the device time per
-step or request by
-kernel (the CUDA rows of ``key_averages``), the unprofiled wall time per
-step or request, and the device's busy share of that wall time.
+the port refuses, at default.json's values).  Prints, per step or
+request, the unprofiled wall time, the port's spans (the ``danet.*``
+rows of ``key_averages``, ``danet_tpu_torch/spans.py``: calls and host
+ms, a stage's launches and the Python between them) and the device time
+by kernel (the CUDA rows).  How much of the wall the card idles is the
+benchmark's to say (``perfbench/``, a traced slice's union of device
+intervals); a sum of kernel times over another window's wall is not
+it.
 
 ``scan-bwd``: kernel 3 alone, both entry points (``lstm_scan_bwd`` at
 H=600, lstm-orig's layers, and ``bilstm_scan_bwd`` at H=300,
@@ -210,11 +214,16 @@ def _card() -> str:
         text=True, timeout=60).stdout.strip()
 
 
+def _on_device(e) -> bool:
+    return "cuda" in str(getattr(e, "device_type", "")).lower()
+
+
 def _device_rows(prof, per: int) -> list:
-    """(name, ms per step) of the CUDA rows, largest first."""
+    """(name, ms per step) of the CUDA rows, largest first; the spans'
+    device-side copies (a span's extent on the card) left out."""
     rows = []
     for e in prof.key_averages():
-        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+        if not _on_device(e) or e.key.startswith("danet."):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -224,14 +233,25 @@ def _device_rows(prof, per: int) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
+def _span_rows(prof, per: int) -> list:
+    """(name, calls, host ms) per step of the port's spans, largest
+    first."""
+    rows = [(e.key, e.count / per, e.cpu_time_total / 1e3 / per)
+            for e in prof.key_averages()
+            if e.key.startswith("danet.") and not _on_device(e)]
+    return sorted(rows, key=lambda r: -r[2])
+
+
 def _report(what: str, prof, per: int, wall_ms: float) -> None:
+    unit = "step" if "train" in what else "request"
     rows = _device_rows(prof, per)
     total = sum(ms for _, ms in rows)
-    print("profile %s: device time %.3f ms per %s, unprofiled wall %.3f ms "
-          "per %s, device busy %.1f %% of it"
-          % (what, total, "step" if "train" in what else "request", wall_ms,
-             "step" if "train" in what else "request",
-             100.0 * total / wall_ms))
+    print("profile %s: unprofiled wall %.3f ms per %s; per %s:"
+          % (what, wall_ms, unit, unit))
+    for name, calls, ms in _span_rows(prof, per):
+        print("profile %s   span %-28s %6.2f calls %8.3f host ms"
+              % (what, name, calls, ms))
+    print("profile %s   kernels %.3f ms of device time" % (what, total))
     for name, ms in rows[:15]:
         print("profile %s   %8.3f ms  %5.1f %%  %s"
               % (what, ms, 100.0 * ms / total, name[:110]))

@@ -87,6 +87,7 @@ import torch
 
 from danet_tpu_torch import weights as weights_lib
 from danet_tpu_torch.ops.cuda import library  # noqa: F401  (the ops)
+from danet_tpu_torch.spans import span
 
 MANIFEST_NAME = "manifest.json"
 SEPARATOR_FORMAT = "danet-tpu-torch-serve-v1"
@@ -408,16 +409,21 @@ class Separator:
         """[L] or [B, L] float waveform -> [N, L] or [B, N, L] float32
         separated sources: trimmed to the request length, and squeezed back
         to [N, L] for a rank-1 request, as ``SeparatorBundle.separate``
-        returns them."""
-        x = torch.as_tensor(np.asarray(wav, dtype=np.float32))
-        squeeze = x.dim() == 1
-        if squeeze:
-            x = x[None]
-        if x.dim() != 2:
-            raise ValueError("expected a waveform [L] or [B, L], got %s"
-                             % (tuple(x.shape),))
-        out = self.model.separate_wav(self.params, x.to(self.device))
-        out = out[..., :x.shape[1]].cpu().numpy()
+        returns them.  Profiled, the call is the span ``danet.request``,
+        its stages the spans of ``danet_tpu_torch/spans.py``."""
+        with span("danet.request"):
+            with span("danet.upload"):
+                x = torch.as_tensor(np.asarray(wav, dtype=np.float32))
+                squeeze = x.dim() == 1
+                if squeeze:
+                    x = x[None]
+                if x.dim() != 2:
+                    raise ValueError("expected a waveform [L] or [B, L], "
+                                     "got %s" % (tuple(x.shape),))
+                x_dev = x.to(self.device)
+            out = self.model.separate_wav(self.params, x_dev)
+            with span("danet.download"):
+                out = out[..., :x.shape[1]].cpu().numpy()
         return out[0] if squeeze else out
 
 

@@ -5,8 +5,11 @@ every scalar (train rows per step, the valid sweep per epoch) to
 ``metrics.jsonl`` in the run directory ``SUMMARY_DIR/"<stamp>
 <SUMMARY_TITLE>"``, one JSON record per call, and to TensorBoard through
 tensorboardX where that package can be imported (it is optional).
-``StepTimer`` keeps the mean wall time of the timed calls: the loop times
-the dispatch of a step, not its completion on the device.
+``StepTimer`` times the train loop between its metric fetches: each
+fetch waits for the device to finish the steps it brings, so the wall
+time from the end of one fetch to the end of the next, over the steps
+fetched, is what those steps took on the device and the host together
+(with K-step CUDA graphs too, where a call returns at its launch).
 """
 from __future__ import annotations
 
@@ -62,7 +65,10 @@ class NullWriter:
 
 
 class StepTimer:
-    """Mean wall time of the timed calls."""
+    """Wall time per step between the loop's metric fetches: ``start``
+    marks where the first interval begins, ``lap(steps)`` the end of a
+    fetch that brought ``steps`` steps' metrics, and returns the time
+    since the previous mark over those steps."""
 
     def __init__(self):
         self.t0: Optional[float] = None
@@ -72,12 +78,14 @@ class StepTimer:
     def start(self):
         self.t0 = time.perf_counter()
 
-    def stop(self) -> float:
-        dt = time.perf_counter() - self.t0
+    def lap(self, steps: int) -> float:
+        now = time.perf_counter()
+        dt, self.t0 = now - self.t0, now
         self.total += dt
-        self.count += 1
-        return dt
+        self.count += steps
+        return dt / steps
 
     @property
     def mean(self) -> float:
+        """Seconds per step over every lap so far."""
         return self.total / max(self.count, 1)

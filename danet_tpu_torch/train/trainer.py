@@ -33,7 +33,11 @@ for that long.  PROFILE_STEPS = N > 0 traces N train steps with
 ``torch.profiler`` (``ProfileWindow``): from the first call at or after
 the train call's starting step + 3, whole K-step calls, CPU activity and,
 on the card, CUDA activity, into ``<run dir>/profile/trace.json``; a call
-that captures a new K-step graph stays out of the window.
+that captures a new K-step graph stays out of the window.  The trace names
+the loop's stages with the spans of ``danet_tpu_torch/spans.py``: the
+main thread's wait for a batch, its copy, each call, replay or eager step
+(the model's stages inside an eager step) and each metrics fetch, and the
+prefetch thread's wire casts.
 
 The step options: GRAD_ACCUM = A splits a batch into A microbatches and
 takes one update on their summed gradient times 1/A; EMA_DECAY keeps an
@@ -111,6 +115,7 @@ from danet_tpu_torch.models.danet import STFT_BACKENDS
 from danet_tpu_torch.ops import dsp
 from danet_tpu_torch.ops.cuda import library
 from danet_tpu_torch.parallel import collectives, multihost, sharding
+from danet_tpu_torch.spans import span
 from danet_tpu_torch.train import checkpoint as ckpt_lib
 from danet_tpu_torch.train.metrics import MetricsWriter, NullWriter, StepTimer
 from danet_tpu_torch.weights import leaf_names, leaves
@@ -157,7 +162,8 @@ def prefetch_to_device(batch_iter, put_fn, depth: int = 2):
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("danet.train.feed_wait"):
+                item = q.get()
             if item is sentinel:
                 if err:
                     raise err[0]
@@ -330,6 +336,18 @@ class StepGraph:
         self.out, self.names = out, names
 
 
+def _all_threads() -> dict:
+    """``torch.profiler.profile``'s keyword that records every thread of
+    the process (the prefetch thread's spans too), where this PyTorch has
+    it."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return {"experimental_config": _ExperimentalConfig(
+            profile_all_threads=True)}
+    except (ImportError, TypeError):
+        return {}
+
+
 class ProfileWindow:
     """PROFILE_STEPS = N > 0: one ``torch.profiler`` trace of about N train
     steps of a ``Trainer.train`` call.  It starts before the first call
@@ -338,10 +356,12 @@ class ProfileWindow:
     started at: with K-step calls, it covers whole calls.  A call that
     captures a new K-step CUDA graph is kept out of it: the trace starts
     after such a call, or stops before one, so that no capture runs under
-    the profiler.  CPU activity, and CUDA activity on the card (only
-    there).  ``stop`` synchronizes the card, so that the trace holds every
-    kernel of the window, and writes ``<out_dir>/trace.json`` (Chrome trace
-    format: Perfetto, chrome://tracing, TensorBoard's profiler plugin)."""
+    the profiler.  CPU activity of every thread (where this PyTorch can
+    record them all) with the port's spans (``danet_tpu_torch/spans.py``),
+    and CUDA activity on the card (only there).  ``stop`` synchronizes the
+    card, so that the trace holds every kernel of the window, and writes
+    ``<out_dir>/trace.json`` (Chrome trace format: Perfetto,
+    chrome://tracing, TensorBoard's profiler plugin)."""
 
     def __init__(self, steps: int, start_step: int, out_dir: str, device):
         self.steps, self.at = steps, start_step + 3
@@ -359,7 +379,7 @@ class ProfileWindow:
             acts = [ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(ProfilerActivity.CUDA)
-            self.prof = profile(activities=acts)
+            self.prof = profile(activities=acts, **_all_threads())
             self.prof.start()
             self.started = step
 
@@ -642,21 +662,23 @@ class Trainer:
         """This rank's rows of a batch (of each batch of a [K, ...]
         ``stacked`` stack) through ``wire_cast``, into a pinned buffer when
         the device is a card."""
-        if self.mesh is not None:
-            axis = 1 if stacked else 0
-            rows = sharding.batch_rows(self.mesh, batch_np.shape[axis])
-            batch_np = batch_np[:, rows] if stacked else batch_np[rows]
-        out = self.wire_cast(batch_np, for_eval)
-        if self.device.type != "cuda":
-            return out
-        buf = self._staging.take(out.shape, out.dtype)
-        return buf.copy_(out)
+        with span("danet.train.wire_cast"):
+            if self.mesh is not None:
+                axis = 1 if stacked else 0
+                rows = sharding.batch_rows(self.mesh, batch_np.shape[axis])
+                batch_np = batch_np[:, rows] if stacked else batch_np[rows]
+            out = self.wire_cast(batch_np, for_eval)
+            if self.device.type != "cuda":
+                return out
+            buf = self._staging.take(out.shape, out.dtype)
+            return buf.copy_(out)
 
     def _put(self, host: torch.Tensor) -> torch.Tensor:
         """A host batch of ``_host_batch`` onto the device."""
-        if self.device.type != "cuda":
-            return host.to(self.device)
-        return self._staging.to_device(host, self.device)
+        with span("danet.train.put"):
+            if self.device.type != "cuda":
+                return host.to(self.device)
+            return self._staging.to_device(host, self.device)
 
     def ingest(self, batch, for_eval: bool = False) -> torch.Tensor:
         """A batch as the model's input, ri spectra [B, N, T, F, 2]
@@ -692,7 +714,8 @@ class Trainer:
                              generator: Optional[torch.Generator]):
         loss, aux = self.model.train_loss(params, src_ri, generator)
         ps = leaves(params)
-        grads = torch.autograd.grad(loss, ps, allow_unused=True)
+        with span("danet.backward"):
+            grads = torch.autograd.grad(loss, ps, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(ps, grads)]
         metrics = {"loss": loss.detach(), "SNR": aux["snr"].detach()}
@@ -787,16 +810,19 @@ class Trainer:
         (GRAD_ACCUM microbatches), the NAN_CHECKS check, clip, update and
         the EMA.  -> {"loss", "SNR"} (and "DC") as 0-d tensors on the
         device."""
-        self._ensure_ema(state)
-        metrics, grads = self.loss_and_grads(
-            state["params"], self.ingest(batch), state["generator"])
-        if self._nan_checks:
-            self._check_finite(state, metrics, grads)
-        state["opt"].step(grads)
-        if self.ema_decay:
-            self._ema_update(leaves(state["ema"]), leaves(state["params"]))
-        state["step"] += 1
-        return metrics
+        with span("danet.train.step"):
+            self._ensure_ema(state)
+            metrics, grads = self.loss_and_grads(
+                state["params"], self.ingest(batch), state["generator"])
+            if self._nan_checks:
+                self._check_finite(state, metrics, grads)
+            with span("danet.optimizer"):
+                state["opt"].step(grads)
+            if self.ema_decay:
+                self._ema_update(leaves(state["ema"]),
+                                 leaves(state["params"]))
+            state["step"] += 1
+            return metrics
 
     def train_steps(self, state: dict, stack) -> dict:
         """K steps on a stack of K batches of one shape, [K, ...] (a numpy
@@ -811,29 +837,31 @@ class Trainer:
         replay, and draws dropout from the state's generator (registered
         with the graph).  A capture or replay that fails raises.  On the
         CPU the K steps run eagerly."""
-        if not torch.is_tensor(stack):
-            stack = self._put(self._host_batch(stack, stacked=True))
-        k = stack.shape[0]
-        if self.device.type != "cuda" or not self._graphs:
-            rows = [self.train_step(state, stack[i]) for i in range(k)]
-            return {n: torch.stack([r[n] for r in rows]) for n in rows[0]}
-        self._ensure_ema(state)
-        graphs = state.setdefault("graphs", {})
-        key = (tuple(stack.shape), stack.dtype)
-        g = graphs.get(key)
-        if g is None:
-            g = graphs[key] = self._capture(state, stack)
-        opt = state["opt"]
-        g.inp.copy_(stack)
-        g.scalars.copy_(torch.from_numpy(
-            opt.host_scalars(opt.count + 1, k)).pin_memory(),
-            non_blocking=True)
-        g.graph.replay()
-        StepGraph.replays += 1
-        opt.count += k
-        state["step"] += k
-        out = g.out.clone()
-        return {n: out[:, j] for j, n in enumerate(g.names)}
+        with span("danet.train.call"):
+            if not torch.is_tensor(stack):
+                stack = self._put(self._host_batch(stack, stacked=True))
+            k = stack.shape[0]
+            if self.device.type != "cuda" or not self._graphs:
+                rows = [self.train_step(state, stack[i]) for i in range(k)]
+                return {n: torch.stack([r[n] for r in rows]) for n in rows[0]}
+            self._ensure_ema(state)
+            graphs = state.setdefault("graphs", {})
+            key = (tuple(stack.shape), stack.dtype)
+            g = graphs.get(key)
+            if g is None:
+                g = graphs[key] = self._capture(state, stack)
+            opt = state["opt"]
+            g.inp.copy_(stack)
+            g.scalars.copy_(torch.from_numpy(
+                opt.host_scalars(opt.count + 1, k)).pin_memory(),
+                non_blocking=True)
+            with span("danet.train.replay"):
+                g.graph.replay()
+            StepGraph.replays += 1
+            opt.count += k
+            state["step"] += k
+            out = g.out.clone()
+            return {n: out[:, j] for j, n in enumerate(g.names)}
 
     def _captures(self, state: dict, k: int, stack) -> bool:
         """Whether ``train_steps`` on this [K, ...] device stack captures a
@@ -870,37 +898,40 @@ class Trainer:
     def _capture(self, state: dict, stack: torch.Tensor) -> StepGraph:
         """Capture K steps of ``state`` into a CUDA graph, after a
         warm-up step (``_warm_up``)."""
-        dev = self.device
-        k = stack.shape[0]
-        opt = state["opt"]
-        inp = stack.clone()
-        scalars = torch.ones((k, 3), dtype=torch.float32, device=dev)
-        self._warm_up(state, inp[0], scalars[0])
-        graph = torch.cuda.CUDAGraph()
-        if not hasattr(graph, "register_generator_state"):
-            raise RuntimeError(
-                "this PyTorch cannot register the dropout generator with a "
-                "CUDA graph (CUDAGraph.register_generator_state)")
-        graph.register_generator_state(state["generator"])
-        count = opt.count
-        params = leaves(state["params"])
-        ema = leaves(state["ema"]) if self.ema_decay else None
-        # thread_local: the prefetch thread's pinned allocations and event
-        # queries go on during the capture
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            rows, names = [], None
-            for i in range(k):
-                metrics, grads = self.loss_and_grads(
-                    state["params"], self.ingest(inp[i]), state["generator"])
-                opt.step(grads, scalars[i])
-                if ema is not None:
-                    self._ema_update(ema, params)
-                names = list(metrics)
-                rows.append(torch.stack([metrics[n] for n in names]))
-            out = torch.stack(rows)
-        opt.count = count
-        StepGraph.captures += 1
-        return StepGraph(graph, inp, scalars, out, names)
+        with span("danet.train.capture"):
+            dev = self.device
+            k = stack.shape[0]
+            opt = state["opt"]
+            inp = stack.clone()
+            scalars = torch.ones((k, 3), dtype=torch.float32, device=dev)
+            self._warm_up(state, inp[0], scalars[0])
+            graph = torch.cuda.CUDAGraph()
+            if not hasattr(graph, "register_generator_state"):
+                raise RuntimeError(
+                    "this PyTorch cannot register the dropout generator "
+                    "with a CUDA graph (CUDAGraph.register_generator_state)")
+            graph.register_generator_state(state["generator"])
+            count = opt.count
+            params = leaves(state["params"])
+            ema = leaves(state["ema"]) if self.ema_decay else None
+            # thread_local: the prefetch thread's pinned allocations and
+            # event queries go on during the capture
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                rows, names = [], None
+                for i in range(k):
+                    metrics, grads = self.loss_and_grads(
+                        state["params"], self.ingest(inp[i]),
+                        state["generator"])
+                    with span("danet.optimizer"):
+                        opt.step(grads, scalars[i])
+                    if ema is not None:
+                        self._ema_update(ema, params)
+                    names = list(metrics)
+                    rows.append(torch.stack([metrics[n] for n in names]))
+                out = torch.stack(rows)
+            opt.count = count
+            StepGraph.captures += 1
+            return StepGraph(graph, inp, scalars, out, names)
 
     @torch.no_grad()
     def valid_step(self, state: dict, batch) -> dict:
@@ -1268,6 +1299,14 @@ class Trainer:
 
     def _epochs(self, state, n_epoch, dataset, save_on_epoch,
                 valid_on_epoch, seed, writer, save_best, window) -> dict:
+        """The epoch loop: each epoch's calls fed by ``prefetch_to_device``,
+        their metrics fetched every METRICS_EVERY steps (and at the
+        epoch's end) into rows of ``writer``, whose ``step_time`` is the
+        wall time from the end of the previous fetch (or the epoch's
+        start) to the end of this one over the steps it fetched
+        (``StepTimer``: the fetch waits for the device); then the LR
+        policy, the NaN rollback, the checkpoint, the valid sweep and the
+        valid-crash rollback."""
         hp = self.hp
         base_lr = self.get_learn_rate(state)
         metrics_every = int(getattr(hp, "METRICS_EVERY", 1) or 1)
@@ -1286,20 +1325,25 @@ class Trainer:
                              % (epoch, nan_retries, seed))
             rng, rand = np.random.RandomState(key), random.Random(key)
             report = OrderedDict()
-            # (first step, {name: 0-d or [k] metrics on the device},
-            #  s/step, k) of the steps not fetched yet
+            # (first step, {name: 0-d or [k] metrics on the device}, k) of
+            # the steps not fetched yet
             pending, pending_steps = [], 0
+            # each row's step_time: the wall time since the previous fetch
+            # ended over the steps this fetch brings, which waits for them
+            timer = StepTimer()
 
             def flush():
                 nonlocal pending_steps
                 if not pending:
                     return
-                parts = [v.reshape(-1) for _, m, _, _ in pending
-                         for v in m.values()]
-                host = torch.cat(parts).cpu().tolist()   # one fetch
+                with span("danet.train.metrics_fetch"):
+                    parts = [v.reshape(-1) for _, m, _ in pending
+                             for v in m.values()]
+                    host = torch.cat(parts).cpu().tolist()   # one fetch
+                st = timer.lap(pending_steps)
                 lr_now = self.get_learn_rate(state)
                 at = 0
-                for step0, m, st, k in pending:
+                for step0, m, k in pending:
                     cols = {}
                     for name in m:
                         cols[name] = host[at:at + k]
@@ -1315,24 +1359,21 @@ class Trainer:
                 pending_steps = 0
                 self._heartbeat = time.monotonic()
 
-            timer = StepTimer()
             n_steps = 0
             batches = prefetch_to_device(
                 self._train_batches(epoch_fn, rng, rand),
                 lambda kb: (kb[0], self._put(kb[1])))
+            timer.start()
             try:
                 for k, src in batches:
                     step0 = state["step"]
                     if window is not None:
                         window.before(step0, self._captures(state, k, src))
-                    timer.start()
                     if k > 1:
                         metrics = self.train_steps(state, src)
-                        st = timer.stop() / k
                     else:
                         metrics = self.train_step(state, src)
-                        st = timer.stop()
-                    pending.append((step0, metrics, st, k))
+                    pending.append((step0, metrics, k))
                     pending_steps += k
                     n_steps += k
                     self._heartbeat = time.monotonic()

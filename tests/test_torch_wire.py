@@ -280,6 +280,43 @@ def test_torch_metrics_rows_independent_of_metrics_every(tmp_path):
         assert rows == ref
 
 
+def test_torch_step_time_adds_up_to_the_wall_between_fetches(
+        tmp_path, monkeypatch):
+    """METRICS_EVERY=3: the rows of one fetch share a step_time, the wall
+    time since the previous fetch ended over the steps it brought, so
+    that step_time x steps adds up to the loop's wall time between two
+    fetches (the rows' write times) within 10 %; each step is made 20 ms
+    longer, so that the host's jitter stays well under that."""
+    step = Trainer.train_step
+
+    def slow_step(self, state, batch):
+        time.sleep(0.02)
+        return step(self, state, batch)
+
+    monkeypatch.setattr(Trainer, "train_step", slow_step)
+    logs = tmp_path / "logs"
+    hp = load_config(BATCH_SIZE=2, METRICS_EVERY=3, SUMMARY_DIR=str(logs))
+    tr = Trainer(DaNet(hp), hp, "cpu")
+    ds = WhiteNoiseData(hp)
+    ds.install_and_load()
+    tr.train(1, ds, save_on_epoch=False, valid_on_epoch=False,
+             state=tr.init_state(torch.Generator().manual_seed(0)))
+    (run_dir,) = os.listdir(str(logs))
+    with open(os.path.join(str(logs), run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    rows = [r for r in rows if "train/loss" in r]
+    assert [r["step"] for r in rows] == list(range(10))
+    # the fetches: after steps 3, 6, 9 and at the epoch's end
+    groups = [rows[0:3], rows[3:6], rows[6:9], rows[9:10]]
+    for g in groups:
+        assert len({r["train/step_time"] for r in g}) == 1
+    for prev, g in zip(groups, groups[1:]):
+        wall = g[0]["t"] - prev[0]["t"]
+        timed = g[0]["train/step_time"] * len(g)
+        assert abs(timed - wall) <= 0.1 * wall, (timed, wall)
+        assert timed >= 0.02 * len(g)
+
+
 @pytest.mark.parametrize("k", [1, 2])
 def test_torch_profile_steps_writes_a_trace(tmp_path, capsys, k):
     """PROFILE_STEPS=2: Trainer.train on the CPU writes a torch.profiler
